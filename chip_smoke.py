@@ -1,0 +1,597 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout. Phases, each of which fails the run:
+
+  1. card   — the GPU's name and power limit (nvidia-smi);
+  2. build  — nvcc builds every kernel of the serving path for sm_90a from
+              the sources in the checkout, with ptxas' register report;
+  3. kernels — each CUDA kernel against its plain PyTorch version at the
+              main path's shapes in f32 and bf16, then timed (CUDA graphs
+              of many launches, median of 20 replays) beside its plain
+              version, the matching PyTorch call where there is one, and
+              its bound on the card;
+  4. serve  — GPT-2 medium at full width with seeded random weights serves
+              8 requests through `ServingEngine` on the GPU, once with exact
+              nonlinearities and once with the LUT ones; every request must
+              finish, every page must come back, every kernel must have been
+              launched, and each request's first logits must agree with a
+              one-shot prefill computed through the plain versions; then
+              a decode step and a prefill chunk are timed on the host
+              clock and, replayed as a CUDA graph, on the device alone;
+  5. the kernels line, a JSON object with each kernel's error, times,
+     bound and launches, then the card line and the result line.
+
+Exits non-zero, printing no result, without a CUDA device or outside a
+checkout of the repository.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA cores f32; bf16 dense
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LUT_ATTN_TOL = 3e-3                 # the JAX package's online-LUT softmax bound
+SOURCE = {
+    "gemv_pim_float": ("src/repro_torch/kernels/csrc/gemv_pim.cu",
+                       "src/repro/kernels/gemv_pim.py:72"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:272"),
+    "paged_prefill_attention": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                                "src/repro/kernels/paged_prefill.py:126"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Timing
+# ---------------------------------------------------------------------------
+
+def time_graph(torch, fn, n_calls: int, reps: int = 20) -> float:
+    """Median ms per call of `fn(i)`, i = 0..n_calls-1, captured in one CUDA
+    graph so that host launch overhead does not count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(min(n_calls, 3)):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / n_calls)
+    del graph
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def compare(torch, name: str, got, want, tol: float) -> float:
+    err = (got.float() - want.float()).abs()
+    bad = err > tol + tol * want.float().abs()
+    max_err = float(err.max())
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
+                             f"atol=rtol={tol}; max abs err {max_err:.3e}")
+    return max_err
+
+
+def check_kernels(torch, tlut, gemv_pim, paged_attention, paged_prefill, seed):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bank = tlut.LutBank.create(64)
+    errs = {"gemv_pim_float": 0.0, "paged_attention": 0.0,
+            "paged_prefill_attention": 0.0}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    gemv_cases = [
+        ((4, 1024, 1024), True, None),       # q/k/v projections
+        ((4, 1024, 4096), False, "gelu"),    # w_up, exact GELU epilogue
+        ((4, 1024, 4096), False, "lut"),     # w_up, LUT GELU epilogue
+        ((4, 4096, 1024), False, None),      # w_down
+        ((4, 1024, 50257), False, None),     # LM head (ragged R)
+        ((64, 1024, 4096), False, "lut"),    # w_up over a 64-token chunk
+        ((3, 1001, 777), True, None),        # ragged C, scalar path
+    ]
+    for (M, C, R), has_bias, act in gemv_cases:
+        x32, w32 = randn(M, C, std=0.5), randn(R, C, std=C ** -0.5)
+        b32 = randn(R, std=0.5) if has_bias else None
+        kw = dict(act_table=bank.gelu if act == "lut" else None,
+                  act="gelu" if act == "gelu" else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            b = b32.to(dtype) if b32 is not None else None
+            got = gemv_pim.gemv_pim_float(x, w, b, **kw)
+            torch.cuda.synchronize()
+            want = gemv_pim.gemv_pim_plain(x, w, b, **kw)
+            dname = str(dtype).split(".")[1]
+            e = compare(torch, f"gemv {M}x{C}x{R} {act} {dname}", got, want, TOL[dname])
+            errs["gemv_pim_float"] = max(errs["gemv_pim_float"], e)
+            log(f"  gemv_pim_float M={M} C={C} R={R} bias={has_bias} act={act} "
+                f"{dname}: max_abs_err {e:.3e} (tol {TOL[dname]})")
+
+    # Paged decode: 4 slots, 16 heads, head_dim 64, page 16, mixed lengths.
+    B, H, D, page, n_tbl = 4, 16, 64, 16, 16
+    P = 1 + B * n_tbl
+    lens_list = [1, 77, 200, 256]
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm.reshape(B, n_tbl).to(torch.int32)
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    k32, v32, q32 = randn(P, H, page, D), randn(P, H, page, D), randn(B, H, D)
+    decode_opts = [{}, {"exp_table": bank.exp}, {"window": 40, "softcap": 30.0}]
+    for opts in decode_opts:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            got = paged_attention.paged_attention(q, k, v, tables, lengths, **opts)
+            torch.cuda.synchronize()
+            want = paged_attention.paged_attention_plain(q, k, v, tables, lengths, **opts)
+            dname = str(dtype).split(".")[1]
+            tol = TOL[dname] if dname == "bfloat16" or "exp_table" not in opts else LUT_ATTN_TOL
+            e = compare(torch, f"paged decode {sorted(opts)} {dname}", got, want, tol)
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+            log(f"  paged_attention B={B} H={H} D={D} page={page} lengths={lens_list} "
+                f"opts={sorted(opts)} {dname}: max_abs_err {e:.3e} (tol {tol})")
+
+    # Paged prefill: one 64-token chunk, at the prompt start and one chunk in.
+    Sq = 64
+    pf_tables = tables[:1].contiguous()
+    qp32 = randn(1, Sq, H, D)
+    for start in (0, 64):
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        ln = st + Sq
+        for opts in ({}, {"exp_table": bank.exp}):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qp32.to(dtype), k32.to(dtype), v32.to(dtype)
+                got = paged_prefill.paged_prefill_attention(q, k, v, pf_tables, ln, st, **opts)
+                torch.cuda.synchronize()
+                want = paged_prefill.paged_prefill_attention_plain(
+                    q, k, v, pf_tables, ln, st, **opts)
+                dname = str(dtype).split(".")[1]
+                tol = TOL[dname] if dname == "bfloat16" or not opts else LUT_ATTN_TOL
+                e = compare(torch, f"paged prefill start={start} {sorted(opts)} {dname}",
+                            got, want, tol)
+                errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"], e)
+                log(f"  paged_prefill_attention B=1 Sq={Sq} start={start} "
+                    f"opts={sorted(opts)} {dname}: max_abs_err {e:.3e} (tol {tol})")
+    return errs
+
+
+def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill, seed):
+    """Times at the main path's shapes in bf16, beside the plain versions and
+    the matching PyTorch call. Inputs rotate over one set per layer, so a
+    launch finds its weights or pools cold in L2 as in a decode step."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+    L = cfg.n_layers
+    bl = params["blocks"]
+
+    # GEMV: the 145 launches of one decode step at 4 slots, real weights.
+    x_d = (torch.randn((4, cfg.d_model), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    x_f = (torch.randn((4, cfg.d_ff), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    step = []
+    for i in range(L):
+        a = bl["attn"]
+        step += [(x_d, a["wq"][i], a["bq"][i], None), (x_d, a["wk"][i], a["bk"][i], None),
+                 (x_d, a["wv"][i], a["bv"][i], None), (x_d, a["wo"][i], None, None),
+                 (x_d, bl["ffn"]["w_up"][i], None, "gelu"),
+                 (x_f, bl["ffn"]["w_down"][i], None, None)]
+    step.append((x_d, params["lm_head"], None, None))
+    nbytes = flops = 0
+    for x, w, b, _ in step:
+        M, C = x.shape
+        R = w.shape[0]
+        nbytes += 2 * (M * C + R * C + (R if b is not None else 0) + M * R)
+        flops += 2 * M * R * C
+
+    def run(fn):
+        return lambda i: fn(*step[i])
+
+    ms = time_graph(torch, run(lambda x, w, b, act: gemv_pim.gemv_pim_float(x, w, b, act=act)),
+                    len(step)) * len(step)
+    plain = time_graph(torch, run(lambda x, w, b, act: gemv_pim.gemv_pim_plain(x, w, b, act=act)),
+                       len(step)) * len(step)
+    lib = time_graph(torch, run(lambda x, w, b, act: F.linear(x, w, b)), len(step)) * len(step)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    out["gemv_pim_float"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                 bound_by=by, shape="one decode step: 145 launches, M=4")
+    # Per-shape times, cold weights (one set per layer).
+    for (C, R, key, act) in [(cfg.d_model, cfg.d_model, "wq", None),
+                             (cfg.d_model, cfg.d_ff, "w_up", "gelu"),
+                             (cfg.d_ff, cfg.d_model, "w_down", None)]:
+        ws = bl["attn"][key] if key == "wq" else bl["ffn"][key]
+        xx = x_d if C == cfg.d_model else x_f
+        t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(xx, ws[i], act=act), L)
+        tl = time_graph(torch, lambda i: F.linear(xx, ws[i]), L)
+        b1, _ = bound_ms(2 * (4 * C + R * C + 4 * R), 2 * 4 * R * C, "bfloat16")
+        log(f"  gemv_pim_float M=4 C={C} R={R} act={act} bf16: {t * 1e3:.2f} us "
+            f"(bound {b1 * 1e3:.2f} us, F.linear {tl * 1e3:.2f} us)")
+    t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(x_d, params["lm_head"]), 4)
+    tl = time_graph(torch, lambda i: F.linear(x_d, params["lm_head"]), 4)
+    d, f = cfg.d_model, cfg.d_ff
+    b1, _ = bound_ms(2 * (4 * d + cfg.vocab * d + 4 * cfg.vocab), 2 * 4 * cfg.vocab * d,
+                     "bfloat16")
+    log(f"  gemv_pim_float M=4 C={cfg.d_model} R={cfg.vocab} (LM head) bf16: "
+        f"{t * 1e3:.2f} us (bound {b1 * 1e3:.2f} us, F.linear {tl * 1e3:.2f} us)")
+    x64 = (torch.randn((64, cfg.d_model), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(
+        x64, bl["ffn"]["w_up"][i], act="gelu"), L)
+    tl = time_graph(torch, lambda i: F.linear(x64, bl["ffn"]["w_up"][i]), L)
+    b1, by1 = bound_ms(2 * (64 * d + f * d + 64 * f), 2 * 64 * f * d, "bfloat16")
+    log(f"  gemv_pim_float M=64 C={d} R={f} act=gelu bf16: {t * 1e3:.2f} us "
+        f"(bound {b1 * 1e3:.2f} us by {by1}, F.linear {tl * 1e3:.2f} us)")
+
+    # Paged decode at 4 slots with mixed lengths, one pool per layer.
+    H, D, page, n_tbl, B = cfg.n_heads, cfg.head_dim, 16, 16, 4
+    P = 1 + B * n_tbl
+    tables = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, n_tbl)
+    tables = tables.to(torch.int32).contiguous()
+    lens_list = [64, 128, 200, 256]
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    pools = [(torch.randn((P, H, page, D), generator=gen, device=dev).to(cfg.cdtype),
+              torch.randn((P, H, page, D), generator=gen, device=dev).to(cfg.cdtype))
+             for _ in range(L)]
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(cfg.cdtype)
+    ms = time_graph(torch, lambda i: paged_attention.paged_attention(
+        q, *pools[i], tables, lengths), L)
+    plain = time_graph(torch, lambda i: paged_attention.paged_attention_plain(
+        q, *pools[i], tables, lengths), L)
+    # Yardstick: SDPA over the same keys gathered dense beforehand (the
+    # gather is not timed), with the length mask.
+    dense = [(paged_attention.gather_paged_kv(k, tables),
+              paged_attention.gather_paged_kv(v, tables)) for k, v in pools]
+    key_ok = torch.arange(n_tbl * page, device=dev)[None, :] < lengths[:, None].long()
+
+    def sdpa_decode(i):
+        return F.scaled_dot_product_attention(q[:, :, None], *dense[i],
+                                              attn_mask=key_ok[:, None, None])[:, :, 0]
+
+    compare(torch, "sdpa decode yardstick", sdpa_decode(0),
+            paged_attention.paged_attention_plain(q, *pools[0], tables, lengths), TOL["bfloat16"])
+    lib = time_graph(torch, sdpa_decode, L)
+    kv = sum(lens_list) * H * D * 2 * 2
+    nbytes = kv + 2 * (2 * B * H * D) + 4 * (tables.numel() + B)
+    bnd, by = bound_ms(nbytes, sum(lens_list) * H * D * 4, "bfloat16")
+    out["paged_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                  bound_by=by, shape=f"B=4 H=16 D=64 page 16 lengths {lens_list}")
+
+    # Paged prefill: one 64-token chunk at start 64 (128 keys), per layer.
+    Sq, start = 64, 64
+    qp = torch.randn((1, Sq, H, D), generator=gen, device=dev).to(cfg.cdtype)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    ln = st + Sq
+    t1 = tables[:1].contiguous()
+    ms = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention(
+        qp, *pools[i], t1, ln, st), L)
+    plain = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention_plain(
+        qp, *pools[i], t1, ln, st), L)
+    n_keys = start + Sq
+    dense = [(k[:1, :, :n_keys], v[:1, :, :n_keys]) for k, v in dense]
+    causal = (torch.arange(n_keys, device=dev)[None, :]
+              <= start + torch.arange(Sq, device=dev)[:, None])
+    qh = qp.transpose(1, 2)
+
+    def sdpa_prefill(i):
+        return F.scaled_dot_product_attention(qh, *dense[i], attn_mask=causal).transpose(1, 2)
+
+    compare(torch, "sdpa prefill yardstick", sdpa_prefill(0),
+            paged_prefill.paged_prefill_attention_plain(qp, *pools[0], t1, ln, st),
+            TOL["bfloat16"])
+    lib = time_graph(torch, sdpa_prefill, L)
+    keys = sum(start + r + 1 for r in range(Sq))
+    nbytes = n_keys * H * D * 2 * 2 + 2 * (2 * Sq * H * D) + 4 * (t1.numel() + 2)
+    bnd, by = bound_ms(nbytes, keys * H * D * 4, "bfloat16")
+    out["paged_prefill_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                          bound_ms=bnd, bound_by=by,
+                                          shape="B=1 Sq=64 start=64 H=16 D=64 page 16")
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving
+# ---------------------------------------------------------------------------
+
+def plain_prefill_logits(torch, params, cfg, nl, prompt, gemv_pim, paged_prefill):
+    """One-shot prefill of `prompt` through the plain versions only: the
+    reference for the engine's first logits."""
+    dev = params["embed"].device
+    S, H, D, page = len(prompt), cfg.n_heads, cfg.head_dim, 16
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    x = params["embed"][toks].to(cfg.cdtype) + params["pos_embed"][:S].to(cfg.cdtype)
+    n_pages = -(-S // page)
+    table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    length = zero + S
+    exp_table = nl.bank.exp if nl.mode == "lut" else None
+    act = dict(act_table=nl.bank.gelu) if nl.mode == "lut" else dict(act="gelu")
+    lin = gemv_pim.gemv_pim_plain
+    bl = params["blocks"]
+
+    def pool(t):                                  # (S, H, D) -> (1 + n, H, page, D)
+        p = torch.zeros((n_pages * page, H, D), dtype=t.dtype, device=dev)
+        p[:S] = t
+        p = p.reshape(n_pages, page, H, D).transpose(1, 2)
+        return torch.cat([torch.zeros_like(p[:1]), p]).contiguous()
+
+    for i in range(cfg.n_layers):
+        a = bl["attn"]
+        h = nl.layernorm(x, bl["ln1"]["g"][i], bl["ln1"]["b"][i], cfg.norm_eps)
+        q = lin(h, a["wq"][i], a["bq"][i]).reshape(1, S, H, D)
+        k = lin(h, a["wk"][i], a["bk"][i]).reshape(S, H, D)
+        v = lin(h, a["wv"][i], a["bv"][i]).reshape(S, H, D)
+        att = paged_prefill.paged_prefill_attention_plain(
+            q, pool(k), pool(v), table, length, zero, scale=D ** -0.5,
+            exp_table=exp_table)
+        x = x + lin(att.reshape(S, H * D), a["wo"][i])
+        h = nl.layernorm(x, bl["ln2"]["g"][i], bl["ln2"]["b"][i], cfg.norm_eps)
+        x = x + lin(lin(h, bl["ffn"]["w_up"][i], **act), bl["ffn"]["w_down"][i])
+    x = nl.layernorm(x[-1:], params["final_norm"]["g"], params["final_norm"]["b"],
+                     cfg.norm_eps)
+    return lin(x, params["lm_head"])[0].float()
+
+
+def serve(torch, np, mods, params, cfg, mode, prompts, new_tokens, card):
+    (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
+     gemv_pim, paged_attention, paged_prefill) = mods
+    sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+    eng = ServingEngine(params, cfg, sal, EngineConfig(
+        slots=4, max_len=256, paged=True, page_size=16, prefill_chunk_tokens=64,
+        prefix_sharing=False, gen=GenConfig(stop_on_eos=False)), device="cuda")
+    first: dict[int, object] = {}
+    tick = eng._prefill_tick
+
+    def tick_and_capture():          # record each request's first logits
+        tick()
+        for i, r in enumerate(eng.active):
+            if r is not None and not r.prefilling and r.uid not in first:
+                first[r.uid] = eng.last_logits[i].clone()
+
+    eng._prefill_tick = tick_and_capture
+    uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    kernels = (gemv_pim.gemv_pim_float, paged_attention.paged_attention,
+               paged_prefill.paged_prefill_attention)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while True:
+        before = [k.launches for k in kernels]
+        n_dec, n_chunk = eng.decode_steps, eng.prefill_chunks
+        n = eng.step()
+        steps += 1
+        d = [k.launches - b for k, b in zip(kernels, before)]
+        dec, chunk = eng.decode_steps - n_dec, eng.prefill_chunks - n_chunk
+        expect = [145 * (dec + chunk), 24 * dec, 24 * chunk]
+        if d != expect:
+            raise AssertionError(f"step {steps}: launches {d}, expected {expect} "
+                                 f"(decode {dec}, chunk {chunk})")
+        if n == 0 and not eng.queue and all(r is None for r in eng.active):
+            break
+        if steps > 2000:
+            raise AssertionError("engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {r.uid: r for r in eng.finished}
+    st = eng.stats()
+    log(f"  serve[{mode}]: finished {len(done)}/{len(uids)}, "
+        f"{eng.allocator.used_pages} pages in use after the drain, peak {st['peak_pages']}, "
+        f"{st['decode_steps']} decode steps, {st['prefill_chunks']} chunks, "
+        f"{st['tokens']} tokens in {wall:.3f} s = {st['tokens'] / wall:.1f} tok/s ({card})")
+    if len(done) != len(uids) or any(len(done[u].generated) != new_tokens for u in uids):
+        raise AssertionError(f"serve[{mode}]: not every request finished")
+    if eng.allocator.used_pages != 0:
+        raise AssertionError(f"serve[{mode}]: {eng.allocator.used_pages} pages still in use")
+    if len(first) != len(uids):
+        raise AssertionError(f"serve[{mode}]: first logits of {len(first)} requests")
+    log(f"  serve[{mode}] launches per decode step: 145 gemv_pim_float, 24 paged_attention; "
+        f"per prefill chunk: 145 gemv_pim_float, 24 paged_prefill_attention (checked every step)")
+    return eng, done, first, wall
+
+
+def check_first_logits(torch, params, cfg, nl, prompts, uids, done, first, mode,
+                       gemv_pim, paged_prefill):
+    worst, agree = 0.0, 0
+    for u, p in zip(uids, prompts):
+        want = plain_prefill_logits(torch, params, cfg, nl, p, gemv_pim, paged_prefill)
+        got = first[u]
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        agree += int(int(torch.argmax(want)) == done[u].generated[0])
+    log(f"  serve[{mode}] greedy first-token agreement with the plain path: "
+        f"{agree}/{len(uids)}")
+    log(f"  serve[{mode}] first logits vs plain one-shot prefill: max |diff| / max |logit| "
+        f"= {worst:.3e} (limit 3e-2)")
+    if worst > 3e-2:
+        raise AssertionError(f"serve[{mode}]: first logits differ by {worst:.3e}")
+
+
+def time_model(torch, api, params, cfg, sal, prompts, card):
+    """ms per prefill chunk and per decode step through the model API: on
+    the host clock with a device synchronise around each eager call (4
+    slots, 128-token prompts), and on the device alone, the same call
+    replayed as a CUDA graph. Their gap is the host's share of the step."""
+    dev = params["embed"].device
+    B, page, max_pages, S = 4, 16, 16, 128
+    cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages, device=dev)
+    tables = torch.arange(1, 1 + B * max_pages, dtype=torch.int32,
+                          device=dev).reshape(B, max_pages)
+    chunk_ms = []
+    for b in range(B):
+        toks = torch.as_tensor(prompts[b][:S], dtype=torch.int64, device=dev)
+        if len(toks) < S:
+            toks = torch.cat([toks, toks.new_full((S - len(toks),), 2)])
+        for a in range(0, S, 64):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill_chunk(params, toks[None, a:a + 64], tables[b:b + 1],
+                              torch.tensor([a], dtype=torch.int32, device=dev),
+                              cache.k_pages, cache.v_pages, cfg, sal)
+            torch.cuda.synchronize()
+            chunk_ms.append(1e3 * (time.perf_counter() - t0))
+    cache.lengths[:] = S
+    cache.block_tables.copy_(tables)
+    tok = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    step_ms = []
+    for _ in range(32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, tok, cache, cfg, sal)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    chunk = statistics.median(chunk_ms[1:])
+    dec = statistics.median(step_ms[2:])
+    dev_dec = time_graph(torch, lambda i: api.decode_step(params, tok, cache, cfg, sal), 1)
+    a = torch.tensor([64], dtype=torch.int32, device=dev)
+    dev_chunk = time_graph(torch, lambda i: api.prefill_chunk(
+        params, toks[None, 64:128], tables[B - 1:], a, cache.k_pages, cache.v_pages,
+        cfg, sal), 1)
+    log(f"  model timing [{sal.nl.mode}] ({card}): prefill {chunk:.2f} ms per 64-token "
+        f"chunk (device {dev_chunk:.2f} ms), decode {dec:.2f} ms per step at 4 slots x "
+        f"128..160 context (device {dev_dec:.2f} ms, host share "
+        f"{1 - dev_dec / dec:.0%}) = {4e3 / dec:.1f} tok/s")
+    return chunk, dec
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.configs import gpt2_medium
+    from repro_torch.core import lut as tlut
+    from repro_torch.core.nonlinear import Nonlinear
+    from repro_torch.core.salpim import SalPimConfig, SalPimEngine
+    from repro_torch.kernels import _build, gemv_pim, paged_attention, paged_prefill
+    from repro_torch.models import api
+    from repro_torch.serving.config import EngineConfig, GenConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    t_start = time.perf_counter()
+    log("== 1. card")
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = f"{torch.cuda.get_device_name(0)}, power limit {card_line.split(',')[-1].strip()}"
+    log(f"  {card_line}")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    log("== 2. build (nvcc, sm_90a)")
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    for name in _build.SOURCES:
+        _build.library(name)
+        for line in reports.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
+        f"(already built: {sorted(set(_build.SOURCES) - set(reports))})")
+
+    log("== 3. kernels against their plain versions")
+    errs = check_kernels(torch, tlut, gemv_pim, paged_attention, paged_prefill, args.seed)
+    cfg = gpt2_medium.config()
+    params = api.init_params(cfg, seed=args.seed, device="cuda")
+    times = time_kernels(torch, F, params, cfg, gemv_pim, paged_attention,
+                         paged_prefill, args.seed)
+
+    log("== 4. serve GPT-2 medium (full width, random weights)")
+    rng = np.random.RandomState(args.seed)
+    prompts = [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
+    new_tokens = 32
+    mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
+            gemv_pim, paged_attention, paged_prefill)
+    kernels = {"gemv_pim_float": gemv_pim.gemv_pim_float,
+               "paged_attention": paged_attention.paged_attention,
+               "paged_prefill_attention": paged_prefill.paged_prefill_attention}
+    for k in kernels.values():
+        k.launches = 0
+    runs = {}
+    for mode in ("exact", "lut"):
+        runs[mode] = serve(torch, np, mods, params, cfg, mode, prompts, new_tokens, card)
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"  launches over both drains: {launches}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    for mode, (eng, done, first, _) in runs.items():
+        uids = sorted(done)
+        check_first_logits(torch, params, cfg, Nonlinear.create(mode), prompts, uids,
+                           done, first, mode, gemv_pim, paged_prefill)
+    for mode in ("exact", "lut"):
+        time_model(torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+                   prompts, card)
+
+    log("== 5. result")
+    rows = []
+    for name, t in times.items():
+        src, replaces = SOURCE[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "timed_at": t["shape"]})
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card_line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

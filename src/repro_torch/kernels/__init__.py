@@ -1,0 +1,1 @@
+"""CUDA kernels for Hopper, each beside its plain PyTorch version."""

@@ -1,0 +1,112 @@
+"""Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C
+interface, `build/repro_torch/<name>-<hash>.so` under the repository root,
+keyed by a hash of the sources and flags. The build runs at first use
+(`library(name)`), never at import; the first use builds every source, one
+nvcc process each, all at once. `build_all()` does the same and returns
+ptxas' register and shared-memory report for each library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("gemv_pim", "paged_attention", "paged_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+ptxas_reports: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(name: str, nvcc: str) -> str:
+    out = _lib_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source whose library is missing, in parallel; return
+    ptxas' report per source compiled by this call."""
+    with _lock:
+        todo = [n for n in SOURCES if not _lib_path(n).exists()]
+        if todo:
+            nvcc = _nvcc()
+            results: dict[str, object] = {}
+
+            def run(n):
+                try:
+                    results[n] = _compile(n, nvcc)
+                except (RuntimeError, OSError) as e:   # re-raised below
+                    results[n] = e
+
+            threads = [threading.Thread(target=run, args=(n,)) for n in todo]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for n in todo:
+                if isinstance(results[n], Exception):
+                    raise results[n]
+                ptxas_reports[n] = results[n]
+        return {n: ptxas_reports.get(n, "") for n in todo}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if rc != 0:
+        err = getattr(lib, f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} kernel failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")

@@ -1,0 +1,333 @@
+// The block-table page walk shared by the paged decode and paged prefill
+// attention kernels (paged_attention.cu, paged_prefill.cu).
+//
+// One thread block owns `rows` query rows of one (sequence b, kv head h):
+// g rows for decode, a block of the Sq * g rows of a prefill chunk. It
+// walks the sequence's block table itself (Hopper has no scalar prefetch),
+// stages a chunk of up to kMaxChunkPages pages of K and V in shared memory
+// as fp32, and then runs the TPU kernels' online softmax page by page, in
+// the same order and with the same algebra:
+//
+//   scores = (q . k) * scale [-> softcap * tanh(scores / softcap)]
+//   masked scores = NEG_INF (-1e30); m_new = max(m_prev, max(scores))
+//   p = exp(scores - m_new), corr = exp(m_prev - m_new)         exact
+//   p = LUT(scores - m_new), corr = LUT(max(m_prev - m_new, lo)) LUT
+//   p = 0 outside the mask; l = l * corr + sum(p); acc = acc * corr + p . v
+//
+// and the caller writes acc / max(l, 1e-9). A key position k is valid for
+// the row with absolute query position qpos when k < length, k <= qpos
+// and, with a window, k > qpos - window. Pages past the last valid key of
+// the block are not read. Physical page ids outside the pool read the
+// trash page 0.
+//
+// The walk is latency-bound at the engine's sizes (one row per block for
+// GPT-2 decode, 16 for a prefill block), so each pass spreads its work over
+// the whole block and keeps independent work in flight per thread: the
+// staging copy issues kLoadIlp 16-byte loads of K and of V before it
+// stores any, each (row, key) dot product is split over a group of up to
+// 32 threads that reduce with shuffles and runs four partial sums, the
+// p . V sums run four partial sums over the page's keys, and the softmax
+// statistics of a row are one warp's work.
+#pragma once
+
+#include "common.cuh"
+
+namespace paged {
+
+using common::from_f;
+using common::to_f;
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;
+constexpr int kMaxTableRows = 128;
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kMaxChunkPages = 8;
+constexpr int kLoadIlp = 4;
+
+struct Args {
+  const void* k_pages;      // (P, Hkv, page, D)
+  const void* v_pages;
+  const int* block_tables;  // (B, n_table)
+  const int* lengths;       // (B,)
+  const float* exp_wb;      // (sections + 2, 2) or null
+  int n_pool;               // P
+  int n_table;
+  int hkv;
+  int page;
+  int d;
+  float scale;
+  float softcap;            // <= 0: off
+  int window;               // <= 0: off
+  int use_lut;
+  float lo;
+  float inv_step;
+  int sections;
+  int chunk_pages;
+  int vec;                  // 1: D is a whole number of 16-byte vectors and the pools are aligned
+};
+
+// Shared-memory layout, all 4-byte words. K rows are padded to D + 1 so
+// that the per-key dot products of neighbouring threads hit distinct banks.
+struct Smem {
+  float* q;      // rows * D
+  float* acc;    // rows * D
+  float* m;      // rows
+  float* l;      // rows
+  float* corr;   // rows
+  int* qpos;     // rows
+  float* sc;     // rows * page
+  float* k;      // chunk * page * (D + 1)
+  float* v;      // chunk * page * D
+  int* tbl;      // chunk
+  float* wb;     // 2 * kMaxTableRows
+};
+
+__host__ __device__ inline int fixed_words(int rows, int d, int page) {
+  return 2 * rows * d + 4 * rows + rows * page + 2 * kMaxTableRows;
+}
+
+__host__ __device__ inline int page_words(int d, int page) {
+  return page * (d + 1) + page * d + 1;
+}
+
+__host__ __device__ inline int smem_bytes(int rows, int d, int page, int chunk) {
+  return 4 * (fixed_words(rows, d, page) + chunk * page_words(d, page));
+}
+
+// Largest page chunk that keeps the block within 48 KB (at least 1 page,
+// at most kMaxChunkPages); 0 when even one page exceeds the SM's limit.
+inline int pick_chunk(int rows, int d, int page) {
+  const int fixed = 4 * fixed_words(rows, d, page);
+  const int per = 4 * page_words(d, page);
+  if (fixed + per > kSmemMax) return 0;
+  int ch = (kSmemDefault - fixed) / per;
+  if (ch < 1) ch = 1;
+  if (ch > kMaxChunkPages) ch = kMaxChunkPages;
+  return ch;
+}
+
+// 1 when every K/V row starts on a 16-byte boundary of an aligned pool.
+template <typename T>
+inline int use_vec(const void* k_pages, const void* v_pages, int d) {
+  return d % common::Vec<T>::N == 0 && common::aligned16(k_pages) &&
+         common::aligned16(v_pages);
+}
+
+__device__ inline Smem carve(float* base, int rows, int d, int page, int chunk) {
+  Smem s;
+  float* p = base;
+  s.q = p; p += rows * d;
+  s.acc = p; p += rows * d;
+  s.m = p; p += rows;
+  s.l = p; p += rows;
+  s.corr = p; p += rows;
+  s.qpos = reinterpret_cast<int*>(p); p += rows;
+  s.sc = p; p += rows * page;
+  s.wb = p; p += 2 * kMaxTableRows;
+  s.k = p; p += chunk * page * (d + 1);
+  s.v = p; p += chunk * page * d;
+  s.tbl = reinterpret_cast<int*>(p);
+  return s;
+}
+
+__device__ __forceinline__ float lut_eval(float x, const float* wb, float lo,
+                                          float inv_step, int sections) {
+  float f = floorf((x - lo) * inv_step);
+  f = fminf(fmaxf(f, -1.0f), (float)sections);   // clip before the int cast
+  const int idx = (int)f + 1;
+  return wb[2 * idx] * x + wb[2 * idx + 1];
+}
+
+__device__ __forceinline__ bool key_valid(int kpos, int qpos, int length, int window) {
+  return kpos < length && kpos <= qpos && (window <= 0 || kpos > qpos - window);
+}
+
+// Copy `nch` pages of this block's kv head, whose physical ids are in
+// s.tbl, into s.k (padded rows) and s.v as fp32.
+template <typename T>
+__device__ void stage_pages(const Args& a, const Smem& s, int h, int nch) {
+  const T* kp = reinterpret_cast<const T*>(a.k_pages);
+  const T* vp = reinterpret_cast<const T*>(a.v_pages);
+  const int D = a.d;
+  const int page_elems = a.page * D;
+  if (a.vec) {
+    constexpr int N = common::Vec<T>::N;
+    const int nvec = nch * page_elems / N;
+    for (int base = threadIdx.x; base < nvec; base += kLoadIlp * blockDim.x) {
+      float kr[kLoadIlp][N], vr[kLoadIlp][N];
+#pragma unroll
+      for (int u = 0; u < kLoadIlp; ++u) {
+        const int e = (base + u * blockDim.x) * N;
+        if (e < nvec * N) {
+          const int i = e / page_elems;
+          const size_t src = ((size_t)s.tbl[i] * a.hkv + h) * page_elems + (e - i * page_elems);
+          common::Vec<T>::load(kp + src, kr[u]);
+          common::Vec<T>::load(vp + src, vr[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadIlp; ++u) {
+        const int e = (base + u * blockDim.x) * N;
+        if (e < nvec * N) {
+          const int row = e / D;                      // i * page + j
+          float* kd = s.k + row * (D + 1) + (e - row * D);
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+            kd[n] = kr[u][n];
+            s.v[e + n] = vr[u][n];
+          }
+        }
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < nch * page_elems; e += blockDim.x) {
+      const int i = e / page_elems;
+      const size_t src = ((size_t)s.tbl[i] * a.hkv + h) * page_elems + (e - i * page_elems);
+      const int row = e / D;
+      s.k[row * (D + 1) + (e - row * D)] = to_f(kp[src]);
+      s.v[e] = to_f(vp[src]);
+    }
+  }
+}
+
+// sum over i = first, first + step, ... < n of a[i] * b[i * stride], in
+// four independent partial sums so that the shared-memory loads overlap.
+__device__ __forceinline__ float strided_dot(const float* a, const float* b, int first,
+                                             int step, int n, int stride) {
+  float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+  int i = first;
+  for (; i + 3 * step < n; i += 4 * step) {
+    d0 = fmaf(a[i], b[i * stride], d0);
+    d1 = fmaf(a[i + step], b[(i + step) * stride], d1);
+    d2 = fmaf(a[i + 2 * step], b[(i + 2 * step) * stride], d2);
+    d3 = fmaf(a[i + 3 * step], b[(i + 3 * step) * stride], d3);
+  }
+  for (; i < n; i += step) d0 = fmaf(a[i], b[i * stride], d0);
+  return (d0 + d1) + (d2 + d3);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Before the call the block has filled s.q (rows x D, fp32), s.qpos, and
+// s.wb (when use_lut), and synchronised. After it, s.acc and s.l hold the
+// unnormalised output and the softmax denominator of every row.
+template <typename T>
+__device__ void walk(const Args& a, const Smem& s, int b, int h, int rows) {
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int n_warps = blockDim.x / 32;
+  const int D = a.d;
+  const int page = a.page;
+  const int length = a.lengths[b];
+
+  for (int i = tid; i < rows; i += blockDim.x) {
+    s.m[i] = kNegInf;
+    s.l[i] = 0.0f;
+  }
+  for (int i = tid; i < rows * D; i += blockDim.x) s.acc[i] = 0.0f;
+
+  // Keys past the block's last query position are masked for every row.
+  int max_q = -1;
+  for (int r = 0; r < rows; ++r) max_q = max(max_q, s.qpos[r]);
+  const int kv_end = min(length, max_q + 1);
+  int n_pages = kv_end > 0 ? (kv_end + page - 1) / page : 0;
+  n_pages = min(n_pages, a.n_table);
+
+  // tpk threads (a power of two, at most a warp) share one (row, key) dot
+  // product: as many as keep the block's threads busy.
+  const int n_pairs = rows * page;
+  int tpk = 1;
+  while (tpk < 32 && 2 * tpk * n_pairs <= (int)blockDim.x) tpk *= 2;
+  __syncthreads();
+
+  for (int p0 = 0; p0 < n_pages; p0 += a.chunk_pages) {
+    const int nch = min(a.chunk_pages, n_pages - p0);
+    for (int i = tid; i < nch; i += blockDim.x) {
+      int phys = a.block_tables[(size_t)b * a.n_table + p0 + i];
+      s.tbl[i] = (phys >= 0 && phys < a.n_pool) ? phys : 0;
+    }
+    __syncthreads();
+    stage_pages<T>(a, s, h, nch);
+    __syncthreads();
+
+    for (int i = 0; i < nch; ++i) {
+      const int base_pos = (p0 + i) * page;
+      // Scores of every (row, key) pair of this page. The loop bound is the
+      // same for every thread, so whole warps reach the shuffles.
+      for (int t0 = 0; t0 < n_pairs * tpk; t0 += blockDim.x) {
+        const int t = t0 + tid;
+        const int pair = t / tpk;
+        const int sub = t % tpk;
+        float dot = 0.0f;
+        if (pair < n_pairs) {
+          const int r = pair / page;
+          const float* qr = s.q + r * D;
+          const float* kr = s.k + (i * page + pair - r * page) * (D + 1);
+          dot = strided_dot(qr, kr, sub, tpk, D, 1);
+        }
+        for (int off = tpk / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (pair < n_pairs && sub == 0) {
+          const int r = pair / page;
+          const int j = pair - r * page;
+          float sc = dot * a.scale;
+          if (a.softcap > 0.0f) sc = a.softcap * tanhf(sc / a.softcap);
+          s.sc[pair] = key_valid(base_pos + j, s.qpos[r], length, a.window) ? sc : kNegInf;
+        }
+      }
+      __syncthreads();
+      // Online-softmax statistics, one warp per row.
+      for (int r = warp; r < rows; r += n_warps) {
+        float* scr = s.sc + r * page;
+        const float m_prev = s.m[r];
+        float m_cur = kNegInf;
+        for (int j = lane; j < page; j += 32) m_cur = fmaxf(m_cur, scr[j]);
+        const float m_new = fmaxf(m_prev, warp_max(m_cur));
+        float corr;
+        if (a.use_lut) {
+          corr = lut_eval(fmaxf(m_prev - m_new, a.lo), s.wb, a.lo, a.inv_step, a.sections);
+        } else {
+          corr = expf(m_prev - m_new);
+        }
+        float lsum = 0.0f;
+        for (int j = lane; j < page; j += 32) {
+          float p = a.use_lut ? lut_eval(scr[j] - m_new, s.wb, a.lo, a.inv_step, a.sections)
+                              : expf(scr[j] - m_new);
+          if (!key_valid(base_pos + j, s.qpos[r], length, a.window)) p = 0.0f;
+          scr[j] = p;
+          lsum += p;
+        }
+        lsum = warp_sum(lsum);
+        if (lane == 0) {
+          s.l[r] = s.l[r] * corr + lsum;
+          s.m[r] = m_new;
+          s.corr[r] = corr;
+        }
+      }
+      __syncthreads();
+      // acc = acc * corr + p . V over this page.
+      for (int t = tid; t < rows * D; t += blockDim.x) {
+        const int r = t / D;
+        const int dd = t - r * D;
+        const float* pr = s.sc + r * page;
+        const float* vv = s.v + (i * page) * D + dd;
+        s.acc[t] = s.acc[t] * s.corr[r] + strided_dot(pr, vv, 0, 1, page, D);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace paged

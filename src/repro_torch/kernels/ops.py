@@ -1,0 +1,49 @@
+"""Dispatch by tensor device (the port of `repro.kernels.ops`).
+
+A tensor on the CPU goes to the kernel's plain PyTorch version; any other
+tensor goes to the CUDA kernel, whose launcher raises unless the tensor is
+on a CUDA device. There is no fallback from the kernel to a plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lut import LutTable
+from repro_torch.kernels import gemv_pim as gemv_k
+from repro_torch.kernels import paged_attention as paged_k
+from repro_torch.kernels import paged_prefill as paged_pf_k
+
+
+def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+               *, act_table: LutTable | None = None,
+               act: str | None = None) -> torch.Tensor:
+    """(M, C) @ (R, C)^T with optional bias and fused activation."""
+    if x.device.type == "cpu":
+        return gemv_k.gemv_pim_plain(x, w, b, act_table=act_table, act=act)
+    return gemv_k.gemv_pim_float(x, w, b, act_table=act_table, act=act)
+
+
+def pim_paged_attention(q, k_pages, v_pages, block_tables, length, *,
+                        scale=None, exp_table: LutTable | None = None,
+                        softcap=None, window=None) -> torch.Tensor:
+    """Decode attention over a paged KV pool (see serving/kvcache.py)."""
+    kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
+    if q.device.type == "cpu":
+        return paged_k.paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                             length, **kw)
+    return paged_k.paged_attention(q, k_pages, v_pages, block_tables, length,
+                                   **kw)
+
+
+def pim_paged_prefill_attention(q, k_pages, v_pages, block_tables, length,
+                                start, *, scale=None,
+                                exp_table: LutTable | None = None,
+                                softcap=None, window=None) -> torch.Tensor:
+    """Chunked prefill attention over a paged KV pool: q (B, Sq, H, D) at
+    absolute positions start..start+Sq-1."""
+    kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
+    if q.device.type == "cpu":
+        return paged_pf_k.paged_prefill_attention_plain(
+            q, k_pages, v_pages, block_tables, length, start, **kw)
+    return paged_pf_k.paged_prefill_attention(
+        q, k_pages, v_pages, block_tables, length, start, **kw)

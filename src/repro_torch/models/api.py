@@ -1,0 +1,53 @@
+"""Model API the serving engine and the tests use (the port of the paged
+entry points of `repro.models.api`).
+
+    init_params(cfg, seed=0, device="cuda")
+    prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine)
+    decode_step(params, token, cache, cfg, engine)
+    init_paged_cache(cfg, batch, num_pages, page_size, max_pages, device="cuda")
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import kvcache
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+    return tf.init_params(cfg, seed=seed, device=device)
+
+
+def prefill_chunk(params: dict, tokens: torch.Tensor,
+                  block_tables: torch.Tensor, start: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  cfg: ModelConfig, engine: SalPimEngine):
+    """One chunk of paged prefill: tokens (B, S) at absolute positions
+    start..start+S-1, K/V written into the pool pages in place, queries
+    attending over all resident KV. Returns (last-position logits,
+    k_pages, v_pages)."""
+    return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
+                            v_pages, cfg, engine)
+
+
+def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
+                engine: SalPimEngine):
+    """token (B,) -> (logits (B, V), PagedCache with advanced lengths)."""
+    if not isinstance(cache, kvcache.PagedCache):
+        raise NotImplementedError("only the paged cache is ported; the dense "
+                                  "Cache comes in a later slice")
+    return tf._decode_step_paged(params, token, cache, cfg, engine)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
+                     page_size: int, max_pages: int,
+                     kv_dtype: str | None = None, *, device="cuda"):
+    """Paged KV cache for the dense family (see serving/kvcache.py)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"paged cache for family {cfg.family!r}")
+    return kvcache.init_paged_cache(
+        cfg, batch, num_pages, page_size, max_pages,
+        kv_dtype=kv_dtype if kv_dtype is not None else cfg.kv_dtype,
+        device=device)

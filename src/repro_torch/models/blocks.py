@@ -1,0 +1,72 @@
+"""Decoder blocks over a paged KV cache: norm wiring and residuals (the
+port of `repro.models.blocks`, dense family)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import ffn as ffn_lib
+from repro_torch.models.config import ModelConfig
+
+
+def init_norm(cfg: ModelConfig, ones, zeros, lead: tuple = ()) -> dict:
+    """Norm parameters, with optional leading (layer) dims."""
+    shape = (*lead, cfg.d_model)
+    if cfg.norm == "layernorm":
+        return {"g": ones(shape), "b": zeros(shape)}
+    if cfg.norm == "rmsnorm_plus1":   # gemma: store (weight), apply 1 + w
+        return {"g": zeros(shape)}
+    return {"g": ones(shape)}
+
+
+def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               engine: SalPimEngine) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return engine.layernorm(x, p["g"], p["b"], cfg.norm_eps)
+    if cfg.norm == "rmsnorm_plus1":
+        return engine.rmsnorm(x, p["g"], cfg.norm_eps, plus_one=True)
+    return engine.rmsnorm(x, p["g"], cfg.norm_eps)
+
+
+def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
+    """Shared block: norm/attn/residual/ffn around `attn_fn`, which maps the
+    normed hidden to (attn_out, *cache_outputs)."""
+    h = apply_norm(p["ln1"], x, cfg, engine)
+    res = attn_fn(h)
+    h, cache_out = res[0], res[1:]
+    if cfg.post_norms:
+        h = apply_norm(p["post_ln1"], h, cfg, engine)
+    x = x + h
+    h = apply_norm(p["ln2"], x, cfg, engine)
+    h = ffn_lib.apply_ffn(p["ffn"], h, cfg, engine)
+    if cfg.post_norms:
+        h = apply_norm(p["post_ln2"], h, cfg, engine)
+    return (x + h, *cache_out)
+
+
+def apply_decoder_block_prefill_chunk_paged(
+    p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, start: torch.Tensor, length: torch.Tensor,
+    cfg: ModelConfig, engine: SalPimEngine, *, window,
+):
+    """Prefill block over one prompt chunk against the paged pool.
+    Returns (x', k_pages, v_pages); the pools are written in place."""
+    return _decode_block_skeleton(
+        p, x, cfg, engine,
+        lambda h: attn_lib.attention_prefill_chunk_paged(
+            p["attn"], h, k_pages, v_pages, block_tables, start, length,
+            cfg, engine, window=window))
+
+
+def apply_decoder_block_decode_paged(
+    p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
+    engine: SalPimEngine, *, window,
+):
+    """Single-token step against a paged cache. Returns (x', k', v')."""
+    return _decode_block_skeleton(
+        p, x, cfg, engine,
+        lambda h: attn_lib.attention_decode_paged(
+            p["attn"], h, k_pages, v_pages, block_tables, lengths, cfg,
+            engine, window=window))

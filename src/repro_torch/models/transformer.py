@@ -1,0 +1,148 @@
+"""Decoder-only LM over a paged KV cache (the port of the dense paged path of
+`repro.models.transformer`).
+
+Parameters are a plain dict with the JAX pytree's keys; each block weight
+is stacked on a leading layer axis, and a Python loop over layers takes the
+place of `lax.scan`. Each layer gets `cfg.window_for_layer(i)` (None for
+global attention) where the JAX scan passes a traced sentinel width.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import blocks as blk
+from repro_torch.models import ffn as ffn_lib
+from repro_torch.models.config import ModelConfig
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if not cfg.learned_pos_emb:
+        raise NotImplementedError("RoPE models are not ported yet")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random weights with the JAX package's stds, drawn from a
+    torch.Generator seeded with `seed` (not JAX's numbers)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x * std).to(cfg.pdtype)
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=cfg.pdtype)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=dev, dtype=cfg.pdtype)
+
+    d, L = cfg.d_model, cfg.n_layers
+    p = {
+        "embed": normal((cfg.vocab, d), 0.02),
+        "final_norm": blk.init_norm(cfg, ones, zeros),
+        "lm_head": normal((cfg.vocab, d), d ** -0.5),
+        "pos_embed": normal((cfg.max_seq, d), 0.02),
+    }
+    blocks = {
+        "ln1": blk.init_norm(cfg, ones, zeros, (L,)),
+        "attn": attn_lib.init_attention(normal, zeros, cfg, L),
+        "ln2": blk.init_norm(cfg, ones, zeros, (L,)),
+        "ffn": ffn_lib.init_ffn(normal, cfg, L),
+    }
+    if cfg.post_norms:
+        blocks["post_ln1"] = blk.init_norm(cfg, ones, zeros, (L,))
+        blocks["post_ln2"] = blk.init_norm(cfg, ones, zeros, (L,))
+    p["blocks"] = blocks
+    return p
+
+
+def _layers(blocks: dict, n_layers: int) -> list[dict]:
+    """Stacked block params -> one dict of views per layer."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        return torch.unbind(tree, 0)
+    return unbind(blocks)
+
+
+def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    x = p["embed"][tokens.long()].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * cfg.d_model ** 0.5
+    return x + p["pos_embed"][positions.long()].to(cfg.cdtype)
+
+
+def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            engine: SalPimEngine) -> torch.Tensor:
+    x = blk.apply_norm(p["final_norm"], x, cfg, engine)
+    logits = engine.linear(x, p["lm_head"])
+    if cfg.final_softcap is not None:
+        logits = engine.nl.softcap(logits.float(), cfg.final_softcap)
+    return logits
+
+
+def _paged_chunk_forward(params: dict, tokens: torch.Tensor,
+                         block_tables: torch.Tensor, start: torch.Tensor,
+                         k_pages: torch.Tensor, v_pages: torch.Tensor,
+                         cfg: ModelConfig, engine: SalPimEngine) -> torch.Tensor:
+    """Run tokens (B, S) at positions start..start+S-1 through the block
+    stack, writing each layer's chunk K/V into its pages (in place).
+    Returns the hidden states (B, S, D)."""
+    _check_supported(cfg)
+    B, S = tokens.shape
+    start = start.to(torch.int32)
+    pos = start[:, None].long() + torch.arange(S, device=tokens.device)[None, :]
+    x = _embed(params, tokens, cfg, pos)
+    length = start + S
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x, _, _ = blk.apply_decoder_block_prefill_chunk_paged(
+            bp, x, k_pages[i], v_pages[i], block_tables, start, length, cfg,
+            engine, window=cfg.window_for_layer(i))
+    return x
+
+
+def prefill_chunk(params: dict, tokens: torch.Tensor,
+                  block_tables: torch.Tensor, start: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  cfg: ModelConfig, engine: SalPimEngine):
+    """One chunk of paged prefill, written directly into pool pages.
+
+    tokens (B, S) are prompt positions start[b] .. start[b]+S-1 of B
+    sequences whose earlier chunks' K/V already live in the pages mapped by
+    block_tables (B, n_pages); the pools (L, P, Hkv, page, Dh) are updated
+    in place. Returns (last-position logits (B, V), k_pages, v_pages).
+    """
+    x = _paged_chunk_forward(params, tokens, block_tables, start, k_pages,
+                             v_pages, cfg, engine)
+    return _logits(params, x[:, -1], cfg, engine), k_pages, v_pages
+
+
+def _advance_lengths(lengths: torch.Tensor) -> torch.Tensor:
+    """Advance only live sequences; released slots stay parked at 0."""
+    return lengths + (lengths > 0).to(lengths.dtype)
+
+
+def _decode_step_paged(params: dict, token: torch.Tensor, cache,
+                       cfg: ModelConfig, engine: SalPimEngine):
+    """token (B,) -> (logits (B, V), cache with advanced lengths). The pools
+    are updated in place; block tables are shared across layers."""
+    from repro_torch.serving.kvcache import PagedCache
+
+    _check_supported(cfg)
+    x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x, _, _ = blk.apply_decoder_block_decode_paged(
+            bp, x, cache.k_pages[i], cache.v_pages[i], cache.block_tables,
+            cache.lengths, cfg, engine, window=cfg.window_for_layer(i))
+    new_cache = PagedCache(lengths=_advance_lengths(cache.lengths),
+                           block_tables=cache.block_tables,
+                           k_pages=cache.k_pages, v_pages=cache.v_pages)
+    return _logits(params, x, cfg, engine), new_cache

@@ -1,0 +1,82 @@
+"""Engine configuration (the port of `repro.serving.config`).
+
+`EngineConfig` keeps the JAX package's field names and defaults, so a
+config reads the same in both packages. The port serves the paged FIFO
+path; every feature it lacks raises `NotImplementedError` in `validate`
+instead of being ignored. `prefix_sharing` defaults to True as in the JAX
+package, so a config for the port passes `prefix_sharing=False`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class GenConfig:
+    """Per-request generation settings."""
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    top_k: int = 0
+    eos_id: int = 0
+    stop_on_eos: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Everything `ServingEngine` needs beyond (params, model, engine)."""
+    slots: int
+    max_len: int
+    gen: GenConfig = GenConfig()
+    paged: bool = False
+    page_size: int = 16
+    num_pages: Optional[int] = None
+    prefix_sharing: bool = True
+    prefill_chunk_tokens: Optional[int] = None
+    kv_cache_dtype: Optional[str] = None
+    kv_scale_dtype: str = "float32"
+    speculative: Optional[Any] = None
+    scheduler: Optional[Any] = None
+    telemetry: Optional[Any] = None
+    seed: int = 0
+    mesh: Optional[Any] = None
+    kv_splits: Optional[int] = None
+    hardware: Optional[str] = None
+
+    def resolved_kv_dtype(self, model_cfg) -> str:
+        return (self.kv_cache_dtype if self.kv_cache_dtype is not None
+                else model_cfg.kv_dtype)
+
+    def validate(self, model_cfg) -> None:
+        """Raise on what the port does not serve, then on bad values."""
+        missing = []
+        if not self.paged:
+            missing.append("paged=False (the dense cache)")
+        if self.prefix_sharing:
+            missing.append("prefix_sharing=True")
+        if self.resolved_kv_dtype(model_cfg) != "model":
+            missing.append(f"kv_cache_dtype={self.resolved_kv_dtype(model_cfg)!r}")
+        if self.kv_scale_dtype != "float32":
+            missing.append(f"kv_scale_dtype={self.kv_scale_dtype!r}")
+        if self.speculative is not None:
+            missing.append("speculative decoding")
+        if self.scheduler is not None and getattr(self.scheduler, "name", None) != "fifo":
+            missing.append("schedulers other than FIFO")
+        if self.telemetry is not None:
+            missing.append("telemetry")
+        if self.mesh is not None:
+            missing.append("mesh sharding")
+        if self.kv_splits is not None and self.kv_splits != 1:
+            missing.append("kv_splits")
+        if self.hardware is not None:
+            missing.append("the roofline cost model (hardware=)")
+        if missing:
+            raise NotImplementedError(
+                "not ported yet: " + ", ".join(missing))
+        if self.slots < 1 or self.max_len < 1:
+            raise ValueError("slots and max_len must be >= 1")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.prefill_chunk_tokens is not None and self.prefill_chunk_tokens < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1, got "
+                             f"{self.prefill_chunk_tokens}")

@@ -1,0 +1,262 @@
+"""Serving engine, paged mode (the port of `repro.serving.engine.ServingEngine`).
+
+Slot-based continuous batching over a fixed decode batch width. Slots
+share one KV page pool: a request is admitted only when its worst-case
+page count can be reserved, its prompt is prefilled chunk by chunk straight
+into its pool pages (`prefill_chunk_tokens` per engine step, None = the
+whole prompt in one chunk), and it joins the shared decode batch when the
+prompt cursor reaches the end. A mid-prefill slot keeps device length 0 and
+an all-trash block-table row, so the decode step cannot touch its pages.
+
+Construction: `ServingEngine(params, cfg, engine, EngineConfig(slots=4,
+max_len=256, paged=True, prefix_sharing=False), device="cuda")`. Features
+the port lacks raise `NotImplementedError` (`EngineConfig.validate`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models import api as model_api
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import kvcache as kv
+from repro_torch.serving.config import EngineConfig, GenConfig
+from repro_torch.serving.sampling import sample
+from repro_torch.serving.scheduler import FifoScheduler
+
+__all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # Prompt tokens whose KV is already resident in the slot's pages.
+    prefill_cursor: int = 0
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_cursor < len(self.prompt)
+
+
+class ServingEngine:
+    """Paged continuous batching with chunked prefill and FIFO admission."""
+
+    def __init__(self, params: dict, model_cfg: ModelConfig,
+                 engine: SalPimEngine, config: EngineConfig, *,
+                 device="cuda"):
+        config.validate(model_cfg)
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine runs on {self.device}")
+        self.config = config
+        self.params = params
+        self.cfg = model_cfg
+        self.engine = engine
+        self.slots = config.slots
+        self.max_len = config.max_len
+        self.gen = config.gen
+        self.scheduler = (config.scheduler if config.scheduler is not None
+                          else FifoScheduler())
+        self.prefill_chunk_tokens = config.prefill_chunk_tokens
+        self.queue: list[Request] = []
+        self.active: list[Optional[Request]] = [None] * self.slots
+        self.finished: list[Request] = []
+        self.last_logits = torch.zeros((self.slots, model_cfg.vocab),
+                                       dtype=torch.float32, device=self.device)
+        self._uid = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._host_len = np.zeros((self.slots,), np.int64)
+        self.prefill_tokens = 0
+        self.peak_pages = 0
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self._step_sec = 0.0
+        self._admit_sec = 0.0
+        self._chunk_sec = 0.0
+        self._decode_sec = 0.0
+
+        page_size, num_pages = config.page_size, config.num_pages
+        self.max_pages = -(-self.max_len // page_size)
+        if num_pages is None:
+            # The dense cache's byte budget, plus the trash page.
+            num_pages = self.slots * self.max_pages + 1
+        self.allocator = kv.BlockAllocator(num_pages, page_size)
+        self.cache = model_api.init_paged_cache(
+            model_cfg, self.slots, num_pages, page_size, self.max_pages,
+            device=self.device)
+
+    def submit(self, prompt, max_new_tokens: int = 32) -> int:
+        prompt = np.asarray(prompt)
+        worst = kv.BlockAllocator.worst_case_tokens(len(prompt), max_new_tokens)
+        if worst > self.max_len:
+            raise ValueError(
+                f"request can occupy {worst} cache positions "
+                f"(prompt {len(prompt)}, max_new {max_new_tokens}) "
+                f"but max_len is {self.max_len}")
+        need = self.allocator.pages_for(worst)
+        usable = self.allocator.num_pages - 1
+        if need > usable:
+            raise ValueError(
+                f"request needs {need} pages worst case but the pool "
+                f"has {usable}; no reservation was made")
+        self._uid += 1
+        self.queue.append(Request(self._uid, prompt, max_new_tokens))
+        return self._uid
+
+    def _place_paged(self, slot: int, req: Request):
+        """Install an admitted request; its prompt KV is produced chunk by
+        chunk by _prefill_tick."""
+        req.prefill_cursor = 0
+        self._host_len[slot] = 0
+        self.active[slot] = req
+
+    def _prefill_tick(self):
+        """Run at most one prompt chunk for one mid-prefill slot (FIFO: the
+        oldest uid). The slot joins the decode batch only when the cursor
+        reaches the end of the prompt."""
+        cand = [(r.uid, i) for i, r in enumerate(self.active)
+                if r is not None and r.prefilling]
+        if not cand:
+            return
+        slot = self.scheduler.select_prefill_slot(self, cand)
+        req = self.active[slot]
+        start = req.prefill_cursor
+        budget = self.prefill_chunk_tokens or len(req.prompt)
+        end = min(len(req.prompt), start + budget)
+        pages = self.allocator.pages_of(req.uid)
+        row = torch.full((1, self.max_pages), kv.TRASH_PAGE, dtype=torch.int32)
+        row[0, :len(pages)] = torch.as_tensor(pages, dtype=torch.int32)
+        row = row.to(self.device)
+        toks = torch.as_tensor(req.prompt[start:end], dtype=torch.int64,
+                               device=self.device)[None]
+        start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
+        logits1, _, _ = model_api.prefill_chunk(
+            self.params, toks, row, start_t, self.cache.k_pages,
+            self.cache.v_pages, self.cfg, self.engine)
+        req.prefill_cursor = end
+        self.prefill_tokens += end - start
+        self.prefill_chunks += 1
+        if not req.prefilling:
+            # Activate: only now does the slot become visible to the shared
+            # decode program (row + device length + first logits).
+            self.cache.lengths[slot] = end
+            self.cache.block_tables[slot] = row[0]
+            self.last_logits[slot] = logits1[0].float()
+            self._host_len[slot] = end
+        self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+
+    def _release(self, slot: int, req: Request):
+        req.done = True
+        self.finished.append(req)
+        self.active[slot] = None
+        self.allocator.release(req.uid)
+        self.cache = kv.clear_slot(self.cache, slot)
+        self._host_len[slot] = 0
+
+    def _map_write_range(self, slot: int, req: Request, first: int,
+                         n_writes: int):
+        """Map pages so KV writes at positions first..first+n-1 land in the
+        slot's own pages: extend where a position falls off the mapped
+        pages (reservations make this infallible)."""
+        for pos in range(first, first + n_writes):
+            if self.allocator.needs_extend(req.uid, pos):
+                page = self.allocator.extend(req.uid)
+                n_mapped = len(self.allocator.pages_of(req.uid))
+                self.cache.block_tables[slot, n_mapped - 1] = page
+
+    def step(self) -> int:
+        """One engine step: admit, run at most one prompt chunk, then one
+        decode step across all fully prefilled slots. Returns the amount
+        of outstanding work (live decodes + mid-prefill slots + queue)."""
+        t_start = time.perf_counter()
+        try:
+            return self._step_inner()
+        finally:
+            self._step_sec += time.perf_counter() - t_start
+
+    def _step_inner(self) -> int:
+        t = time.perf_counter()
+        self.scheduler.schedule_admissions(self)
+        self._admit_sec += time.perf_counter() - t
+        t = time.perf_counter()
+        self._prefill_tick()
+        self._chunk_sec += time.perf_counter() - t
+        n_prefilling = sum(1 for r in self.active
+                           if r is not None and r.prefilling)
+        ready = [i for i, r in enumerate(self.active)
+                 if r is not None and not r.prefilling]
+        if not ready:
+            return n_prefilling + len(self.queue)
+        t_dec = time.perf_counter()
+        toks = sample(self.last_logits, self._generator,
+                      temperature=self.gen.temperature, top_k=self.gen.top_k)
+        host_toks = toks.cpu().numpy()
+        mask = np.zeros((self.slots,), bool)
+        for i in ready:
+            req = self.active[i]
+            req.generated.append(int(host_toks[i]))
+            if (len(req.generated) >= req.max_new_tokens
+                    or (self.gen.stop_on_eos
+                        and host_toks[i] == self.gen.eos_id)):
+                self._release(i, req)
+            else:
+                mask[i] = True
+        # Decode-step boundary: map a fresh page wherever the next write
+        # position falls off a slot's mapped pages. Mid-prefill slots are
+        # skipped: their device length is 0, so their append lands in the
+        # trash page.
+        for i in range(self.slots):
+            req = self.active[i]
+            if req is None or req.prefilling:
+                continue
+            self._map_write_range(i, req, int(self._host_len[i]), 1)
+        self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+        logits, self.cache = model_api.decode_step(
+            self.params, toks, self.cache, self.cfg, self.engine)
+        self.last_logits = logits.float()
+        self._host_len += mask
+        self.decode_steps += 1
+        self._decode_sec += time.perf_counter() - t_dec
+        return int(mask.sum()) + n_prefilling + len(self.queue)
+
+    def run(self, max_steps: int = 10000) -> list[Request]:
+        """Drive steps until drained; returns requests finished during this
+        call."""
+        start = len(self.finished)
+        for _ in range(max_steps):
+            n = self.step()
+            if n == 0 and not self.queue and all(a is None for a in self.active):
+                break
+        return self.finished[start:]
+
+    def stats(self) -> dict:
+        """Token counts, page high-water mark and host-clock phase times
+        (the device runs asynchronously; the decode phase waits for it when
+        it reads the sampled tokens)."""
+        reqs = self.finished + [r for r in self.active if r is not None]
+        tokens = sum(len(r.generated) for r in reqs)
+        return {
+            "tokens": tokens,
+            "tokens_budget": sum(r.max_new_tokens for r in reqs),
+            "sec_per_token": self._step_sec / tokens if tokens else 0.0,
+            "step_sec": self._step_sec,
+            "admit_sec": self._admit_sec,
+            "chunk_prefill_sec": self._chunk_sec,
+            "decode_sec": self._decode_sec,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "decode_steps": self.decode_steps,
+            "peak_pages": self.peak_pages,
+            "used_pages": self.allocator.used_pages,
+        }

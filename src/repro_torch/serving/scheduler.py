@@ -1,0 +1,33 @@
+"""Scheduler (the port of `repro.serving.scheduler`, FIFO only): strict
+FIFO admission under watermark admission, no skip past a blocked head,
+prompt chunks in admission (uid) order, no preemption."""
+from __future__ import annotations
+
+
+class FifoScheduler:
+    name = "fifo"
+
+    def schedule_admissions(self, eng) -> None:
+        for slot in range(eng.slots):
+            if eng.active[slot] is None and eng.queue:
+                req = eng.queue[0]
+                pages = eng.allocator.admit(req.uid, len(req.prompt),
+                                            req.max_new_tokens)
+                if pages is None:
+                    if not any(r is not None for r in eng.active):
+                        # Nothing holds pages, yet the head does not fit:
+                        # it never will (submit() bounds the gross worst
+                        # case, so this is a safety net).
+                        worst = eng.allocator.pages_for(
+                            eng.allocator.worst_case_tokens(
+                                len(req.prompt), req.max_new_tokens))
+                        raise ValueError(
+                            f"request {req.uid} needs {worst} pages; "
+                            f"pool has {eng.allocator.num_pages - 1}")
+                    break
+                eng.queue.pop(0)
+                eng._place_paged(slot, req)
+        eng.peak_pages = max(eng.peak_pages, eng.allocator.used_pages)
+
+    def select_prefill_slot(self, eng, cand: list[tuple[int, int]]) -> int:
+        return min(cand)[1]

@@ -1,0 +1,286 @@
+"""The port's three kernels.
+
+Here on the CPU: each plain PyTorch version against the JAX oracle in
+`repro.kernels.ref` (f32, 1e-5) and, at one small shape, against the Pallas
+kernel in interpret mode (1e-5; 3e-3 for LUT-exp attention, the JAX
+package's own bound for the online LUT softmax), plus the launchers'
+refusal of CPU tensors. On the card (`-m gpu`): each CUDA kernel against
+its plain version on the same inputs.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import lut as tlut
+from repro_torch.kernels import gemv_pim, ops, paged_attention, paged_prefill
+
+TBANK = tlut.LutBank.create(64)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX side, imported here so that the card, which has no JAX, can
+    collect this file and run its `gpu` tests."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import lut as jlut
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return SimpleNamespace(jax=jax, jnp=jnp, ops=jops, ref=jref,
+                           bank=jlut.LutBank.create(64))
+
+
+def _t(x, device="cpu"):
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Inputs, made with numpy from a seed
+# ---------------------------------------------------------------------------
+
+def _gemv_inputs(M, C, R, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(M, C) * 0.5).astype(np.float32)
+    w = (rng.randn(R, C) * C ** -0.5).astype(np.float32)
+    b = (rng.randn(R) * 0.5).astype(np.float32)
+    return x, w, b
+
+
+def _pool_inputs(B, H, Hkv, D, page, n_pages, lengths, Sq=None, seed=0):
+    """Random pools behind shuffled block tables (trash page 0 included as
+    the tail of short sequences' rows) and a query per row."""
+    rng = np.random.RandomState(seed)
+    P = 1 + B * n_pages
+    phys = rng.permutation(np.arange(1, P)).reshape(B, n_pages).astype(np.int32)
+    for b, ln in enumerate(lengths):
+        phys[b, -(-max(ln, 1) // page):] = 0          # unmapped -> trash
+    k = rng.randn(P, Hkv, page, D).astype(np.float32)
+    v = rng.randn(P, Hkv, page, D).astype(np.float32)
+    qshape = (B, H, D) if Sq is None else (B, Sq, H, D)
+    q = rng.randn(*qshape).astype(np.float32)
+    return q, k, v, phys, np.asarray(lengths, np.int32)
+
+
+DECODE_CASES = [
+    dict(B=3, H=4, Hkv=4, D=16, page=4, n_pages=5, lengths=[1, 9, 20]),
+    dict(B=2, H=8, Hkv=2, D=32, page=8, n_pages=4, lengths=[17, 32]),
+    dict(B=2, H=2, Hkv=1, D=10, page=4, n_pages=3, lengths=[5, 12]),   # scalar staging
+]
+DECODE_OPTS = [{}, {"lut": True}, {"window": 6}, {"softcap": 5.0},
+               {"lut": True, "window": 5}]
+
+
+def _attn_kw(opts, bank):
+    kw = {k: v for k, v in opts.items() if k != "lut"}
+    if opts.get("lut"):
+        kw["exp_table"] = bank.exp
+    return kw
+
+
+# ---------------------------------------------------------------------------
+# GEMV
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,C,R", [(1, 64, 96), (3, 40, 37), (5, 128, 257)])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", [None, "gelu", "lut"])
+def test_gemv_plain_matches_oracle(jx, M, C, R, bias, act):
+    x, w, b = _gemv_inputs(M, C, R)
+    b = b if bias else None
+    jb = None if b is None else jx.jnp.asarray(b)
+    want = jx.ref.gemv_pim_ref(jx.jnp.asarray(x), jx.jnp.asarray(w), jb,
+                             act_table=jx.bank.gelu if act == "lut" else None)
+    if act == "gelu":
+        want = jx.jax.nn.gelu(want, approximate=True)
+    got = gemv_pim.gemv_pim_plain(
+        _t(x), _t(w), None if b is None else _t(b),
+        act_table=TBANK.gelu if act == "lut" else None,
+        act="gelu" if act == "gelu" else None)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("fused", [None, "lut"])
+def test_gemv_plain_matches_pallas_interpret(jx, fused):
+    x, w, b = _gemv_inputs(4, 512, 256, seed=1)
+    want = jx.ops.pim_linear(jx.jnp.asarray(x), jx.jnp.asarray(w), jx.jnp.asarray(b),
+                           act_table=jx.bank.gelu if fused else None,
+                           impl="interpret")
+    got = ops.pim_linear(_t(x), _t(w), _t(b),
+                         act_table=TBANK.gelu if fused else None)
+    _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("opts", DECODE_OPTS)
+def test_paged_decode_plain_matches_oracle(jx, case, opts):
+    q, k, v, tbl, lens = _pool_inputs(**case)
+    want = jx.ref.paged_attention_ref(
+        jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), jx.jnp.asarray(tbl),
+        jx.jnp.asarray(lens), **_attn_kw(opts, jx.bank))
+    got = paged_attention.paged_attention_plain(
+        _t(q), _t(k), _t(v), _t(tbl), _t(lens), **_attn_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("lut", [False, True])
+def test_paged_decode_plain_matches_pallas_interpret(jx, lut):
+    q, k, v, tbl, lens = _pool_inputs(**DECODE_CASES[1], seed=3)
+    want = jx.ops.pim_paged_attention(
+        jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), jx.jnp.asarray(tbl),
+        jx.jnp.asarray(lens), exp_table=jx.bank.exp if lut else None,
+        impl="interpret")
+    got = ops.pim_paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens),
+                                  exp_table=TBANK.exp if lut else None)
+    _close(got, want, 3e-3 if lut else 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Paged prefill attention
+# ---------------------------------------------------------------------------
+
+PREFILL_CASES = [
+    dict(B=2, H=4, Hkv=4, D=16, page=4, n_pages=5, Sq=6, starts=[0, 11]),
+    dict(B=2, H=8, Hkv=2, D=32, page=8, n_pages=4, Sq=5, starts=[16, 3]),
+    dict(B=1, H=2, Hkv=1, D=10, page=4, n_pages=4, Sq=5, starts=[7]),  # scalar staging
+]
+
+
+def _prefill_inputs(case, seed=0):
+    c = dict(case)
+    starts = np.asarray(c.pop("starts"), np.int32)
+    lengths = starts + c["Sq"]
+    q, k, v, tbl, lens = _pool_inputs(**c, lengths=list(lengths), seed=seed)
+    return q, k, v, tbl, lens, starts
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("opts", DECODE_OPTS)
+def test_paged_prefill_plain_matches_oracle(jx, case, opts):
+    q, k, v, tbl, lens, st = _prefill_inputs(case)
+    want = jx.ref.paged_prefill_attention_ref(
+        jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), jx.jnp.asarray(tbl),
+        jx.jnp.asarray(lens), jx.jnp.asarray(st), **_attn_kw(opts, jx.bank))
+    got = paged_prefill.paged_prefill_attention_plain(
+        _t(q), _t(k), _t(v), _t(tbl), _t(lens), _t(st), **_attn_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("lut", [False, True])
+def test_paged_prefill_plain_matches_pallas_interpret(jx, lut):
+    q, k, v, tbl, lens, st = _prefill_inputs(PREFILL_CASES[1], seed=4)
+    want = jx.ops.pim_paged_prefill_attention(
+        jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), jx.jnp.asarray(tbl),
+        jx.jnp.asarray(lens), jx.jnp.asarray(st),
+        exp_table=jx.bank.exp if lut else None, impl="interpret")
+    got = ops.pim_paged_prefill_attention(
+        _t(q), _t(k), _t(v), _t(tbl), _t(lens), _t(st),
+        exp_table=TBANK.exp if lut else None)
+    _close(got, want, 3e-3 if lut else 1e-5)
+
+
+def test_one_query_chunk_is_a_decode_read():
+    """A 1-token chunk at position length-1 is exactly a decode read."""
+    q, k, v, tbl, lens = _pool_inputs(**DECODE_CASES[1], Sq=1)
+    st = lens - 1
+    got = paged_prefill.paged_prefill_attention_plain(
+        _t(q), _t(k), _t(v), _t(tbl), _t(lens), _t(st))
+    want = paged_attention.paged_attention_plain(
+        _t(q[:, 0]), _t(k), _t(v), _t(tbl), _t(lens))
+    _close(got[:, 0], want.numpy(), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Launchers: no CPU fallback, unsupported inputs raise
+# ---------------------------------------------------------------------------
+
+def test_launchers_refuse_cpu_tensors():
+    x, w, b = _gemv_inputs(2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        gemv_pim.gemv_pim_float(_t(x), _t(w), _t(b))
+    q, k, v, tbl, lens = _pool_inputs(**DECODE_CASES[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens))
+    with pytest.raises(NotImplementedError, match="scale rows"):
+        paged_attention.paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens),
+                                        _t(k[..., 0]), _t(v[..., 0]))
+    q4 = _t(q[:, None])
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_prefill.paged_prefill_attention(q4, _t(k), _t(v), _t(tbl),
+                                              _t(lens), _t(lens - 1))
+    assert gemv_pim.gemv_pim_float.launches == 0
+    assert paged_attention.paged_attention.launches == 0
+    assert paged_prefill.paged_prefill_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run `pytest -m gpu` on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,R", [(4, 1024, 1024), (3, 1001, 777), (64, 256, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "gelu", "lut"])
+def test_gemv_kernel_matches_plain(cuda, M, C, R, dtype, act):
+    x, w, b = _gemv_inputs(M, C, R)
+    x, w, b = (_t(a, cuda).to(dtype) for a in (x, w, b))
+    kw = dict(act_table=TBANK.gelu if act == "lut" else None,
+              act="gelu" if act == "gelu" else None)
+    got = gemv_pim.gemv_pim_float(x, w, b, **kw)
+    torch.cuda.synchronize()
+    want = gemv_pim.gemv_pim_plain(x, w, b, **kw)
+    _close(got, want.float().cpu().numpy(), 1e-4 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("opts", DECODE_OPTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain(cuda, case, opts, dtype):
+    q, k, v, tbl, lens = _pool_inputs(**case)
+    q, k, v = (_t(a, cuda).to(dtype) for a in (q, k, v))
+    tbl, lens = _t(tbl, cuda), _t(lens, cuda)
+    kw = _attn_kw(opts, TBANK)
+    got = paged_attention.paged_attention(q, k, v, tbl, lens, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention_plain(q, k, v, tbl, lens, **kw)
+    tol = 3e-2 if dtype == torch.bfloat16 else (3e-3 if opts.get("lut") else 1e-4)
+    _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("opts", DECODE_OPTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_matches_plain(cuda, case, opts, dtype):
+    q, k, v, tbl, lens, st = _prefill_inputs(case)
+    q, k, v = (_t(a, cuda).to(dtype) for a in (q, k, v))
+    tbl, lens, st = _t(tbl, cuda), _t(lens, cuda), _t(st, cuda)
+    kw = _attn_kw(opts, TBANK)
+    got = paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, **kw)
+    torch.cuda.synchronize()
+    want = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, st, **kw)
+    tol = 3e-2 if dtype == torch.bfloat16 else (3e-3 if opts.get("lut") else 1e-4)
+    _close(got, want.float().cpu().numpy(), tol)
