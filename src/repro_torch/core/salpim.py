@@ -4,7 +4,8 @@ the paged attention calls and the nonlinear policy behind one object.
 Every linear goes through `kernels.ops.pim_linear` (the GEMV kernel on the
 card); an activation fuses into the GEMV epilogue, as a LUT table in LUT
 mode or as the tanh GELU in exact mode. Paged decode and prefill attention
-go through the two paged kernels.
+go through the paged kernels, over fp, int8 or int4 pools; `kv_splits`
+engages the KV-split decode kernel at long context.
 """
 from __future__ import annotations
 
@@ -24,7 +25,10 @@ class SalPimConfig:
     nonlinear_mode: str = "exact"   # "exact" | "lut"
     lut_sections: int = 64          # paper: 64; >=32 keeps accuracy
     quant: str = "none"             # only "none" is ported
-    kv_splits: Optional[int] = None  # KV-split decode is not ported
+    # KV-split (flash-decode) knob for paged decode attention: None/1 = one
+    # page walk; K > 1 = K partials merged by the combine, engaged only for
+    # block tables of at least KV_SPLIT_MIN_CONTEXT tokens.
+    kv_splits: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +43,6 @@ class SalPimEngine:
             raise NotImplementedError(
                 f"quant={config.quant!r}: the int8 and fixed16 GEMV kernels "
                 "are not ported yet")
-        if config.kv_splits is not None and config.kv_splits > 1:
-            raise NotImplementedError(
-                "kv_splits > 1: the KV-split decode kernel is not ported yet")
         nl = Nonlinear.create(config.nonlinear_mode, config.lut_sections)
         return cls(config=config, nl=nl)
 
@@ -67,24 +68,28 @@ class SalPimEngine:
         return self.nl.bank.exp if self.nl.mode == "lut" else None
 
     def paged_decode_attention(self, q, k_pages, v_pages, block_tables, length,
-                               *, scale: Optional[float] = None,
+                               k_scales=None, v_scales=None, *,
+                               scale: Optional[float] = None,
                                softcap: Optional[float] = None,
                                window: Optional[int] = None) -> torch.Tensor:
-        """Decode attention reading K/V through a block table."""
+        """Decode attention reading K/V through a block table; int8/int4
+        pools pass their scale rows. `config.kv_splits` rides along."""
         return ops.pim_paged_attention(
-            q, k_pages, v_pages, block_tables, length, scale=scale,
-            exp_table=self._exp_table(), softcap=softcap, window=window)
+            q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
+            scale=scale, exp_table=self._exp_table(), softcap=softcap,
+            window=window, kv_splits=self.config.kv_splits)
 
     def paged_prefill_attention(self, q, k_pages, v_pages, block_tables,
-                                length, start, *,
+                                length, start, k_scales=None, v_scales=None, *,
                                 scale: Optional[float] = None,
                                 softcap: Optional[float] = None,
                                 window: Optional[int] = None) -> torch.Tensor:
-        """Chunked prefill attention; the chunk's own K/V must already be
-        in the pool."""
+        """Chunked prefill attention; the chunk's own K/V (quantized, with
+        its scale rows, in an int8/int4 pool) must already be in the pool."""
         return ops.pim_paged_prefill_attention(
-            q, k_pages, v_pages, block_tables, length, start, scale=scale,
-            exp_table=self._exp_table(), softcap=softcap, window=window)
+            q, k_pages, v_pages, block_tables, length, start, k_scales,
+            v_scales, scale=scale, exp_table=self._exp_table(),
+            softcap=softcap, window=window)
 
     # -- C2: norms -------------------------------------------------------------
     def layernorm(self, x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:

@@ -16,13 +16,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// One 16-byte load of N elements, widened to fp32. The address must be
-// 16-byte aligned.
+// One 16-byte load. The address must be 16-byte aligned.
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// 16 bytes of N elements, widened to fp32 (`load` reads them first).
 template <typename T> struct Vec;
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void widen(const uint4& u, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -31,12 +34,18 @@ template <> struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    widen(ld16(p), out);
+  }
 };
 template <> struct Vec<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    float4 f = *reinterpret_cast<const float4*>(p);
+  __device__ __forceinline__ static void widen(const uint4& u, float* out) {
+    const float4 f = *reinterpret_cast<const float4*>(&u);
     out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+  }
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    widen(ld16(p), out);
   }
 };
 

@@ -2,13 +2,14 @@
 // over the shared KV page pool, causal at absolute positions.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_prefill.py::
-// paged_prefill_attention (Pallas body _paged_prefill_kernel), fp pools
-// only.
+// paged_prefill_attention (Pallas body _paged_prefill_kernel), for pools
+// of q's dtype and for int8 / packed int4 pools with scale rows, which
+// the walk dequantizes as it stages them (paged_walk.cuh).
 //
 // q (B, Sq, H, D) at positions start[b] .. start[b] + Sq - 1, pools
-// (P, Hkv, page, D) holding every key in [0, length[b]) (the chunk's own
-// K/V already written), block_tables (B, n_pages), lengths and starts
-// (B,) int32 -> out (B, Sq, H, D) in q's dtype. Per (b, kv head h) there
+// (P, Hkv, page, D) (packed int4: D/2) holding every key in
+// [0, length[b]) (the chunk's own K/V already written), block_tables
+// (B, n_pages), lengths and starts (B,) int32 -> out (B, Sq, H, D) in q's dtype. Per (b, kv head h) there
 // are Sq * g rows; row r is query r / g, head h * g + r % g, at position
 // start + r / g, and attends to keys k < length with k <= start + r / g.
 //
@@ -25,7 +26,7 @@ namespace {
 
 constexpr int kRows = 16;
 
-template <typename T>
+template <typename T, class Pool>
 __global__ void __launch_bounds__(paged::kThreads)
 paged_prefill_kernel(const T* __restrict__ q, T* __restrict__ out,
                      const int* __restrict__ starts, paged::Args a, int Sq,
@@ -48,7 +49,7 @@ paged_prefill_kernel(const T* __restrict__ q, T* __restrict__ out,
     for (int i = threadIdx.x; i < 2 * (a.sections + 2); i += blockDim.x) s.wb[i] = a.exp_wb[i];
   }
   __syncthreads();
-  paged::walk<T>(a, s, b, h, rows);
+  paged::walk<Pool>(a, s, b, h, rows, 0, a.n_table);
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const int r = i / D;
     const int rr = r0 + r;
@@ -59,19 +60,19 @@ paged_prefill_kernel(const T* __restrict__ q, T* __restrict__ out,
   }
 }
 
-template <typename T>
+template <typename T, class Pool>
 int launch(const void* q, void* out, const int* starts, paged::Args a,
            int B, int Sq, int H, cudaStream_t stream) {
-  a.vec = paged::use_vec<T>(a.k_pages, a.v_pages, a.d);
+  a.vec = paged::use_vec<Pool>(a.k_pages, a.v_pages, a.d);
   const int g = H / a.hkv;
   const int smem = paged::smem_bytes(kRows, a.d, a.page, a.chunk_pages);
   if (smem > paged::kSmemDefault) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        paged_prefill_kernel<T, Pool>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(B, a.hkv, (Sq * g + kRows - 1) / kRows);
-  paged_prefill_kernel<T><<<grid, paged::kThreads, smem, stream>>>(
+  paged_prefill_kernel<T, Pool><<<grid, paged::kThreads, smem, stream>>>(
       (const T*)q, (T*)out, starts, a, Sq, H, g);
   return 0;
 }
@@ -80,29 +81,29 @@ int launch(const void* q, void* out, const int* starts, paged::Args a,
 
 extern "C" {
 
-// Same conventions as paged_attention(); starts (B,) int32 is the absolute
-// position of each chunk's first query.
+// Same conventions as paged_attention() in paged_attention.cu; starts
+// (B,) int32 is the absolute position of each chunk's first query.
 int paged_prefill_attention(const void* q, const void* k_pages,
-                            const void* v_pages, const int* block_tables,
+                            const void* v_pages, const void* k_scales,
+                            const void* v_scales, const int* block_tables,
                             const int* lengths, const int* starts,
                             const float* exp_wb, void* out, int B, int Sq,
                             int H, int Hkv, int D, int page, int n_pool,
                             int n_table, float scale, float softcap, int window,
                             int use_lut, float lo, float inv_step, int sections,
-                            int dtype, void* stream) {
+                            int dtype, int pool_fmt, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || (use_lut && (exp_wb == nullptr ||
       sections + 2 > paged::kMaxTableRows)))
     return (int)cudaErrorInvalidValue;
   const int chunk = paged::pick_chunk(kRows, D, page);
   if (chunk == 0) return (int)cudaErrorInvalidValue;
-  paged::Args a{k_pages, v_pages, block_tables, lengths, exp_wb, n_pool, n_table,
-                Hkv, page, D, scale, softcap, window, use_lut, lo, inv_step,
-                sections, chunk, 0};
+  paged::Args a{k_pages, v_pages, k_scales, v_scales, block_tables, lengths, exp_wb,
+                n_pool, n_table, Hkv, page, D, scale, softcap, window, use_lut, lo,
+                inv_step, sections, chunk, 0};
   cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (dtype == 1) rc = launch<__nv_bfloat16>(q, out, starts, a, B, Sq, H, s);
-  else if (dtype == 0) rc = launch<float>(q, out, starts, a, B, Sq, H, s);
-  else return (int)cudaErrorInvalidValue;
+  const int rc = paged::dispatch(dtype, pool_fmt, [&](auto tq, auto pool) {
+    return launch<decltype(tq), decltype(pool)>(q, out, starts, a, B, Sq, H, s);
+  });
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
-// The block-table page walk shared by the paged decode and paged prefill
-// attention kernels (paged_attention.cu, paged_prefill.cu).
+// The block-table page walk shared by the paged decode, KV-split decode
+// and paged prefill attention kernels (paged_attention.cu,
+// paged_attention_split.cu, paged_prefill.cu).
 //
 // One thread block owns `rows` query rows of one (sequence b, kv head h):
 // g rows for decode, a block of the Sq * g rows of a prefill chunk. It
-// walks the sequence's block table itself (Hopper has no scalar prefetch),
-// stages a chunk of up to kMaxChunkPages pages of K and V in shared memory
-// as fp32, and then runs the TPU kernels' online softmax page by page, in
-// the same order and with the same algebra:
+// walks the sequence's block table itself (Hopper has no scalar prefetch)
+// over the logical pages [page_lo, page_hi) it is given: all of them for
+// decode and prefill, one split's run of pages for the KV-split kernel.
+// It stages a chunk of up to kMaxChunkPages pages of K and V in shared
+// memory as fp32, and then runs the TPU kernels' online softmax page by
+// page, in the same order and with the same algebra:
 //
 //   scores = (q . k) * scale [-> softcap * tanh(scores / softcap)]
 //   masked scores = NEG_INF (-1e30); m_new = max(m_prev, max(scores))
@@ -14,11 +17,23 @@
 //   p = LUT(scores - m_new), corr = LUT(max(m_prev - m_new, lo)) LUT
 //   p = 0 outside the mask; l = l * corr + sum(p); acc = acc * corr + p . v
 //
-// and the caller writes acc / max(l, 1e-9). A key position k is valid for
-// the row with absolute query position qpos when k < length, k <= qpos
-// and, with a window, k > qpos - window. Pages past the last valid key of
-// the block are not read. Physical page ids outside the pool read the
-// trash page 0.
+// and the caller writes acc / max(l, 1e-9), or the raw (m, l, acc)
+// partials of a split. A key position k is valid for the row with
+// absolute query position qpos when k < length, k <= qpos and, with a
+// window, k > qpos - window. Pages past the last valid key of the block
+// are not read, so a split whose run starts there reads no page and keeps
+// the empty partial (-1e30, 0, 0). Physical page ids outside the pool
+// read the trash page 0.
+//
+// Pool formats (template parameter Pool of the staging copy), each
+// widened to fp32 as it is staged, as `_dequant_page` does after its DMA:
+//   FpPool<T>    pages of the model dtype T (float or bf16), D values a row;
+//   Int8Pool<S>  int8 payload, D bytes a row, times the row's scale (S =
+//                float or bf16, read in its storage dtype);
+//   Int4Pool<S>  nibble-packed int4 payload, D/2 bytes a row: byte i holds
+//                element i in its low nibble and element i + D/2 in its
+//                high nibble, sign-extended in int arithmetic, times the
+//                row's scale.
 //
 // The walk is latency-bound at the engine's sizes (one row per block for
 // GPT-2 decode, 16 for a prefill block), so each pass spreads its work over
@@ -46,8 +61,10 @@ constexpr int kMaxChunkPages = 8;
 constexpr int kLoadIlp = 4;
 
 struct Args {
-  const void* k_pages;      // (P, Hkv, page, D)
+  const void* k_pages;      // (P, Hkv, page, D); D/2 bytes a row for packed int4
   const void* v_pages;
+  const void* k_scales;     // (P, Hkv, page) scale rows, or null for fp pools
+  const void* v_scales;
   const int* block_tables;  // (B, n_table)
   const int* lengths;       // (B,)
   const float* exp_wb;      // (sections + 2, 2) or null
@@ -64,7 +81,7 @@ struct Args {
   float inv_step;
   int sections;
   int chunk_pages;
-  int vec;                  // 1: D is a whole number of 16-byte vectors and the pools are aligned
+  int vec;                  // 1: payload rows are whole 16-byte vectors, pools aligned
 };
 
 // Shared-memory layout, all 4-byte words. K rows are padded to D + 1 so
@@ -107,11 +124,96 @@ inline int pick_chunk(int rows, int d, int page) {
   return ch;
 }
 
-// 1 when every K/V row starts on a 16-byte boundary of an aligned pool.
+// ---------------------------------------------------------------------------
+// Pool formats. Each names its payload element P, the payload elements of
+// one K/V row, and how a 16-byte vector or one payload element of a row
+// lands in fp32 staging at row column c.
+// ---------------------------------------------------------------------------
+
 template <typename T>
+struct FpPool {
+  using P = T;
+  static constexpr bool kScaled = false;
+  __host__ __device__ static int row_payload(int d) { return d; }
+  __device__ __forceinline__ static float scale(const void*, size_t) { return 1.0f; }
+  __device__ __forceinline__ static void put16(const uint4& raw, float, float* row, int c, int) {
+    float f[common::Vec<T>::N];
+    common::Vec<T>::widen(raw, f);
+#pragma unroll
+    for (int n = 0; n < common::Vec<T>::N; ++n) row[c + n] = f[n];
+  }
+  __device__ __forceinline__ static void put1(P x, float, float* row, int c, int) {
+    row[c] = to_f(x);
+  }
+};
+
+template <typename S>
+struct Int8Pool {
+  using P = int8_t;
+  static constexpr bool kScaled = true;
+  __host__ __device__ static int row_payload(int d) { return d; }
+  __device__ __forceinline__ static float scale(const void* sc, size_t i) {
+    return to_f(reinterpret_cast<const S*>(sc)[i]);
+  }
+  __device__ __forceinline__ static void put16(const uint4& raw, float sc, float* row, int c, int) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) row[c + n] = (float)b[n] * sc;
+  }
+  __device__ __forceinline__ static void put1(P x, float sc, float* row, int c, int) {
+    row[c] = (float)x * sc;
+  }
+};
+
+template <typename S>
+struct Int4Pool {
+  using P = int8_t;
+  static constexpr bool kScaled = true;
+  __host__ __device__ static int row_payload(int d) { return d / 2; }
+  __device__ __forceinline__ static float scale(const void* sc, size_t i) {
+    return to_f(reinterpret_cast<const S*>(sc)[i]);
+  }
+  // Low nibble: element c, sign-extended as ((x & 0xF) ^ 8) - 8; high
+  // nibble: element c + D/2, sign-extended by the arithmetic shift x >> 4.
+  __device__ __forceinline__ static void put1(P x, float sc, float* row, int c, int d) {
+    const int v = x;
+    row[c] = (float)(((v & 0xF) ^ 8) - 8) * sc;
+    row[c + d / 2] = (float)(v >> 4) * sc;
+  }
+  __device__ __forceinline__ static void put16(const uint4& raw, float sc, float* row, int c, int d) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) put1(b[n], sc, row, c + n, d);
+  }
+};
+
+// 1 when every payload row starts on a 16-byte boundary of an aligned pool.
+template <class Pool>
 inline int use_vec(const void* k_pages, const void* v_pages, int d) {
-  return d % common::Vec<T>::N == 0 && common::aligned16(k_pages) &&
-         common::aligned16(v_pages);
+  return (Pool::row_payload(d) * sizeof(typename Pool::P)) % 16 == 0 &&
+         common::aligned16(k_pages) && common::aligned16(v_pages);
+}
+
+// Pool format codes of the C entries: 0 = pools of q's dtype, 1 = int8
+// with f32 scale rows, 2 = int8 with bf16 scale rows, 3 = int4 (packed)
+// with bf16 scale rows. q's dtype codes: 0 = float32, 1 = bfloat16.
+// Calls f(T{}, Pool{}) with q's element type T and the pool format.
+template <typename T, typename F>
+int with_pool(int fmt, F&& f) {
+  switch (fmt) {
+    case 0: return f(T{}, FpPool<T>{});
+    case 1: return f(T{}, Int8Pool<float>{});
+    case 2: return f(T{}, Int8Pool<__nv_bfloat16>{});
+    case 3: return f(T{}, Int4Pool<__nv_bfloat16>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+int dispatch(int dtype, int fmt, F&& f) {
+  if (dtype == 0) return with_pool<float>(fmt, f);
+  if (dtype == 1) return with_pool<__nv_bfloat16>(fmt, f);
+  return (int)cudaErrorInvalidValue;
 }
 
 __device__ inline Smem carve(float* base, int rows, int d, int page, int chunk) {
@@ -144,49 +246,63 @@ __device__ __forceinline__ bool key_valid(int kpos, int qpos, int length, int wi
 }
 
 // Copy `nch` pages of this block's kv head, whose physical ids are in
-// s.tbl, into s.k (padded rows) and s.v as fp32.
-template <typename T>
+// s.tbl, into s.k (padded rows) and s.v as fp32, dequantized with their
+// scale rows when the pool is quantized.
+template <class Pool>
 __device__ void stage_pages(const Args& a, const Smem& s, int h, int nch) {
-  const T* kp = reinterpret_cast<const T*>(a.k_pages);
-  const T* vp = reinterpret_cast<const T*>(a.v_pages);
+  using P = typename Pool::P;
+  const P* kp = reinterpret_cast<const P*>(a.k_pages);
+  const P* vp = reinterpret_cast<const P*>(a.v_pages);
   const int D = a.d;
-  const int page_elems = a.page * D;
+  const int rp = Pool::row_payload(D);          // payload elements a K/V row
+  const int page_elems = a.page * rp;
   if (a.vec) {
-    constexpr int N = common::Vec<T>::N;
+    constexpr int N = 16 / sizeof(P);
     const int nvec = nch * page_elems / N;
     for (int base = threadIdx.x; base < nvec; base += kLoadIlp * blockDim.x) {
-      float kr[kLoadIlp][N], vr[kLoadIlp][N];
+      uint4 kr[kLoadIlp], vr[kLoadIlp];
+      float ks[kLoadIlp], vs[kLoadIlp];
 #pragma unroll
       for (int u = 0; u < kLoadIlp; ++u) {
         const int e = (base + u * blockDim.x) * N;
+        ks[u] = vs[u] = 1.0f;
         if (e < nvec * N) {
           const int i = e / page_elems;
-          const size_t src = ((size_t)s.tbl[i] * a.hkv + h) * page_elems + (e - i * page_elems);
-          common::Vec<T>::load(kp + src, kr[u]);
-          common::Vec<T>::load(vp + src, vr[u]);
+          const size_t pg = (size_t)s.tbl[i] * a.hkv + h;
+          const int off = e - i * page_elems;
+          kr[u] = common::ld16(kp + pg * page_elems + off);
+          vr[u] = common::ld16(vp + pg * page_elems + off);
+          if constexpr (Pool::kScaled) {
+            ks[u] = Pool::scale(a.k_scales, pg * a.page + off / rp);
+            vs[u] = Pool::scale(a.v_scales, pg * a.page + off / rp);
+          }
         }
       }
 #pragma unroll
       for (int u = 0; u < kLoadIlp; ++u) {
         const int e = (base + u * blockDim.x) * N;
         if (e < nvec * N) {
-          const int row = e / D;                      // i * page + j
-          float* kd = s.k + row * (D + 1) + (e - row * D);
-#pragma unroll
-          for (int n = 0; n < N; ++n) {
-            kd[n] = kr[u][n];
-            s.v[e + n] = vr[u][n];
-          }
+          const int row = e / rp;                     // i * page + j
+          const int c = e - row * rp;
+          Pool::put16(kr[u], ks[u], s.k + row * (D + 1), c, D);
+          Pool::put16(vr[u], vs[u], s.v + row * D, c, D);
         }
       }
     }
   } else {
     for (int e = threadIdx.x; e < nch * page_elems; e += blockDim.x) {
       const int i = e / page_elems;
-      const size_t src = ((size_t)s.tbl[i] * a.hkv + h) * page_elems + (e - i * page_elems);
-      const int row = e / D;
-      s.k[row * (D + 1) + (e - row * D)] = to_f(kp[src]);
-      s.v[e] = to_f(vp[src]);
+      const size_t pg = (size_t)s.tbl[i] * a.hkv + h;
+      const int off = e - i * page_elems;
+      const int row = e / rp;
+      const int c = e - row * rp;
+      float ks = 1.0f, vs = 1.0f;
+      if constexpr (Pool::kScaled) {
+        ks = Pool::scale(a.k_scales, pg * a.page + off / rp);
+        vs = Pool::scale(a.v_scales, pg * a.page + off / rp);
+      }
+      Pool::put1(kp[pg * page_elems + off], ks, s.k + row * (D + 1), c, D);
+      Pool::put1(vp[pg * page_elems + off], vs, s.v + row * D, c, D);
     }
   }
 }
@@ -220,10 +336,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Before the call the block has filled s.q (rows x D, fp32), s.qpos, and
-// s.wb (when use_lut), and synchronised. After it, s.acc and s.l hold the
-// unnormalised output and the softmax denominator of every row.
-template <typename T>
-__device__ void walk(const Args& a, const Smem& s, int b, int h, int rows) {
+// s.wb (when use_lut), and synchronised. After it, s.m, s.l and s.acc hold
+// the running max, the softmax denominator and the unnormalised output of
+// every row over the logical pages [page_lo, page_hi) of the table.
+template <class Pool>
+__device__ void walk(const Args& a, const Smem& s, int b, int h, int rows,
+                     int page_lo, int page_hi) {
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -243,7 +361,7 @@ __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows) {
   for (int r = 0; r < rows; ++r) max_q = max(max_q, s.qpos[r]);
   const int kv_end = min(length, max_q + 1);
   int n_pages = kv_end > 0 ? (kv_end + page - 1) / page : 0;
-  n_pages = min(n_pages, a.n_table);
+  n_pages = min(n_pages, min(a.n_table, page_hi));
 
   // tpk threads (a power of two, at most a warp) share one (row, key) dot
   // product: as many as keep the block's threads busy.
@@ -252,14 +370,14 @@ __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows) {
   while (tpk < 32 && 2 * tpk * n_pairs <= (int)blockDim.x) tpk *= 2;
   __syncthreads();
 
-  for (int p0 = 0; p0 < n_pages; p0 += a.chunk_pages) {
+  for (int p0 = page_lo; p0 < n_pages; p0 += a.chunk_pages) {
     const int nch = min(a.chunk_pages, n_pages - p0);
     for (int i = tid; i < nch; i += blockDim.x) {
       int phys = a.block_tables[(size_t)b * a.n_table + p0 + i];
       s.tbl[i] = (phys >= 0 && phys < a.n_pool) ? phys : 0;
     }
     __syncthreads();
-    stage_pages<T>(a, s, h, nch);
+    stage_pages<Pool>(a, s, h, nch);
     __syncthreads();
 
     for (int i = 0; i < nch; ++i) {

@@ -23,27 +23,38 @@ def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return gemv_k.gemv_pim_float(x, w, b, act_table=act_table, act=act)
 
 
-def pim_paged_attention(q, k_pages, v_pages, block_tables, length, *,
-                        scale=None, exp_table: LutTable | None = None,
-                        softcap=None, window=None) -> torch.Tensor:
-    """Decode attention over a paged KV pool (see serving/kvcache.py)."""
+def pim_paged_attention(q, k_pages, v_pages, block_tables, length,
+                        k_scales=None, v_scales=None, *, scale=None,
+                        exp_table: LutTable | None = None, softcap=None,
+                        window=None, kv_splits=None) -> torch.Tensor:
+    """Decode attention over a paged KV pool (see serving/kvcache.py).
+    int8/int4 pools pass their (P, Hkv, page) scale rows; `kv_splits` > 1
+    engages the KV-split path when `effective_kv_splits` says so."""
     kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
     if q.device.type == "cpu":
+        splits = paged_k.effective_kv_splits(kv_splits, block_tables.shape[1],
+                                             k_pages.shape[2])
+        if splits is not None:
+            return paged_k.paged_attention_split_plain(
+                q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
+                kv_splits=splits, **kw)
         return paged_k.paged_attention_plain(q, k_pages, v_pages, block_tables,
-                                             length, **kw)
+                                             length, k_scales, v_scales, **kw)
     return paged_k.paged_attention(q, k_pages, v_pages, block_tables, length,
-                                   **kw)
+                                   k_scales, v_scales, kv_splits=kv_splits, **kw)
 
 
 def pim_paged_prefill_attention(q, k_pages, v_pages, block_tables, length,
-                                start, *, scale=None,
-                                exp_table: LutTable | None = None,
+                                start, k_scales=None, v_scales=None, *,
+                                scale=None, exp_table: LutTable | None = None,
                                 softcap=None, window=None) -> torch.Tensor:
     """Chunked prefill attention over a paged KV pool: q (B, Sq, H, D) at
     absolute positions start..start+Sq-1."""
     kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
     if q.device.type == "cpu":
         return paged_pf_k.paged_prefill_attention_plain(
-            q, k_pages, v_pages, block_tables, length, start, **kw)
+            q, k_pages, v_pages, block_tables, length, start, k_scales,
+            v_scales, **kw)
     return paged_pf_k.paged_prefill_attention(
-        q, k_pages, v_pages, block_tables, length, start, **kw)
+        q, k_pages, v_pages, block_tables, length, start, k_scales, v_scales,
+        **kw)

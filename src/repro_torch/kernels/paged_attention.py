@@ -1,19 +1,32 @@
-"""Paged decode attention over a block-table KV pool.
+"""Paged decode attention over a block-table KV pool, single walk and
+KV-split.
 
 `paged_attention` launches the CUDA kernel `csrc/paged_attention.cu`,
 which replaces the TPU kernel
-`src/repro/kernels/paged_attention.py::paged_attention` for fp pools;
+`src/repro/kernels/paged_attention.py::paged_attention`;
 `paged_attention_plain` is its plain PyTorch version, the twin of the JAX
 oracle `repro.kernels.ref.paged_attention_ref` (gather the pages dense,
-then masked softmax attention).
+dequantize, then masked softmax attention).
+
+With `kv_splits` > 1 and a block table of at least `KV_SPLIT_MIN_CONTEXT`
+tokens (`effective_kv_splits`), `paged_attention` routes to the KV-split
+kernels of `csrc/paged_attention_split.cu`, which replace
+`_paged_attention_split`: `paged_attention_split` writes raw (m, l, acc)
+partials per run of pages and `merge_partials` combines them. Their plain
+versions are `paged_attention_split_plain` (the twin of
+`ref.paged_attention_split_ref`) and
+`distributed.collectives.merge_partial_softmax_stacked`.
 
 q (B, H, D) holds one query per sequence; the pools (P, Hkv, page, D) are
 shared by all sequences and read through block_tables (B, n_pages);
-length (B,) counts the valid keys. Optional LUT exp (`exp_table`),
-softcap and sliding window. int8/int4 pools (scale rows) are not ported.
+length (B,) counts the valid keys. Pools hold q's dtype, or int8 payload
+with (P, Hkv, page) scale rows `k_scales`/`v_scales` in f32 or bf16, or
+nibble-packed int4 payload (last axis D/2) with bf16 scale rows; the
+kernels dequantize as they stage pages. Optional LUT exp (`exp_table`),
+softcap and sliding window.
 
-Bound on the H100: the valid K and V bytes over 3.35 TB/s; the note in
-`csrc/paged_attention.cu` gives the design.
+Bound on the H100: the valid K and V bytes (`kv_vector_bytes` a vector)
+over 3.35 TB/s; the notes in the CUDA sources give the designs.
 """
 from __future__ import annotations
 
@@ -23,30 +36,84 @@ import torch
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
+from repro_torch.distributed.collectives import merge_partial_softmax_stacked
 from repro_torch.kernels import _build
+from repro_torch.serving.quantize import unpack_int4
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TABLE_ROWS = 128
 
+# Below this table width (tokens) the split path's partials traffic
+# outweighs the parallelism; effective_kv_splits turns it off.
+KV_SPLIT_MIN_CONTEXT = 1024
 
-def gather_paged_kv(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
-    """(P, Hkv, page, D) pool -> dense (B, Hkv, n_pages * page, D)."""
+
+def effective_kv_splits(kv_splits: int | None, n_pages: int,
+                        page_size: int) -> int | None:
+    """The split count to run, or None for the single walk: splitting
+    engages when asked (kv_splits > 1) and the block table spans at least
+    KV_SPLIT_MIN_CONTEXT tokens (n_pages * page_size, whatever is
+    resident), clamped to n_pages so that every split owns a page."""
+    if kv_splits is None or kv_splits <= 1:
+        return None
+    if n_pages * page_size < KV_SPLIT_MIN_CONTEXT:
+        return None
+    return min(kv_splits, n_pages)
+
+
+def _itemsize(dtype) -> int:
+    return (getattr(torch, dtype) if isinstance(dtype, str) else dtype).itemsize
+
+
+def kv_vector_bytes(head_dim: int, kv_dtype: str = "model",
+                    kv_scale_dtype="float32", payload_dtype=torch.float32) -> int:
+    """Device bytes one (token, head) K-or-V vector costs the kernels:
+    head_dim * itemsize(payload) for fp pools, head_dim + itemsize(scale)
+    for int8, head_dim / 2 + itemsize(scale) for int4."""
+    if kv_dtype == "int8":
+        return head_dim + _itemsize(kv_scale_dtype)
+    if kv_dtype == "int4":
+        return head_dim // 2 + _itemsize(kv_scale_dtype)
+    return head_dim * _itemsize(payload_dtype)
+
+
+def gather_paged_kv(pages: torch.Tensor, block_tables: torch.Tensor,
+                    scales: torch.Tensor | None = None,
+                    head_dim: int | None = None) -> torch.Tensor:
+    """(P, Hkv, page, Dp) pool -> dense (B, Hkv, n_pages * page, D).
+
+    With scale rows (P, Hkv, page) the payload is dequantized in fp32; a
+    payload axis of half `head_dim` is nibble-packed int4 and is unpacked
+    first (the twin of `ref._gather_paged_kv`)."""
     B, n_pages = block_tables.shape
-    Hkv, page, D = pages.shape[1:]
-    x = pages[block_tables.long()]                  # (B, n_pages, Hkv, page, D)
-    return x.permute(0, 2, 1, 3, 4).reshape(B, Hkv, n_pages * page, D)
+    Hkv, page, Dp = pages.shape[1:]
+    idx = block_tables.long()
+    x = pages[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, n_pages * page, Dp)
+    if head_dim is not None and 2 * Dp == head_dim:
+        if scales is None:
+            raise ValueError("packed int4 pools require scale rows")
+        x = unpack_int4(x)
+    if scales is not None:
+        s = scales[idx].permute(0, 2, 1, 3).reshape(B, Hkv, n_pages * page)
+        x = x.float() * s[..., None].float()
+    return x
 
 
-def paged_attention_plain(q, k_pages, v_pages, block_tables, length, *,
+def _exp(x: torch.Tensor, exp_table: LutTable | None) -> torch.Tensor:
+    return lut_lib.apply_table(x, exp_table) if exp_table is not None else torch.exp(x)
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, length,
+                          k_scales=None, v_scales=None, *,
                           scale: float | None = None,
                           exp_table: LutTable | None = None,
                           softcap: float | None = None,
                           window: int | None = None) -> torch.Tensor:
     """Plain version (mirrors `decode_attention_ref` on the gathered pages)."""
     B, H, D = q.shape
-    k = gather_paged_kv(k_pages, block_tables).float()
-    v = gather_paged_kv(v_pages, block_tables).float()
+    k = gather_paged_kv(k_pages, block_tables, k_scales, D).float()
+    v = gather_paged_kv(v_pages, block_tables, v_scales, D).float()
     Hkv, S = k.shape[1], k.shape[2]
     g = H // Hkv
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
@@ -63,33 +130,111 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, length, *,
     scores = torch.where(mask_b, scores, -torch.inf)
     m = torch.amax(scores, dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    if exp_table is not None:
-        e = lut_lib.apply_table(scores - m, exp_table)
-    else:
-        e = torch.exp(scores - m)
-    e = torch.where(mask_b, e, 0.0)
+    e = torch.where(mask_b, _exp(scores - m, exp_table), 0.0)
     l = torch.sum(e, dim=-1, keepdim=True)
     inv = 1.0 / torch.clamp(l, min=1e-9)
     out = torch.einsum("bhgs,bhsd->bhgd", e * inv, v)
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def paged_attention_split_plain(q, k_pages, v_pages, block_tables, length,
+                                k_scales=None, v_scales=None, *,
+                                kv_splits: int,
+                                scale: float | None = None,
+                                exp_table: LutTable | None = None,
+                                softcap: float | None = None,
+                                window: int | None = None) -> torch.Tensor:
+    """Plain KV-split version (mirrors `ref.paged_attention_split_ref`):
+    the table, padded with the trash page to splits * pps pages, is cut
+    into `kv_splits` runs; each run's (m, l, acc) comes from one masked
+    softmax over its own keys, and `merge_partial_softmax_stacked`
+    combines them. All runs are computed at once along a splits axis."""
+    B, H, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    n_pages = block_tables.shape[1]
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    splits = max(1, min(kv_splits, n_pages))
+    pps = -(-n_pages // splits)
+    tables = torch.nn.functional.pad(block_tables, (0, pps * splits - n_pages))
+    S_s = pps * page
+
+    def gather(pages, scales):
+        x = gather_paged_kv(pages, tables, scales, D).float()
+        return x.reshape(B, Hkv, splits, S_s, D)
+
+    k, v = gather(k_pages, k_scales), gather(v_pages, v_scales)
+    qf = q.float().reshape(B, Hkv, g, D)
+    scores = torch.einsum("bhgd,bhksd->bhkgs", qf, k) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    pos = torch.arange(splits * S_s, device=q.device).reshape(splits, S_s)
+    lens = length.long().reshape(-1).expand(B)[:, None, None]
+    mask = pos[None] < lens
+    if window is not None:
+        mask = mask & (pos[None] >= lens - window)
+    mb = mask[:, None, :, None, :]                       # (B, 1, K, 1, S_s)
+    scores = torch.where(mb, scores, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)         # (B, Hkv, K, g, 1)
+    e = torch.where(mb, _exp(scores - m, exp_table), 0.0)
+    l = torch.sum(e, dim=-1, keepdim=True)
+    acc = torch.einsum("bhkgs,bhksd->bhkgd", e, v)
+    out = merge_partial_softmax_stacked(m, l, acc, axis=2)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Launchers
+# ---------------------------------------------------------------------------
+
+def pool_format(name, q, k_pages, v_pages, k_scales, v_scales) -> int:
+    """Check the pools against q and return the kernels' pool code: 0 = q's
+    dtype, 1 = int8 + f32 scale rows, 2 = int8 + bf16, 3 = packed int4 +
+    bf16."""
+    D = q.shape[-1]
+    for t_name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != q.device or t.dim() != 4:
+            raise ValueError(f"{name}: {t_name} must be a 4-D pool on {q.device}")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} differ")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: pass both k_scales and v_scales or neither")
+    if k_scales is None:
+        if k_pages.dtype != q.dtype or k_pages.shape[-1] != D:
+            raise ValueError(f"{name}: pools without scale rows must be "
+                             f"(P, Hkv, page, {D}) {q.dtype}")
+        return 0
+    for t_name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if (t.device != q.device or tuple(t.shape) != tuple(k_pages.shape[:3])
+                or t.dtype not in _DTYPE_CODE or not t.is_contiguous()):
+            raise ValueError(f"{name}: {t_name} must be contiguous "
+                             f"{tuple(k_pages.shape[:3])} float32 or bfloat16 "
+                             f"scale rows on {q.device}")
+    if k_scales.dtype != v_scales.dtype:
+        raise ValueError(f"{name}: k_scales and v_scales differ in dtype")
+    if k_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: pools with scale rows must be int8, "
+                         f"got {k_pages.dtype}")
+    if k_pages.shape[-1] == D:
+        return 1 if k_scales.dtype == torch.float32 else 2
+    if 2 * k_pages.shape[-1] == D:
+        if k_scales.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: packed int4 pools take bfloat16 scale rows")
+        return 3
+    raise ValueError(f"{name}: payload axis {k_pages.shape[-1]} is neither "
+                     f"head_dim {D} (int8) nor {D // 2} (packed int4)")
+
+
 def check_paged_args(name, q, k_pages, v_pages, block_tables, ints,
-                     k_scales, v_scales, exp_table, window, softcap):
-    """Validation shared by the two paged attention launchers."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            f"{name}: int8/int4 pools (scale rows) are not ported yet")
+                     k_scales, v_scales, exp_table, window, softcap) -> int:
+    """Validation shared by the paged attention launchers; returns the
+    pool format code."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
-    for t_name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != q.device or t.dtype != q.dtype or t.dim() != 4:
-            raise ValueError(f"{t_name} must be a 4-D {q.dtype} pool on {q.device}")
-    if k_pages.shape != v_pages.shape or k_pages.shape[-1] != q.shape[-1]:
-        raise ValueError(f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
-                         f"do not match head_dim {q.shape[-1]}")
+    fmt = pool_format(name, q, k_pages, v_pages, k_scales, v_scales)
     B = q.shape[0]
     if (block_tables.dim() != 2 or block_tables.shape[0] != B
             or block_tables.dtype != torch.int32 or block_tables.device != q.device):
@@ -110,6 +255,7 @@ def check_paged_args(name, q, k_pages, v_pages, block_tables, ints,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if exp_table is not None and exp_table.sections + 2 > _MAX_TABLE_ROWS:
         raise ValueError(f"LUT tables hold at most {_MAX_TABLE_ROWS - 2} sections")
+    return fmt
 
 
 def lut_args(exp_table, device):
@@ -120,14 +266,31 @@ def lut_args(exp_table, device):
             exp_table.sections)
 
 
-def _argtypes(lib):
-    fn = lib.paged_attention
+def ptr(t: torch.Tensor | None):
+    return t.data_ptr() if t is not None else None
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fn(lib, name: str, argtypes: str):
+    """The C entry `name` with its argument types set once: p = pointer,
+    i = int, f = float, one letter per argument."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, f,
-                       f, i, i, p]
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        fn.argtypes = [kinds[c] for c in argtypes]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _mask_args(D, scale, softcap, window, exp_table, device):
+    use_lut, wb, lo, inv_step, sections = lut_args(exp_table, device)
+    return (ptr(wb), (scale if scale is not None else 1.0 / (D ** 0.5),
+                      softcap if softcap is not None else 0.0,
+                      window if window is not None else 0,
+                      use_lut, lo, inv_step, sections))
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, length,
@@ -135,30 +298,95 @@ def paged_attention(q, k_pages, v_pages, block_tables, length,
                     scale: float | None = None,
                     exp_table: LutTable | None = None,
                     softcap: float | None = None,
-                    window: int | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B, H, D) -> out (B, H, D) in q.dtype."""
-    check_paged_args("paged_attention", q, k_pages, v_pages, block_tables,
-                     [("length", length)], k_scales, v_scales, exp_table,
-                     window, softcap)
+                    window: int | None = None,
+                    kv_splits: int | None = None) -> torch.Tensor:
+    """q (B, H, D) -> out (B, H, D) in q.dtype: the single-walk kernel, or
+    the split kernel and its combine when `effective_kv_splits` engages."""
+    fmt = check_paged_args("paged_attention", q, k_pages, v_pages, block_tables,
+                           [("length", length)], k_scales, v_scales, exp_table,
+                           window, softcap)
     B, H, D = q.shape
     P, Hkv, page, _ = k_pages.shape
+    splits = effective_kv_splits(kv_splits, block_tables.shape[1], page)
+    if splits is not None:
+        m, l, acc = paged_attention_split(
+            q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
+            kv_splits=splits, scale=scale, exp_table=exp_table,
+            softcap=softcap, window=window)
+        return merge_partials(m, l, acc, q.dtype)
     out = torch.empty_like(q)
     if B == 0:
         return out
-    scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    use_lut, wb, lo, inv_step, sections = lut_args(exp_table, q.device)
+    wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
     lib = _build.library("paged_attention")
-    rc = _argtypes(lib)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), length.data_ptr(),
-        wb.data_ptr() if wb is not None else None, out.data_ptr(),
-        B, H, Hkv, D, page, P, block_tables.shape[1], scale,
-        softcap if softcap is not None else 0.0,
-        window if window is not None else 0, use_lut, lo, inv_step, sections,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _fn(lib, "paged_attention", "p" * 9 + "i" * 7 + "ffiiffiii" + "p")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
+        ptr(v_scales), block_tables.data_ptr(), length.data_ptr(), wb,
+        out.data_ptr(), B, H, Hkv, D, page, P, block_tables.shape[1], *masks,
+        _DTYPE_CODE[q.dtype], fmt, _stream(q))
     _build.check(lib, "paged_attention", rc)
     paged_attention.launches += 1
     return out
 
 
+def paged_attention_split(q, k_pages, v_pages, block_tables, length,
+                          k_scales=None, v_scales=None, *, kv_splits: int,
+                          scale: float | None = None,
+                          exp_table: LutTable | None = None,
+                          softcap: float | None = None,
+                          window: int | None = None):
+    """Launch the KV-split kernel over min(kv_splits, n_pages) runs of
+    pages: raw f32 partials m, l (B, Hkv, K, g, 1) and acc (B, Hkv, K, g, D)."""
+    fmt = check_paged_args("paged_attention_split", q, k_pages, v_pages,
+                           block_tables, [("length", length)], k_scales, v_scales,
+                           exp_table, window, softcap)
+    B, H, D = q.shape
+    P, Hkv, page, _ = k_pages.shape
+    n_table = block_tables.shape[1]
+    splits = max(1, min(kv_splits, n_table))
+    g = H // Hkv
+    m = torch.empty((B, Hkv, splits, g, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, Hkv, splits, g, D), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return m, l, acc
+    wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
+    lib = _build.library("paged_attention_split")
+    rc = _fn(lib, "paged_attention_split", "p" * 11 + "i" * 8 + "ffiiffiii" + "p")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
+        ptr(v_scales), block_tables.data_ptr(), length.data_ptr(), wb,
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, Hkv, D, page, P,
+        n_table, splits, *masks, _DTYPE_CODE[q.dtype], fmt, _stream(q))
+    _build.check(lib, "paged_attention_split", rc)
+    paged_attention_split.launches += 1
+    return m, l, acc
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the combine: partials (B, Hkv, K, g, 1 | 1 | D) -> (B, Hkv * g,
+    D) in out_dtype, the CUDA twin of
+    `merge_partial_softmax_stacked(m, l, acc, axis=2)`."""
+    B, Hkv, K, g, D = acc.shape
+    for t_name, t, last in (("m", m, 1), ("l", l, 1), ("acc", acc, D)):
+        if (t.device.type != "cuda" or t.dtype != torch.float32
+                or tuple(t.shape) != (B, Hkv, K, g, last) or not t.is_contiguous()):
+            raise ValueError(f"merge_partials: {t_name} must be contiguous "
+                             f"({B}, {Hkv}, {K}, {g}, {last}) float32 on CUDA")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"merge_partials writes float32 or bfloat16, got {out_dtype}")
+    out = torch.empty((B, Hkv * g, D), dtype=out_dtype, device=acc.device)
+    if B == 0:
+        return out
+    lib = _build.library("paged_attention_split")
+    rc = _fn(lib, "merge_partials", "p" * 4 + "i" * 5 + "p")(
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), B * Hkv, g, D,
+        K, _DTYPE_CODE[out_dtype], _stream(acc))
+    _build.check(lib, "paged_attention_split", rc)
+    merge_partials.launches += 1
+    return out
+
+
 paged_attention.launches = 0
+paged_attention_split.launches = 0
+merge_partials.launches = 0

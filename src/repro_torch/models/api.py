@@ -2,9 +2,11 @@
 entry points of `repro.models.api`).
 
     init_params(cfg, seed=0, device="cuda")
-    prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine)
+    prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
+                  k_scales=None, v_scales=None)
     decode_step(params, token, cache, cfg, engine)
-    init_paged_cache(cfg, batch, num_pages, page_size, max_pages, device="cuda")
+    init_paged_cache(cfg, batch, num_pages, page_size, max_pages, kv_dtype=None,
+                     kv_scale_dtype="float32", device="cuda")
 """
 from __future__ import annotations
 
@@ -23,13 +25,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
 def prefill_chunk(params: dict, tokens: torch.Tensor,
                   block_tables: torch.Tensor, start: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  cfg: ModelConfig, engine: SalPimEngine):
+                  cfg: ModelConfig, engine: SalPimEngine,
+                  k_scales=None, v_scales=None):
     """One chunk of paged prefill: tokens (B, S) at absolute positions
     start..start+S-1, K/V written into the pool pages in place, queries
     attending over all resident KV. Returns (last-position logits,
-    k_pages, v_pages)."""
+    k_pages, v_pages); int8/int4 pools pass their scale pools and get the
+    5-tuple with them."""
     return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
-                            v_pages, cfg, engine)
+                            v_pages, cfg, engine, k_scales, v_scales)
 
 
 def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
@@ -43,11 +47,13 @@ def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_pages: int,
-                     kv_dtype: str | None = None, *, device="cuda"):
-    """Paged KV cache for the dense family (see serving/kvcache.py)."""
+                     kv_dtype: str | None = None,
+                     kv_scale_dtype: str = "float32", *, device="cuda"):
+    """Paged KV cache for the dense family (see serving/kvcache.py):
+    kv_dtype None defers to cfg.kv_dtype ("model", "int8" or "int4")."""
     if cfg.family != "dense":
         raise NotImplementedError(f"paged cache for family {cfg.family!r}")
     return kvcache.init_paged_cache(
         cfg, batch, num_pages, page_size, max_pages,
         kv_dtype=kv_dtype if kv_dtype is not None else cfg.kv_dtype,
-        device=device)
+        kv_scale_dtype=kv_scale_dtype, device=device)

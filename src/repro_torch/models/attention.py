@@ -69,18 +69,23 @@ def attention_prefill_chunk_paged(
     engine: SalPimEngine,
     *,
     window: Optional[int],
+    k_scale: Optional[torch.Tensor] = None,   # (P, Hkv, page) int8/int4 scale rows
+    v_scale: Optional[torch.Tensor] = None,
 ):
-    """Write the chunk's K/V into its pool pages (in place), then attend
-    over all resident KV [0, start+S) through the block table. Returns
-    (out, k_pages, v_pages)."""
+    """Write the chunk's K/V into its pool pages (in place; quantized with
+    its scale rows in an int8/int4 pool), then attend over all resident KV
+    [0, start+S) read back through the block table, the chunk's own
+    included. Returns (out, k_pages, v_pages), plus (k_scale, v_scale)
+    when the pool is quantized."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, engine)
-    kvcache.append_chunk_kv_pages(k_pages, v_pages, block_tables, start, k, v)
+    pools = kvcache.append_chunk_kv_pages(k_pages, v_pages, block_tables, start,
+                                          k, v, k_scale, v_scale)
     att = engine.paged_prefill_attention(
-        q, k_pages, v_pages, block_tables, length, start, scale=_scale(cfg),
-        softcap=cfg.attn_softcap, window=window)
+        q, k_pages, v_pages, block_tables, length, start, k_scale, v_scale,
+        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
     out = engine.linear(att.reshape(B, S, -1), p["wo"])
-    return out, k_pages, v_pages
+    return (out, *pools)
 
 
 def attention_decode_paged(
@@ -94,15 +99,19 @@ def attention_decode_paged(
     engine: SalPimEngine,
     *,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,   # (P, Hkv, page) int8/int4 scale rows
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """One decode step against a paged cache: append each slot's K/V at its
-    length (in place), attend over length + 1 keys. Returns
-    (out, k_pages, v_pages)."""
+    length (in place; quantized in an int8/int4 pool), attend over
+    length + 1 keys. Returns (out, k_pages, v_pages), plus
+    (k_scale, v_scale) when the pool is quantized."""
     B, _ = x.shape
     q, k, v = _decode_qkv(p, x, cfg, engine)
-    kvcache.append_kv_pages(k_pages, v_pages, block_tables, lengths, k, v)
+    pools = kvcache.append_kv_pages(k_pages, v_pages, block_tables, lengths,
+                                    k, v, k_scale, v_scale)
     att = engine.paged_decode_attention(
-        q, k_pages, v_pages, block_tables, lengths + 1, scale=_scale(cfg),
-        softcap=cfg.attn_softcap, window=window)
+        q, k_pages, v_pages, block_tables, lengths + 1, k_scale, v_scale,
+        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
     out = engine.linear(att.reshape(B, -1), p["wo"])
-    return out, k_pages, v_pages
+    return (out, *pools)

@@ -48,25 +48,29 @@ def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
 def apply_decoder_block_prefill_chunk_paged(
     p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_tables: torch.Tensor, start: torch.Tensor, length: torch.Tensor,
-    cfg: ModelConfig, engine: SalPimEngine, *, window,
+    cfg: ModelConfig, engine: SalPimEngine, *, window, kv_scales=None,
 ):
     """Prefill block over one prompt chunk against the paged pool.
-    Returns (x', k_pages, v_pages); the pools are written in place."""
+    Returns (x', k_pages, v_pages[, k_scale, v_scale]); the pools are
+    written in place. kv_scales: (k_scale, v_scale) of an int8/int4 pool."""
+    ksc, vsc = kv_scales if kv_scales is not None else (None, None)
     return _decode_block_skeleton(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_prefill_chunk_paged(
             p["attn"], h, k_pages, v_pages, block_tables, start, length,
-            cfg, engine, window=window))
+            cfg, engine, window=window, k_scale=ksc, v_scale=vsc))
 
 
 def apply_decoder_block_decode_paged(
     p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
-    engine: SalPimEngine, *, window,
+    engine: SalPimEngine, *, window, kv_scales=None,
 ):
-    """Single-token step against a paged cache. Returns (x', k', v')."""
+    """Single-token step against a paged cache. Returns (x', k', v'[,
+    k_scale', v_scale'])."""
+    ksc, vsc = kv_scales if kv_scales is not None else (None, None)
     return _decode_block_skeleton(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_decode_paged(
             p["attn"], h, k_pages, v_pages, block_tables, lengths, cfg,
-            engine, window=window))
+            engine, window=window, k_scale=ksc, v_scale=vsc))

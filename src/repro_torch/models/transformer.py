@@ -8,6 +8,8 @@ global attention) where the JAX scan passes a traced sentinel width.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch import resolve_device
@@ -89,40 +91,62 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return logits
 
 
+def _check_scales(k_pages: torch.Tensor, k_scales) -> None:
+    if k_pages.dtype == torch.int8 and k_scales is None:
+        # Without this the fp write would cast float K/V to int8: garbage
+        # instead of a quantized write (int4 pools are int8 too).
+        raise ValueError("int8 page pools need their scale pools: pass "
+                         "k_scales/v_scales from the PagedCache")
+
+
+def _kv_scales(k_scales, v_scales, i: int):
+    return (k_scales[i], v_scales[i]) if k_scales is not None else None
+
+
 def _paged_chunk_forward(params: dict, tokens: torch.Tensor,
                          block_tables: torch.Tensor, start: torch.Tensor,
                          k_pages: torch.Tensor, v_pages: torch.Tensor,
-                         cfg: ModelConfig, engine: SalPimEngine) -> torch.Tensor:
+                         cfg: ModelConfig, engine: SalPimEngine,
+                         k_scales=None, v_scales=None) -> torch.Tensor:
     """Run tokens (B, S) at positions start..start+S-1 through the block
-    stack, writing each layer's chunk K/V into its pages (in place).
-    Returns the hidden states (B, S, D)."""
+    stack, writing each layer's chunk K/V (and, for an int8/int4 pool, its
+    scale rows in the (L, P, Hkv, page) scale pools) into its pages in
+    place. Returns the hidden states (B, S, D)."""
     _check_supported(cfg)
+    _check_scales(k_pages, k_scales)
     B, S = tokens.shape
     start = start.to(torch.int32)
     pos = start[:, None].long() + torch.arange(S, device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg, pos)
     length = start + S
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, _, _ = blk.apply_decoder_block_prefill_chunk_paged(
+        x, *_ = blk.apply_decoder_block_prefill_chunk_paged(
             bp, x, k_pages[i], v_pages[i], block_tables, start, length, cfg,
-            engine, window=cfg.window_for_layer(i))
+            engine, window=cfg.window_for_layer(i),
+            kv_scales=_kv_scales(k_scales, v_scales, i))
     return x
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor,
                   block_tables: torch.Tensor, start: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  cfg: ModelConfig, engine: SalPimEngine):
+                  cfg: ModelConfig, engine: SalPimEngine,
+                  k_scales=None, v_scales=None):
     """One chunk of paged prefill, written directly into pool pages.
 
     tokens (B, S) are prompt positions start[b] .. start[b]+S-1 of B
     sequences whose earlier chunks' K/V already live in the pages mapped by
     block_tables (B, n_pages); the pools (L, P, Hkv, page, Dh) are updated
-    in place. Returns (last-position logits (B, V), k_pages, v_pages).
+    in place. Returns (last-position logits (B, V), k_pages, v_pages);
+    int8/int4 pools (k_scales/v_scales (L, P, Hkv, page) given) quantize
+    each chunk at write time and return the 5-tuple with the scale pools.
     """
     x = _paged_chunk_forward(params, tokens, block_tables, start, k_pages,
-                             v_pages, cfg, engine)
-    return _logits(params, x[:, -1], cfg, engine), k_pages, v_pages
+                             v_pages, cfg, engine, k_scales, v_scales)
+    logits = _logits(params, x[:, -1], cfg, engine)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
 
 
 def _advance_lengths(lengths: torch.Tensor) -> torch.Tensor:
@@ -133,16 +157,15 @@ def _advance_lengths(lengths: torch.Tensor) -> torch.Tensor:
 def _decode_step_paged(params: dict, token: torch.Tensor, cache,
                        cfg: ModelConfig, engine: SalPimEngine):
     """token (B,) -> (logits (B, V), cache with advanced lengths). The pools
-    are updated in place; block tables are shared across layers."""
-    from repro_torch.serving.kvcache import PagedCache
-
+    (and an int8/int4 cache's scale pools) are updated in place; block
+    tables are shared across layers."""
     _check_supported(cfg)
+    _check_scales(cache.k_pages, cache.k_scale)
     x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, _, _ = blk.apply_decoder_block_decode_paged(
+        x, *_ = blk.apply_decoder_block_decode_paged(
             bp, x, cache.k_pages[i], cache.v_pages[i], cache.block_tables,
-            cache.lengths, cfg, engine, window=cfg.window_for_layer(i))
-    new_cache = PagedCache(lengths=_advance_lengths(cache.lengths),
-                           block_tables=cache.block_tables,
-                           k_pages=cache.k_pages, v_pages=cache.v_pages)
+            cache.lengths, cfg, engine, window=cfg.window_for_layer(i),
+            kv_scales=_kv_scales(cache.k_scale, cache.v_scale, i))
+    new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
     return _logits(params, x, cfg, engine), new_cache

@@ -2,9 +2,12 @@
 
 `EngineConfig` keeps the JAX package's field names and defaults, so a
 config reads the same in both packages. The port serves the paged FIFO
-path; every feature it lacks raises `NotImplementedError` in `validate`
-instead of being ignored. `prefix_sharing` defaults to True as in the JAX
-package, so a config for the port passes `prefix_sharing=False`.
+path over fp, int8 and int4 pools, with or without KV-split decode; every
+feature it lacks raises `NotImplementedError` in `validate` instead of
+being ignored, and the JAX package's rules for the pool dtype, the scale
+dtype and `kv_splits` raise its `ValueError`s word for word.
+`prefix_sharing` defaults to True as in the JAX package, so a config for
+the port passes `prefix_sharing=False`.
 """
 from __future__ import annotations
 
@@ -54,10 +57,6 @@ class EngineConfig:
             missing.append("paged=False (the dense cache)")
         if self.prefix_sharing:
             missing.append("prefix_sharing=True")
-        if self.resolved_kv_dtype(model_cfg) != "model":
-            missing.append(f"kv_cache_dtype={self.resolved_kv_dtype(model_cfg)!r}")
-        if self.kv_scale_dtype != "float32":
-            missing.append(f"kv_scale_dtype={self.kv_scale_dtype!r}")
         if self.speculative is not None:
             missing.append("speculative decoding")
         if self.scheduler is not None and getattr(self.scheduler, "name", None) != "fifo":
@@ -66,8 +65,6 @@ class EngineConfig:
             missing.append("telemetry")
         if self.mesh is not None:
             missing.append("mesh sharding")
-        if self.kv_splits is not None and self.kv_splits != 1:
-            missing.append("kv_splits")
         if self.hardware is not None:
             missing.append("the roofline cost model (hardware=)")
         if missing:
@@ -80,3 +77,24 @@ class EngineConfig:
         if self.prefill_chunk_tokens is not None and self.prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1, got "
                              f"{self.prefill_chunk_tokens}")
+        resolved_kv = self.resolved_kv_dtype(model_cfg)
+        if resolved_kv not in ("model", "int8", "int4"):
+            raise ValueError(f"unknown kv_cache_dtype {resolved_kv!r}")
+        if self.kv_scale_dtype != "float32" \
+                and resolved_kv not in ("int8", "int4"):
+            raise ValueError(
+                "kv_scale_dtype selects the int8/int4 pools' scale-row "
+                "storage; fp pools have no scale rows")
+        if resolved_kv == "int4":
+            if model_cfg.head_dim % 2:
+                raise ValueError(
+                    "kv_cache_dtype='int4' packs two values per byte and "
+                    f"needs an even head_dim, got {model_cfg.head_dim}")
+            if self.kv_scale_dtype != "bfloat16":
+                raise ValueError(
+                    "kv_cache_dtype='int4' requires "
+                    "kv_scale_dtype='bfloat16': f32 scale rows would "
+                    "spend the bytes the nibble packing just saved")
+        if self.kv_splits is not None and self.kv_splits < 1:
+            raise ValueError(
+                f"kv_splits must be >= 1, got {self.kv_splits}")

@@ -8,6 +8,14 @@ whole prompt in one chunk), and it joins the shared decode batch when the
 prompt cursor reaches the end. A mid-prefill slot keeps device length 0 and
 an all-trash block-table row, so the decode step cannot touch its pages.
 
+`kv_cache_dtype="int8"` stores the pools as int8 with per-(token, head)
+scale rows (`kv_scale_dtype` f32 or bf16), `"int4"` packs two values a
+byte with bf16 scale rows; both quantize at write time and the kernels
+dequantize as they read. With `num_pages=None` the pool keeps the fp
+pool's byte budget, so quantized pools hold proportionally more pages.
+`kv_splits=K` runs decode attention as K page runs merged by the
+combine, once the block table spans KV_SPLIT_MIN_CONTEXT tokens.
+
 Construction: `ServingEngine(params, cfg, engine, EngineConfig(slots=4,
 max_len=256, paged=True, prefix_sharing=False), device="cuda")`. Features
 the port lacks raise `NotImplementedError` (`EngineConfig.validate`).
@@ -62,6 +70,11 @@ class ServingEngine:
         self.config = config
         self.params = params
         self.cfg = model_cfg
+        # The KV-split knob rides the SAL-PIM config, so it reaches
+        # paged_decode_attention without changing any model signature.
+        if config.kv_splits is not None and config.kv_splits > 1:
+            engine = dataclasses.replace(engine, config=dataclasses.replace(
+                engine.config, kv_splits=config.kv_splits))
         self.engine = engine
         self.slots = config.slots
         self.max_len = config.max_len
@@ -88,12 +101,18 @@ class ServingEngine:
 
         page_size, num_pages = config.page_size, config.num_pages
         self.max_pages = -(-self.max_len // page_size)
+        kv_dtype = config.resolved_kv_dtype(model_cfg)
         if num_pages is None:
-            # The dense cache's byte budget, plus the trash page.
-            num_pages = self.slots * self.max_pages + 1
+            # The fp dense cache's byte budget, plus the trash page: int8
+            # and int4 pages cost fewer bytes, so the budget holds more.
+            budget = self.slots * self.max_pages * kv.page_kv_bytes(
+                model_cfg, page_size, "model")
+            num_pages = budget // kv.page_kv_bytes(
+                model_cfg, page_size, kv_dtype, config.kv_scale_dtype) + 1
         self.allocator = kv.BlockAllocator(num_pages, page_size)
         self.cache = model_api.init_paged_cache(
             model_cfg, self.slots, num_pages, page_size, self.max_pages,
+            kv_dtype=kv_dtype, kv_scale_dtype=config.kv_scale_dtype,
             device=self.device)
 
     def submit(self, prompt, max_new_tokens: int = 32) -> int:
@@ -141,9 +160,14 @@ class ServingEngine:
         toks = torch.as_tensor(req.prompt[start:end], dtype=torch.int64,
                                device=self.device)[None]
         start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
-        logits1, _, _ = model_api.prefill_chunk(
+        res = model_api.prefill_chunk(
             self.params, toks, row, start_t, self.cache.k_pages,
-            self.cache.v_pages, self.cfg, self.engine)
+            self.cache.v_pages, self.cfg, self.engine, self.cache.k_scale,
+            self.cache.v_scale)
+        if self.cache.quantized:
+            logits1, _, _, _, _ = res
+        else:
+            logits1, _, _ = res
         req.prefill_cursor = end
         self.prefill_tokens += end - start
         self.prefill_chunks += 1

@@ -1,9 +1,13 @@
 """The port's paged serving engine against the JAX `ServingEngine`: greedy
-drains token-identical in exact and LUT mode at chunk sizes None and 8,
-all pages returned; plus the port's guards (no JAX or `repro` imports in
-the package, no silent CPU fallback, unsupported features raise)."""
+drains token-identical in exact and LUT mode at chunk sizes None and 8, on
+int8 (f32 and bf16 scale rows) and int4 pools, and with the KV-split
+decode engaged (`kv_splits=4`, a 1024-token block table), all pages
+returned; plus the port's guards (no JAX or `repro` imports in the
+package, no silent CPU fallback, unsupported features raise, bad pool and
+split settings raise the JAX package's `ValueError`s)."""
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import re
 
@@ -52,12 +56,12 @@ def _drain(eng, prompts, new):
     return [by[u] for u in uids]
 
 
-@pytest.mark.parametrize("mode", ["exact", "lut"])
-@pytest.mark.parametrize("chunk", [None, 8])
-def test_greedy_drain_matches_jax_engine(setup, mode, chunk):
+def _drain_both(setup, mode="exact", **kw):
+    """Drain the same requests through both engines; check tokens, pages
+    and counts; return the port's engine."""
     jcfg, jparams, tparams, prompts, new = setup
-    kw = dict(slots=SLOTS, max_len=MAX_LEN, paged=True, page_size=PAGE,
-              prefix_sharing=False, prefill_chunk_tokens=chunk)
+    kw = dict(dict(slots=SLOTS, max_len=MAX_LEN, paged=True, page_size=PAGE,
+                   prefix_sharing=False), **kw)
     jeng = JaxServingEngine(
         jparams, jcfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
         JaxEngineConfig(gen=JaxGenConfig(stop_on_eos=False), **kw))
@@ -74,6 +78,49 @@ def test_greedy_drain_matches_jax_engine(setup, mode, chunk):
     assert st["tokens"] == sum(new)
     assert st["prefill_tokens"] == sum(len(p) for p in prompts)
     assert st["peak_pages"] == jeng.peak_pages
+    assert teng.allocator.num_pages == jeng.allocator.num_pages
+    return teng
+
+
+@pytest.mark.parametrize("mode", ["exact", "lut"])
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_greedy_drain_matches_jax_engine(setup, mode, chunk):
+    _drain_both(setup, mode, prefill_chunk_tokens=chunk)
+
+
+@pytest.mark.parametrize("kv,scales", [("int8", "float32"), ("int8", "bfloat16"),
+                                       ("int4", "bfloat16")])
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_quantized_pool_drain_matches_jax_engine(setup, kv, scales, chunk):
+    """Write-time quantized pools: same tokens, and the byte budget gives
+    both engines the same (larger) page count."""
+    teng = _drain_both(setup, kv_cache_dtype=kv, kv_scale_dtype=scales,
+                       prefill_chunk_tokens=chunk)
+    assert teng.cache.quantized and teng.cache.k_pages.dtype == torch.int8
+    assert teng.cache.k_scale.dtype == getattr(torch, scales)
+    assert teng.allocator.num_pages > SLOTS * (MAX_LEN // PAGE) + 1
+
+
+def test_split_decode_drain_matches_jax_engine(setup):
+    """kv_splits=4 at max_len=1024, page 16: the block table spans 1024
+    tokens, so every decode step of both engines runs the KV-split path."""
+    from repro_torch.kernels import paged_attention as paged_k
+    calls = []
+    split_plain = paged_k.paged_attention_split_plain
+
+    def spy(*a, **k):
+        calls.append(k["kv_splits"])
+        return split_plain(*a, **k)
+
+    paged_k.paged_attention_split_plain = spy
+    try:
+        teng = _drain_both(setup, max_len=1024, page_size=16, kv_splits=4,
+                           prefill_chunk_tokens=8)
+    finally:
+        paged_k.paged_attention_split_plain = split_plain
+    assert teng.engine.config.kv_splits == 4
+    assert calls and set(calls) == {4}
+    assert len(calls) == teng.decode_steps * gpt2_medium.smoke_config().n_layers
 
 
 def test_import_guard():
@@ -106,10 +153,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"paged": False}, {"prefix_sharing": True}, {"kv_cache_dtype": "int8"},
-    {"kv_cache_dtype": "int4", "kv_scale_dtype": "bfloat16"},
+    {"paged": False}, {"prefix_sharing": True},
     {"speculative": object()}, {"scheduler": object()},
-    {"telemetry": object()}, {"mesh": object()}, {"kv_splits": 4},
+    {"telemetry": object()}, {"mesh": object()},
     {"hardware": "h100"},
 ])
 def test_unsupported_engine_features_raise(setup, change):
@@ -121,15 +167,37 @@ def test_unsupported_engine_features_raise(setup, change):
                       EngineConfig(**kw), device="cpu")
 
 
+@pytest.mark.parametrize("change,head_dim", [
+    ({"kv_cache_dtype": "int4", "kv_scale_dtype": "float32"}, None),
+    ({"kv_scale_dtype": "bfloat16"}, None),
+    ({"kv_splits": 0}, None),
+    ({"kv_cache_dtype": "int4", "kv_scale_dtype": "bfloat16"}, 15),
+])
+def test_bad_pool_settings_raise_jax_value_errors(setup, change, head_dim):
+    """The port refuses what the JAX engine refuses, with its message."""
+    jcfg, _, tparams, _, _ = setup
+    tcfg = gpt2_medium.smoke_config()
+    if head_dim is not None:
+        jcfg = dataclasses.replace(jcfg, head_dim=head_dim)
+        tcfg = dataclasses.replace(tcfg, head_dim=head_dim)
+    kw = dict(slots=1, max_len=16, paged=True, prefix_sharing=False, **change)
+    with pytest.raises(ValueError) as jerr:
+        JaxEngineConfig(**kw).validate(jcfg)
+    with pytest.raises(ValueError) as terr:
+        ServingEngine(tparams, tcfg, TSalPimEngine.create(), EngineConfig(**kw),
+                      device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
 def test_fifo_scheduler_and_default_sharing():
     cfg = gpt2_medium.smoke_config()
     EngineConfig(slots=1, max_len=8, paged=True, prefix_sharing=False,
                  scheduler=FifoScheduler()).validate(cfg)
     with pytest.raises(NotImplementedError, match="prefix_sharing"):
         EngineConfig(slots=1, max_len=8, paged=True).validate(cfg)
-    for quant_kw in ({"quant": "int8"}, {"kv_splits": 2}):
-        with pytest.raises(NotImplementedError):
-            TSalPimEngine.create(TSalPimConfig(**quant_kw))
+    with pytest.raises(NotImplementedError):
+        TSalPimEngine.create(TSalPimConfig(quant="int8"))
+    assert TSalPimEngine.create(TSalPimConfig(kv_splits=2)).config.kv_splits == 2
 
 
 def test_submit_rejects_oversized_requests(setup):

@@ -1,4 +1,5 @@
-"""The port's three kernels.
+"""The port's GEMV and paged attention kernels on pools of q's dtype (the
+KV-split kernel and the int8/int4 pools are in test_torch_split.py).
 
 Here on the CPU: each plain PyTorch version against the JAX oracle in
 `repro.kernels.ref` (f32, 1e-5) and, at one small shape, against the Pallas
@@ -214,8 +215,9 @@ def test_launchers_refuse_cpu_tensors():
     q, k, v, tbl, lens = _pool_inputs(**DECODE_CASES[0])
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens))
-    with pytest.raises(NotImplementedError, match="scale rows"):
-        paged_attention.paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens),
+    k8 = _t(np.clip(np.round(k * 20), -127, 127).astype(np.int8))
+    with pytest.raises(ValueError, match="CUDA"):           # int8 pool, scale rows
+        paged_attention.paged_attention(_t(q), k8, k8, _t(tbl), _t(lens),
                                         _t(k[..., 0]), _t(v[..., 0]))
     q4 = _t(q[:, None])
     with pytest.raises(ValueError, match="CUDA"):

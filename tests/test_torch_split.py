@@ -1,0 +1,296 @@
+"""The KV-split decode path and the int8/int4 pool branches of the paged
+attention kernels.
+
+Here on the CPU, in f32 within 1e-5: the port's
+`merge_partial_softmax_stacked` against the JAX one (the all-empty case
+gives 0, not NaN); `paged_attention_split_plain` against
+`ref.paged_attention_split_ref` at K in {2, 5, 7, n_pages} over fp, int8
+(f32/bf16 scales) and int4 pools, exact and LUT, with softcap and window,
+lengths 0 to full; the scale-row branches of the decode and prefill plain
+versions against their oracles; the split plain version, reached through
+`ops.pim_paged_attention`, against the Pallas split kernel in interpret
+mode; and the launchers' argument checks. On the card (`-m gpu`): the
+split kernel with its combine, the combine alone, and the decode and
+prefill kernels on int8/int4 pools, each against its plain version (f32
+exact 1e-4, f32 LUT 3e-3, bf16 3e-2), and the split kernel against the
+unsplit one.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import lut as tlut
+from repro_torch.distributed.collectives import merge_partial_softmax_stacked
+from repro_torch.kernels import ops, paged_attention, paged_prefill
+from repro_torch.serving import quantize as tq
+
+TBANK = tlut.LutBank.create(64)
+POOLS = ["fp", "int8-f32", "int8-bf16", "int4"]
+OPTS = [{}, {"lut": True}, {"softcap": 5.0, "window": 6}]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX side, imported here so that the card, which has no JAX, can
+    collect this file and run its `gpu` tests."""
+    import jax.numpy as jnp
+
+    from repro.core import lut as jlut
+    from repro.distributed import collectives as jcoll
+    from repro.kernels import paged_attention as jpaged
+    from repro.kernels import ref as jref
+
+    def arr(t):
+        if t is None:
+            return None
+        if t.dtype == torch.bfloat16:
+            return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+        return jnp.asarray(t.numpy())
+
+    return SimpleNamespace(jnp=jnp, ref=jref, coll=jcoll, paged=jpaged, arr=arr,
+                           bank=jlut.LutBank.create(64))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def _kw(opts, bank):
+    kw = {k: v for k, v in opts.items() if k != "lut"}
+    if opts.get("lut"):
+        kw["exp_table"] = bank.exp
+    return kw
+
+
+def _case(pool, B, H, Hkv, D, page, n_pages, lengths, Sq=None, seed=0,
+          device="cpu"):
+    """q, pools, scale rows (None for fp), shuffled block tables (trash page
+    0 at the tail of short rows) and lengths, made with numpy from a seed;
+    quantized pools go through the port's write-time quantization."""
+    rng = np.random.RandomState(seed)
+    P = 1 + B * n_pages
+    phys = rng.permutation(np.arange(1, P)).reshape(B, n_pages).astype(np.int32)
+    for b, ln in enumerate(lengths):
+        phys[b, -(-max(ln, 1) // page):] = 0
+    k = torch.from_numpy(rng.randn(P, Hkv, page, D).astype(np.float32))
+    v = torch.from_numpy(rng.randn(P, Hkv, page, D).astype(np.float32))
+    qshape = (B, H, D) if Sq is None else (B, Sq, H, D)
+    q = torch.from_numpy(rng.randn(*qshape).astype(np.float32))
+    ks = vs = None
+    if pool != "fp":
+        quant = tq.quantize_vec_int4 if pool == "int4" else tq.quantize_vec
+        sd = torch.float32 if pool == "int8-f32" else torch.bfloat16
+        (k, ks), (v, vs) = quant(k, sd), quant(v, sd)
+    out = [q, k, v, ks, vs, torch.from_numpy(phys),
+           torch.from_numpy(np.asarray(lengths, np.int32))]
+    return [None if t is None else t.to(device) for t in out]
+
+
+SMALL = dict(B=3, H=4, Hkv=2, D=16, page=4, n_pages=8, lengths=[0, 13, 32])
+
+
+# ---------------------------------------------------------------------------
+# The merge
+# ---------------------------------------------------------------------------
+
+def test_merge_matches_jax(jx):
+    rng = np.random.RandomState(3)
+    B, Hkv, K, g, D = 2, 2, 5, 2, 16
+    m = rng.randn(B, Hkv, K, g, 1).astype(np.float32) * 3
+    l = rng.rand(B, Hkv, K, g, 1).astype(np.float32) * 4 + 0.1
+    acc = rng.randn(B, Hkv, K, g, D).astype(np.float32)
+    empty = np.zeros((B, Hkv, K, g), bool)
+    empty[0, 0, 1:3] = True                  # some empty splits
+    empty[1, 1] = True                       # an all-empty (b, head)
+    m[empty] = -1e30
+    l[empty] = 0.0
+    acc[empty] = 0.0
+    want = jx.coll.merge_partial_softmax_stacked(
+        jx.jnp.asarray(m), jx.jnp.asarray(l), jx.jnp.asarray(acc), axis=2)
+    got = merge_partial_softmax_stacked(torch.from_numpy(m), torch.from_numpy(l),
+                                        torch.from_numpy(acc), axis=2)
+    _close(got, want, 1e-5)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1, 1], torch.zeros(g, D))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the JAX oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("splits", [2, 5, 7, 8])
+@pytest.mark.parametrize("opts", OPTS)
+def test_split_plain_matches_oracle(jx, pool, splits, opts):
+    q, k, v, ks, vs, tbl, lens = _case(pool, **SMALL)
+    want = jx.ref.paged_attention_split_ref(
+        *map(jx.arr, (q, k, v, tbl, lens, ks, vs)), kv_splits=splits,
+        **_kw(opts, jx.bank))
+    got = paged_attention.paged_attention_split_plain(
+        q, k, v, tbl, lens, ks, vs, kv_splits=splits, **_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))    # length 0
+
+
+@pytest.mark.parametrize("pool", POOLS[1:])
+@pytest.mark.parametrize("opts", OPTS)
+def test_decode_plain_scale_rows_match_oracle(jx, pool, opts):
+    q, k, v, ks, vs, tbl, lens = _case(pool, **SMALL, seed=1)
+    want = jx.ref.paged_attention_ref(*map(jx.arr, (q, k, v, tbl, lens, ks, vs)),
+                                      **_kw(opts, jx.bank))
+    got = paged_attention.paged_attention_plain(q, k, v, tbl, lens, ks, vs,
+                                                **_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("pool", POOLS[1:])
+@pytest.mark.parametrize("opts", OPTS)
+def test_prefill_plain_scale_rows_match_oracle(jx, pool, opts):
+    starts = torch.tensor([0, 11], dtype=torch.int32)
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=2, H=4, Hkv=2, D=16, page=4,
+                                       n_pages=5, lengths=[6, 17], Sq=6, seed=2)
+    want = jx.ref.paged_prefill_attention_ref(
+        *map(jx.arr, (q, k, v, tbl, lens, starts, ks, vs)), **_kw(opts, jx.bank))
+    got = paged_prefill.paged_prefill_attention_plain(
+        q, k, v, tbl, lens, starts, ks, vs, **_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8-f32", "int4"])
+@pytest.mark.parametrize("splits", [4, 7])            # even and trash-padded
+def test_split_plain_matches_pallas_interpret(jx, pool, splits):
+    """A 64-page table of 16-token pages (1024 tokens) engages the split in
+    both packages' dispatch."""
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=2, H=4, Hkv=2, D=16, page=16,
+                                       n_pages=64, lengths=[1024, 700], seed=4)
+    want = jx.paged.paged_attention(*map(jx.arr, (q, k, v, tbl, lens, ks, vs)),
+                                    kv_splits=splits, interpret=True)
+    got = ops.pim_paged_attention(q, k, v, tbl, lens, ks, vs, kv_splits=splits)
+    _close(got, want, 1e-5)
+
+
+def test_cpu_dispatch_splits_only_from_1024_tokens():
+    q, k, v, ks, vs, tbl, lens = _case("int8-bf16", B=2, H=4, Hkv=2, D=16,
+                                       page=16, n_pages=64, lengths=[1000, 64])
+    split = paged_attention.paged_attention_split_plain(q, k, v, tbl, lens, ks, vs,
+                                                        kv_splits=4)
+    assert torch.equal(ops.pim_paged_attention(q, k, v, tbl, lens, ks, vs,
+                                               kv_splits=4), split)
+    short = tbl[:, :63].contiguous()                   # 1008 tokens: one walk
+    assert torch.equal(ops.pim_paged_attention(q, k, v, short, lens, ks, vs,
+                                               kv_splits=4),
+                       paged_attention.paged_attention_plain(q, k, v, short, lens,
+                                                             ks, vs))
+    _close(split, paged_attention.paged_attention_plain(q, k, v, tbl, lens, ks, vs)
+           .numpy(), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Launchers: argument checks, no CPU fallback
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pool,code", list(zip(POOLS, range(4))))
+def test_pool_format_codes(pool, code):
+    q, k, v, ks, vs, *_ = _case(pool, **SMALL)
+    assert paged_attention.pool_format("t", q, k, v, ks, vs) == code
+
+
+def test_pool_format_refusals():
+    q, k, v, ks, vs, *_ = _case("int4", **SMALL)
+    with pytest.raises(ValueError, match="both"):
+        paged_attention.pool_format("t", q, k, v, ks, None)
+    with pytest.raises(ValueError, match="bfloat16 scale rows"):
+        paged_attention.pool_format("t", q, k, v, ks.float(), vs.float())
+    with pytest.raises(ValueError, match="without scale rows"):
+        paged_attention.pool_format("t", q, k, v, None, None)
+    q8, k8, v8, ks8, vs8, *_ = _case("int8-f32", **SMALL)
+    with pytest.raises(ValueError, match="must be int8"):
+        paged_attention.pool_format("t", q8, k8.float(), v8.float(), ks8, vs8)
+    with pytest.raises(ValueError, match="scale rows"):
+        paged_attention.pool_format("t", q8, k8, v8, ks8[:, :1], vs8[:, :1])
+
+
+def test_split_launchers_refuse_cpu_tensors():
+    q, k, v, ks, vs, tbl, lens = _case("int8-f32", **SMALL)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention_split(q, k, v, tbl, lens, ks, vs, kv_splits=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, kv_splits=2)
+    m = torch.zeros(3, 2, 2, 2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.merge_partials(m, m, torch.zeros(3, 2, 2, 2, 16), torch.float32)
+    assert paged_attention.paged_attention_split.launches == 0
+    assert paged_attention.merge_partials.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# On the card: the kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run `pytest -m gpu` on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype, opts):
+    return 3e-2 if dtype == torch.bfloat16 else (3e-3 if opts.get("lut") else 1e-4)
+
+
+CARD = dict(B=3, H=8, Hkv=2, D=32, page=8, n_pages=16, lengths=[0, 77, 128])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("splits", [2, 4, 7])
+@pytest.mark.parametrize("opts", OPTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kernel_matches_plain(cuda, pool, splits, opts, dtype):
+    q, k, v, ks, vs, tbl, lens = _case(pool, **CARD, device=cuda)
+    q = q.to(dtype)
+    if pool == "fp":
+        k, v = k.to(dtype), v.to(dtype)
+    kw = _kw(opts, TBANK)
+    m, l, acc = paged_attention.paged_attention_split(q, k, v, tbl, lens, ks, vs,
+                                                      kv_splits=splits, **kw)
+    got = paged_attention.merge_partials(m, l, acc, dtype)
+    unsplit = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention_split_plain(q, k, v, tbl, lens, ks, vs,
+                                                       kv_splits=splits, **kw)
+    _close(got, want.float().cpu().numpy(), _tol(dtype, opts))
+    _close(got, unsplit.float().cpu().numpy(), _tol(dtype, opts))
+    _close(merge_partial_softmax_stacked(m, l, acc, axis=2).reshape(got.shape),
+           got.float().cpu().numpy(), _tol(dtype, {}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS[1:])
+@pytest.mark.parametrize("opts", OPTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_decode_and_prefill_kernels_match_plain(cuda, pool, opts, dtype):
+    kw = _kw(opts, TBANK)
+    q, k, v, ks, vs, tbl, lens = _case(pool, **CARD, device=cuda)
+    q = q.to(dtype)
+    got = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention_plain(q, k, v, tbl, lens, ks, vs, **kw)
+    _close(got, want.float().cpu().numpy(), _tol(dtype, opts))
+    starts = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=2, H=8, Hkv=2, D=32, page=8,
+                                       n_pages=8, lengths=[9, 46], Sq=6, seed=5,
+                                       device=cuda)
+    q = q.to(dtype)
+    got = paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, starts, ks, vs, **kw)
+    torch.cuda.synchronize()
+    want = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, starts,
+                                                       ks, vs, **kw)
+    _close(got, want.float().cpu().numpy(), _tol(dtype, opts))
