@@ -33,8 +33,24 @@ Run from the root of a checkout. Phases, each of which fails the run:
               checks of phase 4 (24 split + 24 combine launches and no
               single-walk launch a decode step where the split is on) and
               each drain's decode step timed on the device;
-  6. the kernels line, a JSON object with each kernel's error, times,
+  6. quant  — the quantized S-ALU datapaths: GPT-2 medium at max_len 256
+              serves phase 4's requests in three drains, q1 with
+              `quantize_params_int8` weights and int8 pools, q2 with
+              `SalPimConfig(quant="fixed16")`, q3 with `quant="int8"` and LUT
+              nonlinearities, with phase 4's checks (145 `gemv_pim_int8` or
+              `gemv_pim_fixed` launches and no float GEMV a step and a
+              chunk) and the first logits held to a one-shot prefill through
+              the plain versions on the same datapath; each drain's share of
+              greedy tokens with phase 4's exact drain, its decode step and
+              prefill chunk on the host clock and the device, and the device
+              time of the per-call weight quantization;
+  7. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
+
+Phase 3 also holds the int8 and fixed16 GEMVs bit for bit to their plain
+versions (M 1, 4, 64 over the model's weight shapes, int8 with and
+without bias, fixed16 at shift 10 and 12 with rows that saturate both
+ways and one whose int32 sum wraps) and times them over a decode step.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -52,7 +68,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA cores f32; bf16 dense
+# CUDA cores f32; bf16 and int8 dense tensor cores; no tensor core has an
+# int16 mode, so fixed16 runs as int32 multiply-adds on the CUDA cores, at
+# half the f32 rate (64 INT32 lanes an SM; Hopper white paper).
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "int16": 33.5e12}
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # In LUT mode the paged kernels run the TPU kernels' online softmax
 # (corr = LUT(max(m_prev - m_new, lo)) page by page), a different function
@@ -72,7 +91,13 @@ SOURCE = {
                               "src/repro/kernels/paged_attention.py:372"),
     "merge_partials": ("src/repro_torch/kernels/csrc/paged_attention_split.cu",
                        "src/repro/kernels/paged_attention.py:440"),
+    "gemv_pim_int8": ("src/repro_torch/kernels/csrc/gemv_pim_quant.cu",
+                      "src/repro/kernels/gemv_pim.py:151"),
+    "gemv_pim_fixed": ("src/repro_torch/kernels/csrc/gemv_pim_quant.cu",
+                       "src/repro/kernels/gemv_pim.py:208"),
 }
+# The model's GEMV shapes (R, C): q/k/v/o projections, w_up, w_down, LM head.
+QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
 # Pool formats: (kv_cache_dtype, kv_scale_dtype); fp pools hold q's dtype.
 POOLS = {"fp": ("model", "float32"), "int8/f32": ("int8", "float32"),
          "int8/bf16": ("int8", "bfloat16"), "int4/bf16": ("int4", "bfloat16")}
@@ -611,15 +636,214 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
     return out
 
 
+def quant_operands(torch, M, C, R, gen):
+    """int8 and fixed16 GEMV operands on the card, made as
+    tests/test_torch_kernels.py's `quant_gemv_inputs` makes them: random
+    int8 payloads (w row 0 at -127), positive f32 row scales, an f32 bias;
+    x in Q.10 and w in Q.12 with x row 0 at v = sqrt(5e8 / C), w rows 0
+    and 1 at +v and -v (saturating both ways after the shift) and w row 2
+    at 32767 (a sum with x row 0 past 2^31, which wraps)."""
+    dev = torch.device("cuda")
+
+    def randint8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def q16(t):
+        return torch.clamp(torch.round(t), -32768, 32767).to(torch.int16)
+
+    x8, w8 = randint8(M, C), randint8(R, C)
+    w8[0] = -127
+    xs = torch.rand(M, generator=gen, device=dev) * 0.05 + 1e-3
+    ws = torch.rand(R, generator=gen, device=dev) * 0.01 + 1e-4
+    b = torch.randn(R, generator=gen, device=dev)
+    xq = q16(torch.randn((M, C), generator=gen, device=dev) * 2 ** 10)
+    wq = q16(torch.randn((R, C), generator=gen, device=dev) * C ** -0.5 * 2 ** 12)
+    v = int((5e8 / C) ** 0.5)
+    xq[0], wq[0], wq[1], wq[2] = v, v, -v, 32767
+    return x8, xs, w8, ws, b, xq, wq
+
+
+def check_quant_kernels(torch, gemv_pim, seed):
+    """The int8 and fixed16 GEMVs against their plain versions, bit for
+    bit, at M in {1, 4, 64} over the model's GEMV shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    errs = {"gemv_pim_int8": 0.0, "gemv_pim_fixed": 0.0}
+
+    def same(name, label, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        errs[name] = max(errs[name], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: {int((got != want).sum())} elements differ "
+                                 f"from the plain version; max abs err {err:.3e}")
+
+    for R, C in QUANT_SHAPES:
+        for M in (1, 4, 64):
+            x8, xs, w8, ws, b, xq, wq = quant_operands(torch, M, C, R, gen)
+            for bias in (None, b):
+                got = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, bias)
+                torch.cuda.synchronize()
+                same("gemv_pim_int8", f"gemv_pim_int8 M={M} C={C} R={R} bias={bias is not None}",
+                     got, gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, bias))
+            wraps = abs(float(xq[0].double() @ wq[2].double())) >= 2 ** 31
+            for shift in (10, 12):
+                got = gemv_pim.gemv_pim_fixed(xq, wq, shift=shift)
+                torch.cuda.synchronize()
+                want = gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=shift)
+                same("gemv_pim_fixed", f"gemv_pim_fixed M={M} C={C} R={R} shift={shift}",
+                     got, want)
+                if (int(want[0, 0]), int(want[0, 1])) != (32767, -32768) or not wraps:
+                    raise AssertionError(f"gemv_pim_fixed M={M} C={C} R={R}: the "
+                                         "saturating or wrapping rows did not")
+        log(f"  gemv_pim_int8 C={C} R={R} M=1/4/64, with and without bias; gemv_pim_fixed "
+            f"shift 10/12, rows saturating to +-32767/-32768 and one wrapping past 2^31: "
+            f"bit-exact to the plain versions")
+    return errs
+
+
+def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
+    """The int8 and fixed16 GEMVs over the 145 calls of a decode step at 4
+    slots and over `w_up` at M = 64, with the model's weights quantized
+    (int8: `quantize_params_int8`; fixed16: Q.12), one set a layer (cold
+    in L2 as in a decode step), beside their plain versions, their bounds
+    and, for int8, `torch._int_mm`; then the device time of quantizing a
+    step's weights on every call, as `quant="int8"`/`"fixed16"` do."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    bl, qb = params["blocks"], qparams["blocks"]
+    w_fmt, x_fmt = quant.QFormat(12), quant.QFormat(10)
+
+    def act(M, C):
+        return (torch.randn((M, C), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+
+    xs = {d: act(4, d), f: act(4, f)}            # decode-step inputs by width C
+    x8 = {C: quant.quantize_int8_rows(x.float()) for C, x in xs.items()}
+    x16 = {C: x_fmt.quantize(x) for C, x in xs.items()}
+    layers = [("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
+              ("attn", "wo", None), ("ffn", "w_up", None), ("ffn", "w_down", None)]
+    weights, int8_step, fixed_step = [], [], []
+    for i in range(L):
+        for grp, wname, bname in layers:
+            w, qw = bl[grp][wname][i], qb[grp][wname]
+            b = bl[grp][bname][i].float() if bname else None
+            weights.append(w)
+            int8_step.append((*x8[w.shape[1]], qw.w_i8[i], qw.scale[i], b))
+            fixed_step.append((x16[w.shape[1]], w_fmt.quantize(w)))
+    weights.append(params["lm_head"])
+    int8_step.append((*x8[d], qparams["lm_head"].w_i8, qparams["lm_head"].scale, None))
+    fixed_step.append((x16[d], w_fmt.quantize(params["lm_head"])))
+    n = len(int8_step)
+
+    def per_step(fn):
+        return time_graph(torch, fn, n) * n
+
+    i8_bytes = f16_bytes = ops = 0
+    for (x, _, w8, _, b) in int8_step:
+        M, C = x.shape
+        R = w8.shape[0]
+        i8_bytes += R * C + 4 * R + M * C + 4 * M + (4 * R if b is not None else 0) + 4 * M * R
+        f16_bytes += 2 * (R * C + M * C + M * R)
+        ops += 2 * M * R * C
+    out = {}
+    ms = per_step(lambda i: gemv_pim.gemv_pim_int8(*int8_step[i]))
+    plain = per_step(lambda i: gemv_pim.gemv_pim_int8_plain(*int8_step[i]))
+    # Yardstick: torch._int_mm, the int32 product alone. It takes M > 16 and
+    # widths that are multiples of 8, so x is padded to 32 rows and the LM
+    # head to 50264 rows of zeros, both outside the timing.
+    pad32 = {C: torch.nn.functional.pad(v[0], (0, 0, 0, 28)) for C, v in x8.items()}
+    mm_w = [torch.nn.functional.pad(t[2], (0, 0, 0, -t[2].shape[0] % 8)) for t in int8_step]
+
+    def mm(i):
+        return torch._int_mm(pad32[int8_step[i][0].shape[1]], mm_w[i].t())
+
+    if not torch.equal(mm(n - 1)[:4, :cfg.vocab],
+                       quant.int32_matmul(int8_step[-1][0], int8_step[-1][2])):
+        raise AssertionError("torch._int_mm yardstick: not the int32 product")
+    bnd, by = bound_ms(i8_bytes, ops, "int8")
+    out["gemv_pim_int8"] = dict(
+        ms=ms, plain_ms=plain, library_ms=per_step(mm), bound_ms=bnd, bound_by=by,
+        shape=f"one decode step: {n} launches, M=4; library: torch._int_mm, the int32 "
+        "product alone, x padded to 32 rows")
+    ms = per_step(lambda i: gemv_pim.gemv_pim_fixed(*fixed_step[i], shift=12))
+    plain = per_step(lambda i: gemv_pim.gemv_pim_fixed_plain(*fixed_step[i], shift=12))
+    bnd, by = bound_ms(f16_bytes, ops, "int16")
+    out["gemv_pim_fixed"] = dict(
+        ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+        shape=f"one decode step: {n} launches, M=4, shift 12; library: none, no "
+        "PyTorch call does an int16 GEMM on CUDA")
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+
+    # w_up over a 64-token chunk, one weight set a layer.
+    x64 = act(64, d)
+    c8, c8s = quant.quantize_int8_rows(x64.float())
+    c16 = x_fmt.quantize(x64)
+    up8 = [(qb["ffn"]["w_up"].w_i8[i], qb["ffn"]["w_up"].scale[i]) for i in range(L)]
+    up16 = [fixed_step[6 * i + 4][1] for i in range(L)]
+    t8 = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8(c8, c8s, *up8[i]), L)
+    p8 = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_plain(c8, c8s, *up8[i]), L)
+    l8 = time_graph(torch, lambda i: torch._int_mm(c8, up8[i][0].t()), L)
+    b8, by8 = bound_ms(f * d + 4 * f + 64 * d + 4 * 64 + 4 * 64 * f, 2 * 64 * f * d, "int8")
+    tf = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed(c16, up16[i], shift=12), L)
+    pf = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed_plain(c16, up16[i], shift=12), L)
+    bf, byf = bound_ms(2 * (f * d + 64 * d + 64 * f), 2 * 64 * f * d, "int16")
+    log(f"  gemv_pim_int8 M=64 C={d} R={f} (w_up over a chunk): {t8 * 1e3:.2f} us, plain "
+        f"{p8 * 1e3:.2f} us, torch._int_mm {l8 * 1e3:.2f} us, bound {b8 * 1e3:.2f} us ({by8})")
+    log(f"  gemv_pim_fixed M=64 C={d} R={f} (w_up over a chunk): {tf * 1e3:.2f} us, plain "
+        f"{pf * 1e3:.2f} us, bound {bf * 1e3:.2f} us ({byf})")
+    out["gemv_pim_int8"]["shape"] += f"; w_up at M=64: {t8 * 1e3:.2f} us"
+    out["gemv_pim_fixed"]["shape"] += f"; w_up at M=64: {tf * 1e3:.2f} us"
+
+    # The weight quantization that quant="int8" and "fixed16" run on every call.
+    qi8 = per_step(lambda i: quant.quantize_int8_rowwise(weights[i]))
+    qf16 = per_step(lambda i: w_fmt.quantize(weights[i]))
+    log(f"  per-call weight quantization of a decode step's {n} bf16 weights on the "
+        f"device: quantize_int8_rowwise {qi8:.3f} ms, Q.12 quantize {qf16:.3f} ms")
+    return out, {"int8": qi8, "fixed16": qf16}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serving
 # ---------------------------------------------------------------------------
 
-def plain_prefill_logits(torch, params, cfg, nl, prompt, gemv_pim, paged_prefill,
-                         quantize, fmt="fp"):
-    """One-shot prefill of `prompt` through the plain versions only, on a
-    pool of format `fmt` (quantized per vector as the engine writes it):
-    the reference for the engine's first logits."""
+def plain_linear(sal, quant, qz, gemv_pim):
+    """`SalPimEngine.linear` of `sal` through plain functions alone: the
+    float GEMV's plain version, or `core.quant`'s `int8_linear` and
+    `fixed_linear` (the twins of the JAX package's), which compute the
+    quantized datapaths with the integer product in float64."""
+    cfg, nl = sal.config, sal.nl
+
+    def lin(x, w, b=None, act=None):
+        if isinstance(w, qz.QTensor):
+            out = quant.int8_linear(x.float(), w.w_i8, w.scale,
+                                    None if b is None else b.float()).to(x.dtype)
+        elif cfg.quant == "int8":
+            out = quant.int8_linear(x, *quant.quantize_int8_rowwise(w), b)
+        elif cfg.quant == "fixed16":
+            w_fmt, x_fmt = quant.QFormat(cfg.fixed_frac_w), quant.QFormat(cfg.fixed_frac_x)
+            out = quant.fixed_linear(x, w_fmt.quantize(w), None, w_fmt=w_fmt, x_fmt=x_fmt,
+                                     out_fmt=x_fmt)
+            if b is not None:
+                out = out + b.to(x.dtype)
+        elif act is None:
+            return gemv_pim.gemv_pim_plain(x, w, b)
+        elif nl.mode == "lut":
+            return gemv_pim.gemv_pim_plain(x, w, b, act_table=getattr(nl.bank, act))
+        else:
+            return gemv_pim.gemv_pim_plain(x, w, b, act=act)
+        return nl.activation(act)(out) if act is not None else out
+    return lin
+
+
+def plain_prefill_logits(torch, params, cfg, sal, prompt, quant, qz, gemv_pim,
+                         paged_prefill, fmt="fp"):
+    """One-shot prefill of `prompt` through the plain versions only, on the
+    linear datapath of `sal` and a pool of format `fmt` (quantized per
+    vector as the engine writes it): the reference for the engine's first
+    logits."""
     dev = params["embed"].device
     S, H, D, page = len(prompt), cfg.n_heads, cfg.head_dim, 16
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
@@ -628,10 +852,13 @@ def plain_prefill_logits(torch, params, cfg, nl, prompt, gemv_pim, paged_prefill
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     length = zero + S
+    nl = sal.nl
     exp_table = nl.bank.exp if nl.mode == "lut" else None
-    act = dict(act_table=nl.bank.gelu) if nl.mode == "lut" else dict(act="gelu")
-    lin = gemv_pim.gemv_pim_plain
+    lin = plain_linear(sal, quant, qz, gemv_pim)
     bl = params["blocks"]
+
+    def at(w, i):                                 # layer i of a stacked weight
+        return qz.QTensor(w.w_i8[i], w.scale[i]) if isinstance(w, qz.QTensor) else w[i]
 
     def pool(t):                                  # (S, H, D) -> (1 + n, H, page, D)
         p = torch.zeros((n_pages * page, H, D), dtype=t.dtype, device=dev)
@@ -640,30 +867,32 @@ def plain_prefill_logits(torch, params, cfg, nl, prompt, gemv_pim, paged_prefill
         return torch.cat([torch.zeros_like(p[:1]), p]).contiguous()
 
     for i in range(cfg.n_layers):
-        a = bl["attn"]
+        a, ffn = bl["attn"], bl["ffn"]
         h = nl.layernorm(x, bl["ln1"]["g"][i], bl["ln1"]["b"][i], cfg.norm_eps)
-        q = lin(h, a["wq"][i], a["bq"][i]).reshape(1, S, H, D)
-        k = lin(h, a["wk"][i], a["bk"][i]).reshape(S, H, D)
-        v = lin(h, a["wv"][i], a["bv"][i]).reshape(S, H, D)
-        kp, vp, ks, vs = make_pools(torch, quantize, pool(k), pool(v), fmt, cfg.cdtype)
+        q = lin(h, at(a["wq"], i), a["bq"][i]).reshape(1, S, H, D)
+        k = lin(h, at(a["wk"], i), a["bk"][i]).reshape(S, H, D)
+        v = lin(h, at(a["wv"], i), a["bv"][i]).reshape(S, H, D)
+        kp, vp, ks, vs = make_pools(torch, qz, pool(k), pool(v), fmt, cfg.cdtype)
         att = paged_prefill.paged_prefill_attention_plain(
             q, kp, vp, table, length, zero, ks, vs, scale=D ** -0.5, exp_table=exp_table)
-        x = x + lin(att.reshape(S, H * D), a["wo"][i])
+        x = x + lin(att.reshape(S, H * D), at(a["wo"], i))
         h = nl.layernorm(x, bl["ln2"]["g"][i], bl["ln2"]["b"][i], cfg.norm_eps)
-        x = x + lin(lin(h, bl["ffn"]["w_up"][i], **act), bl["ffn"]["w_down"][i])
+        x = x + lin(lin(h, at(ffn["w_up"], i), act="gelu"), at(ffn["w_down"], i))
     x = nl.layernorm(x[-1:], params["final_norm"]["g"], params["final_norm"]["b"],
                      cfg.norm_eps)
     return lin(x, params["lm_head"])[0].float()
 
 
 def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
-          mode="exact", max_len=256, fmt="fp", kv_splits=None):
+          mode="exact", max_len=256, fmt="fp", kv_splits=None, quant="none",
+          gemv="gemv_pim_float"):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
-    chunks), checking every step's launches of every kernel."""
+    chunks) on SAL-PIM datapath `quant`, checking every step's launches of
+    every kernel: every linear through the GEMV kernel `gemv`."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     kv, sd = POOLS[fmt]
-    sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+    sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode, quant=quant))
     eng = ServingEngine(params, cfg, sal, EngineConfig(
         slots=4, max_len=max_len, paged=True, page_size=16, prefill_chunk_tokens=64,
         prefix_sharing=False, kv_cache_dtype=kv, kv_scale_dtype=sd,
@@ -691,11 +920,12 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
         dec, chunk = eng.decode_steps - n_dec, eng.prefill_chunks - n_chunk
         L = cfg.n_layers                 # 6 linears a layer plus the LM head
-        expect = {"gemv_pim_float": (6 * L + 1) * (dec + chunk),
-                  "paged_attention": 0 if split else L * dec,
-                  "paged_prefill_attention": L * chunk,
-                  "paged_attention_split": L * dec if split else 0,
-                  "merge_partials": L * dec if split else 0}
+        expect = {name: 0 for name in kernels}
+        expect.update({gemv: (6 * L + 1) * (dec + chunk),
+                       "paged_attention": 0 if split else L * dec,
+                       "paged_prefill_attention": L * chunk,
+                       "paged_attention_split": L * dec if split else 0,
+                       "merge_partials": L * dec if split else 0})
         if d != expect:
             raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                  f"{expect} (decode {dec}, chunk {chunk})")
@@ -708,7 +938,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     done = {r.uid: r for r in eng.finished}
     st = eng.stats()
     log(f"  serve[{label}]: {fmt} pools ({eng.allocator.num_pages} pages), {mode}, "
-        f"kv_splits={kv_splits}: finished {len(done)}/{len(uids)}, "
+        f"quant={quant}, kv_splits={kv_splits}: finished {len(done)}/{len(uids)}, "
         f"{eng.allocator.used_pages} pages in use after the drain, peak {st['peak_pages']}, "
         f"{st['decode_steps']} decode steps, {st['prefill_chunks']} chunks, "
         f"{st['tokens']} tokens in {wall:.3f} s = {st['tokens'] / wall:.1f} tok/s ({card})")
@@ -721,25 +951,26 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     L = cfg.n_layers
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} gemv_pim_float, {attn}; "
-        f"per prefill chunk: {6 * L + 1} gemv_pim_float, {L} paged_prefill_attention "
-        "(checked every step)")
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}, {attn}; "
+        f"per prefill chunk: {6 * L + 1} {gemv}, {L} paged_prefill_attention; no other "
+        "kernel (checked every step)")
     return eng, done, first, wall
 
 
-def check_first_logits(torch, params, cfg, nl, prompts, done, first, label, fmt,
-                       gemv_pim, paged_prefill, quantize):
+def check_first_logits(torch, params, cfg, sal, prompts, done, first, label, fmt,
+                       quant, qz, gemv_pim, paged_prefill):
     worst, agree = 0.0, 0
     for u, p in zip(sorted(done), prompts):
-        want = plain_prefill_logits(torch, params, cfg, nl, p, gemv_pim, paged_prefill,
-                                    quantize, fmt)
+        want = plain_prefill_logits(torch, params, cfg, sal, p, quant, qz, gemv_pim,
+                                    paged_prefill, fmt)
         got = first[u]
         rel = float((got - want).abs().max() / want.abs().max())
         worst = max(worst, rel)
         agree += int(int(torch.argmax(want)) == done[u].generated[0])
     log(f"  serve[{label}] greedy first-token agreement with the plain path: "
         f"{agree}/{len(prompts)}")
-    log(f"  serve[{label}] first logits vs plain one-shot prefill on {fmt} pools: "
+    log(f"  serve[{label}] first logits vs plain one-shot prefill on {fmt} pools, "
+        f"quant={sal.config.quant}: "
         f"max |diff| / max |logit| = {worst:.3e} (limit 3e-2)")
     if worst > 3e-2:
         raise AssertionError(f"serve[{label}]: first logits differ by {worst:.3e}")
@@ -784,14 +1015,17 @@ def time_long_decode(torch, api, params, cfg, sal, fmt, label, card):
     return host, device
 
 
-def time_model(torch, api, params, cfg, sal, prompts, card):
+def time_model(torch, api, params, cfg, sal, prompts, card, label=None, fmt="fp"):
     """ms per prefill chunk and per decode step through the model API: on
     the host clock with a device synchronise around each eager call (4
     slots, 128-token prompts), and on the device alone, the same call
     replayed as a CUDA graph. Their gap is the host's share of the step."""
     dev = params["embed"].device
     B, page, max_pages, S = 4, 16, 16, 128
-    cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages, device=dev)
+    kv, sd = POOLS[fmt]
+    cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages,
+                                 kv_dtype=kv, kv_scale_dtype=sd, device=dev)
+    scales = (cache.k_scale, cache.v_scale)
     tables = torch.arange(1, 1 + B * max_pages, dtype=torch.int32,
                           device=dev).reshape(B, max_pages)
     chunk_ms = []
@@ -804,7 +1038,7 @@ def time_model(torch, api, params, cfg, sal, prompts, card):
             t0 = time.perf_counter()
             api.prefill_chunk(params, toks[None, a:a + 64], tables[b:b + 1],
                               torch.tensor([a], dtype=torch.int32, device=dev),
-                              cache.k_pages, cache.v_pages, cfg, sal)
+                              cache.k_pages, cache.v_pages, cfg, sal, *scales)
             torch.cuda.synchronize()
             chunk_ms.append(1e3 * (time.perf_counter() - t0))
     cache.lengths[:] = S
@@ -824,12 +1058,12 @@ def time_model(torch, api, params, cfg, sal, prompts, card):
     a = torch.tensor([64], dtype=torch.int32, device=dev)
     dev_chunk = time_graph(torch, lambda i: api.prefill_chunk(
         params, toks[None, 64:128], tables[B - 1:], a, cache.k_pages, cache.v_pages,
-        cfg, sal), 1)
-    log(f"  model timing [{sal.nl.mode}] ({card}): prefill {chunk:.2f} ms per 64-token "
+        cfg, sal, *scales), 1)
+    log(f"  model timing [{label or sal.nl.mode}] ({card}): prefill {chunk:.2f} ms per 64-token "
         f"chunk (device {dev_chunk:.2f} ms), decode {dec:.2f} ms per step at 4 slots x "
         f"128..160 context (device {dev_dec:.2f} ms, host share "
         f"{1 - dev_dec / dec:.0%}) = {4e3 / dec:.1f} tok/s")
-    return chunk, dec
+    return dict(chunk=chunk, dec=dec, dev_chunk=dev_chunk, dev_dec=dev_dec)
 
 
 # ---------------------------------------------------------------------------
@@ -854,7 +1088,7 @@ def main() -> int:
 
     from repro_torch.configs import gpt2_medium
     from repro_torch.core import lut as tlut
-    from repro_torch.core.nonlinear import Nonlinear
+    from repro_torch.core import quant
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
     from repro_torch.distributed import collectives
     from repro_torch.kernels import _build, gemv_pim, paged_attention, paged_prefill
@@ -891,18 +1125,25 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     errs = check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                          paged_prefill, args.seed)
+    errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
     cfg = gpt2_medium.config()
     params = api.init_params(cfg, seed=args.seed, device="cuda")
+    qparams = quantize.quantize_params_int8(params)
     times = time_kernels(torch, F, params, cfg, gemv_pim, paged_attention,
                          paged_prefill, args.seed)
     times.update(time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention,
                                    args.seed))
+    quant_times, wquant_ms = time_quant_kernels(torch, quant, gemv_pim, params, qparams,
+                                                cfg, args.seed)
+    times.update(quant_times)
 
     kernels = {"gemv_pim_float": gemv_pim.gemv_pim_float,
                "paged_attention": paged_attention.paged_attention,
                "paged_prefill_attention": paged_prefill.paged_prefill_attention,
                "paged_attention_split": paged_attention.paged_attention_split,
-               "merge_partials": paged_attention.merge_partials}
+               "merge_partials": paged_attention.merge_partials,
+               "gemv_pim_int8": gemv_pim.gemv_pim_int8,
+               "gemv_pim_fixed": gemv_pim.gemv_pim_fixed}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
             paged_attention, kernels)
 
@@ -929,11 +1170,12 @@ def main() -> int:
                     mode=mode) for mode in ("exact", "lut")},
         ["gemv_pim_float", "paged_attention", "paged_prefill_attention"])
     for mode, (eng, done, first, _) in runs.items():
-        check_first_logits(torch, params, cfg, Nonlinear.create(mode), prompts, done,
-                           first, mode, "fp", gemv_pim, paged_prefill, quantize)
-    for mode in ("exact", "lut"):
-        time_model(torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
-                   prompts, card)
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        check_first_logits(torch, params, cfg, sal, prompts, done, first, mode, "fp",
+                           quant, quantize, gemv_pim, paged_prefill)
+    model_ms = {mode: time_model(torch, api, params, cfg,
+                                 SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+                                 prompts, card) for mode in ("exact", "lut")}
 
     log("== 5. long context: max_len 1024, 4 requests of 896..960 prompt tokens")
     long_prompts = [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(896, 961, size=4)]
@@ -943,7 +1185,9 @@ def main() -> int:
               ("4 int4/bf16 lut K=4", dict(fmt="int4/bf16", kv_splits=4, mode="lut"))]
     long_runs, counts_1024 = counted("max_len 1024", lambda: {
         label: serve(torch, mods, params, cfg, long_prompts, new_tokens, card, label=label,
-                     max_len=1024, **kw) for label, kw in drains}, list(kernels))
+                     max_len=1024, **kw) for label, kw in drains},
+        ["gemv_pim_float", "paged_attention", "paged_prefill_attention",
+         "paged_attention_split", "merge_partials"])
     (_, d1, _, _), (_, d2, _, _) = long_runs[drains[0][0]], long_runs[drains[1][0]]
     same = sum(a == b for u in d1 for a, b in zip(d1[u].generated, d2[u].generated))
     prefix = [next((i for i, (a, b) in enumerate(zip(d1[u].generated, d2[u].generated))
@@ -954,21 +1198,52 @@ def main() -> int:
     for label, kw in drains:
         eng, done, first, _ = long_runs[label]
         mode = kw.get("mode", "exact")
-        check_first_logits(torch, params, cfg, Nonlinear.create(mode), long_prompts, done,
-                           first, label, kw["fmt"], gemv_pim, paged_prefill, quantize)
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode,
                                                kv_splits=kw.get("kv_splits")))
+        check_first_logits(torch, params, cfg, sal, long_prompts, done, first, label,
+                           kw["fmt"], quant, quantize, gemv_pim, paged_prefill)
         step_ms[label] = time_long_decode(torch, api, params, cfg, sal, kw["fmt"], label, card)
 
-    log("== 6. result")
+    log("== 6. quantized linear datapaths: max_len 256, phase 4's 8 requests")
+    # (label, weights, SalPimConfig knobs, pool format, the GEMV kernel that
+    # carries every linear)
+    qdrains = [("q1 int8 weights, int8 pools", qparams, dict(), "int8/f32", "gemv_pim_int8"),
+               ("q2 fixed16", params, dict(quant="fixed16"), "fp", "gemv_pim_fixed"),
+               ("q3 int8 per call, lut", params, dict(quant="int8", mode="lut"), "fp",
+                "gemv_pim_int8")]
+    qruns, counts_q = counted("quantized max_len 256", lambda: {
+        label: serve(torch, mods, p, cfg, prompts, new_tokens, card, label=label, fmt=fmt,
+                     gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
+        ["gemv_pim_int8", "gemv_pim_fixed", "paged_attention", "paged_prefill_attention"])
+    _, exact_done, _, _ = runs["exact"]
+    for label, p, kw, fmt, _ in qdrains:
+        _, done, first, _ = qruns[label]
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=kw.get("mode", "exact"),
+                                               quant=kw.get("quant", "none")))
+        check_first_logits(torch, p, cfg, sal, prompts, done, first, label, fmt, quant,
+                           quantize, gemv_pim, paged_prefill)
+        same = sum(a == b for u in done for a, b in zip(done[u].generated,
+                                                        exact_done[u].generated))
+        log(f"  serve[{label}] shares {same}/{len(prompts) * new_tokens} greedy tokens with "
+            "phase 4's exact drain (fp weights and pools; reported, not a gate)")
+        model_ms[label] = time_model(torch, api, p, cfg, sal, prompts, card, label, fmt)
+    q1, q3 = model_ms[qdrains[0][0]], model_ms[qdrains[2][0]]
+    log(f"  q3 quantizes every weight on every call: {wquant_ms['int8']:.3f} ms of device "
+        f"time a decode step (quantize_int8_rowwise alone, phase 3); its device decode step "
+        f"{q3['dev_dec']:.2f} ms against q1's {q1['dev_dec']:.2f} ms with pre-quantized "
+        f"weights (q1 also differs in its int8 pools and exact nonlinearities); q2's Q.12 "
+        f"weight quantization {wquant_ms['fixed16']:.3f} ms a step")
+
+    log("== 7. result")
     rows = []
     for name in SOURCE:
         t = times[name]
         src, replaces = SOURCE[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": counts_256[name] + counts_1024[name],
+                     "launches": counts_256[name] + counts_1024[name] + counts_q[name],
                      "launches_by_path": {"max_len 256": counts_256[name],
-                                          "max_len 1024": counts_1024[name]},
+                                          "max_len 1024": counts_1024[name],
+                                          "quantized max_len 256": counts_q[name]},
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -4,7 +4,10 @@
 (for example the JAX package's parameters after
 `jax.tree.map(np.asarray, params)`) and returns the same nested dict of
 torch tensors. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) keep their
-bits. Nothing here imports JAX.
+bits. A leaf with `w_i8` and `scale` fields (the JAX package's
+`QTensor` of int8 serving, after `jax.tree.map(np.asarray, ...)`) becomes
+the port's `QTensor`; it is recognised by its fields, as the JAX engine
+recognises it by name. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.serving.kvcache import PagedCache
+from repro_torch.serving.quantize import QTensor
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -28,6 +32,9 @@ def params_from_numpy(tree, device="cuda"):
     """Nested dict of numpy arrays -> nested dict of tensors on `device`."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "w_i8") and hasattr(tree, "scale"):
+        return QTensor(tensor_from_numpy(tree.w_i8, device),
+                       tensor_from_numpy(tree.scale, device))
     return tensor_from_numpy(tree, device)
 
 

@@ -1,11 +1,30 @@
 """The SAL-PIM engine (the port of `repro.core.salpim`): the linear layers,
 the paged attention calls and the nonlinear policy behind one object.
 
-Every linear goes through `kernels.ops.pim_linear` (the GEMV kernel on the
-card); an activation fuses into the GEMV epilogue, as a LUT table in LUT
-mode or as the tanh GELU in exact mode. Paged decode and prefill attention
-go through the paged kernels, over fp, int8 or int4 pools; `kv_splits`
-engages the KV-split decode kernel at long context.
+`linear` takes one of four datapaths, in the JAX engine's order:
+
+  * a `QTensor` weight (`serving.quantize.quantize_params_int8`):
+    `qtensor_linear`, x quantized per row in f32, the int8 GEMV, the bias
+    added in f32, the result cast to x's dtype;
+  * `quant="int8"`: x and the weight quantized per row on every call, each
+    in its own dtype (`core.quant.quantize_int8_rows`; bf16 weights give
+    bf16 scales, cast to f32 at the end), the int8 GEMV, `+ b` in f32,
+    then the cast to x's dtype;
+  * `quant="fixed16"`: x in Q(`fixed_frac_x`) and the weight in
+    Q(`fixed_frac_w`) on every call, the fixed16 GEMV shifting by
+    `fixed_frac_w` so its int16 result is in x's format, dequantized to
+    f32, cast to x's dtype, then `+ b` in x's dtype;
+  * otherwise the float GEMV, `kernels.ops.pim_linear`, with the bias and
+    activation fused into its epilogue (a LUT table in LUT mode, the tanh
+    GELU in exact mode).
+
+The quantized kernels have no epilogue (nor have the TPU ones): on the
+first three paths the activation runs after the product,
+`self.nl.activation(act)`. The weights are quantized on every call, as
+the JAX package does; caching them is the pre-quantized path's job. Paged
+decode and prefill attention go through the paged kernels, over fp, int8
+or int4 pools; `kv_splits` engages the KV-split decode kernel at long
+context.
 """
 from __future__ import annotations
 
@@ -14,8 +33,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quant as quant_lib
 from repro_torch.core.nonlinear import Nonlinear
 from repro_torch.kernels import ops
+from repro_torch.serving.quantize import QTensor, qtensor_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +45,9 @@ class SalPimConfig:
 
     nonlinear_mode: str = "exact"   # "exact" | "lut"
     lut_sections: int = 64          # paper: 64; >=32 keeps accuracy
-    quant: str = "none"             # only "none" is ported
+    quant: str = "none"             # "none" | "int8" | "fixed16"
+    fixed_frac_w: int = 12          # Q-format fraction bits (weights)
+    fixed_frac_x: int = 10          # Q-format fraction bits (activations)
     # KV-split (flash-decode) knob for paged decode attention: None/1 = one
     # page walk; K > 1 = K partials merged by the combine, engaged only for
     # block tables of at least KV_SPLIT_MIN_CONTEXT tokens.
@@ -39,29 +62,49 @@ class SalPimEngine:
     @classmethod
     def create(cls, config: SalPimConfig | None = None) -> "SalPimEngine":
         config = config or SalPimConfig()
-        if config.quant != "none":
-            raise NotImplementedError(
-                f"quant={config.quant!r}: the int8 and fixed16 GEMV kernels "
-                "are not ported yet")
         nl = Nonlinear.create(config.nonlinear_mode, config.lut_sections)
         return cls(config=config, nl=nl)
 
     # -- C1: linear ----------------------------------------------------------
-    def linear(self, x: torch.Tensor, w: torch.Tensor,
+    def linear(self, x: torch.Tensor, w: torch.Tensor | QTensor,
                b: torch.Tensor | None = None, *,
                act: str | None = None) -> torch.Tensor:
-        """y = act(x @ w^T + b). x: (..., C), w: (R, C)."""
+        """y = act(x @ w^T + b). x: (..., C), w: (R, C) or a QTensor."""
         lead = x.shape[:-1]
+        cfg = self.config
+        if isinstance(w, QTensor):
+            out = qtensor_linear(x, w, b)
+            return self.nl.activation(act)(out) if act is not None else out
         x2 = x.reshape(-1, x.shape[-1])
-        if act is None:
-            out = ops.pim_linear(x2, w, b)
-        elif self.nl.mode == "lut":
-            out = ops.pim_linear(x2, w, b, act_table=getattr(self.nl.bank, act))
-        elif act == "gelu":
-            out = ops.pim_linear(x2, w, b, act="gelu")
+        if cfg.quant == "int8":
+            x_i8, x_scale = quant_lib.quantize_int8_rows(x2)
+            w_i8, w_scale = quant_lib.quantize_int8_rowwise(w)
+            out = ops.pim_linear_int8(x_i8, x_scale.float(), w_i8, w_scale)
+            if b is not None:
+                out = out + b
+            out = out.to(x.dtype)
+        elif cfg.quant == "fixed16":
+            w_fmt = quant_lib.QFormat(cfg.fixed_frac_w)
+            x_fmt = quant_lib.QFormat(cfg.fixed_frac_x)
+            out_q = ops.pim_linear_fixed(x_fmt.quantize(x2), w_fmt.quantize(w),
+                                         shift=cfg.fixed_frac_w)
+            out = x_fmt.dequantize(out_q).to(x.dtype)
+            if b is not None:
+                out = out + b.to(x.dtype)
         else:
-            out = self.nl.activation(act)(ops.pim_linear(x2, w, b))
-        return out.reshape(*lead, -1)
+            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
+        out = out.reshape(*lead, -1)
+        return self.nl.activation(act)(out) if act is not None else out
+
+    def _float_linear(self, x2, w, b, act):
+        """The float GEMV with the activation fused into its epilogue."""
+        if act is None:
+            return ops.pim_linear(x2, w, b)
+        if self.nl.mode == "lut":
+            return ops.pim_linear(x2, w, b, act_table=getattr(self.nl.bank, act))
+        if act == "gelu":
+            return ops.pim_linear(x2, w, b, act="gelu")
+        return self.nl.activation(act)(ops.pim_linear(x2, w, b))
 
     # -- C3: paged attention ---------------------------------------------------
     def _exp_table(self):

@@ -20,7 +20,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gemv_pim", "paged_attention", "paged_attention_split", "paged_prefill")
+SOURCES = ("gemv_pim", "gemv_pim_quant", "paged_attention", "paged_attention_split",
+           "paged_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,6 +23,21 @@ def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return gemv_k.gemv_pim_float(x, w, b, act_table=act_table, act=act)
 
 
+def pim_linear_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
+                    w_scale: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """int8 (M, C) . int8 (R, C)^T with f32 row scales (and f32 bias) -> f32."""
+    if x_i8.device.type == "cpu":
+        return gemv_k.gemv_pim_int8_plain(x_i8, x_scale, w_i8, w_scale, b)
+    return gemv_k.gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b)
+
+
+def pim_linear_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch.Tensor:
+    """int16 (M, C) . int16 (R, C)^T, wrapping int32 sum >> shift, saturated."""
+    if x_q.device.type == "cpu":
+        return gemv_k.gemv_pim_fixed_plain(x_q, w_q, shift=shift)
+    return gemv_k.gemv_pim_fixed(x_q, w_q, shift=shift)
+
+
 def pim_paged_attention(q, k_pages, v_pages, block_tables, length,
                         k_scales=None, v_scales=None, *, scale=None,
                         exp_table: LutTable | None = None, softcap=None,

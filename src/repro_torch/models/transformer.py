@@ -18,6 +18,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.quantize import QTensor
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -65,11 +66,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
 
 
 def _layers(blocks: dict, n_layers: int) -> list[dict]:
-    """Stacked block params -> one dict of views per layer."""
+    """Stacked block params -> one dict of views per layer (a stacked
+    QTensor of int8 serving splits into per-layer QTensors)."""
     def unbind(tree):
         if isinstance(tree, dict):
             parts = {k: unbind(v) for k, v in tree.items()}
             return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        if isinstance(tree, QTensor):
+            return tree.unbind()
         return torch.unbind(tree, 0)
     return unbind(blocks)
 

@@ -1,9 +1,23 @@
-"""Write-time KV quantization (the KV part of `repro.serving.quantize`).
+"""Serving-time int8 quantization (the port of `repro.serving.quantize`):
+int8 weights with one scale a row, and write-time KV quantization.
 
-One K or V vector per (token, head) is quantized with one symmetric amax
-scale, at the moment it is written into a page pool; the paged kernels
-dequantize it as they stage pages, and the plain versions after their
-gather, both as `q * scale` in fp32, so every read agrees bit for bit.
+Weights. `quantize_params_int8` rewrites every matmul weight leaf of a
+parameter tree (keys matching `_QUANT_PATHS`: the attention projections,
+the FFN and the LM head; not `embed` or `pos_embed`) into a `QTensor`,
+int8 `w_i8` (..., R, C) with f32 `scale` (..., R), in the same place of
+the tree. `quantize_leaf` works in f32: scale = max(amax, 1e-8) / 127,
+w_i8 = clip(round(w / scale), +-127), each operation rounded on its own
+as in the JAX function run eagerly. `qtensor_linear` quantizes x (..., C)
+the same way in f32 and routes the s8 x s8 product through
+`kernels.ops.pim_linear_int8`, which is `gemv_pim_int8_ref`'s function
+exactly (int32 sum, `* x_scale * scale`, `+ b` in f32), so on the card it
+runs the int8 GEMV kernel; the result is cast to x's dtype.
+
+KV. One K or V vector per (token, head) is quantized with one symmetric
+amax scale, at the moment it is written into a page pool; the paged
+kernels dequantize it as they stage pages, and the plain versions after
+their gather, both as `q * scale` in fp32, so every read agrees bit for
+bit.
 
   * int8: scale = max(amax, 1e-8) / 127, q = clip(round(x / scale), ±127);
   * int4: scale = max(amax, 1e-8) / 7, q = clip(round(x / scale), ±7),
@@ -15,7 +29,67 @@ its storage dtype (f32 or bf16). `torch.round` rounds half to even, as
 """
 from __future__ import annotations
 
+import dataclasses
+import re
+
 import torch
+
+from repro_torch.core import quant as quant_lib
+
+# weight leaves that are matmul operands (rows = output features)
+_QUANT_PATHS = re.compile(
+    r"(w[qkv]|wo|w_up|w_gate|w_down|in_proj|out_proj|lm_head)$")
+
+
+@dataclasses.dataclass
+class QTensor:
+    """int8 weight + per-output-row scale; drop-in for a (R, C) matrix."""
+
+    w_i8: torch.Tensor       # (..., R, C) int8
+    scale: torch.Tensor      # (..., R) float32
+
+    @property
+    def shape(self):
+        return self.w_i8.shape
+
+    @property
+    def ndim(self):
+        return self.w_i8.ndim
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.w_i8.to(device), self.scale.to(device))
+
+    def unbind(self) -> list["QTensor"]:
+        """A stacked (L, R, C) QTensor -> L per-layer (R, C) QTensors."""
+        return [QTensor(w, s) for w, s in zip(torch.unbind(self.w_i8, 0),
+                                              torch.unbind(self.scale, 0))]
+
+
+def quantize_leaf(w: torch.Tensor) -> QTensor:
+    w_i8, scale = quant_lib.quantize_int8_rows(w.float())
+    return QTensor(w_i8=w_i8, scale=scale)
+
+
+def quantize_params_int8(params, path: str = ""):
+    """Rewrite matmul weights to QTensor; leave everything else alone.
+    `params` is a nested dict; a leaf's path joins its keys with "/"."""
+    if isinstance(params, dict):
+        return {k: quantize_params_int8(v, f"{path}/{k}" if path else str(k))
+                for k, v in params.items()}
+    if _QUANT_PATHS.search(path) and params.ndim >= 2:
+        return quantize_leaf(params)
+    return params
+
+
+def qtensor_linear(x: torch.Tensor, q: QTensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """x (..., C) @ QTensor (R, C) -> (..., R): s8 x s8 -> s32 product."""
+    # Imported here: kernels.paged_attention imports this module.
+    from repro_torch.kernels import ops
+    lead = x.shape[:-1]
+    x_i8, x_scale = quant_lib.quantize_int8_rows(x.reshape(-1, x.shape[-1]).float())
+    out = ops.pim_linear_int8(x_i8, x_scale, q.w_i8, q.scale,
+                              b.float() if b is not None else None)
+    return out.reshape(*lead, -1).to(x.dtype)
 
 
 def quantize_vec(x: torch.Tensor, scale_dtype=torch.float32):

@@ -1,8 +1,10 @@
 """The port's paged serving engine against the JAX `ServingEngine`: greedy
 drains token-identical in exact and LUT mode at chunk sizes None and 8, on
-int8 (f32 and bf16 scale rows) and int4 pools, and with the KV-split
-decode engaged (`kv_splits=4`, a 1024-token block table), all pages
-returned; plus the port's guards (no JAX or `repro` imports in the
+int8 (f32 and bf16 scale rows) and int4 pools, with the KV-split decode
+engaged (`kv_splits=4`, a 1024-token block table), and on the quantized
+linear datapaths (`quant="int8"` exact and LUT, `quant="fixed16"`, and
+`quantize_params_int8` weights with int8 pools), all pages returned; plus
+the port's guards (no JAX or `repro` imports in the
 package, no silent CPU fallback, unsupported features raise, bad pool and
 split settings raise the JAX package's `ValueError`s)."""
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro.models import api as jax_api
 from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.config import GenConfig as JaxGenConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro.serving.quantize import quantize_params_int8 as jax_quantize_params_int8
 from repro_torch import bridge
 from repro_torch.configs import gpt2_medium
 from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
@@ -29,6 +32,7 @@ from repro_torch.core.salpim import SalPimEngine as TSalPimEngine
 from repro_torch.models import api
 from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.quantize import QTensor
 from repro_torch.serving.scheduler import FifoScheduler
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -56,20 +60,27 @@ def _drain(eng, prompts, new):
     return [by[u] for u in uids]
 
 
-def _drain_both(setup, mode="exact", **kw):
-    """Drain the same requests through both engines; check tokens, pages
-    and counts; return the port's engine."""
+def _drain_both(setup, mode="exact", quant="none", transform=None, **kw):
+    """Drain the same requests through both engines, on SAL-PIM datapath
+    `quant` and with `transform` (e.g. `quantize_params_int8`) applied to
+    the JAX parameters before they are bridged; check tokens, pages and
+    counts; return the port's engine."""
     jcfg, jparams, tparams, prompts, new = setup
+    if transform is not None:
+        jparams = transform(jparams)
+        tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                           device="cpu")
     kw = dict(dict(slots=SLOTS, max_len=MAX_LEN, paged=True, page_size=PAGE,
                    prefix_sharing=False), **kw)
     jeng = JaxServingEngine(
-        jparams, jcfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+        jparams, jcfg,
+        SalPimEngine.create(SalPimConfig(nonlinear_mode=mode, quant=quant)),
         JaxEngineConfig(gen=JaxGenConfig(stop_on_eos=False), **kw))
     want = _drain(jeng, prompts, new)
 
     teng = ServingEngine(
         tparams, gpt2_medium.smoke_config(),
-        TSalPimEngine.create(TSalPimConfig(nonlinear_mode=mode)),
+        TSalPimEngine.create(TSalPimConfig(nonlinear_mode=mode, quant=quant)),
         EngineConfig(gen=GenConfig(stop_on_eos=False), **kw), device="cpu")
     got = _drain(teng, prompts, new)
     assert got == want
@@ -121,6 +132,29 @@ def test_split_decode_drain_matches_jax_engine(setup):
     assert teng.engine.config.kv_splits == 4
     assert calls and set(calls) == {4}
     assert len(calls) == teng.decode_steps * gpt2_medium.smoke_config().n_layers
+
+
+@pytest.mark.parametrize("quant,mode,chunk", [("int8", "exact", None),
+                                               ("int8", "exact", 8),
+                                               ("fixed16", "exact", None),
+                                               ("int8", "lut", None)])
+def test_quantized_linear_drain_matches_jax_engine(setup, quant, mode, chunk):
+    """Weights and activations quantized on every linear call: the int8
+    and fixed16 GEMVs' plain versions against the JAX engine's oracles."""
+    teng = _drain_both(setup, mode, quant=quant, prefill_chunk_tokens=chunk)
+    assert teng.engine.config.quant == quant
+
+
+def test_int8_weights_and_pools_drain_matches_jax_engine(setup):
+    """`quantize_params_int8` weights with int8 pools, the configuration
+    of `repro.launch.serve --int8`: every matmul weight a QTensor."""
+    teng = _drain_both(setup, transform=jax_quantize_params_int8,
+                       kv_cache_dtype="int8", prefill_chunk_tokens=8)
+    attn = teng.params["blocks"]["attn"]
+    assert isinstance(teng.params["lm_head"], QTensor)
+    assert isinstance(attn["wq"], QTensor) and attn["wq"].w_i8.dtype == torch.int8
+    assert not isinstance(teng.params["embed"], QTensor)
+    assert teng.cache.k_pages.dtype == torch.int8
 
 
 def test_import_guard():
@@ -195,8 +229,9 @@ def test_fifo_scheduler_and_default_sharing():
                  scheduler=FifoScheduler()).validate(cfg)
     with pytest.raises(NotImplementedError, match="prefix_sharing"):
         EngineConfig(slots=1, max_len=8, paged=True).validate(cfg)
-    with pytest.raises(NotImplementedError):
-        TSalPimEngine.create(TSalPimConfig(quant="int8"))
+    for quant in ("int8", "fixed16"):
+        qcfg = TSalPimEngine.create(TSalPimConfig(quant=quant)).config
+        assert (qcfg.quant, qcfg.fixed_frac_w, qcfg.fixed_frac_x) == (quant, 12, 10)
     assert TSalPimEngine.create(TSalPimConfig(kv_splits=2)).config.kv_splits == 2
 
 

@@ -5,8 +5,10 @@ Here on the CPU: each plain PyTorch version against the JAX oracle in
 `repro.kernels.ref` (f32, 1e-5) and, at one small shape, against the Pallas
 kernel in interpret mode (1e-5; 3e-3 for LUT-exp attention, the JAX
 package's own bound for the online LUT softmax), plus the launchers'
-refusal of CPU tensors. On the card (`-m gpu`): each CUDA kernel against
-its plain version on the same inputs.
+refusal of CPU tensors and of bad arguments. On the card (`-m gpu`): each
+CUDA kernel against its plain version on the same inputs, the int8 and
+fixed16 GEMVs bit for bit at the shapes of `chip_smoke.py` (their plain
+versions are held to the JAX oracles in test_torch_quant.py).
 """
 from __future__ import annotations
 
@@ -55,6 +57,30 @@ def _gemv_inputs(M, C, R, seed=0):
     w = (rng.randn(R, C) * C ** -0.5).astype(np.float32)
     b = (rng.randn(R) * 0.5).astype(np.float32)
     return x, w, b
+
+
+def quant_gemv_inputs(M, C, R, seed=0):
+    """int8 and fixed16 GEMV operands at (M, C, R), made with numpy.
+
+    int8: random payloads in [-127, 127] (row 0 of w at -127 throughout),
+    positive f32 row scales and an f32 bias. fixed16: x in Q.10 and w in
+    Q.12 of random values, with x row 0 at v = sqrt(5e8 / C) and w rows 0
+    and 1 at +v and -v (sums of +-5e8, below 2^31, saturating both ways
+    after a shift of 10 or 12) and w row 2 at 32767, whose sum with x row
+    0 passes 2^31 and wraps."""
+    rng = np.random.RandomState(seed)
+    x8 = rng.randint(-127, 128, size=(M, C)).astype(np.int8)
+    w8 = rng.randint(-127, 128, size=(R, C)).astype(np.int8)
+    w8[0] = -127
+    xs = (rng.rand(M) * 0.05 + 1e-3).astype(np.float32)
+    ws = (rng.rand(R) * 0.01 + 1e-4).astype(np.float32)
+    b = rng.randn(R).astype(np.float32)
+    xq = np.clip(np.round(rng.randn(M, C) * 2 ** 10), -32768, 32767).astype(np.int16)
+    wq = np.clip(np.round(rng.randn(R, C) * C ** -0.5 * 2 ** 12),
+                 -32768, 32767).astype(np.int16)
+    v = int(np.sqrt(5e8 / C))
+    xq[0], wq[0], wq[1], wq[2] = v, v, -v, 32767
+    return SimpleNamespace(x8=x8, w8=w8, xs=xs, ws=ws, b=b, xq=xq, wq=wq)
 
 
 def _pool_inputs(B, H, Hkv, D, page, n_pages, lengths, Sq=None, seed=0):
@@ -223,9 +249,43 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_prefill.paged_prefill_attention(q4, _t(k), _t(v), _t(tbl),
                                               _t(lens), _t(lens - 1))
+    qi = quant_gemv_inputs(2, 32, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        gemv_pim.gemv_pim_int8(_t(qi.x8), _t(qi.xs), _t(qi.w8), _t(qi.ws), _t(qi.b))
+    with pytest.raises(ValueError, match="CUDA"):
+        gemv_pim.gemv_pim_fixed(_t(qi.xq), _t(qi.wq), shift=12)
     assert gemv_pim.gemv_pim_float.launches == 0
+    assert gemv_pim.gemv_pim_int8.launches == 0
+    assert gemv_pim.gemv_pim_fixed.launches == 0
     assert paged_attention.paged_attention.launches == 0
     assert paged_prefill.paged_prefill_attention.launches == 0
+
+
+def test_quantized_launchers_refuse_bad_arguments():
+    """Wrong dtypes, shapes, scale vectors, shifts and layouts raise before
+    anything reaches the card."""
+    qi = quant_gemv_inputs(2, 32, 8)
+    x8, xs, w8, ws, b = (_t(a) for a in (qi.x8, qi.xs, qi.w8, qi.ws, qi.b))
+    xq, wq = _t(qi.xq), _t(qi.wq)
+    int8 = gemv_pim.gemv_pim_int8
+    with pytest.raises(TypeError, match="int8 x and w"):
+        int8(xq, xs, w8, ws)
+    with pytest.raises(ValueError, match="need x"):
+        int8(x8, xs, w8[:, :16], ws)
+    with pytest.raises(ValueError, match="C >= 1"):
+        int8(x8[:, :0], xs, w8[:, :0], ws)
+    with pytest.raises(TypeError, match="x_scale must be torch.float32"):
+        int8(x8, xs.double(), w8, ws)
+    with pytest.raises(ValueError, match=r"w_scale must be \(8,\)"):
+        int8(x8, xs, w8, ws[:4])
+    with pytest.raises(ValueError, match=r"bias must be \(8,\)"):
+        int8(x8, xs, w8, ws, b[:3])
+    with pytest.raises(ValueError, match="w must be contiguous"):
+        int8(x8, xs, w8.t().contiguous().t()[:, :32], ws)
+    with pytest.raises(TypeError, match="int16 x and w"):
+        gemv_pim.gemv_pim_fixed(xq, w8, shift=12)
+    with pytest.raises(ValueError, match="shift"):
+        gemv_pim.gemv_pim_fixed(xq, wq, shift=32)
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +346,41 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, opts, dtype):
     want = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, st, **kw)
     tol = 3e-2 if dtype == torch.bfloat16 else (3e-3 if opts.get("lut") else 1e-4)
     _close(got, want.float().cpu().numpy(), tol)
+
+
+# The shapes of chip_smoke.py's kernel phase: decode (M = 1, 4) and chunk
+# (M = 64) widths of GPT-2 medium's projections, FFN and LM head.
+QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 64])
+@pytest.mark.parametrize("R,C", QUANT_SHAPES + [(777, 1001)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemv_int8_kernel_matches_plain(cuda, M, R, C, bias):
+    """Bit for bit: the same int32 sums and the same f32 roundings."""
+    qi = quant_gemv_inputs(M, C, R)
+    x8, xs, w8, ws, b = (_t(a, cuda) for a in (qi.x8, qi.xs, qi.w8, qi.ws, qi.b))
+    b = b if bias else None
+    got = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, b)
+    torch.cuda.synchronize()
+    want = gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 64])
+@pytest.mark.parametrize("R,C", QUANT_SHAPES + [(777, 1001)])
+@pytest.mark.parametrize("shift", [10, 12])
+def test_gemv_fixed_kernel_matches_plain(cuda, M, R, C, shift):
+    """Bit for bit, with rows that saturate both ways and one whose int32
+    sum wraps."""
+    qi = quant_gemv_inputs(M, C, R)
+    xq, wq = _t(qi.xq, cuda), _t(qi.wq, cuda)
+    got = gemv_pim.gemv_pim_fixed(xq, wq, shift=shift)
+    torch.cuda.synchronize()
+    want = gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=shift)
+    assert got.dtype == torch.int16
+    assert torch.equal(got, want)
+    assert int(want[0, 0]) == 32767 and int(want[0, 1]) == -32768

@@ -1,0 +1,289 @@
+"""The port's quantized S-ALU datapaths against the JAX package, bit for
+bit, with inputs made by numpy from a seed:
+
+  * `repro_torch.core.quant` against `repro.core.quant` (Q-format quantize
+    and dequantize with .5 ties and saturation, the int32->int16
+    writeback, `fixed_gemv` and `fixed_linear` with an int32 sum that
+    wraps, the fixed weight and bias quantizers, `quantize_int8_rowwise`
+    and `int8_linear`), in f32 and bf16;
+  * the plain int8 and fixed16 GEMVs against `ref.gemv_pim_int8_ref` and
+    `ref.gemv_pim_fixed_ref` (with the saturating and wrapping rows of
+    `quant_gemv_inputs`), and against the Pallas kernels in interpret
+    mode at the block-dividing shapes of tests/test_kernels.py;
+  * `SalPimEngine.linear` on the QTensor, `quant="int8"` and
+    `quant="fixed16"` branches, with and without bias and GELU, in exact
+    and LUT mode, against the JAX engine's, in f32 and bf16;
+  * `quantize_params_int8` of bridged fp params against the bridged JAX
+    `quantize_params_int8`.
+
+The JAX functions run eagerly, one operation at a time. Inside `jit`,
+XLA on the CPU multiplies by f32(1/127) instead of dividing and fuses the
+bias add into an FMA, which moves the last f32 bit of some values (see
+`repro_torch.core.quant`); the greedy drains of test_torch_engine.py hold
+the port to the jitted JAX engine by its tokens.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_kernels import quant_gemv_inputs
+
+from repro.core import quant as jq
+from repro.core.salpim import SalPimConfig, SalPimEngine
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import api as jax_api
+from repro.configs import gpt2_medium as jax_gpt2
+from repro.serving import quantize as jquant
+from repro_torch import bridge
+from repro_torch.core import quant as tq
+from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
+from repro_torch.core.salpim import SalPimEngine as TSalPimEngine
+from repro_torch.kernels import gemv_pim, ops
+from repro_torch.serving import quantize as tquant
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(x) -> np.ndarray:
+    """A JAX array or torch tensor as numpy, bf16 kept as ml_dtypes."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return np.asarray(jnp.asarray(x.view(torch.int16).numpy()).view(jnp.bfloat16))
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _same(got, want):
+    """Equal bit patterns (and dtypes)."""
+    g, w = _np(got), _np(want)
+    assert g.dtype == w.dtype, (g.dtype, w.dtype)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same f32 numpy values as a JAX array and a torch tensor of dtype."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _floats(*shape, std=1.0, seed=0) -> np.ndarray:
+    return (np.random.RandomState(seed).randn(*shape) * std).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# core/quant.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("frac", [10, 12])
+def test_qformat_quantize_dequantize(dtype, frac):
+    """Round half to even at exact ties, saturation both ways, int16 out."""
+    x = _floats(6, 40, std=4.0)
+    x[0, :8] = (np.arange(8) - 3.5) / 2 ** frac          # .5 ties
+    x[1, :4] = [40.0, -40.0, 1e6, -1e6]                   # saturate
+    jx, tx = _pair(x, dtype)
+    jfmt, tfmt = jq.QFormat(frac), tq.QFormat(frac)
+    assert (tfmt.scale, tfmt.min_int, tfmt.max_int) == (jfmt.scale, jfmt.min_int, jfmt.max_int)
+    _same(tfmt.quantize(tx), jfmt.quantize(jx))
+    q = tfmt.quantize(tx)
+    assert q.dtype == torch.int16 and int(q[1, 0]) == 32767 and int(q[1, 1]) == -32768
+    _same(tfmt.dequantize(q), jfmt.dequantize(jfmt.quantize(jx)))
+    # 32 bits, short of the range: the f32 clip bound 2^31 - 1 rounds up to
+    # 2^31, whose cast to int32 is undefined
+    _same(tq.QFormat(frac, bits=32).quantize(tx[2:]), jq.QFormat(frac, bits=32).quantize(jx[2:]))
+    assert tq.DEFAULT_WEIGHT_Q == tq.QFormat(12) and tq.DEFAULT_ACT_Q == tq.QFormat(10)
+
+
+def test_requantize_i32_to_i16():
+    acc = np.array([0, 1, -1, 4095, 4096, -4097, 2 ** 31 - 1, -2 ** 31,
+                    32767 << 12, (32767 << 12) + 4096, -32768 << 12,
+                    (-32768 << 12) - 1], np.int64).astype(np.int32)
+    for shift in (0, 10, 12):
+        _same(tq.requantize_i32_to_i16(torch.from_numpy(acc), shift),
+              jq.requantize_i32_to_i16(jnp.asarray(acc), shift))
+
+
+@pytest.mark.parametrize("C,shift", [(64, 12), (1001, 10), (4096, 12)])
+def test_fixed_gemv_wraps_and_saturates(C, shift):
+    qi = quant_gemv_inputs(1, C, 5)
+    x_q, w_q = qi.xq[0], qi.wq
+    got = tq.fixed_gemv(torch.from_numpy(w_q), torch.from_numpy(x_q), shift=shift)
+    _same(got, jq.fixed_gemv(jnp.asarray(w_q), jnp.asarray(x_q), shift=shift))
+    assert int(got[0]) == 32767 and int(got[1]) == -32768
+    exact = int(x_q.astype(np.int64) @ w_q[2].astype(np.int64))
+    assert not -2 ** 31 <= exact < 2 ** 31                    # row 2 wraps
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True])
+def test_fixed_linear(dtype, bias):
+    x = _floats(2, 3, 96, std=2.0)
+    w = _floats(40, 96, std=96 ** -0.5, seed=1)
+    b = _floats(40, seed=2)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    jb, tb = _pair(b, dtype)
+    jwq, twq = jq.quantize_weights_fixed(jw), tq.quantize_weights_fixed(tw)
+    _same(twq, jwq)
+    jbq = jq.quantize_bias_fixed(jb) if bias else None
+    tbq = tq.quantize_bias_fixed(tb) if bias else None
+    if bias:
+        _same(tbq, jbq)
+    _same(tq.fixed_linear(tx, twq, tbq), jq.fixed_linear(jx, jwq, jbq))
+    # a wrapping accumulator, with and without the 32-bit bias add
+    big = np.full((1, 96), 31.0, np.float32)
+    jbig, tbig = _pair(big, dtype)
+    wbig = np.full((2, 96), 32767, np.int16)
+    _same(tq.fixed_linear(tbig, torch.from_numpy(wbig), tbq[:2] if bias else None),
+          jq.fixed_linear(jbig, jnp.asarray(wbig), jbq[:2] if bias else None))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_quantize_int8_rowwise(dtype):
+    """In the weight's dtype: bf16 weights give bf16-rounded scales."""
+    w = _floats(48, 80, std=0.05)
+    w[0] = 0.0                                             # scale from the 1e-8 floor
+    w[1, :6] = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 127.0]) / 127 * 0.3   # ties
+    jw, tw = _pair(w, dtype)
+    (jw8, js), (tw8, ts) = jq.quantize_int8_rowwise(jw), tq.quantize_int8_rowwise(tw)
+    _same(tw8, jw8)
+    _same(ts, js)
+    assert ts.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True])
+def test_int8_linear(dtype, bias):
+    x = _floats(3, 4, 80)
+    w = _floats(48, 80, std=0.05, seed=1)
+    b = _floats(48, seed=2)
+    jx, tx = _pair(x, dtype)
+    jw8, js = jq.quantize_int8_rowwise(jnp.asarray(w))
+    tw8, ts = tq.quantize_int8_rowwise(torch.from_numpy(w))
+    jb, tb = _pair(b, dtype) if bias else (None, None)
+    _same(tq.int8_linear(tx, tw8, ts, tb), jq.int8_linear(jx, jw8, js, jb))
+
+
+# ---------------------------------------------------------------------------
+# The plain GEMVs against the JAX oracles and the Pallas kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,C,R", [(1, 64, 16), (4, 1001, 37), (3, 4096, 8)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemv_int8_plain_matches_oracle(M, C, R, bias):
+    qi = quant_gemv_inputs(M, C, R)
+    b = qi.b if bias else None
+    want = jref.gemv_pim_int8_ref(jnp.asarray(qi.x8), jnp.asarray(qi.xs), jnp.asarray(qi.w8),
+                                  jnp.asarray(qi.ws), None if b is None else jnp.asarray(b))
+    got = gemv_pim.gemv_pim_int8_plain(torch.from_numpy(qi.x8), torch.from_numpy(qi.xs),
+                                       torch.from_numpy(qi.w8), torch.from_numpy(qi.ws),
+                                       None if b is None else torch.from_numpy(b))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("M,C,R", [(1, 64, 16), (4, 1001, 37), (3, 4096, 8)])
+@pytest.mark.parametrize("shift", [10, 12])
+def test_gemv_fixed_plain_matches_oracle(M, C, R, shift):
+    """Including rows that saturate both ways and one whose sum wraps."""
+    qi = quant_gemv_inputs(M, C, R)
+    want = jref.gemv_pim_fixed_ref(jnp.asarray(qi.xq), jnp.asarray(qi.wq), shift=shift)
+    got = gemv_pim.gemv_pim_fixed_plain(torch.from_numpy(qi.xq), torch.from_numpy(qi.wq),
+                                        shift=shift)
+    _same(got, want)
+    assert int(got[0, 0]) == 32767 and int(got[0, 1]) == -32768
+
+
+@pytest.mark.parametrize("B,C,R", [(2, 512, 256), (4, 2048, 512)])
+def test_pim_linear_int8_matches_pallas_interpret(B, C, R):
+    qi = quant_gemv_inputs(B, C, R, seed=3)
+    want = jops.pim_linear_int8(jnp.asarray(qi.x8), jnp.asarray(qi.xs), jnp.asarray(qi.w8),
+                                jnp.asarray(qi.ws), impl="interpret")
+    got = ops.pim_linear_int8(torch.from_numpy(qi.x8), torch.from_numpy(qi.xs),
+                              torch.from_numpy(qi.w8), torch.from_numpy(qi.ws))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("B,C,R,shift", [(2, 512, 256, 12), (4, 1024, 512, 10)])
+def test_pim_linear_fixed_matches_pallas_interpret(B, C, R, shift):
+    qi = quant_gemv_inputs(B, C, R, seed=3)
+    want = jops.pim_linear_fixed(jnp.asarray(qi.xq), jnp.asarray(qi.wq), shift=shift,
+                                 impl="interpret")
+    got = ops.pim_linear_fixed(torch.from_numpy(qi.xq), torch.from_numpy(qi.wq), shift=shift)
+    _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# SalPimEngine.linear on the quantized branches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode", ["exact", "lut"])
+@pytest.mark.parametrize("act", [None, "gelu"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("branch", ["qtensor", "int8", "fixed16"])
+def test_engine_linear_matches_jax_engine(branch, bias, act, mode, dtype):
+    x = _floats(2, 3, 64, std=1.5)
+    w = _floats(48, 64, std=64 ** -0.5, seed=1)
+    b = _floats(48, std=0.5, seed=2)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    jb, tb = _pair(b, dtype) if bias else (None, None)
+    quant = "none" if branch == "qtensor" else branch
+    if branch == "qtensor":
+        jw = jquant.quantize_leaf(jw)
+        tw = bridge.params_from_numpy({"w": jax.tree.map(np.asarray, jw)}, device="cpu")["w"]
+        assert isinstance(tw, tquant.QTensor)
+    jeng = SalPimEngine.create(SalPimConfig(quant=quant, nonlinear_mode=mode))
+    teng = TSalPimEngine.create(TSalPimConfig(quant=quant, nonlinear_mode=mode))
+    got = teng.linear(tx, tw, tb, act=act)
+    want = jeng.linear(jx, jw, jb, act=act)
+    assert got.shape == (2, 3, 48)
+    if act is None or mode == "lut":
+        _same(got, want)
+        return
+    # The exact tanh GELU runs after the product, on the same bits...
+    _same(got, teng.nl.gelu(teng.linear(tx, tw, tb)))
+    # ...but torch's GELU is not jax.nn.gelu: in f32 their tanh differs by
+    # an ulp or two; in bf16 jax.nn.gelu rounds each of its seven
+    # operations to bf16, torch rounds once, up to two bf16 ulps apart.
+    tol = 1e-6 if dtype == "float32" else 2 ** -6
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_quantize_params_int8_matches_jax():
+    """The port's quantize_params_int8 of bridged fp params equals the
+    bridged JAX quantize_params_int8: the same leaves become QTensors, with
+    the same int8 payloads and f32 scales."""
+    jparams = jax_api.init_params(jax.random.PRNGKey(0), jax_gpt2.smoke_config())
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    want = bridge.params_from_numpy(
+        jax.tree.map(np.asarray, jquant.quantize_params_int8(jparams)), device="cpu")
+    got = tquant.quantize_params_int8(tparams)
+    n = 0
+
+    def walk(g, w, path):
+        nonlocal n
+        if isinstance(w, dict):
+            assert g.keys() == w.keys(), path
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, tquant.QTensor):
+            n += 1
+            assert isinstance(g, tquant.QTensor), path
+            assert g.shape == w.shape and g.ndim == w.ndim
+            assert torch.equal(g.w_i8, w.w_i8) and g.w_i8.dtype == torch.int8, path
+            assert torch.equal(g.scale.view(torch.int32), w.scale.view(torch.int32)), path
+        else:
+            assert not isinstance(g, tquant.QTensor), path
+            assert torch.equal(g, w), path
+
+    walk(got, want, "")
+    assert n == 7            # wq, wk, wv, wo, w_up, w_down, lm_head
+    assert got["blocks"]["attn"]["wq"].unbind()[1].shape == (64, 64)
