@@ -12,11 +12,15 @@ Run from the root of a checkout. Phases, each of which fails the run:
               main path's shapes in f32 and bf16: the paged kernels on fp,
               int8 (f32/bf16 scale rows) and int4 pools, and the KV-split
               kernel with its combine at K in {2, 4, 7} on a 1024-token
-              table, also against the unsplit kernel; then each is timed
-              (CUDA graphs of many launches, median of 20 replays) beside
-              its plain version, the matching PyTorch call where there is
-              one, and its bound on the card, the long-context decode
-              kernels at 960..1024 tokens;
+              table, also against the unsplit kernel; the dense path's
+              decode attention (arenas of 256, 161 and 1024 positions, GQA
+              with a window and a softcap), LUT softmax (causal and not),
+              LayerNorm/RMSNorm and LUT interpolation (both bit for
+              bit); then
+              each is timed (CUDA graphs of many launches, median of 20
+              replays) beside its plain version, the matching PyTorch call
+              where there is one, and its bound on the card, the
+              long-context decode kernels at 960..1024 tokens;
   4. serve  — GPT-2 medium at full width with seeded random weights serves
               8 requests through `ServingEngine` on the GPU, once with exact
               nonlinearities and once with the LUT ones; every request must
@@ -44,8 +48,25 @@ Run from the root of a checkout. Phases, each of which fails the run:
               greedy tokens with phase 4's exact drain, its decode step and
               prefill chunk on the host clock and the device, and the device
               time of the per-call weight quantization;
-  7. the kernels line, a JSON object with each kernel's error, times,
+  7. dense  — the dense per-slot arena: `generate()` on 4 prompts of 128
+              tokens, 32 new, exact and LUT (launches checked in total,
+              first logits against a plain prefill); ServingEngine with
+              paged=False on phase 4's requests at max_len 256, exact, LUT
+              and with the int8 arena, and on phase 5's requests at
+              max_len 1024, exact: every request finishes, every slot parks
+              at length 0, 145 GEMV + 24 decode_attention + 49
+              layernorm_lut launches a decode step and 145 GEMV + 49
+              layernorm_lut (+ 24 softmax_lut in LUT mode) an admission,
+              no paged kernel (checked every step), first logits within
+              3e-2 of a plain prefill; each drain's share of tokens with
+              the paged drain on the same requests, its decode step on
+              the host clock and on the device, and the int8 arena's
+              dequantization;
+  8. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
+
+Phases 4-6 also check the norms (49 layernorm_lut launches a decode step
+and a chunk) and, in q3, the LUT GELU after the int8 GEMV (24 lut_interp).
 
 Phase 3 also holds the int8 and fixed16 GEMVs bit for bit to their plain
 versions (M 1, 4, 64 over the model's weight shapes, int8 with and
@@ -58,6 +79,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import re
@@ -80,6 +102,13 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # path's 64..1024 keys it reaches 5e-3. So a LUT-mode kernel is held, at
 # the exact-mode tolerances, to `online_walk`, the same page walk in plain
 # PyTorch, and its gap from the dense plain version is printed.
+# First logits of a drain against a one-shot prefill through the plain
+# versions: max |diff| / max |logit|. A LUT-mode paged drain is held to the
+# plain page walk at FIRST_LOGITS_LIMIT and to the dense LUT softmax, the
+# oracle's function, at DENSE_LUT_GAP_LIMIT; scripts/first_logits_seeds.py
+# reads both over several seeds.
+FIRST_LOGITS_LIMIT = 3e-2
+DENSE_LUT_GAP_LIMIT = 4e-2
 SOURCE = {
     "gemv_pim_float": ("src/repro_torch/kernels/csrc/gemv_pim.cu",
                        "src/repro/kernels/gemv_pim.py:72"),
@@ -95,6 +124,14 @@ SOURCE = {
                       "src/repro/kernels/gemv_pim.py:151"),
     "gemv_pim_fixed": ("src/repro_torch/kernels/csrc/gemv_pim_quant.cu",
                        "src/repro/kernels/gemv_pim.py:208"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:112"),
+    "softmax_lut": ("src/repro_torch/kernels/csrc/softmax_lut.cu",
+                    "src/repro/kernels/softmax_lut.py:61"),
+    "layernorm_lut": ("src/repro_torch/kernels/csrc/layernorm_lut.cu",
+                      "src/repro/kernels/layernorm_lut.py:73"),
+    "lut_interp": ("src/repro_torch/kernels/csrc/lut_interp.cu",
+                   "src/repro/kernels/lut_interp.py:45"),
 }
 # The model's GEMV shapes (R, C): q/k/v/o projections, w_up, w_down, LM head.
 QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
@@ -636,6 +673,205 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
     return out
 
 
+def check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp, seed):
+    """The dense-cache path's four kernels against their plain versions at
+    the main path's shapes, in f32 and bf16: decode attention over 256-,
+    161- (a ragged last block) and 1024-position arenas, exact and LUT (LUT
+    held to the online block walk, its gap to the dense LUT softmax
+    printed), once with GQA, a window and a softcap; the LUT softmax of a
+    128-token prefill's scores, causal and unmasked; LayerNorm and RMSNorm,
+    LUT and exact, and the LUT interpolation, both bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    bank = tlut.LutBank.create(64)
+    errs = {"decode_attention": 0.0, "softmax_lut": 0.0, "layernorm_lut": 0.0,
+            "lut_interp": 0.0}
+    gaps = {}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def record(name, label, got, want, tol):
+        e = compare(torch, label, got, want, tol)
+        errs[name] = max(errs[name], e)
+        return e
+
+    cases = [(256, [128, 137, 151, 160], 16, {}), (161, [96, 120, 150, 161], 16, {}),
+             (1024, [960, 981, 1003, 1020], 16, {}),
+             (256, [1, 100, 200, 256], 4, {"window": 90, "softcap": 30.0})]
+    for S, lens, Hkv, extra in cases:
+        q32, k32, v32 = randn(4, 16, 64), randn(4, Hkv, S, 64), randn(4, Hkv, S, 64)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            worst = 0.0
+            for lut in (False, True):
+                kw = dict(extra, exp_table=bank.exp if lut else None)
+                got = attn.decode_attention(q, k, v, lengths, **kw)
+                torch.cuda.synchronize()
+                dense = attn.decode_attention_plain(q, k, v, lengths, **kw)
+                label = f"decode_attention S={S} Hkv={Hkv} {sorted(extra)} lut={lut} {dname}"
+                if lut:
+                    online = attn.decode_attention_online_plain(q, k, v, lengths, **kw)
+                    worst = max(worst, record("decode_attention", label + " vs online walk",
+                                              got, online, TOL[dname]))
+                    key = f"decode_attention ({dname})"
+                    gaps[key] = max(gaps.get(key, 0.0),
+                                    float((got.float() - dense.float()).abs().max()))
+                else:
+                    worst = max(worst, record("decode_attention", label, got, dense,
+                                              TOL[dname]))
+            log(f"  decode_attention B=4 H=16 Hkv={Hkv} D=64 arena {S} lengths {lens} "
+                f"{extra or ''} {dname}, exact/LUT: max_abs_err {worst:.3e} "
+                f"(tol {TOL[dname]})")
+
+    x32 = randn(16, 128, 128, std=4.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        x = x32.to(dtype)
+        worst = 0.0
+        for kw in ({"causal": True}, {}):
+            got = softmax_lut.softmax_lut(x, bank.exp, bank.recip, **kw)
+            torch.cuda.synchronize()
+            want = softmax_lut.softmax_lut_plain(x, bank.exp, bank.recip, **kw)
+            worst = max(worst, record("softmax_lut", f"softmax_lut {kw} {dname}", got, want,
+                                      TOL[dname]))
+        log(f"  softmax_lut (16*128, 128) causal and unmasked {dname}: max_abs_err "
+            f"{worst:.3e} (tol {TOL[dname]})")
+
+    for M in (4, 64):
+        x32 = randn(M, 1024, std=3.0) + 0.5
+        g32, b32 = randn(1024, std=0.2) + 1.0, randn(1024, std=0.2)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x, g, b = x32.to(dtype), g32.to(dtype), b32.to(dtype)
+            for rms in (False, True):
+                for lut in (False, True):
+                    kw = dict(eps=1e-5, rsqrt_table=bank.rsqrt if lut else None, rms=rms)
+                    beta = None if rms else b
+                    got = layernorm_lut.layernorm_lut(x, g, beta, **kw)
+                    torch.cuda.synchronize()
+                    want = layernorm_lut.layernorm_lut_plain(x, g, beta, wide_sums=True,
+                                                             **kw)
+                    label = f"layernorm_lut M={M} rms={rms} lut={lut} {dname}"
+                    record("layernorm_lut", label, got, want, TOL[dname])
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{label}: {int((got != want).sum())} elements "
+                                             "differ from the plain version")
+            log(f"  layernorm_lut ({M}, 1024) LN/RMS x LUT/exact {dname}: bit-exact to the "
+                "plain version")
+
+    for M in (4, 64):
+        x32 = randn(M, 4096, std=3.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name in ("gelu", "exp", "tanh"):
+                x = x32.to(dtype)
+                got = lut_interp.lut_interp(x, getattr(bank, name))
+                torch.cuda.synchronize()
+                want = lut_interp.lut_interp_plain(x, getattr(bank, name))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"lut_interp ({M}, 4096) {name} {dtype}: "
+                                         f"{int((got != want).sum())} elements differ")
+        log(f"  lut_interp ({M}, 4096) gelu/exp/tanh f32 and bf16: bit-exact to the plain "
+            "version")
+    log("  LUT mode, decode_attention's online block walk vs the dense LUT plain version "
+        "(the TPU kernel's algebra, not a kernel error): max gap "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    return errs
+
+
+def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
+                       seed):
+    """The four kernels at the dense path's shapes in bf16 (scores in f32),
+    one input set a layer, beside their plain versions, a PyTorch call and
+    their bounds: decode attention at 4 slots x 128..160 keys of a 256
+    arena (and x 960..1020 of a 1024 arena), the LUT softmax of a 128-token
+    prefill's causal scores, the LayerNorm of a decode step's (4, 1024)
+    rows, the LUT GELU of a (4, 4096) w_up output."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    bank = tlut.LutBank.create(64)
+    L, H, D = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    out = {}
+
+    def randn(*shape, std=1.0, dtype=cfg.cdtype):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q = randn(4, H, D)
+    for S, lens in ((256, [128, 137, 151, 160]), (1024, [960, 981, 1003, 1020])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        arenas = [(randn(4, H, S, D), randn(4, H, S, D)) for _ in range(L)]
+        key_ok = torch.arange(S, device=dev)[None, :] < lengths[:, None].long()
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(q[:, :, None], *arenas[i],
+                                                  attn_mask=key_ok[:, None, None])[:, :, 0]
+
+        compare(torch, f"sdpa dense-arena yardstick S={S}", sdpa(0),
+                attn.decode_attention_plain(q, *arenas[0], lengths), TOL["bfloat16"])
+        ms = time_graph(torch, lambda i: attn.decode_attention(q, *arenas[i], lengths), L)
+        plain = time_graph(torch, lambda i: attn.decode_attention_plain(
+            q, *arenas[i], lengths), L)
+        lib = time_graph(torch, sdpa, L)
+        keys = sum(lens) * H
+        bnd, by = bound_ms(2 * keys * D * 2 + 2 * (2 * 4 * H * D) + 4 * 4, 4 * keys * D,
+                           "bfloat16")
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   shape=f"B=4 H=16 D=64 arena {S}, lengths {lens}, bf16")
+        if S == 256:
+            out["decode_attention"] = row
+        else:
+            out["decode_attention"]["shape"] += (
+                f"; arena 1024, lengths {lens}: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} "
+                f"us, SDPA {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us")
+        log(f"  decode_attention [arena {S}, lengths {lens}]: {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, SDPA with a length mask {lib * 1e3:.2f} us, bound "
+            f"{bnd * 1e3:.2f} us ({by})")
+
+    scores = [randn(1, H, 1, 128, 128, std=4.0, dtype=torch.float32) for _ in range(L)]
+    ms = time_graph(torch, lambda i: softmax_lut.softmax_lut(
+        scores[i], bank.exp, bank.recip, causal=True), L)
+    plain = time_graph(torch, lambda i: softmax_lut.softmax_lut_plain(
+        scores[i], bank.exp, bank.recip, causal=True), L)
+    lib = time_graph(torch, lambda i: torch.softmax(scores[i], dim=-1), L)
+    # The causal row q reads its q + 1 valid keys and writes all 128 entries.
+    valid = H * sum(q + 1 for q in range(128))
+    bnd, by = bound_ms(4 * valid + 4 * H * 128 * 128, 5 * valid, "float32")
+    out["softmax_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                              bound_by=by, shape="(16*128, 128) f32 scores of a 128-token "
+                              "prefill, causal; library: torch.softmax, unmasked")
+
+    d = cfg.d_model
+    rows = [randn(4, d) for _ in range(2 * L + 1)]
+    g, b = randn(d, std=0.2) + 1.0, randn(d, std=0.2)
+    n = len(rows)
+    ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(
+        rows[i], g, b, rsqrt_table=bank.rsqrt), n)
+    exact = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(rows[i], g, b), n)
+    plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
+        rows[i], g, b, rsqrt_table=bank.rsqrt, wide_sums=True), n)
+    lib = time_graph(torch, lambda i: F.layer_norm(rows[i], (d,), g, b, 1e-5), n)
+    bnd, by = bound_ms(2 * (2 * 4 * d + 2 * d), 8 * 4 * d, "float32")
+    out["layernorm_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                bound_by=by, shape=f"(4, {d}) bf16, LUT rsqrt (exact rsqrt "
+                                f"{exact * 1e3:.2f} us); library: F.layer_norm")
+
+    acts = [randn(4, cfg.d_ff, std=3.0) for _ in range(L)]
+    ms = time_graph(torch, lambda i: lut_interp.lut_interp(acts[i], bank.gelu), L)
+    plain = time_graph(torch, lambda i: lut_interp.lut_interp_plain(acts[i], bank.gelu), L)
+    bnd, by = bound_ms(2 * 2 * 4 * cfg.d_ff, 2 * 4 * cfg.d_ff, "float32")
+    out["lut_interp"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                             bound_by=by, shape=f"(4, {cfg.d_ff}) bf16, the LUT GELU after "
+                             "q3's int8 w_up; library: none")
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return out
+
+
 def quant_operands(torch, M, C, R, gen):
     """int8 and fixed16 GEMV operands on the card, made as
     tests/test_torch_kernels.py's `quant_gemv_inputs` makes them: random
@@ -809,12 +1045,18 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
 # Phase 4: serving
 # ---------------------------------------------------------------------------
 
-def plain_linear(sal, quant, qz, gemv_pim):
+def plain_linear(F, sal, quant, qz, gemv_pim, lut_interp):
     """`SalPimEngine.linear` of `sal` through plain functions alone: the
     float GEMV's plain version, or `core.quant`'s `int8_linear` and
     `fixed_linear` (the twins of the JAX package's), which compute the
-    quantized datapaths with the integer product in float64."""
+    quantized datapaths with the integer product in float64, followed by
+    the activation's plain version."""
     cfg, nl = sal.config, sal.nl
+
+    def activation(out, act):
+        if nl.mode == "lut":
+            return lut_interp.lut_interp_plain(out, getattr(nl.bank, act))
+        return F.gelu(out, approximate="tanh")
 
     def lin(x, w, b=None, act=None):
         if isinstance(w, qz.QTensor):
@@ -834,16 +1076,21 @@ def plain_linear(sal, quant, qz, gemv_pim):
             return gemv_pim.gemv_pim_plain(x, w, b, act_table=getattr(nl.bank, act))
         else:
             return gemv_pim.gemv_pim_plain(x, w, b, act=act)
-        return nl.activation(act)(out) if act is not None else out
+        return activation(out, act) if act is not None else out
     return lin
 
 
-def plain_prefill_logits(torch, params, cfg, sal, prompt, quant, qz, gemv_pim,
-                         paged_prefill, fmt="fp"):
+def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
+                         fmt="fp", online=True):
     """One-shot prefill of `prompt` through the plain versions only, on the
-    linear datapath of `sal` and a pool of format `fmt` (quantized per
-    vector as the engine writes it): the reference for the engine's first
-    logits."""
+    linear datapath of `sal`: the reference for the engine's first logits.
+    Attention runs over a pool of format `fmt` (quantized per vector as the
+    engine writes it) with the paged plain version or, in LUT mode with
+    `online`, with the page walk the paged kernels compute (`online_prefill`:
+    its LUT algebra is not the dense LUT softmax's); with fmt="dense" it is
+    the dense path's masked softmax attention (the LUT softmax's plain
+    version in LUT mode)."""
+    gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut, walk = plain
     dev = params["embed"].device
     S, H, D, page = len(prompt), cfg.n_heads, cfg.head_dim, 16
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
@@ -853,9 +1100,15 @@ def plain_prefill_logits(torch, params, cfg, sal, prompt, quant, qz, gemv_pim,
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     length = zero + S
     nl = sal.nl
-    exp_table = nl.bank.exp if nl.mode == "lut" else None
-    lin = plain_linear(sal, quant, qz, gemv_pim)
+    lut = nl.mode == "lut"
+    lin = plain_linear(F, sal, quant, qz, gemv_pim, lut_interp)
     bl = params["blocks"]
+
+    def norm(x, p, i=None):
+        g, b = (p["g"], p["b"]) if i is None else (p["g"][i], p["b"][i])
+        return layernorm_lut.layernorm_lut_plain(x, g, b, eps=cfg.norm_eps,
+                                                 rsqrt_table=nl.bank.rsqrt if lut else None,
+                                                 wide_sums=True)
 
     def at(w, i):                                 # layer i of a stacked weight
         return qz.QTensor(w.w_i8[i], w.scale[i]) if isinstance(w, qz.QTensor) else w[i]
@@ -866,21 +1119,69 @@ def plain_prefill_logits(torch, params, cfg, sal, prompt, quant, qz, gemv_pim,
         p = p.reshape(n_pages, page, H, D).transpose(1, 2)
         return torch.cat([torch.zeros_like(p[:1]), p]).contiguous()
 
+    def dense_attention(q, k, v):                 # q (1, S, H, D), k/v (S, H, D)
+        sc = torch.einsum("bqhd,khd->bhqk", q.float(), k.float()) * D ** -0.5
+        if lut:
+            probs = softmax_lut.softmax_lut_plain(sc, nl.bank.exp, nl.bank.recip,
+                                                  causal=True)
+        else:
+            mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+            probs = torch.softmax(torch.where(mask, sc, -torch.inf), dim=-1)
+        return torch.einsum("bhqk,khd->bqhd", probs.to(v.dtype), v)
+
     for i in range(cfg.n_layers):
         a, ffn = bl["attn"], bl["ffn"]
-        h = nl.layernorm(x, bl["ln1"]["g"][i], bl["ln1"]["b"][i], cfg.norm_eps)
+        h = norm(x, bl["ln1"], i)
         q = lin(h, at(a["wq"], i), a["bq"][i]).reshape(1, S, H, D)
         k = lin(h, at(a["wk"], i), a["bk"][i]).reshape(S, H, D)
         v = lin(h, at(a["wv"], i), a["bv"][i]).reshape(S, H, D)
-        kp, vp, ks, vs = make_pools(torch, qz, pool(k), pool(v), fmt, cfg.cdtype)
-        att = paged_prefill.paged_prefill_attention_plain(
-            q, kp, vp, table, length, zero, ks, vs, scale=D ** -0.5, exp_table=exp_table)
+        if fmt == "dense":
+            att = dense_attention(q, k, v)
+        else:
+            kp, vp, ks, vs = make_pools(torch, qz, pool(k), pool(v), fmt, cfg.cdtype)
+            if lut and online:
+                att = walk(q, kp, vp, table, length, zero, ks, vs,
+                           exp_table=nl.bank.exp).to(q.dtype)
+            else:
+                att = paged_prefill.paged_prefill_attention_plain(
+                    q, kp, vp, table, length, zero, ks, vs, scale=D ** -0.5,
+                    exp_table=nl.bank.exp if lut else None)
         x = x + lin(att.reshape(S, H * D), at(a["wo"], i))
-        h = nl.layernorm(x, bl["ln2"]["g"][i], bl["ln2"]["b"][i], cfg.norm_eps)
+        h = norm(x, bl["ln2"], i)
         x = x + lin(lin(h, at(ffn["w_up"], i), act="gelu"), at(ffn["w_down"], i))
-    x = nl.layernorm(x[-1:], params["final_norm"]["g"], params["final_norm"]["b"],
-                     cfg.norm_eps)
+    x = norm(x[-1:], params["final_norm"])
     return lin(x, params["lm_head"])[0].float()
+
+
+def serving_handles(torch):
+    """The kernel wrappers by name (their launch counters), the modules that
+    `serve` takes and the plain versions that `plain_prefill_logits` takes."""
+    from repro_torch.core import lut as tlut
+    from repro_torch.core.salpim import SalPimConfig, SalPimEngine
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import decode_attention as attn
+    from repro_torch.kernels import (gemv_pim, layernorm_lut, lut_interp, paged_attention,
+                                     paged_prefill, softmax_lut)
+    from repro_torch.models import api
+    from repro_torch.serving.config import EngineConfig, GenConfig
+    from repro_torch.serving.engine import ServingEngine
+    kernels = {"gemv_pim_float": gemv_pim.gemv_pim_float,
+               "paged_attention": paged_attention.paged_attention,
+               "paged_prefill_attention": paged_prefill.paged_prefill_attention,
+               "paged_attention_split": paged_attention.paged_attention_split,
+               "merge_partials": paged_attention.merge_partials,
+               "gemv_pim_int8": gemv_pim.gemv_pim_int8,
+               "gemv_pim_fixed": gemv_pim.gemv_pim_fixed,
+               "decode_attention": attn.decode_attention,
+               "softmax_lut": softmax_lut.softmax_lut,
+               "layernorm_lut": layernorm_lut.layernorm_lut,
+               "lut_interp": lut_interp.lut_interp}
+    mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
+            paged_attention, kernels)
+    plain = (gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut,
+             lambda *a, **k: online_prefill(torch, tlut, collectives, paged_attention,
+                                            *a, **k))
+    return kernels, mods, plain
 
 
 def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
@@ -898,6 +1199,8 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         prefix_sharing=False, kv_cache_dtype=kv, kv_scale_dtype=sd,
         kv_splits=kv_splits, gen=GenConfig(stop_on_eos=False)), device="cuda")
     split = paged_attention.effective_kv_splits(kv_splits, eng.max_pages, 16) is not None
+    # The LUT GELU runs on its own after a quantized GEMV (no epilogue).
+    lut_act = mode == "lut" and gemv != "gemv_pim_float"
     first: dict[int, object] = {}
     tick = eng._prefill_tick
 
@@ -922,6 +1225,8 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         L = cfg.n_layers                 # 6 linears a layer plus the LM head
         expect = {name: 0 for name in kernels}
         expect.update({gemv: (6 * L + 1) * (dec + chunk),
+                       "layernorm_lut": (2 * L + 1) * (dec + chunk),
+                       "lut_interp": L * (dec + chunk) if lut_act else 0,
                        "paged_attention": 0 if split else L * dec,
                        "paged_prefill_attention": L * chunk,
                        "paged_attention_split": L * dec if split else 0,
@@ -951,29 +1256,56 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     L = cfg.n_layers
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}, {attn}; "
-        f"per prefill chunk: {6 * L + 1} {gemv}, {L} paged_prefill_attention; no other "
-        "kernel (checked every step)")
+    act = f", {L} lut_interp" if lut_act else ""
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}, {attn}, "
+        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}, "
+        f"{L} paged_prefill_attention, {2 * L + 1} layernorm_lut{act}; no other kernel "
+        "(checked every step)")
     return eng, done, first, wall
 
 
-def check_first_logits(torch, params, cfg, sal, prompts, done, first, label, fmt,
-                       quant, qz, gemv_pim, paged_prefill):
-    worst, agree = 0.0, 0
+def first_logit_gaps(torch, F, params, cfg, sal, prompts, done, first, fmt, quant, qz,
+                     plain):
+    """max |diff| / max |logit| of each request's first logits against a
+    plain one-shot prefill (the plain page walk for a LUT-mode paged drain),
+    the greedy first tokens the two agree on, and, for a LUT-mode paged
+    drain, the same measure against the dense LUT softmax (else None)."""
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    walked = sal.nl.mode == "lut" and fmt != "dense"
+    worst, agree, dense_gap = 0.0, 0, 0.0
     for u, p in zip(sorted(done), prompts):
-        want = plain_prefill_logits(torch, params, cfg, sal, p, quant, qz, gemv_pim,
-                                    paged_prefill, fmt)
+        want = plain_prefill_logits(torch, F, params, cfg, sal, p, quant, qz, plain, fmt)
         got = first[u]
-        rel = float((got - want).abs().max() / want.abs().max())
-        worst = max(worst, rel)
+        worst = max(worst, rel(got, want))
         agree += int(int(torch.argmax(want)) == done[u].generated[0])
+        if walked:
+            dense_gap = max(dense_gap, rel(got, plain_prefill_logits(
+                torch, F, params, cfg, sal, p, quant, qz, plain, fmt, online=False)))
+    return worst, agree, dense_gap if walked else None
+
+
+def check_first_logits(torch, F, params, cfg, sal, prompts, done, first, label, fmt,
+                       quant, qz, plain):
+    """Each request's first logits within FIRST_LOGITS_LIMIT of a plain
+    one-shot prefill; a LUT-mode paged drain is held to the plain page walk,
+    and within DENSE_LUT_GAP_LIMIT of the dense LUT softmax."""
+    worst, agree, dense_gap = first_logit_gaps(torch, F, params, cfg, sal, prompts, done,
+                                               first, fmt, quant, qz, plain)
     log(f"  serve[{label}] greedy first-token agreement with the plain path: "
         f"{agree}/{len(prompts)}")
-    log(f"  serve[{label}] first logits vs plain one-shot prefill on {fmt} pools, "
+    extra = ("" if dense_gap is None else
+             f"; against the dense LUT softmax instead of the page walk {dense_gap:.3e} "
+             f"(limit {DENSE_LUT_GAP_LIMIT:.0e})")
+    log(f"  serve[{label}] first logits vs plain one-shot prefill ({fmt}), "
         f"quant={sal.config.quant}: "
-        f"max |diff| / max |logit| = {worst:.3e} (limit 3e-2)")
-    if worst > 3e-2:
+        f"max |diff| / max |logit| = {worst:.3e} (limit {FIRST_LOGITS_LIMIT:.0e}){extra}")
+    if worst > FIRST_LOGITS_LIMIT:
         raise AssertionError(f"serve[{label}]: first logits differ by {worst:.3e}")
+    if dense_gap is not None and dense_gap > DENSE_LUT_GAP_LIMIT:
+        raise AssertionError(f"serve[{label}]: first logits differ from the dense LUT "
+                             f"softmax's by {dense_gap:.3e}")
 
 
 def time_long_decode(torch, api, params, cfg, sal, fmt, label, card):
@@ -1067,6 +1399,162 @@ def time_model(torch, api, params, cfg, sal, prompts, card, label=None, fmt="fp"
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the dense cache
+# ---------------------------------------------------------------------------
+
+def dense_expect(kernels, L, dec, prefills, lut):
+    """Launches of `dec` dense decode steps and `prefills` whole-prompt
+    prefills: 6 linears a layer plus the LM head, 2 norms a layer plus the
+    final one, one attention a layer (decode_attention; the LUT softmax
+    in a LUT-mode prefill), nothing else."""
+    expect = {name: 0 for name in kernels}
+    expect.update({"gemv_pim_float": (6 * L + 1) * (dec + prefills),
+                   "layernorm_lut": (2 * L + 1) * (dec + prefills),
+                   "decode_attention": L * dec,
+                   "softmax_lut": L * prefills if lut else 0})
+    return expect
+
+
+def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompts,
+                   new_tokens):
+    """`generate()` over a (B, S) batch, its launches checked in total:
+    one prefill and new_tokens decode steps."""
+    toks = torch.as_tensor(prompts, device="cuda")
+    before = {n: k.launches for n, k in kernels.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = generate(params, toks, cfg, sal,
+                       GenConfig(max_new_tokens=new_tokens, stop_on_eos=False), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {n: k.launches - before[n] for n, k in kernels.items()}
+    mode = sal.nl.mode
+    expect = dense_expect(kernels, cfg.n_layers, new_tokens, 1, mode == "lut")
+    if d != expect:
+        raise AssertionError(f"generate[{mode}]: launches {d}, expected {expect}")
+    if tuple(out.shape) != (len(prompts), new_tokens) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"generate[{mode}]: tokens {tuple(out.shape)} out of range")
+    log(f"  generate[{mode}]: {tuple(toks.shape)} prompts, {new_tokens} new tokens, "
+        f"{st['tokens']} tokens; prefill {st['prefill_sec'] * 1e3:.1f} ms, decode "
+        f"{st['decode_sec'] * 1e3:.1f} ms = {st['sec_per_token'] * 1e3:.2f} ms per token a "
+        f"sequence; {wall:.3f} s in all; launches as expected ({d['gemv_pim_float']} GEMV, "
+        f"{d['decode_attention']} decode_attention, {d['layernorm_lut']} layernorm_lut, "
+        f"{d['softmax_lut']} softmax_lut, no paged kernel)")
+    return out
+
+
+def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
+                mode="exact", max_len=256):
+    """Drain `prompts` through ServingEngine(paged=False) (4 slots; the
+    arena is int8 when cfg.kv_dtype says so), checking every step's
+    launches: per decode step 145 GEMV, 24 decode_attention, 49
+    layernorm_lut; per admission 145 GEMV, 49 layernorm_lut and, in LUT
+    mode, 24 softmax_lut; no paged kernel."""
+    (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
+     paged_attention, kernels) = mods
+    sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+    eng = ServingEngine(params, cfg, sal, EngineConfig(
+        slots=4, max_len=max_len, gen=GenConfig(stop_on_eos=False)), device="cuda")
+    first: dict[int, object] = {}
+    place = eng._place_dense
+
+    def place_and_capture(slot, req):          # record each request's first logits
+        place(slot, req)
+        first[req.uid] = eng.last_logits[slot].clone()
+
+    eng._place_dense = place_and_capture
+    uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while True:
+        before = {n: k.launches for n, k in kernels.items()}
+        n_dec, n_adm = eng.decode_steps, len(first)
+        n = eng.step()
+        steps += 1
+        d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
+        dec, adm = eng.decode_steps - n_dec, len(first) - n_adm
+        expect = dense_expect(kernels, cfg.n_layers, dec, adm, mode == "lut")
+        if d != expect:
+            raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
+                                 f"{expect} (decode {dec}, admissions {adm})")
+        if n == 0 and not eng.queue and all(r is None for r in eng.active):
+            break
+        if steps > 4000:
+            raise AssertionError(f"serve[{label}]: engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {r.uid: r for r in eng.finished}
+    st = eng.stats()
+    c = eng.cache
+    arena = sum(t.numel() * t.element_size() for t in (c.k, c.v, c.k_scale, c.v_scale)
+                if t is not None)
+    parked = c.lengths.tolist()
+    log(f"  serve[{label}]: dense {'int8' if c.quantized else 'fp'} arena "
+        f"({arena / 2 ** 20:.1f} MiB, {max_len} positions x 4 slots), {mode}: finished "
+        f"{len(done)}/{len(uids)}, slot lengths after the drain {parked}, "
+        f"{st['decode_steps']} decode steps, {st['tokens']} tokens in {wall:.3f} s = "
+        f"{st['tokens'] / wall:.1f} tok/s ({card})")
+    if len(done) != len(uids) or any(len(done[u].generated) != new_tokens for u in uids):
+        raise AssertionError(f"serve[{label}]: not every request finished")
+    if parked != [0] * 4 or len(first) != len(uids):
+        raise AssertionError(f"serve[{label}]: slots not parked ({parked}) or first logits "
+                             f"of {len(first)} requests")
+    L = cfg.n_layers
+    sm = f", {L} softmax_lut" if mode == "lut" else ""
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} gemv_pim_float, {L} "
+        f"decode_attention, {2 * L + 1} layernorm_lut; per admission prefill: {6 * L + 1} "
+        f"gemv_pim_float, {2 * L + 1} layernorm_lut{sm}; no paged kernel (checked every "
+        "step)")
+    return eng, done, first, wall
+
+
+def time_dense_decode(torch, api, params, cfg, sal, max_len, lens, label, card):
+    """ms per dense decode step at 4 slots with the given lengths, on an
+    arena of random contents (the step's time does not depend on them):
+    host clock around eager steps, and the device alone, the step replayed
+    as a CUDA graph; for the int8 arena also the device time of its
+    whole-arena dequantization, which every layer runs before the kernel."""
+    dev = params["embed"].device
+    cache = api.init_cache(cfg, 4, max_len, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for t in (cache.k, cache.v):
+        if cache.quantized:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev,
+                                  dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    if cache.quantized:
+        for t in (cache.k_scale, cache.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.05)
+    cache.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    tok = torch.full((4,), 5, dtype=torch.int32, device=dev)
+    step_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(params, tok, cache, cfg, sal)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    host = statistics.median(step_ms[2:])
+    device = time_graph(torch, lambda i: api.decode_step(params, tok, cache, cfg, sal), 1)
+    arena = sum(t.numel() * t.element_size() for t in (cache.k, cache.v, cache.k_scale,
+                                                        cache.v_scale) if t is not None)
+    deq = 0.0
+    if cache.quantized:
+        def dequant(i):
+            for x, s in ((cache.k[i], cache.k_scale[i]), (cache.v[i], cache.v_scale[i])):
+                x.to(cfg.cdtype) * s[..., None].to(cfg.cdtype)
+        deq = time_graph(torch, dequant, cfg.n_layers) * cfg.n_layers
+    extra = f", of which dequantizing the int8 arena {deq:.2f} ms" if deq else ""
+    log(f"  dense decode step [{label}] ({card}): {host:.2f} ms eager on the host clock, "
+        f"{device:.2f} ms on the device{extra} (host share {1 - device / host:.0%}), 4 "
+        f"slots x {lens} context, arena {max_len} positions ({arena / 2 ** 20:.1f} MiB)")
+    return dict(host=host, device=device, dequant=deq, arena=arena)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1091,11 +1579,13 @@ def main() -> int:
     from repro_torch.core import quant
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
     from repro_torch.distributed import collectives
-    from repro_torch.kernels import _build, gemv_pim, paged_attention, paged_prefill
+    from repro_torch.kernels import _build, gemv_pim, layernorm_lut, lut_interp
+    from repro_torch.kernels import decode_attention as attn
+    from repro_torch.kernels import paged_attention, paged_prefill, softmax_lut
     from repro_torch.models import api
     from repro_torch.serving import quantize
-    from repro_torch.serving.config import EngineConfig, GenConfig
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.config import GenConfig
+    from repro_torch.serving.engine import generate
 
     t_start = time.perf_counter()
     log("== 1. card")
@@ -1126,6 +1616,8 @@ def main() -> int:
     errs = check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                          paged_prefill, args.seed)
     errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
+    errs.update(check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
+                                    args.seed))
     cfg = gpt2_medium.config()
     params = api.init_params(cfg, seed=args.seed, device="cuda")
     qparams = quantize.quantize_params_int8(params)
@@ -1136,16 +1628,10 @@ def main() -> int:
     quant_times, wquant_ms = time_quant_kernels(torch, quant, gemv_pim, params, qparams,
                                                 cfg, args.seed)
     times.update(quant_times)
+    times.update(time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut,
+                                    lut_interp, args.seed))
 
-    kernels = {"gemv_pim_float": gemv_pim.gemv_pim_float,
-               "paged_attention": paged_attention.paged_attention,
-               "paged_prefill_attention": paged_prefill.paged_prefill_attention,
-               "paged_attention_split": paged_attention.paged_attention_split,
-               "merge_partials": paged_attention.merge_partials,
-               "gemv_pim_int8": gemv_pim.gemv_pim_int8,
-               "gemv_pim_fixed": gemv_pim.gemv_pim_fixed}
-    mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
-            paged_attention, kernels)
+    kernels, mods, plain = serving_handles(torch)
 
     def counted(path: str, drive, path_kernels):
         """Launch counts of one main path: every count set to 0 just before
@@ -1168,11 +1654,11 @@ def main() -> int:
     runs, counts_256 = counted("max_len 256", lambda: {
         mode: serve(torch, mods, params, cfg, prompts, new_tokens, card, label=mode,
                     mode=mode) for mode in ("exact", "lut")},
-        ["gemv_pim_float", "paged_attention", "paged_prefill_attention"])
+        ["gemv_pim_float", "paged_attention", "paged_prefill_attention", "layernorm_lut"])
     for mode, (eng, done, first, _) in runs.items():
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
-        check_first_logits(torch, params, cfg, sal, prompts, done, first, mode, "fp",
-                           quant, quantize, gemv_pim, paged_prefill)
+        check_first_logits(torch, F, params, cfg, sal, prompts, done, first, mode, "fp",
+                           quant, quantize, plain)
     model_ms = {mode: time_model(torch, api, params, cfg,
                                  SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
                                  prompts, card) for mode in ("exact", "lut")}
@@ -1187,7 +1673,7 @@ def main() -> int:
         label: serve(torch, mods, params, cfg, long_prompts, new_tokens, card, label=label,
                      max_len=1024, **kw) for label, kw in drains},
         ["gemv_pim_float", "paged_attention", "paged_prefill_attention",
-         "paged_attention_split", "merge_partials"])
+         "paged_attention_split", "merge_partials", "layernorm_lut"])
     (_, d1, _, _), (_, d2, _, _) = long_runs[drains[0][0]], long_runs[drains[1][0]]
     same = sum(a == b for u in d1 for a, b in zip(d1[u].generated, d2[u].generated))
     prefix = [next((i for i, (a, b) in enumerate(zip(d1[u].generated, d2[u].generated))
@@ -1200,8 +1686,8 @@ def main() -> int:
         mode = kw.get("mode", "exact")
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode,
                                                kv_splits=kw.get("kv_splits")))
-        check_first_logits(torch, params, cfg, sal, long_prompts, done, first, label,
-                           kw["fmt"], quant, quantize, gemv_pim, paged_prefill)
+        check_first_logits(torch, F, params, cfg, sal, long_prompts, done, first, label,
+                           kw["fmt"], quant, quantize, plain)
         step_ms[label] = time_long_decode(torch, api, params, cfg, sal, kw["fmt"], label, card)
 
     log("== 6. quantized linear datapaths: max_len 256, phase 4's 8 requests")
@@ -1214,14 +1700,15 @@ def main() -> int:
     qruns, counts_q = counted("quantized max_len 256", lambda: {
         label: serve(torch, mods, p, cfg, prompts, new_tokens, card, label=label, fmt=fmt,
                      gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
-        ["gemv_pim_int8", "gemv_pim_fixed", "paged_attention", "paged_prefill_attention"])
+        ["gemv_pim_int8", "gemv_pim_fixed", "paged_attention", "paged_prefill_attention",
+         "layernorm_lut", "lut_interp"])
     _, exact_done, _, _ = runs["exact"]
     for label, p, kw, fmt, _ in qdrains:
         _, done, first, _ = qruns[label]
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=kw.get("mode", "exact"),
                                                quant=kw.get("quant", "none")))
-        check_first_logits(torch, p, cfg, sal, prompts, done, first, label, fmt, quant,
-                           quantize, gemv_pim, paged_prefill)
+        check_first_logits(torch, F, p, cfg, sal, prompts, done, first, label, fmt, quant,
+                           quantize, plain)
         same = sum(a == b for u in done for a, b in zip(done[u].generated,
                                                         exact_done[u].generated))
         log(f"  serve[{label}] shares {same}/{len(prompts) * new_tokens} greedy tokens with "
@@ -1234,22 +1721,78 @@ def main() -> int:
         f"weights (q1 also differs in its int8 pools and exact nonlinearities); q2's Q.12 "
         f"weight quantization {wquant_ms['fixed16']:.3f} ms a step")
 
-    log("== 7. result")
+    log("== 7. dense cache: generate() and ServingEngine(paged=False)")
+    gen_prompts = np.stack([rng.randint(2, cfg.vocab, size=128) for _ in range(4)])
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    # (label, model config: fp or int8 arena, nonlinear mode, prompts, max_len,
+    # the paged drain whose tokens it is set beside)
+    dense_drains = [("d1 exact", cfg, "exact", prompts, 256, runs["exact"]),
+                    ("d2 lut", cfg, "lut", prompts, 256, runs["lut"]),
+                    ("d3 int8 arena", cfg8, "exact", prompts, 256, runs["exact"]),
+                    ("d4 exact 1024", cfg, "exact", long_prompts, 1024,
+                     long_runs[drains[0][0]])]
+
+    def drive_dense():
+        out = {}
+        for mode in ("exact", "lut"):
+            sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+            out[mode] = drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal,
+                                       gen_prompts, new_tokens)
+        for label, c, mode, ps, ml, _ in dense_drains:
+            out[label] = serve_dense(torch, mods, params, c, ps, new_tokens, card,
+                                     label=label, mode=mode, max_len=ml)
+        return out
+
+    dense_runs, counts_dense = counted("dense", drive_dense, [
+        "gemv_pim_float", "decode_attention", "layernorm_lut", "softmax_lut"])
+    gen_toks = torch.as_tensor(gen_prompts, device="cuda")
+    for mode in ("exact", "lut"):
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        logits, _ = api.prefill(params, {"tokens": gen_toks}, cfg, sal, max_len=129)
+        worst, agree = 0.0, 0
+        for b in range(len(gen_prompts)):
+            want = plain_prefill_logits(torch, F, params, cfg, sal, gen_prompts[b], quant,
+                                        quantize, plain, "dense")
+            worst = max(worst, float((logits[b].float() - want).abs().max()
+                                     / want.abs().max()))
+            agree += int(int(torch.argmax(want)) == int(dense_runs[mode][b, 0]))
+        log(f"  generate[{mode}] first logits vs plain one-shot prefill (dense): max |diff| "
+            f"/ max |logit| = {worst:.3e} (limit {FIRST_LOGITS_LIMIT:.0e}); first-token "
+            f"agreement "
+            f"{agree}/{len(gen_prompts)}")
+        if worst > FIRST_LOGITS_LIMIT:
+            raise AssertionError(f"generate[{mode}]: first logits differ by {worst:.3e}")
+    dense_ms = {}
+    for label, c, mode, ps, ml, paged_run in dense_drains:
+        _, done, first, _ = dense_runs[label]
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        check_first_logits(torch, F, params, c, sal, ps, done, first, label, "dense", quant,
+                           quantize, plain)
+        paged_done = paged_run[1]
+        same = sum(a == b for u in done for a, b in zip(done[u].generated,
+                                                        paged_done[u].generated))
+        log(f"  serve[{label}] shares {same}/{len(ps) * new_tokens} greedy tokens with the "
+            f"paged {mode} drain on the same requests (reported, not a gate)")
+        lens = [128, 137, 151, 160] if ml == 256 else [960, 981, 1003, 1020]
+        dense_ms[label] = time_dense_decode(torch, api, params, c, sal, ml, lens, label, card)
+
+    log("== 8. result")
     rows = []
     for name in SOURCE:
         t = times[name]
         src, replaces = SOURCE[name]
+        by_path = {"max_len 256": counts_256[name], "max_len 1024": counts_1024[name],
+                   "quantized max_len 256": counts_q[name], "dense": counts_dense[name]}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": counts_256[name] + counts_1024[name] + counts_q[name],
-                     "launches_by_path": {"max_len 256": counts_256[name],
-                                          "max_len 1024": counts_1024[name],
-                                          "quantized max_len 256": counts_q[name]},
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                      "timed_at": t["shape"]})
     log(f"  long-context decode step, device ms: "
         + ", ".join(f"[{k}] {v[1]:.2f}" for k, v in step_ms.items()))
+    log(f"  dense decode step, device ms: "
+        + ", ".join(f"[{k}] {v['device']:.2f}" for k, v in dense_ms.items()))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -2,9 +2,11 @@
 (the port of `repro.core.nonlinear`).
 
 Softmax follows the paper's PIM flow: max -> subtract -> LUT exp ->
-reduce-sum -> LUT reciprocal (range-reduced) -> multiply. LayerNorm is
-plain torch here, as in the JAX package, whose `Nonlinear.layernorm`
-computes it inline (LUT rsqrt in LUT mode) and calls no kernel.
+reduce-sum -> LUT reciprocal (range-reduced) -> multiply. The norms, the
+LUT activations and the LUT attention softmax go through `kernels.ops`,
+so a CUDA tensor runs the port's kernels (`layernorm_lut` in both modes,
+`lut_interp`, `softmax_lut`) and a CPU tensor their plain versions, which
+are op for op the code the JAX package's `Nonlinear` runs inline.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutBank
+from repro_torch.kernels import ops
+from repro_torch.kernels.softmax_lut import attention_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,27 +40,27 @@ class Nonlinear:
     # -- scalar activations -------------------------------------------------
     def gelu(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return lut_lib.apply_table(x, self.bank.gelu)
+            return ops.lut_apply(x, self.bank.gelu)
         return F.gelu(x, approximate="tanh")
 
     def silu(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return lut_lib.apply_table(x, self.bank.silu)
+            return ops.lut_apply(x, self.bank.silu)
         return F.silu(x)
 
     def tanh(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return lut_lib.apply_table(x, self.bank.tanh)
+            return ops.lut_apply(x, self.bank.tanh)
         return torch.tanh(x)
 
     def sigmoid(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return lut_lib.apply_table(x, self.bank.sigmoid)
+            return ops.lut_apply(x, self.bank.sigmoid)
         return torch.sigmoid(x)
 
     def softplus(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return lut_lib.apply_table(x, self.bank.softplus)
+            return ops.lut_apply(x, self.bank.softplus)
         return F.softplus(x)
 
     def exp_neg(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +74,6 @@ class Nonlinear:
         if self.mode == "lut":
             return lut_lib.lut_reciprocal(x, self.bank.recip)
         return 1.0 / x
-
-    def rsqrt_pos(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mode == "lut":
-            return lut_lib.lut_rsqrt(x, self.bank.rsqrt)
-        return torch.rsqrt(x)
 
     def squared_relu(self, x: torch.Tensor) -> torch.Tensor:
         r = torch.clamp(x, min=0.0)
@@ -102,27 +101,33 @@ class Nonlinear:
         s = torch.sum(e, dim=axis, keepdim=True)
         return e * self.reciprocal_pos(torch.clamp(s, min=1e-9))
 
+    def attention_softmax(self, scores: torch.Tensor, *, q_offset: int = 0,
+                          causal: bool = True,
+                          window: int | None = None) -> torch.Tensor:
+        """Softmax of attention scores (..., Sq, Sk) over keys visible to
+        the queries at q_offset + i: (not causal or k <= q) and (window is
+        None or k > q - window). LUT mode takes `ops.pim_softmax`, which
+        derives the mask per row; exact mode is `softmax(where=mask)`."""
+        if self.mode == "lut":
+            return ops.pim_softmax(scores, self.bank.exp, self.bank.recip,
+                                   q_offset=q_offset, causal=causal, window=window)
+        mask = attention_mask(scores.shape[-2], scores.shape[-1], q_offset,
+                              causal, window, scores.device)
+        return self.softmax(scores, where=mask)
+
+    def _rsqrt_table(self):
+        return self.bank.rsqrt if self.mode == "lut" else None
+
     def layernorm(self, x: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
-        xf = x.float()
-        mean = torch.mean(xf, dim=-1, keepdim=True)
-        xc = xf - mean
-        var = torch.mean(xc * xc, dim=-1, keepdim=True)
-        inv = self.rsqrt_pos(var + eps)
-        out = xc * inv * gamma.float()
-        if beta is not None:
-            out = out + beta.float()
-        return out.to(x.dtype)
+        return ops.pim_layernorm(x, gamma, beta, eps=eps,
+                                 rsqrt_table=self._rsqrt_table())
 
     def rmsnorm(self, x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
                 *, plus_one: bool = False) -> torch.Tensor:
-        xf = x.float()
-        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-        inv = self.rsqrt_pos(ms + eps)
-        g = gamma.float()
-        if plus_one:
-            g = 1.0 + g
-        return (xf * inv * g).to(x.dtype)
+        return ops.pim_layernorm(x, gamma, None, eps=eps,
+                                 rsqrt_table=self._rsqrt_table(), rms=True,
+                                 plus_one=plus_one)
 
     def softcap(self, x: torch.Tensor, cap: float) -> torch.Tensor:
         """Logit soft-capping: cap * tanh(x / cap) via LUT tanh."""

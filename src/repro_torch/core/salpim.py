@@ -20,11 +20,14 @@ the paged attention calls and the nonlinear policy behind one object.
 
 The quantized kernels have no epilogue (nor have the TPU ones): on the
 first three paths the activation runs after the product,
-`self.nl.activation(act)`. The weights are quantized on every call, as
-the JAX package does; caching them is the pre-quantized path's job. Paged
-decode and prefill attention go through the paged kernels, over fp, int8
-or int4 pools; `kv_splits` engages the KV-split decode kernel at long
-context.
+`self.nl.activation(act)`, which in LUT mode is the `lut_interp` kernel.
+The weights are quantized on every call, as the JAX package does; caching
+them is the pre-quantized path's job. Decode attention over the dense
+arena goes through the `decode_attention` kernel, paged decode and prefill
+attention through the paged kernels over fp, int8 or int4 pools;
+`kv_splits` engages the KV-split decode kernel at long context. The norms
+and the LUT softmax of the dense prefill go through `Nonlinear`, which
+routes them to their kernels.
 """
 from __future__ import annotations
 
@@ -106,9 +109,17 @@ class SalPimEngine:
             return ops.pim_linear(x2, w, b, act="gelu")
         return self.nl.activation(act)(ops.pim_linear(x2, w, b))
 
-    # -- C3: paged attention ---------------------------------------------------
+    # -- C3: decode attention, dense arena and paged ---------------------------
     def _exp_table(self):
         return self.nl.bank.exp if self.nl.mode == "lut" else None
+
+    def decode_attention(self, q, k, v, length, *, scale: Optional[float] = None,
+                         softcap: Optional[float] = None,
+                         window: Optional[int] = None) -> torch.Tensor:
+        """Decode attention over a dense per-slot arena k/v (B, Hkv, S, D)."""
+        return ops.pim_decode_attention(q, k, v, length, scale=scale,
+                                        exp_table=self._exp_table(),
+                                        softcap=softcap, window=window)
 
     def paged_decode_attention(self, q, k_pages, v_pages, block_tables, length,
                                k_scales=None, v_scales=None, *,
@@ -144,3 +155,8 @@ class SalPimEngine:
 
     def softmax(self, x, axis: int = -1, where=None) -> torch.Tensor:
         return self.nl.softmax(x, axis=axis, where=where)
+
+    def attention_softmax(self, scores, *, q_offset: int = 0, causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+        return self.nl.attention_softmax(scores, q_offset=q_offset, causal=causal,
+                                         window=window)

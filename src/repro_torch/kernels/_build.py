@@ -18,12 +18,20 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemv_pim", "gemv_pim_quant", "paged_attention", "paged_attention_split",
-           "paged_prefill")
+           "paged_prefill", "decode_attention", "softmax_lut", "layernorm_lut",
+           "lut_interp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes of the C entries, and the most table rows (sections + 2) a
+# kernel stages in shared memory (lut.cuh's kMaxTableRows).
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TABLE_ROWS = 128
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -111,3 +119,33 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "l": ctypes.c_longlong}
+
+
+def cfunc(lib: ctypes.CDLL, name: str, argtypes: str):
+    """The C entry `name` with its argument types set once: p = pointer,
+    i = int, l = 64-bit int, f = float, one letter per argument."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[c] for c in argtypes]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t):
+    """A tensor's device address, or None (a null pointer) for None."""
+    return t.data_ptr() if t is not None else None
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_table(table) -> None:
+    """Raise when a LUT table has more rows than the kernels stage."""
+    if table is not None and table.sections + 2 > MAX_TABLE_ROWS:
+        raise ValueError(f"LUT tables hold at most {MAX_TABLE_ROWS - 2} sections")

@@ -20,6 +20,7 @@
 // ragged edge of R and M is masked; C of any size takes the scalar path
 // when it is not a multiple of the vector width. No tensor cores yet.
 #include "common.cuh"
+#include "lut.cuh"
 
 namespace {
 
@@ -29,18 +30,13 @@ using common::to_f;
 
 constexpr int kWarps = 8;          // output rows per block
 constexpr int kMT = 8;             // x rows per pass
-constexpr int kMaxTableRows = 128; // TABLE_PAD of the TPU kernel
+constexpr int kMaxTableRows = lut::kMaxTableRows; // TABLE_PAD of the TPU kernel
 
 enum { ACT_NONE = 0, ACT_LUT = 1, ACT_GELU = 2 };
 
 __device__ __forceinline__ float epilogue(float a, int act, const float* wb,
                                           float lo, float inv_step, int sections) {
-  if (act == ACT_LUT) {
-    float f = floorf((a - lo) * inv_step);
-    f = fminf(fmaxf(f, -1.0f), (float)sections);   // clip before the int cast
-    int idx = (int)f + 1;
-    return wb[2 * idx] * a + wb[2 * idx + 1];
-  }
+  if (act == ACT_LUT) return lut::eval(a, wb, lo, inv_step, sections);
   if (act == ACT_GELU) {
     const float k0 = 0.7978845608028654f;           // sqrt(2 / pi)
     return 0.5f * a * (1.0f + tanhf(k0 * (a + 0.044715f * a * a * a)));

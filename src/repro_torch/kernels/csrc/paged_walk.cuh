@@ -46,6 +46,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "lut.cuh"
 
 namespace paged {
 
@@ -54,7 +55,7 @@ using common::to_f;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
-constexpr int kMaxTableRows = 128;
+constexpr int kMaxTableRows = lut::kMaxTableRows;
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kMaxChunkPages = 8;
@@ -233,14 +234,6 @@ __device__ inline Smem carve(float* base, int rows, int d, int page, int chunk) 
   return s;
 }
 
-__device__ __forceinline__ float lut_eval(float x, const float* wb, float lo,
-                                          float inv_step, int sections) {
-  float f = floorf((x - lo) * inv_step);
-  f = fminf(fmaxf(f, -1.0f), (float)sections);   // clip before the int cast
-  const int idx = (int)f + 1;
-  return wb[2 * idx] * x + wb[2 * idx + 1];
-}
-
 __device__ __forceinline__ bool key_valid(int kpos, int qpos, int length, int window) {
   return kpos < length && kpos <= qpos && (window <= 0 || kpos > qpos - window);
 }
@@ -415,13 +408,13 @@ __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows,
         const float m_new = fmaxf(m_prev, warp_max(m_cur));
         float corr;
         if (a.use_lut) {
-          corr = lut_eval(fmaxf(m_prev - m_new, a.lo), s.wb, a.lo, a.inv_step, a.sections);
+          corr = lut::eval(fmaxf(m_prev - m_new, a.lo), s.wb, a.lo, a.inv_step, a.sections);
         } else {
           corr = expf(m_prev - m_new);
         }
         float lsum = 0.0f;
         for (int j = lane; j < page; j += 32) {
-          float p = a.use_lut ? lut_eval(scr[j] - m_new, s.wb, a.lo, a.inv_step, a.sections)
+          float p = a.use_lut ? lut::eval(scr[j] - m_new, s.wb, a.lo, a.inv_step, a.sections)
                               : expf(scr[j] - m_new);
           if (!key_valid(base_pos + j, s.qpos[r], length, a.window)) p = 0.0f;
           scr[j] = p;

@@ -42,10 +42,9 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {None: 0, "lut": 1, "gelu": 2}
-_MAX_TABLE_ROWS = 128
 
 
 def gemv_pim_plain(x: torch.Tensor, w: torch.Tensor,
@@ -97,8 +96,7 @@ def _check_args(x, w, b, act_table, act):
     if act_table is not None:
         if act is not None:
             raise ValueError("pass act_table or act, not both")
-        if act_table.sections + 2 > _MAX_TABLE_ROWS:
-            raise ValueError(f"LUT tables hold at most {_MAX_TABLE_ROWS - 2} sections")
+        _build.check_table(act_table)
 
 
 def gemv_pim_float(x: torch.Tensor, w: torch.Tensor,

@@ -9,9 +9,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lut import LutTable
+from repro_torch.kernels import decode_attention as attn_k
 from repro_torch.kernels import gemv_pim as gemv_k
+from repro_torch.kernels import layernorm_lut as ln_k
+from repro_torch.kernels import lut_interp as lut_k
 from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.kernels import paged_prefill as paged_pf_k
+from repro_torch.kernels import softmax_lut as sm_k
+
+
+def lut_apply(x: torch.Tensor, table: LutTable) -> torch.Tensor:
+    """Apply a LUT table elementwise to x of any shape."""
+    if x.device.type == "cpu":
+        return lut_k.lut_interp_plain(x, table)
+    return lut_k.lut_interp(x, table)
 
 
 def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -73,3 +84,34 @@ def pim_paged_prefill_attention(q, k_pages, v_pages, block_tables, length,
     return paged_pf_k.paged_prefill_attention(
         q, k_pages, v_pages, block_tables, length, start, k_scales, v_scales,
         **kw)
+
+
+def pim_decode_attention(q, k, v, length, *, scale=None,
+                         exp_table: LutTable | None = None, softcap=None,
+                         window=None) -> torch.Tensor:
+    """Decode attention over a dense arena: q (B, H, D), k/v (B, Hkv, S, D)."""
+    kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
+    if q.device.type == "cpu":
+        return attn_k.decode_attention_plain(q, k, v, length, **kw)
+    return attn_k.decode_attention(q, k, v, length, **kw)
+
+
+def pim_layernorm(x, gamma, beta=None, *, eps: float = 1e-5,
+                  rsqrt_table: LutTable | None = None, rms: bool = False,
+                  plus_one: bool = False) -> torch.Tensor:
+    """LayerNorm/RMSNorm over the last axis of x, LUT rsqrt with a table."""
+    kw = dict(eps=eps, rsqrt_table=rsqrt_table, rms=rms, plus_one=plus_one)
+    if x.device.type == "cpu":
+        return ln_k.layernorm_lut_plain(x, gamma, beta, **kw)
+    return ln_k.layernorm_lut(x, gamma, beta, **kw)
+
+
+def pim_softmax(x: torch.Tensor, exp_table: LutTable, recip_table: LutTable, *,
+                q_offset: int = 0, causal: bool = False,
+                window: int | None = None) -> torch.Tensor:
+    """Row softmax over the last axis by the LUT flow; `causal`/`window`
+    mask queries at q_offset + i of the second-to-last axis."""
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    if x.device.type == "cpu":
+        return sm_k.softmax_lut_plain(x, exp_table, recip_table, **kw)
+    return sm_k.softmax_lut(x, exp_table, recip_table, **kw)

@@ -30,19 +30,17 @@ over 3.35 TB/s; the notes in the CUDA sources give the designs.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.distributed.collectives import merge_partial_softmax_stacked
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import _exp, decode_attention_plain
+from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
+from repro_torch.kernels._build import cfunc as _fn, ptr, stream as _stream
 from repro_torch.serving.quantize import unpack_int4
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_TABLE_ROWS = 128
 
 # Below this table width (tokens) the split path's partials traffic
 # outweighs the parallelism; effective_kv_splits turns it off.
@@ -100,10 +98,6 @@ def gather_paged_kv(pages: torch.Tensor, block_tables: torch.Tensor,
     return x
 
 
-def _exp(x: torch.Tensor, exp_table: LutTable | None) -> torch.Tensor:
-    return lut_lib.apply_table(x, exp_table) if exp_table is not None else torch.exp(x)
-
-
 def paged_attention_plain(q, k_pages, v_pages, block_tables, length,
                           k_scales=None, v_scales=None, *,
                           scale: float | None = None,
@@ -111,30 +105,11 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, length,
                           softcap: float | None = None,
                           window: int | None = None) -> torch.Tensor:
     """Plain version (mirrors `decode_attention_ref` on the gathered pages)."""
-    B, H, D = q.shape
-    k = gather_paged_kv(k_pages, block_tables, k_scales, D).float()
-    v = gather_paged_kv(v_pages, block_tables, v_scales, D).float()
-    Hkv, S = k.shape[1], k.shape[2]
-    g = H // Hkv
-    scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    qf = q.float().reshape(B, Hkv, g, D)
-    scores = torch.einsum("bhgd,bhsd->bhgs", qf, k) * scale
-    if softcap is not None:
-        scores = softcap * torch.tanh(scores / softcap)
-    pos = torch.arange(S, device=q.device)
-    lens = length.long().reshape(-1).expand(B)
-    mask = pos[None, :] < lens[:, None]
-    if window is not None:
-        mask = mask & (pos[None, :] >= (lens[:, None] - window))
-    mask_b = mask[:, None, None, :]
-    scores = torch.where(mask_b, scores, -torch.inf)
-    m = torch.amax(scores, dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, 0.0)
-    e = torch.where(mask_b, _exp(scores - m, exp_table), 0.0)
-    l = torch.sum(e, dim=-1, keepdim=True)
-    inv = 1.0 / torch.clamp(l, min=1e-9)
-    out = torch.einsum("bhgs,bhsd->bhgd", e * inv, v)
-    return out.reshape(B, H, D).to(q.dtype)
+    D = q.shape[-1]
+    k = gather_paged_kv(k_pages, block_tables, k_scales, D)
+    v = gather_paged_kv(v_pages, block_tables, v_scales, D)
+    return decode_attention_plain(q, k, v, length, scale=scale, exp_table=exp_table,
+                                  softcap=softcap, window=window)
 
 
 def paged_attention_split_plain(q, k_pages, v_pages, block_tables, length,
@@ -253,8 +228,7 @@ def check_paged_args(name, q, k_pages, v_pages, block_tables, ints,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if exp_table is not None and exp_table.sections + 2 > _MAX_TABLE_ROWS:
-        raise ValueError(f"LUT tables hold at most {_MAX_TABLE_ROWS - 2} sections")
+    _build.check_table(exp_table)
     return fmt
 
 
@@ -264,25 +238,6 @@ def lut_args(exp_table, device):
         return 0, None, -1.0, 1.0, 1
     return (1, exp_table.wb_on(device), exp_table.lo, exp_table.inv_step,
             exp_table.sections)
-
-
-def ptr(t: torch.Tensor | None):
-    return t.data_ptr() if t is not None else None
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _fn(lib, name: str, argtypes: str):
-    """The C entry `name` with its argument types set once: p = pointer,
-    i = int, f = float, one letter per argument."""
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-        fn.argtypes = [kinds[c] for c in argtypes]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _mask_args(D, scale, softcap, window, exp_table, device):

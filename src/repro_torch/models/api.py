@@ -1,7 +1,9 @@
-"""Model API the serving engine and the tests use (the port of the paged
-entry points of `repro.models.api`).
+"""Model API the serving engine and the tests use (the port of the dense
+and paged entry points of `repro.models.api`).
 
     init_params(cfg, seed=0, device="cuda")
+    prefill(params, {"tokens": tokens}, cfg, engine, max_len)
+    init_cache(cfg, batch, max_len, device="cuda")
     prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
                   k_scales=None, v_scales=None)
     decode_step(params, token, cache, cfg, engine)
@@ -36,13 +38,24 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
                             v_pages, cfg, engine, k_scales, v_scales)
 
 
+def prefill(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine,
+            max_len: int):
+    """batch["tokens"] (B, S) -> (last-position logits (B, V), a dense
+    `Cache` of max_len positions primed with the prompt)."""
+    return tf.prefill(params, batch["tokens"], cfg, engine, max_len=max_len)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> tf.Cache:
+    """Empty dense arena (L, batch, Hkv, max_len, Dh); int8 with bf16
+    scales when cfg.kv_dtype is "int8"."""
+    return tf.init_cache(cfg, batch, max_len, device=device)
+
+
 def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
                 engine: SalPimEngine):
-    """token (B,) -> (logits (B, V), PagedCache with advanced lengths)."""
-    if not isinstance(cache, kvcache.PagedCache):
-        raise NotImplementedError("only the paged cache is ported; the dense "
-                                  "Cache comes in a later slice")
-    return tf._decode_step_paged(params, token, cache, cfg, engine)
+    """token (B,) -> (logits (B, V), the dense `Cache` or `PagedCache` with
+    advanced lengths)."""
+    return tf.decode_step(params, token, cache, cfg, engine)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,

@@ -1,6 +1,14 @@
-"""Paged multi-head attention, prefill-chunk and decode forms (the port of
-`repro.models.attention`, without the mesh branch and without RoPE, which
-GPT-2's learned positions do not use)."""
+"""Multi-head attention, full-sequence and decode forms over the dense
+per-slot arena, prefill-chunk and decode forms over the paged pools (the
+port of `repro.models.attention`, without the mesh branch and without
+RoPE, which GPT-2's learned positions do not use).
+
+The full-sequence form keeps the JAX package's two einsums (Q x K^T and
+S x V over the same (B, S, Hkv, D) layout), outside any kernel as in the
+JAX package; the softmax between them goes through the engine, the
+`softmax_lut` kernel in LUT mode. Decode over the dense arena runs the
+`decode_attention` kernel; the int8 arena is dequantized whole before it,
+as the JAX package does."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +18,7 @@ import torch
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache
+from repro_torch.serving.quantize import quantize_vec
 
 
 def init_attention(normal, zeros, cfg: ModelConfig, n_layers: int) -> dict:
@@ -55,6 +64,98 @@ def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
+
+
+def _masked_softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         engine: SalPimEngine, cfg: ModelConfig, *, q_offset: int,
+                         causal: bool, window: Optional[int]) -> torch.Tensor:
+    """q (B, Sq, H, Dh) at positions q_offset.. against k/v (B, Sk, Hkv, Dh)
+    -> (B, Sq, H, Dh): scores in f32, the engine's masked softmax, the
+    probabilities cast to v's dtype for the S x V product."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, Dh)
+    # Direction 1: contract head_dim (Q x K^T), no transpose of K.
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * _scale(cfg)
+    if cfg.attn_softcap is not None:
+        scores = engine.nl.softcap(scores, cfg.attn_softcap)
+    probs = engine.attention_softmax(scores, q_offset=q_offset, causal=causal,
+                                     window=window)
+    # Direction 2: contract seq (S x V) over the same V layout.
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, Dh)
+
+
+def attention_fullseq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      engine: SalPimEngine, *, window: Optional[int] = None,
+                      causal: bool = True, return_kv: bool = False):
+    """x (B, S, D) -> out (B, S, D), and with return_kv the K/V in the
+    arena layout (B, Hkv, S, Dh). Queries run in chunks of cfg.attn_chunk
+    when S is longer than and a multiple of it, as the JAX scan does."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, engine)
+    chunk = cfg.attn_chunk
+    if S > chunk and S % chunk == 0:
+        out = torch.cat([
+            _masked_softmax_attn(q[:, i:i + chunk], k, v, engine, cfg, q_offset=i,
+                                 causal=causal, window=window)
+            for i in range(0, S, chunk)], dim=1)
+    else:
+        out = _masked_softmax_attn(q, k, v, engine, cfg, q_offset=0, causal=causal,
+                                   window=window)
+    out = engine.linear(out.reshape(B, S, -1), p["wo"])
+    if return_kv:
+        return out, (k.transpose(1, 2), v.transpose(1, 2))
+    return out
+
+
+def attention_decode(
+    p: dict,
+    x: torch.Tensor,                 # (B, D) one new token per sequence
+    cache_k: torch.Tensor,           # (B, Hkv, Smax, Dh) one layer's arena
+    cache_v: torch.Tensor,
+    lengths: torch.Tensor,           # (B,) int32 tokens already in cache
+    cfg: ModelConfig,
+    engine: SalPimEngine,
+    *,
+    window: Optional[int] = None,
+    kv_scales: Optional[tuple] = None,   # (k_scale, v_scale) (B, Hkv, Smax) bf16
+):
+    """One decode step against the dense arena: write each slot's K/V at
+    its length (all at lengths[0] with cfg.decode_uniform), in place and,
+    for the int8 arena, quantized with its bf16 scale; then attend over
+    length + 1 keys. Returns (out, cache_k, cache_v[, k_scale, v_scale])."""
+    B, _ = x.shape
+    q, k, v = _decode_qkv(p, x, cfg, engine)
+    int8_kv = kv_scales is not None
+    if int8_kv:
+        ksc, vsc = kv_scales
+        (k_store, k_new_sc), (v_store, v_new_sc) = (quantize_vec(k, torch.bfloat16),
+                                                    quantize_vec(v, torch.bfloat16))
+        writes = [(cache_k, k_store), (cache_v, v_store), (ksc, k_new_sc),
+                  (vsc, v_new_sc)]
+    else:
+        writes = [(cache_k, k), (cache_v, v)]
+    if cfg.decode_uniform:
+        pos = lengths[:1].long()
+        for dst, src in writes:
+            dst.index_copy_(2, pos, src[:, :, None].to(dst.dtype))
+    else:
+        b_idx = torch.arange(B, device=x.device)
+        for dst, src in writes:
+            dst[b_idx, :, lengths.long()] = src.to(dst.dtype)
+    if int8_kv:
+        k_read = cache_k.to(q.dtype) * ksc[..., None].to(q.dtype)
+        v_read = cache_v.to(q.dtype) * vsc[..., None].to(q.dtype)
+    else:
+        k_read, v_read = cache_k, cache_v
+    att = engine.decode_attention(q, k_read, v_read, lengths + 1, scale=_scale(cfg),
+                                  softcap=cfg.attn_softcap, window=window)
+    out = engine.linear(att.reshape(B, -1), p["wo"])
+    if int8_kv:
+        return out, cache_k, cache_v, ksc, vsc
+    return out, cache_k, cache_v
 
 
 def attention_prefill_chunk_paged(

@@ -1,5 +1,5 @@
-"""Decoder blocks over a paged KV cache: norm wiring and residuals (the
-port of `repro.models.blocks`, dense family)."""
+"""Decoder blocks over the dense arena and the paged KV cache: norm wiring
+and residuals (the port of `repro.models.blocks`, dense family)."""
 from __future__ import annotations
 
 import torch
@@ -74,3 +74,26 @@ def apply_decoder_block_decode_paged(
         lambda h: attn_lib.attention_decode_paged(
             p["attn"], h, k_pages, v_pages, block_tables, lengths, cfg,
             engine, window=window, k_scale=ksc, v_scale=vsc))
+
+
+def apply_decoder_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                                engine: SalPimEngine, *, window):
+    """Full-sequence block that also returns (k, v) (B, Hkv, S, Dh) for
+    the dense arena."""
+    return _decode_block_skeleton(
+        p, x, cfg, engine,
+        lambda h: attn_lib.attention_fullseq(p["attn"], h, cfg, engine, window=window,
+                                             causal=cfg.causal, return_kv=True))
+
+
+def apply_decoder_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                               cache_v: torch.Tensor, lengths: torch.Tensor,
+                               cfg: ModelConfig, engine: SalPimEngine, *, window,
+                               kv_scales=None):
+    """Single-token step against the dense arena. Returns (x', k', v'[,
+    k_scale', v_scale']); the arena is written in place."""
+    return _decode_block_skeleton(
+        p, x, cfg, engine,
+        lambda h: attn_lib.attention_decode(p["attn"], h, cache_k, cache_v, lengths,
+                                            cfg, engine, window=window,
+                                            kv_scales=kv_scales))

@@ -1,5 +1,6 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
-that the dense paged serving path reads, with the same names and defaults."""
+that the dense serving paths (paged pools and the dense arena) read, with
+the same names and defaults."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,8 +47,18 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 
+    # attention chunking for long-context prefill: queries in chunks of
+    # attn_chunk when the prompt is longer and a multiple of it
+    attn_chunk: int = 1024
+
     max_seq: int = 131072
+    # dense arena storage: "model" (= compute dtype) or "int8" (per-vector
+    # bf16 scales); the paged pools take EngineConfig.kv_cache_dtype
     kv_dtype: str = "model"
+
+    # dense decode cache append: True = every sequence writes at lengths[0]
+    # (steady-state batch decode); False = each at its own length
+    decode_uniform: bool = False
 
     def __post_init__(self):
         if self.head_dim is None:

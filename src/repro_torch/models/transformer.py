@@ -1,5 +1,6 @@
-"""Decoder-only LM over a paged KV cache (the port of the dense paged path of
-`repro.models.transformer`).
+"""Decoder-only LM over the dense per-slot KV arena (`Cache`: `prefill`,
+`decode_step`) and over a paged KV cache (`prefill_chunk`, the paged
+`decode_step`): the port of the dense family of `repro.models.transformer`.
 
 Parameters are a plain dict with the JAX pytree's keys; each block weight
 is stacked on a leading layer axis, and a Python loop over layers takes the
@@ -9,6 +10,7 @@ global attention) where the JAX scan passes a traced sentinel width.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -18,7 +20,29 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.quantize import QTensor
+from repro_torch.serving.kvcache import PagedCache
+from repro_torch.serving.quantize import QTensor, quantize_vec
+
+
+@dataclasses.dataclass
+class Cache:
+    """Decode-time state over the dense per-slot arena.
+
+    lengths:          (B,) int32                valid tokens per sequence
+    k, v:             (L, B, Hkv, Smax, Dh)     the compute dtype, or int8
+    k_scale, v_scale: (L, B, Hkv, Smax) bf16    dequant scales of the int8
+                                                arena (cfg.kv_dtype "int8")
+    """
+
+    lengths: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -153,9 +177,65 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
     return logits, k_pages, v_pages
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> Cache:
+    """Empty dense arena with room for max_len tokens a sequence; int8
+    payload with bf16 scales when cfg.kv_dtype is "int8"."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.kv_dtype == "int8":
+        return Cache(lengths=lengths,
+                     k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                     v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                     k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+                     v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev))
+    return Cache(lengths=lengths, k=torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+                 v=torch.zeros(shape, dtype=cfg.cdtype, device=dev))
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            engine: SalPimEngine, *, max_len: int):
+    """tokens (B, S) -> (last-position logits (B, V), a Cache of max_len
+    positions holding the prompt's K/V, quantized in the int8 arena)."""
+    _check_supported(cfg)
+    B, S = tokens.shape
+    if max_len < S:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
+    x = _embed(params, tokens, cfg, torch.arange(S, device=tokens.device)[None])
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    cache.lengths.fill_(S)
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x, (k, v) = blk.apply_decoder_block_prefill(bp, x, cfg, engine,
+                                                    window=cfg.window_for_layer(i))
+        if cache.quantized:
+            k, cache.k_scale[i, :, :, :S] = quantize_vec(k, torch.bfloat16)
+            v, cache.v_scale[i, :, :, :S] = quantize_vec(v, torch.bfloat16)
+        cache.k[i, :, :, :S] = k
+        cache.v[i, :, :, :S] = v
+    return _logits(params, x[:, -1], cfg, engine), cache
+
+
 def _advance_lengths(lengths: torch.Tensor) -> torch.Tensor:
     """Advance only live sequences; released slots stay parked at 0."""
     return lengths + (lengths > 0).to(lengths.dtype)
+
+
+def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
+                engine: SalPimEngine):
+    """token (B,) -> (logits (B, V), cache with advanced lengths). `cache`
+    is a dense `Cache` or a `PagedCache`; either is written in place."""
+    if isinstance(cache, PagedCache):
+        return _decode_step_paged(params, token, cache, cfg, engine)
+    _check_supported(cfg)
+    x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
+        x, *_ = blk.apply_decoder_block_decode(
+            bp, x, cache.k[i], cache.v[i], cache.lengths, cfg, engine,
+            window=cfg.window_for_layer(i), kv_scales=scales)
+    new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
+    return _logits(params, x, cfg, engine), new_cache
 
 
 def _decode_step_paged(params: dict, token: torch.Tensor, cache,

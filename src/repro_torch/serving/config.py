@@ -1,13 +1,15 @@
 """Engine configuration (the port of `repro.serving.config`).
 
 `EngineConfig` keeps the JAX package's field names and defaults, so a
-config reads the same in both packages. The port serves the paged FIFO
-path over fp, int8 and int4 pools, with or without KV-split decode; every
-feature it lacks raises `NotImplementedError` in `validate` instead of
-being ignored, and the JAX package's rules for the pool dtype, the scale
+config reads the same in both packages. The port serves FIFO over the
+dense per-slot arena (`paged=False`, the default) and over paged fp, int8
+and int4 pools, with or without KV-split decode; every feature it lacks
+raises `NotImplementedError` in `validate` instead of being ignored, and
+the JAX package's rules for chunked prefill, the pool dtype, the scale
 dtype and `kv_splits` raise its `ValueError`s word for word.
-`prefix_sharing` defaults to True as in the JAX package, so a config for
-the port passes `prefix_sharing=False`.
+`prefix_sharing` defaults to True as in the JAX package and, as there,
+means nothing to the dense arena; a paged config for the port passes
+`prefix_sharing=False`.
 """
 from __future__ import annotations
 
@@ -53,9 +55,7 @@ class EngineConfig:
     def validate(self, model_cfg) -> None:
         """Raise on what the port does not serve, then on bad values."""
         missing = []
-        if not self.paged:
-            missing.append("paged=False (the dense cache)")
-        if self.prefix_sharing:
+        if self.paged and self.prefix_sharing:
             missing.append("prefix_sharing=True")
         if self.speculative is not None:
             missing.append("speculative decoding")
@@ -72,14 +72,25 @@ class EngineConfig:
                 "not ported yet: " + ", ".join(missing))
         if self.slots < 1 or self.max_len < 1:
             raise ValueError("slots and max_len must be >= 1")
-        if self.page_size < 1:
+        if self.paged and self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
-        if self.prefill_chunk_tokens is not None and self.prefill_chunk_tokens < 1:
-            raise ValueError("prefill_chunk_tokens must be >= 1, got "
-                             f"{self.prefill_chunk_tokens}")
+        if self.prefill_chunk_tokens is not None:
+            if self.prefill_chunk_tokens < 1:
+                raise ValueError("prefill_chunk_tokens must be >= 1, got "
+                                 f"{self.prefill_chunk_tokens}")
+            if not self.paged:
+                raise ValueError(
+                    "prefill_chunk_tokens requires paged=True: the dense "
+                    "backend prefills whole prompts into per-slot arenas "
+                    "and would silently ignore the chunk budget")
         resolved_kv = self.resolved_kv_dtype(model_cfg)
         if resolved_kv not in ("model", "int8", "int4"):
             raise ValueError(f"unknown kv_cache_dtype {resolved_kv!r}")
+        if self.kv_cache_dtype is not None and not self.paged \
+                and self.kv_cache_dtype != model_cfg.kv_dtype:
+            raise ValueError(
+                "kv_cache_dtype selects the paged pool storage; the dense "
+                "backend's arena dtype comes from cfg.kv_dtype")
         if self.kv_scale_dtype != "float32" \
                 and resolved_kv not in ("int8", "int4"):
             raise ValueError(
@@ -95,6 +106,12 @@ class EngineConfig:
                     "kv_cache_dtype='int4' requires "
                     "kv_scale_dtype='bfloat16': f32 scale rows would "
                     "spend the bytes the nibble packing just saved")
-        if self.kv_splits is not None and self.kv_splits < 1:
-            raise ValueError(
-                f"kv_splits must be >= 1, got {self.kv_splits}")
+        if self.kv_splits is not None:
+            if self.kv_splits < 1:
+                raise ValueError(
+                    f"kv_splits must be >= 1, got {self.kv_splits}")
+            if self.kv_splits > 1 and not self.paged:
+                raise ValueError(
+                    "kv_splits requires paged=True: the KV-split path "
+                    "partitions the block-table page walk; the dense "
+                    "backend has no pages to split")

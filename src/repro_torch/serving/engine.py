@@ -1,13 +1,26 @@
-"""Serving engine, paged mode (the port of `repro.serving.engine.ServingEngine`).
+"""Serving engine (the port of `repro.serving.engine`): `generate` and
+`ServingEngine`.
 
-Slot-based continuous batching over a fixed decode batch width. Slots
-share one KV page pool: a request is admitted only when its worst-case
-page count can be reserved, its prompt is prefilled chunk by chunk straight
-into its pool pages (`prefill_chunk_tokens` per engine step, None = the
-whole prompt in one chunk), and it joins the shared decode batch when the
-prompt cursor reaches the end. A mid-prefill slot keeps device length 0 and
-an all-trash block-table row, so the decode step cannot touch its pages.
+`generate(params, prompts, cfg, engine, gen)` runs one prefill over a
+batch of prompts into a dense arena of S + max_new_tokens + 1 positions,
+then max_new_tokens decode steps in a Python loop (the JAX package's
+`lax.scan`), sequences that hit EOS padding with EOS.
 
+`ServingEngine` batches requests continuously over a fixed decode batch
+width of `slots`, in one of two modes.
+
+Dense (`paged=False`, the default): one arena of `max_len` positions a
+slot. Admission prefills the whole prompt as a batch of one and writes it
+into the slot's rows of the arena and its `last_logits` in place; a
+released slot parks at length 0.
+
+Paged (`paged=True`): slots share one KV page pool. A request is admitted
+only when its worst-case page count can be reserved, its prompt is
+prefilled chunk by chunk straight into its pool pages
+(`prefill_chunk_tokens` per engine step, None = the whole prompt in one
+chunk), and it joins the shared decode batch when the prompt cursor
+reaches the end. A mid-prefill slot keeps device length 0 and an
+all-trash block-table row, so the decode step cannot touch its pages.
 `kv_cache_dtype="int8"` stores the pools as int8 with per-(token, head)
 scale rows (`kv_scale_dtype` f32 or bf16), `"int4"` packs two values a
 byte with bf16 scale rows; both quantize at write time and the kernels
@@ -16,9 +29,11 @@ pool's byte budget, so quantized pools hold proportionally more pages.
 `kv_splits=K` runs decode attention as K page runs merged by the
 combine, once the block table spans KV_SPLIT_MIN_CONTEXT tokens.
 
+FIFO admission and the decode step are shared by both modes.
 Construction: `ServingEngine(params, cfg, engine, EngineConfig(slots=4,
-max_len=256, paged=True, prefix_sharing=False), device="cuda")`. Features
-the port lacks raise `NotImplementedError` (`EngineConfig.validate`).
+max_len=256), device="cuda")`, with `paged=True, prefix_sharing=False`
+for the paged mode. Features the port lacks raise `NotImplementedError`
+(`EngineConfig.validate`).
 """
 from __future__ import annotations
 
@@ -38,7 +53,71 @@ from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.scheduler import FifoScheduler
 
-__all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine"]
+__all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine", "generate"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params: dict, prompts: torch.Tensor, model_cfg: ModelConfig,
+             engine: SalPimEngine, gen: GenConfig, *,
+             generator: Optional[torch.Generator] = None,
+             device="cuda") -> tuple[torch.Tensor, dict]:
+    """prompts (B, S) -> (generated tokens (B, max_new_tokens) int32, stats).
+
+    One prefill over the batch, then one decode step a token over the
+    dense arena; a sequence that emitted EOS (with `stop_on_eos`) keeps
+    emitting EOS. Sampling draws from `generator` (a seeded one when None),
+    so only greedy decoding matches the JAX package token for token.
+    stats: prefill_sec, decode_sec, sec_per_token (decode time a sequence
+    per real token), tokens (up to and including each first EOS),
+    tokens_budget."""
+    dev = resolve_device(device)
+    prompts = torch.as_tensor(prompts, device=dev)
+    B, S = prompts.shape
+    T = gen.max_new_tokens
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model_api.prefill(params, {"tokens": prompts}, model_cfg, engine,
+                                      max_len=S + T + 1)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    toks = []
+    for _ in range(T):
+        tok = sample(logits, generator, temperature=gen.temperature, top_k=gen.top_k)
+        tok = torch.where(done, gen.eos_id, tok)
+        logits, cache = model_api.decode_step(params, tok, cache, model_cfg, engine)
+        if gen.stop_on_eos:
+            done = done | (tok == gen.eos_id)
+        toks.append(tok)
+    out = (torch.stack(toks, dim=1) if toks
+           else torch.zeros((B, 0), dtype=torch.int32, device=dev))
+    host = out.cpu().numpy()
+    t_decode = time.perf_counter() - t0
+
+    # A sequence that hits EOS at step k emitted k + 1 real tokens; the
+    # EOS padding after it is not generated work.
+    if gen.stop_on_eos:
+        is_eos = host == gen.eos_id
+        n_per_seq = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1) + 1, host.shape[1])
+    else:
+        n_per_seq = np.full((B,), T)
+    n_tokens = int(n_per_seq.sum())
+    stats = {
+        "prefill_sec": t_prefill,
+        "decode_sec": t_decode,
+        "sec_per_token": t_decode * B / max(n_tokens, 1),
+        "tokens": n_tokens,
+        "tokens_budget": int(B * T),
+    }
+    return out, stats
 
 
 @dataclasses.dataclass
@@ -57,7 +136,7 @@ class Request:
 
 
 class ServingEngine:
-    """Paged continuous batching with chunked prefill and FIFO admission."""
+    """Continuous batching over a dense arena or a paged pool, FIFO."""
 
     def __init__(self, params: dict, model_cfg: ModelConfig,
                  engine: SalPimEngine, config: EngineConfig, *,
@@ -99,6 +178,16 @@ class ServingEngine:
         self._chunk_sec = 0.0
         self._decode_sec = 0.0
 
+        self.paged = config.paged
+        if self.paged:
+            self._init_pool(model_cfg, config)
+        else:
+            self.allocator = None
+            self.cache = model_api.init_cache(model_cfg, self.slots, self.max_len,
+                                              device=self.device)
+
+    def _init_pool(self, model_cfg: ModelConfig, config: EngineConfig):
+        """The page pool, its allocator and block tables (paged mode)."""
         page_size, num_pages = config.page_size, config.num_pages
         self.max_pages = -(-self.max_len // page_size)
         kv_dtype = config.resolved_kv_dtype(model_cfg)
@@ -123,12 +212,13 @@ class ServingEngine:
                 f"request can occupy {worst} cache positions "
                 f"(prompt {len(prompt)}, max_new {max_new_tokens}) "
                 f"but max_len is {self.max_len}")
-        need = self.allocator.pages_for(worst)
-        usable = self.allocator.num_pages - 1
-        if need > usable:
-            raise ValueError(
-                f"request needs {need} pages worst case but the pool "
-                f"has {usable}; no reservation was made")
+        if self.paged:
+            need = self.allocator.pages_for(worst)
+            usable = self.allocator.num_pages - 1
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} pages worst case but the pool "
+                    f"has {usable}; no reservation was made")
         self._uid += 1
         self.queue.append(Request(self._uid, prompt, max_new_tokens))
         return self._uid
@@ -138,6 +228,25 @@ class ServingEngine:
         chunk by _prefill_tick."""
         req.prefill_cursor = 0
         self._host_len[slot] = 0
+        self.active[slot] = req
+
+    def _place_dense(self, slot: int, req: Request):
+        """Install a request into a dense slot: a batch-of-1 prefill of the
+        whole prompt, written in place into the slot's rows of the arena
+        (every position up to max_len) and of last_logits."""
+        toks = torch.as_tensor(req.prompt[None], dtype=torch.int64, device=self.device)
+        logits1, cache1 = model_api.prefill(self.params, {"tokens": toks}, self.cfg,
+                                            self.engine, max_len=self.max_len)
+        c = self.cache
+        for dst, src in ((c.k, cache1.k), (c.v, cache1.v), (c.k_scale, cache1.k_scale),
+                         (c.v_scale, cache1.v_scale)):
+            if dst is not None:
+                dst[:, slot] = src[:, 0]
+        c.lengths[slot] = len(req.prompt)
+        self.last_logits[slot] = logits1[0].float()
+        self.prefill_tokens += len(req.prompt)
+        req.prefill_cursor = len(req.prompt)
+        self._host_len[slot] = len(req.prompt)
         self.active[slot] = req
 
     def _prefill_tick(self):
@@ -184,8 +293,12 @@ class ServingEngine:
         req.done = True
         self.finished.append(req)
         self.active[slot] = None
-        self.allocator.release(req.uid)
-        self.cache = kv.clear_slot(self.cache, slot)
+        if self.paged:
+            self.allocator.release(req.uid)
+            self.cache = kv.clear_slot(self.cache, slot)
+        else:
+            # Park the slot at length 0: decode_step does not advance it.
+            self.cache.lengths[slot] = 0
         self._host_len[slot] = 0
 
     def _map_write_range(self, slot: int, req: Request, first: int,
@@ -213,9 +326,10 @@ class ServingEngine:
         t = time.perf_counter()
         self.scheduler.schedule_admissions(self)
         self._admit_sec += time.perf_counter() - t
-        t = time.perf_counter()
-        self._prefill_tick()
-        self._chunk_sec += time.perf_counter() - t
+        if self.paged:
+            t = time.perf_counter()
+            self._prefill_tick()
+            self._chunk_sec += time.perf_counter() - t
         n_prefilling = sum(1 for r in self.active
                            if r is not None and r.prefilling)
         ready = [i for i, r in enumerate(self.active)
@@ -236,16 +350,17 @@ class ServingEngine:
                 self._release(i, req)
             else:
                 mask[i] = True
-        # Decode-step boundary: map a fresh page wherever the next write
-        # position falls off a slot's mapped pages. Mid-prefill slots are
-        # skipped: their device length is 0, so their append lands in the
-        # trash page.
-        for i in range(self.slots):
-            req = self.active[i]
-            if req is None or req.prefilling:
-                continue
-            self._map_write_range(i, req, int(self._host_len[i]), 1)
-        self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+        if self.paged:
+            # Decode-step boundary: map a fresh page wherever the next write
+            # position falls off a slot's mapped pages. Mid-prefill slots are
+            # skipped: their device length is 0, so their append lands in the
+            # trash page.
+            for i in range(self.slots):
+                req = self.active[i]
+                if req is None or req.prefilling:
+                    continue
+                self._map_write_range(i, req, int(self._host_len[i]), 1)
+            self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
         logits, self.cache = model_api.decode_step(
             self.params, toks, self.cache, self.cfg, self.engine)
         self.last_logits = logits.float()
@@ -282,5 +397,5 @@ class ServingEngine:
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
             "peak_pages": self.peak_pages,
-            "used_pages": self.allocator.used_pages,
+            "used_pages": self.allocator.used_pages if self.paged else 0,
         }

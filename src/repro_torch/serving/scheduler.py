@@ -1,6 +1,7 @@
 """Scheduler (the port of `repro.serving.scheduler`, FIFO only): strict
-FIFO admission under watermark admission, no skip past a blocked head,
-prompt chunks in admission (uid) order, no preemption."""
+FIFO admission (paged: under the page watermark, no skip past a blocked
+head; dense: into any free slot), prompt chunks in admission (uid) order,
+no preemption."""
 from __future__ import annotations
 
 
@@ -11,6 +12,10 @@ class FifoScheduler:
         for slot in range(eng.slots):
             if eng.active[slot] is None and eng.queue:
                 req = eng.queue[0]
+                if not eng.paged:
+                    eng.queue.pop(0)
+                    eng._place_dense(slot, req)
+                    continue
                 pages = eng.allocator.admit(req.uid, len(req.prompt),
                                             req.max_new_tokens)
                 if pages is None:
@@ -27,7 +32,8 @@ class FifoScheduler:
                     break
                 eng.queue.pop(0)
                 eng._place_paged(slot, req)
-        eng.peak_pages = max(eng.peak_pages, eng.allocator.used_pages)
+        if eng.paged:
+            eng.peak_pages = max(eng.peak_pages, eng.allocator.used_pages)
 
     def select_prefill_slot(self, eng, cand: list[tuple[int, int]]) -> int:
         return min(cand)[1]

@@ -187,8 +187,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"paged": False}, {"prefix_sharing": True},
-    {"speculative": object()}, {"scheduler": object()},
+    {"prefix_sharing": True}, {"speculative": object()}, {"scheduler": object()},
     {"telemetry": object()}, {"mesh": object()},
     {"hardware": "h100"},
 ])
