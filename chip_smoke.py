@@ -16,16 +16,25 @@ Run from the root of a checkout. Phases, each of which fails the run:
               decode attention (arenas of 256, 161 and 1024 positions, GQA
               with a window and a softcap), LUT softmax (causal and not),
               LayerNorm/RMSNorm and LUT interpolation (both bit for
-              bit); then
+              bit); the float GEMV over M 1..512 x R 1000..50257 x C
+              1024/4096 with every epilogue, bf16 on the tensor-core
+              kernel and f32 on the CUDA-core one (the wrapper's counter
+              must show the route); the single-walk decode over lengths
+              1..1024 at g 1 and 2 on every pool format, LUT mode held to
+              the page walk (`paged_attention_online_plain`); then
               each is timed (CUDA graphs of many launches, median of 20
               replays) beside its plain version, the matching PyTorch call
               where there is one, and its bound on the card, the
-              long-context decode kernels at 960..1024 tokens;
+              long-context decode kernels at 960..1024 tokens, the 145
+              GEMVs of a decode step (M=4) and of a 64-token chunk, and
+              the GEMV at `generate()`'s prefill width (M=512, d x d,
+              w_up and w_down);
   4. serve  — GPT-2 medium at full width with seeded random weights serves
               8 requests through `ServingEngine` on the GPU, once with exact
               nonlinearities and once with the LUT ones; every request must
               finish, every page must come back, every kernel of the path
-              must have been launched (counts checked at every step), and
+              must have been launched (counts checked at every step; every
+              bf16 GEMV on the tensor-core kernel), and
               each request's first logits must agree with a one-shot
               prefill computed through the plain versions; then a decode
               step and a prefill chunk are timed on the host clock and,
@@ -100,8 +109,8 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # from the dense LUT softmax of the plain versions: LUT(a) LUT(b) != LUT(a + b).
 # The JAX package bounds that gap by 3e-3 at <= 23 keys; at the main
 # path's 64..1024 keys it reaches 5e-3. So a LUT-mode kernel is held, at
-# the exact-mode tolerances, to `online_walk`, the same page walk in plain
-# PyTorch, and its gap from the dense plain version is printed.
+# the exact-mode tolerances, to `paged_attention_online_plain`, the same page
+# walk in plain PyTorch, and its gap from the dense plain version is printed.
 # First logits of a drain against a one-shot prefill through the plain
 # versions: max |diff| / max |logit|. A LUT-mode paged drain is held to the
 # plain page walk at FIRST_LOGITS_LIMIT and to the dense LUT softmax, the
@@ -209,67 +218,10 @@ def make_pools(torch, quantize, k32, v32, fmt: str, dtype):
     return k, v, ks, vs
 
 
-def online_walk(torch, tlut, collectives, q, k, v, qpos, length, page, splits, *,
-                scale, exp_table=None, softcap=None, window=None):
-    """The paged kernels' online softmax in plain PyTorch: rows q (B, Hkv,
-    R, D) at absolute positions qpos (B, R) against dense fp32 keys k, v
-    (B, Hkv, n * page, D) valid below length (B,), walked page by page over
-    `splits` runs of ceil(n / splits) pages with the TPU kernels' algebra,
-    the runs merged by `merge_partial_softmax_stacked`. -> (B, Hkv, R, D)."""
-    B, Hkv, S, D = k.shape
-    n = S // page
-    pps = -(-n // splits)
-    lens = length.long()[:, None, None]
-    parts = []
-    for sp in range(splits):
-        m = torch.full((*q.shape[:3], 1), -1e30, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(q)
-        for pg in range(sp * pps, min((sp + 1) * pps, n)):
-            kp, vp = k[:, :, pg * page:(pg + 1) * page], v[:, :, pg * page:(pg + 1) * page]
-            sc = torch.einsum("bhrd,bhkd->bhrk", q, kp) * scale
-            if softcap is not None:
-                sc = softcap * torch.tanh(sc / softcap)
-            pos = pg * page + torch.arange(page, device=q.device)[None, None, :]
-            mask = (pos < lens) & (pos <= qpos[:, :, None].long())
-            if window is not None:
-                mask = mask & (pos > qpos[:, :, None].long() - window)
-            mask = mask[:, None]
-            sc = torch.where(mask, sc, -1e30)
-            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-            if exp_table is not None:
-                p = tlut.apply_table(sc - m_new, exp_table)
-                corr = tlut.apply_table(torch.clamp(m - m_new, min=exp_table.lo), exp_table)
-            else:
-                p, corr = torch.exp(sc - m_new), torch.exp(m - m_new)
-            p = torch.where(mask, p, 0.0)
-            l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + torch.einsum("bhrk,bhkd->bhrd", p, vp)
-            m = m_new
-        parts.append((m, l, acc))
-    return collectives.merge_partial_softmax_stacked(
-        *(torch.stack(x, dim=2) for x in zip(*parts)), axis=2)
-
-
-def online_decode(torch, tlut, collectives, paged_attention, q, k, v, tables, lengths,
-                  ks=None, vs=None, splits=1, **opts):
-    """`online_walk` for decode rows (q (B, H, D) at position length - 1)."""
-    B, H, D = q.shape
-    Hkv, page = k.shape[1], k.shape[2]
-    n = tables.shape[1]
-    tables = torch.nn.functional.pad(tables, (0, -(-n // splits) * splits - n))
-    kd = paged_attention.gather_paged_kv(k, tables, ks, D).float()
-    vd = paged_attention.gather_paged_kv(v, tables, vs, D).float()
-    g = H // Hkv
-    qpos = (lengths.long() - 1)[:, None].expand(B, g)
-    out = online_walk(torch, tlut, collectives, q.float().reshape(B, Hkv, g, D), kd, vd,
-                      qpos, lengths, page, splits, scale=D ** -0.5, **opts)
-    return out.reshape(B, H, D)
-
-
-def online_prefill(torch, tlut, collectives, paged_attention, q, k, v, tables, lengths,
-                   starts, ks=None, vs=None, **opts):
-    """`online_walk` for a prefill chunk (q (B, Sq, H, D) from starts)."""
+def online_prefill(torch, paged_attention, q, k, v, tables, lengths, starts, ks=None,
+                   vs=None, **opts):
+    """`paged_attention.online_walk` for a prefill chunk (q (B, Sq, H, D)
+    from starts)."""
     B, Sq, H, D = q.shape
     Hkv, page = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -277,8 +229,8 @@ def online_prefill(torch, tlut, collectives, paged_attention, q, k, v, tables, l
     vd = paged_attention.gather_paged_kv(v, tables, vs, D).float()
     rows = q.float().reshape(B, Sq, Hkv, g, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, Sq * g, D)
     qpos = starts.long()[:, None] + torch.arange(Sq * g, device=q.device)[None] // g
-    out = online_walk(torch, tlut, collectives, rows, kd, vd, qpos, lengths, page, 1,
-                      scale=D ** -0.5, **opts)
+    out = paged_attention.online_walk(rows, kd, vd, qpos, lengths, page, 1, scale=D ** -0.5,
+                                      **opts)
     return out.reshape(B, Hkv, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D)
 
 
@@ -357,9 +309,8 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                 torch.cuda.synchronize()
                 dense = paged_attention.paged_attention_plain(q, k, v, tables, lengths,
                                                               ks, vs, **opts)
-                online = (online_decode(torch, tlut, collectives, paged_attention, q, k, v,
-                                        tables, lengths, ks, vs, **walk_args(opts))
-                          if lut else None)
+                online = (paged_attention.paged_attention_online_plain(
+                    q, k, v, tables, lengths, ks, vs, **walk_args(opts)) if lut else None)
                 worst = max(worst, check("paged_attention", f"paged decode {fmt} "
                                          f"{sorted(opts)} {dname}", got, dense, online,
                                          dname, lut))
@@ -387,9 +338,8 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                     torch.cuda.synchronize()
                     dense = paged_prefill.paged_prefill_attention_plain(
                         q, k, v, pf_tables, ln, st, ks, vs, **opts)
-                    online = (online_prefill(torch, tlut, collectives, paged_attention, q, k,
-                                             v, pf_tables, ln, st, ks, vs, **opts)
-                              if lut else None)
+                    online = (online_prefill(torch, paged_attention, q, k, v, pf_tables, ln,
+                                             st, ks, vs, **opts) if lut else None)
                     worst = max(worst, check("paged_prefill_attention",
                                              f"paged prefill {fmt} start={start} "
                                              f"{sorted(opts)} {dname}", got, dense, online,
@@ -428,9 +378,9 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                     name = f"split K={splits} {fmt} {sorted(opts)} {dname}"
                     dense = paged_attention.paged_attention_split_plain(
                         q, k, v, tables, lengths, ks, vs, kv_splits=splits, **opts)
-                    online = (online_decode(torch, tlut, collectives, paged_attention, q, k,
-                                            v, tables, lengths, ks, vs, splits=splits,
-                                            **walk_args(opts)) if lut else None)
+                    online = (paged_attention.paged_attention_online_plain(
+                        q, k, v, tables, lengths, ks, vs, splits=splits, **walk_args(opts))
+                        if lut else None)
                     e = check("paged_attention_split", name, got, dense, online, dname, lut)
                     if lut:
                         key = f"split vs unsplit ({dname})"
@@ -454,6 +404,98 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
         "kernels' algebra, not a kernel error; the JAX package bounds it by 3e-3 at "
         "<= 23 keys): max gap " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
     return errs
+
+
+def check_gemv_grid(torch, tlut, gemv_pim, seed):
+    """The float GEMV over the path's widths and their ragged edges: M in
+    {1, 4, 8, 9, 64, 65, 512} x R in {1000, 1024, 4096, 50257} x C in
+    {1024, 4096}, no activation, LUT and GELU, with and without bias, bf16
+    (the tensor-core kernel, which the wrapper's counter must show) and f32
+    (the CUDA-core kernel), each against the plain version at TOL."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    bank = tlut.LutBank.create(64)
+    fn = gemv_pim.gemv_pim_float
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    routes = {"bfloat16": set(), "float32": set()}
+    calls = 0
+    for C in (1024, 4096):
+        for R in (1000, 1024, 4096, 50257):
+            w32 = torch.randn((R, C), generator=gen, device=dev) * C ** -0.5
+            b32 = torch.randn((R,), generator=gen, device=dev) * 0.5
+            for M in (1, 4, 8, 9, 64, 65, 512):
+                x32 = torch.randn((M, C), generator=gen, device=dev) * 0.5
+                for dtype in (torch.bfloat16, torch.float32):
+                    dname = str(dtype).split(".")[1]
+                    x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+                    for act in (None, "lut", "gelu"):
+                        kw = dict(act_table=bank.gelu if act == "lut" else None,
+                                  act="gelu" if act == "gelu" else None)
+                        for bias in (None, b):
+                            tc = fn.tc_launches
+                            got = fn(x, w, bias, **kw)
+                            torch.cuda.synchronize()
+                            route = "tensor cores" if fn.tc_launches > tc else "CUDA cores"
+                            if route != ("tensor cores" if dtype == torch.bfloat16
+                                         else "CUDA cores"):
+                                raise AssertionError(f"gemv {M}x{C}x{R} {dname} ran on {route}")
+                            routes[dname].add(route)
+                            want = gemv_pim.gemv_pim_plain(x, w, bias, **kw)
+                            e = compare(torch, f"gemv {M}x{C}x{R} {act} bias="
+                                        f"{bias is not None} {dname}", got, want, TOL[dname])
+                            worst[dname] = max(worst[dname], e)
+                            calls += 1
+            del w32
+    for dname, e in worst.items():
+        log(f"  gemv_pim_float grid ({calls // 2} shapes x options) {dname}, on the "
+            f"{'/'.join(sorted(routes[dname]))} (the wrapper's route): max_abs_err {e:.3e} "
+            f"(tol {TOL[dname]})")
+    return max(worst.values())
+
+
+def check_decode_grid(torch, tlut, quantize, paged_attention, seed):
+    """The single-walk decode kernel over a 64-page table (page 16, D 64)
+    at lengths {1, 15, 16, 17, 200, 960, 1024}, g in {1, 2} (16 query
+    heads over 16 or 8 kv heads), on every pool format, exact and LUT, with
+    and without window 300 and softcap 30: exact mode against the plain
+    version, LUT mode against the page-ordered walk it computes
+    (`paged_attention_online_plain`), both at TOL."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    bank = tlut.LutBank.create(64)
+    lens_list = [1, 15, 16, 17, 200, 960, 1024]
+    B, H, D, page, n_tbl = len(lens_list), 16, 64, 16, 64
+    P = 1 + B * n_tbl
+    tables = ((torch.randperm(P - 1, generator=gen, device=dev) + 1)
+              .reshape(B, n_tbl).to(torch.int32))
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    worst = 0.0
+    opts_list = [{}, {"exp_table": bank.exp}, {"window": 300, "softcap": 30.0},
+                 {"exp_table": bank.exp, "window": 300, "softcap": 30.0}]
+    for Hkv in (16, 8):
+        k32 = torch.randn((P, Hkv, page, D), generator=gen, device=dev)
+        v32 = torch.randn((P, Hkv, page, D), generator=gen, device=dev)
+        q32 = torch.randn((B, H, D), generator=gen, device=dev)
+        for fmt in POOLS:
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                q = q32.to(dtype)
+                k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, dtype)
+                for opts in opts_list:
+                    got = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs,
+                                                          **opts)
+                    torch.cuda.synchronize()
+                    walk = "exp_table" in opts
+                    plain = (paged_attention.paged_attention_online_plain if walk
+                             else paged_attention.paged_attention_plain)
+                    want = plain(q, k, v, tables, lengths, ks, vs, **opts)
+                    worst = max(worst, compare(
+                        torch, f"paged decode g={H // Hkv} {fmt} {sorted(opts)} {dname}",
+                        got, want, TOL[dname]))
+    log(f"  paged_attention (new single walk) lengths {lens_list}, 64-page table, g 1 and "
+        f"2, every pool format, f32 and bf16, exact (vs plain) and LUT (vs the page walk) "
+        f"x window 300 + softcap 30: max_abs_err {worst:.3e} (tol 1e-4 f32, 3e-2 bf16)")
+    return worst
 
 
 def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill, seed):
@@ -520,6 +562,41 @@ def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill
     b1, by1 = bound_ms(2 * (64 * d + f * d + 64 * f), 2 * 64 * f * d, "bfloat16")
     log(f"  gemv_pim_float M=64 C={d} R={f} act=gelu bf16: {t * 1e3:.2f} us "
         f"(bound {b1 * 1e3:.2f} us by {by1}, F.linear {tl * 1e3:.2f} us)")
+    # generate()'s prefill of 4 x 128 tokens: M=512 on d x d, w_up and w_down.
+    for (C, R, key, act) in [(d, d, "wq", None), (d, f, "w_up", "gelu"), (f, d, "w_down", None)]:
+        ws = bl["attn"][key] if key == "wq" else bl["ffn"][key]
+        x512 = (torch.randn((512, C), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+        t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(x512, ws[i], act=act), L)
+        tl = time_graph(torch, lambda i: F.linear(x512, ws[i]), L)
+        b1, by1 = bound_ms(2 * (512 * C + R * C + 512 * R), 2 * 512 * R * C, "bfloat16")
+        log(f"  gemv_pim_float M=512 C={C} R={R} act={act} bf16: {t * 1e3:.2f} us "
+            f"(bound {b1 * 1e3:.2f} us by {by1}, F.linear {tl * 1e3:.2f} us)")
+    # The 145 GEMVs of one 64-token prefill chunk: 144 at M=64, the LM head
+    # at M=1 (the chunk's last position).
+    x_cf = (torch.randn((64, f), generator=gen, device=dev) * 0.5).to(cfg.cdtype)
+    chunk = [(x64 if x is x_d else x_cf, w, b, act) for x, w, b, act in step[:-1]]
+    chunk.append((x_d[:1], params["lm_head"], None, None))
+    c_bytes = c_flops = 0
+    for x, w, b, _ in chunk:
+        M, C = x.shape
+        R = w.shape[0]
+        c_bytes += 2 * (M * C + R * C + (R if b is not None else 0) + M * R)
+        c_flops += 2 * M * R * C
+
+    def run_chunk(fn):
+        return lambda i: fn(*chunk[i])
+
+    n = len(chunk)
+    t = time_graph(torch, run_chunk(lambda x, w, b, act: gemv_pim.gemv_pim_float(
+        x, w, b, act=act)), n) * n
+    tp = time_graph(torch, run_chunk(lambda x, w, b, act: gemv_pim.gemv_pim_plain(
+        x, w, b, act=act)), n) * n
+    tl = time_graph(torch, run_chunk(lambda x, w, b, act: F.linear(x, w, b)), n) * n
+    b1, by1 = bound_ms(c_bytes, c_flops, "bfloat16")
+    log(f"  gemv_pim_float, one 64-token chunk's {n} launches (144 at M=64, LM head at "
+        f"M=1) bf16: {t:.3f} ms (bound {b1:.3f} ms by {by1}, plain {tp:.3f} ms, F.linear "
+        f"{tl:.3f} ms)")
+    out["gemv_chunk"] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b1)
 
     # Paged decode at 4 slots with mixed lengths, one pool per layer.
     H, D, page, n_tbl, B = cfg.n_heads, cfg.head_dim, 16, 16, 4
@@ -585,6 +662,8 @@ def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill
                                           bound_ms=bnd, bound_by=by,
                                           shape="B=1 Sq=64 start=64 H=16 D=64 page 16")
     for name, r in out.items():
+        if "shape" not in r:
+            continue
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
@@ -865,6 +944,8 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
                              bound_by=by, shape=f"(4, {cfg.d_ff}) bf16, the LUT GELU after "
                              "q3's int8 w_up; library: none")
     for name, r in out.items():
+        if "shape" not in r:
+            continue
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
@@ -1008,6 +1089,8 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
         shape=f"one decode step: {n} launches, M=4, shift 12; library: none, no "
         "PyTorch call does an int16 GEMM on CUDA")
     for name, r in out.items():
+        if "shape" not in r:
+            continue
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
@@ -1153,9 +1236,30 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
     return lin(x, params["lm_head"])[0].float()
 
 
+class TcCounter:
+    """`gemv_pim_float.tc_launches` under the `launches` name of the other
+    counters, so that the launch checks read the tensor-core kernel beside
+    the wrappers."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.tc_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.tc_launches = n
+
+
+TC = "gemv_pim_float.tc"
+
+
 def serving_handles(torch):
-    """The kernel wrappers by name (their launch counters), the modules that
-    `serve` takes and the plain versions that `plain_prefill_logits` takes."""
+    """The kernel wrappers by name (their launch counters; TC counts the
+    float GEMV's tensor-core launches), the modules that `serve` takes and
+    the plain versions that `plain_prefill_logits` takes."""
     from repro_torch.core import lut as tlut
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
     from repro_torch.distributed import collectives
@@ -1175,12 +1279,12 @@ def serving_handles(torch):
                "decode_attention": attn.decode_attention,
                "softmax_lut": softmax_lut.softmax_lut,
                "layernorm_lut": layernorm_lut.layernorm_lut,
-               "lut_interp": lut_interp.lut_interp}
+               "lut_interp": lut_interp.lut_interp,
+               TC: TcCounter(gemv_pim.gemv_pim_float)}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
             paged_attention, kernels)
     plain = (gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut,
-             lambda *a, **k: online_prefill(torch, tlut, collectives, paged_attention,
-                                            *a, **k))
+             lambda *a, **k: online_prefill(torch, paged_attention, *a, **k))
     return kernels, mods, plain
 
 
@@ -1225,6 +1329,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         L = cfg.n_layers                 # 6 linears a layer plus the LM head
         expect = {name: 0 for name in kernels}
         expect.update({gemv: (6 * L + 1) * (dec + chunk),
+                       TC: (6 * L + 1) * (dec + chunk) if gemv == "gemv_pim_float" else 0,
                        "layernorm_lut": (2 * L + 1) * (dec + chunk),
                        "lut_interp": L * (dec + chunk) if lut_act else 0,
                        "paged_attention": 0 if split else L * dec,
@@ -1257,8 +1362,9 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
     act = f", {L} lut_interp" if lut_act else ""
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}, {attn}, "
-        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}, "
+    tc = " (all on the tensor cores)" if gemv == "gemv_pim_float" else ""
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}{tc}, {attn}, "
+        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}{tc}, "
         f"{L} paged_prefill_attention, {2 * L + 1} layernorm_lut{act}; no other kernel "
         "(checked every step)")
     return eng, done, first, wall
@@ -1406,9 +1512,10 @@ def dense_expect(kernels, L, dec, prefills, lut):
     """Launches of `dec` dense decode steps and `prefills` whole-prompt
     prefills: 6 linears a layer plus the LM head, 2 norms a layer plus the
     final one, one attention a layer (decode_attention; the LUT softmax
-    in a LUT-mode prefill), nothing else."""
+    in a LUT-mode prefill), nothing else; every GEMV on the tensor cores."""
     expect = {name: 0 for name in kernels}
     expect.update({"gemv_pim_float": (6 * L + 1) * (dec + prefills),
+                   TC: (6 * L + 1) * (dec + prefills),
                    "layernorm_lut": (2 * L + 1) * (dec + prefills),
                    "decode_attention": L * dec,
                    "softmax_lut": L * prefills if lut else 0})
@@ -1438,7 +1545,8 @@ def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompt
     log(f"  generate[{mode}]: {tuple(toks.shape)} prompts, {new_tokens} new tokens, "
         f"{st['tokens']} tokens; prefill {st['prefill_sec'] * 1e3:.1f} ms, decode "
         f"{st['decode_sec'] * 1e3:.1f} ms = {st['sec_per_token'] * 1e3:.2f} ms per token a "
-        f"sequence; {wall:.3f} s in all; launches as expected ({d['gemv_pim_float']} GEMV, "
+        f"sequence; {wall:.3f} s in all; launches as expected ({d['gemv_pim_float']} GEMV "
+        f"({d[TC]} on the tensor cores), "
         f"{d['decode_attention']} decode_attention, {d['layernorm_lut']} layernorm_lut, "
         f"{d['softmax_lut']} softmax_lut, no paged kernel)")
     return out
@@ -1503,10 +1611,10 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
                              f"of {len(first)} requests")
     L = cfg.n_layers
     sm = f", {L} softmax_lut" if mode == "lut" else ""
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} gemv_pim_float, {L} "
-        f"decode_attention, {2 * L + 1} layernorm_lut; per admission prefill: {6 * L + 1} "
-        f"gemv_pim_float, {2 * L + 1} layernorm_lut{sm}; no paged kernel (checked every "
-        "step)")
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} gemv_pim_float (all on "
+        f"the tensor cores), {L} decode_attention, {2 * L + 1} layernorm_lut; per admission "
+        f"prefill: {6 * L + 1} gemv_pim_float (tensor cores), {2 * L + 1} layernorm_lut{sm}; "
+        "no paged kernel (checked every step)")
     return eng, done, first, wall
 
 
@@ -1615,6 +1723,11 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     errs = check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                          paged_prefill, args.seed)
+    errs["gemv_pim_float"] = max(errs["gemv_pim_float"],
+                                 check_gemv_grid(torch, tlut, gemv_pim, args.seed))
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_decode_grid(torch, tlut, quantize, paged_attention,
+                                                    args.seed))
     errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
     errs.update(check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
                                     args.seed))
@@ -1654,7 +1767,8 @@ def main() -> int:
     runs, counts_256 = counted("max_len 256", lambda: {
         mode: serve(torch, mods, params, cfg, prompts, new_tokens, card, label=mode,
                     mode=mode) for mode in ("exact", "lut")},
-        ["gemv_pim_float", "paged_attention", "paged_prefill_attention", "layernorm_lut"])
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+         "layernorm_lut"])
     for mode, (eng, done, first, _) in runs.items():
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
         check_first_logits(torch, F, params, cfg, sal, prompts, done, first, mode, "fp",
@@ -1672,7 +1786,7 @@ def main() -> int:
     long_runs, counts_1024 = counted("max_len 1024", lambda: {
         label: serve(torch, mods, params, cfg, long_prompts, new_tokens, card, label=label,
                      max_len=1024, **kw) for label, kw in drains},
-        ["gemv_pim_float", "paged_attention", "paged_prefill_attention",
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
          "paged_attention_split", "merge_partials", "layernorm_lut"])
     (_, d1, _, _), (_, d2, _, _) = long_runs[drains[0][0]], long_runs[drains[1][0]]
     same = sum(a == b for u in d1 for a, b in zip(d1[u].generated, d2[u].generated))
@@ -1744,7 +1858,7 @@ def main() -> int:
         return out
 
     dense_runs, counts_dense = counted("dense", drive_dense, [
-        "gemv_pim_float", "decode_attention", "layernorm_lut", "softmax_lut"])
+        "gemv_pim_float", TC, "decode_attention", "layernorm_lut", "softmax_lut"])
     gen_toks = torch.as_tensor(gen_prompts, device="cuda")
     for mode in ("exact", "lut"):
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
@@ -1783,8 +1897,13 @@ def main() -> int:
         src, replaces = SOURCE[name]
         by_path = {"max_len 256": counts_256[name], "max_len 1024": counts_1024[name],
                    "quantized max_len 256": counts_q[name], "dense": counts_dense[name]}
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": sum(by_path.values()), "launches_by_path": by_path}
+        if name == "gemv_pim_float":
+            row["tc_launches"] = sum(c[TC] for c in (counts_256, counts_1024, counts_q,
+                                                     counts_dense))
+            row["chunk_145_launches"] = times["gemv_chunk"]
+        rows.append({**row,
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -33,6 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TABLE_ROWS = 128
 
+# The H100 SXM's multiprocessors: the GEMV and paged-decode planners grow
+# their clusters until a grid covers them (a heuristic tuned on that card;
+# any other count still computes the same function).
+SMS = 132
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 ptxas_reports: dict[str, str] = {}

@@ -30,10 +30,17 @@ Bound on the H100: the weight stream (R * C * itemsize bytes over
 `csrc/gemv_pim_quant.cu` give the designs. Unlike the TPU kernels, which
 assert that R and C divide their blocks, the CUDA kernels mask the ragged
 edge, so GPT-2's 50257-row LM head runs through them.
+
+`gemv_pim_float` has two kernels. bf16 operands with C a multiple of 8
+and 16-byte aligned rows take the tensor-core kernel (wgmma fed by TMA, C
+split over a thread-block cluster); f32, or any other C, takes the
+CUDA-core kernel. `gemv_plan` makes that choice and the tensor-core
+kernel's tiling in plain Python; `gemv_pim_float.launches` counts every
+launch, `gemv_pim_float.tc_launches` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
-import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +52,65 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
 
 _ACT_CODE = {None: 0, "lut": 1, "gelu": 2}
+
+# The tensor-core kernel's tiling (csrc/gemv_pim.cu): 64 weight rows a
+# block (the wgmma M side), 64-element K tiles (one 128-byte TMA swizzle
+# row), token tiles of one of TC_N (the wgmma N side; M is covered by
+# ceil(M / N) tiles), and clusters of up to TC_MAX_CLUSTER blocks that
+# split the K tiles. `gemv_plan` takes the largest grid of at most
+# `_build.SMS` blocks: one wave on the card. A cluster's partial tiles hold
+# at most TC_CLUSTER_TOKENS token columns in all, since the reduction over
+# distributed shared memory grows with both (scripts/sweep_clusters.py,
+# H100 80GB HBM3 at 700 W: at M=64 w_down took 9.55 us with 4 blocks a
+# cluster and 13.20 us with 8; at M=512 the d x d projection took 20.09 us
+# on 32 blocks of 256 tokens and 10.04 us on 128 blocks of 128 tokens in
+# clusters of 2).
+TC_ROWS = 64
+TC_K = 64
+TC_N = (8, 16, 32, 64, 128, 256)
+TC_MAX_CLUSTER = 8
+TC_CLUSTER_TOKENS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """Which kernel runs a GEMV, and the tensor-core kernel's grid: blocks
+    (row_tiles * cluster, n_tiles), each cluster splitting k_tiles."""
+    route: str                 # "tensor_core" or "cuda_core"
+    n_tile: int = 0
+    n_tiles: int = 0
+    row_tiles: int = 0
+    cluster: int = 1
+    k_tiles: int = 0
+
+
+def gemv_plan(M: int, C: int, R: int, dtype: torch.dtype, *,
+              aligned: bool = True) -> GemvPlan:
+    """The kernel and tiling for x (M, C) @ w (R, C)^T: the tensor-core
+    kernel for bf16 with C % 8 == 0 and 16-byte aligned x and w (TMA's
+    stride and address rules), else the CUDA-core kernel. Over the token
+    tiles no larger than the least of TC_N that holds M (256 beyond), each
+    with the largest cluster that keeps the grid within `_build.SMS`
+    blocks, gives each block a K tile and holds at most TC_CLUSTER_TOKENS
+    tokens, the plan takes the largest grid, ties to the larger tile; a
+    shape whose grid exceeds `_build.SMS` blocks at any tile takes the
+    least tile that holds M and no cluster."""
+    if dtype != torch.bfloat16 or C % 8 or not aligned:
+        return GemvPlan("cuda_core")
+    fit = next((t for t in TC_N if t >= M), TC_N[-1])
+    row_tiles, k_tiles = -(-R // TC_ROWS), -(-C // TC_K)
+    n, cluster, blocks = fit, 1, 0
+    for t in TC_N[:TC_N.index(fit) + 1]:
+        grid = row_tiles * -(-M // t)
+        if grid > _build.SMS:
+            continue
+        cs = 1
+        while (cs < TC_MAX_CLUSTER and 2 * cs <= k_tiles and 2 * cs * t <= TC_CLUSTER_TOKENS
+               and 2 * cs * grid <= _build.SMS):
+            cs *= 2
+        if cs * grid >= blocks:
+            n, cluster, blocks = t, cs, cs * grid
+    return GemvPlan("tensor_core", n, -(-M // n), row_tiles, cluster, k_tiles)
 
 
 def gemv_pim_plain(x: torch.Tensor, w: torch.Tensor,
@@ -60,15 +126,6 @@ def gemv_pim_plain(x: torch.Tensor, w: torch.Tensor,
     elif act == "gelu":
         out = F.gelu(out, approximate="tanh")
     return out.to(x.dtype)
-
-
-def _argtypes(lib):
-    fn = lib.gemv_pim_float
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, i, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_args(x, w, b, act_table, act):
@@ -103,8 +160,19 @@ def gemv_pim_float(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None, *,
                    act_table: LutTable | None = None,
                    act: str | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel: x (M, C) @ w (R, C)^T -> (M, R) in x.dtype."""
+    """Launch the CUDA kernel: x (M, C) @ w (R, C)^T -> (M, R) in x.dtype,
+    on the kernel and tiling of `gemv_plan`."""
     _check_args(x, w, b, act_table, act)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = gemv_plan(x.shape[0], x.shape[1], w.shape[0], x.dtype, aligned=aligned)
+    return launch_float(x, w, b, plan, act_table=act_table, act=act)
+
+
+def launch_float(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                 plan: GemvPlan, *, act_table: LutTable | None = None,
+                 act: str | None = None) -> torch.Tensor:
+    """`gemv_pim_float` on a given plan, after its checks (the C entries
+    check the plan; scripts/sweep_clusters.py times other tilings so)."""
     M, C = x.shape
     R = w.shape[0]
     out = torch.empty((M, R), dtype=x.dtype, device=x.device)
@@ -117,17 +185,24 @@ def gemv_pim_float(x: torch.Tensor, w: torch.Tensor,
     else:
         table, code, lo, inv_step, sections = None, _ACT_CODE[act], 0.0, 1.0, 1
     lib = _build.library("gemv_pim")
-    rc = _argtypes(lib)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-        table.data_ptr() if table is not None else None, out.data_ptr(),
-        M, C, R, _DTYPE_CODE[x.dtype], code, lo, inv_step, sections,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), w.data_ptr(), _build.ptr(b), _build.ptr(table), out.data_ptr(),
+            M, C, R)
+    epi = (code, lo, inv_step, sections)
+    tc = plan.route == "tensor_core"
+    if tc:
+        rc = _build.cfunc(lib, "gemv_pim_float_tc", "ppppp" + "iiiiffi" + "ii" + "p")(
+            *args, *epi, plan.n_tile, plan.cluster, _build.stream(x))
+    else:
+        rc = _build.cfunc(lib, "gemv_pim_float", "ppppp" + "iiii" + "iffi" + "p")(
+            *args, _DTYPE_CODE[x.dtype], *epi, _build.stream(x))
     _build.check(lib, "gemv_pim", rc)
     gemv_pim_float.launches += 1
+    gemv_pim_float.tc_launches += tc
     return out
 
 
 gemv_pim_float.launches = 0
+gemv_pim_float.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -178,14 +253,6 @@ def _check_quant(name, x, w, dtype, vectors):
         raise ValueError(f"{name} takes CUDA tensors, got {x.device}")
 
 
-def _quant_fn(lib, name, argtypes):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
                   w_scale: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: int8 x (M, C) . int8 w (R, C) with f32 row
@@ -199,9 +266,8 @@ def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
     out = torch.empty((M, R), dtype=torch.float32, device=x_i8.device)
     if M == 0 or R == 0:
         return out
-    p, i = ctypes.c_void_p, ctypes.c_int
     lib = _build.library("gemv_pim_quant")
-    rc = _quant_fn(lib, "gemv_pim_int8", [p, p, p, p, p, p, i, i, i, p])(
+    rc = _build.cfunc(lib, "gemv_pim_int8", "pppppp" + "iii" + "p")(
         x_i8.data_ptr(), x_scale.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(),
         b.data_ptr() if b is not None else None, out.data_ptr(),
         M, x_i8.shape[1], R, torch.cuda.current_stream(x_i8.device).cuda_stream)
@@ -220,9 +286,8 @@ def gemv_pim_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch
     out = torch.empty((M, R), dtype=torch.int16, device=x_q.device)
     if M == 0 or R == 0:
         return out
-    p, i = ctypes.c_void_p, ctypes.c_int
     lib = _build.library("gemv_pim_quant")
-    rc = _quant_fn(lib, "gemv_pim_fixed", [p, p, p, i, i, i, i, p])(
+    rc = _build.cfunc(lib, "gemv_pim_fixed", "ppp" + "iiii" + "p")(
         x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, x_q.shape[1], R, shift,
         torch.cuda.current_stream(x_q.device).cuda_stream)
     _build.check(lib, "gemv_pim_quant", rc)

@@ -6,7 +6,12 @@ which replaces the TPU kernel
 `src/repro/kernels/paged_attention.py::paged_attention`;
 `paged_attention_plain` is its plain PyTorch version, the twin of the JAX
 oracle `repro.kernels.ref.paged_attention_ref` (gather the pages dense,
-dequantize, then masked softmax attention).
+dequantize, then masked softmax attention). In LUT mode the kernel, like
+the TPU kernel, computes the page-ordered online softmax, another
+function (LUT(a) LUT(b) != LUT(a + b)): `paged_attention_online_plain` is
+that walk in plain PyTorch, and `online_walk` its core, shared with the
+prefill's reference. `decode_cluster` picks how many blocks of a cluster
+share one (slot, kv head).
 
 With `kv_splits` > 1 and a block table of at least `KV_SPLIT_MIN_CONTEXT`
 tokens (`effective_kv_splits`), `paged_attention` routes to the KV-split
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.distributed.collectives import merge_partial_softmax_stacked
 from repro_torch.kernels import _build
@@ -45,6 +51,78 @@ NEG_INF = -1e30
 # Below this table width (tokens) the split path's partials traffic
 # outweighs the parallelism; effective_kv_splits turns it off.
 KV_SPLIT_MIN_CONTEXT = 1024
+
+# The single-walk kernel spreads one (slot, kv head) over a cluster of up
+# to DECODE_MAX_CLUSTER blocks, each a run of the pages, until the grid
+# covers the card's `_build.SMS` multiprocessors. (At 4 slots x 16 heads x
+# 1024 keys, 8 blocks a cluster measured slower than 4:
+# scripts/sweep_clusters.py on the H100 80GB HBM3 at 700 W.)
+DECODE_MAX_CLUSTER = 8
+
+# A block of the single walk keeps its whole run in shared memory
+# (csrc/paged_attention.cu, `layout`): a ring of DECODE_STAGES stages of
+# about DECODE_STAGE_BYTES, every key's scores (one float a query row) and
+# K and V scales, each page's m_j, weight and page id, and fixed pieces,
+# in all at most DECODE_SMEM_MAX bytes.
+DECODE_STAGES = 4
+DECODE_STAGE_BYTES = 16384
+DECODE_THREADS = 256
+DECODE_SMEM_MAX = 227 * 1024
+
+
+def decode_smem_bytes(g: int, D: int, page: int, run_pages: int, row_bytes: int) -> int:
+    """Shared memory of a single-walk block whose run holds `run_pages`
+    pages of `row_bytes`-byte K/V rows, for g query rows of head_dim D:
+    the kernel's `layout`, each piece rounded up to 16 bytes."""
+    def take(n):
+        return -(-n // 16) * 16
+    page_bytes = page * row_bytes
+    chunk = max(1, min(DECODE_STAGE_BYTES // page_bytes, run_pages))
+    keys = run_pages * page
+    cs = DECODE_MAX_CLUSTER
+    return (take(DECODE_STAGES * chunk * page_bytes) + take(8 * DECODE_STAGES)
+            + take(4 * g * D) + take(4 * g * keys) + 2 * take(4 * keys)
+            + 2 * take(4 * g * run_pages) + take(4 * run_pages) + take(4 * DECODE_THREADS)
+            + take(4 * cs * g) + take(4 * cs * (2 * g + g * D))
+            + take(8 * _build.MAX_TABLE_ROWS))
+
+
+def decode_max_pages(g: int, D: int, page: int, row_bytes: int) -> int:
+    """The widest block table (pages) the single-walk kernel takes: runs of
+    as many pages as fit one block's shared memory, DECODE_MAX_CLUSTER of
+    them (0 when not one page fits)."""
+    lo, hi = 0, 1
+    while decode_smem_bytes(g, D, page, hi, row_bytes) <= DECODE_SMEM_MAX:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if decode_smem_bytes(g, D, page, mid, row_bytes) <= DECODE_SMEM_MAX:
+            lo = mid
+        else:
+            hi = mid
+    return lo * DECODE_MAX_CLUSTER
+
+
+def decode_cluster(B: int, Hkv: int, n_pages: int, g: int, D: int, page: int,
+                   row_bytes: int) -> int:
+    """Blocks a cluster of the single-walk kernel: doubled from 1 while
+    B * Hkv * cluster < `_build.SMS` and every block keeps at least one
+    page of the table, at most DECODE_MAX_CLUSTER; then doubled further
+    while a block's run of pages does not fit its shared memory. Raises
+    ValueError for a table wider than `decode_max_pages`."""
+    cs = 1
+    while cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages and B * Hkv * cs < _build.SMS:
+        cs *= 2
+    while decode_smem_bytes(g, D, page, -(-n_pages // cs), row_bytes) > DECODE_SMEM_MAX:
+        if cs == DECODE_MAX_CLUSTER or 2 * cs > n_pages:
+            most = decode_max_pages(g, D, page, row_bytes)
+            raise ValueError(
+                f"paged_attention: a block table of {n_pages * page} keys is wider than "
+                f"the single-walk kernel's {most * page} at {g} query heads a kv head, "
+                f"head_dim {D} and {row_bytes}-byte K/V rows ({DECODE_MAX_CLUSTER} "
+                f"blocks of {DECODE_SMEM_MAX} bytes of shared memory)")
+        cs *= 2
+    return cs
 
 
 def effective_kv_splits(kv_splits: int | None, n_pages: int,
@@ -158,6 +236,79 @@ def paged_attention_split_plain(q, k_pages, v_pages, block_tables, length,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def online_walk(q, k, v, qpos, length, page, splits, *, scale,
+                exp_table: LutTable | None = None, softcap: float | None = None,
+                window: int | None = None) -> torch.Tensor:
+    """The TPU kernels' online softmax in plain PyTorch: rows q (B, Hkv, R,
+    D) at absolute positions qpos (B, R) against dense fp32 keys k, v (B,
+    Hkv, n * page, D) valid below length (B,), walked page by page over
+    `splits` runs of ceil(n / splits) pages, the runs merged by
+    `merge_partial_softmax_stacked`. Per page, m_new = max(m, max(s)),
+    p = exp(s - m_new) and corr = exp(m - m_new), or in LUT mode
+    p = LUT(s - m_new) and corr = LUT(max(m - m_new, lo)); p = 0 outside
+    the mask; l = l * corr + sum(p), acc = acc * corr + p . v. Returns
+    acc / max(l, 1e-9) as (B, Hkv, R, D) f32."""
+    B, Hkv, S, D = k.shape
+    n = S // page
+    pps = -(-n // splits)
+    lens = length.long()[:, None, None]
+    parts = []
+    for sp in range(splits):
+        m = torch.full((*q.shape[:3], 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(q)
+        for pg in range(sp * pps, min((sp + 1) * pps, n)):
+            kp, vp = k[:, :, pg * page:(pg + 1) * page], v[:, :, pg * page:(pg + 1) * page]
+            sc = torch.einsum("bhrd,bhkd->bhrk", q, kp) * scale
+            if softcap is not None:
+                sc = softcap * torch.tanh(sc / softcap)
+            pos = pg * page + torch.arange(page, device=q.device)[None, None, :]
+            mask = (pos < lens) & (pos <= qpos[:, :, None].long())
+            if window is not None:
+                mask = mask & (pos > qpos[:, :, None].long() - window)
+            mask = mask[:, None]
+            sc = torch.where(mask, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            if exp_table is not None:
+                p = lut_lib.apply_table(sc - m_new, exp_table)
+                corr = lut_lib.apply_table(torch.clamp(m - m_new, min=exp_table.lo),
+                                           exp_table)
+            else:
+                p, corr = torch.exp(sc - m_new), torch.exp(m - m_new)
+            p = torch.where(mask, p, 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhrk,bhkd->bhrd", p, vp)
+            m = m_new
+        parts.append((m, l, acc))
+    return merge_partial_softmax_stacked(
+        *(torch.stack(x, dim=2) for x in zip(*parts)), axis=2)
+
+
+def paged_attention_online_plain(q, k_pages, v_pages, block_tables, length,
+                                 k_scales=None, v_scales=None, *,
+                                 scale: float | None = None,
+                                 exp_table: LutTable | None = None,
+                                 softcap: float | None = None,
+                                 window: int | None = None,
+                                 splits: int = 1) -> torch.Tensor:
+    """`online_walk` for decode rows: q (B, H, D) at position length - 1
+    over the gathered, dequantized pages, the table trash-padded to a
+    multiple of `splits`. splits=1 is the single walk the kernel computes;
+    splits > 1 the split kernels' runs. -> (B, H, D) f32."""
+    B, H, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    n = block_tables.shape[1]
+    tables = torch.nn.functional.pad(block_tables, (0, -(-n // splits) * splits - n))
+    kd = gather_paged_kv(k_pages, tables, k_scales, D).float()
+    vd = gather_paged_kv(v_pages, tables, v_scales, D).float()
+    g = H // Hkv
+    qpos = (length.long() - 1)[:, None].expand(B, g)
+    out = online_walk(q.float().reshape(B, Hkv, g, D), kd, vd, qpos, length, page, splits,
+                      scale=scale if scale is not None else D ** -0.5,
+                      exp_table=exp_table, softcap=softcap, window=window)
+    return out.reshape(B, H, D)
+
+
 # ---------------------------------------------------------------------------
 # Launchers
 # ---------------------------------------------------------------------------
@@ -269,16 +420,35 @@ def paged_attention(q, k_pages, v_pages, block_tables, length,
             kv_splits=splits, scale=scale, exp_table=exp_table,
             softcap=softcap, window=window)
         return merge_partials(m, l, acc, q.dtype)
+    n_table = block_tables.shape[1]
+    if (H // Hkv) * D > 1024:
+        raise ValueError(f"paged_attention: {H // Hkv} query heads a kv head x head_dim "
+                         f"{D} exceed the kernel's 1024 (row, dim) pairs")
+    if B == 0 or n_table == 0:
+        return torch.zeros_like(q)
+    row_bytes = k_pages.shape[-1] * k_pages.element_size()
+    cluster = decode_cluster(B, Hkv, n_table, H // Hkv, D, page, row_bytes)
+    return launch_decode(q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
+                         fmt, cluster, scale=scale, exp_table=exp_table,
+                         softcap=softcap, window=window)
+
+
+def launch_decode(q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
+                  fmt: int, cluster: int, *, scale=None, exp_table=None, softcap=None,
+                  window=None) -> torch.Tensor:
+    """The single-walk kernel on `cluster` blocks a (slot, kv head), after
+    `paged_attention`'s checks (the C entry checks the cluster;
+    scripts/sweep_clusters.py times other sizes so)."""
+    B, H, D = q.shape
+    P, Hkv, page, _ = k_pages.shape
     out = torch.empty_like(q)
-    if B == 0:
-        return out
     wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
     lib = _build.library("paged_attention")
-    rc = _fn(lib, "paged_attention", "p" * 9 + "i" * 7 + "ffiiffiii" + "p")(
+    rc = _fn(lib, "paged_attention", "p" * 9 + "i" * 7 + "ffiiffiiii" + "p")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
         ptr(v_scales), block_tables.data_ptr(), length.data_ptr(), wb,
         out.data_ptr(), B, H, Hkv, D, page, P, block_tables.shape[1], *masks,
-        _DTYPE_CODE[q.dtype], fmt, _stream(q))
+        _DTYPE_CODE[q.dtype], fmt, cluster, _stream(q))
     _build.check(lib, "paged_attention", rc)
     paged_attention.launches += 1
     return out

@@ -5,10 +5,15 @@ Here on the CPU: each plain PyTorch version against the JAX oracle in
 `repro.kernels.ref` (f32, 1e-5) and, at one small shape, against the Pallas
 kernel in interpret mode (1e-5; 3e-3 for LUT-exp attention, the JAX
 package's own bound for the online LUT softmax), plus the launchers'
-refusal of CPU tensors and of bad arguments. On the card (`-m gpu`): each
-CUDA kernel against its plain version on the same inputs, the int8 and
-fixed16 GEMVs bit for bit at the shapes of `chip_smoke.py` (their plain
-versions are held to the JAX oracles in test_torch_quant.py).
+refusal of CPU tensors and of bad arguments; the float GEMV's plan (kernel
+choice, tiles, cluster) over every shape of the path, the single-walk
+decode's cluster and the widest table its shared memory holds, and the page walk
+that the decode kernel computes in LUT mode against the Pallas kernel in
+interpret mode (1e-5). On the card (`-m gpu`): each CUDA kernel against its
+plain version on the same inputs, the tensor-core GEMV at its ragged and
+cluster shapes and bit-identical across launches, the int8 and fixed16
+GEMVs bit for bit at the shapes of `chip_smoke.py` (their plain versions
+are held to the JAX oracles in test_torch_quant.py).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core import lut as tlut
-from repro_torch.kernels import gemv_pim, ops, paged_attention, paged_prefill
+from repro_torch.kernels import _build, gemv_pim, ops, paged_attention, paged_prefill
 
 TBANK = tlut.LutBank.create(64)
 
@@ -147,6 +152,108 @@ def test_gemv_plain_matches_pallas_interpret(jx, fused):
     _close(got, want, 1e-5)
 
 
+# The GEMV shapes (R, C) of GPT-2 medium's path: q/k/v/o projections,
+# w_up, w_down and the LM head.
+PATH_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
+
+
+def _blocks(plan):
+    return plan.row_tiles * plan.n_tiles * plan.cluster
+
+
+def _k_range(plan, rank):
+    """The K tiles [lo, hi) that cluster block `rank` sums, as the
+    tensor-core kernel (csrc/gemv_pim.cu) splits them."""
+    return (rank * plan.k_tiles // plan.cluster,
+            (rank + 1) * plan.k_tiles // plan.cluster)
+
+
+def _tile_writes(plan, M, R):
+    """How many times the tensor-core kernel writes each output element
+    (M, R), by its index arithmetic: block (row tile, token tile, rank)
+    reduces elements [rank * E / cluster, (rank + 1) * E / cluster) of its
+    (n_tile, 64) tile, E = n_tile * 64, token major, and writes element e
+    at token n * n_tile + e // 64 and row t * 64 + e % 64 when both are
+    inside (M, R)."""
+    counts = torch.zeros(M * R, dtype=torch.int32)
+    rows = torch.arange(plan.row_tiles)[:, None] * gemv_pim.TC_ROWS
+    e_all = plan.n_tile * gemv_pim.TC_ROWS
+    for n in range(plan.n_tiles):
+        for rank in range(plan.cluster):
+            e = torch.arange(rank * e_all // plan.cluster, (rank + 1) * e_all // plan.cluster)
+            m = n * plan.n_tile + e // gemv_pim.TC_ROWS
+            r = rows + (e % gemv_pim.TC_ROWS)[None, :]
+            ok = (m[None, :] < M) & (r < R)
+            idx = (m[None, :] * R + r)[ok]
+            counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts.reshape(M, R)
+
+
+@pytest.mark.parametrize("R,C", PATH_SHAPES)
+def test_gemv_plan_covers_every_path_shape(R, C):
+    """M = 1..512 on every weight of the path: the tensor-core kernel, a
+    token tile no larger than the least that holds M (256 beyond), one
+    64-row tile per 64 rows, and a cluster whose blocks split the K tiles
+    with none lost, none twice and none empty; the grid is the largest of
+    at most 132 blocks over every tile and cluster so allowed (ties to the
+    larger tile), or, where every tile's grid exceeds 132, the least tile
+    that holds M with no cluster."""
+    for M in range(1, 513):
+        plan = gemv_pim.gemv_plan(M, C, R, torch.bfloat16)
+        fit = min(n for n in gemv_pim.TC_N if n >= min(M, 256))
+        assert plan.route == "tensor_core"
+        assert plan.n_tile in gemv_pim.TC_N and plan.n_tile <= fit
+        assert plan.n_tiles == -(-M // plan.n_tile)
+        assert plan.row_tiles == -(-R // gemv_pim.TC_ROWS)
+        assert plan.k_tiles == -(-C // gemv_pim.TC_K)
+        assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= plan.k_tiles
+        ranges = [_k_range(plan, r) for r in range(plan.cluster)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_tiles
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert plan.cluster * plan.n_tile <= gemv_pim.TC_CLUSTER_TOKENS
+        grids = {(n, cs): plan.row_tiles * -(-M // n) * cs
+                 for n in gemv_pim.TC_N if n <= fit for cs in (1, 2, 4, 8)
+                 if cs <= plan.k_tiles and cs * n <= gemv_pim.TC_CLUSTER_TOKENS}
+        fitting = [g for g in grids.values() if g <= _build.SMS]
+        if fitting:
+            assert _blocks(plan) == max(fitting)
+            assert plan.n_tile == max(n for (n, cs), g in grids.items() if g == max(fitting))
+        else:
+            assert (plan.n_tile, plan.cluster) == (fit, 1)
+
+
+def test_gemv_plan_fills_the_card_at_decode():
+    """At M = 4 the projections and w_down split C over 8 blocks (128 of
+    them), w_up over 2 (128), and the LM head needs no cluster (786)."""
+    got = {(R, C): (gemv_pim.gemv_plan(4, C, R, torch.bfloat16).cluster,
+                    _blocks(gemv_pim.gemv_plan(4, C, R, torch.bfloat16)))
+           for R, C in PATH_SHAPES}
+    assert got == {(1024, 1024): (8, 128), (4096, 1024): (2, 128),
+                   (1024, 4096): (8, 128), (50257, 1024): (1, 786)}
+
+
+@pytest.mark.parametrize("dtype,C,aligned", [(torch.float32, 1024, True),
+                                              (torch.bfloat16, 1001, True),
+                                              (torch.bfloat16, 1020, True),
+                                              (torch.bfloat16, 1024, False)])
+def test_gemv_plan_routes_to_cuda_cores(dtype, C, aligned):
+    """f32 operands, C % 8 != 0 (no 16-byte TMA stride) and unaligned rows
+    take the CUDA-core kernel."""
+    assert gemv_pim.gemv_plan(4, C, 1024, dtype, aligned=aligned).route == "cuda_core"
+
+
+@pytest.mark.parametrize("M,C,R", [(1, 1024, 50257), (4, 1024, 1000), (9, 1024, 1024),
+                                   (64, 4096, 1024), (65, 1024, 4096), (300, 1000, 1000),
+                                   (512, 1024, 4096), (512, 4096, 1024)])
+def test_gemv_tiles_write_every_output_once(M, C, R):
+    """The kernel's index arithmetic writes each (m, r) of the output
+    exactly once: ragged R and M edges masked, cluster slices disjoint."""
+    plan = gemv_pim.gemv_plan(M, C, R, torch.bfloat16)
+    assert torch.equal(_tile_writes(plan, M, R),
+                       torch.ones((M, R), dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # Paged decode attention
 # ---------------------------------------------------------------------------
@@ -173,6 +280,66 @@ def test_paged_decode_plain_matches_pallas_interpret(jx, lut):
     got = ops.pim_paged_attention(_t(q), _t(k), _t(v), _t(tbl), _t(lens),
                                   exp_table=TBANK.exp if lut else None)
     _close(got, want, 3e-3 if lut else 1e-5)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("opts", [{}, {"lut": True}, {"lut": True, "window": 5},
+                                  {"softcap": 5.0}])
+def test_online_walk_matches_pallas_interpret(jx, case, opts):
+    """The page walk that the CUDA decode kernel is held to in LUT mode is
+    the TPU kernel's own function: `paged_attention_online_plain` against
+    the Pallas kernel in interpret mode, f32, within 1e-5 (exact and LUT)."""
+    q, k, v, tbl, lens = _pool_inputs(**case, seed=7)
+    want = jx.ops.pim_paged_attention(
+        jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), jx.jnp.asarray(tbl),
+        jx.jnp.asarray(lens), impl="interpret", **_attn_kw(opts, jx.bank))
+    got = paged_attention.paged_attention_online_plain(
+        _t(q), _t(k), _t(v), _t(tbl), _t(lens), **_attn_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,n_pages,want", [(4, 16, 16, 4), (4, 16, 64, 4),
+                                                (1, 16, 64, 8), (3, 2, 5, 4),
+                                                (2, 2, 1, 1), (64, 16, 64, 1),
+                                                (4, 8, 64, 8)])
+def test_decode_cluster(B, Hkv, n_pages, want):
+    """Blocks a (slot, kv head) at GPT-2's g = 1, head_dim 64, bf16 rows:
+    doubled until the grid covers 132 SMs, at most 8 and at most one a
+    page."""
+    assert paged_attention.decode_cluster(B, Hkv, n_pages, 1, 64, 16, 128) == want
+
+
+# (g, head_dim, K/V row bytes, widest table in keys): GPT-2 medium on bf16,
+# int8 and int4 pools; qwen2-1.5B's g = 6, head_dim 128 on bf16 pools.
+DECODE_LIMITS = [(1, 64, 128, 101888), (1, 64, 64, 101888), (1, 64, 32, 101888),
+                 (6, 128, 256, 30976)]
+
+
+@pytest.mark.parametrize("g,D,row_bytes,keys", DECODE_LIMITS)
+def test_decode_table_limit(g, D, row_bytes, keys):
+    """The single walk keeps a block's run in shared memory: the widest
+    table fits at 8 blocks a cluster, one page more is refused with a
+    ValueError that names the key counts."""
+    most = paged_attention.decode_max_pages(g, D, 16, row_bytes)
+    assert most * 16 == keys
+    assert paged_attention.decode_smem_bytes(g, D, 16, most // 8, row_bytes) <= 227 * 1024
+    assert paged_attention.decode_smem_bytes(g, D, 16, most // 8 + 1, row_bytes) > 227 * 1024
+    assert paged_attention.decode_cluster(1, 1, most, g, D, 16, row_bytes) == 8
+    with pytest.raises(ValueError, match=f"{(most + 1) * 16} keys is wider than "
+                                         f"the single-walk kernel's {keys}"):
+        paged_attention.decode_cluster(1, 1, most + 1, g, D, 16, row_bytes)
+
+
+@pytest.mark.parametrize("B,n_pages,want", [(33, 64, 1), (33, 1024, 2), (33, 2048, 4),
+                                            (33, 6368, 8)])
+def test_decode_cluster_grows_to_fit_shared_memory(B, n_pages, want):
+    """Once the grid covers the card (B x 16 kv heads >= 132), a run that
+    would overflow one block's shared memory is spread over more blocks:
+    GPT-2's 1024 keys fit one block, 16384 need two, 32768 four and
+    101888 eight."""
+    cs = paged_attention.decode_cluster(B, 16, n_pages, 1, 64, 16, 128)
+    assert cs == want
+    assert paged_attention.decode_smem_bytes(1, 64, 16, -(-n_pages // cs), 128) <= 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +513,54 @@ def test_paged_prefill_kernel_matches_plain(cuda, case, opts, dtype):
     want = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, st, **kw)
     tol = 3e-2 if dtype == torch.bfloat16 else (3e-3 if opts.get("lut") else 1e-4)
     _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64, 65, 512])
+@pytest.mark.parametrize("R,C", [(1000, 1024), (1024, 4096), (4096, 1024), (50257, 1024)])
+@pytest.mark.parametrize("act", [None, "gelu", "lut"])
+def test_gemv_tensor_core_kernel_matches_plain(cuda, M, R, C, act):
+    """bf16 through the tensor-core kernel (counted by tc_launches) at the
+    ragged and cluster shapes of the path, bias on, within 3e-2."""
+    x, w, b = _gemv_inputs(M, C, R, seed=M)
+    x, w, b = (_t(a, cuda).to(torch.bfloat16) for a in (x, w, b))
+    kw = dict(act_table=TBANK.gelu if act == "lut" else None,
+              act="gelu" if act == "gelu" else None)
+    before = gemv_pim.gemv_pim_float.tc_launches
+    got = gemv_pim.gemv_pim_float(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert gemv_pim.gemv_pim_float.tc_launches == before + 1
+    want = gemv_pim.gemv_pim_plain(x, w, b, **kw)
+    _close(got, want.float().cpu().numpy(), 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,R", [(4, 4096, 1024), (64, 1024, 4096), (65, 4096, 1024)])
+def test_gemv_tensor_core_kernel_is_deterministic(cuda, M, C, R):
+    """The cluster's partials are summed in rank order: two launches give
+    the same bits."""
+    x, w, b = _gemv_inputs(M, C, R, seed=2)
+    x, w, b = (_t(a, cuda).to(torch.bfloat16) for a in (x, w, b))
+    assert gemv_pim.gemv_plan(M, C, R, torch.bfloat16).cluster > 1
+    first = gemv_pim.gemv_pim_float(x, w, b, act="gelu")
+    second = gemv_pim.gemv_pim_float(x, w, b, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 1024), (torch.bfloat16, 1001)])
+def test_gemv_cuda_core_route(cuda, dtype, C):
+    """f32 and C % 8 != 0 run the CUDA-core kernel, not the tensor cores."""
+    x, w, b = _gemv_inputs(4, C, 1024)
+    x, w, b = (_t(a, cuda).to(dtype) for a in (x, w, b))
+    before = (gemv_pim.gemv_pim_float.launches, gemv_pim.gemv_pim_float.tc_launches)
+    got = gemv_pim.gemv_pim_float(x, w, b)
+    torch.cuda.synchronize()
+    assert (gemv_pim.gemv_pim_float.launches, gemv_pim.gemv_pim_float.tc_launches) == (
+        before[0] + 1, before[1])
+    _close(got, gemv_pim.gemv_pim_plain(x, w, b).float().cpu().numpy(),
+           1e-4 if dtype == torch.float32 else 3e-2)
 
 
 # The shapes of chip_smoke.py's kernel phase: decode (M = 1, 4) and chunk

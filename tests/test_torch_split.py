@@ -12,8 +12,11 @@ versions against their oracles; the split plain version, reached through
 mode; and the launchers' argument checks. On the card (`-m gpu`): the
 split kernel with its combine, the combine alone, and the decode and
 prefill kernels on int8/int4 pools, each against its plain version (f32
-exact 1e-4, f32 LUT 3e-3, bf16 3e-2), and the split kernel against the
-unsplit one.
+exact 1e-4, f32 LUT 3e-3, bf16 3e-2), the split kernel against the
+unsplit one, and the single-walk decode kernel at g = 2 over 1024 keys on
+every pool format, LUT mode held to the page walk it computes, and at the
+limits of its shared memory (the widest table, and a cluster the table's
+width sets).
 """
 from __future__ import annotations
 
@@ -294,3 +297,68 @@ def test_quantized_decode_and_prefill_kernels_match_plain(cuda, pool, opts, dtyp
     want = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, starts,
                                                        ks, vs, **kw)
     _close(got, want.float().cpu().numpy(), _tol(dtype, opts))
+
+
+# The single walk at 1024 keys with GQA g = 2: lengths from one key to the
+# full table, page boundaries on either side.
+LONG = dict(B=7, H=8, Hkv=4, D=64, page=16, n_pages=64,
+            lengths=[1, 15, 16, 17, 200, 960, 1024])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("opts", OPTS + [{"lut": True, "softcap": 5.0, "window": 300}])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_long_gqa_matches_walk(cuda, pool, opts, dtype):
+    """The single-walk kernel on every pool format at g = 2 over a 64-page
+    table: exact mode against the plain version, LUT mode against the
+    page-ordered walk (`paged_attention_online_plain`, the function it
+    computes); f32 within 1e-4, bf16 within 3e-2."""
+    q, k, v, ks, vs, tbl, lens = _case(pool, **LONG, seed=11, device=cuda)
+    q = q.to(dtype)
+    if pool == "fp":
+        k, v = k.to(dtype), v.to(dtype)
+    kw = _kw(opts, TBANK)
+    before = paged_attention.paged_attention.launches
+    got = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_attention.launches == before + 1
+    if opts.get("lut"):
+        want = paged_attention.paged_attention_online_plain(q, k, v, tbl, lens, ks, vs, **kw)
+    else:
+        want = paged_attention.paged_attention_plain(q, k, v, tbl, lens, ks, vs, **kw)
+    _close(got, want.float().cpu().numpy(), 3e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+# The single walk at its shared-memory limits (bf16 pools, g = 2, head_dim
+# 64): the widest table it takes, one (slot, kv head) on 8 blocks; and a
+# grid that covers the card (9 slots x 16 kv heads) whose 16384-key tables
+# need two blocks a run.
+WIDEST = paged_attention.decode_max_pages(2, 64, 16, 128)
+WIDE = [dict(B=1, H=2, Hkv=1, n_pages=WIDEST, lengths=[16 * WIDEST], cluster=8),
+        dict(B=9, H=32, Hkv=16, n_pages=1024, cluster=2,
+             lengths=[1, 17, 5000, 9001, 12000, 16000, 16383, 16384, 16384])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WIDE)
+def test_decode_kernel_at_shared_memory_limits(cuda, case):
+    """bf16 against the plain version within 3e-2 where the table's width,
+    not the grid, sets the cluster; one page wider than the widest table is
+    refused with a ValueError before anything launches."""
+    shape = dict(case)
+    cluster = shape.pop("cluster")
+    q, k, v, ks, vs, tbl, lens = _case("fp", D=64, page=16, **shape, seed=13, device=cuda)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    B, H, Hkv, n_pages = shape["B"], shape["H"], shape["Hkv"], shape["n_pages"]
+    assert paged_attention.decode_cluster(B, Hkv, n_pages, H // Hkv, 64, 16, 128) == cluster
+    got = paged_attention.paged_attention(q, k, v, tbl, lens)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_attention_plain(q, k, v, tbl, lens)
+    _close(got, want.float().cpu().numpy(), 3e-2)
+    if n_pages == WIDEST:
+        wider = torch.cat([tbl, tbl[:, :1]], dim=1).contiguous()
+        before = paged_attention.paged_attention.launches
+        with pytest.raises(ValueError, match=f"{16 * (WIDEST + 1)} keys is wider"):
+            paged_attention.paged_attention(q, k, v, wider, lens)
+        assert paged_attention.paged_attention.launches == before
