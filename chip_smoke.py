@@ -78,9 +78,22 @@ Phases 4-6 also check the norms (49 layernorm_lut launches a decode step
 and a chunk) and, in q3, the LUT GELU after the int8 GEMV (24 lut_interp).
 
 Phase 3 also holds the int8 and fixed16 GEMVs bit for bit to their plain
-versions (M 1, 4, 64 over the model's weight shapes, int8 with and
-without bias, fixed16 at shift 10 and 12 with rows that saturate both
-ways and one whose int32 sum wraps) and times them over a decode step.
+versions (int8 over M 1..512 x R 1000..50257 x C 1024/4096 on the s8
+tensor cores and C 1000 on the __dp4a kernel, with and without bias;
+fixed16 at M 1, 4, 64, shift 10 and 12, with rows that saturate both ways
+and one whose int32 sum wraps), and `quantize_int8_rows` bit for bit on
+f32 and bf16 rows (zero rows and .5 ties); the prefill kernel over g 1
+and 2, Sq 1/17/64 and starts 0/15/64/896 on every pool format (bf16, all
+on the tensor cores); the single walk at qwen2-1.5B's widths over 131072
+keys (in windows), at g 12 x D 192, and forced into windows of 1 and 3
+pages at 384 keys on every pool format, all on planted keys that keep
+the outputs O(1); and times the int8 GEMV over a
+decode step and at `w_up`, the per-call quantization on the kernel, the
+prefill at start 896 and the 131072-key walk beside SDPA and the split.
+Phases 4-6 count every tensor-core launch: all 145 GEMVs of q1 and q3 on
+the s8 tensor cores, one quantize_int8_rows a linear for x (two in q3,
+for the weight too), every chunk's 24 prefill launches on the tensor-core
+kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -141,7 +154,12 @@ SOURCE = {
                       "src/repro/kernels/layernorm_lut.py:73"),
     "lut_interp": ("src/repro_torch/kernels/csrc/lut_interp.cu",
                    "src/repro/kernels/lut_interp.py:45"),
+    # Not a TPU kernel: XLA ops of the JAX package (quantize_int8_rowwise,
+    # and int8_linear's quantization of x) in one CUDA kernel.
+    "quantize_int8_rows": ("src/repro_torch/kernels/csrc/gemv_pim_quant.cu",
+                           "src/repro/core/quant.py:125"),
 }
+NOT_TPU_KERNELS = {"quantize_int8_rows"}
 # The model's GEMV shapes (R, C): q/k/v/o projections, w_up, w_down, LM head.
 QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
 # Pool formats: (kv_cache_dtype, kv_scale_dtype); fp pools hold q's dtype.
@@ -216,22 +234,6 @@ def make_pools(torch, quantize, k32, v32, fmt: str, dtype):
     quant = quantize.quantize_vec_int4 if kv == "int4" else quantize.quantize_vec
     (k, ks), (v, vs) = quant(k32, getattr(torch, sd)), quant(v32, getattr(torch, sd))
     return k, v, ks, vs
-
-
-def online_prefill(torch, paged_attention, q, k, v, tables, lengths, starts, ks=None,
-                   vs=None, **opts):
-    """`paged_attention.online_walk` for a prefill chunk (q (B, Sq, H, D)
-    from starts)."""
-    B, Sq, H, D = q.shape
-    Hkv, page = k.shape[1], k.shape[2]
-    g = H // Hkv
-    kd = paged_attention.gather_paged_kv(k, tables, ks, D).float()
-    vd = paged_attention.gather_paged_kv(v, tables, vs, D).float()
-    rows = q.float().reshape(B, Sq, Hkv, g, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, Sq * g, D)
-    qpos = starts.long()[:, None] + torch.arange(Sq * g, device=q.device)[None] // g
-    out = paged_attention.online_walk(rows, kd, vd, qpos, lengths, page, 1, scale=D ** -0.5,
-                                      **opts)
-    return out.reshape(B, Hkv, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D)
 
 
 def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
@@ -338,8 +340,8 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                     torch.cuda.synchronize()
                     dense = paged_prefill.paged_prefill_attention_plain(
                         q, k, v, pf_tables, ln, st, ks, vs, **opts)
-                    online = (online_prefill(torch, paged_attention, q, k, v, pf_tables, ln,
-                                             st, ks, vs, **opts) if lut else None)
+                    online = (paged_prefill.paged_prefill_attention_online_plain(
+                        q, k, v, pf_tables, ln, st, ks, vs, **opts) if lut else None)
                     worst = max(worst, check("paged_prefill_attention",
                                              f"paged prefill {fmt} start={start} "
                                              f"{sorted(opts)} {dname}", got, dense, online,
@@ -658,9 +660,40 @@ def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill
     keys = sum(start + r + 1 for r in range(Sq))
     nbytes = n_keys * H * D * 2 * 2 + 2 * (2 * Sq * H * D) + 4 * (t1.numel() + 2)
     bnd, by = bound_ms(nbytes, keys * H * D * 4, "bfloat16")
-    out["paged_prefill_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                          bound_ms=bnd, bound_by=by,
-                                          shape="B=1 Sq=64 start=64 H=16 D=64 page 16")
+    # The same chunk at start 896 (960 keys) of a 64-page table, per layer.
+    start9 = 896
+    t64 = (torch.randperm(64, generator=gen, device=dev) + 1)[None].to(torch.int32)
+    pools64 = [(torch.randn((65, H, page, D), generator=gen, device=dev).to(cfg.cdtype),
+                torch.randn((65, H, page, D), generator=gen, device=dev).to(cfg.cdtype))
+               for _ in range(L)]
+    st9 = torch.tensor([start9], dtype=torch.int32, device=dev)
+    ln9 = st9 + Sq
+    ms9 = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention(
+        qp, *pools64[i], t64, ln9, st9), L)
+    plain9 = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention_plain(
+        qp, *pools64[i], t64, ln9, st9), L)
+    n9 = start9 + Sq
+    dense9 = [(paged_attention.gather_paged_kv(k, t64)[:, :, :n9],
+               paged_attention.gather_paged_kv(v, t64)[:, :, :n9]) for k, v in pools64]
+    causal9 = (torch.arange(n9, device=dev)[None, :]
+               <= start9 + torch.arange(Sq, device=dev)[:, None])
+
+    def sdpa_prefill9(i):
+        return F.scaled_dot_product_attention(qh, *dense9[i], attn_mask=causal9).transpose(1, 2)
+
+    compare(torch, "sdpa prefill yardstick at 896", sdpa_prefill9(0),
+            paged_prefill.paged_prefill_attention_plain(qp, *pools64[0], t64, ln9, st9),
+            TOL["bfloat16"])
+    lib9 = time_graph(torch, sdpa_prefill9, L)
+    bnd9, by9 = bound_ms(n9 * H * D * 2 * 2 + 2 * (2 * Sq * H * D) + 4 * (t64.numel() + 2),
+                         sum(start9 + r + 1 for r in range(Sq)) * H * D * 4, "bfloat16")
+    log(f"  paged_prefill_attention B=1 Sq=64 start=896 (960 keys) bf16: {ms9 * 1e3:.2f} us, "
+        f"plain {plain9 * 1e3:.2f} us, SDPA on pre-gathered K/V {lib9 * 1e3:.2f} us, bound "
+        f"{bnd9 * 1e3:.2f} us ({by9})")
+    out["paged_prefill_attention"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+        shape=f"B=1 Sq=64 start=64 H=16 D=64 page 16; start 896: {ms9 * 1e3:.2f} us, plain "
+              f"{plain9 * 1e3:.2f} us, SDPA {lib9 * 1e3:.2f} us, bound {bnd9 * 1e3:.2f} us")
     for name, r in out.items():
         if "shape" not in r:
             continue
@@ -749,7 +782,45 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
                     f"{plain * 1e3:.2f} us; SDPA on pre-gathered K/V {lib * 1e3:.2f} us")
     for r in rows:
         log(f"  long-context decode attention [{lens_list}]: {r}")
+    out["wide"] = time_wide_decode(torch, F, paged_attention, seed)
     return out
+
+
+def time_wide_decode(torch, F, paged_attention, seed):
+    """The single walk at qwen2-1.5B's widths, B=1, 12 query heads over 2
+    kv heads, D 128, 131072 keys of a bf16 pool (walked in windows), beside
+    its byte bound, SDPA on K/V gathered beforehand (the 6 query heads of a
+    kv head as 6 queries, no mask: every key is valid) and the split kernel
+    at K = 8 with its combine."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    n_pages, D = 8192, 128
+    q, k32, v32, tables, lengths = wide_decode_case(torch, gen, 1, 12, 2, D, n_pages,
+                                                    [16 * n_pages])
+    k, v = k32.bfloat16(), v32.bfloat16()
+    del k32, v32
+    cs, win = paged_attention.decode_plan(1, 2, n_pages, 6, D, 16, 2 * D)
+    one = time_graph(torch, lambda i: paged_attention.paged_attention(q, k, v, tables, lengths),
+                     2)
+    split8 = time_graph(torch, lambda i: paged_attention.paged_attention(
+        q, k, v, tables, lengths, kv_splits=8), 2)
+    kd = paged_attention.gather_paged_kv(k, tables)
+    vd = paged_attention.gather_paged_kv(v, tables)
+    qs = q.reshape(1, 2, 6, D)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qs, kd, vd).reshape(1, 12, D)
+
+    compare(torch, "sdpa 131072-key yardstick", sdpa(0),
+            paged_attention.paged_attention_plain(q, k, v, tables, lengths), TOL["bfloat16"])
+    lib = time_graph(torch, sdpa, 2)
+    keys = 16 * n_pages * 2                          # (key, kv head) vectors
+    bnd, by = bound_ms(2 * keys * D * 2 + 2 * 2 * 12 * D + 4 * (n_pages + 1),
+                       4 * 6 * keys * D, "bfloat16")
+    log(f"  paged_attention B=1 H=12 Hkv=2 D=128, 131072 keys, bf16 pool (cluster {cs}, "
+        f"windows of {win} pages): {one * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}), "
+        f"SDPA on pre-gathered K/V {lib * 1e3:.2f} us, split K=8 + combine "
+        f"{split8 * 1e3:.2f} us")
+    return dict(ms=one, bound_ms=bnd, library_ms=lib, split8_ms=split8, cluster=cs, win=win)
 
 
 def check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp, seed):
@@ -953,38 +1024,35 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
     return out
 
 
-def quant_operands(torch, M, C, R, gen):
-    """int8 and fixed16 GEMV operands on the card, made as
-    tests/test_torch_kernels.py's `quant_gemv_inputs` makes them: random
-    int8 payloads (w row 0 at -127), positive f32 row scales, an f32 bias;
-    x in Q.10 and w in Q.12 with x row 0 at v = sqrt(5e8 / C), w rows 0
-    and 1 at +v and -v (saturating both ways after the shift) and w row 2
-    at 32767 (a sum with x row 0 past 2^31, which wraps)."""
+def fixed_operands(torch, M, C, R, gen):
+    """fixed16 GEMV operands on the card, made as
+    tests/test_torch_kernels.py's `quant_gemv_inputs` makes them: x in Q.10
+    and w in Q.12 with x row 0 at v = sqrt(5e8 / C), w rows 0 and 1 at +v
+    and -v (saturating both ways after the shift) and w row 2 at 32767 (a
+    sum with x row 0 past 2^31, which wraps)."""
     dev = torch.device("cuda")
-
-    def randint8(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
     def q16(t):
         return torch.clamp(torch.round(t), -32768, 32767).to(torch.int16)
 
-    x8, w8 = randint8(M, C), randint8(R, C)
-    w8[0] = -127
-    xs = torch.rand(M, generator=gen, device=dev) * 0.05 + 1e-3
-    ws = torch.rand(R, generator=gen, device=dev) * 0.01 + 1e-4
-    b = torch.randn(R, generator=gen, device=dev)
     xq = q16(torch.randn((M, C), generator=gen, device=dev) * 2 ** 10)
     wq = q16(torch.randn((R, C), generator=gen, device=dev) * C ** -0.5 * 2 ** 12)
     v = int((5e8 / C) ** 0.5)
     xq[0], wq[0], wq[1], wq[2] = v, v, -v, 32767
-    return x8, xs, w8, ws, b, xq, wq
+    return xq, wq
 
 
 def check_quant_kernels(torch, gemv_pim, seed):
     """The int8 and fixed16 GEMVs against their plain versions, bit for
-    bit, at M in {1, 4, 64} over the model's GEMV shapes."""
-    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    errs = {"gemv_pim_int8": 0.0, "gemv_pim_fixed": 0.0}
+    bit: fixed16 at M in {1, 4, 64} over the model's GEMV shapes; int8 over
+    M {1, 4, 8, 9, 64, 65, 512} x R {1000, 1024, 4096, 50257} x C {1024,
+    4096, 1000}, with and without bias, on the s8 tensor cores (the
+    wrapper's tc_launches must show it) and, at C = 1000, the __dp4a
+    kernel; then quantize_int8_rows on f32 and bf16 rows, zero rows and .5
+    ties among them."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    errs = {"gemv_pim_int8": 0.0, "gemv_pim_fixed": 0.0, "quantize_int8_rows": 0.0}
 
     def same(name, label, got, want):
         err = float((got.float() - want.float()).abs().max())
@@ -995,12 +1063,7 @@ def check_quant_kernels(torch, gemv_pim, seed):
 
     for R, C in QUANT_SHAPES:
         for M in (1, 4, 64):
-            x8, xs, w8, ws, b, xq, wq = quant_operands(torch, M, C, R, gen)
-            for bias in (None, b):
-                got = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, bias)
-                torch.cuda.synchronize()
-                same("gemv_pim_int8", f"gemv_pim_int8 M={M} C={C} R={R} bias={bias is not None}",
-                     got, gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, bias))
+            xq, wq = fixed_operands(torch, M, C, R, gen)
             wraps = abs(float(xq[0].double() @ wq[2].double())) >= 2 ** 31
             for shift in (10, 12):
                 got = gemv_pim.gemv_pim_fixed(xq, wq, shift=shift)
@@ -1011,10 +1074,206 @@ def check_quant_kernels(torch, gemv_pim, seed):
                 if (int(want[0, 0]), int(want[0, 1])) != (32767, -32768) or not wraps:
                     raise AssertionError(f"gemv_pim_fixed M={M} C={C} R={R}: the "
                                          "saturating or wrapping rows did not")
-        log(f"  gemv_pim_int8 C={C} R={R} M=1/4/64, with and without bias; gemv_pim_fixed "
-            f"shift 10/12, rows saturating to +-32767/-32768 and one wrapping past 2^31: "
-            f"bit-exact to the plain versions")
+    log("  gemv_pim_fixed M=1/4/64 over the model's shapes, shift 10/12, rows saturating to "
+        "+-32767/-32768 and one wrapping past 2^31: bit-exact to the plain version")
+
+    fn = gemv_pim.gemv_pim_int8
+    for C in (1024, 4096, 1000):
+        calls = tc = 0
+        for R in (1000, 1024, 4096, 50257):
+            w8 = torch.randint(-127, 128, (R, C), generator=gen, device=dev, dtype=torch.int8)
+            w8[0] = -127
+            ws = torch.rand(R, generator=gen, device=dev) * 0.01 + 1e-4
+            b = torch.randn(R, generator=gen, device=dev)
+            for M in (1, 4, 8, 9, 64, 65, 512):
+                x8 = torch.randint(-127, 128, (M, C), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                xs = torch.rand(M, generator=gen, device=dev) * 0.05 + 1e-3
+                for bias in (None, b):
+                    before = fn.tc_launches
+                    got = fn(x8, xs, w8, ws, bias)
+                    torch.cuda.synchronize()
+                    tc += fn.tc_launches - before
+                    calls += 1
+                    same("gemv_pim_int8", f"gemv_pim_int8 M={M} C={C} R={R} "
+                         f"bias={bias is not None}", got,
+                         gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, bias))
+            del w8
+        want_tc = calls if C % 16 == 0 else 0
+        if tc != want_tc:
+            raise AssertionError(f"gemv_pim_int8 C={C}: {tc} of {calls} launches on the "
+                                 f"tensor cores, expected {want_tc}")
+        route = "the s8 tensor cores" if tc else "the CUDA cores (__dp4a: C % 16 != 0)"
+        log(f"  gemv_pim_int8 grid C={C}: M 1..512 x R 1000..50257, with and without bias, "
+            f"{calls} launches on {route} (the wrapper's count): bit-exact to the plain "
+            "version")
+
+    qfn = gemv_pim.quantize_int8_rows
+    ties = torch.tensor([2.5, -2.5, 3.5, -0.5, 0.5, 126.5, 1.5, 127.0], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, C in ((4, 1024), (64, 4096), (512, 1024), (4096, 1024), (50257, 1024)):
+            x = torch.randn((rows, C), generator=gen, device=dev)
+            x = x * torch.tensor([1e-3, 0.5, 30.0], device=dev)[torch.arange(rows, device=dev) % 3,
+                                                                None]
+            x[1] = 0.0
+            x[2] = ties.repeat(C // 8)
+            x = x.to(dtype)
+            before = qfn.launches
+            q, sc = qfn(x)
+            torch.cuda.synchronize()
+            if qfn.launches != before + 1:
+                raise AssertionError("quantize_int8_rows: not one launch")
+            wq, wsc = gemv_pim.quantize_int8_rows_plain(x)
+            name = f"quantize_int8_rows {rows}x{C} {dtype}"
+            same("quantize_int8_rows", name + " payload", q, wq)
+            same("quantize_int8_rows", name + " scale", sc, wsc)
+            if q[2, :6].tolist() != [2, -2, 4, 0, 0, 126] or bool(q[1].any()):
+                raise AssertionError(f"{name}: the ties or the zero row")
+        log(f"  quantize_int8_rows {str(dtype).split('.')[1]}: 4x1024 .. 50257x1024 rows, a "
+            "zero row and exact .5 ties: payload and scales bit-exact to the plain "
+            "function, one launch a call")
     return errs
+
+
+def check_prefill_grid(torch, tlut, quantize, paged_prefill, seed):
+    """The paged prefill kernel with bf16 queries (the tensor-core kernel;
+    the wrapper's tc_launches must show it) over a 64-page table (page 16,
+    D 64): g in {1, 2} (16 query heads over 16 or 8 kv heads), chunks of
+    Sq in {1, 17, 64} at starts {0, 15, 64, 896}, every pool format, exact
+    and LUT, with and without window 300 and softcap 30: exact mode
+    against the plain version, LUT mode against the page walk
+    (`paged_prefill_attention_online_plain`), at TOL."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    bank = tlut.LutBank.create(64)
+    H, D, page, n_tbl = 16, 64, 16, 64
+    P = 1 + n_tbl
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1)[None].to(torch.int32)
+    fn = paged_prefill.paged_prefill_attention
+    worst = {}
+    calls = tc = 0
+    opts_list = [{}, {"exp_table": bank.exp}, {"window": 300, "softcap": 30.0},
+                 {"exp_table": bank.exp, "window": 300, "softcap": 30.0}]
+    for Hkv in (16, 8):
+        k32 = torch.randn((P, Hkv, page, D), generator=gen, device=dev)
+        v32 = torch.randn((P, Hkv, page, D), generator=gen, device=dev)
+        for fmt in POOLS:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            for Sq in (1, 17, 64):
+                q = torch.randn((1, Sq, H, D), generator=gen, device=dev).bfloat16()
+                for start in (0, 15, 64, 896):
+                    st = torch.tensor([start], dtype=torch.int32, device=dev)
+                    ln = st + Sq
+                    for opts in opts_list:
+                        before = fn.tc_launches
+                        got = fn(q, k, v, table, ln, st, ks, vs, **opts)
+                        torch.cuda.synchronize()
+                        tc += fn.tc_launches - before
+                        calls += 1
+                        walk = "exp_table" in opts
+                        plain = (paged_prefill.paged_prefill_attention_online_plain if walk
+                                 else paged_prefill.paged_prefill_attention_plain)
+                        want = plain(q, k, v, table, ln, st, ks, vs, **opts)
+                        e = compare(torch, f"paged prefill g={H // Hkv} {fmt} Sq={Sq} "
+                                    f"start={start} {sorted(opts)}", got, want, TOL["bfloat16"])
+                        key = "LUT vs the page walk" if walk else "exact vs plain"
+                        worst[key] = max(worst.get(key, 0.0), e)
+    if tc != calls:
+        raise AssertionError(f"paged prefill grid: {tc} of {calls} launches on the tensor cores")
+    log(f"  paged_prefill_attention grid: {calls} launches, all on the tensor cores (the "
+        f"wrapper's count), g 1 and 2, Sq 1/17/64 at starts 0/15/64/896, every pool format, "
+        f"bf16, x window 300 + softcap 30: max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TOL['bfloat16']})")
+    return max(worst.values())
+
+
+def wide_decode_case(torch, gen, B, H, Hkv, D, n_pages, lengths, hot=8, target=18.0):
+    """Pools of n_pages pages a sequence (page 16), randomly placed, f32.
+    Each query row gets `hot` planted keys, one in each of `hot` equal
+    stretches of its length, whose scores stand near `target` (k = c q;
+    the rest score about N(0, 1)) with V rows of std 4: the output is then
+    a mix of those few V rows, O(1), so a walk that drops or mis-merges a
+    run or a window of pages misses by O(1), not by 1/sqrt(keys)."""
+    dev = torch.device("cuda")
+    P = 1 + B * n_pages
+    tables = ((torch.randperm(P - 1, generator=gen, device=dev) + 1)
+              .reshape(B, n_pages).to(torch.int32))
+    k32 = torch.randn((P, Hkv, 16, D), generator=gen, device=dev)
+    v32 = torch.randn((P, Hkv, 16, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    g = H // Hkv
+    for b, n in enumerate(lengths):
+        for h in range(H):
+            qh = q[b, h].float()
+            u = torch.rand(hot, generator=gen, device=dev)
+            pos = ((torch.arange(hot, device=dev) + 0.1 + 0.8 * u) / hot * n).long()
+            pos = pos.clamp(max=n - 1)
+            c = (target + 3 * torch.rand(hot, generator=gen, device=dev) - 1.5) * D ** 0.5
+            phys = tables[b, pos // 16].long()
+            k32[phys, h // g, pos % 16] = (c / (qh @ qh))[:, None] * qh
+            v32[phys, h // g, pos % 16] = 4 * torch.randn((hot, D), generator=gen, device=dev)
+    return q, k32, v32, tables, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def check_wide_decode(torch, tlut, quantize, paged_attention, seed):
+    """The single walk past one block's shared memory: qwen2-1.5B's widths
+    (B=1, 12 query heads over 2 kv heads, D 128) at 131072 keys, walked in
+    windows, on bf16, int8 and int4 pools; g 12 x D 192 (1 kv head) at
+    1024 keys on every pool format; and the windowed walk forced at 384
+    keys (windows of 1 and 3 pages over runs of 12, g x D of 512 and 128)
+    on every pool format. Exact (vs plain) and LUT (vs the page walk),
+    bf16, at TOL, on planted keys that keep every output O(1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    bank = tlut.LutBank.create(64)
+    worst = 0.0
+
+    def held(label, got, q, k, v, tables, lengths, ks, vs, opts):
+        plain = (paged_attention.paged_attention_online_plain if opts
+                 else paged_attention.paged_attention_plain)
+        want = plain(q, k, v, tables, lengths, ks, vs, **opts)
+        if float(want.float().abs().amax()) <= 0.5:
+            raise AssertionError(f"{label}: the planted keys did not dominate")
+        return compare(torch, label, got, want, TOL["bfloat16"])
+
+    for (B, H, Hkv, D, n_pages, lens, fmts) in [
+            (1, 12, 2, 128, 8192, [131072], ("fp", "int8/bf16", "int4/bf16")),
+            (2, 12, 1, 192, 64, [1024, 517], tuple(POOLS))]:
+        q, k32, v32, tables, lengths = wide_decode_case(torch, gen, B, H, Hkv, D, n_pages, lens)
+        row_bytes = 2 * D
+        cs, win = paged_attention.decode_plan(B, Hkv, n_pages, H // Hkv, D, 16, row_bytes)
+        for fmt in fmts:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            for opts in ({}, {"exp_table": bank.exp}):
+                got = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs, **opts)
+                torch.cuda.synchronize()
+                e = held(f"wide decode {H}/{Hkv} heads D={D} {lens} {fmt} {sorted(opts)}",
+                         got, q, k, v, tables, lengths, ks, vs, opts)
+                worst = max(worst, e)
+                log(f"  paged_attention {H} heads / {Hkv} kv heads, D={D}, lengths {lens}, "
+                    f"{fmt} pools, {'LUT vs the page walk' if opts else 'exact vs plain'} "
+                    f"(cluster {cs}, windows of {win} pages, runs of {-(-n_pages // cs)}): "
+                    f"max_abs_err {e:.3e} (tol {TOL['bfloat16']})")
+            del k, v, ks, vs
+        del k32, v32
+    for (H, Hkv, D) in ((8, 2, 128), (4, 2, 64)):
+        q, k32, v32, tables, lengths = wide_decode_case(torch, gen, 3, H, Hkv, D, 24,
+                                                        [384, 250, 97], hot=6)
+        for fmt in POOLS:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            code = paged_attention.pool_format("paged_attention", q, k, v, ks, vs)
+            for win in (1, 3):
+                for opts in ({}, {"exp_table": bank.exp}):
+                    got = paged_attention.launch_decode(q, k, v, tables, lengths, ks, vs,
+                                                        code, 2, win, **opts)
+                    torch.cuda.synchronize()
+                    e = held(f"windowed decode {H}/{Hkv} heads D={D} {fmt} windows of {win} "
+                             f"{sorted(opts)}", got, q, k, v, tables, lengths, ks, vs, opts)
+                    worst = max(worst, e)
+        log(f"  paged_attention forced into windows of 1 and 3 pages (runs of 12, cluster 2), "
+            f"{H} heads / {Hkv} kv heads, D={D} (g x D {H // Hkv * D}), lengths 384/250/97, "
+            f"every pool format, exact vs plain and LUT vs the page walk: within "
+            f"{TOL['bfloat16']}")
+    return worst
 
 
 def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
@@ -1113,15 +1372,42 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
         f"{p8 * 1e3:.2f} us, torch._int_mm {l8 * 1e3:.2f} us, bound {b8 * 1e3:.2f} us ({by8})")
     log(f"  gemv_pim_fixed M=64 C={d} R={f} (w_up over a chunk): {tf * 1e3:.2f} us, plain "
         f"{pf * 1e3:.2f} us, bound {bf * 1e3:.2f} us ({byf})")
-    out["gemv_pim_int8"]["shape"] += f"; w_up at M=64: {t8 * 1e3:.2f} us"
+    # w_up at a decode step's M=4.
+    c4, c4s = x8[d]
+    t4 = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8(c4, c4s, *up8[i]), L)
+    l4 = time_graph(torch, lambda i: torch._int_mm(pad32[d], up8[i][0].t()), L)
+    b4, by4 = bound_ms(f * d + 4 * f + 4 * d + 4 * 4 + 4 * 4 * f, 2 * 4 * f * d, "int8")
+    log(f"  gemv_pim_int8 M=4 C={d} R={f} (w_up in a decode step): {t4 * 1e3:.2f} us, "
+        f"torch._int_mm (x padded to 32 rows) {l4 * 1e3:.2f} us, bound {b4 * 1e3:.2f} us ({by4})")
+    out["gemv_pim_int8"]["shape"] += (f"; w_up at M=64: {t8 * 1e3:.2f} us (torch._int_mm "
+                                      f"{l8 * 1e3:.2f}, bound {b8 * 1e3:.2f}); w_up at M=4: "
+                                      f"{t4 * 1e3:.2f} us (torch._int_mm {l4 * 1e3:.2f}, bound "
+                                      f"{b4 * 1e3:.2f})")
     out["gemv_pim_fixed"]["shape"] += f"; w_up at M=64: {tf * 1e3:.2f} us"
 
-    # The weight quantization that quant="int8" and "fixed16" run on every call.
-    qi8 = per_step(lambda i: quant.quantize_int8_rowwise(weights[i]))
+    # The weight quantization that quant="int8" and "fixed16" run on every
+    # call: quant="int8" on the quantize_int8_rows kernel (one launch a
+    # weight), beside its plain version (~10 eager ops a weight).
+    qi8 = per_step(lambda i: gemv_pim.quantize_int8_rows(weights[i]))
+    qi8_plain = per_step(lambda i: quant.quantize_int8_rowwise(weights[i]))
     qf16 = per_step(lambda i: w_fmt.quantize(weights[i]))
+    w_bytes = sum(w.numel() * 3 + 2 * w.shape[0] for w in weights)   # read bf16, write int8
+    bq, byq = bound_ms(w_bytes, 0, "bfloat16")
+    # x's quantization before each int8 GEMV of a step: (4, C) f32 rows.
+    xf = [xs[w.shape[1]].float() for w in weights]
+    qx = per_step(lambda i: gemv_pim.quantize_int8_rows(xf[i]))
+    qx_plain = per_step(lambda i: quant.quantize_int8_rows(xf[i]))
     log(f"  per-call weight quantization of a decode step's {n} bf16 weights on the "
-        f"device: quantize_int8_rowwise {qi8:.3f} ms, Q.12 quantize {qf16:.3f} ms")
-    return out, {"int8": qi8, "fixed16": qf16}
+        f"device: quantize_int8_rows kernel {qi8:.3f} ms (plain quantize_int8_rowwise "
+        f"{qi8_plain:.3f} ms, bound {bq:.3f} ms by {byq}); Q.12 quantize {qf16:.3f} ms; x's "
+        f"quantization before a step's {n} int8 GEMVs: kernel {qx:.3f} ms, plain "
+        f"{qx_plain:.3f} ms")
+    out["quantize_int8_rows"] = dict(
+        ms=qi8, plain_ms=qi8_plain, library_ms=None, bound_ms=bq, bound_by=byq,
+        shape=f"a decode step's {n} bf16 weights, one launch each (quant=\"int8\"); "
+              f"x (4, C) f32 of a step's {n} GEMVs: {qx:.3f} ms, plain {qx_plain:.3f} ms; "
+              "library: none")
+    return out, {"int8": qi8, "int8_plain": qi8_plain, "fixed16": qf16}
 
 
 # ---------------------------------------------------------------------------
@@ -1169,7 +1455,8 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
     linear datapath of `sal`: the reference for the engine's first logits.
     Attention runs over a pool of format `fmt` (quantized per vector as the
     engine writes it) with the paged plain version or, in LUT mode with
-    `online`, with the page walk the paged kernels compute (`online_prefill`:
+    `online`, with the page walk the paged kernels compute
+    (`paged_prefill_attention_online_plain`:
     its LUT algebra is not the dense LUT softmax's); with fmt="dense" it is
     the dense path's masked softmax attention (the LUT softmax's plain
     version in LUT mode)."""
@@ -1237,9 +1524,9 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
 
 
 class TcCounter:
-    """`gemv_pim_float.tc_launches` under the `launches` name of the other
-    counters, so that the launch checks read the tensor-core kernel beside
-    the wrappers."""
+    """A wrapper's `tc_launches` (its tensor-core kernel's launches) under
+    the `launches` name of the other counters, so that the launch checks
+    read the tensor-core kernels beside the wrappers."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -1254,12 +1541,15 @@ class TcCounter:
 
 
 TC = "gemv_pim_float.tc"
+TC8 = "gemv_pim_int8.tc"
+TCP = "paged_prefill_attention.tc"
 
 
 def serving_handles(torch):
-    """The kernel wrappers by name (their launch counters; TC counts the
-    float GEMV's tensor-core launches), the modules that `serve` takes and
-    the plain versions that `plain_prefill_logits` takes."""
+    """The kernel wrappers by name (their launch counters; TC, TC8 and TCP
+    count the tensor-core launches of the float and int8 GEMVs and of the
+    paged prefill), the modules that `serve` takes and the plain versions
+    that `plain_prefill_logits` takes."""
     from repro_torch.core import lut as tlut
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
     from repro_torch.distributed import collectives
@@ -1280,11 +1570,14 @@ def serving_handles(torch):
                "softmax_lut": softmax_lut.softmax_lut,
                "layernorm_lut": layernorm_lut.layernorm_lut,
                "lut_interp": lut_interp.lut_interp,
-               TC: TcCounter(gemv_pim.gemv_pim_float)}
+               "quantize_int8_rows": gemv_pim.quantize_int8_rows,
+               TC: TcCounter(gemv_pim.gemv_pim_float),
+               TC8: TcCounter(gemv_pim.gemv_pim_int8),
+               TCP: TcCounter(paged_prefill.paged_prefill_attention)}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
             paged_attention, kernels)
     plain = (gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut,
-             lambda *a, **k: online_prefill(torch, paged_attention, *a, **k))
+             paged_prefill.paged_prefill_attention_online_plain)
     return kernels, mods, plain
 
 
@@ -1293,7 +1586,10 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
           gemv="gemv_pim_float"):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
     chunks) on SAL-PIM datapath `quant`, checking every step's launches of
-    every kernel: every linear through the GEMV kernel `gemv`."""
+    every kernel: every linear through the GEMV kernel `gemv` on the tensor
+    cores, x quantized by one quantize_int8_rows launch a linear on the int8
+    datapaths (and the weight by another with quant="int8"), every chunk's
+    attention on the tensor-core prefill kernel."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     kv, sd = POOLS[fmt]
@@ -1327,9 +1623,14 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
         dec, chunk = eng.decode_steps - n_dec, eng.prefill_chunks - n_chunk
         L = cfg.n_layers                 # 6 linears a layer plus the LM head
+        lin = (6 * L + 1) * (dec + chunk)
         expect = {name: 0 for name in kernels}
-        expect.update({gemv: (6 * L + 1) * (dec + chunk),
-                       TC: (6 * L + 1) * (dec + chunk) if gemv == "gemv_pim_float" else 0,
+        expect.update({gemv: lin,
+                       TC: lin if gemv == "gemv_pim_float" else 0,
+                       TC8: lin if gemv == "gemv_pim_int8" else 0,
+                       "quantize_int8_rows": (2 * lin if quant == "int8" else
+                                              lin if gemv == "gemv_pim_int8" else 0),
+                       TCP: L * chunk,
                        "layernorm_lut": (2 * L + 1) * (dec + chunk),
                        "lut_interp": L * (dec + chunk) if lut_act else 0,
                        "paged_attention": 0 if split else L * dec,
@@ -1362,11 +1663,13 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
     act = f", {L} lut_interp" if lut_act else ""
-    tc = " (all on the tensor cores)" if gemv == "gemv_pim_float" else ""
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}{tc}, {attn}, "
-        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}{tc}, "
-        f"{L} paged_prefill_attention, {2 * L + 1} layernorm_lut{act}; no other kernel "
-        "(checked every step)")
+    tc = " (all on the tensor cores)" if gemv != "gemv_pim_fixed" else ""
+    n_q = {"int8": 2, "none": 1 if gemv == "gemv_pim_int8" else 0}.get(quant, 0) * (6 * L + 1)
+    qr = f", {n_q} quantize_int8_rows" if n_q else ""
+    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}{tc}{qr}, {attn}, "
+        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}{tc}{qr}, "
+        f"{L} paged_prefill_attention (all on the tensor cores), {2 * L + 1} "
+        f"layernorm_lut{act}; no other kernel (checked every step)")
     return eng, done, first, wall
 
 
@@ -1728,6 +2031,11 @@ def main() -> int:
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check_decode_grid(torch, tlut, quantize, paged_attention,
                                                     args.seed))
+    errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"], check_prefill_grid(
+        torch, tlut, quantize, paged_prefill, args.seed))
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_wide_decode(torch, tlut, quantize, paged_attention,
+                                                    args.seed))
     errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
     errs.update(check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
                                     args.seed))
@@ -1767,7 +2075,7 @@ def main() -> int:
     runs, counts_256 = counted("max_len 256", lambda: {
         mode: serve(torch, mods, params, cfg, prompts, new_tokens, card, label=mode,
                     mode=mode) for mode in ("exact", "lut")},
-        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", TCP,
          "layernorm_lut"])
     for mode, (eng, done, first, _) in runs.items():
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
@@ -1786,7 +2094,7 @@ def main() -> int:
     long_runs, counts_1024 = counted("max_len 1024", lambda: {
         label: serve(torch, mods, params, cfg, long_prompts, new_tokens, card, label=label,
                      max_len=1024, **kw) for label, kw in drains},
-        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", TCP,
          "paged_attention_split", "merge_partials", "layernorm_lut"])
     (_, d1, _, _), (_, d2, _, _) = long_runs[drains[0][0]], long_runs[drains[1][0]]
     same = sum(a == b for u in d1 for a, b in zip(d1[u].generated, d2[u].generated))
@@ -1814,8 +2122,8 @@ def main() -> int:
     qruns, counts_q = counted("quantized max_len 256", lambda: {
         label: serve(torch, mods, p, cfg, prompts, new_tokens, card, label=label, fmt=fmt,
                      gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
-        ["gemv_pim_int8", "gemv_pim_fixed", "paged_attention", "paged_prefill_attention",
-         "layernorm_lut", "lut_interp"])
+        ["gemv_pim_int8", TC8, "quantize_int8_rows", "gemv_pim_fixed", "paged_attention",
+         "paged_prefill_attention", TCP, "layernorm_lut", "lut_interp"])
     _, exact_done, _, _ = runs["exact"]
     for label, p, kw, fmt, _ in qdrains:
         _, done, first, _ = qruns[label]
@@ -1830,7 +2138,8 @@ def main() -> int:
         model_ms[label] = time_model(torch, api, p, cfg, sal, prompts, card, label, fmt)
     q1, q3 = model_ms[qdrains[0][0]], model_ms[qdrains[2][0]]
     log(f"  q3 quantizes every weight on every call: {wquant_ms['int8']:.3f} ms of device "
-        f"time a decode step (quantize_int8_rowwise alone, phase 3); its device decode step "
+        f"time a decode step (the quantize_int8_rows kernel alone, phase 3; plain "
+        f"{wquant_ms['int8_plain']:.3f} ms); its device decode step "
         f"{q3['dev_dec']:.2f} ms against q1's {q1['dev_dec']:.2f} ms with pre-quantized "
         f"weights (q1 also differs in its int8 pools and exact nonlinearities); q2's Q.12 "
         f"weight quantization {wquant_ms['fixed16']:.3f} ms a step")
@@ -1899,10 +2208,16 @@ def main() -> int:
                    "quantized max_len 256": counts_q[name], "dense": counts_dense[name]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
+        if name in NOT_TPU_KERNELS:
+            row["tpu_kernel"] = False
+        tc_key = {"gemv_pim_float": TC, "gemv_pim_int8": TC8, "paged_prefill_attention": TCP}
+        if name in tc_key:
+            row["tc_launches"] = sum(c[tc_key[name]] for c in (counts_256, counts_1024,
+                                                               counts_q, counts_dense))
         if name == "gemv_pim_float":
-            row["tc_launches"] = sum(c[TC] for c in (counts_256, counts_1024, counts_q,
-                                                     counts_dense))
             row["chunk_145_launches"] = times["gemv_chunk"]
+        if name == "paged_attention":
+            row["wide_131072_keys"] = times["wide"]
         rows.append({**row,
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

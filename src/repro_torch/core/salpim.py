@@ -7,9 +7,9 @@ the paged attention calls and the nonlinear policy behind one object.
     `qtensor_linear`, x quantized per row in f32, the int8 GEMV, the bias
     added in f32, the result cast to x's dtype;
   * `quant="int8"`: x and the weight quantized per row on every call, each
-    in its own dtype (`core.quant.quantize_int8_rows`; bf16 weights give
-    bf16 scales, cast to f32 at the end), the int8 GEMV, `+ b` in f32,
-    then the cast to x's dtype;
+    in its own dtype (`core.quant.quantize_int8_rows`, one kernel launch
+    each on the card; bf16 weights give bf16 scales, cast to f32 at the
+    end), the int8 GEMV, `+ b` in f32, then the cast to x's dtype;
   * `quant="fixed16"`: x in Q(`fixed_frac_x`) and the weight in
     Q(`fixed_frac_w`) on every call, the fixed16 GEMV shifting by
     `fixed_frac_w` so its int16 result is in x's format, dequantized to
@@ -80,9 +80,9 @@ class SalPimEngine:
             return self.nl.activation(act)(out) if act is not None else out
         x2 = x.reshape(-1, x.shape[-1])
         if cfg.quant == "int8":
-            x_i8, x_scale = quant_lib.quantize_int8_rows(x2)
-            w_i8, w_scale = quant_lib.quantize_int8_rowwise(w)
-            out = ops.pim_linear_int8(x_i8, x_scale.float(), w_i8, w_scale)
+            x_i8, x_scale = ops.pim_quantize_int8_rows(x2)
+            w_i8, w_scale = ops.pim_quantize_int8_rows(w)
+            out = ops.pim_linear_int8(x_i8, x_scale.float(), w_i8, w_scale.float())
             if b is not None:
                 out = out + b
             out = out.to(x.dtype)

@@ -23,14 +23,35 @@
 // What bounds them on the H100: at decode widths every weight byte is
 // read once for two integer operations a row of x, so both are bound by
 // the weight stream over HBM (3.35 TB/s): 1 byte an element for int8
-// (plus 4 bytes of scale a row), 2 for fixed16. The design is the float
-// GEMV's (gemv_pim.cu): one warp owns one output row and walks C with
-// 16-byte loads (16 int8 or 8 int16 elements a lane), keeping kMT rows of
-// x per pass, grid.y covering M in tiles of kMT rows; the ragged edge of
-// R and M is masked, and C that is not a multiple of the vector width (or
-// a misaligned row) takes the scalar path. CUDA cores only: no tensor
-// core has an int16 mode, and int8 mma/wgmma is later work.
+// (plus 4 bytes of scale a row), 2 for fixed16. At a 64-token chunk the
+// int8 GEMV does 64x the operations: the s8 tensor cores keep it on the
+// byte bound, where the CUDA cores' __dp4a would not.
+//
+// gemv_pim_int8 on the tensor cores (C a multiple of 16, 16-byte aligned
+// x and w): the wgmma skeleton of gemv_tc.cuh, which the float GEMV shares,
+// on s8 operands (128-element K tiles, m64nNk32 s8 wgmmas into int32
+// registers); the cluster's int32 partial tiles sum exactly, so their
+// order does not matter, and each block's epilogue applies (acc * x_scale)
+// * w_scale (+ bias) in f32 as above to its slice of the tile.
+//
+// The CUDA-core kernels (gemv_pim_fixed always; gemv_pim_int8 when C is
+// not a multiple of 16 or a row is misaligned): one warp owns one output
+// row and walks C with 16-byte loads (16 int8 or 8 int16 elements a lane),
+// keeping kMT rows of x per pass, grid.y covering M in tiles of kMT rows;
+// the ragged edge of R and M is masked, and C that is not a multiple of
+// the vector width (or a misaligned row) takes the scalar path. No tensor
+// core has an int16 mode.
+//
+// quantize_int8_rows: x (rows, C) in f32 or bf16 -> q int8 (rows, C) and
+// scale (rows,) in x's dtype, core/quant.py::quantize_int8_rows in one
+// pass a row: absmax, scale = max(absmax, 1e-8) / 127, q = clip(round(x /
+// scale), +-127). Each step rounds as PyTorch's kernels do in x's dtype:
+// in bf16 the division is an f32 division rounded to bf16, round() is
+// half to even, so the result is bit for bit the plain function's. One
+// block a row (256 threads: a decode step's x has only 4 rows); bound by
+// reading x and writing q.
 #include "common.cuh"
+#include "gemv_tc.cuh"
 
 namespace {
 
@@ -160,11 +181,98 @@ gemv_fixed_kernel(const int16_t* __restrict__ x, const int16_t* __restrict__ w,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// gemv_pim_int8 on the s8 tensor cores
+// ---------------------------------------------------------------------------
+
+// The epilogue of gemv_tc.cuh's skeleton on s8 operands: the cluster's
+// exact int32 sum, scaled as above; f32 out.
+struct Int8Epi {
+  using Acc = int;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kElem = 1;
+  struct Smem {};
+  const float* x_scale;
+  const float* w_scale;
+  const float* bias;
+  float* out;
+  int R;
+  __device__ void stage(Smem&) const {}
+  __device__ __forceinline__ void operator()(const Smem&, const int (&sum)[4], int m,
+                                             int r) const {
+    const float xs = x_scale[m];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r + u < R) {
+        float a = __fmul_rn(__fmul_rn((float)sum[u], xs), w_scale[r + u]);
+        if (bias != nullptr) a = __fadd_rn(a, bias[r + u]);
+        out[(size_t)m * R + r + u] = a;
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// quantize_int8_rows
+// ---------------------------------------------------------------------------
+
+constexpr int kQuantThreads = 256;   // a block a row
+
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// max and min that keep a NaN, as torch's amax and clamp do (fmaxf and
+// fminf drop it); one instruction each, as fmaxf and fminf are.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
+                     int C) {
+  __shared__ float red[kQuantThreads / 32];
+  const size_t row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const T* xr = x + row * C;
+  float amax = 0.0f;                        // |x| and max are exact in T
+  for (int c = tid; c < C; c += kQuantThreads) amax = max_nan(amax, fabsf(common::to_f(xr[c])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (lane == 0) red[tid / 32] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < kQuantThreads / 32; ++w) amax = max_nan(amax, red[w]);
+  // clamp(absmax, min=1e-8) against 1e-8 in T, then / 127 rounded to T. A
+  // row holding a NaN gets a NaN scale and NaN quotients, which the clip
+  // keeps and the int8 conversion turns into what torch's does.
+  const float lo = round_to(1e-8f, T{});
+  const float s = round_to(__fdiv_rn(max_nan(amax, lo), 127.0f), T{});
+  if (tid == 0) scale[row] = common::from_f<T>(s);
+  int8_t* qr = q + row * C;
+  for (int c = tid; c < C; c += kQuantThreads) {
+    const float v = rintf(round_to(__fdiv_rn(common::to_f(xr[c]), s), T{}));
+    qr[c] = (int8_t)min_nan(max_nan(v, -127.0f), 127.0f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// bias may be null. Returns cudaGetLastError().
+// The CUDA-core kernel; bias may be null. Returns cudaGetLastError().
 int gemv_pim_int8(const void* x, const void* x_scale, const void* w, const void* w_scale,
                   const void* bias, void* out, int M, int C, int R, void* stream) {
   dim3 grid((R + kWarps - 1) / kWarps, (M + kMT - 1) / kMT);
@@ -179,6 +287,36 @@ int gemv_pim_int8(const void* x, const void* x_scale, const void* w, const void*
     gemv_int8_kernel<false><<<grid, block, 0, s>>>(
         (const int8_t*)x, (const float*)x_scale, (const int8_t*)w, (const float*)w_scale,
         (const float*)bias, (float*)out, M, C, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel: x (M, C) and w (R, C) int8, 16-byte aligned, C a
+// multiple of 16 (TMA's stride rule); n_tile the token tile (8, 16, 32,
+// 64, 128 or 256), cluster the blocks splitting C (1, 2, 4 or 8, at most
+// the 128-wide K tiles of C). Returns a CUDA error code (0 on success).
+int gemv_pim_int8_tc(const void* x, const void* x_scale, const void* w, const void* w_scale,
+                     const void* bias, void* out, int M, int C, int R, int n_tile, int cluster,
+                     void* stream) {
+  const Int8Epi epi{(const float*)x_scale, (const float*)w_scale, (const float*)bias,
+                    (float*)out, R};
+  return gemv_tc::run(x, w, epi, M, C, R, n_tile, cluster, stream);
+}
+
+// x (rows, C) contiguous, dtype 0 = float32, 1 = bfloat16; q (rows, C)
+// int8 and scale (rows,) in x's dtype. Returns cudaGetLastError().
+int quantize_int8_rows(const void* x, void* q, void* scale, int rows, int C, int dtype,
+                       void* stream) {
+  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    quantize_rows_kernel<float><<<rows, kQuantThreads, 0, s>>>((const float*)x, (int8_t*)q,
+                                                               (float*)scale, C);
+  } else if (dtype == 1) {
+    quantize_rows_kernel<__nv_bfloat16><<<rows, kQuantThreads, 0, s>>>(
+        (const __nv_bfloat16*)x, (int8_t*)q, (__nv_bfloat16*)scale, C);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,256 @@
+// The tensor-core GEMV skeleton shared by gemv_pim_float (gemv_pim.cu,
+// bf16 -> f32 sums) and gemv_pim_int8 (gemv_pim_quant.cu, s8 -> exact s32
+// sums): out[m, r] = epilogue(sum_c x[m, c] w[r, c]).
+//
+//  * A and B swapped: a 64-row weight tile is the wgmma A operand (M side)
+//    and x, padded by TMA's zero fill to N tokens (8, 16, ... 256), is the
+//    B operand (N side), so a decode step's 4 tokens waste no 64-row tile.
+//    Both are K-major as stored, with K tiles of one 128-byte swizzle row
+//    (64 bf16 or 128 int8) loaded by TMA with the 128-byte swizzle that the
+//    wgmma descriptors name.
+//  * One producer warp keeps a ring of up to 8 stages (no more than the
+//    block's K tiles, so that small rings let several blocks share an SM)
+//    of W and x tiles in flight through TMA and mbarriers; one consumer
+//    warpgroup runs 4 wgmmas a stage (wgmma::mma: m64nNk16 bf16 or m64nNk32
+//    s8) into registers of the epilogue's accumulator type.
+//  * Enough blocks: a cluster of up to 8 blocks splits C (R = 1024 gives
+//    only 16 row tiles; 8 x 16 blocks then fill the 132 SMs). Each block
+//    writes its partial tile to shared memory; after a cluster barrier
+//    each block reduces an equal slice of the tile over distributed shared
+//    memory, loading every rank's 16-byte vector first (one round trip)
+//    and adding the partials in rank order (no atomics: two launches give
+//    the same bits; int32 sums are exact in any order), then hands each
+//    four rows' sums to the epilogue once.
+//  * Ragged edges: TMA fills rows past R or M and columns past C with
+//    zeros; the epilogue sees only rows < R and tokens < M.
+//
+// An epilogue type Epi names the accumulator (Acc: float or int), the
+// operands' TMA element type (kType) and size (kElem bytes), its shared
+// memory (Smem), stage(Smem&) run by every thread before the first
+// barrier, and operator()(const Smem&, const Acc (&sum)[4], m, r), which
+// writes out[m, r + u] = f(sum[u]) for the u < 4 with r + u < R.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma.cuh"
+
+namespace gemv_tc {
+
+namespace cg = cooperative_groups;
+
+constexpr int kRows = 64;                // weight rows a block: the wgmma M side
+constexpr int kKBytes = 128;             // K tile: one 128-byte swizzle row
+constexpr int kConsumers = 128;          // one warpgroup runs the wgmmas
+constexpr int kThreads = kConsumers + 32;     // + the producer warp
+constexpr int kPartStride = kRows + 4;   // accumulators a token row of the partial tile
+constexpr int kMaxCluster = 8;
+
+template <int N>
+struct Cfg {
+  static constexpr int kMaxStages = N <= 64 ? 8 : (N == 128 ? 6 : 3);
+  static constexpr int kWBytes = kRows * kKBytes;
+  static constexpr int kXBytes = N * kKBytes;
+  static constexpr int kStageBytes = kWBytes + kXBytes;     // a multiple of 1024
+  static constexpr int kPartBytes = N * kPartStride * 4;    // aliases the ring
+  // The ring holds `stages` stages (at most the K tiles of a block): the
+  // data, 2 * stages mbarriers, and room to align the data to 1024 bytes.
+  __host__ __device__ static int data_bytes(int stages) {
+    return stages * kStageBytes > kPartBytes ? stages * kStageBytes : kPartBytes;
+  }
+  static int smem_bytes(int stages) { return data_bytes(stages) + 16 * stages + 1024; }
+};
+
+template <class Epi, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
+       const Epi epi, int M, int k_tiles, int stages) {
+  using C = Cfg<N>;
+  using Acc = typename Epi::Acc;
+  using Acc4 = std::conditional_t<std::is_same<Acc, float>::value, float4, int4>;
+  constexpr int kK = kKBytes / Epi::kElem;           // K elements a tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ typename Epi::Smem es;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / cs) * kRows;
+  const int tok0 = blockIdx.y * N;
+  const int kt0 = rank * k_tiles / cs;
+  const int nk = (rank + 1) * k_tiles / cs - kt0;
+  const int tid = threadIdx.x;
+
+  // The 128-byte swizzle wants 1024-byte aligned tiles.
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  Acc* part = reinterpret_cast<Acc*>(smem_raw + (base - raw));
+  const uint32_t full0 = base + C::data_bytes(stages);
+  const uint32_t empty0 = full0 + 8 * stages;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  epi.stage(es);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warp: one lane keeps the ring full.
+    if (tid == kConsumers) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
+                   : "memory");
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages;
+        const uint32_t round = i / stages;
+        hopper::mbar_wait(empty0 + 8 * s, (round & 1) ^ 1);
+        const uint32_t stage = base + s * C::kStageBytes;
+        hopper::mbar_expect_tx(full0 + 8 * s, C::kStageBytes);
+        hopper::tma_load_2d(stage, &tm_w, full0 + 8 * s, (kt0 + i) * kK, row0);
+        hopper::tma_load_2d(stage + C::kWBytes, &tm_x, full0 + 8 * s, (kt0 + i) * kK, tok0);
+      }
+    }
+    __syncwarp();
+  } else {
+    Acc acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % stages;
+      hopper::mbar_wait(full0 + 8 * s, (i / stages) & 1);
+      const uint32_t a = base + s * C::kStageBytes;
+      const uint32_t b = a + C::kWBytes;
+      wgmma::fence_regs<N / 2>(acc);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)       // 32 bytes of K a step
+        wgmma::mma<N>(acc, wgmma::desc_sw128(a + 32 * kk), wgmma::desc_sw128(b + 32 * kk));
+      wgmma::commit();
+      wgmma::wait_all();
+      wgmma::fence_regs<N / 2>(acc);
+      if (tid % 32 == 0) hopper::mbar_arrive(empty0 + 8 * s);
+    }
+    // The partial tile, token-major (part[token][row]), in the ring that
+    // every consumer warp is done with.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+    const int w = tid / 32, l = tid % 32;
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = 16 * w + l / 4 + 8 * i;
+          const int col = 8 * c + 2 * (l % 4) + j;
+          part[col * kPartStride + row] = acc[4 * c + 2 * i + j];
+        }
+      }
+    }
+  }
+  cluster.sync();
+
+  // This block's slice of the tile, four rows at a time, summed over the
+  // cluster in rank order; every rank's vector is loaded before the sums,
+  // so the slice costs one round trip over distributed shared memory.
+  constexpr int V = N * kRows / 4;
+  const int v1 = (rank + 1) * V / cs;
+  for (int v = rank * V / cs + tid; v < v1; v += kThreads) {
+    const int m = v / (kRows / 4);
+    const int r = 4 * (v - m * (kRows / 4));
+    const int off = m * kPartStride + r;
+    Acc4 p[kMaxCluster];
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j) {
+      if (j < cs) p[j] = *reinterpret_cast<const Acc4*>(cluster.map_shared_rank(part, j) + off);
+    }
+    Acc sum[4] = {p[0].x, p[0].y, p[0].z, p[0].w};
+#pragma unroll
+    for (int j = 1; j < kMaxCluster; ++j) {
+      if (j < cs) {
+        sum[0] += p[j].x;
+        sum[1] += p[j].y;
+        sum[2] += p[j].z;
+        sum[3] += p[j].w;
+      }
+    }
+    if (tok0 + m < M) epi(es, sum, tok0 + m, row0 + r);
+  }
+  // No block leaves while another may still read its partial tile.
+  cluster.sync();
+}
+
+template <class Epi, int N>
+int launch(const void* x, const void* w, const Epi& epi, int M, int C, int R, int cluster,
+           cudaStream_t stream) {
+  constexpr int kK = kKBytes / Epi::kElem;
+  CUtensorMap tm_w, tm_x;
+  int rc = hopper::tensor_map_2d(&tm_w, w, Epi::kType, Epi::kElem, R, C, kK, kRows);
+  if (rc == 0) rc = hopper::tensor_map_2d(&tm_x, x, Epi::kType, Epi::kElem, M, C, kK, N);
+  if (rc != 0) return rc;
+  const int k_tiles = (C + kK - 1) / kK;
+  const int per_block = (k_tiles + cluster - 1) / cluster;
+  const int stages = per_block < Cfg<N>::kMaxStages ? per_block : Cfg<N>::kMaxStages;
+  const int smem = Cfg<N>::smem_bytes(stages);
+  auto kern = kernel<Epi, N>;
+  static int sized = 0;             // the largest size allowed so far
+  if (smem > sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((R + kRows - 1) / kRows * cluster), (unsigned)((M + N - 1) / N),
+                     1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, tm_w, tm_x, epi, M, k_tiles, stages);
+}
+
+// The C entries' checks and launch: x (M, C) and w (R, C) row-major,
+// 16-byte aligned, rows of whole 16-byte vectors (TMA's stride rule);
+// n_tile the token tile (8, 16, 32, 64, 128 or 256), cluster the blocks
+// splitting C (1, 2, 4 or 8, at most the K tiles of C). Returns a CUDA
+// error code (0 on success).
+template <class Epi>
+int run(const void* x, const void* w, const Epi& epi, int M, int C, int R, int n_tile,
+        int cluster, void* stream) {
+  constexpr int kK = kKBytes / Epi::kElem;
+  const int k_tiles = (C + kK - 1) / kK;
+  if (M <= 0 || R <= 0 || C <= 0 || (C * Epi::kElem) % 16 != 0 || !common::aligned16(x) ||
+      !common::aligned16(w) || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 || cluster > k_tiles)
+    return (int)cudaErrorInvalidValue;
+  auto go = [&](auto n) {
+    return launch<Epi, decltype(n)::value>(x, w, epi, M, C, R, cluster, (cudaStream_t)stream);
+  };
+  int rc;
+  switch (n_tile) {
+    case 8: rc = go(std::integral_constant<int, 8>{}); break;
+    case 16: rc = go(std::integral_constant<int, 16>{}); break;
+    case 32: rc = go(std::integral_constant<int, 32>{}); break;
+    case 64: rc = go(std::integral_constant<int, 64>{}); break;
+    case 128: rc = go(std::integral_constant<int, 128>{}); break;
+    case 256: rc = go(std::integral_constant<int, 256>{}); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gemv_tc

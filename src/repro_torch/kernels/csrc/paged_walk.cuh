@@ -1,6 +1,7 @@
-// The block-table page walk shared by the paged decode, KV-split decode
-// and paged prefill attention kernels (paged_attention.cu,
-// paged_attention_split.cu, paged_prefill.cu).
+// The block-table page walk of the KV-split decode and of the CUDA-core
+// paged prefill (paged_attention_split.cu, paged_prefill.cu); its pool
+// formats, their row readers (Row) and the dispatch also serve the
+// single-walk decode (paged_attention.cu) and the tensor-core prefill.
 //
 // One thread block owns `rows` query rows of one (sequence b, kv head h):
 // g rows for decode, a block of the Sq * g rows of a prefill chunk. It
@@ -176,15 +177,92 @@ struct Int4Pool {
   }
   // Low nibble: element c, sign-extended as ((x & 0xF) ^ 8) - 8; high
   // nibble: element c + D/2, sign-extended by the arithmetic shift x >> 4.
+  __device__ __forceinline__ static float lo4(int v) { return (float)(((v & 0xF) ^ 8) - 8); }
+  __device__ __forceinline__ static float hi4(int v) { return (float)(v >> 4); }
   __device__ __forceinline__ static void put1(P x, float sc, float* row, int c, int d) {
-    const int v = x;
-    row[c] = (float)(((v & 0xF) ^ 8) - 8) * sc;
-    row[c + d / 2] = (float)(v >> 4) * sc;
+    row[c] = lo4(x) * sc;
+    row[c + d / 2] = hi4(x) * sc;
   }
   __device__ __forceinline__ static void put16(const uint4& raw, float sc, float* row, int c, int d) {
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int n = 0; n < 16; ++n) put1(b[n], sc, row, c + n, d);
+  }
+};
+
+// A K/V row in the pool's storage type, unscaled, for the kernels that
+// stage pages as stored (paged_attention.cu, paged_prefill.cu's tensor-core
+// kernel): bytes and elems, the row's payload bytes and elements; dot16,
+// q . the 16-byte vector at byte offset o of the row; dot1, q . payload
+// element e; at, element dd (0..D-1) of the row.
+template <class Pool> struct Row;
+
+template <typename T>
+struct Row<FpPool<T>> {
+  __host__ __device__ static int bytes(int d) { return d * (int)sizeof(T); }
+  __device__ static int elems(int d) { return d; }
+  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int) {
+    constexpr int N = common::Vec<T>::N;
+    float f[N];
+    common::Vec<T>::widen(raw, f);
+    const float* qq = q + o / (int)sizeof(T);
+    float s = 0.0f;
+#pragma unroll
+    for (int n = 0; n < N; ++n) s = fmaf(qq[n], f[n], s);
+    return s;
+  }
+  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int) {
+    return q[e] * to_f(reinterpret_cast<const T*>(row)[e]);
+  }
+  __device__ __forceinline__ static float at(const uint8_t* row, int dd, int) {
+    return to_f(reinterpret_cast<const T*>(row)[dd]);
+  }
+};
+
+template <typename S>
+struct Row<Int8Pool<S>> {
+  __host__ __device__ static int bytes(int d) { return d; }
+  __device__ static int elems(int d) { return d; }
+  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    float s = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) s = fmaf(q[o + n], (float)b[n], s);
+    return s;
+  }
+  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int) {
+    return q[e] * (float)reinterpret_cast<const int8_t*>(row)[e];
+  }
+  __device__ __forceinline__ static float at(const uint8_t* row, int dd, int) {
+    return (float)reinterpret_cast<const int8_t*>(row)[dd];
+  }
+};
+
+// Byte i holds element i in its low nibble and element i + D/2 in its high
+// nibble (Int4Pool's lo4 and hi4).
+template <typename S>
+struct Row<Int4Pool<S>> {
+  using F = Int4Pool<S>;
+  __host__ __device__ static int bytes(int d) { return d / 2; }
+  __device__ static int elems(int d) { return d / 2; }
+  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int d) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    float s = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      s = fmaf(q[o + n], F::lo4(b[n]), s);
+      s = fmaf(q[o + n + d / 2], F::hi4(b[n]), s);
+    }
+    return s;
+  }
+  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int d) {
+    const int v = reinterpret_cast<const int8_t*>(row)[e];
+    return q[e] * F::lo4(v) + q[e + d / 2] * F::hi4(v);
+  }
+  __device__ __forceinline__ static float at(const uint8_t* row, int dd, int d) {
+    const int h = d / 2;
+    const int v = reinterpret_cast<const int8_t*>(row)[dd < h ? dd : dd - h];
+    return dd < h ? F::lo4(v) : F::hi4(v);
   }
 };
 

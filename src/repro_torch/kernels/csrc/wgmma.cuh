@@ -1,9 +1,15 @@
 // Hopper warpgroup matrix multiply (wgmma) and the shared-memory operand
-// descriptors of the tensor-core GEMV (gemv_pim.cu).
+// descriptors of the tensor-core GEMVs (gemv_tc.cuh: gemv_pim.cu, bf16;
+// gemv_pim_quant.cu, s8).
 //
-// mma<N>(d, desc_a, desc_b) issues one wgmma.mma_async m64nNk16 with f32
-// accumulators d[N / 2] (this thread's fragment), bf16 A (64 x 16) and B
-// (16 x N), both K-major in shared memory, and adds into d. The fragment
+// mma<N>(d, desc_a, desc_b) issues one wgmma.mma_async with A (64 x K) and
+// B (K x N) both K-major in shared memory, and adds into the accumulators
+// d[N / 2] (this thread's fragment):
+//  * float d: m64nNk16, bf16 A and B, f32 accumulators;
+//  * int d:   m64nNk32, s8 A and B, s32 accumulators (K-major is the only
+//             layout wgmma takes for 8-bit types).
+// Either way a K step covers 32 bytes of a 128-byte swizzle row (16 bf16
+// or 32 int8), so the descriptors advance by 32 bytes a step. The fragment
 // of thread t of the warpgroup: d[4c + 2i + j] holds row
 // 16 (t / 32) + (t % 32) / 4 + 8 i and column 8 c + 2 (t % 4) + j.
 #pragma once
@@ -12,10 +18,10 @@
 
 namespace wgmma {
 
-// A K-major operand tile whose rows are 128 bytes (64 bf16) and land with
-// TMA's 128-byte swizzle: 8-row groups 1024 bytes apart (the stride byte
-// offset), layout type 1 (128B swizzle) in bits 62-63. The tile must start
-// on a 1024-byte boundary; a K step of 16 elements advances the start by
+// A K-major operand tile whose rows are 128 bytes (64 bf16 or 128 int8)
+// and land with TMA's 128-byte swizzle: 8-row groups 1024 bytes apart (the
+// stride byte offset), layout type 1 (128B swizzle) in bits 62-63. The
+// tile must start on a 1024-byte boundary; a K step advances the start by
 // 32 bytes inside the swizzle atom.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
   uint64_t d = 0;
@@ -43,110 +49,85 @@ __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 template <int N> __device__ void mma(float* d, uint64_t a, uint64_t b);
+template <int N> __device__ void mma(int* d, uint64_t a, uint64_t b);
 
-template <>
-__device__ __forceinline__ void mma<8>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
-}
+// The accumulator operands %0 .. %(R - 1) of an instruction with R of them.
+#define WGMMA_OPS_4 "%0, %1, %2, %3"
+#define WGMMA_OPS_8 WGMMA_OPS_4 ", %4, %5, %6, %7"
+#define WGMMA_OPS_16 WGMMA_OPS_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WGMMA_OPS_32                                                                  \
+  WGMMA_OPS_16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "  \
+               "%29, %30, %31"
+#define WGMMA_OPS_64                                                                  \
+  WGMMA_OPS_32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "  \
+               "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, " \
+               "%59, %60, %61, %62, %63"
+#define WGMMA_OPS_128                                                                  \
+  WGMMA_OPS_64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "   \
+               "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+               "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "  \
+               "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "     \
+               "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "     \
+               "%126, %127"
 
-template <>
-__device__ __forceinline__ void mma<16>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
+// Their constraints: C(d[o]) .. C(d[o + R - 1]).
+#define WGMMA_D4(C, o) C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3])
+#define WGMMA_D8(C, o) WGMMA_D4(C, o), WGMMA_D4(C, o + 4)
+#define WGMMA_D16(C, o) WGMMA_D8(C, o), WGMMA_D8(C, o + 8)
+#define WGMMA_D32(C, o) WGMMA_D16(C, o), WGMMA_D16(C, o + 16)
+#define WGMMA_D64(C, o) WGMMA_D32(C, o), WGMMA_D32(C, o + 32)
+#define WGMMA_D128(C, o) WGMMA_D64(C, o), WGMMA_D64(C, o + 64)
+#define WGMMA_F32(x) "+f"(x)
+#define WGMMA_S32(x) "+r"(x)
 
-template <>
-__device__ __forceinline__ void mma<32>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
+// mma<N> on both accumulator types: R = N / 2 accumulators, then the A
+// and B descriptors (%R, %R+1) and the scale-d flag (%R+2).
+#define WGMMA_DEFINE(N, R, A, B, P)                                               \
+  template <>                                                                     \
+  __device__ __forceinline__ void mma<N>(float* d, uint64_t a, uint64_t b) {      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"     \
+                 WGMMA_OPS_##R "}, %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"          \
+                 : WGMMA_D##R(WGMMA_F32, 0)                                       \
+                 : "l"(a), "l"(b), "r"(1));                                       \
+  }                                                                               \
+  template <>                                                                     \
+  __device__ __forceinline__ void mma<N>(int* d, uint64_t a, uint64_t b) {        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {"         \
+                 WGMMA_OPS_##R "}, %" #A ", %" #B ", p;\n}\n"                      \
+                 : WGMMA_D##R(WGMMA_S32, 0)                                       \
+                 : "l"(a), "l"(b), "r"(1));                                       \
+  }
 
-template <>
-__device__ __forceinline__ void mma<64>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
+WGMMA_DEFINE(8, 4, 4, 5, 6)
+WGMMA_DEFINE(16, 8, 8, 9, 10)
+WGMMA_DEFINE(32, 16, 16, 17, 18)
+WGMMA_DEFINE(64, 32, 32, 33, 34)
+WGMMA_DEFINE(128, 64, 64, 65, 66)
+WGMMA_DEFINE(256, 128, 128, 129, 130)
 
-template <>
-__device__ __forceinline__ void mma<128>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<256>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
-}
+#undef WGMMA_DEFINE
+#undef WGMMA_F32
+#undef WGMMA_S32
+#undef WGMMA_D128
+#undef WGMMA_D64
+#undef WGMMA_D32
+#undef WGMMA_D16
+#undef WGMMA_D8
+#undef WGMMA_D4
+#undef WGMMA_OPS_128
+#undef WGMMA_OPS_64
+#undef WGMMA_OPS_32
+#undef WGMMA_OPS_16
+#undef WGMMA_OPS_8
+#undef WGMMA_OPS_4
 
 }  // namespace wgmma

@@ -37,6 +37,13 @@ split over a thread-block cluster); f32, or any other C, takes the
 CUDA-core kernel. `gemv_plan` makes that choice and the tensor-core
 kernel's tiling in plain Python; `gemv_pim_float.launches` counts every
 launch, `gemv_pim_float.tc_launches` those of the tensor-core kernel.
+`gemv_pim_int8` has the same two routes (`gemv_int8_plan`): int8 operands
+with C a multiple of 16 and 16-byte aligned rows on the s8 tensor cores,
+any other C on the `__dp4a` kernel; `gemv_pim_int8.tc_launches` counts
+the first. `quantize_int8_rows` is the per-row int8 quantization of
+`core.quant.quantize_int8_rows` (`quantize_int8_rows_plain`) in one
+launch, bit for bit; it replaces XLA ops of the JAX package, not a
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ _ACT_CODE = {None: 0, "lut": 1, "gelu": 2}
 # clusters of 2).
 TC_ROWS = 64
 TC_K = 64
+TC_K_INT8 = 128                # one 128-byte swizzle row of int8
 TC_N = (8, 16, 32, 64, 128, 256)
 TC_MAX_CLUSTER = 8
 TC_CLUSTER_TOKENS = 256
@@ -84,6 +92,25 @@ class GemvPlan:
     k_tiles: int = 0
 
 
+def _tc_tiling(M: int, C: int, R: int, k_tile: int) -> GemvPlan:
+    """The tensor-core kernels' tiling for x (M, C) @ w (R, C)^T in K tiles
+    of `k_tile` elements (`gemv_plan`)."""
+    fit = next((t for t in TC_N if t >= M), TC_N[-1])
+    row_tiles, k_tiles = -(-R // TC_ROWS), -(-C // k_tile)
+    n, cluster, blocks = fit, 1, 0
+    for t in TC_N[:TC_N.index(fit) + 1]:
+        grid = row_tiles * -(-M // t)
+        if grid > _build.SMS:
+            continue
+        cs = 1
+        while (cs < TC_MAX_CLUSTER and 2 * cs <= k_tiles and 2 * cs * t <= TC_CLUSTER_TOKENS
+               and 2 * cs * grid <= _build.SMS):
+            cs *= 2
+        if cs * grid >= blocks:
+            n, cluster, blocks = t, cs, cs * grid
+    return GemvPlan("tensor_core", n, -(-M // n), row_tiles, cluster, k_tiles)
+
+
 def gemv_plan(M: int, C: int, R: int, dtype: torch.dtype, *,
               aligned: bool = True) -> GemvPlan:
     """The kernel and tiling for x (M, C) @ w (R, C)^T: the tensor-core
@@ -97,20 +124,17 @@ def gemv_plan(M: int, C: int, R: int, dtype: torch.dtype, *,
     least tile that holds M and no cluster."""
     if dtype != torch.bfloat16 or C % 8 or not aligned:
         return GemvPlan("cuda_core")
-    fit = next((t for t in TC_N if t >= M), TC_N[-1])
-    row_tiles, k_tiles = -(-R // TC_ROWS), -(-C // TC_K)
-    n, cluster, blocks = fit, 1, 0
-    for t in TC_N[:TC_N.index(fit) + 1]:
-        grid = row_tiles * -(-M // t)
-        if grid > _build.SMS:
-            continue
-        cs = 1
-        while (cs < TC_MAX_CLUSTER and 2 * cs <= k_tiles and 2 * cs * t <= TC_CLUSTER_TOKENS
-               and 2 * cs * grid <= _build.SMS):
-            cs *= 2
-        if cs * grid >= blocks:
-            n, cluster, blocks = t, cs, cs * grid
-    return GemvPlan("tensor_core", n, -(-M // n), row_tiles, cluster, k_tiles)
+    return _tc_tiling(M, C, R, TC_K)
+
+
+def gemv_int8_plan(M: int, C: int, R: int, *, aligned: bool = True) -> GemvPlan:
+    """`gemv_plan` for the int8 GEMV: the s8 tensor-core kernel, in K tiles
+    of TC_K_INT8 elements, when C % 16 == 0 and x and w are 16-byte aligned
+    (a TMA stride is a multiple of 16 bytes), else the `__dp4a` kernel on
+    the CUDA cores."""
+    if C % 16 or not aligned:
+        return GemvPlan("cuda_core")
+    return _tc_tiling(M, C, R, TC_K_INT8)
 
 
 def gemv_pim_plain(x: torch.Tensor, w: torch.Tensor,
@@ -255,9 +279,9 @@ def _check_quant(name, x, w, dtype, vectors):
 
 def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
                   w_scale: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel: int8 x (M, C) . int8 w (R, C) with f32 row
-    scales x_scale (M,), w_scale (R,) and optional f32 bias (R,) -> f32
-    (M, R)."""
+    """Launch the CUDA kernel of `gemv_int8_plan`: int8 x (M, C) . int8 w
+    (R, C) with f32 row scales x_scale (M,), w_scale (R,) and optional f32
+    bias (R,) -> f32 (M, R)."""
     M, R = x_i8.shape[0], w_i8.shape[0]
     vectors = [("x_scale", x_scale, M), ("w_scale", w_scale, R)]
     if b is not None:
@@ -266,14 +290,52 @@ def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
     out = torch.empty((M, R), dtype=torch.float32, device=x_i8.device)
     if M == 0 or R == 0:
         return out
+    C = x_i8.shape[1]
+    aligned = x_i8.data_ptr() % 16 == 0 and w_i8.data_ptr() % 16 == 0
+    plan = gemv_int8_plan(M, C, R, aligned=aligned)
     lib = _build.library("gemv_pim_quant")
-    rc = _build.cfunc(lib, "gemv_pim_int8", "pppppp" + "iii" + "p")(
-        x_i8.data_ptr(), x_scale.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(),
-        b.data_ptr() if b is not None else None, out.data_ptr(),
-        M, x_i8.shape[1], R, torch.cuda.current_stream(x_i8.device).cuda_stream)
+    args = (x_i8.data_ptr(), x_scale.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(),
+            _build.ptr(b), out.data_ptr(), M, C, R)
+    tc = plan.route == "tensor_core"
+    if tc:
+        rc = _build.cfunc(lib, "gemv_pim_int8_tc", "pppppp" + "iii" + "ii" + "p")(
+            *args, plan.n_tile, plan.cluster, _build.stream(x_i8))
+    else:
+        rc = _build.cfunc(lib, "gemv_pim_int8", "pppppp" + "iii" + "p")(
+            *args, _build.stream(x_i8))
     _build.check(lib, "gemv_pim_quant", rc)
     gemv_pim_int8.launches += 1
+    gemv_pim_int8.tc_launches += tc
     return out
+
+
+quantize_int8_rows_plain = quant_lib.quantize_int8_rows
+
+
+def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel: x (..., C) f32 or bf16 -> int8 (..., C) and
+    scale (...) in x's dtype, bit for bit `core.quant.quantize_int8_rows`
+    (`quantize_int8_rows_plain`) in one pass a row."""
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8_rows takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"quantize_int8_rows takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] == 0:
+        raise ValueError(f"quantize_int8_rows needs rows of C >= 1, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
+    rows = scale.numel()
+    if rows == 0:
+        return q, scale
+    lib = _build.library("gemv_pim_quant")
+    rc = _build.cfunc(lib, "quantize_int8_rows", "ppp" + "iii" + "p")(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, x.shape[-1],
+        _DTYPE_CODE[x.dtype], _build.stream(x))
+    _build.check(lib, "gemv_pim_quant", rc)
+    quantize_int8_rows.launches += 1
+    return q, scale
 
 
 def gemv_pim_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch.Tensor:
@@ -296,4 +358,6 @@ def gemv_pim_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch
 
 
 gemv_pim_int8.launches = 0
+gemv_pim_int8.tc_launches = 0
+quantize_int8_rows.launches = 0
 gemv_pim_fixed.launches = 0

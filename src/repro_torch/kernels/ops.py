@@ -42,6 +42,14 @@ def pim_linear_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tenso
     return gemv_k.gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b)
 
 
+def pim_quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., C) -> int8 (..., C) + (...) scale in x's dtype (symmetric, per
+    row; `core.quant.quantize_int8_rows`)."""
+    if x.device.type == "cpu":
+        return gemv_k.quantize_int8_rows_plain(x)
+    return gemv_k.quantize_int8_rows(x)
+
+
 def pim_linear_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch.Tensor:
     """int16 (M, C) . int16 (R, C)^T, wrapping int32 sum >> shift, saturated."""
     if x_q.device.type == "cpu":

@@ -10,8 +10,8 @@ dequantize, then masked softmax attention). In LUT mode the kernel, like
 the TPU kernel, computes the page-ordered online softmax, another
 function (LUT(a) LUT(b) != LUT(a + b)): `paged_attention_online_plain` is
 that walk in plain PyTorch, and `online_walk` its core, shared with the
-prefill's reference. `decode_cluster` picks how many blocks of a cluster
-share one (slot, kv head).
+prefill's reference. `decode_plan` picks how many blocks of a cluster
+share one (slot, kv head) and the window a block walks at a time.
 
 With `kv_splits` > 1 and a block table of at least `KV_SPLIT_MIN_CONTEXT`
 tokens (`effective_kv_splits`), `paged_attention` routes to the KV-split
@@ -59,70 +59,81 @@ KV_SPLIT_MIN_CONTEXT = 1024
 # scripts/sweep_clusters.py on the H100 80GB HBM3 at 700 W.)
 DECODE_MAX_CLUSTER = 8
 
-# A block of the single walk keeps its whole run in shared memory
+# A block of the single walk keeps a window of its run in shared memory
 # (csrc/paged_attention.cu, `layout`): a ring of DECODE_STAGES stages of
 # about DECODE_STAGE_BYTES, every key's scores (one float a query row) and
-# K and V scales, each page's m_j, weight and page id, and fixed pieces,
-# in all at most DECODE_SMEM_MAX bytes.
+# K and V scales, each page's m_j, weight and page id, the run's state and
+# fixed pieces, in all at most DECODE_SMEM_MAX bytes. A run that does not
+# fit at DECODE_MAX_CLUSTER blocks is walked in windows of whole ring
+# stages, with a second read of its K.
 DECODE_STAGES = 4
 DECODE_STAGE_BYTES = 16384
 DECODE_THREADS = 256
 DECODE_SMEM_MAX = 227 * 1024
 
 
-def decode_smem_bytes(g: int, D: int, page: int, run_pages: int, row_bytes: int) -> int:
-    """Shared memory of a single-walk block whose run holds `run_pages`
-    pages of `row_bytes`-byte K/V rows, for g query rows of head_dim D:
-    the kernel's `layout`, each piece rounded up to 16 bytes."""
+def decode_chunk_pages(page: int, row_bytes: int, win_pages: int) -> int:
+    """Pages a ring stage of the single walk holds (the kernel's
+    `chunk_pages`)."""
+    return max(1, min(DECODE_STAGE_BYTES // (page * row_bytes), win_pages))
+
+
+def decode_smem_bytes(g: int, D: int, page: int, win_pages: int, row_bytes: int,
+                      cluster: int = DECODE_MAX_CLUSTER) -> int:
+    """Shared memory of a single-walk block whose window holds `win_pages`
+    pages of `row_bytes`-byte K/V rows, for g query rows of head_dim D in a
+    cluster of `cluster` blocks: the kernel's `layout`, each piece rounded
+    up to 16 bytes."""
     def take(n):
         return -(-n // 16) * 16
     page_bytes = page * row_bytes
-    chunk = max(1, min(DECODE_STAGE_BYTES // page_bytes, run_pages))
-    keys = run_pages * page
-    cs = DECODE_MAX_CLUSTER
+    chunk = decode_chunk_pages(page, row_bytes, win_pages)
+    keys = win_pages * page
     return (take(DECODE_STAGES * chunk * page_bytes) + take(8 * DECODE_STAGES)
             + take(4 * g * D) + take(4 * g * keys) + 2 * take(4 * keys)
-            + 2 * take(4 * g * run_pages) + take(4 * run_pages) + take(4 * DECODE_THREADS)
-            + take(4 * cs * g) + take(4 * cs * (2 * g + g * D))
-            + take(8 * _build.MAX_TABLE_ROWS))
+            + 2 * take(4 * g * win_pages) + take(4 * win_pages) + take(4 * DECODE_THREADS)
+            + take(4 * cluster * g) + take(4 * cluster * (2 * g + g * D))
+            + take(8 * _build.MAX_TABLE_ROWS) + take(4 * 5 * g) + 2 * take(4 * g * D))
 
 
-def decode_max_pages(g: int, D: int, page: int, row_bytes: int) -> int:
-    """The widest block table (pages) the single-walk kernel takes: runs of
-    as many pages as fit one block's shared memory, DECODE_MAX_CLUSTER of
-    them (0 when not one page fits)."""
-    lo, hi = 0, 1
-    while decode_smem_bytes(g, D, page, hi, row_bytes) <= DECODE_SMEM_MAX:
-        lo, hi = hi, 2 * hi
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        if decode_smem_bytes(g, D, page, mid, row_bytes) <= DECODE_SMEM_MAX:
-            lo = mid
-        else:
-            hi = mid
-    return lo * DECODE_MAX_CLUSTER
+def decode_window_pages(g: int, D: int, page: int, row_bytes: int, cluster: int) -> int:
+    """The widest window (pages) of whole ring stages that fits one block's
+    shared memory in a cluster of `cluster` blocks (0 when not one stage
+    fits)."""
+    chunk = decode_chunk_pages(page, row_bytes, 1 << 30)
+    n = 0
+    while decode_smem_bytes(g, D, page, (n + 1) * chunk, row_bytes, cluster) <= DECODE_SMEM_MAX:
+        n += 1
+    return n * chunk
 
 
-def decode_cluster(B: int, Hkv: int, n_pages: int, g: int, D: int, page: int,
-                   row_bytes: int) -> int:
-    """Blocks a cluster of the single-walk kernel: doubled from 1 while
-    B * Hkv * cluster < `_build.SMS` and every block keeps at least one
-    page of the table, at most DECODE_MAX_CLUSTER; then doubled further
-    while a block's run of pages does not fit its shared memory. Raises
-    ValueError for a table wider than `decode_max_pages`."""
+def decode_plan(B: int, Hkv: int, n_pages: int, g: int, D: int, page: int,
+                row_bytes: int) -> tuple[int, int]:
+    """(cluster, window pages) of the single-walk kernel. The cluster is
+    doubled from 1 while B * Hkv * cluster < `_build.SMS` and every block
+    keeps at least one page of the table, at most DECODE_MAX_CLUSTER; then
+    doubled further while a block's run of pages does not fit its shared
+    memory. A run that still does not fit is walked in the widest windows
+    that do (`decode_window_pages`); a cluster too large for even one
+    window is halved. Raises ValueError only when not one ring stage of
+    g x D fits a block."""
     cs = 1
     while cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages and B * Hkv * cs < _build.SMS:
         cs *= 2
-    while decode_smem_bytes(g, D, page, -(-n_pages // cs), row_bytes) > DECODE_SMEM_MAX:
-        if cs == DECODE_MAX_CLUSTER or 2 * cs > n_pages:
-            most = decode_max_pages(g, D, page, row_bytes)
-            raise ValueError(
-                f"paged_attention: a block table of {n_pages * page} keys is wider than "
-                f"the single-walk kernel's {most * page} at {g} query heads a kv head, "
-                f"head_dim {D} and {row_bytes}-byte K/V rows ({DECODE_MAX_CLUSTER} "
-                f"blocks of {DECODE_SMEM_MAX} bytes of shared memory)")
+    while (decode_smem_bytes(g, D, page, -(-n_pages // cs), row_bytes, cs) > DECODE_SMEM_MAX
+           and cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages):
         cs *= 2
-    return cs
+    run = -(-n_pages // cs)
+    if decode_smem_bytes(g, D, page, run, row_bytes, cs) <= DECODE_SMEM_MAX:
+        return cs, run
+    while cs >= 1:
+        win = decode_window_pages(g, D, page, row_bytes, cs)
+        if win:
+            return cs, win
+        cs //= 2
+    raise ValueError(f"paged_attention: not one page of {g} query heads a kv head x "
+                     f"head_dim {D} ({row_bytes}-byte K/V rows, page {page}) fits "
+                     f"{DECODE_SMEM_MAX} bytes of shared memory")
 
 
 def effective_kv_splits(kv_splits: int | None, n_pages: int,
@@ -421,34 +432,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, length,
             softcap=softcap, window=window)
         return merge_partials(m, l, acc, q.dtype)
     n_table = block_tables.shape[1]
-    if (H // Hkv) * D > 1024:
-        raise ValueError(f"paged_attention: {H // Hkv} query heads a kv head x head_dim "
-                         f"{D} exceed the kernel's 1024 (row, dim) pairs")
     if B == 0 or n_table == 0:
         return torch.zeros_like(q)
     row_bytes = k_pages.shape[-1] * k_pages.element_size()
-    cluster = decode_cluster(B, Hkv, n_table, H // Hkv, D, page, row_bytes)
+    cluster, win = decode_plan(B, Hkv, n_table, H // Hkv, D, page, row_bytes)
     return launch_decode(q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
-                         fmt, cluster, scale=scale, exp_table=exp_table,
+                         fmt, cluster, win, scale=scale, exp_table=exp_table,
                          softcap=softcap, window=window)
 
 
 def launch_decode(q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
-                  fmt: int, cluster: int, *, scale=None, exp_table=None, softcap=None,
-                  window=None) -> torch.Tensor:
-    """The single-walk kernel on `cluster` blocks a (slot, kv head), after
-    `paged_attention`'s checks (the C entry checks the cluster;
-    scripts/sweep_clusters.py times other sizes so)."""
+                  fmt: int, cluster: int, win_pages: int | None = None, *, scale=None,
+                  exp_table=None, softcap=None, window=None) -> torch.Tensor:
+    """The single-walk kernel on `cluster` blocks a (slot, kv head) in
+    windows of `win_pages` pages (None: a whole run), after
+    `paged_attention`'s checks (the C entry checks the cluster and the
+    window; scripts/sweep_clusters.py times other sizes so)."""
     B, H, D = q.shape
     P, Hkv, page, _ = k_pages.shape
     out = torch.empty_like(q)
     wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
+    n_table = block_tables.shape[1]
+    win = -(-n_table // cluster) if win_pages is None else win_pages
     lib = _build.library("paged_attention")
-    rc = _fn(lib, "paged_attention", "p" * 9 + "i" * 7 + "ffiiffiiii" + "p")(
+    rc = _fn(lib, "paged_attention", "p" * 9 + "i" * 7 + "ffiiffiiiii" + "p")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
         ptr(v_scales), block_tables.data_ptr(), length.data_ptr(), wb,
         out.data_ptr(), B, H, Hkv, D, page, P, block_tables.shape[1], *masks,
-        _DTYPE_CODE[q.dtype], fmt, cluster, _stream(q))
+        _DTYPE_CODE[q.dtype], fmt, cluster, win, _stream(q))
     _build.check(lib, "paged_attention", rc)
     paged_attention.launches += 1
     return out

@@ -13,10 +13,18 @@ their absolute positions. The pools take the formats of
 `paged_attention` (q's dtype, int8 with f32/bf16 scale rows, packed int4
 with bf16 scale rows). Optional LUT exp, softcap and sliding window.
 
+`paged_prefill_attention_online_plain` is the page-ordered online softmax
+that the kernel and the TPU kernel compute in LUT mode, in plain PyTorch.
+
 Bound on the H100: the valid K and V bytes over 3.35 TB/s at the engine's
 chunk sizes; the note in `csrc/paged_prefill.cu` gives the design.
+`prefill_plan` picks its kernel: bf16 queries on the tensor cores where
+the shapes allow (`paged_prefill_attention.tc_launches` counts them),
+else the CUDA-core page walk.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -24,7 +32,42 @@ from repro_torch.core.lut import LutTable
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import (
     _DTYPE_CODE, _exp, _fn, _mask_args, _stream, check_paged_args,
-    gather_paged_kv, ptr)
+    gather_paged_kv, online_walk, ptr)
+
+# The tensor-core kernel (csrc/paged_prefill.cu): 16-row query tiles, 4
+# warps a block each walking a run of the tile's pages, clusters of up to
+# PREFILL_MAX_CLUSTER blocks a tile; head_dim one of PREFILL_TC_DIMS,
+# pages of at most PREFILL_TC_MAX_PAGE keys.
+PREFILL_TC_DIMS = (16, 32, 64, 128)
+PREFILL_TC_MAX_PAGE = 32
+PREFILL_MAX_CLUSTER = 4
+PREFILL_TILE_ROWS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """Which kernel runs a prefill chunk, and the tensor-core kernel's
+    blocks a row tile."""
+    route: str                 # "tensor_core" or "cuda_core"
+    cluster: int = 1
+
+
+def prefill_plan(B: int, Sq: int, H: int, Hkv: int, D: int, page: int,
+                 page_bytes: int, dtype: torch.dtype, *, aligned: bool = True) -> PrefillPlan:
+    """The tensor-core kernel for bf16 q with D in PREFILL_TC_DIMS, a page
+    of at most PREFILL_TC_MAX_PAGE keys whose K (or V) bytes are whole
+    16-byte vectors (`page_bytes`) and 16-byte aligned pools; else the
+    CUDA-core walk. The cluster is doubled from 1 while the grid of
+    B x Hkv x ceil(Sq * g / 16) tiles stays within `_build.SMS` blocks, at
+    most PREFILL_MAX_CLUSTER."""
+    if (dtype != torch.bfloat16 or D not in PREFILL_TC_DIMS or page > PREFILL_TC_MAX_PAGE
+            or page_bytes % 16 or not aligned):
+        return PrefillPlan("cuda_core")
+    blocks = B * Hkv * -(-Sq * (H // Hkv) // PREFILL_TILE_ROWS)
+    cs = 1
+    while cs < PREFILL_MAX_CLUSTER and 2 * cs * blocks <= _build.SMS:
+        cs *= 2
+    return PrefillPlan("tensor_core", cs)
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, length,
@@ -64,13 +107,37 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, length,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def paged_prefill_attention_online_plain(q, k_pages, v_pages, block_tables, length,
+                                         start, k_scales=None, v_scales=None, *,
+                                         scale: float | None = None,
+                                         exp_table: LutTable | None = None,
+                                         softcap: float | None = None,
+                                         window: int | None = None) -> torch.Tensor:
+    """`online_walk` for a prefill chunk: q (B, Sq, H, D) at positions
+    start .. start + Sq - 1 over the gathered, dequantized pages, one walk
+    over the whole table -> (B, Sq, H, D) f32. In LUT mode the function the
+    kernels and the TPU kernel compute."""
+    B, Sq, H, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    g = H // Hkv
+    kd = gather_paged_kv(k_pages, block_tables, k_scales, D).float()
+    vd = gather_paged_kv(v_pages, block_tables, v_scales, D).float()
+    rows = q.float().reshape(B, Sq, Hkv, g, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, Sq * g, D)
+    qpos = start.long()[:, None] + torch.arange(Sq * g, device=q.device)[None] // g
+    out = online_walk(rows, kd, vd, qpos, length, page, 1,
+                      scale=scale if scale is not None else D ** -0.5,
+                      exp_table=exp_table, softcap=softcap, window=window)
+    return out.reshape(B, Hkv, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D)
+
+
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, length, start,
                             k_scales=None, v_scales=None, *,
                             scale: float | None = None,
                             exp_table: LutTable | None = None,
                             softcap: float | None = None,
                             window: int | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B, Sq, H, D) -> out (B, Sq, H, D)."""
+    """Launch the CUDA kernel of `prefill_plan`: q (B, Sq, H, D) -> out
+    (B, Sq, H, D)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
     fmt = check_paged_args("paged_prefill_attention", q, k_pages, v_pages,
@@ -82,15 +149,26 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, length, start,
     if B == 0 or Sq == 0:
         return out
     wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
+    page_bytes = page * k_pages.shape[-1] * k_pages.element_size()
+    aligned = k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+    plan = prefill_plan(B, Sq, H, Hkv, D, page, page_bytes, q.dtype, aligned=aligned)
     lib = _build.library("paged_prefill")
-    rc = _fn(lib, "paged_prefill_attention", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
-        ptr(v_scales), block_tables.data_ptr(), length.data_ptr(),
-        start.data_ptr(), wb, out.data_ptr(), B, Sq, H, Hkv, D, page, P,
-        block_tables.shape[1], *masks, _DTYPE_CODE[q.dtype], fmt, _stream(q))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
+            ptr(v_scales), block_tables.data_ptr(), length.data_ptr(),
+            start.data_ptr(), wb, out.data_ptr(), B, Sq, H, Hkv, D, page, P,
+            block_tables.shape[1], *masks)
+    tc = plan.route == "tensor_core"
+    if tc:
+        rc = _fn(lib, "paged_prefill_attention_tc", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
+            *args, fmt, plan.cluster, _stream(q))
+    else:
+        rc = _fn(lib, "paged_prefill_attention", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
+            *args, _DTYPE_CODE[q.dtype], fmt, _stream(q))
     _build.check(lib, "paged_prefill", rc)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.tc_launches += tc
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.tc_launches = 0

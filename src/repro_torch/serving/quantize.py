@@ -86,7 +86,7 @@ def qtensor_linear(x: torch.Tensor, q: QTensor, b: torch.Tensor | None = None) -
     # Imported here: kernels.paged_attention imports this module.
     from repro_torch.kernels import ops
     lead = x.shape[:-1]
-    x_i8, x_scale = quant_lib.quantize_int8_rows(x.reshape(-1, x.shape[-1]).float())
+    x_i8, x_scale = ops.pim_quantize_int8_rows(x.reshape(-1, x.shape[-1]).float())
     out = ops.pim_linear_int8(x_i8, x_scale, q.w_i8, q.scale,
                               b.float() if b is not None else None)
     return out.reshape(*lead, -1).to(x.dtype)

@@ -7,7 +7,7 @@ kernel in interpret mode (1e-5; 3e-3 for LUT-exp attention, the JAX
 package's own bound for the online LUT softmax), plus the launchers'
 refusal of CPU tensors and of bad arguments; the float GEMV's plan (kernel
 choice, tiles, cluster) over every shape of the path, the single-walk
-decode's cluster and the widest table its shared memory holds, and the page walk
+decode's cluster and window at any table width, and the page walk
 that the decode kernel computes in LUT mode against the Pallas kernel in
 interpret mode (1e-5). On the card (`-m gpu`): each CUDA kernel against its
 plain version on the same inputs, the tensor-core GEMV at its ragged and
@@ -306,28 +306,30 @@ def test_decode_cluster(B, Hkv, n_pages, want):
     """Blocks a (slot, kv head) at GPT-2's g = 1, head_dim 64, bf16 rows:
     doubled until the grid covers 132 SMs, at most 8 and at most one a
     page."""
-    assert paged_attention.decode_cluster(B, Hkv, n_pages, 1, 64, 16, 128) == want
+    assert paged_attention.decode_plan(B, Hkv, n_pages, 1, 64, 16, 128)[0] == want
 
 
-# (g, head_dim, K/V row bytes, widest table in keys): GPT-2 medium on bf16,
-# int8 and int4 pools; qwen2-1.5B's g = 6, head_dim 128 on bf16 pools.
+# (g, head_dim, K/V row bytes, the widest table in keys that 8 blocks held
+# whole before runs were walked in windows): GPT-2 medium on bf16, int8
+# and int4 pools; qwen2-1.5B's g = 6, head_dim 128 on bf16 pools; g = 12 x
+# head_dim 192 (g * D past the old 1024 pairs) on bf16 pools.
 DECODE_LIMITS = [(1, 64, 128, 101888), (1, 64, 64, 101888), (1, 64, 32, 101888),
-                 (6, 128, 256, 30976)]
+                 (6, 128, 256, 30976), (12, 192, 384, 0)]
 
 
 @pytest.mark.parametrize("g,D,row_bytes,keys", DECODE_LIMITS)
 def test_decode_table_limit(g, D, row_bytes, keys):
-    """The single walk keeps a block's run in shared memory: the widest
-    table fits at 8 blocks a cluster, one page more is refused with a
-    ValueError that names the key counts."""
-    most = paged_attention.decode_max_pages(g, D, 16, row_bytes)
-    assert most * 16 == keys
-    assert paged_attention.decode_smem_bytes(g, D, 16, most // 8, row_bytes) <= 227 * 1024
-    assert paged_attention.decode_smem_bytes(g, D, 16, most // 8 + 1, row_bytes) > 227 * 1024
-    assert paged_attention.decode_cluster(1, 1, most, g, D, 16, row_bytes) == 8
-    with pytest.raises(ValueError, match=f"{(most + 1) * 16} keys is wider than "
-                                         f"the single-walk kernel's {keys}"):
-        paged_attention.decode_cluster(1, 1, most + 1, g, D, 16, row_bytes)
+    """The single walk has no width limit: one page past the old limit and
+    qwen2-1.5B's 131072 keys are planned without a ValueError, each window
+    within DECODE_SMEM_MAX. At 131072 keys the run no longer fits one
+    block, so it is walked in windows of whole ring stages."""
+    pa = paged_attention
+    for n_pages in (keys // 16 + 1, 131072 // 16):
+        cs, win = pa.decode_plan(1, 1, n_pages, g, D, 16, row_bytes)
+        assert pa.decode_smem_bytes(g, D, 16, win, row_bytes, cs) <= pa.DECODE_SMEM_MAX
+        run = -(-n_pages // cs)
+        assert win >= run or win % pa.decode_chunk_pages(16, row_bytes, win) == 0
+    assert cs == 8 and win < run
 
 
 @pytest.mark.parametrize("B,n_pages,want", [(33, 64, 1), (33, 1024, 2), (33, 2048, 4),
@@ -336,10 +338,39 @@ def test_decode_cluster_grows_to_fit_shared_memory(B, n_pages, want):
     """Once the grid covers the card (B x 16 kv heads >= 132), a run that
     would overflow one block's shared memory is spread over more blocks:
     GPT-2's 1024 keys fit one block, 16384 need two, 32768 four and
-    101888 eight."""
-    cs = paged_attention.decode_cluster(B, 16, n_pages, 1, 64, 16, 128)
+    101888 eight, in windows once a run outgrows one block."""
+    cs, win = paged_attention.decode_plan(B, 16, n_pages, 1, 64, 16, 128)
     assert cs == want
-    assert paged_attention.decode_smem_bytes(1, 64, 16, -(-n_pages // cs), 128) <= 227 * 1024
+    assert win == min(-(-n_pages // cs), paged_attention.decode_window_pages(1, 64, 16, 128, cs))
+    assert paged_attention.decode_smem_bytes(1, 64, 16, win, 128, cs) <= 227 * 1024
+
+
+# (M, C, R) -> (route, n_tile, cluster) of the int8 GEMV at the path's
+# shapes: a decode step (M 4), a 64-token chunk, the LM head at M 1, and
+# a C that no TMA stride takes (the __dp4a kernel).
+INT8_PLANS = [((4, 1024, 1024), ("tensor_core", 8, 8)),
+              ((4, 1024, 4096), ("tensor_core", 8, 2)),
+              ((4, 4096, 1024), ("tensor_core", 8, 8)),
+              ((1, 1024, 50257), ("tensor_core", 8, 1)),
+              ((64, 1024, 1024), ("tensor_core", 32, 4)),
+              ((64, 1024, 4096), ("tensor_core", 64, 2)),
+              ((64, 4096, 1024), ("tensor_core", 32, 4)),
+              ((4, 1000, 1024), ("cuda_core", 0, 1))]
+
+
+@pytest.mark.parametrize("shape,want", INT8_PLANS)
+def test_gemv_int8_plan(shape, want):
+    """The int8 GEMV's route and tiling: s8 tensor cores in 128-element K
+    tiles whenever C % 16 == 0, at most 132 blocks (the LM head's 786 row
+    tiles take one block each), clusters splitting C."""
+    M, C, R = shape
+    plan = gemv_pim.gemv_int8_plan(M, C, R)
+    assert (plan.route, plan.n_tile, plan.cluster) == want
+    if plan.route == "tensor_core":
+        assert plan.k_tiles == -(-C // 128)
+        assert plan.row_tiles * plan.n_tiles * plan.cluster <= 132 or plan.cluster == 1
+        assert plan.cluster <= plan.k_tiles
+    assert gemv_pim.gemv_int8_plan(M, C, R, aligned=False).route == "cuda_core"
 
 
 # ---------------------------------------------------------------------------
@@ -599,3 +630,53 @@ def test_gemv_fixed_kernel_matches_plain(cuda, M, R, C, shift):
     assert got.dtype == torch.int16
     assert torch.equal(got, want)
     assert int(want[0, 0]) == 32767 and int(want[0, 1]) == -32768
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64, 65, 512])
+@pytest.mark.parametrize("R,C", [(1000, 1024), (1024, 4096), (4096, 1024), (50257, 1024),
+                                 (1024, 1000)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemv_int8_routes_bit_for_bit(cuda, M, R, C, bias):
+    """The s8 tensor-core kernel (counted by tc_launches) wherever C % 16
+    == 0, the __dp4a kernel at C = 1000; both bit for bit."""
+    qi = quant_gemv_inputs(M, C, R, seed=M)
+    x8, xs, w8, ws, b = (_t(a, cuda) for a in (qi.x8, qi.xs, qi.w8, qi.ws, qi.b))
+    b = b if bias else None
+    before = gemv_pim.gemv_pim_int8.tc_launches
+    got = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, b)
+    torch.cuda.synchronize()
+    assert gemv_pim.gemv_pim_int8.tc_launches == before + (C % 16 == 0)
+    assert torch.equal(got, gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, b))
+
+
+def quantize_rows_input(rows, C, seed=0):
+    """Rows for quantize_int8_rows: random ones at several scales, a row of
+    zeros, a row whose absmax is 127 (scale 1) holding exact .5 ties, and
+    a row holding a NaN."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, C).astype(np.float32) * rng.choice([1e-3, 0.5, 30.0], size=(rows, 1))
+    x[1] = 0.0
+    x[2] = np.resize(np.array([2.5, -2.5, 3.5, -0.5, 0.5, 126.5, 1.5, 127.0], np.float32), C)
+    x[3, C // 2] = np.nan
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C", [(4, 1024), (64, 4096), (1024, 1024), (9, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_rows_bit_for_bit(cuda, rows, C, dtype):
+    """One launch a call; payload and scale bit for bit the plain
+    function's in x's dtype, zero rows and .5 ties included; a row holding
+    a NaN gets a NaN scale and the plain function's payload."""
+    x = _t(quantize_rows_input(rows, C), cuda).to(dtype)
+    before = gemv_pim.quantize_int8_rows.launches
+    q, scale = gemv_pim.quantize_int8_rows(x)
+    torch.cuda.synchronize()
+    assert gemv_pim.quantize_int8_rows.launches == before + 1
+    want_q, want_scale = gemv_pim.quantize_int8_rows_plain(x)
+    assert scale.dtype == dtype and bool(scale[3].isnan()) and bool(want_scale[3].isnan())
+    keep = torch.arange(rows, device=cuda) != 3
+    assert torch.equal(scale[keep], want_scale[keep])
+    assert torch.equal(q, want_q)
+    assert int(q[1].abs().max()) == 0 and q[2, :6].tolist() == [2, -2, 4, 0, 0, 126]

@@ -14,9 +14,11 @@ split kernel with its combine, the combine alone, and the decode and
 prefill kernels on int8/int4 pools, each against its plain version (f32
 exact 1e-4, f32 LUT 3e-3, bf16 3e-2), the split kernel against the
 unsplit one, and the single-walk decode kernel at g = 2 over 1024 keys on
-every pool format, LUT mode held to the page walk it computes, and at the
+every pool format, LUT mode held to the page walk it computes, at the
 limits of its shared memory (the widest table, and a cluster the table's
-width sets).
+width sets), and forced into windows at a few hundred keys on every pool
+format; the wide and windowed cases plant dominant keys so that their
+outputs are O(1) and the tolerance binds.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ def jx():
     from repro.core import lut as jlut
     from repro.distributed import collectives as jcoll
     from repro.kernels import paged_attention as jpaged
+    from repro.kernels import paged_prefill as jprefill
     from repro.kernels import ref as jref
 
     def arr(t):
@@ -54,7 +57,7 @@ def jx():
             return jnp.asarray(t.float().numpy(), jnp.bfloat16)
         return jnp.asarray(t.numpy())
 
-    return SimpleNamespace(jnp=jnp, ref=jref, coll=jcoll, paged=jpaged, arr=arr,
+    return SimpleNamespace(jnp=jnp, ref=jref, coll=jcoll, paged=jpaged, prefill=jprefill, arr=arr,
                            bank=jlut.LutBank.create(64))
 
 
@@ -70,20 +73,44 @@ def _kw(opts, bank):
     return kw
 
 
+def _plant_hot_keys(rng, q, k, v, phys, lengths, page, hot, target=18.0):
+    """Give each decode row (q (B, H, D)) `hot` keys, one in each of `hot`
+    equal stretches of its length at a random offset, whose scores stand
+    near `target` (k = c q; the rest score about N(0, 1)) with V rows of
+    std 4. The output is then a mix of those few V rows, O(1), so a walk
+    that drops a run or a window of pages, or merges them wrongly, misses
+    by O(1) rather than by the 1/sqrt(keys) of random inputs."""
+    B, H, D = q.shape
+    g = H // k.shape[1]
+    for b, n in enumerate(lengths):
+        for h in range(H):
+            qh = q[b, h]
+            for j in range(hot):
+                pos = min(int((j + 0.1 + 0.8 * rng.rand()) / hot * n), n - 1)
+                c = (target + rng.uniform(-1.5, 1.5)) * np.sqrt(D) / float(qh @ qh)
+                at = (phys[b, pos // page], h // g, pos % page)
+                k[at] = c * qh
+                v[at] = 4.0 * rng.randn(D)
+
+
 def _case(pool, B, H, Hkv, D, page, n_pages, lengths, Sq=None, seed=0,
-          device="cpu"):
+          device="cpu", hot=0):
     """q, pools, scale rows (None for fp), shuffled block tables (trash page
     0 at the tail of short rows) and lengths, made with numpy from a seed;
-    quantized pools go through the port's write-time quantization."""
+    quantized pools go through the port's write-time quantization. hot > 0
+    plants that many dominant keys a decode row (`_plant_hot_keys`)."""
     rng = np.random.RandomState(seed)
     P = 1 + B * n_pages
     phys = rng.permutation(np.arange(1, P)).reshape(B, n_pages).astype(np.int32)
     for b, ln in enumerate(lengths):
         phys[b, -(-max(ln, 1) // page):] = 0
-    k = torch.from_numpy(rng.randn(P, Hkv, page, D).astype(np.float32))
-    v = torch.from_numpy(rng.randn(P, Hkv, page, D).astype(np.float32))
+    k = rng.randn(P, Hkv, page, D).astype(np.float32)
+    v = rng.randn(P, Hkv, page, D).astype(np.float32)
     qshape = (B, H, D) if Sq is None else (B, Sq, H, D)
-    q = torch.from_numpy(rng.randn(*qshape).astype(np.float32))
+    q = rng.randn(*qshape).astype(np.float32)
+    if hot:
+        _plant_hot_keys(rng, q, k, v, phys, lengths, page, hot)
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     ks = vs = None
     if pool != "fp":
         quant = tq.quantize_vec_int4 if pool == "int4" else tq.quantize_vec
@@ -160,6 +187,23 @@ def test_prefill_plain_scale_rows_match_oracle(jx, pool, opts):
     want = jx.ref.paged_prefill_attention_ref(
         *map(jx.arr, (q, k, v, tbl, lens, starts, ks, vs)), **_kw(opts, jx.bank))
     got = paged_prefill.paged_prefill_attention_plain(
+        q, k, v, tbl, lens, starts, ks, vs, **_kw(opts, TBANK))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8-f32", "int4"])
+@pytest.mark.parametrize("opts", [{}, {"lut": True}, {"lut": True, "softcap": 5.0, "window": 6}])
+def test_online_prefill_matches_pallas_interpret(jx, pool, opts):
+    """`paged_prefill_attention_online_plain`, the page walk that the prefill
+    kernel is held to in LUT mode, is the TPU kernel's own function: against
+    the Pallas kernel in interpret mode, f32, within 1e-5 (exact and LUT)."""
+    starts = torch.tensor([0, 11], dtype=torch.int32)
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=2, H=4, Hkv=2, D=16, page=4,
+                                       n_pages=5, lengths=[6, 17], Sq=6, seed=2)
+    want = jx.prefill.paged_prefill_attention(
+        *map(jx.arr, (q, k, v, tbl, lens, starts, ks, vs)), interpret=True,
+        **_kw(opts, jx.bank))
+    got = paged_prefill.paged_prefill_attention_online_plain(
         q, k, v, tbl, lens, starts, ks, vs, **_kw(opts, TBANK))
     _close(got, want, 1e-5)
 
@@ -330,35 +374,100 @@ def test_decode_kernel_long_gqa_matches_walk(cuda, pool, opts, dtype):
     _close(got, want.float().cpu().numpy(), 3e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
-# The single walk at its shared-memory limits (bf16 pools, g = 2, head_dim
-# 64): the widest table it takes, one (slot, kv head) on 8 blocks; and a
-# grid that covers the card (9 slots x 16 kv heads) whose 16384-key tables
-# need two blocks a run.
-WIDEST = paged_attention.decode_max_pages(2, 64, 16, 128)
-WIDE = [dict(B=1, H=2, Hkv=1, n_pages=WIDEST, lengths=[16 * WIDEST], cluster=8),
-        dict(B=9, H=32, Hkv=16, n_pages=1024, cluster=2,
-             lengths=[1, 17, 5000, 9001, 12000, 16000, 16383, 16384, 16384])]
+# The single walk past one block's shared memory (bf16 pools): the table
+# one page wider than the widest that 8 blocks of g = 2, head_dim 64 held
+# whole before runs were walked in windows (4632 pages); a grid that
+# covers the card (9 slots x 16 kv heads) whose 16384-key tables need two
+# blocks a run; qwen2-1.5B's 131072 keys at g = 6, head_dim 128. Each row
+# has 8 planted keys (`_plant_hot_keys`), so its output is O(1).
+WIDE = [dict(B=1, H=2, Hkv=1, D=64, n_pages=4633, lengths=[16 * 4633], cluster=8),
+        dict(B=9, H=32, Hkv=16, D=64, n_pages=1024, cluster=2,
+             lengths=[1, 17, 5000, 9001, 12000, 16000, 16383, 16384, 16384]),
+        dict(B=1, H=12, Hkv=2, D=128, n_pages=8192, lengths=[131072], cluster=8)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", WIDE)
 def test_decode_kernel_at_shared_memory_limits(cuda, case):
     """bf16 against the plain version within 3e-2 where the table's width,
-    not the grid, sets the cluster; one page wider than the widest table is
-    refused with a ValueError before anything launches."""
+    not the grid, sets the cluster, and where a run is walked in windows;
+    the planted keys keep the outputs O(1), so the tolerance binds."""
     shape = dict(case)
     cluster = shape.pop("cluster")
-    q, k, v, ks, vs, tbl, lens = _case("fp", D=64, page=16, **shape, seed=13, device=cuda)
+    q, k, v, ks, vs, tbl, lens = _case("fp", page=16, **shape, seed=13, device=cuda, hot=8)
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    B, H, Hkv, n_pages = shape["B"], shape["H"], shape["Hkv"], shape["n_pages"]
-    assert paged_attention.decode_cluster(B, Hkv, n_pages, H // Hkv, 64, 16, 128) == cluster
+    B, H, Hkv, D, n_pages = (shape[n] for n in ("B", "H", "Hkv", "D", "n_pages"))
+    cs, win = paged_attention.decode_plan(B, Hkv, n_pages, H // Hkv, D, 16, 2 * D)
+    assert cs == cluster
+    before = paged_attention.paged_attention.launches
     got = paged_attention.paged_attention(q, k, v, tbl, lens)
     torch.cuda.synchronize()
+    assert paged_attention.paged_attention.launches == before + 1
     want = paged_attention.paged_attention_plain(q, k, v, tbl, lens)
+    assert float(want[lens > 16].float().abs().amax()) > 0.5
     _close(got, want.float().cpu().numpy(), 3e-2)
-    if n_pages == WIDEST:
-        wider = torch.cat([tbl, tbl[:, :1]], dim=1).contiguous()
-        before = paged_attention.paged_attention.launches
-        with pytest.raises(ValueError, match=f"{16 * (WIDEST + 1)} keys is wider"):
-            paged_attention.paged_attention(q, k, v, wider, lens)
-        assert paged_attention.paged_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("opts", [{}, {"lut": True}, {"lut": True, "window": 300}])
+@pytest.mark.parametrize("heads", [(8, 2, 128), (4, 2, 64)])
+@pytest.mark.parametrize("win_pages", [1, 3])
+def test_decode_kernel_walks_windows(cuda, pool, opts, heads, win_pages):
+    """The windowed walk forced at a few hundred keys: windows of 1 or 3
+    pages (one ring stage) over runs of 12 pages (cluster 2, 24-page
+    table), g * D of 512 (pairs summed one by one) and 128, every pool
+    format, planted keys in every run; exact mode against the plain version
+    and LUT mode against the page walk, within 3e-2 (bf16)."""
+    H, Hkv, D = heads
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=3, H=H, Hkv=Hkv, D=D, page=16, n_pages=24,
+                                       lengths=[384, 250, 97], seed=17, device=cuda, hot=6)
+    q = q.bfloat16()
+    if pool == "fp":
+        k, v = k.bfloat16(), v.bfloat16()
+    kw = _kw(opts, TBANK)
+    fmt = paged_attention.pool_format("paged_attention", q, k, v, ks, vs)
+    before = paged_attention.paged_attention.launches
+    got = paged_attention.launch_decode(q, k, v, tbl, lens, ks, vs, fmt, 2, win_pages, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_attention.launches == before + 1
+    plain = (paged_attention.paged_attention_online_plain if opts.get("lut")
+             else paged_attention.paged_attention_plain)
+    want = plain(q, k, v, tbl, lens, ks, vs, **kw)
+    assert float(want.float().abs().amax()) > 0.5
+    _close(got, want.float().cpu().numpy(), 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("opts", [{}, {"lut": True}, {"lut": True, "softcap": 5.0, "window": 300}])
+def test_prefill_tensor_core_kernel_matches_walk(cuda, pool, opts):
+    """bf16 chunks on the tensor-core prefill kernel (counted by
+    tc_launches) at g 1 and 2, Sq 1, 17 and 64, starts 0, 15, 64 and 896 of
+    a 64-page table: exact mode against the plain version, LUT mode against
+    the page walk (`paged_prefill_attention_online_plain`), within 3e-2;
+    f32 chunks take the CUDA-core walk."""
+    kw = _kw(opts, TBANK)
+    for g in (1, 2):
+        for Sq in (1, 17, 64):
+            for start in (0, 15, 64, 896):
+                q, k, v, ks, vs, tbl, lens = _case(pool, B=1, H=8 * g, Hkv=8, D=64, page=16,
+                                                   n_pages=64, lengths=[start + Sq], Sq=Sq,
+                                                   seed=start + Sq + g, device=cuda)
+                st = lens - Sq
+                if pool == "fp":
+                    k, v = k.bfloat16(), v.bfloat16()
+                before = paged_prefill.paged_prefill_attention.tc_launches
+                got = paged_prefill.paged_prefill_attention(q.bfloat16(), k, v, tbl, lens, st,
+                                                            ks, vs, **kw)
+                torch.cuda.synchronize()
+                assert paged_prefill.paged_prefill_attention.tc_launches == before + 1
+                plain = (paged_prefill.paged_prefill_attention_online_plain if opts.get("lut")
+                         else paged_prefill.paged_prefill_attention_plain)
+                want = plain(q.bfloat16(), k, v, tbl, lens, st, ks, vs, **kw)
+                _close(got, want.float().cpu().numpy(), 3e-2)
+    before = paged_prefill.paged_prefill_attention.tc_launches
+    if pool != "fp":
+        paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, ks, vs, **kw)
+        torch.cuda.synchronize()
+        assert paged_prefill.paged_prefill_attention.tc_launches == before
