@@ -11,10 +11,15 @@ Run from the root of a checkout. Phases, each of which fails the run:
   3. kernels — each CUDA kernel against its plain PyTorch version at the
               main path's shapes in f32 and bf16: the paged kernels on fp,
               int8 (f32/bf16 scale rows) and int4 pools, and the KV-split
-              kernel with its combine at K in {2, 4, 7} on a 1024-token
-              table, also against the unsplit kernel; the dense path's
-              decode attention (arenas of 256, 161 and 1024 positions, GQA
-              with a window and a softcap), LUT softmax (causal and not),
+              kernel at K in {2, 4, 7, 16} on a 1024-token table, with its
+              combine (merge_partials), also against the unsplit kernel,
+              and, through `paged_attention(..., kv_splits=K)` (the route),
+              on planted keys at K 4/8/16 and at qwen2-1.5B's 131072 keys
+              (K 8); the dense path's decode
+              attention (arenas of 256, 161 and 1024 positions, GQA with a
+              window and a softcap; the int8 arena bit for bit to the
+              kernel on the dequantized arena; planted keys over 4100 and
+              131072 positions), LUT softmax (causal and not),
               LayerNorm/RMSNorm and LUT interpolation (both bit for
               bit); the float GEMV over M 1..512 x R 1000..50257 x C
               1024/4096 with every epilogue, bf16 on the tensor-core
@@ -43,7 +48,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
               prompt tokens in four drains: fp pools with and without
               kv_splits=4, int8 pools (bf16 scale rows) with kv_splits=4,
               int4 pools with LUT nonlinearities and kv_splits=4, with the
-              checks of phase 4 (24 split + 24 combine launches and no
+              checks of phase 4 (24 split and 24 combine launches and no
               single-walk launch a decode step where the split is on) and
               each drain's decode step timed on the device;
   6. quant  — the quantized S-ALU datapaths: GPT-2 medium at max_len 256
@@ -70,7 +75,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
               3e-2 of a plain prefill; each drain's share of tokens with
               the paged drain on the same requests, its decode step on
               the host clock and on the device, and the int8 arena's
-              dequantization;
+              eager dequantization, which the kernel's int8 read
+              replaces, timed for comparison;
   8. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
@@ -372,10 +378,12 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                 lut = "exp_table" in opts
                 unsplit = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs,
                                                           **opts)
-                for splits in (2, 4, 7):
+                for splits in (2, 4, 7, 16):
                     m, l, acc = paged_attention.paged_attention_split(
                         q, k, v, tables, lengths, ks, vs, kv_splits=splits, **opts)
                     got = paged_attention.merge_partials(m, l, acc, dtype)
+                    routed = paged_attention.paged_attention(
+                        q, k, v, tables, lengths, ks, vs, kv_splits=splits, **opts)
                     torch.cuda.synchronize()
                     name = f"split K={splits} {fmt} {sorted(opts)} {dname}"
                     dense = paged_attention.paged_attention_split_plain(
@@ -384,6 +392,9 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                         q, k, v, tables, lengths, ks, vs, splits=splits, **walk_args(opts))
                         if lut else None)
                     e = check("paged_attention_split", name, got, dense, online, dname, lut)
+                    if not torch.equal(routed, got):
+                        raise AssertionError(f"{name}: paged_attention(kv_splits={splits}) "
+                                             f"differs from the split kernel + merge_partials")
                     if lut:
                         key = f"split vs unsplit ({dname})"
                         gaps[key] = max(gaps.get(key, 0.0),
@@ -396,9 +407,10 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                                   merged.reshape(got.shape).to(dtype), TOL[dname])
                     errs["merge_partials"] = max(errs["merge_partials"], e_m)
                     worst = max(worst, e)
-            log(f"  paged_attention_split + merge_partials B={B} H={H} D={D} 64 pages "
-                f"lengths={lens_list} K=2/4/7 {fmt} pools, q {dname}, exact/LUT x "
-                f"window+softcap, vs plain (and vs unsplit, exact): max_abs_err "
+            log(f"  paged_attention_split + merge_partials (also through "
+                f"paged_attention(kv_splits=K), the same bits), B={B} H={H} D={D} 64 "
+                f"pages lengths={lens_list} K=2/4/7/16 {fmt} pools, q {dname}, exact/LUT "
+                f"x window+softcap, vs plain (and vs unsplit, exact): max_abs_err "
                 f"{worst:.3e} (tol {TOL[dname]})")
     log(f"  merge_partials vs merge_partial_softmax_stacked on the kernel's partials: "
         f"max_abs_err {errs['merge_partials']:.3e}")
@@ -708,9 +720,9 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
     """Decode attention at long context: B=4, H=16, D=64, page 16, a
     64-page table, lengths 960..1024, one pool set per layer (cold in L2 as
     in a decode step). The single walk and the split at K = 4 and 8 (split
-    kernel + combine) beside SDPA on pre-gathered K/V and the KV-bytes
-    bound, on fp (bf16) pools, then the single walk and the K = 4 split on
-    int8 and int4 pools at the same shapes."""
+    kernel + combine) on every pool format beside the KV-bytes bound; on fp
+    (bf16) pools also the split kernel alone, the combine alone, the plain
+    split and SDPA on pre-gathered K/V."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     L, H, D, page, n_tbl, B = cfg.n_layers, cfg.n_heads, cfg.head_dim, 16, 64, 4
@@ -735,16 +747,14 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
         pools = [make_pools(torch, quantize, k, v, fmt, cfg.cdtype) for k, v in raw]
         one = time_graph(torch, lambda i: paged_attention.paged_attention(
             q, pools[i][0], pools[i][1], tables, lengths, pools[i][2], pools[i][3]), L)
-        split4 = time_graph(torch, lambda i: paged_attention.paged_attention(
+        split4, split8 = (time_graph(torch, lambda i, K=K: paged_attention.paged_attention(
             q, pools[i][0], pools[i][1], tables, lengths, pools[i][2], pools[i][3],
-            kv_splits=4), L)
+            kv_splits=K), L) for K in (4, 8))
         bnd, by = kv_bound(fmt)
         rows.append(f"{fmt}: single walk {one * 1e3:.2f} us, split K=4 {split4 * 1e3:.2f} us, "
-                    f"bound {bnd * 1e3:.2f} us ({by})")
+                    f"K=8 {split8 * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
         if fmt != "fp":
             continue
-        split8 = time_graph(torch, lambda i: paged_attention.paged_attention(
-            q, *pools[i][:2], tables, lengths, kv_splits=8), L)
         kernel4 = time_graph(torch, lambda i: paged_attention.paged_attention_split(
             q, *pools[i][:2], tables, lengths, kv_splits=4), L)
         parts = paged_attention.paged_attention_split(q, *pools[0][:2], tables, lengths,
@@ -772,11 +782,12 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
         shape = f"B=4 H=16 D=64 page 16, 64-page table, lengths {lens_list}, bf16"
         out["paged_attention_split"] = dict(
             ms=split4, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
-            shape=f"split K=4 + combine, {shape}; split kernel alone {kernel4 * 1e3:.2f} us")
+            shape=f"split K=4 + merge_partials (the route), {shape}; K=8 "
+                  f"{split8 * 1e3:.2f} us; split kernel alone {kernel4 * 1e3:.2f} us")
         out["merge_partials"] = dict(ms=merge, plain_ms=merge_plain, library_ms=None,
                                      bound_ms=m_bnd, bound_by=m_by,
                                      shape=f"K=4 partials of {shape}")
-        rows.append(f"fp: split K=8 {split8 * 1e3:.2f} us; split kernel alone (K=4) "
+        rows.append(f"fp: split kernel alone (K=4) "
                     f"{kernel4 * 1e3:.2f} us, combine {merge * 1e3:.2f} us (plain "
                     f"{merge_plain * 1e3:.2f} us, bound {m_bnd * 1e3:.2f} us); plain split "
                     f"{plain * 1e3:.2f} us; SDPA on pre-gathered K/V {lib * 1e3:.2f} us")
@@ -819,16 +830,20 @@ def time_wide_decode(torch, F, paged_attention, seed):
     log(f"  paged_attention B=1 H=12 Hkv=2 D=128, 131072 keys, bf16 pool (cluster {cs}, "
         f"windows of {win} pages): {one * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}), "
         f"SDPA on pre-gathered K/V {lib * 1e3:.2f} us, split K=8 + combine "
-        f"{split8 * 1e3:.2f} us")
+        f"{split8 * 1e3:.2f} us (split clusters of "
+        f"{paged_attention.split_plan(1, 2, 8, n_pages, 6, D, 16, 2 * D)})")
     return dict(ms=one, bound_ms=bnd, library_ms=lib, split8_ms=split8, cluster=cs, win=win)
 
 
-def check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp, seed):
+def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layernorm_lut,
+                        lut_interp, seed):
     """The dense-cache path's four kernels against their plain versions at
     the main path's shapes, in f32 and bf16: decode attention over 256-,
     161- (a ragged last block) and 1024-position arenas, exact and LUT (LUT
     held to the online block walk, its gap to the dense LUT softmax
-    printed), once with GQA, a window and a softcap; the LUT softmax of a
+    printed), once with GQA, a window and a softcap; on the int8 arena bit
+    for bit to the kernel on the dequantized arena; on planted keys over
+    4100- and 131072-position arenas at g 6, D 128; the LUT softmax of a
     128-token prefill's scores, causal and unmasked; LayerNorm and RMSNorm,
     LUT and exact, and the LUT interpolation, both bit for bit."""
     dev = torch.device("cuda")
@@ -875,6 +890,70 @@ def check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_inter
             log(f"  decode_attention B=4 H=16 Hkv={Hkv} D=64 arena {S} lengths {lens} "
                 f"{extra or ''} {dname}, exact/LUT: max_abs_err {worst:.3e} "
                 f"(tol {TOL[dname]})")
+
+    # The int8 arena (bf16 scale rows) read by the kernel itself: bit for bit
+    # the kernel on the arena dequantized first, at the main path's arenas.
+    for S, lens, Hkv, extra in cases[:3]:
+        k8, v8 = (torch.randint(-127, 128, (4, Hkv, S, 64), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = ((torch.rand((4, Hkv, S), generator=gen, device=dev) * 0.05 + 1e-3)
+                  .bfloat16() for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q32 = randn(4, 16, 64)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q = q32.to(dtype)
+            k, v = attn.dequantize_arena(q, k8, v8, ks, vs)
+            for lut in (False, True):
+                kw = dict(exp_table=bank.exp if lut else None)
+                got = attn.decode_attention(q, k8, v8, lengths, ks, vs, **kw)
+                want = attn.decode_attention(q, k, v, lengths, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"decode_attention int8 arena S={S} lut={lut} "
+                                         f"{dname}: {int((got != want).sum())} elements "
+                                         "differ from the kernel on the dequantized arena")
+                plain = attn.decode_attention_online_plain if lut else attn.decode_attention_plain
+                record("decode_attention", f"decode_attention int8 arena S={S} lut={lut} "
+                       f"{dname}", got, plain(q, k8, v8, lengths, ks, vs, **kw), TOL[dname])
+        log(f"  decode_attention int8 arena {S} (bf16 scale rows), lengths {lens}, f32 and "
+            f"bf16, exact/LUT: bit-exact to the kernel on the dequantized arena, within TOL "
+            f"of the plain version")
+
+    # Planted keys over wide arenas (runs over clusters of 8 blocks; qwen2-1.5B's
+    # 131072 keys walked in windows), g 6, D 128, bf16: a dropped or mis-merged
+    # run or window misses by O(1).
+    for B, S, lens in ((4, 4100, [1, 257, 3000, 4100]), (1, 131072, [131072])):
+        q = randn(B, 12, 128).bfloat16()
+        k32, v32 = randn(B, 2, S, 128), randn(B, 2, S, 128)
+        for b, n in enumerate(lens):
+            for h in range(12):
+                qh = q[b, h].float()
+                u = torch.rand(6, generator=gen, device=dev)
+                pos = ((torch.arange(6, device=dev) + 0.1 + 0.8 * u) / 6 * n).long()
+                c = (18.0 + 3 * torch.rand(6, generator=gen, device=dev) - 1.5) * 128 ** 0.5
+                k32[b, h // 6, pos.clamp(max=n - 1)] = (c / (qh @ qh))[:, None] * qh
+                v32[b, h // 6, pos.clamp(max=n - 1)] = 4 * randn(6, 128)
+        k, v = k32.bfloat16(), v32.bfloat16()
+        del k32, v32
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cs, win = paged_attention.arena_plan(B, 2, S, 6, 128, 256)
+        worst = 0.0
+        for lut in (False, True):
+            kw = dict(exp_table=bank.exp if lut else None)
+            got = attn.decode_attention(q, k, v, lengths, **kw)
+            torch.cuda.synchronize()
+            plain = attn.decode_attention_online_plain if lut else attn.decode_attention_plain
+            want = plain(q, k, v, lengths, **kw)
+            if float(want.float().abs().amax()) <= 0.5:
+                raise AssertionError(f"decode_attention S={S}: the planted keys did not "
+                                     "dominate")
+            worst = max(worst, record("decode_attention", f"decode_attention planted S={S} "
+                                      f"lut={lut}", got, want, TOL["bfloat16"]))
+        log(f"  decode_attention 12 heads / 2 kv heads, D=128, arena {S}, lengths {lens}, "
+            f"planted keys (cluster {cs}, windows of {win} blocks), exact vs plain and LUT vs "
+            f"the online walk: max_abs_err {worst:.3e} (tol {TOL['bfloat16']})")
+        del k, v
 
     x32 = randn(16, 128, 128, std=4.0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -967,8 +1046,24 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
         keys = sum(lens) * H
         bnd, by = bound_ms(2 * keys * D * 2 + 2 * (2 * 4 * H * D) + 4 * 4, 4 * keys * D,
                            "bfloat16")
+        # The int8 arena (bf16 scale rows): the kernel reading it, and the
+        # eager dequantization then the kernel, as before.
+        int8 = [tuple(torch.randint(-127, 128, (4, H, S, D), generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+                + tuple((torch.rand((4, H, S), generator=gen, device=dev) * 0.05).bfloat16()
+                        for _ in range(2)) for _ in range(L)]
+        ms8 = time_graph(torch, lambda i: attn.decode_attention(
+            q, *int8[i][:2], lengths, *int8[i][2:]), L)
+        deq8 = time_graph(torch, lambda i: attn.decode_attention(
+            q, *attn.dequantize_arena(q, *int8[i]), lengths), L)
+        bnd8, _ = bound_ms(2 * keys * (D + 2) + 2 * (2 * 4 * H * D) + 4 * 4, 4 * keys * D,
+                           "bfloat16")
+        log(f"  decode_attention int8 arena {S} [lengths {lens}]: {ms8 * 1e3:.2f} us reading "
+            f"it, {deq8 * 1e3:.2f} us dequantized first (eager), bound {bnd8 * 1e3:.2f} us")
+        del int8
         row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
-                   shape=f"B=4 H=16 D=64 arena {S}, lengths {lens}, bf16")
+                   shape=f"B=4 H=16 D=64 arena {S}, lengths {lens}, bf16 (int8 arena "
+                   f"{ms8 * 1e3:.2f} us, dequantized first {deq8 * 1e3:.2f} us)")
         if S == 256:
             out["decode_attention"] = row
         else:
@@ -1273,6 +1368,52 @@ def check_wide_decode(torch, tlut, quantize, paged_attention, seed):
             f"{H} heads / {Hkv} kv heads, D={D} (g x D {H // Hkv * D}), lengths 384/250/97, "
             f"every pool format, exact vs plain and LUT vs the page walk: within "
             f"{TOL['bfloat16']}")
+    return worst
+
+
+def check_split_planted(torch, tlut, quantize, paged_attention, seed):
+    """The KV split as a decode step routes it (`paged_attention(...,
+    kv_splits=K)`: the split kernel, then merge_partials), on planted keys: the main
+    path's shape (4 slots x 16 heads, D 64, a 64-page table, lengths 1, 333,
+    960 and 1024) at K 4, 8 and 16 on every pool format, and qwen2-1.5B's
+    widths (12 query heads over 2 kv heads, D 128, 131072 keys) at K 8 on
+    bf16, int8 and int4 pools (clusters of 8 blocks a split); exact against
+    the plain split, LUT against the online walk over K runs, bf16, at TOL.
+    Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    bank = tlut.LutBank.create(64)
+    worst = 0.0
+    for (B, H, Hkv, D, n_pages, lens, fmts, ks_) in [
+            (4, 16, 16, 64, 64, [1, 333, 960, 1024], tuple(POOLS), (4, 8, 16)),
+            (1, 12, 2, 128, 8192, [131072], ("fp", "int8/bf16", "int4/bf16"), (8,))]:
+        q, k32, v32, tables, lengths = wide_decode_case(torch, gen, B, H, Hkv, D, n_pages, lens,
+                                                        hot=6)
+        for fmt in fmts:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            for splits in ks_:
+                for opts in ({}, {"exp_table": bank.exp}):
+                    got = paged_attention.paged_attention(
+                        q, k, v, tables, lengths, ks, vs, kv_splits=splits, **opts)
+                    torch.cuda.synchronize()
+                    if opts:
+                        want = paged_attention.paged_attention_online_plain(
+                            q, k, v, tables, lengths, ks, vs, splits=splits, **opts)
+                    else:
+                        want = paged_attention.paged_attention_split_plain(
+                            q, k, v, tables, lengths, ks, vs, kv_splits=splits)
+                    label = f"split K={splits} {H}/{Hkv} heads D={D} {lens} {fmt} {sorted(opts)}"
+                    if float(want.float().abs().amax()) <= 0.5:
+                        raise AssertionError(f"{label}: the planted keys did not dominate")
+                    worst = max(worst, compare(torch, label, got, want, TOL["bfloat16"]))
+            del k, v, ks, vs
+        cs, win = paged_attention.split_plan(B, Hkv, ks_[0], n_pages, H // Hkv, D, 16, 2 * D)
+        log(f"  paged_attention(kv_splits=K) (split + merge_partials) on planted keys, "
+            f"{H} heads / {Hkv} kv heads, D={D}, lengths {lens}, "
+            f"K={'/'.join(map(str, ks_))}, pools {'/'.join(fmts)}, exact vs plain and LUT "
+            f"vs the online walk (K={ks_[0]}: "
+            f"cluster {cs}, windows of {win} pages): max_abs_err {worst:.3e} "
+            f"(tol {TOL['bfloat16']})")
+        del k32, v32
     return worst
 
 
@@ -1925,8 +2066,9 @@ def time_dense_decode(torch, api, params, cfg, sal, max_len, lens, label, card):
     """ms per dense decode step at 4 slots with the given lengths, on an
     arena of random contents (the step's time does not depend on them):
     host clock around eager steps, and the device alone, the step replayed
-    as a CUDA graph; for the int8 arena also the device time of its
-    whole-arena dequantization, which every layer runs before the kernel."""
+    as a CUDA graph; for the int8 arena also the device time of the JAX
+    package's eager whole-arena dequantization, which the kernel's own
+    int8 read replaces, for comparison."""
     dev = params["embed"].device
     cache = api.init_cache(cfg, 4, max_len, device=dev)
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -1958,7 +2100,8 @@ def time_dense_decode(torch, api, params, cfg, sal, max_len, lens, label, card):
             for x, s in ((cache.k[i], cache.k_scale[i]), (cache.v[i], cache.v_scale[i])):
                 x.to(cfg.cdtype) * s[..., None].to(cfg.cdtype)
         deq = time_graph(torch, dequant, cfg.n_layers) * cfg.n_layers
-    extra = f", of which dequantizing the int8 arena {deq:.2f} ms" if deq else ""
+    extra = (f"; the eager whole-arena dequantization, which the kernel's int8 read "
+             f"replaces, takes {deq:.2f} ms" if deq else "")
     log(f"  dense decode step [{label}] ({card}): {host:.2f} ms eager on the host clock, "
         f"{device:.2f} ms on the device{extra} (host share {1 - device / host:.0%}), 4 "
         f"slots x {lens} context, arena {max_len} positions ({arena / 2 ** 20:.1f} MiB)")
@@ -2036,9 +2179,11 @@ def main() -> int:
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check_wide_decode(torch, tlut, quantize, paged_attention,
                                                     args.seed))
+    errs["paged_attention_split"] = max(errs["paged_attention_split"], check_split_planted(
+        torch, tlut, quantize, paged_attention, args.seed))
     errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
-    errs.update(check_dense_kernels(torch, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
-                                    args.seed))
+    errs.update(check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut,
+                                    layernorm_lut, lut_interp, args.seed))
     cfg = gpt2_medium.config()
     params = api.init_params(cfg, seed=args.seed, device="cuda")
     qparams = quantize.quantize_params_int8(params)

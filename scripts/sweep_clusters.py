@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's two clustered kernels at every cluster size, on one GPU.
+"""Time the port's clustered kernels at every cluster size, on one GPU.
 
     python3 scripts/sweep_clusters.py
 
 The single-walk paged decode (`kernels/paged_attention.py`) at 4 slots x
 16 heads x head_dim 64, bf16 pools, page 16, over a 16-page table (64..256
 keys) and a 64-page table (16, 256 and 960..1024 keys), with the cluster
-forced to 1, 2, 4 and 8 blocks. The tensor-core GEMV (`kernels/gemv_pim.py`)
+forced to 1, 2, 4 and 8 blocks; the same walk over the dense arena
+(`kernels/decode_attention.py`) at 128..160 keys of a 256 arena and
+960..1020 of a 1024 arena, and the KV split with its combine
+(`merge_partials`) at K = 4 and 8 over the 960..1024-key table, with each split's cluster
+forced to 1, 2, 4 and 8 where it has the pages (the planners' choices
+named). The tensor-core GEMV (`kernels/gemv_pim.py`)
 over GPT-2 medium's d x d, w_up and w_down shapes: at M=4 (a decode step)
 with the cluster forced to 1, 2, 4 and 8, and at M=64 (a prefill chunk),
 128, 256 and 512 (a 4 x 128-token prefill) over token tiles from 16 to
@@ -36,7 +41,7 @@ def main() -> int:
         print("sweep_clusters.py: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import bound_ms, time_graph
-    from repro_torch.kernels import gemv_pim, paged_attention
+    from repro_torch.kernels import decode_attention, gemv_pim, paged_attention
 
     def us(fn):
         return 1e3 * time_graph(torch, fn, L)
@@ -64,6 +69,31 @@ def main() -> int:
             cold, warm = us(run), us(lambda i: run(0))
             print(f"paged decode, {n_tbl}-page table, lengths {lens}, cluster {cs}: "
                   f"cold {cold:.2f} us, warm {warm:.2f} us", flush=True)
+        if lens[0] < 960:
+            continue
+        for K in (4, 8):
+            planned = paged_attention.split_plan(B, H, K, n_tbl, 1, D, page, 2 * D)
+            for cs in (c for c in (1, 2, 4, 8) if c <= n_tbl // K):
+                def run(i, cs=cs, K=K):
+                    return paged_attention.merge_partials(*paged_attention.paged_attention_split(
+                        q, *pools[i], tables, lengths, kv_splits=K,
+                        plan=(cs, -(-n_tbl // K // cs))), q.dtype)
+                print(f"split K={K} + merge_partials, {n_tbl}-page table, lengths {lens}, "
+                      f"cluster {cs} (planned {planned[0]}): cold {us(run):.2f} us",
+                      flush=True)
+    for S, lens in ((256, [128, 137, 151, 160]), (1024, [960, 981, 1003, 1020])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+        arenas = [tuple(torch.randn((B, H, S, D), generator=gen, device=dev).bfloat16()
+                        for _ in range(2)) for _ in range(L)]
+        planned = paged_attention.arena_plan(B, H, S, 1, D, 2 * D)
+        for cs in (c for c in (1, 2, 4, 8) if c <= S // 256):
+            def run(i, cs=cs):
+                return decode_attention.decode_attention(q, *arenas[i], lengths,
+                                                         plan=(cs, -(-S // 256 // cs)))
+            cold, warm = us(run), us(lambda i: run(0))
+            print(f"dense decode, arena {S}, lengths {lens}, cluster {cs} (planned "
+                  f"{planned[0]}): cold {cold:.2f} us, warm {warm:.2f} us", flush=True)
     for R, C in [(1024, 1024), (4096, 1024), (1024, 4096)]:
         ws = [torch.randn((R, C), generator=gen, device=dev).bfloat16() for _ in range(L)]
         x = torch.randn((4, C), generator=gen, device=dev).bfloat16()

@@ -113,11 +113,13 @@ class SalPimEngine:
     def _exp_table(self):
         return self.nl.bank.exp if self.nl.mode == "lut" else None
 
-    def decode_attention(self, q, k, v, length, *, scale: Optional[float] = None,
+    def decode_attention(self, q, k, v, length, k_scale=None, v_scale=None, *,
+                         scale: Optional[float] = None,
                          softcap: Optional[float] = None,
                          window: Optional[int] = None) -> torch.Tensor:
-        """Decode attention over a dense per-slot arena k/v (B, Hkv, S, D)."""
-        return ops.pim_decode_attention(q, k, v, length, scale=scale,
+        """Decode attention over a dense per-slot arena k/v (B, Hkv, S, D);
+        the int8 arena passes its scale rows."""
+        return ops.pim_decode_attention(q, k, v, length, k_scale, v_scale, scale=scale,
                                         exp_table=self._exp_table(),
                                         softcap=softcap, window=window)
 

@@ -1,14 +1,12 @@
-// The block-table page walk of the KV-split decode and of the CUDA-core
-// paged prefill (paged_attention_split.cu, paged_prefill.cu); its pool
-// formats, their row readers (Row) and the dispatch also serve the
-// single-walk decode (paged_attention.cu) and the tensor-core prefill.
+// The block-table page walk of the CUDA-core (f32) paged prefill
+// (paged_prefill.cu); its pool formats, their row readers (Row) and the
+// dispatch also serve the decode walk (decode_walk.cuh: the single walk,
+// the KV split and the dense arena) and the tensor-core prefill.
 //
-// One thread block owns `rows` query rows of one (sequence b, kv head h):
-// g rows for decode, a block of the Sq * g rows of a prefill chunk. It
-// walks the sequence's block table itself (Hopper has no scalar prefetch)
-// over the logical pages [page_lo, page_hi) it is given: all of them for
-// decode and prefill, one split's run of pages for the KV-split kernel.
-// It stages a chunk of up to kMaxChunkPages pages of K and V in shared
+// One thread block owns `rows` query rows of one (sequence b, kv head h),
+// a block of the Sq * g rows of a prefill chunk. It walks the sequence's
+// block table itself (Hopper has no scalar prefetch) over the logical
+// pages [page_lo, page_hi) it is given. It stages a chunk of up to kMaxChunkPages pages of K and V in shared
 // memory as fp32, and then runs the TPU kernels' online softmax page by
 // page, in the same order and with the same algebra:
 //
@@ -18,13 +16,10 @@
 //   p = LUT(scores - m_new), corr = LUT(max(m_prev - m_new, lo)) LUT
 //   p = 0 outside the mask; l = l * corr + sum(p); acc = acc * corr + p . v
 //
-// and the caller writes acc / max(l, 1e-9), or the raw (m, l, acc)
-// partials of a split. A key position k is valid for the row with
+// and the caller writes acc / max(l, 1e-9). A key position k is valid for the row with
 // absolute query position qpos when k < length, k <= qpos and, with a
 // window, k > qpos - window. Pages past the last valid key of the block
-// are not read, so a split whose run starts there reads no page and keeps
-// the empty partial (-1e30, 0, 0). Physical page ids outside the pool
-// read the trash page 0.
+// are not read. Physical page ids outside the pool read the trash page 0.
 //
 // Pool formats (template parameter Pool of the staging copy), each
 // widened to fp32 as it is staged, as `_dequant_page` does after its DMA:
@@ -36,8 +31,8 @@
 //                high nibble, sign-extended in int arithmetic, times the
 //                row's scale.
 //
-// The walk is latency-bound at the engine's sizes (one row per block for
-// GPT-2 decode, 16 for a prefill block), so each pass spreads its work over
+// The walk is latency-bound at the engine's sizes (16 rows a prefill
+// block), so each pass spreads its work over
 // the whole block and keeps independent work in flight per thread: the
 // staging copy issues kLoadIlp 16-byte loads of K and of V before it
 // stores any, each (row, key) dot product is split over a group of up to
@@ -191,50 +186,71 @@ struct Int4Pool {
 };
 
 // A K/V row in the pool's storage type, unscaled, for the kernels that
-// stage pages as stored (paged_attention.cu, paged_prefill.cu's tensor-core
-// kernel): bytes and elems, the row's payload bytes and elements; dot16,
-// q . the 16-byte vector at byte offset o of the row; dot1, q . payload
-// element e; at, element dd (0..D-1) of the row.
+// stage pages as stored (decode_walk.cuh, paged_prefill.cu's tensor-core
+// kernel): bytes and elems, the row's payload bytes and elements; at,
+// element dd (0..D-1) of the row. The decode walk's scores read a row in
+// units: kUnit bytes a unit when vec_units (16-byte vectors of rows staged
+// by cp.async), else one payload element; dotu is q . unit u and acc1 adds
+// q . payload element e to acc; val is element dd times the row's scale sc
+// (dotu and acc1 leave the scale to the caller: kInline is false).
 template <class Pool> struct Row;
 
 template <typename T>
 struct Row<FpPool<T>> {
+  static constexpr int kUnit = 16;
+  static constexpr bool kInline = false;
   __host__ __device__ static int bytes(int d) { return d * (int)sizeof(T); }
   __device__ static int elems(int d) { return d; }
-  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int) {
+  __device__ static bool vec_units(int, int vec) { return vec != 0; }
+  __device__ __forceinline__ static float dotu(const uint8_t* p, const float* q, int u, int,
+                                               float) {
     constexpr int N = common::Vec<T>::N;
     float f[N];
-    common::Vec<T>::widen(raw, f);
-    const float* qq = q + o / (int)sizeof(T);
+    common::Vec<T>::widen(common::ld16(p), f);
+    const float* qq = q + u * N;
     float s = 0.0f;
 #pragma unroll
     for (int n = 0; n < N; ++n) s = fmaf(qq[n], f[n], s);
     return s;
   }
-  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int) {
-    return q[e] * to_f(reinterpret_cast<const T*>(row)[e]);
+  __device__ __forceinline__ static float acc1(const uint8_t* row, const float* q, int e, int,
+                                               float acc, float) {
+    return fmaf(q[e], to_f(reinterpret_cast<const T*>(row)[e]), acc);
   }
   __device__ __forceinline__ static float at(const uint8_t* row, int dd, int) {
     return to_f(reinterpret_cast<const T*>(row)[dd]);
+  }
+  __device__ __forceinline__ static float val(const uint8_t* row, int dd, int d, float sc) {
+    return at(row, dd, d) * sc;
   }
 };
 
 template <typename S>
 struct Row<Int8Pool<S>> {
+  static constexpr int kUnit = 16;
+  static constexpr bool kInline = false;
   __host__ __device__ static int bytes(int d) { return d; }
   __device__ static int elems(int d) { return d; }
-  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int) {
+  __device__ static bool vec_units(int, int vec) { return vec != 0; }
+  __device__ __forceinline__ static float dotu(const uint8_t* p, const float* q, int u, int,
+                                               float) {
+    const uint4 raw = common::ld16(p);
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    const float* qq = q + 16 * u;
     float s = 0.0f;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) s = fmaf(q[o + n], (float)b[n], s);
+    for (int n = 0; n < 16; ++n) s = fmaf(qq[n], (float)b[n], s);
     return s;
   }
-  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int) {
-    return q[e] * (float)reinterpret_cast<const int8_t*>(row)[e];
+  __device__ __forceinline__ static float acc1(const uint8_t* row, const float* q, int e, int,
+                                               float acc, float) {
+    return fmaf(q[e], (float)reinterpret_cast<const int8_t*>(row)[e], acc);
   }
   __device__ __forceinline__ static float at(const uint8_t* row, int dd, int) {
     return (float)reinterpret_cast<const int8_t*>(row)[dd];
+  }
+  __device__ __forceinline__ static float val(const uint8_t* row, int dd, int d, float sc) {
+    return at(row, dd, d) * sc;
   }
 };
 
@@ -243,26 +259,36 @@ struct Row<Int8Pool<S>> {
 template <typename S>
 struct Row<Int4Pool<S>> {
   using F = Int4Pool<S>;
+  static constexpr int kUnit = 16;
+  static constexpr bool kInline = false;
   __host__ __device__ static int bytes(int d) { return d / 2; }
   __device__ static int elems(int d) { return d / 2; }
-  __device__ __forceinline__ static float dot16(const uint4& raw, const float* q, int o, int d) {
+  __device__ static bool vec_units(int, int vec) { return vec != 0; }
+  __device__ __forceinline__ static float dotu(const uint8_t* p, const float* q, int u, int d,
+                                               float) {
+    const uint4 raw = common::ld16(p);
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    const float* qq = q + 16 * u;
     float s = 0.0f;
 #pragma unroll
     for (int n = 0; n < 16; ++n) {
-      s = fmaf(q[o + n], F::lo4(b[n]), s);
-      s = fmaf(q[o + n + d / 2], F::hi4(b[n]), s);
+      s = fmaf(qq[n], F::lo4(b[n]), s);
+      s = fmaf(qq[n + d / 2], F::hi4(b[n]), s);
     }
     return s;
   }
-  __device__ __forceinline__ static float dot1(const uint8_t* row, const float* q, int e, int d) {
+  __device__ __forceinline__ static float acc1(const uint8_t* row, const float* q, int e, int d,
+                                               float acc, float) {
     const int v = reinterpret_cast<const int8_t*>(row)[e];
-    return q[e] * F::lo4(v) + q[e + d / 2] * F::hi4(v);
+    return fmaf(q[e + d / 2], F::hi4(v), fmaf(q[e], F::lo4(v), acc));
   }
   __device__ __forceinline__ static float at(const uint8_t* row, int dd, int d) {
     const int h = d / 2;
     const int v = reinterpret_cast<const int8_t*>(row)[dd < h ? dd : dd - h];
     return dd < h ? F::lo4(v) : F::hi4(v);
+  }
+  __device__ __forceinline__ static float val(const uint8_t* row, int dd, int d, float sc) {
+    return at(row, dd, d) * sc;
   }
 };
 

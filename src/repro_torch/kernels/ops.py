@@ -94,14 +94,15 @@ def pim_paged_prefill_attention(q, k_pages, v_pages, block_tables, length,
         **kw)
 
 
-def pim_decode_attention(q, k, v, length, *, scale=None,
+def pim_decode_attention(q, k, v, length, k_scale=None, v_scale=None, *, scale=None,
                          exp_table: LutTable | None = None, softcap=None,
                          window=None) -> torch.Tensor:
-    """Decode attention over a dense arena: q (B, H, D), k/v (B, Hkv, S, D)."""
+    """Decode attention over a dense arena: q (B, H, D), k/v (B, Hkv, S, D);
+    the int8 arena passes its (B, Hkv, S) bf16 scale rows."""
     kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
     if q.device.type == "cpu":
-        return attn_k.decode_attention_plain(q, k, v, length, **kw)
-    return attn_k.decode_attention(q, k, v, length, **kw)
+        return attn_k.decode_attention_plain(q, k, v, length, k_scale, v_scale, **kw)
+    return attn_k.decode_attention(q, k, v, length, k_scale, v_scale, **kw)
 
 
 def pim_layernorm(x, gamma, beta=None, *, eps: float = 1e-5,

@@ -11,16 +11,19 @@ the TPU kernel, computes the page-ordered online softmax, another
 function (LUT(a) LUT(b) != LUT(a + b)): `paged_attention_online_plain` is
 that walk in plain PyTorch, and `online_walk` its core, shared with the
 prefill's reference. `decode_plan` picks how many blocks of a cluster
-share one (slot, kv head) and the window a block walks at a time.
+share one (slot, kv head) and the window a block walks at a time;
+`split_plan` does the same for a split's run and `arena_plan` for the dense
+arena of `decode_attention`, whose kernel is the same walk
+(`csrc/decode_walk.cuh`).
 
 With `kv_splits` > 1 and a block table of at least `KV_SPLIT_MIN_CONTEXT`
 tokens (`effective_kv_splits`), `paged_attention` routes to the KV-split
 kernels of `csrc/paged_attention_split.cu`, which replace
 `_paged_attention_split`: `paged_attention_split` writes raw (m, l, acc)
-partials per run of pages and `merge_partials` combines them. Their plain
-versions are `paged_attention_split_plain` (the twin of
-`ref.paged_attention_split_ref`) and
-`distributed.collectives.merge_partial_softmax_stacked`.
+partials per run of pages and `merge_partials` combines them in a second
+launch. Their plain versions are
+`paged_attention_split_plain` (the twin of `ref.paged_attention_split_ref`)
+and `distributed.collectives.merge_partial_softmax_stacked`.
 
 q (B, H, D) holds one query per sequence; the pools (P, Hkv, page, D) are
 shared by all sequences and read through block_tables (B, n_pages);
@@ -41,7 +44,7 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.distributed.collectives import merge_partial_softmax_stacked
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import _exp, decode_attention_plain
+from repro_torch.kernels.decode_attention import BLOCK_S, _exp, decode_attention_plain
 from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
 from repro_torch.kernels._build import cfunc as _fn, ptr, stream as _stream
 from repro_torch.serving.quantize import unpack_int4
@@ -59,8 +62,8 @@ KV_SPLIT_MIN_CONTEXT = 1024
 # scripts/sweep_clusters.py on the H100 80GB HBM3 at 700 W.)
 DECODE_MAX_CLUSTER = 8
 
-# A block of the single walk keeps a window of its run in shared memory
-# (csrc/paged_attention.cu, `layout`): a ring of DECODE_STAGES stages of
+# A block of the decode walk keeps a window of its run in shared memory
+# (csrc/decode_walk.cuh, `layout`): a ring of DECODE_STAGES stages of
 # about DECODE_STAGE_BYTES, every key's scores (one float a query row) and
 # K and V scales, each page's m_j, weight and page id, the run's state and
 # fixed pieces, in all at most DECODE_SMEM_MAX bytes. A run that does not
@@ -70,70 +73,112 @@ DECODE_STAGES = 4
 DECODE_STAGE_BYTES = 16384
 DECODE_THREADS = 256
 DECODE_SMEM_MAX = 227 * 1024
+# The arena's ring: 2 stages of up to 32 KB (a 256-key block of bf16 at
+# head_dim 64 in one piece), the same 64 KB.
+ARENA_STAGES = 2
+ARENA_STAGE_BYTES = 32768
+
+# The dense arena's "page": the TPU decode_attention kernel's 256-key
+# online-softmax block (kernels/decode_attention.BLOCK_S).
+ARENA_PAGE = BLOCK_S
+
+def decode_chunk_pages(page: int, row_bytes: int, win_pages: int,
+                       stage_bytes: int = DECODE_STAGE_BYTES) -> int:
+    """Pages a ring stage of the walk holds when a page fits a stage."""
+    return max(1, min(stage_bytes // (page * row_bytes), win_pages))
 
 
-def decode_chunk_pages(page: int, row_bytes: int, win_pages: int) -> int:
-    """Pages a ring stage of the single walk holds (the kernel's
-    `chunk_pages`)."""
-    return max(1, min(DECODE_STAGE_BYTES // (page * row_bytes), win_pages))
+def decode_chunk_keys(page: int, row_bytes: int, win_pages: int,
+                      stage_bytes: int = DECODE_STAGE_BYTES) -> int:
+    """Keys a ring stage holds (the kernel's `chunk_keys`): whole pages
+    (`decode_chunk_pages`), or for a page larger than a stage the largest
+    divisor of the page that fits one."""
+    if page * row_bytes <= stage_bytes:
+        return decode_chunk_pages(page, row_bytes, win_pages, stage_bytes) * page
+    return max(c for c in range(1, page + 1)
+               if page % c == 0 and c * row_bytes <= stage_bytes)
+
+
+def _ring(arena: bool) -> tuple[int, int]:
+    return (ARENA_STAGES, ARENA_STAGE_BYTES) if arena else (DECODE_STAGES, DECODE_STAGE_BYTES)
 
 
 def decode_smem_bytes(g: int, D: int, page: int, win_pages: int, row_bytes: int,
-                      cluster: int = DECODE_MAX_CLUSTER) -> int:
-    """Shared memory of a single-walk block whose window holds `win_pages`
-    pages of `row_bytes`-byte K/V rows, for g query rows of head_dim D in a
-    cluster of `cluster` blocks: the kernel's `layout`, each piece rounded
-    up to 16 bytes."""
+                      cluster: int = DECODE_MAX_CLUSTER, arena: bool = False) -> int:
+    """Shared memory of a walk block whose window holds `win_pages` pages
+    of `row_bytes`-byte K/V rows, for g query rows of head_dim D in a
+    cluster of `cluster` blocks, with the pools' ring or the arena's: the
+    kernel's `layout`, each piece rounded up to 16 bytes."""
     def take(n):
         return -(-n // 16) * 16
-    page_bytes = page * row_bytes
-    chunk = decode_chunk_pages(page, row_bytes, win_pages)
+    stages, stage_bytes = _ring(arena)
+    stage = decode_chunk_keys(page, row_bytes, win_pages, stage_bytes) * row_bytes
     keys = win_pages * page
-    return (take(DECODE_STAGES * chunk * page_bytes) + take(8 * DECODE_STAGES)
+    return (take(stages * stage) + take(8 * stages)
             + take(4 * g * D) + take(4 * g * keys) + 2 * take(4 * keys)
             + 2 * take(4 * g * win_pages) + take(4 * win_pages) + take(4 * DECODE_THREADS)
             + take(4 * cluster * g) + take(4 * cluster * (2 * g + g * D))
             + take(8 * _build.MAX_TABLE_ROWS) + take(4 * 5 * g) + 2 * take(4 * g * D))
 
 
-def decode_window_pages(g: int, D: int, page: int, row_bytes: int, cluster: int) -> int:
+def decode_window_pages(g: int, D: int, page: int, row_bytes: int, cluster: int,
+                        arena: bool = False) -> int:
     """The widest window (pages) of whole ring stages that fits one block's
     shared memory in a cluster of `cluster` blocks (0 when not one stage
     fits)."""
-    chunk = decode_chunk_pages(page, row_bytes, 1 << 30)
+    step = max(1, decode_chunk_keys(page, row_bytes, 1 << 30, _ring(arena)[1]) // page)
     n = 0
-    while decode_smem_bytes(g, D, page, (n + 1) * chunk, row_bytes, cluster) <= DECODE_SMEM_MAX:
+    while decode_smem_bytes(g, D, page, (n + 1) * step, row_bytes, cluster,
+                            arena) <= DECODE_SMEM_MAX:
         n += 1
-    return n * chunk
+    return n * step
 
 
 def decode_plan(B: int, Hkv: int, n_pages: int, g: int, D: int, page: int,
-                row_bytes: int) -> tuple[int, int]:
-    """(cluster, window pages) of the single-walk kernel. The cluster is
-    doubled from 1 while B * Hkv * cluster < `_build.SMS` and every block
-    keeps at least one page of the table, at most DECODE_MAX_CLUSTER; then
-    doubled further while a block's run of pages does not fit its shared
-    memory. A run that still does not fit is walked in the widest windows
-    that do (`decode_window_pages`); a cluster too large for even one
-    window is halved. Raises ValueError only when not one ring stage of
-    g x D fits a block."""
+                row_bytes: int, name: str = "paged_attention",
+                arena: bool = False) -> tuple[int, int]:
+    """(cluster, window pages) of the walk. The cluster is doubled from 1
+    while B * Hkv * cluster < `_build.SMS` and every block keeps at least
+    one page of the table, at most DECODE_MAX_CLUSTER; then doubled further
+    while a block's run of pages does not fit its shared memory. A run that
+    still does not fit is walked in the widest windows that do
+    (`decode_window_pages`); a cluster too large for even one window is
+    halved. Raises ValueError, naming the kernel, only when not one ring
+    stage of g x D fits a block."""
     cs = 1
     while cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages and B * Hkv * cs < _build.SMS:
         cs *= 2
-    while (decode_smem_bytes(g, D, page, -(-n_pages // cs), row_bytes, cs) > DECODE_SMEM_MAX
-           and cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages):
+    while (decode_smem_bytes(g, D, page, -(-n_pages // cs), row_bytes, cs, arena)
+           > DECODE_SMEM_MAX and cs < DECODE_MAX_CLUSTER and 2 * cs <= n_pages):
         cs *= 2
     run = -(-n_pages // cs)
-    if decode_smem_bytes(g, D, page, run, row_bytes, cs) <= DECODE_SMEM_MAX:
+    if decode_smem_bytes(g, D, page, run, row_bytes, cs, arena) <= DECODE_SMEM_MAX:
         return cs, run
     while cs >= 1:
-        win = decode_window_pages(g, D, page, row_bytes, cs)
+        win = decode_window_pages(g, D, page, row_bytes, cs, arena)
         if win:
             return cs, win
         cs //= 2
-    raise ValueError(f"paged_attention: not one page of {g} query heads a kv head x "
+    raise ValueError(f"{name}: not one page of {g} query heads a kv head x "
                      f"head_dim {D} ({row_bytes}-byte K/V rows, page {page}) fits "
                      f"{DECODE_SMEM_MAX} bytes of shared memory")
+
+
+def split_plan(B: int, Hkv: int, splits: int, n_table: int, g: int, D: int, page: int,
+               row_bytes: int) -> tuple[int, int]:
+    """(cluster, window pages) of the KV-split kernel: `decode_plan` over
+    B * Hkv * splits clusters, each walking one split's run of
+    ceil(n_table / splits) pages."""
+    return decode_plan(B * Hkv * splits, 1, -(-n_table // splits), g, D, page, row_bytes,
+                       name="paged_attention_split")
+
+
+def arena_plan(B: int, Hkv: int, S: int, g: int, D: int, row_bytes: int) -> tuple[int, int]:
+    """(cluster, window blocks) of `decode_attention`: `decode_plan` over
+    the arena's ceil(S / 256) blocks of ARENA_PAGE keys, with the arena's
+    ring."""
+    return decode_plan(B, Hkv, -(-S // ARENA_PAGE), g, D, ARENA_PAGE, row_bytes,
+                       name="decode_attention", arena=True)
 
 
 def effective_kv_splits(kv_splits: int | None, n_pages: int,
@@ -426,10 +471,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, length,
     P, Hkv, page, _ = k_pages.shape
     splits = effective_kv_splits(kv_splits, block_tables.shape[1], page)
     if splits is not None:
-        m, l, acc = paged_attention_split(
-            q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
-            kv_splits=splits, scale=scale, exp_table=exp_table,
-            softcap=softcap, window=window)
+        kw = dict(kv_splits=splits, scale=scale, exp_table=exp_table, softcap=softcap,
+                  window=window)
+        m, l, acc = paged_attention_split(q, k_pages, v_pages, block_tables, length,
+                                          k_scales, v_scales, **kw)
         return merge_partials(m, l, acc, q.dtype)
     n_table = block_tables.shape[1]
     if B == 0 or n_table == 0:
@@ -470,9 +515,13 @@ def paged_attention_split(q, k_pages, v_pages, block_tables, length,
                           scale: float | None = None,
                           exp_table: LutTable | None = None,
                           softcap: float | None = None,
-                          window: int | None = None):
+                          window: int | None = None,
+                          plan: tuple[int, int] | None = None):
     """Launch the KV-split kernel over min(kv_splits, n_pages) runs of
-    pages: raw f32 partials m, l (B, Hkv, K, g, 1) and acc (B, Hkv, K, g, D)."""
+    pages: raw f32 partials m, l (B, Hkv, K, g, 1) and acc (B, Hkv, K, g,
+    D). `plan` (cluster, window pages)
+    replaces `split_plan`'s (scripts/sweep_clusters.py; the C entry checks
+    it)."""
     fmt = check_paged_args("paged_attention_split", q, k_pages, v_pages,
                            block_tables, [("length", length)], k_scales, v_scales,
                            exp_table, window, softcap)
@@ -486,13 +535,15 @@ def paged_attention_split(q, k_pages, v_pages, block_tables, length,
     acc = torch.empty((B, Hkv, splits, g, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return m, l, acc
+    row_bytes = k_pages.shape[-1] * k_pages.element_size()
+    cluster, win = plan or split_plan(B, Hkv, splits, n_table, g, D, page, row_bytes)
     wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
     lib = _build.library("paged_attention_split")
-    rc = _fn(lib, "paged_attention_split", "p" * 11 + "i" * 8 + "ffiiffiii" + "p")(
+    rc = _fn(lib, "paged_attention_split", "p" * 11 + "i" * 8 + "ffiiffiii" + "iip")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
         ptr(v_scales), block_tables.data_ptr(), length.data_ptr(), wb,
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, Hkv, D, page, P,
-        n_table, splits, *masks, _DTYPE_CODE[q.dtype], fmt, _stream(q))
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, Hkv, D, page, P, n_table, splits,
+        *masks, _DTYPE_CODE[q.dtype], fmt, cluster, win, _stream(q))
     _build.check(lib, "paged_attention_split", rc)
     paged_attention_split.launches += 1
     return m, l, acc

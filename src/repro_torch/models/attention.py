@@ -7,8 +7,9 @@ The full-sequence form keeps the JAX package's two einsums (Q x K^T and
 S x V over the same (B, S, Hkv, D) layout), outside any kernel as in the
 JAX package; the softmax between them goes through the engine, the
 `softmax_lut` kernel in LUT mode. Decode over the dense arena runs the
-`decode_attention` kernel; the int8 arena is dequantized whole before it,
-as the JAX package does."""
+`decode_attention` kernel, which reads the int8 arena with its scale rows
+itself, bit for bit as the JAX package's whole-arena dequantization before
+the kernel (the plain version runs that dequantization)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -145,12 +146,8 @@ def attention_decode(
         b_idx = torch.arange(B, device=x.device)
         for dst, src in writes:
             dst[b_idx, :, lengths.long()] = src.to(dst.dtype)
-    if int8_kv:
-        k_read = cache_k.to(q.dtype) * ksc[..., None].to(q.dtype)
-        v_read = cache_v.to(q.dtype) * vsc[..., None].to(q.dtype)
-    else:
-        k_read, v_read = cache_k, cache_v
-    att = engine.decode_attention(q, k_read, v_read, lengths + 1, scale=_scale(cfg),
+    att = engine.decode_attention(q, cache_k, cache_v, lengths + 1,
+                                  *(kv_scales if int8_kv else ()), scale=_scale(cfg),
                                   softcap=cfg.attn_softcap, window=window)
     out = engine.linear(att.reshape(B, -1), p["wo"])
     if int8_kv:

@@ -43,6 +43,7 @@ from repro_torch.core.nonlinear import Nonlinear
 from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
 from repro_torch.core.salpim import SalPimEngine as TSalPimEngine
 from repro_torch.kernels import decode_attention, layernorm_lut, lut_interp, ops, softmax_lut
+from repro_torch.kernels import paged_attention
 from repro_torch.models import api
 from repro_torch.serving import engine as tengine
 from repro_torch.serving.config import EngineConfig, GenConfig
@@ -250,6 +251,84 @@ def test_decode_attention_plain_matches_jax(jx, opts):
     _close(online, jx.attn.decode_attention(*args, interpret=True, **jkw))
     if not opts.get("lut"):
         _close(online, dense)
+
+
+def _int8_arena(B, Hkv, S, D, seed=0):
+    """An int8 arena with bf16 scale rows, made with numpy from a seed."""
+    rng = np.random.RandomState(seed)
+    k8, v8 = (rng.randint(-127, 128, size=(B, Hkv, S, D)).astype(np.int8) for _ in range(2))
+    ks, vs = ((rng.rand(B, Hkv, S) * 0.05 + 1e-3).astype(np.float32) for _ in range(2))
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("opts", ATTN_OPTS)
+def test_int8_arena_plain_matches_jax_on_the_dequantized_arena(jx, dtype, opts):
+    """The plain version on the int8 arena (its scale rows passed) runs the
+    JAX package's eager dequantization: the dequantized arena equals JAX's
+    `k.astype(q.dtype) * k_scale[..., None].astype(q.dtype)` bit for bit in
+    f32 and bf16, and the output matches `ref.decode_attention_ref` on it
+    within 1e-5 in f32."""
+    B, H, Hkv, S, D = 4, 4, 2, 512, 16
+    q, _, _ = _arena_inputs(B, H, Hkv, S, D, seed=5)
+    k8, v8, ks, vs = _int8_arena(B, Hkv, S, D, seed=5)
+    lens = np.asarray([0, 1, 257, 512], np.int32)
+    jnp = jx.jnp
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    tq = _t(q).to(dtype)
+    tks, tvs = _t(ks).bfloat16(), _t(vs).bfloat16()
+    jks, jvs = jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16)
+    jk = jnp.asarray(k8).astype(jdt) * jks[..., None].astype(jdt)
+    jv = jnp.asarray(v8).astype(jdt) * jvs[..., None].astype(jdt)
+    tk, tv = decode_attention.dequantize_arena(tq, _t(k8), _t(v8), tks, tvs)
+    assert tk.dtype == dtype
+    np.testing.assert_array_equal(tk.float().numpy(), np.asarray(jk, np.float32))
+    np.testing.assert_array_equal(tv.float().numpy(), np.asarray(jv, np.float32))
+    if dtype == torch.bfloat16:
+        return
+    kw = _attn_kw(opts, TBANK)
+    got = decode_attention.decode_attention_plain(tq, _t(k8), _t(v8), _t(lens), tks, tvs, **kw)
+    want = jx.ref.decode_attention_ref(jnp.asarray(q), jk, jv, jnp.asarray(lens),
+                                       **_attn_kw(opts, jx.bank))
+    _close(got, want)
+    assert torch.equal(ops.pim_decode_attention(tq, _t(k8), _t(v8), _t(lens), tks, tvs, **kw),
+                       got)
+    online = decode_attention.decode_attention_online_plain(tq, _t(k8), _t(v8), _t(lens), tks,
+                                                            tvs, **kw)
+    _close(online, jx.attn.decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(lens),
+                                            interpret=True, **_attn_kw(opts, jx.bank)))
+
+
+# (B, Hkv, S, g, D, row bytes) -> (cluster, window blocks): GPT-2's 4 slots at
+# both arena widths (bf16 and f32 rows), and qwen2-1.5B's 131072-key arena
+# at g = 6, head_dim 128, walked in windows.
+ARENA_PLANS = [((4, 16, 256, 1, 64, 128), (1, 1)), ((4, 16, 1024, 1, 64, 128), (4, 1)),
+               ((4, 16, 1024, 1, 64, 256), (4, 1)), ((4, 16, 161, 1, 64, 128), (1, 1)),
+               ((1, 2, 131072, 6, 128, 256), (8, 15)), ((4, 2, 4100, 6, 128, 256), (8, 3))]
+
+
+@pytest.mark.parametrize("shape,want", ARENA_PLANS)
+def test_arena_plan_at_model_widths(shape, want):
+    """`arena_plan` grows the cluster until the grid covers the card while
+    every block keeps a 256-key block, then walks runs that outgrow shared
+    memory in windows of whole ring stages, every window within it."""
+    B, Hkv, S, g, D, row_bytes = shape
+    cs, win = paged_attention.arena_plan(*shape)
+    assert (cs, win) == want
+    blocks = -(-S // 256)
+    run = -(-blocks // cs)
+    assert cs <= blocks and win <= run
+    assert paged_attention.decode_smem_bytes(g, D, 256, win, row_bytes, cs, arena=True) <= \
+        paged_attention.DECODE_SMEM_MAX
+    ck = paged_attention.decode_chunk_keys(256, row_bytes, win, paged_attention.ARENA_STAGE_BYTES)
+    assert (win * 256) % ck == 0 and ck * row_bytes <= 32768
+
+
+def test_arena_plan_refuses_with_a_named_error():
+    """Not one ring stage of g x D fits a block: a ValueError that names the
+    kernel and the shape."""
+    with pytest.raises(ValueError, match="decode_attention: not one page of 64 query heads"):
+        paged_attention.arena_plan(1, 1, 1024, 64, 512, 1024)
 
 
 # ---------------------------------------------------------------------------
@@ -508,3 +587,87 @@ def test_decode_attention_kernel_matches_plain(cuda, case, dtype, opts):
     plain = (decode_attention.decode_attention_online_plain if opts.get("lut")
              else decode_attention.decode_attention_plain)
     _close(got, plain(q, k, v, lens, **kw).float().cpu(), _tol(dtype))
+
+
+def _plant_arena(rng, q, k, v, lens, hot, window=None, target=18.0):
+    """Give each query row (q (B, H, D)) `hot` keys of its valid span (the
+    last `window` of its length), spread over it, whose scores stand near
+    `target` (the rest score about N(0, 1)), with V rows of std 4: the
+    output is a mix of those few rows, O(1), so a walk that drops a run or
+    a window of blocks, or merges them wrongly, misses by O(1)."""
+    B, H, D = q.shape
+    g = H // k.shape[1]
+    for b, n in enumerate(lens):
+        lo = max(0, n - window) if window else 0
+        if n <= lo:
+            continue
+        for h in range(H):
+            for j in range(hot):
+                pos = lo + min(int((j + 0.1 + 0.8 * rng.rand()) / hot * (n - lo)), n - lo - 1)
+                c = (target + rng.uniform(-1.5, 1.5)) * np.sqrt(D) / float(q[b, h] @ q[b, h])
+                k[b, h // g, pos] = c * q[b, h]
+                v[b, h // g, pos] = 4.0 * rng.randn(D)
+
+
+# Arenas that are not a multiple of the 256-key block, lengths 0, 1, 255,
+# 256, 257 and S; a 4100-key arena whose runs span several blocks.
+PLANTED = [dict(S=557, lens=[0, 1, 255, 256, 257, 557]),
+           dict(S=4100, lens=[1, 257, 3000, 4100])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PLANTED)
+@pytest.mark.parametrize("g", [1, 6, 12])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("opts", ATTN_OPTS)
+def test_decode_attention_kernel_on_planted_keys(cuda, case, g, D, dtype, opts):
+    """The arena walk over 12 query heads (g = 1, 6, 12: clusters of 4 and
+    8 blocks at 4100 keys) on planted keys: exact mode against the plain
+    version, LUT mode against the online block walk, within 1e-4 (f32) and
+    3e-2 (bf16); one launch a call."""
+    S, lens = case["S"], case["lens"]
+    B, H = len(lens), 12
+    rng = np.random.RandomState(S + g + D)
+    q, k, v = _arena_inputs(B, H, H // g, S, D, seed=S + g)
+    _plant_arena(rng, q, k, v, lens, hot=6, window=opts.get("window"))
+    q, k, v = (_t(a, cuda).to(dtype) for a in (q, k, v))
+    lengths = _t(np.asarray(lens, np.int32), cuda)
+    kw = _attn_kw(opts, TBANK)
+    before = decode_attention.decode_attention.launches
+    got = decode_attention.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == before + 1
+    plain = (decode_attention.decode_attention_online_plain if opts.get("lut")
+             else decode_attention.decode_attention_plain)
+    want = plain(q, k, v, lengths, **kw)
+    assert float(want[lengths > 1].float().abs().amax()) > 0.5
+    _close(got, want.float().cpu(), _tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 36, 40, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("opts", ATTN_OPTS)
+def test_decode_attention_int8_arena_bit_exact(cuda, D, dtype, opts):
+    """The kernel on the int8 arena and its bf16 scale rows is bit for bit
+    the kernel on the arena dequantized first (`dequantize_arena`, the
+    eager expression the plain version runs), at head_dims whose rows are
+    16-byte vectors in both arenas (64, 128), in neither (36 in bf16) and
+    in the dequantized one only (40); and within the tolerance of the
+    plain version."""
+    B, H, Hkv, S = 4, 4, 2, 557
+    q, _, _ = _arena_inputs(B, H, Hkv, S, D, seed=D)
+    k8, v8, ks, vs = (_t(a, cuda) for a in _int8_arena(B, Hkv, S, D, seed=D))
+    ks, vs = ks.bfloat16(), vs.bfloat16()
+    q = _t(q, cuda).to(dtype)
+    lengths = _t(np.asarray([1, 256, 400, 557], np.int32), cuda)
+    kw = _attn_kw(opts, TBANK)
+    got = decode_attention.decode_attention(q, k8, v8, lengths, ks, vs, **kw)
+    k, v = decode_attention.dequantize_arena(q, k8, v8, ks, vs)
+    want = decode_attention.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = (decode_attention.decode_attention_online_plain if opts.get("lut")
+             else decode_attention.decode_attention_plain)
+    _close(got, plain(q, k8, v8, lengths, ks, vs, **kw).float().cpu(), _tol(dtype))

@@ -237,6 +237,38 @@ def test_cpu_dispatch_splits_only_from_1024_tokens():
            .numpy(), 1e-5)
 
 
+# (B, Hkv, K, n_table, g, D, row bytes) -> (cluster, window pages): GPT-2's
+# 4 slots at 1024 keys (page 16) and K 4, 8 and 16; one slot at K = 4,
+# whose 64 clusters grow to 4 blocks each; qwen2-1.5B's 131072
+# keys at K = 8 and, at K = 2, runs walked in windows.
+SPLIT_PLANS = [((4, 16, 4, 64, 1, 64, 128), (1, 16)), ((4, 16, 8, 64, 1, 64, 128), (1, 8)),
+               ((4, 16, 16, 64, 1, 64, 128), (1, 4)), ((1, 16, 4, 64, 1, 64, 128), (4, 4)),
+               ((1, 2, 8, 8192, 6, 128, 256), (8, 128)),
+               ((1, 2, 2, 8192, 6, 128, 256), (8, 228))]
+
+
+@pytest.mark.parametrize("shape,want", SPLIT_PLANS)
+def test_split_plan_at_model_widths(shape, want):
+    """`split_plan` gives each split a cluster of 1..8 blocks, grown while
+    the B * Hkv * K clusters leave SMs idle and every block keeps a page of
+    the split's run, and walks runs that outgrow shared memory in windows
+    of whole ring stages, every window within it."""
+    B, Hkv, K, n_table, g, D, row_bytes = shape
+    cs, win = paged_attention.split_plan(B, Hkv, K, n_table, g, D, 16, row_bytes)
+    assert (cs, win) == want
+    pps = -(-n_table // K)
+    assert cs <= pps and win <= -(-pps // cs)
+    assert paged_attention.decode_smem_bytes(g, D, 16, win, row_bytes, cs) <= \
+        paged_attention.DECODE_SMEM_MAX
+    assert win == -(-pps // cs) or win % paged_attention.decode_chunk_pages(16, row_bytes,
+                                                                           win) == 0
+
+
+def test_split_plan_refuses_with_a_named_error():
+    with pytest.raises(ValueError, match="paged_attention_split: not one page of 64 query"):
+        paged_attention.split_plan(1, 1, 4, 64, 64, 512, 16, 1024)
+
+
 # ---------------------------------------------------------------------------
 # Launchers: argument checks, no CPU fallback
 # ---------------------------------------------------------------------------
@@ -471,3 +503,56 @@ def test_prefill_tensor_core_kernel_matches_walk(cuda, pool, opts):
         paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, ks, vs, **kw)
         torch.cuda.synchronize()
         assert paged_prefill.paged_prefill_attention.tc_launches == before
+
+
+# g = 6 over head_dim 64 and g = 8 over head_dim 128; a 66-page table of
+# 16-token pages (1056 keys, wide enough for `paged_attention` to route
+# kv_splits > 1 to the split), trash-padded for K = 4 (68 pages), 7 (70), 8
+# (72) and 16 (80), with a one-key row (every split but the first wholly
+# past its length) and a 250-key row (splits 4.. past it at K = 16).
+SPLIT_HEADS = [(12, 2, 64), (8, 1, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("splits", [1, 2, 4, 7, 8, 16])
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", SPLIT_HEADS)
+def test_split_kernel_on_planted_keys(cuda, pool, splits, lut, dtype, heads):
+    """The split kernel on planted keys, its partials merged by
+    `merge_partials`: exact mode against the plain split, LUT mode against
+    the online walk over K runs, within the tolerances of
+    `test_split_kernel_matches_plain`. For K > 1 `paged_attention(...,
+    kv_splits=K)`, the route a decode step takes, launches those two
+    kernels once each and returns the same bits."""
+    H, Hkv, D = heads
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=3, H=H, Hkv=Hkv, D=D, page=16, n_pages=66,
+                                       lengths=[1, 250, 640], seed=splits + D, device=cuda,
+                                       hot=6)
+    q = q.to(dtype)
+    if pool == "fp":
+        k, v = k.to(dtype), v.to(dtype)
+    kw = _kw({"lut": lut}, TBANK)
+    m, l, acc = paged_attention.paged_attention_split(q, k, v, tbl, lens, ks, vs,
+                                                      kv_splits=splits, **kw)
+    merged = paged_attention.merge_partials(m, l, acc, dtype)
+    torch.cuda.synchronize()
+    if lut:
+        want = paged_attention.paged_attention_online_plain(q, k, v, tbl, lens, ks, vs,
+                                                            splits=splits, **kw)
+    else:
+        want = paged_attention.paged_attention_split_plain(q, k, v, tbl, lens, ks, vs,
+                                                           kv_splits=splits, **kw)
+    assert float(want.float().abs().amax()) > 0.5
+    _close(merged, want.float().cpu().numpy(), _tol(dtype, {"lut": lut}))
+    assert bool((m[0, :, 1:] == -1e30).all()) and bool((l[0, :, 1:] == 0).all())
+    if splits > 1:
+        before = (paged_attention.paged_attention_split.launches,
+                  paged_attention.merge_partials.launches)
+        routed = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs,
+                                                 kv_splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert (paged_attention.paged_attention_split.launches,
+                paged_attention.merge_partials.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(routed, merged)
