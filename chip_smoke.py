@@ -33,7 +33,10 @@ Run from the root of a checkout. Phases, each of which fails the run:
               long-context decode kernels at 960..1024 tokens, the 145
               GEMVs of a decode step (M=4) and of a 64-token chunk, and
               the GEMV at `generate()`'s prefill width (M=512, d x d,
-              w_up and w_down);
+              w_up and w_down), and the two row kernels at every width the
+              main paths launch them (the norm at 4, 64 and 512 rows, the LUT
+              softmax at 128 and 960 keys) under each launch shape their
+              planner could pick;
   4. serve  — GPT-2 medium at full width with seeded random weights serves
               8 requests through `ServingEngine` on the GPU, once with exact
               nonlinearities and once with the LUT ones; every request must
@@ -76,7 +79,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
               the paged drain on the same requests, its decode step on
               the host clock and on the device, and the int8 arena's
               eager dequantization, which the kernel's int8 read
-              replaces, timed for comparison;
+              replaces, timed for comparison; and a 128-token admission's
+              prefill, exact and LUT, on the device;
   8. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
@@ -844,8 +848,10 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
     printed), once with GQA, a window and a softcap; on the int8 arena bit
     for bit to the kernel on the dequantized arena; on planted keys over
     4100- and 131072-position arenas at g 6, D 128; the LUT softmax of a
-    128-token prefill's scores, causal and unmasked; LayerNorm and RMSNorm,
-    LUT and exact, and the LUT interpolation, both bit for bit."""
+    128- and a 960-token prefill's scores, causal and unmasked, two
+    launches bit for bit; LayerNorm and RMSNorm, LUT and exact, on
+    contiguous and strided rows, and the LUT interpolation, both bit for
+    bit."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     bank = tlut.LutBank.create(64)
@@ -955,19 +961,23 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
             f"the online walk: max_abs_err {worst:.3e} (tol {TOL['bfloat16']})")
         del k, v
 
-    x32 = randn(16, 128, 128, std=4.0)
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        x = x32.to(dtype)
-        worst = 0.0
-        for kw in ({"causal": True}, {}):
-            got = softmax_lut.softmax_lut(x, bank.exp, bank.recip, **kw)
-            torch.cuda.synchronize()
-            want = softmax_lut.softmax_lut_plain(x, bank.exp, bank.recip, **kw)
-            worst = max(worst, record("softmax_lut", f"softmax_lut {kw} {dname}", got, want,
-                                      TOL[dname]))
-        log(f"  softmax_lut (16*128, 128) causal and unmasked {dname}: max_abs_err "
-            f"{worst:.3e} (tol {TOL[dname]})")
+    for S in (128, 960):
+        x32 = randn(16, S, S, std=4.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x = x32.to(dtype)
+            worst = 0.0
+            for kw in ({"causal": True}, {}):
+                got = softmax_lut.softmax_lut(x, bank.exp, bank.recip, **kw)
+                torch.cuda.synchronize()
+                want = softmax_lut.softmax_lut_plain(x, bank.exp, bank.recip, **kw)
+                worst = max(worst, record("softmax_lut", f"softmax_lut S={S} {kw} {dname}",
+                                          got, want, TOL[dname]))
+                if not torch.equal(softmax_lut.softmax_lut(x, bank.exp, bank.recip, **kw), got):
+                    raise AssertionError(f"softmax_lut S={S} {kw} {dname}: two launches differ")
+            log(f"  softmax_lut (16*{S}, {S}) causal and unmasked {dname}: max_abs_err "
+                f"{worst:.3e} (tol {TOL[dname]}); two launches bit for bit")
+        del x32
 
     for M in (4, 64):
         x32 = randn(M, 1024, std=3.0) + 0.5
@@ -975,6 +985,8 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             x, g, b = x32.to(dtype), g32.to(dtype), b32.to(dtype)
+            # the rows of a (M, 3, d) tensor at [:, -1], as the final norm reads them
+            x3 = x.reshape(M, 1, 1024).expand(M, 3, 1024).contiguous()[:, -1]
             for rms in (False, True):
                 for lut in (False, True):
                     kw = dict(eps=1e-5, rsqrt_table=bank.rsqrt if lut else None, rms=rms)
@@ -985,11 +997,13 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
                                                              **kw)
                     label = f"layernorm_lut M={M} rms={rms} lut={lut} {dname}"
                     record("layernorm_lut", label, got, want, TOL[dname])
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{label}: {int((got != want).sum())} elements "
-                                             "differ from the plain version")
-            log(f"  layernorm_lut ({M}, 1024) LN/RMS x LUT/exact {dname}: bit-exact to the "
-                "plain version")
+                    strided = layernorm_lut.layernorm_lut(x3, g, beta, **kw)
+                    for name, t in (("", got), (" strided", strided)):
+                        if not torch.equal(t, want):
+                            raise AssertionError(f"{label}{name}: {int((t != want).sum())} "
+                                                 "elements differ from the plain version")
+            log(f"  layernorm_lut ({M}, 1024) LN/RMS x LUT/exact {dname}, contiguous and "
+                "strided rows: bit-exact to the plain version")
 
     for M in (4, 64):
         x32 = randn(M, 4096, std=3.0)
@@ -1010,14 +1024,45 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
     return errs
 
 
+def plan_variants(torch, mod, planner, args, max_chunks, fn, n, label):
+    """Time `fn` under every launch shape of a row kernel, `mod.<planner>`
+    replaced for the while: each group of 1 to 8 warps a row with the fewest
+    pieces a lane (at most `max_chunks`) that hold it, at each rows-a-block
+    (a block holds at most 8 warps); the numbers behind `_build.row_plan`.
+    A tree without the planner (the parent, in an A/B call) prints
+    nothing."""
+    orig = getattr(mod, planner, None)
+    if orig is None:
+        return
+    n_rows, width, itemsize = args
+    per = 16 // itemsize
+    times = {}
+    try:
+        for warps in (1, 2, 4, 8):
+            chunks = 1
+            while chunks * 32 * warps * per < width:
+                chunks *= 2
+            for rows in (1, 2, 4, 8):
+                if chunks <= max_chunks and warps * rows <= 8:
+                    setattr(mod, planner, lambda *a, p=(chunks, warps, rows): p)
+                    times[(chunks, warps, rows)] = time_graph(torch, fn, n)
+    finally:
+        setattr(mod, planner, orig)
+    log(f"  {label}, launch shapes (chunks, warps a row, rows a block): "
+        + ", ".join(f"{p} {t * 1e3:.2f} us" for p, t in times.items())
+        + f"; planned {orig(*args)}")
+
+
 def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lut_interp,
                        seed):
     """The four kernels at the dense path's shapes in bf16 (scores in f32),
     one input set a layer, beside their plain versions, a PyTorch call and
     their bounds: decode attention at 4 slots x 128..160 keys of a 256
-    arena (and x 960..1020 of a 1024 arena), the LUT softmax of a 128-token
-    prefill's causal scores, the LayerNorm of a decode step's (4, 1024)
-    rows, the LUT GELU of a (4, 4096) w_up output."""
+    arena (and x 960..1020 of a 1024 arena), the LUT softmax of a 128- and
+    a 960-token prefill's causal scores, the LayerNorm of a decode step's
+    (4, 1024) rows, the paged chunk's 64 and generate()'s prefill's 512,
+    the LUT GELU of a (4, 4096) w_up output; the two row kernels also under
+    each launch shape their planner could have picked."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 6)
     bank = tlut.LutBank.create(64)
@@ -1074,33 +1119,73 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
             f"{plain * 1e3:.2f} us, SDPA with a length mask {lib * 1e3:.2f} us, bound "
             f"{bnd * 1e3:.2f} us ({by})")
 
-    scores = [randn(1, H, 1, 128, 128, std=4.0, dtype=torch.float32) for _ in range(L)]
-    ms = time_graph(torch, lambda i: softmax_lut.softmax_lut(
-        scores[i], bank.exp, bank.recip, causal=True), L)
-    plain = time_graph(torch, lambda i: softmax_lut.softmax_lut_plain(
-        scores[i], bank.exp, bank.recip, causal=True), L)
-    lib = time_graph(torch, lambda i: torch.softmax(scores[i], dim=-1), L)
-    # The causal row q reads its q + 1 valid keys and writes all 128 entries.
-    valid = H * sum(q + 1 for q in range(128))
-    bnd, by = bound_ms(4 * valid + 4 * H * 128 * 128, 5 * valid, "float32")
-    out["softmax_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                              bound_by=by, shape="(16*128, 128) f32 scores of a 128-token "
-                              "prefill, causal; library: torch.softmax, unmasked")
+    # The LUT softmax of a 128- and a 960-token prefill's causal scores (one
+    # launch a layer in LUT mode; attn_chunk is 1024), beside torch.softmax.
+    for S in (128, 960):
+        scores = [randn(1, H, 1, S, S, std=4.0, dtype=torch.float32) for _ in range(L)]
 
+        def run(i):
+            return softmax_lut.softmax_lut(scores[i], bank.exp, bank.recip, causal=True)
+
+        ms = time_graph(torch, run, L)
+        plain = time_graph(torch, lambda i: softmax_lut.softmax_lut_plain(
+            scores[i], bank.exp, bank.recip, causal=True), L)
+        lib = time_graph(torch, lambda i: torch.softmax(scores[i], dim=-1), L)
+        # A copy of the scores: the time of one plain pass over them.
+        copies = [torch.empty_like(t) for t in scores]
+        copy = time_graph(torch, lambda i: copies[i].copy_(scores[i]), L)
+        del copies
+        # The causal row q reads its q + 1 valid keys and writes all S entries.
+        valid = H * S * (S + 1) // 2
+        bnd, by = bound_ms(4 * valid + 4 * H * S * S, 5 * valid, "float32")
+        shape = (f"({H}*{S}, {S}) f32 scores of a {S}-token prefill, causal; library: "
+                 "torch.softmax, unmasked")
+        if S == 128:
+            out["softmax_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                      bound_by=by, shape=shape)
+        else:
+            out["softmax_lut"]["shape"] += (
+                f"; ({H}*{S}, {S}): {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
+                f"torch.softmax {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us")
+        log(f"  softmax_lut [{shape}]: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
+            f"library {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}); a copy_ of the "
+            f"scores {copy * 1e3:.2f} us")
+        plan_variants(torch, softmax_lut, "softmax_plan", (H * S, S, 4), 8, run, L,
+                      f"softmax_lut ({H}*{S}, {S}) f32 causal")
+        del scores
+
+    # The norm at a decode step's 4 rows, the paged chunk's 64 and
+    # generate()'s 512-token prefill (4 prompts of 128), beside F.layer_norm.
     d = cfg.d_model
-    rows = [randn(4, d) for _ in range(2 * L + 1)]
     g, b = randn(d, std=0.2) + 1.0, randn(d, std=0.2)
-    n = len(rows)
-    ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(
-        rows[i], g, b, rsqrt_table=bank.rsqrt), n)
-    exact = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(rows[i], g, b), n)
-    plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
-        rows[i], g, b, rsqrt_table=bank.rsqrt, wide_sums=True), n)
-    lib = time_graph(torch, lambda i: F.layer_norm(rows[i], (d,), g, b, 1e-5), n)
-    bnd, by = bound_ms(2 * (2 * 4 * d + 2 * d), 8 * 4 * d, "float32")
-    out["layernorm_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                                bound_by=by, shape=f"(4, {d}) bf16, LUT rsqrt (exact rsqrt "
-                                f"{exact * 1e3:.2f} us); library: F.layer_norm")
+    n = 2 * L + 1
+    for M in (4, 64, 512):
+        rows = [randn(M, d) for _ in range(n)]
+
+        def run(i):
+            return layernorm_lut.layernorm_lut(rows[i], g, b, rsqrt_table=bank.rsqrt)
+
+        ms = time_graph(torch, run, n)
+        exact = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(rows[i], g, b), n)
+        plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
+            rows[i], g, b, rsqrt_table=bank.rsqrt, wide_sums=True), n)
+        lib = time_graph(torch, lambda i: F.layer_norm(rows[i], (d,), g, b, 1e-5), n)
+        bnd, by = bound_ms(2 * (2 * M * d + 2 * d), 8 * M * d, "float32")
+        shape = (f"({M}, {d}) bf16, LUT rsqrt (exact rsqrt {exact * 1e3:.2f} us); library: "
+                 "F.layer_norm")
+        if M == 4:
+            out["layernorm_lut"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                        bound_by=by, shape=shape)
+        else:
+            out["layernorm_lut"]["shape"] += (
+                f"; ({M}, {d}): {ms * 1e3:.2f} us (exact {exact * 1e3:.2f} us), plain "
+                f"{plain * 1e3:.2f} us, F.layer_norm {lib * 1e3:.2f} us, bound "
+                f"{bnd * 1e3:.2f} us")
+        log(f"  layernorm_lut [{shape}]: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
+            f"library {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+        plan_variants(torch, layernorm_lut, "layernorm_plan", (M, d, 2), 8, run, n,
+                      f"layernorm_lut ({M}, {d}) bf16 LUT")
+        del rows
 
     acts = [randn(4, cfg.d_ff, std=3.0) for _ in range(L)]
     ms = time_graph(torch, lambda i: lut_interp.lut_interp(acts[i], bank.gelu), L)
@@ -1110,8 +1195,8 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
                              bound_by=by, shape=f"(4, {cfg.d_ff}) bf16, the LUT GELU after "
                              "q3's int8 w_up; library: none")
     for name, r in out.items():
-        if "shape" not in r:
-            continue
+        if name in ("softmax_lut", "layernorm_lut"):
+            continue                                # printed above, at each width
         lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
         log(f"  {name} [{r['shape']}]: {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
@@ -2110,6 +2195,21 @@ def time_dense_decode(torch, api, params, cfg, sal, max_len, lens, label, card):
 
 # ---------------------------------------------------------------------------
 
+def time_dense_admission(torch, api, params, cfg, sal, S, max_len, label, card):
+    """Device ms of one dense admission's prefill (ServingEngine(paged=False)
+    admits a batch of 1, the whole prompt: 145 GEMV, 49 layernorm_lut and,
+    in LUT mode, 24 softmax_lut), an S-token prompt replayed as a CUDA
+    graph."""
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    toks = torch.randint(2, cfg.vocab, (1, S), generator=gen, device=dev)
+    device = time_graph(torch, lambda i: api.prefill(params, {"tokens": toks}, cfg, sal,
+                                                     max_len=max_len), 1)
+    log(f"  dense admission [{label}] ({card}): a {S}-token prompt, arena {max_len}: "
+        f"{device:.3f} ms on the device")
+    return device
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2343,6 +2443,9 @@ def main() -> int:
             f"paged {mode} drain on the same requests (reported, not a gate)")
         lens = [128, 137, 151, 160] if ml == 256 else [960, 981, 1003, 1020]
         dense_ms[label] = time_dense_decode(torch, api, params, c, sal, ml, lens, label, card)
+    admission_ms = {mode: time_dense_admission(
+        torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)), 128,
+        256, mode, card) for mode in ("exact", "lut")}
 
     log("== 8. result")
     rows = []
@@ -2372,6 +2475,8 @@ def main() -> int:
         + ", ".join(f"[{k}] {v[1]:.2f}" for k, v in step_ms.items()))
     log(f"  dense decode step, device ms: "
         + ", ".join(f"[{k}] {v['device']:.2f}" for k, v in dense_ms.items()))
+    log(f"  dense 128-token admission, device ms: "
+        + ", ".join(f"[{k}] {v:.3f}" for k, v in admission_ms.items()))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

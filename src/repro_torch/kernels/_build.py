@@ -38,6 +38,59 @@ MAX_TABLE_ROWS = 128
 # any other count still computes the same function).
 SMS = 132
 
+# Row kernels (softmax_lut, layernorm_lut): a row belongs to a group of 1,
+# 2, 4 or 8 warps of a block of at most 8 warps, each lane holding pieces of
+# 16 bytes of it in registers. A call of few rows is bound by one row's
+# latency, so its rows are spread over more warps until the card holds 8
+# warps an SM or a lane holds 8 values.
+ROW_GROUP_WARPS = (1, 2, 4, 8)
+BLOCK_WARPS = 8
+SPREAD_WARPS_PER_SM = 8
+SPREAD_LANE_VALUES = 8
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def row_plan(n_rows: int, width: int, itemsize: int,
+             max_chunks: int) -> tuple[int, int, int] | None:
+    """(chunks, warps_per_row, rows_per_block) for rows of `width` elements
+    of `itemsize` bytes: the fewest warps a row whose lanes hold it in at
+    most `max_chunks` pieces of 16 bytes (a power of two of them), spread
+    over more warps while the call has fewer than 8 warps an SM and a lane
+    holds more than 8 values. Rows of one warp and fewer than 16 values a
+    lane share a block, as many as still give every SM a block; any other
+    row takes a block. None when 8 warps cannot hold the row."""
+    n = 16 // itemsize
+
+    def chunks_for(warps):
+        return _pow2_at_least(-(-width // (32 * warps * n)))
+
+    warps = next((w for w in ROW_GROUP_WARPS if chunks_for(w) <= max_chunks), None)
+    if warps is None:
+        return None
+    while (warps < ROW_GROUP_WARPS[-1] and chunks_for(warps) * n > SPREAD_LANE_VALUES
+           and n_rows * warps < SPREAD_WARPS_PER_SM * SMS):
+        warps *= 2
+    chunks = chunks_for(warps)
+    rows = 1
+    if warps == 1 and chunks * n < 16:
+        rows = BLOCK_WARPS
+        while rows > 1 and -(-n_rows // rows) < SMS:
+            rows //= 2
+    return chunks, warps, rows
+
+
+def vector_ok(itemsize: int, counts, *tensors) -> bool:
+    """Whether a row kernel may move 16-byte pieces: every tensor given
+    (None skipped) starts on a 16-byte boundary and every count of
+    elements of `itemsize` bytes (a row's length, a stride) spans a
+    multiple of 16 bytes."""
+    return (all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+            and all(n * itemsize % 16 == 0 for n in counts))
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 ptxas_reports: dict[str, str] = {}

@@ -1,4 +1,5 @@
-// Element conversions and 16-byte vector loads shared by the port's kernels.
+// Element conversions, vector loads and a row group's reduction, shared by
+// the port's kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +49,57 @@ template <> struct Vec<float> {
     widen(ld16(p), out);
   }
 };
+
+// N elements of E held in registers, moved to and from device memory in
+// one piece of N * sizeof(E) bytes (8, 16 or 32; the address aligned to 16
+// bytes, or to 8 for a piece of 8) or element by element.
+template <typename E, int N>
+struct Pack {
+  static constexpr int kBytes = N * (int)sizeof(E);
+  static_assert(kBytes == 8 || kBytes % 16 == 0, "a piece of 8 or 16k bytes");
+  alignas(kBytes >= 16 ? 16 : 8) E v[N];
+
+  __device__ __forceinline__ void load(const E* p) {
+    if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(v) = *reinterpret_cast<const uint2*>(p);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBytes / 16; ++i)
+        reinterpret_cast<uint4*>(v)[i] = reinterpret_cast<const uint4*>(p)[i];
+    }
+  }
+  __device__ __forceinline__ void store(E* p) const {
+    if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBytes / 16; ++i)
+        reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(v)[i];
+    }
+  }
+  __device__ __forceinline__ float operator[](int j) const { return to_f(v[j]); }
+};
+
+// op over a row held by a group of W consecutive warps of the block (W a
+// power of two): each warp's shuffle tree, then, with W > 1, the W warps'
+// values in a fixed order through `red` (one slot a warp of the block),
+// after one barrier. Every lane of the group ends with the same value.
+// With W == 1 there is no barrier; with W > 1 every thread of the block
+// calls it, and each call of a kernel has slots of its own (no barrier
+// guards their reuse).
+template <typename V, typename Op>
+__device__ __forceinline__ V group_reduce(V v, Op op, V* red, int W) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (W == 1) return v;
+  const int warp = threadIdx.x / 32;
+  const int first = warp & -W;
+  if (threadIdx.x % 32 == 0) red[warp] = v;
+  __syncthreads();
+  v = red[first];
+  for (int i = 1; i < W; ++i) v = op(v, red[first + i]);
+  return v;
+}
 
 __host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;

@@ -20,40 +20,33 @@
 // strided (the final norm takes x[:, -1]); the last axis is contiguous.
 //
 // What bounds it on the H100: bytes, one read and one write of each row
-// (gamma and beta are shared by all rows). The design gives one row to a
-// block of 256 threads with block reductions by shuffles; the row is read
-// two or three times, the later passes from L1. GPT-2 medium at decode has
-// 4 rows of 1024: 4 blocks, so the call is one short, latency-bound pass.
+// (gamma and beta are shared by all rows). At decode a call is 4 rows of
+// 1024 (16 KB in bf16), one latency-bound pass near the launch floor, so
+// the design cuts that pass's serial steps (layernorm_plan in
+// kernels/layernorm_lut.py picks its shape):
+//   * a row belongs to a group of W warps, each lane holding C pieces of 16
+//     bytes of it in registers, read once with 16-byte loads where the row
+//     start, its stride and d allow and element by element where not, with
+//     gamma and beta loaded beside it so that their latency overlaps; a
+//     call of few rows spreads a row until a lane holds 8 values (d = 1024
+//     in bf16: 4 warps, one piece a lane), which measured faster on the
+//     card than a warp a row, whose lanes each add 32 values in series;
+//   * both statistics come from the registers: fp64 shuffle trees, and
+//     with W > 1 the group's warps in order through shared memory after one
+//     barrier;
+//   * the rsqrt table, one evaluation a row, is read from device memory,
+//     not staged; the output is written from the registers.
 #include "common.cuh"
 #include "lut.cuh"
 
 namespace {
 
 using common::from_f;
+using common::Pack;
 using common::to_f;
 
 constexpr int kThreads = 256;
-
-// The block's sum of v, then divided by d and rounded to fp32.
-__device__ __forceinline__ float block_mean(double v, double* red, int d) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < n_warps ? red[lane] : 0.0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return (float)(v / (double)d);
-}
+constexpr int kWarps = kThreads / 32;
 
 struct Args {
   const void* x;
@@ -61,6 +54,7 @@ struct Args {
   const void* beta;       // or null
   const float* rsqrt_wb;  // (sections + 2, 2) or null
   void* out;
+  long long n_rows;
   int d;
   long long x_stride;     // elements between rows of x
   float eps;
@@ -70,51 +64,139 @@ struct Args {
   int sections;
   int rms;
   int plus_one;
+  int wshift;             // log2 of W, the warps of a row's group (1, 2, 4 or 8)
+  int rows_per_block;     // groups a block: blockDim.x = 32 * W * rows_per_block
+  int vec;                // 16-byte pieces
 };
 
-template <typename T, typename G>
-__global__ void __launch_bounds__(kThreads) layernorm_kernel(Args a) {
-  __shared__ float wb[2 * lut::kMaxTableRows];
-  __shared__ double red[32];
-  if (a.use_lut) lut::stage(wb, a.rsqrt_wb, a.sections);
-  const T* xr = reinterpret_cast<const T*>(a.x) + blockIdx.x * a.x_stride;
-  T* orow = reinterpret_cast<T*>(a.out) + (size_t)blockIdx.x * a.d;
-  const G* gamma = reinterpret_cast<const G*>(a.gamma);
-  const G* beta = reinterpret_cast<const G*>(a.beta);
-  double s = 0.0;
-  for (int i = threadIdx.x; i < a.d; i += blockDim.x) {
-    const float v = to_f(xr[i]);
-    s += a.rms ? (double)__fmul_rn(v, v) : (double)v;
+struct Add {
+  __device__ double operator()(double a, double b) const { return a + b; }
+};
+
+// The group's sum of its lanes' sums s, divided by d and rounded to fp32.
+__device__ __forceinline__ float row_mean(double s, double* red, int W, int d) {
+  return (float)(common::group_reduce(s, Add(), red, W) / (double)d);
+}
+
+// Lane t of a row's group holds elements (c * 32 * W + t) * N + j, c < C,
+// j < N.
+template <typename T, typename G, int C>
+__global__ void __launch_bounds__(kThreads) layernorm_rows(Args a) {
+  constexpr int N = 16 / (int)sizeof(T);
+  __shared__ double red[2][kWarps];
+  const int W = 1 << a.wshift;
+  const int warp = threadIdx.x / 32;
+  const int t = (warp & (W - 1)) * 32 + threadIdx.x % 32;
+  const int GT = 32 * W;
+  const long long row = (long long)blockIdx.x * a.rows_per_block + (warp >> a.wshift);
+  const int d = row < a.n_rows ? a.d : 0;      // a dead group reads and writes nothing
+  const T* xr = static_cast<const T*>(a.x) + row * a.x_stride;
+  const G* gamma = static_cast<const G*>(a.gamma);
+  const G* beta = static_cast<const G*>(a.beta);
+
+  Pack<T, N> x[C];
+  Pack<G, N> g[C], b[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k0 = (c * GT + t) * N;
+    if (a.vec) {
+      if (k0 < d) {
+        x[c].load(xr + k0);
+        g[c].load(gamma + k0);
+        if (beta != nullptr) b[c].load(beta + k0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (k0 + j < d) {
+          x[c].v[j] = xr[k0 + j];
+          g[c].v[j] = gamma[k0 + j];
+          if (beta != nullptr) b[c].v[j] = beta[k0 + j];
+        }
+      }
+    }
   }
-  const float m = block_mean(s, red, a.d);   // also orders the table stores
+
+  double s = 0.0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if ((c * GT + t) * N + j < d) {
+        const float v = x[c][j];
+        s += a.rms ? (double)__fmul_rn(v, v) : (double)v;
+      }
+    }
+  }
+  const float m = row_mean(s, red[0], W, a.d);
   float mean = 0.0f, var = m;
   if (!a.rms) {
     mean = m;
-    double s2 = 0.0;
-    for (int i = threadIdx.x; i < a.d; i += blockDim.x) {
-      const float c = __fsub_rn(to_f(xr[i]), mean);
-      s2 += (double)__fmul_rn(c, c);
+    s = 0.0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if ((c * GT + t) * N + j < d) {
+          const float xc = __fsub_rn(x[c][j], mean);
+          s += (double)__fmul_rn(xc, xc);
+        }
+      }
     }
-    var = block_mean(s2, red, a.d);
+    var = row_mean(s, red[1], W, a.d);
   }
   const float v = __fadd_rn(var, a.eps);
-  const float inv = a.use_lut ? lut::rsqrt(v, wb, a.lo, a.inv_step, a.sections) : rsqrtf(v);
-  for (int i = threadIdx.x; i < a.d; i += blockDim.x) {
-    const float xc = a.rms ? to_f(xr[i]) : __fsub_rn(to_f(xr[i]), mean);
-    float g = to_f(gamma[i]);
-    if (a.plus_one) g = __fadd_rn(1.0f, g);
-    float o = __fmul_rn(__fmul_rn(xc, inv), g);
-    if (beta != nullptr) o = __fadd_rn(o, to_f(beta[i]));
-    orow[i] = from_f<T>(o);
+  const float inv = a.use_lut ? lut::rsqrt(v, a.rsqrt_wb, a.lo, a.inv_step, a.sections)
+                              : rsqrtf(v);
+
+  T* orow = static_cast<T*>(a.out) + row * a.d;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k0 = (c * GT + t) * N;
+    if (k0 >= d) continue;
+    Pack<T, N> o;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xc = a.rms ? x[c][j] : __fsub_rn(x[c][j], mean);
+      float gj = g[c][j];
+      if (a.plus_one) gj = __fadd_rn(1.0f, gj);
+      float r = __fmul_rn(__fmul_rn(xc, inv), gj);
+      if (beta != nullptr) r = __fadd_rn(r, b[c][j]);
+      o.v[j] = from_f<T>(r);
+    }
+    if (a.vec) {
+      o.store(orow + k0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (k0 + j < d) orow[k0 + j] = o.v[j];
+    }
   }
 }
 
-template <typename T>
-int launch_g(const Args& a, int n_rows, int gdtype, cudaStream_t s) {
-  if (gdtype == 0) layernorm_kernel<T, float><<<n_rows, kThreads, 0, s>>>(a);
-  else if (gdtype == 1) layernorm_kernel<T, __nv_bfloat16><<<n_rows, kThreads, 0, s>>>(a);
-  else return (int)cudaErrorInvalidValue;
+template <typename T, typename G>
+int launch(const Args& a, int chunks, cudaStream_t s) {
+  constexpr int N = 16 / (int)sizeof(T);
+  const int W = 1 << a.wshift, R = a.rows_per_block;
+  if (R < 1 || W * R > kWarps || (long long)chunks * 32 * W * N < a.d)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a.n_rows + R - 1) / R));
+  const int threads = 32 * W * R;
+  switch (chunks) {
+    case 1: layernorm_rows<T, G, 1><<<grid, threads, 0, s>>>(a); break;
+    case 2: layernorm_rows<T, G, 2><<<grid, threads, 0, s>>>(a); break;
+    case 4: layernorm_rows<T, G, 4><<<grid, threads, 0, s>>>(a); break;
+    case 8: layernorm_rows<T, G, 8><<<grid, threads, 0, s>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return 0;
+}
+
+template <typename T>
+int launch_g(const Args& a, int chunks, int gdtype, cudaStream_t s) {
+  if (gdtype == 0) return launch<T, float>(a, chunks, s);
+  if (gdtype == 1) return launch<T, __nv_bfloat16>(a, chunks, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -123,21 +205,32 @@ extern "C" {
 
 // dtype (x's and out's) and gdtype (gamma's and beta's): 0 = float32,
 // 1 = bfloat16. beta and rsqrt_wb may be null (rsqrt_wb when use_lut is 0).
-// out is (n_rows, d) contiguous. Returns a CUDA error code (0 on success).
+// out is (n_rows, d) contiguous. chunks, warps_per_row and rows_per_block
+// are layernorm_plan's; vec asks for 16-byte pieces (x, out, gamma and beta
+// 16-byte aligned, x_stride and d multiples of 16 bytes of x's elements).
+// Returns a CUDA error code (0 on success).
 int layernorm_lut(const void* x, const void* gamma, const void* beta, const float* rsqrt_wb,
-                  void* out, int n_rows, int d, long long x_stride, float eps, int use_lut,
-                  float lo, float inv_step, int sections, int rms, int plus_one, int dtype,
+                  void* out, long long n_rows, int d, long long x_stride, float eps,
+                  int use_lut, float lo, float inv_step, int sections, int rms, int plus_one,
+                  int chunks, int warps_per_row, int rows_per_block, int vec, int dtype,
                   int gdtype, void* stream) {
   if (n_rows <= 0) return 0;
-  if (d <= 0 || (use_lut && (rsqrt_wb == nullptr || sections + 2 > lut::kMaxTableRows)))
+  if (d <= 0 || dtype < 0 || dtype > 1 ||
+      (use_lut && (rsqrt_wb == nullptr || sections + 2 > lut::kMaxTableRows)))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, gamma, beta, rsqrt_wb, out, d, x_stride, eps, use_lut, lo, inv_step,
-               sections, rms, plus_one};
+  const int elem = dtype == 0 ? 4 : 2;
+  const int wshift = warps_per_row == 1 ? 0 : warps_per_row == 2 ? 1 : warps_per_row == 4 ? 2
+                     : warps_per_row == 8 ? 3 : -1;
+  if (wshift < 0 ||
+      (vec && (!common::aligned16(x) || !common::aligned16(out) || !common::aligned16(gamma) ||
+               (beta != nullptr && !common::aligned16(beta)) || (x_stride * elem) % 16 != 0 ||
+               (d * elem) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, gamma, beta, rsqrt_wb, out, n_rows, d, x_stride, eps, use_lut, lo, inv_step,
+               sections, rms, plus_one, wshift, rows_per_block, vec};
   cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (dtype == 0) rc = launch_g<float>(a, n_rows, gdtype, s);
-  else if (dtype == 1) rc = launch_g<__nv_bfloat16>(a, n_rows, gdtype, s);
-  else return (int)cudaErrorInvalidValue;
+  const int rc = dtype == 0 ? launch_g<float>(a, chunks, gdtype, s)
+                            : launch_g<__nv_bfloat16>(a, chunks, gdtype, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

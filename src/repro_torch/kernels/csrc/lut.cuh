@@ -3,8 +3,10 @@
 // reciprocal and rsqrt (lut_reciprocal, lut_rsqrt).
 //
 // A table is (sections + 2) rows of (slope, intercept) in fp32, rows 0 and
-// sections + 1 the out-of-range guards, kept in shared memory by the
-// caller (at most kMaxTableRows rows). Each arithmetic step is rounded on
+// sections + 1 the out-of-range guards (at most kMaxTableRows rows), kept
+// in shared memory by the caller (`stage`) or read from device memory,
+// where a staging barrier would cost more than the few evaluations it
+// serves. Each arithmetic step is rounded on
 // its own (__fsub_rn, __fmul_rn, __fadd_rn), as the plain versions'
 // separate PyTorch ops are: nvcc would otherwise contract w * x + b into an
 // FMA. So one evaluation is bit-exact to apply_table.
@@ -35,13 +37,18 @@ __device__ __forceinline__ float frexp_bits(float x, int* e) {
   return __int_as_float((bits & 0x007FFFFF) | 0x3F000000);
 }
 
+// y * 2^n, as ldexpf: one exact multiply where 2^n is a normal float.
+__device__ __forceinline__ float scale2(float y, int n) {
+  return n >= -126 && n <= 127 ? __fmul_rn(y, __int_as_float((127 + n) << 23)) : ldexpf(y, n);
+}
+
 // 1/x for x > 0: the table (1/m on [0.5, 1]) on the mantissa, times 2^-e
-// rebuilt exactly by ldexpf.
+// rebuilt exactly.
 __device__ __forceinline__ float reciprocal(float x, const float* wb, float lo,
                                             float inv_step, int sections) {
   int e;
   const float m = frexp_bits(x, &e);
-  return ldexpf(eval(m, wb, lo, inv_step, sections), -e);
+  return scale2(eval(m, wb, lo, inv_step, sections), -e);
 }
 
 // 1/sqrt(x) for x > 0: an odd exponent is folded into the mantissa, which
@@ -54,7 +61,7 @@ __device__ __forceinline__ float rsqrt(float x, const float* wb, float lo, float
     m = __fmul_rn(m, 0.5f);
     e += 1;
   }
-  return ldexpf(eval(m, wb, lo, inv_step, sections), -(e / 2));
+  return scale2(eval(m, wb, lo, inv_step, sections), -(e / 2));
 }
 
 // Copy a table of `sections` + 2 rows into shared memory `dst`; the

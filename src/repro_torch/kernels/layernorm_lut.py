@@ -18,6 +18,10 @@ adds them as the kernel does and is its bit-exact twin (the two forms can
 differ in the last bit of a mean).
 
 Bound on the H100: one read and one write of every row over 3.35 TB/s.
+`layernorm_plan` shapes the launch: the row, gamma and beta held in the
+registers of a group of warps and read once, a warp a row up to d = 2048
+in bf16 (1024 in f32) and up to 8 warps past it; a call of few rows (a
+decode step's 4) spreads each row until a lane holds 8 values.
 """
 from __future__ import annotations
 
@@ -27,6 +31,21 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
+
+# The most 16-byte pieces of a row a lane holds in registers, beside as
+# many of gamma and of beta: 64 bf16 or 32 f32 values of x.
+MAX_CHUNKS = 8
+
+
+def layernorm_plan(n_rows: int, d: int, itemsize: int) -> tuple[int, int, int]:
+    """(chunks, warps_per_row, rows_per_block) of the kernel's launch
+    (`_build.row_plan`); raises for rows past 8 warps' registers."""
+    plan = _build.row_plan(n_rows, d, itemsize, MAX_CHUNKS)
+    if plan is None:
+        limit = MAX_CHUNKS * 16 // itemsize * 32 * _build.ROW_GROUP_WARPS[-1]
+        raise ValueError(f"layernorm_lut takes rows of at most {limit} elements of "
+                         f"{itemsize} bytes, got d={d}")
+    return plan
 
 
 def layernorm_lut_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -87,15 +106,17 @@ def layernorm_lut(x: torch.Tensor, gamma: torch.Tensor,
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0 or d == 0:
         return out.reshape(x.shape)
+    chunks, warps, rows = layernorm_plan(n, d, x.element_size())
+    vec = _build.vector_ok(x.element_size(), (d, x2.stride(0)), x2, gamma, beta, out)
     wb = rsqrt_table.wb_on(x.device) if rsqrt_table is not None else None
     lo, inv_step, sections = ((rsqrt_table.lo, rsqrt_table.inv_step, rsqrt_table.sections)
                               if rsqrt_table is not None else (0.25, 1.0, 1))
     lib = _build.library("layernorm_lut")
-    rc = _build.cfunc(lib, "layernorm_lut", "p" * 5 + "iilfiffiiiiip")(
+    rc = _build.cfunc(lib, "layernorm_lut", "p" * 5 + "lilfiffiii" + "iiii" + "iip")(
         x2.data_ptr(), gamma.data_ptr(), _build.ptr(beta), _build.ptr(wb), out.data_ptr(),
         n, d, x2.stride(0), eps, int(rsqrt_table is not None), lo, inv_step, sections,
-        int(rms), int(plus_one), _DTYPE_CODE[x.dtype], _DTYPE_CODE[gamma.dtype],
-        _build.stream(x))
+        int(rms), int(plus_one), chunks, warps, rows, int(vec), _DTYPE_CODE[x.dtype],
+        _DTYPE_CODE[gamma.dtype], _build.stream(x))
     _build.check(lib, "layernorm_lut", rc)
     layernorm_lut.launches += 1
     return out.reshape(x.shape)

@@ -14,7 +14,11 @@ second-to-last axis) and key k is kept when (not causal or k <= qpos) and
 `_masked_softmax_attn`; masked entries come out 0, and a row with no valid
 key comes out all zeros. Without a mask it is the TPU kernel's function.
 
-Bound on the H100: one read and one write of the scores over 3.35 TB/s.
+Bound on the H100: one read of the valid keys and one write of the scores
+over 3.35 TB/s. `softmax_plan` shapes the launch: a warp a row up to 1024
+keys (a call of few rows spreads a row over more warps), the row held in
+registers and read once; a group of up to 8 warps a row up to 8192 keys;
+a block a row, streamed, past that.
 """
 from __future__ import annotations
 
@@ -25,6 +29,16 @@ from repro_torch.core.lut import LutTable
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
 
+# The most values of a row a lane holds in registers (8 f32 or 4 bf16
+# pieces of 16 bytes); ptxas fits that with no spill.
+MAX_VALUES_PER_LANE = 32
+
+
+def softmax_plan(n_rows: int, S: int, itemsize: int) -> tuple[int, int, int]:
+    """(chunks, warps_per_row, rows_per_block) of the kernel's launch
+    (`_build.row_plan`); chunks 0 streams each row through a block."""
+    plan = _build.row_plan(n_rows, S, itemsize, MAX_VALUES_PER_LANE * itemsize // 16)
+    return plan if plan is not None else (0, _build.BLOCK_WARPS, 1)
 
 
 def attention_mask(Sq: int, Sk: int, q_offset: int, causal: bool,
@@ -83,14 +97,17 @@ def softmax_lut(x: torch.Tensor, exp_table: LutTable, recip_table: LutTable,
         return out
     Sk = x.shape[-1]
     Sq = x.shape[-2] if masked else 1
+    n_rows = x.numel() // Sk
+    chunks, warps, rows = softmax_plan(n_rows, Sk, x.element_size())
+    vec = _build.vector_ok(x.element_size(), (Sk,), x, out)
     lib = _build.library("softmax_lut")
-    rc = _build.cfunc(lib, "softmax_lut", "pppp" + "ii" + "ffi" * 2 + "iiiiii" + "p")(
+    rc = _build.cfunc(lib, "softmax_lut", "pppp" + "li" + "ffi" * 2 + "iiiii" + "iiiii" + "p")(
         x.data_ptr(), out.data_ptr(), exp_table.wb_on(x.device).data_ptr(),
-        recip_table.wb_on(x.device).data_ptr(), x.numel() // Sk, Sk,
+        recip_table.wb_on(x.device).data_ptr(), n_rows, Sk,
         exp_table.lo, exp_table.inv_step, exp_table.sections,
         recip_table.lo, recip_table.inv_step, recip_table.sections,
         int(masked), q_offset, Sq, int(causal), window if window is not None else 0,
-        _DTYPE_CODE[x.dtype], _build.stream(x))
+        chunks, warps, rows, int(vec), _DTYPE_CODE[x.dtype], _build.stream(x))
     _build.check(lib, "softmax_lut", rc)
     softmax_lut.launches += 1
     return out

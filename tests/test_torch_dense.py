@@ -20,11 +20,15 @@ carried across by `bridge.params_from_numpy`:
     caches to within one rounding step, see `_close_cache`);
   * greedy `generate()` and `ServingEngine(paged=False)` drains token for
     token against the JAX package's, and the JAX config errors word for
-    word.
+    word;
+  * the launch plans of the two row kernels (`softmax_plan`,
+    `layernorm_plan`, `_build.row_plan`) and their 16-byte piece check.
 
 On the card (`-m gpu`): each of the four CUDA kernels against its plain
-version; `lut_interp` and `layernorm_lut` bit for bit, LUT-mode
-`decode_attention` held to the online plain version. JAX is imported inside fixtures only, so the card,
+version; `lut_interp` and `layernorm_lut` bit for bit (the norm also on
+strided rows of odd stride), `softmax_lut` on both sides of each limit of
+its plan, two launches bit for bit, LUT-mode `decode_attention` held to
+the online plain version. JAX is imported inside fixtures only, so the card,
 which has no JAX, collects this file.
 """
 from __future__ import annotations
@@ -43,7 +47,7 @@ from repro_torch.core.nonlinear import Nonlinear
 from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
 from repro_torch.core.salpim import SalPimEngine as TSalPimEngine
 from repro_torch.kernels import decode_attention, layernorm_lut, lut_interp, ops, softmax_lut
-from repro_torch.kernels import paged_attention
+from repro_torch.kernels import _build, paged_attention
 from repro_torch.models import api
 from repro_torch.serving import engine as tengine
 from repro_torch.serving.config import EngineConfig, GenConfig
@@ -190,6 +194,24 @@ def test_norms_of_nonlinear_are_the_jax_code(jx, lut):
            theirs.layernorm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)))
     _close(mine.rmsnorm(_t(x), _t(g), plus_one=True),
            theirs.rmsnorm(jnp.asarray(x), jnp.asarray(g), plus_one=True))
+
+
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("wide_sums", [False, True])
+def test_rmsnorm_plain_matches_jax_at_qwen2_width(jx, lut, plus_one, wide_sums):
+    """RMSNorm at qwen2-1.5B's d = 1536, a row past one warp's registers in
+    f32 and within them in bf16 (`layernorm_plan`)."""
+    x, g, _ = _ln_input(4, 1536, seed=2)
+    kw = dict(eps=1e-6, rms=True, plus_one=plus_one)
+    got = layernorm_lut.layernorm_lut_plain(_t(x), _t(g), None,
+                                            rsqrt_table=TBANK.rsqrt if lut else None,
+                                            wide_sums=wide_sums, **kw)
+    jnp = jx.jnp
+    jt = jx.bank.rsqrt if lut else None
+    for impl in ("interpret", "reference"):
+        _close(got, jx.ops.pim_layernorm(jnp.asarray(x), jnp.asarray(g), None,
+                                         rsqrt_table=jt, impl=impl, **kw))
 
 
 @pytest.mark.parametrize("N,S", [(8, 128), (6, 77)])
@@ -477,6 +499,121 @@ def test_dense_config_errors_match_jax(jx, change):
     assert "paged=True" in str(terr.value) or "paged pool" in str(terr.value)
 
 
+@pytest.mark.parametrize("q_offset,window", [(64, None), (952, 300), (-3, None)])
+def test_masked_softmax_plain_matches_nonlinear_at_960_keys(jx, q_offset, window):
+    """The causal mask at a 960-key prefill's width (rows of a chunk at
+    q_offset + i; at -3 the first rows see no key and come out 0) against
+    `Nonlinear.softmax(where=...)` in LUT mode."""
+    B, Sq, Sk = 2, 8, 960
+    x = _scores(B * Sq, Sk, seed=4).reshape(B, Sq, Sk)
+    kw = dict(q_offset=q_offset, causal=True, window=window)
+    got = softmax_lut.softmax_lut_plain(_t(x), TBANK.exp, TBANK.recip, **kw)
+    qp = np.arange(Sq)[:, None] + q_offset
+    kp = np.arange(Sk)[None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    want = jx.Nonlinear.create("lut").softmax(jx.jnp.asarray(x),
+                                              where=jx.jnp.asarray(mask)[None])
+    _close(got, want)
+    dead = torch.from_numpy(~mask.any(axis=1))
+    assert float(got[:, dead].abs().sum()) == 0.0
+
+
+# (n_rows, width, itemsize) -> (chunks, warps a row, rows a block): the main
+# paths' calls (a decode step's 4 norm rows, the paged chunk's 64,
+# generate()'s 512; a 128- and a 960-token prefill's scores), qwen2's 1536,
+# and both sides of each limit (a warp: 32 values a lane for the softmax, 8
+# pieces for the norm; a block of 8 warps). Calls of few rows spread a row
+# until a lane holds 8 values.
+SOFTMAX_PLANS = [((2048, 128, 4), (1, 1, 8)), ((15360, 960, 4), (8, 1, 1)),
+                 ((2048, 128, 2), (1, 1, 8)), ((6, 77, 4), (1, 1, 1)),
+                 ((8, 1024, 4), (2, 4, 1)), ((8, 1025, 4), (2, 8, 1)),
+                 ((2048, 1024, 4), (8, 1, 1)), ((2048, 1025, 4), (8, 2, 1)),
+                 ((4, 8192, 4), (8, 8, 1)), ((4, 8193, 4), (0, 8, 1)),
+                 ((4, 8192, 2), (4, 8, 1)), ((4, 8193, 2), (0, 8, 1))]
+LAYERNORM_PLANS = [((4, 1024, 2), (1, 4, 1)), ((64, 1024, 2), (1, 4, 1)),
+                   ((512, 1024, 2), (1, 4, 1)), ((512, 1024, 4), (2, 4, 1)),
+                   ((4, 1536, 2), (1, 8, 1)), ((4, 1536, 4), (2, 8, 1)),
+                   ((5, 96, 4), (1, 1, 1)), ((4, 2048, 2), (1, 8, 1)),
+                   ((4, 2049, 2), (2, 8, 1)), ((4096, 2048, 2), (8, 1, 1)),
+                   ((4096, 2049, 2), (8, 2, 1)), ((4, 16384, 2), (8, 8, 1)),
+                   ((4, 8192, 4), (8, 8, 1))]
+
+
+@pytest.mark.parametrize("shape,want", SOFTMAX_PLANS)
+def test_softmax_plan(shape, want):
+    n_rows, S, itemsize = shape
+    chunks, warps, rows = plan = softmax_lut.softmax_plan(*shape)
+    assert plan == want
+    if chunks:
+        n = 16 // itemsize
+        assert chunks * n <= softmax_lut.MAX_VALUES_PER_LANE
+        assert chunks * 32 * warps * n >= S and warps * rows <= 8
+
+
+@pytest.mark.parametrize("shape,want", LAYERNORM_PLANS)
+def test_layernorm_plan(shape, want):
+    n_rows, d, itemsize = shape
+    chunks, warps, rows = plan = layernorm_lut.layernorm_plan(*shape)
+    assert plan == want
+    assert chunks <= layernorm_lut.MAX_CHUNKS and warps * rows <= 8
+    assert chunks * 32 * warps * (16 // itemsize) >= d
+
+
+@pytest.mark.parametrize("itemsize,limit", [(2, 16384), (4, 8192)])
+def test_layernorm_plan_refuses_rows_past_a_block(itemsize, limit):
+    layernorm_lut.layernorm_plan(4, limit, itemsize)
+    with pytest.raises(ValueError, match=f"at most {limit} elements"):
+        layernorm_lut.layernorm_plan(4, limit + 1, itemsize)
+
+
+def test_row_plan_covers_every_width():
+    """Every width up to a block's registers gets a power of two of pieces
+    and of warps that hold it: the fewest warps, spread while the call has
+    fewer than 8 warps an SM and a lane holds more than 8 values; rows of
+    one warp and fewer than 16 values a lane share a block, as many as
+    still give each SM a block; wider rows get None."""
+    for itemsize, max_chunks in ((4, 8), (2, 4), (2, 8)):
+        n = 16 // itemsize
+        top = max_chunks * n * 32 * 8
+        for width in list(range(1, 2100, 7)) + [top - 1, top]:
+            fewest = next(w for w in (1, 2, 4, 8)
+                          if _build._pow2_at_least(-(-width // (32 * w * n))) <= max_chunks)
+            for n_rows in (1, 4, 131, 132, 263, 264, 2048, 8448):
+                chunks, warps, rows = _build.row_plan(n_rows, width, itemsize, max_chunks)
+                assert chunks * 32 * warps * n >= width and chunks <= max_chunks
+                assert chunks & (chunks - 1) == 0 and rows & (rows - 1) == 0
+                if chunks > 1:
+                    assert (chunks // 2) * 32 * warps * n < width
+                assert warps >= fewest
+                if warps > fewest:
+                    spread = warps // 2
+                    assert n_rows * spread < 8 * 132
+                    assert _build._pow2_at_least(-(-width // (32 * spread * n))) * n > 8
+                elif warps < 8:
+                    assert chunks * n <= 8 or n_rows * warps >= 8 * 132
+                assert warps * rows <= 8
+                if warps > 1 or chunks * n >= 16:
+                    assert rows == 1
+                else:
+                    assert rows == 1 or -(-n_rows // rows) >= 132
+                    assert rows == 8 or -(-n_rows // (2 * rows)) < 132
+        assert _build.row_plan(4, top + 1, itemsize, max_chunks) is None
+
+
+def test_vector_ok_needs_aligned_starts_and_whole_pieces():
+    """16-byte pieces only where every start is aligned and every row and
+    stride spans whole pieces: an odd stride, a row of 100 bf16 values or
+    a view one element in takes the element path."""
+    x = torch.zeros(8, 1032)
+    assert _build.vector_ok(4, (1024, x.stride(0)), x, None)
+    assert not _build.vector_ok(4, (1024, 1025), x)
+    assert not _build.vector_ok(2, (100,), x.bfloat16())
+    assert not _build.vector_ok(4, (1024,), x[:, 1:])
+    assert _build.vector_ok(4, (1024,), x[:, 4:])
+
+
 def test_dense_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gpt2_medium.smoke_config()
@@ -531,12 +668,25 @@ def test_lut_interp_kernel_bit_exact(cuda, shape, dtype, name):
     assert got.dtype == dtype and torch.equal(got, lut_interp.lut_interp_plain(x, table))
 
 
+# Rows on both sides of each limit of `layernorm_plan` (a warp: 1024 f32 or
+# 2048 bf16 values; 8 warps: 8192 or 16384), widths that are not whole
+# 16-byte pieces (98 in f32, 98 and 1030 in bf16), and the main paths' rows.
+LN_CARD_SHAPES = [(4, 1024), (64, 1024), (512, 1024), (5, 96), (3, 98), (3, 1030),
+                  (4, 1028), (4, 1536), (4, 2048), (4, 2056), (2, 8192), (2, 16384)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,d", [(4, 1024), (64, 1024), (5, 96)])
+@pytest.mark.parametrize("M,d", LN_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rms,lut,plus_one", [(False, False, False), (False, True, False),
                                               (True, False, True), (True, True, False)])
 def test_layernorm_kernel_matches_plain(cuda, M, d, dtype, rms, lut, plus_one):
+    """Bit for bit; f32 rows past 8 warps' registers are refused by name."""
+    if dtype == torch.float32 and d > 8192:
+        with pytest.raises(ValueError, match="at most 8192 elements"):
+            layernorm_lut.layernorm_lut(torch.zeros(M, d, device=cuda),
+                                        torch.ones(d, device=cuda))
+        return
     x, g, b = (_t(a, cuda).to(dtype) for a in _ln_input(M, d))
     kw = dict(eps=1e-5, rsqrt_table=TBANK.rsqrt if lut else None, rms=rms,
               plus_one=plus_one)
@@ -545,16 +695,30 @@ def test_layernorm_kernel_matches_plain(cuda, M, d, dtype, rms, lut, plus_one):
     torch.cuda.synchronize()
     assert torch.equal(got, layernorm_lut.layernorm_lut_plain(x, g, beta, wide_sums=True,
                                                               **kw))
-    # A strided view of rows, as the final norm takes x[:, -1].
+    # A strided view of rows, as the final norm takes x[:, -1]; an odd
+    # stride, which takes the element path.
     x3 = x.reshape(M, 1, d).expand(M, 3, d).contiguous()[:, -1]
     assert torch.equal(layernorm_lut.layernorm_lut(x3, g, beta, **kw), got)
+    xo = torch.cat([x, x[:, :1]], dim=1)[:, :d]
+    assert xo.stride(0) == d + 1
+    assert torch.equal(layernorm_lut.layernorm_lut(xo, g, beta, **kw), got)
+
+
+# Rows on both sides of each limit of `softmax_plan` (a warp: 1024 keys; 8
+# warps: 8192, past which rows are streamed), keys that are not whole
+# 16-byte pieces (77, 1026), and the 128- and 960-token prefills' scores.
+SM_CARD_SHAPES = [(16 * 128, 128), (6, 77), (8, 1024), (8, 1026), (4, 8192), (4, 8193),
+                  (16 * 960, 960)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,S", [(16 * 128, 128), (6, 77)])
+@pytest.mark.parametrize("N,S", SM_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mask", [None, (0, True, None), (64, True, 40)])
+@pytest.mark.parametrize("mask", [None, (0, True, None), (64, True, 40), (-3, True, 2)])
 def test_softmax_kernel_matches_plain(cuda, N, S, dtype, mask):
+    """Masked and not; at q_offset -3 the first three rows of each block
+    of queries see no key and come out 0; two launches agree bit for
+    bit."""
     x = _t(_scores(N, S), cuda).to(dtype)
     kw = {} if mask is None else dict(zip(("q_offset", "causal", "window"), mask))
     if mask is not None:
@@ -563,6 +727,9 @@ def test_softmax_kernel_matches_plain(cuda, N, S, dtype, mask):
     torch.cuda.synchronize()
     want = softmax_lut.softmax_lut_plain(x, TBANK.exp, TBANK.recip, **kw)
     _close(got, want.float().cpu(), _tol(dtype))
+    assert torch.equal(softmax_lut.softmax_lut(x, TBANK.exp, TBANK.recip, **kw), got)
+    if mask is not None and mask[0] < 0:
+        assert float(got[..., :-mask[0], :].float().abs().max()) == 0.0
 
 
 @pytest.mark.gpu
