@@ -59,8 +59,12 @@ Run from the root of a checkout. Phases, each of which fails the run:
               `quantize_params_int8` weights and int8 pools, q2 with
               `SalPimConfig(quant="fixed16")`, q3 with `quant="int8"` and LUT
               nonlinearities, with phase 4's checks (145 `gemv_pim_int8` or
-              `gemv_pim_fixed` launches and no float GEMV a step and a
-              chunk) and the first logits held to a one-shot prefill through
+              `gemv_pim_fixed_linear` launches, all on the 8-bit tensor
+              cores, and no float GEMV a step and a chunk; q2's decode step
+              and chunk run the same PyTorch operations as the exact fp
+              ones plus the 24 eager GELUs, so no quantization,
+              dequantization or bias op is left around the fixed16 GEMV)
+              and the first logits held to a one-shot prefill through
               the plain versions on the same datapath; each drain's share of
               greedy tokens with phase 4's exact drain, its decode step and
               prefill chunk on the host clock and the device, and the device
@@ -85,13 +89,19 @@ Run from the root of a checkout. Phases, each of which fails the run:
      bound and launches, then the card line and the result line.
 
 Phases 4-6 also check the norms (49 layernorm_lut launches a decode step
-and a chunk) and, in q3, the LUT GELU after the int8 GEMV (24 lut_interp).
+and a chunk) and that no path launches lut_interp (q3's LUT GELU rides the
+int8 GEMV's epilogue).
 
 Phase 3 also holds the int8 and fixed16 GEMVs bit for bit to their plain
 versions (int8 over M 1..512 x R 1000..50257 x C 1024/4096 on the s8
-tensor cores and C 1000 on the __dp4a kernel, with and without bias;
-fixed16 at M 1, 4, 64, shift 10 and 12, with rows that saturate both ways
-and one whose int32 sum wraps), and `quantize_int8_rows` bit for bit on
+tensor cores and C 1000 on the __dp4a kernel, with and without bias, and
+with q3's epilogue: bf16 scales and bias, bf16 out, the LUT GELU; fixed16
+at M 1, 4, 64, shift 10 and 12, with rows that saturate both ways and one
+whose int32 sum wraps; then the int16 kernel and the fused fixed16 linear
+layer, bf16 and f32, bias and LUT, at M 1..512 over the model's shapes on
+the 8-bit tensor cores and at C 1000 and a misaligned x on the CUDA
+cores, sums planted to saturate both ways and to wrap past +-2^31, two
+launches bit for bit), and `quantize_int8_rows` bit for bit on
 f32 and bf16 rows (zero rows and .5 ties); the prefill kernel over g 1
 and 2, Sq 1/17/64 and starts 0/15/64/896 on every pool format (bf16, all
 on the tensor cores); the single walk at qwen2-1.5B's widths over 131072
@@ -101,9 +111,9 @@ the outputs O(1); and times the int8 GEMV over a
 decode step and at `w_up`, the per-call quantization on the kernel, the
 prefill at start 896 and the 131072-key walk beside SDPA and the split.
 Phases 4-6 count every tensor-core launch: all 145 GEMVs of q1 and q3 on
-the s8 tensor cores, one quantize_int8_rows a linear for x (two in q3,
-for the weight too), every chunk's 24 prefill launches on the tensor-core
-kernel.
+the s8 tensor cores and of q2 on the 8-bit ones, one quantize_int8_rows a
+linear for x (two in q3, for the weight too), every chunk's 24 prefill
+launches on the tensor-core kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -111,6 +121,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import pathlib
@@ -122,10 +133,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-# CUDA cores f32; bf16 and int8 dense tensor cores; no tensor core has an
-# int16 mode, so fixed16 runs as int32 multiply-adds on the CUDA cores, at
-# half the f32 rate (64 INT32 lanes an SM; Hopper white paper).
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "int16": 33.5e12}
+# CUDA cores f32; bf16 and int8 dense tensor cores. An int16 product is
+# four 8-bit ones (hi.hi, hi.lo, lo.hi, lo.lo byte planes), which the
+# fixed16 kernel runs on the int8 tensor cores: a quarter of their rate.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "int16": 1979e12 / 4}
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # In LUT mode the paged kernels run the TPU kernels' online softmax
 # (corr = LUT(max(m_prev - m_new, lo)) page by page), a different function
@@ -1191,9 +1202,15 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
     ms = time_graph(torch, lambda i: lut_interp.lut_interp(acts[i], bank.gelu), L)
     plain = time_graph(torch, lambda i: lut_interp.lut_interp_plain(acts[i], bank.gelu), L)
     bnd, by = bound_ms(2 * 2 * 4 * cfg.d_ff, 2 * 4 * cfg.d_ff, "float32")
+    # The launch floor: an empty kernel in the same CUDA-graph harness.
+    floor = time_graph(torch, lambda i: lut_interp.empty_kernel(dev), L)
+    log(f"  launch floor: an empty kernel replayed in the same CUDA graph takes "
+        f"{floor * 1e3:.2f} us a launch; lut_interp on (4, {cfg.d_ff}) {ms * 1e3:.2f} us")
     out["lut_interp"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                             bound_by=by, shape=f"(4, {cfg.d_ff}) bf16, the LUT GELU after "
-                             "q3's int8 w_up; library: none")
+                             bound_by=by, launch_floor_ms=floor,
+                             shape=f"(4, {cfg.d_ff}) bf16, the LUT GELU that q3 ran after its "
+                             f"int8 w_up before the GEMV's epilogue took it in; an empty kernel "
+                             f"{floor * 1e3:.2f} us; library: none")
     for name, r in out.items():
         if name in ("softmax_lut", "layernorm_lut"):
             continue                                # printed above, at each width
@@ -1222,14 +1239,14 @@ def fixed_operands(torch, M, C, R, gen):
     return xq, wq
 
 
-def check_quant_kernels(torch, gemv_pim, seed):
+def check_quant_kernels(torch, quant, tlut, gemv_pim, seed):
     """The int8 and fixed16 GEMVs against their plain versions, bit for
     bit: fixed16 at M in {1, 4, 64} over the model's GEMV shapes; int8 over
     M {1, 4, 8, 9, 64, 65, 512} x R {1000, 1024, 4096, 50257} x C {1024,
     4096, 1000}, with and without bias, on the s8 tensor cores (the
     wrapper's tc_launches must show it) and, at C = 1000, the __dp4a
     kernel; then quantize_int8_rows on f32 and bf16 rows, zero rows and .5
-    ties among them."""
+    ties among them; then `check_fixed_routes`."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     errs = {"gemv_pim_int8": 0.0, "gemv_pim_fixed": 0.0, "quantize_int8_rows": 0.0}
@@ -1312,7 +1329,110 @@ def check_quant_kernels(torch, gemv_pim, seed):
         log(f"  quantize_int8_rows {str(dtype).split('.')[1]}: 4x1024 .. 50257x1024 rows, a "
             "zero row and exact .5 ties: payload and scales bit-exact to the plain "
             "function, one launch a call")
+    check_fixed_routes(torch, quant, tlut, gemv_pim, gen, same)
     return errs
+
+
+def check_fixed_routes(torch, quant, tlut, gemv_pim, gen, same):
+    """The redesigned fixed16 kernels and the int8 GEMV's epilogue, bit for
+    bit with their plain versions (`same` records the error and raises):
+    the int16 kernel (shift 12) and the fused fixed16 linear layer (bf16
+    and f32 x and w quantized as they load; no bias, and a bias with the
+    LUT GELU) at M in {1, 4, 8, 16, 64, 512} over the model's (R, C), on
+    the 8-bit tensor cores, and at C = 1000 and with a misaligned x on the
+    CUDA cores (each wrapper's tc_launches must show the route); x and w
+    planted so that sums saturate both ways and wrap past +-2^31; two
+    launches bit for bit; then the int8 GEMV with q3's epilogue (scales and
+    bias in x's dtype, out in x's dtype, the LUT GELU) on both routes."""
+    dev = torch.device("cuda")
+    gelu = tlut.LutBank.create(64).gelu
+    fixed, fused = gemv_pim.gemv_pim_fixed, gemv_pim.gemv_pim_fixed_linear
+    kw = dict(frac_x=10, frac_w=12)
+    x_fmt, w_fmt = quant.QFormat(10), quant.QFormat(12)
+    calls = tc = 0
+    for R, C in QUANT_SHAPES + [(1024, 1000)]:
+        b = torch.randn(R, generator=gen, device=dev) * 0.5
+        for M in (1, 4, 8, 16, 64, 512):
+            xq, wq = fixed_operands(torch, M, C, R, gen)
+            xf, wf = xq.float() / 2 ** 10, wq.float() / 2 ** 12
+            wf[2] = 8.0                     # Q.12 saturates it to 32767
+            if M > 1:
+                xf[-1] = 32.0               # Q.10's largest, against w row 3's smallest
+            wf[3] = -8.0
+            before = (fixed.tc_launches, fused.tc_launches)
+            label = f"M={M} C={C} R={R}"
+            want16 = gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=12)
+            same("gemv_pim_fixed", f"gemv_pim_fixed {label}", fixed(xq, wq, shift=12), want16)
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w, bd = xf.to(dtype), wf.to(dtype), b.to(dtype)
+                for bias, table in ((None, None), (bd, gelu)):
+                    got = fused(x, w, bias, act_table=table, **kw)
+                    torch.cuda.synchronize()
+                    want = gemv_pim.gemv_pim_fixed_linear_plain(x, w, bias, act_table=table,
+                                                                **kw)
+                    same("gemv_pim_fixed", f"gemv_pim_fixed_linear {label} {dtype} "
+                         f"bias+lut={bias is not None}", got, want)
+                    calls += 1
+                qs = x_fmt.quantize(x).double() @ w_fmt.quantize(w).double().t()
+                sat = gemv_pim.gemv_pim_fixed_plain(x_fmt.quantize(x), w_fmt.quantize(w),
+                                                    shift=12)
+                if (float(qs[0, 2]) < 2 ** 31 or (int(sat[0, 0]), int(sat[0, 1])) !=
+                        (32767, -32768) or (M > 1 and float(qs[-1, 3]) > -2 ** 31)):
+                    raise AssertionError(f"gemv_pim_fixed_linear {label} {dtype}: the planted "
+                                         "sums did not wrap or saturate")
+            calls += 1
+            tc += (fixed.tc_launches - before[0]) + (fused.tc_launches - before[1])
+        want_tc = calls if C % 16 == 0 else 0
+        if tc != want_tc:
+            raise AssertionError(f"gemv_pim_fixed C={C}: {tc} of {calls} launches on the "
+                                 f"tensor cores, expected {want_tc}")
+        route = "the 8-bit tensor cores" if tc else "the CUDA cores (C % 16 != 0)"
+        log(f"  gemv_pim_fixed grid C={C} R={R}: int16 (shift 12) and the fused fixed16 "
+            f"linear layer (bf16 and f32, bias + LUT GELU or none) at M 1..512, {calls} "
+            f"launches on {route}, sums planted to saturate both ways and to wrap past "
+            "+-2^31: bit-exact to the plain versions")
+        calls = tc = 0
+    # A misaligned x (2 bytes past a 16-byte boundary) takes the CUDA cores;
+    # two launches give the same bits.
+    xq, wq = fixed_operands(torch, 4, 1024, 1024, gen)
+    buf = torch.zeros(4 * 1024 + 8, dtype=torch.bfloat16, device=dev)
+    x = buf[1:1 + 4 * 1024].view(4, 1024)
+    x.copy_(xq.float() / 2 ** 10)
+    w = (wq.float() / 2 ** 12).to(torch.bfloat16)
+    before = fused.tc_launches
+    same("gemv_pim_fixed", "gemv_pim_fixed_linear misaligned x", fused(x, w, **kw),
+         gemv_pim.gemv_pim_fixed_linear_plain(x, w, **kw))
+    if fused.tc_launches != before:
+        raise AssertionError("gemv_pim_fixed_linear: a misaligned x went to the tensor cores")
+    for M, C, R in ((4, 4096, 1024), (64, 1024, 4096), (512, 4096, 1024)):
+        xq, wq = fixed_operands(torch, M, C, R, gen)
+        x, w = (xq.float() / 2 ** 10).to(torch.bfloat16), (wq.float() / 2 ** 12).to(torch.bfloat16)
+        for fn, args in ((fused, dict(act_table=gelu, **kw)), (fixed, dict(shift=12))):
+            a = (x, w) if fn is fused else (xq, wq)
+            if not torch.equal(fn(*a, **args), fn(*a, **args)):
+                raise AssertionError(f"{fn.__name__} M={M} C={C} R={R}: two launches differ")
+    log("  gemv_pim_fixed_linear on a misaligned x (CUDA cores) bit-exact; both fixed16 "
+        "kernels give the same bits in two launches (M 4, 64, 512)")
+
+    i8 = gemv_pim.gemv_pim_int8
+    for C in (1024, 1000):
+        for R in (1024, 50257):
+            w8 = torch.randint(-127, 128, (R, C), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand(R, generator=gen, device=dev) * 5e-4 + 5e-6
+            b = torch.randn(R, generator=gen, device=dev)
+            for M in (1, 4, 64):
+                x8 = torch.randint(-127, 128, (M, C), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                xs = torch.rand(M, generator=gen, device=dev) * 0.05 + 1e-3
+                for dtype in (torch.bfloat16, torch.float32):
+                    args = (x8, xs.to(dtype), w8, ws.to(dtype), b.to(dtype))
+                    ekw = dict(out_dtype=dtype, act_table=gelu)
+                    same("gemv_pim_int8", f"gemv_pim_int8 q3 epilogue M={M} C={C} R={R} "
+                         f"{dtype}", i8(*args, **ekw), gemv_pim.gemv_pim_int8_plain(*args, **ekw))
+            del w8
+    log("  gemv_pim_int8 with q3's epilogue (scales and bias in x's dtype, out in x's dtype, "
+        "the LUT GELU), bf16 and f32, M 1/4/64 x R 1024/50257 x C 1024 (tensor cores) and "
+        "1000 (__dp4a): bit-exact to the plain version")
 
 
 def check_prefill_grid(torch, tlut, quantize, paged_prefill, seed):
@@ -1505,10 +1625,14 @@ def check_split_planted(torch, tlut, quantize, paged_attention, seed):
 def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     """The int8 and fixed16 GEMVs over the 145 calls of a decode step at 4
     slots and over `w_up` at M = 64, with the model's weights quantized
-    (int8: `quantize_params_int8`; fixed16: Q.12), one set a layer (cold
-    in L2 as in a decode step), beside their plain versions, their bounds
-    and, for int8, `torch._int_mm`; then the device time of quantizing a
-    step's weights on every call, as `quant="int8"`/`"fixed16"` do."""
+    (int8: `quantize_params_int8`; the int16 fixed16 kernel: Q.12), one
+    set a layer (cold in L2 as in a decode step), beside their plain
+    versions, their bounds and, for int8, `torch._int_mm`; the fixed16
+    linear layer as `quant="fixed16"` runs it (bf16 weights and x in, the
+    quantization in the kernel's load path), on the tensor cores and, at
+    M = 4 and 8, on the CUDA-core route; then the device time of
+    quantizing a step's weights on every call, as `quant="int8"` does (and
+    as `quant="fixed16"` did before its kernel took the quantization in)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -1523,7 +1647,7 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     x16 = {C: x_fmt.quantize(x) for C, x in xs.items()}
     layers = [("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
               ("attn", "wo", None), ("ffn", "w_up", None), ("ffn", "w_down", None)]
-    weights, int8_step, fixed_step = [], [], []
+    weights, int8_step, fixed_step, fused_step = [], [], [], []
     for i in range(L):
         for grp, wname, bname in layers:
             w, qw = bl[grp][wname][i], qb[grp][wname]
@@ -1531,10 +1655,13 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
             weights.append(w)
             int8_step.append((*x8[w.shape[1]], qw.w_i8[i], qw.scale[i], b))
             fixed_step.append((x16[w.shape[1]], w_fmt.quantize(w)))
+            fused_step.append((xs[w.shape[1]], w, bl[grp][bname][i] if bname else None))
     weights.append(params["lm_head"])
     int8_step.append((*x8[d], qparams["lm_head"].w_i8, qparams["lm_head"].scale, None))
     fixed_step.append((x16[d], w_fmt.quantize(params["lm_head"])))
+    fused_step.append((xs[d], params["lm_head"], None))
     n = len(int8_step)
+    fkw = dict(frac_x=10, frac_w=12)
 
     def per_step(fn):
         return time_graph(torch, fn, n) * n
@@ -1544,7 +1671,7 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
         M, C = x.shape
         R = w8.shape[0]
         i8_bytes += R * C + 4 * R + M * C + 4 * M + (4 * R if b is not None else 0) + 4 * M * R
-        f16_bytes += 2 * (R * C + M * C + M * R)
+        f16_bytes += 2 * (R * C + M * C + M * R) + (2 * R if b is not None else 0)
         ops += 2 * M * R * C
     out = {}
     ms = per_step(lambda i: gemv_pim.gemv_pim_int8(*int8_step[i]))
@@ -1566,13 +1693,30 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
         ms=ms, plain_ms=plain, library_ms=per_step(mm), bound_ms=bnd, bound_by=by,
         shape=f"one decode step: {n} launches, M=4; library: torch._int_mm, the int32 "
         "product alone, x padded to 32 rows")
-    ms = per_step(lambda i: gemv_pim.gemv_pim_fixed(*fixed_step[i], shift=12))
-    plain = per_step(lambda i: gemv_pim.gemv_pim_fixed_plain(*fixed_step[i], shift=12))
+    # The fixed16 row times the route the main path runs: the fused linear
+    # layer on bf16 x and w (the same bytes as int16 ones), bias included.
+    ms = per_step(lambda i: gemv_pim.gemv_pim_fixed_linear(*fused_step[i], **fkw))
+    plain = per_step(lambda i: gemv_pim.gemv_pim_fixed_linear_plain(*fused_step[i], **fkw))
+    k16 = per_step(lambda i: gemv_pim.gemv_pim_fixed(*fixed_step[i], shift=12))
+    k16_plain = per_step(lambda i: gemv_pim.gemv_pim_fixed_plain(*fixed_step[i], shift=12))
+    cuda_core = gemv_pim.GemvPlan("cuda_core")
+    cc = {}
+    for M in (4, 8):
+        xm = {C: act(M, C) for C in xs}
+        cc_step = [(xm[w.shape[1]], w, b) for _, w, b in fused_step]
+        cc[M] = (per_step(lambda i: gemv_pim.gemv_pim_fixed_linear(*cc_step[i], **fkw)),
+                 per_step(lambda i: gemv_pim.launch_fixed_linear(*cc_step[i], cuda_core,
+                                                                 **fkw)))
     bnd, by = bound_ms(f16_bytes, ops, "int16")
     out["gemv_pim_fixed"] = dict(
         ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
-        shape=f"one decode step: {n} launches, M=4, shift 12; library: none, no "
-        "PyTorch call does an int16 GEMM on CUDA")
+        shape=f"one decode step: {n} launches of the fixed16 linear layer, M=4, bf16 x and w "
+        f"quantized in the kernel, bias; the int16 kernel on pre-quantized operands "
+        f"{k16:.3f} ms (plain {k16_plain:.3f} ms); library: none, no PyTorch call does an "
+        "int16 GEMM on CUDA")
+    log("  gemv_pim_fixed_linear, a decode step's 145 calls, tensor cores against the "
+        "CUDA-core route: " + ", ".join(f"M={M}: {a:.3f} against {b:.3f} ms"
+                                         for M, (a, b) in cc.items()))
     for name, r in out.items():
         if "shape" not in r:
             continue
@@ -1593,11 +1737,16 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     b8, by8 = bound_ms(f * d + 4 * f + 64 * d + 4 * 64 + 4 * 64 * f, 2 * 64 * f * d, "int8")
     tf = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed(c16, up16[i], shift=12), L)
     pf = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed_plain(c16, up16[i], shift=12), L)
+    ups = [bl["ffn"]["w_up"][i] for i in range(L)]
+    tfl = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed_linear(x64, ups[i], **fkw), L)
+    pfl = time_graph(torch, lambda i: gemv_pim.gemv_pim_fixed_linear_plain(x64, ups[i], **fkw),
+                     L)
     bf, byf = bound_ms(2 * (f * d + 64 * d + 64 * f), 2 * 64 * f * d, "int16")
     log(f"  gemv_pim_int8 M=64 C={d} R={f} (w_up over a chunk): {t8 * 1e3:.2f} us, plain "
         f"{p8 * 1e3:.2f} us, torch._int_mm {l8 * 1e3:.2f} us, bound {b8 * 1e3:.2f} us ({by8})")
     log(f"  gemv_pim_fixed M=64 C={d} R={f} (w_up over a chunk): {tf * 1e3:.2f} us, plain "
-        f"{pf * 1e3:.2f} us, bound {bf * 1e3:.2f} us ({byf})")
+        f"{pf * 1e3:.2f} us, bound {bf * 1e3:.2f} us ({byf}); the fixed16 linear layer on "
+        f"bf16 x and w (the route): {tfl * 1e3:.2f} us, plain {pfl * 1e3:.2f} us")
     # w_up at a decode step's M=4.
     c4, c4s = x8[d]
     t4 = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8(c4, c4s, *up8[i]), L)
@@ -1609,11 +1758,14 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
                                       f"{l8 * 1e3:.2f}, bound {b8 * 1e3:.2f}); w_up at M=4: "
                                       f"{t4 * 1e3:.2f} us (torch._int_mm {l4 * 1e3:.2f}, bound "
                                       f"{b4 * 1e3:.2f})")
-    out["gemv_pim_fixed"]["shape"] += f"; w_up at M=64: {tf * 1e3:.2f} us"
+    out["gemv_pim_fixed"]["shape"] += (f"; w_up at M=64: the route {tfl * 1e3:.2f} us, the "
+                                       f"int16 kernel {tf * 1e3:.2f} us, bound "
+                                       f"{bf * 1e3:.2f} us")
 
-    # The weight quantization that quant="int8" and "fixed16" run on every
-    # call: quant="int8" on the quantize_int8_rows kernel (one launch a
-    # weight), beside its plain version (~10 eager ops a weight).
+    # The weight quantization that quant="int8" runs on every call, on the
+    # quantize_int8_rows kernel (one launch a weight), beside its plain
+    # version (~10 eager ops a weight); and the eager Q.12 quantization that
+    # quant="fixed16" ran before its kernel took it in.
     qi8 = per_step(lambda i: gemv_pim.quantize_int8_rows(weights[i]))
     qi8_plain = per_step(lambda i: quant.quantize_int8_rowwise(weights[i]))
     qf16 = per_step(lambda i: w_fmt.quantize(weights[i]))
@@ -1625,7 +1777,8 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     qx_plain = per_step(lambda i: quant.quantize_int8_rows(xf[i]))
     log(f"  per-call weight quantization of a decode step's {n} bf16 weights on the "
         f"device: quantize_int8_rows kernel {qi8:.3f} ms (plain quantize_int8_rowwise "
-        f"{qi8_plain:.3f} ms, bound {bq:.3f} ms by {byq}); Q.12 quantize {qf16:.3f} ms; x's "
+        f"{qi8_plain:.3f} ms, bound {bq:.3f} ms by {byq}); an eager Q.12 quantize (no "
+        f"longer on the fixed16 route) {qf16:.3f} ms; x's "
         f"quantization before a step's {n} int8 GEMVs: kernel {qx:.3f} ms, plain "
         f"{qx_plain:.3f} ms")
     out["quantize_int8_rows"] = dict(
@@ -1768,14 +1921,15 @@ class TcCounter:
 
 TC = "gemv_pim_float.tc"
 TC8 = "gemv_pim_int8.tc"
+TCF = "gemv_pim_fixed_linear.tc"
 TCP = "paged_prefill_attention.tc"
 
 
 def serving_handles(torch):
-    """The kernel wrappers by name (their launch counters; TC, TC8 and TCP
-    count the tensor-core launches of the float and int8 GEMVs and of the
-    paged prefill), the modules that `serve` takes and the plain versions
-    that `plain_prefill_logits` takes."""
+    """The kernel wrappers by name (their launch counters; TC, TC8, TCF and
+    TCP count the tensor-core launches of the float and int8 GEMVs, of the
+    fixed16 linear layer and of the paged prefill), the modules that `serve`
+    takes and the plain versions that `plain_prefill_logits` takes."""
     from repro_torch.core import lut as tlut
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
     from repro_torch.distributed import collectives
@@ -1792,6 +1946,7 @@ def serving_handles(torch):
                "merge_partials": paged_attention.merge_partials,
                "gemv_pim_int8": gemv_pim.gemv_pim_int8,
                "gemv_pim_fixed": gemv_pim.gemv_pim_fixed,
+               "gemv_pim_fixed_linear": gemv_pim.gemv_pim_fixed_linear,
                "decode_attention": attn.decode_attention,
                "softmax_lut": softmax_lut.softmax_lut,
                "layernorm_lut": layernorm_lut.layernorm_lut,
@@ -1799,6 +1954,7 @@ def serving_handles(torch):
                "quantize_int8_rows": gemv_pim.quantize_int8_rows,
                TC: TcCounter(gemv_pim.gemv_pim_float),
                TC8: TcCounter(gemv_pim.gemv_pim_int8),
+               TCF: TcCounter(gemv_pim.gemv_pim_fixed_linear),
                TCP: TcCounter(paged_prefill.paged_prefill_attention)}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
             paged_attention, kernels)
@@ -1815,7 +1971,8 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     every kernel: every linear through the GEMV kernel `gemv` on the tensor
     cores, x quantized by one quantize_int8_rows launch a linear on the int8
     datapaths (and the weight by another with quant="int8"), every chunk's
-    attention on the tensor-core prefill kernel."""
+    attention on the tensor-core prefill kernel, no lut_interp (a LUT
+    activation rides every GEMV's epilogue)."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     kv, sd = POOLS[fmt]
@@ -1825,8 +1982,6 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         prefix_sharing=False, kv_cache_dtype=kv, kv_scale_dtype=sd,
         kv_splits=kv_splits, gen=GenConfig(stop_on_eos=False)), device="cuda")
     split = paged_attention.effective_kv_splits(kv_splits, eng.max_pages, 16) is not None
-    # The LUT GELU runs on its own after a quantized GEMV (no epilogue).
-    lut_act = mode == "lut" and gemv != "gemv_pim_float"
     first: dict[int, object] = {}
     tick = eng._prefill_tick
 
@@ -1854,11 +2009,11 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         expect.update({gemv: lin,
                        TC: lin if gemv == "gemv_pim_float" else 0,
                        TC8: lin if gemv == "gemv_pim_int8" else 0,
+                       TCF: lin if gemv == "gemv_pim_fixed_linear" else 0,
                        "quantize_int8_rows": (2 * lin if quant == "int8" else
                                               lin if gemv == "gemv_pim_int8" else 0),
                        TCP: L * chunk,
                        "layernorm_lut": (2 * L + 1) * (dec + chunk),
-                       "lut_interp": L * (dec + chunk) if lut_act else 0,
                        "paged_attention": 0 if split else L * dec,
                        "paged_prefill_attention": L * chunk,
                        "paged_attention_split": L * dec if split else 0,
@@ -1888,14 +2043,13 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     L = cfg.n_layers
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
-    act = f", {L} lut_interp" if lut_act else ""
-    tc = " (all on the tensor cores)" if gemv != "gemv_pim_fixed" else ""
+    tc = " (all on the tensor cores)"
     n_q = {"int8": 2, "none": 1 if gemv == "gemv_pim_int8" else 0}.get(quant, 0) * (6 * L + 1)
     qr = f", {n_q} quantize_int8_rows" if n_q else ""
     log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}{tc}{qr}, {attn}, "
-        f"{2 * L + 1} layernorm_lut{act}; per prefill chunk: {6 * L + 1} {gemv}{tc}{qr}, "
+        f"{2 * L + 1} layernorm_lut; per prefill chunk: {6 * L + 1} {gemv}{tc}{qr}, "
         f"{L} paged_prefill_attention (all on the tensor cores), {2 * L + 1} "
-        f"layernorm_lut{act}; no other kernel (checked every step)")
+        f"layernorm_lut; no other kernel, no lut_interp (checked every step)")
     return eng, done, first, wall
 
 
@@ -1980,6 +2134,56 @@ def time_long_decode(torch, api, params, cfg, sal, fmt, label, card):
         f"clock, {device:.2f} ms on the device (host share {1 - device / host:.0%}), "
         f"4 slots x 960..1020 context")
     return host, device
+
+
+def eager_ops(torch, fn):
+    """The PyTorch operations that `fn()` dispatches, counted by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counts = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def check_fixed_step_ops(torch, api, params, cfg, SalPimConfig, SalPimEngine):
+    """q2's prefill chunk and decode step dispatch exactly the exact fp
+    path's PyTorch operations plus one GELU a layer (exact mode's tanh
+    GELU, fused into the float GEMV, runs after a quantized one): the
+    fixed16 linear is its one kernel launch, with no quantization,
+    dequantization, cast or bias op around it."""
+    dev = params["embed"].device
+    B, page, max_pages, L = 4, 16, 16, cfg.n_layers
+    tables = torch.arange(1, 1 + B * max_pages, dtype=torch.int32,
+                          device=dev).reshape(B, max_pages)
+    toks = torch.full((1, 64), 5, dtype=torch.int64, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    tok = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    got = {}
+    for quant in ("none", "fixed16"):
+        sal = SalPimEngine.create(SalPimConfig(quant=quant))
+        cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages, device=dev)
+        chunk = eager_ops(torch, lambda: api.prefill_chunk(
+            params, toks, tables[:1], start, cache.k_pages, cache.v_pages, cfg, sal,
+            cache.k_scale, cache.v_scale))
+        cache.lengths[:] = 64
+        cache.block_tables.copy_(tables)
+        step = eager_ops(torch, lambda: api.decode_step(params, tok, cache, cfg, sal))
+        got[quant] = {"prefill chunk": chunk, "decode step": step}
+    torch.cuda.synchronize()
+    for what in ("prefill chunk", "decode step"):
+        fp, q2 = got["none"][what], got["fixed16"][what]
+        if dict(q2 - fp) != {"aten.gelu.default": L} or fp - q2:
+            raise AssertionError(f"q2 {what}: PyTorch operations beyond the fp path's: "
+                                 f"{dict(q2 - fp)}, missing {dict(fp - q2)}")
+        log(f"  q2 {what}: {sum(q2.values())} PyTorch operations dispatched, the exact fp "
+            f"path's {sum(fp.values())} + {L} aten.gelu (the exact GELU after w_up): no "
+            "quantize, dequantize, cast or bias op around the fixed16 GEMV")
 
 
 def time_model(torch, api, params, cfg, sal, prompts, card, label=None, fmt="fp"):
@@ -2281,7 +2485,7 @@ def main() -> int:
                                                     args.seed))
     errs["paged_attention_split"] = max(errs["paged_attention_split"], check_split_planted(
         torch, tlut, quantize, paged_attention, args.seed))
-    errs.update(check_quant_kernels(torch, gemv_pim, args.seed))
+    errs.update(check_quant_kernels(torch, quant, tlut, gemv_pim, args.seed))
     errs.update(check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut,
                                     layernorm_lut, lut_interp, args.seed))
     cfg = gpt2_medium.config()
@@ -2361,14 +2565,15 @@ def main() -> int:
     # (label, weights, SalPimConfig knobs, pool format, the GEMV kernel that
     # carries every linear)
     qdrains = [("q1 int8 weights, int8 pools", qparams, dict(), "int8/f32", "gemv_pim_int8"),
-               ("q2 fixed16", params, dict(quant="fixed16"), "fp", "gemv_pim_fixed"),
+               ("q2 fixed16", params, dict(quant="fixed16"), "fp", "gemv_pim_fixed_linear"),
                ("q3 int8 per call, lut", params, dict(quant="int8", mode="lut"), "fp",
                 "gemv_pim_int8")]
     qruns, counts_q = counted("quantized max_len 256", lambda: {
         label: serve(torch, mods, p, cfg, prompts, new_tokens, card, label=label, fmt=fmt,
                      gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
-        ["gemv_pim_int8", TC8, "quantize_int8_rows", "gemv_pim_fixed", "paged_attention",
-         "paged_prefill_attention", TCP, "layernorm_lut", "lut_interp"])
+        ["gemv_pim_int8", TC8, "quantize_int8_rows", "gemv_pim_fixed_linear", TCF,
+         "paged_attention", "paged_prefill_attention", TCP, "layernorm_lut"])
+    check_fixed_step_ops(torch, api, params, cfg, SalPimConfig, SalPimEngine)
     _, exact_done, _, _ = runs["exact"]
     for label, p, kw, fmt, _ in qdrains:
         _, done, first, _ = qruns[label]
@@ -2386,8 +2591,10 @@ def main() -> int:
         f"time a decode step (the quantize_int8_rows kernel alone, phase 3; plain "
         f"{wquant_ms['int8_plain']:.3f} ms); its device decode step "
         f"{q3['dev_dec']:.2f} ms against q1's {q1['dev_dec']:.2f} ms with pre-quantized "
-        f"weights (q1 also differs in its int8 pools and exact nonlinearities); q2's Q.12 "
-        f"weight quantization {wquant_ms['fixed16']:.3f} ms a step")
+        f"weights (q1 also differs in its int8 pools and exact nonlinearities); q2's "
+        f"device decode step {model_ms[qdrains[1][0]]['dev_dec']:.2f} ms quantizes in its "
+        f"kernel (an eager Q.12 quantization of the weights took {wquant_ms['fixed16']:.3f} "
+        "ms a step)")
 
     log("== 7. dense cache: generate() and ServingEngine(paged=False)")
     gen_prompts = np.stack([rng.randint(2, cfg.vocab, size=128) for _ in range(4)])
@@ -2452,13 +2659,18 @@ def main() -> int:
     for name in SOURCE:
         t = times[name]
         src, replaces = SOURCE[name]
-        by_path = {"max_len 256": counts_256[name], "max_len 1024": counts_1024[name],
-                   "quantized max_len 256": counts_q[name], "dense": counts_dense[name]}
+        # The fixed16 kernel runs through two entries: the int16 GEMV and,
+        # on the main path, the fused linear layer.
+        entries = [name] + (["gemv_pim_fixed_linear"] if name == "gemv_pim_fixed" else [])
+        by_path = {path: sum(c[e] for e in entries) for path, c in (
+            ("max_len 256", counts_256), ("max_len 1024", counts_1024),
+            ("quantized max_len 256", counts_q), ("dense", counts_dense))}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in NOT_TPU_KERNELS:
             row["tpu_kernel"] = False
-        tc_key = {"gemv_pim_float": TC, "gemv_pim_int8": TC8, "paged_prefill_attention": TCP}
+        tc_key = {"gemv_pim_float": TC, "gemv_pim_int8": TC8, "gemv_pim_fixed": TCF,
+                  "paged_prefill_attention": TCP}
         if name in tc_key:
             row["tc_launches"] = sum(c[tc_key[name]] for c in (counts_256, counts_1024,
                                                                counts_q, counts_dense))
@@ -2466,6 +2678,8 @@ def main() -> int:
             row["chunk_145_launches"] = times["gemv_chunk"]
         if name == "paged_attention":
             row["wide_131072_keys"] = times["wide"]
+        if name == "lut_interp":
+            row["launch_floor_ms"] = t["launch_floor_ms"]
         rows.append({**row,
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

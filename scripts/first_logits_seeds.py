@@ -56,7 +56,7 @@ def main() -> int:
     drains = [("exact", False, dict(), "fp"),
               ("lut", False, dict(mode="lut"), "fp"),
               ("q1", True, dict(gemv="gemv_pim_int8"), "int8/f32"),
-              ("q2", False, dict(quant="fixed16", gemv="gemv_pim_fixed"), "fp"),
+              ("q2", False, dict(quant="fixed16", gemv="gemv_pim_fixed_linear"), "fp"),
               ("q3", False, dict(quant="int8", mode="lut", gemv="gemv_pim_int8"), "fp")]
     rows = []
     for seed in args.seeds:

@@ -8,19 +8,21 @@ the paged attention calls and the nonlinear policy behind one object.
     added in f32, the result cast to x's dtype;
   * `quant="int8"`: x and the weight quantized per row on every call, each
     in its own dtype (`core.quant.quantize_int8_rows`, one kernel launch
-    each on the card; bf16 weights give bf16 scales, cast to f32 at the
-    end), the int8 GEMV, `+ b` in f32, then the cast to x's dtype;
-  * `quant="fixed16"`: x in Q(`fixed_frac_x`) and the weight in
-    Q(`fixed_frac_w`) on every call, the fixed16 GEMV shifting by
-    `fixed_frac_w` so its int16 result is in x's format, dequantized to
-    f32, cast to x's dtype, then `+ b` in x's dtype;
+    each on the card; bf16 weights give bf16 scales), then one int8 GEMV
+    launch whose epilogue takes the scales as they are, adds `b` in f32,
+    casts to x's dtype and, in LUT mode, applies the activation's table;
+  * `quant="fixed16"`: one launch on the card (`kernels.ops.
+    pim_fixed_linear`): x in Q(`fixed_frac_x`) and the weight in
+    Q(`fixed_frac_w`), quantized on every call as the kernel loads them,
+    the fixed16 product shifting by `fixed_frac_w` so its int16 result is
+    in x's format, dequantized, cast to x's dtype, `+ b` in x's dtype and,
+    in LUT mode, the activation's table;
   * otherwise the float GEMV, `kernels.ops.pim_linear`, with the bias and
     activation fused into its epilogue (a LUT table in LUT mode, the tanh
     GELU in exact mode).
 
-The quantized kernels have no epilogue (nor have the TPU ones): on the
-first three paths the activation runs after the product,
-`self.nl.activation(act)`, which in LUT mode is the `lut_interp` kernel.
+On the two quantized routes an exact-mode activation runs after the
+GEMV, `self.nl.activation(act)`, as it does after a `QTensor` product.
 The weights are quantized on every call, as the JAX package does; caching
 them is the pre-quantized path's job. Decode attention over the dense
 arena goes through the `decode_attention` kernel, paged decode and prefill
@@ -36,7 +38,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import quant as quant_lib
 from repro_torch.core.nonlinear import Nonlinear
 from repro_torch.kernels import ops
 from repro_torch.serving.quantize import QTensor, qtensor_linear
@@ -79,25 +80,22 @@ class SalPimEngine:
             out = qtensor_linear(x, w, b)
             return self.nl.activation(act)(out) if act is not None else out
         x2 = x.reshape(-1, x.shape[-1])
+        if cfg.quant not in ("int8", "fixed16"):
+            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
+        # The activation's LUT rides the quantized GEMV's epilogue.
+        table = getattr(self.nl.bank, act, None) if act and self.nl.mode == "lut" else None
         if cfg.quant == "int8":
             x_i8, x_scale = ops.pim_quantize_int8_rows(x2)
             w_i8, w_scale = ops.pim_quantize_int8_rows(w)
-            out = ops.pim_linear_int8(x_i8, x_scale.float(), w_i8, w_scale.float())
-            if b is not None:
-                out = out + b
-            out = out.to(x.dtype)
-        elif cfg.quant == "fixed16":
-            w_fmt = quant_lib.QFormat(cfg.fixed_frac_w)
-            x_fmt = quant_lib.QFormat(cfg.fixed_frac_x)
-            out_q = ops.pim_linear_fixed(x_fmt.quantize(x2), w_fmt.quantize(w),
-                                         shift=cfg.fixed_frac_w)
-            out = x_fmt.dequantize(out_q).to(x.dtype)
-            if b is not None:
-                out = out + b.to(x.dtype)
+            out = ops.pim_linear_int8(x_i8, x_scale, w_i8, w_scale, b, out_dtype=x.dtype,
+                                      act_table=table)
         else:
-            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
+            out = ops.pim_fixed_linear(x2, w, b, frac_x=cfg.fixed_frac_x,
+                                       frac_w=cfg.fixed_frac_w, act_table=table)
         out = out.reshape(*lead, -1)
-        return self.nl.activation(act)(out) if act is not None else out
+        if act is None or table is not None:
+            return out
+        return self.nl.activation(act)(out)
 
     def _float_linear(self, x2, w, b, act):
         """The float GEMV with the activation fused into its epilogue."""

@@ -145,6 +145,7 @@ void launch(const void* x, const void* w, const void* bias, const void* table,
 
 // bias (bf16) and the activation on the cluster's f32 sum; bf16 out.
 struct FloatEpi {
+  template <int N> using Mma = gemv_tc::DirectMma<FloatEpi, N>;
   using Acc = float;
   static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr int kElem = 2;

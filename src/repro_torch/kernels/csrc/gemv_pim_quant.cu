@@ -1,17 +1,21 @@
-// The quantized GEMVs of the S-ALU datapath: int8 with f32 row scales, and
-// Q-format fixed16 with a wrapping int32 accumulator, shift and saturate.
+// The quantized GEMVs of the S-ALU datapath: int8 with row scales, and
+// Q-format fixed16 with a wrapping int32 accumulator, shift and saturate,
+// each with the linear layer's epilogue (bias, cast, LUT activation).
 //
 // Replaces the TPU kernels src/repro/kernels/gemv_pim.py::gemv_pim_int8
 // (Pallas body _gemv_int8_kernel) and ::gemv_pim_fixed (body
 // _gemv_fixed_kernel), held bit for bit to ref.gemv_pim_int8_ref and
-// ref.gemv_pim_fixed_ref through the plain versions in gemv_pim.py.
+// ref.gemv_pim_fixed_ref through the plain versions in gemv_pim.py, and
+// the XLA ops around them in core/salpim.py::SalPimEngine.linear.
 //
-// gemv_pim_int8: x (M, C) int8, x_scale (M,) f32, w (R, C) int8, w_scale
-// (R,) f32, optional bias (R,) f32 -> out (M, R) f32,
-//   out[m, r] = ((float)sum_c x[m, c] w[r, c] * x_scale[m]) * w_scale[r] (+ bias[r]),
-// the sum exact in int32 (__dp4a on four packed bytes; |sum| < 2^26 at
-// C = 4096), each float operation rounded on its own (__fmul_rn and
-// __fadd_rn keep nvcc from contracting the bias add into an FMA).
+// gemv_pim_int8: x (M, C) int8, x_scale (M,), w (R, C) int8, w_scale (R,),
+// optional bias (R,) (each vector f32 or bf16) -> out (M, R) in f32 or bf16,
+//   a = ((float)sum_c x[m, c] w[r, c] * x_scale[m]) * w_scale[r] (+ bias[r]),
+//   out[m, r] = lut(round(a)) or round(a), round to out's dtype,
+// the sum exact in int32 (|sum| < 2^26 at C = 4096), each float operation
+// rounded on its own (__fmul_rn and __fadd_rn keep nvcc from contracting
+// the bias add into an FMA), the LUT (lut.cuh) applied to the value in
+// out's dtype, as SalPimEngine.linear applies it after the cast.
 //
 // gemv_pim_fixed: x (M, C) int16, w (R, C) int16 -> out (M, R) int16,
 //   out[m, r] = clip((int32)(sum_c x[m, c] w[r, c] mod 2^32) >> shift, -32768, 32767).
@@ -20,27 +24,48 @@
 // uint32 (defined wrap-around; signed overflow is undefined in C++) and
 // is reinterpreted as int32 before the arithmetic shift.
 //
-// What bounds them on the H100: at decode widths every weight byte is
-// read once for two integer operations a row of x, so both are bound by
+// gemv_pim_fixed_linear: the fixed16 linear layer in one launch. x (M, C)
+// and w (R, C) in f32 or bf16 are quantized in the load path, q =
+// clip(rint(v * 2^frac), -32768, 32767) with frac_x for x and frac_w for
+// w: bit for bit QFormat.quantize (the power-of-two scaling is exact in
+// f32, rint rounds half to even as torch.round does). The sum as above,
+// >> frac_w, saturated to int16, times 2^-frac_x (exact), rounded to x's
+// dtype, + bias rounded to x's dtype (an f32 add rounded once, as
+// PyTorch's bf16 add), then optionally the LUT on that value.
+//
+// What bounds them on the H100: at decode widths every weight element is
+// read once for two integer operations a row of x, so all are bound by
 // the weight stream over HBM (3.35 TB/s): 1 byte an element for int8
-// (plus 4 bytes of scale a row), 2 for fixed16. At a 64-token chunk the
-// int8 GEMV does 64x the operations: the s8 tensor cores keep it on the
-// byte bound, where the CUDA cores' __dp4a would not.
+// (plus the scales), 2 for a bf16 or int16 weight of the fixed GEMV. At a
+// 64-token chunk the operations are 64x as many: the 8-bit tensor cores
+// keep both on the byte bound, where the CUDA cores would not.
 //
-// gemv_pim_int8 on the tensor cores (C a multiple of 16, 16-byte aligned
-// x and w): the wgmma skeleton of gemv_tc.cuh, which the float GEMV shares,
-// on s8 operands (128-element K tiles, m64nNk32 s8 wgmmas into int32
-// registers); the cluster's int32 partial tiles sum exactly, so their
-// order does not matter, and each block's epilogue applies (acc * x_scale)
-// * w_scale (+ bias) in f32 as above to its slice of the tile.
+// Tensor cores (C a multiple of 16, 16-byte aligned x and w): the wgmma
+// skeleton of gemv_tc.cuh, which the float GEMV shares. int8: s8 operands
+// straight from the TMA ring (128-element K tiles, m64nNk32 s8 wgmmas into
+// int32 registers); the cluster's int32 partial tiles sum exactly, so
+// their order does not matter. fixed16: there is no 16-bit integer mode,
+// but an int16 product splits into four 8-bit ones. With v = 256 hi + lo,
+// hi = v >> 8 (s8) and lo = v & 0xFF (u8, never sign-extended),
+//   x w = 65536 xh wh + 256 (xh wl + xl wh) + xl wl,
+// so the consumer warpgroup quantizes each stage's W and x tiles (bf16,
+// f32 or int16 as TMA brought them), splits W's straight into the wgmma A
+// fragments in registers and writes x's hi and lo byte planes to shared
+// memory in the 128-byte swizzle of the s8 descriptors (two plane
+// buffers, so one barrier a stage), and runs 16 wgmmas a stage (s8.s8,
+// s8.u8, u8.s8, u8.u8) into three s32 accumulator sets. The
+// accumulators hold at most 2^28 at C = 4096 and wrap past 2^31 anyway
+// (no .satfinite); the epilogue combines them in uint32, so every step is
+// arithmetic modulo 2^32 and the sum equals XLA's wrapping int32 dot. The
+// token tile stops at 64 (three accumulator sets of 32 registers).
 //
-// The CUDA-core kernels (gemv_pim_fixed always; gemv_pim_int8 when C is
-// not a multiple of 16 or a row is misaligned): one warp owns one output
-// row and walks C with 16-byte loads (16 int8 or 8 int16 elements a lane),
-// keeping kMT rows of x per pass, grid.y covering M in tiles of kMT rows;
-// the ragged edge of R and M is masked, and C that is not a multiple of
-// the vector width (or a misaligned row) takes the scalar path. No tensor
-// core has an int16 mode.
+// CUDA cores (C not a multiple of 16, or a misaligned row): one warp owns
+// one output row and walks C with 16-byte loads (16 int8, 8 int16 or
+// bf16, 4 f32 elements a lane; the fixed kernel quantizes each element as
+// it loads it), keeping kMT rows of x per pass, grid.y covering M in
+// tiles of kMT rows; the ragged edge of R and M is masked, and C that is
+// not a multiple of the vector width (or a misaligned row) takes the
+// scalar path. int8 sums four bytes at a time with __dp4a.
 //
 // quantize_int8_rows: x (rows, C) in f32 or bf16 -> q int8 (rows, C) and
 // scale (rows,) in x's dtype, core/quant.py::quantize_int8_rows in one
@@ -52,11 +77,13 @@
 // reading x and writing q.
 #include "common.cuh"
 #include "gemv_tc.cuh"
+#include "lut.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;   // output rows per block
 constexpr int kMT = 8;      // x rows per pass
+constexpr int kFixedMaxN = 64;   // token tile of the fixed16 tensor-core kernel
 
 __device__ __forceinline__ unsigned warp_sum(unsigned v) {
 #pragma unroll
@@ -64,17 +91,152 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// v rounded to the output's dtype: bf16 or, when bf is false, f32.
+__device__ __forceinline__ float round_to_out(float v, int bf) { return bf ? round_bf16(v) : v; }
+
+// Element i of an f32 (bf == 0) or bf16 (bf == 1) vector, as f32.
+__device__ __forceinline__ float load_f(const void* p, size_t i, int bf) {
+  return bf ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+            : reinterpret_cast<const float*>(p)[i];
+}
+__device__ __forceinline__ void store_f(void* p, size_t i, int bf, float v) {
+  if (bf) reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else reinterpret_cast<float*>(p)[i] = v;
+}
+
+// ---------------------------------------------------------------------------
+// The epilogues, one for both routes of each GEMV
+// ---------------------------------------------------------------------------
+
+// int8: the scales (f32 or bf16), the bias (f32 or bf16), the cast to
+// out's dtype and the LUT on the cast value.
+struct Int8Out {
+  const void* x_scale;
+  const void* w_scale;
+  const void* bias;       // or null
+  const float* table;     // the LUT's (slope, intercept) rows, when act
+  void* out;
+  int R, xs_bf, ws_bf, bias_bf, out_bf, act;
+  float lo, inv_step;
+  int sections;
+  __device__ __forceinline__ void store(int acc, int m, int r, const float* wb) const {
+    float a = __fmul_rn(__fmul_rn((float)acc, load_f(x_scale, m, xs_bf)),
+                        load_f(w_scale, r, ws_bf));
+    if (bias != nullptr) a = __fadd_rn(a, load_f(bias, r, bias_bf));
+    a = round_to_out(a, out_bf);
+    if (act) a = lut::eval(a, wb, lo, inv_step, sections);
+    store_f(out, (size_t)m * R + r, out_bf, a);
+  }
+};
+
+// fixed16: the writeback (>> shift, saturate), then either the int16
+// value (kind 2) or its dequantization in f32 (kind 0) or bf16 (kind 1)
+// with the bias and the LUT.
+struct FixedOut {
+  void* out;
+  const void* bias;       // or null
+  const float* table;     // the LUT's rows, when act
+  int R, shift, kind, bias_bf, act;
+  float x_inv;            // 2^-frac_x
+  float lo, inv_step;
+  int sections;
+  __device__ __forceinline__ void store(unsigned sum, int m, int r, const float* wb) const {
+    const int s = min(max((int)sum >> shift, -32768), 32767);   // arithmetic shift
+    const size_t i = (size_t)m * R + r;
+    if (kind == 2) {
+      reinterpret_cast<int16_t*>(out)[i] = (int16_t)s;
+      return;
+    }
+    const int bf = kind;
+    float v = round_to_out(__fmul_rn((float)s, x_inv), bf);
+    if (bias != nullptr)
+      v = round_to_out(__fadd_rn(v, round_to_out(load_f(bias, r, bias_bf), bf)), bf);
+    if (act) v = lut::eval(v, wb, lo, inv_step, sections);
+    store_f(out, i, bf, v);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Q-format quantization in the load path
+// ---------------------------------------------------------------------------
+
+// QFormat.quantize of one f32 value: rint(v * 2^frac) (mul = 2^frac,
+// exact), saturated to int16 (the int32 conversion saturates first).
+__device__ __forceinline__ int q16(float v, float mul) {
+  return min(max(__float2int_rn(__fmul_rn(v, mul)), -32768), 32767);
+}
+__device__ __forceinline__ unsigned pack16(int a, int b) {
+  return ((unsigned)a & 0xffffu) | ((unsigned)b << 16);
+}
+
+// Sixteen bytes of a source row as int16 values packed in pairs (element
+// 2k in the low half of word k): int16 as it is, bf16 and f32 quantized.
+template <typename Src> struct Quant;
+template <> struct Quant<int16_t> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT16;
+  static constexpr int kWords = 4;
+  __device__ __forceinline__ static void words(const uint4& v, float, unsigned* w) {
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+  __device__ __forceinline__ static void words4(const uint2& v, float, unsigned* w) {
+    w[0] = v.x; w[1] = v.y;
+  }
+  __device__ __forceinline__ static int one(int16_t v, float) { return v; }
+};
+template <> struct Quant<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kWords = 4;
+  __device__ __forceinline__ static void words(const uint4& v, float mul, unsigned* w) {
+    const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = pack16(q16(__uint_as_float(u[k] << 16), mul),
+                    q16(__uint_as_float(u[k] & 0xffff0000u), mul));
+  }
+  __device__ __forceinline__ static void words4(const uint2& v, float mul, unsigned* w) {
+    const unsigned u[2] = {v.x, v.y};
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      w[k] = pack16(q16(__uint_as_float(u[k] << 16), mul),
+                    q16(__uint_as_float(u[k] & 0xffff0000u), mul));
+  }
+  __device__ __forceinline__ static int one(__nv_bfloat16 v, float mul) {
+    return q16(__bfloat162float(v), mul);
+  }
+};
+template <> struct Quant<float> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ static void words(const uint4& v, float mul, unsigned* w) {
+    w[0] = pack16(q16(__uint_as_float(v.x), mul), q16(__uint_as_float(v.y), mul));
+    w[1] = pack16(q16(__uint_as_float(v.z), mul), q16(__uint_as_float(v.w), mul));
+  }
+  __device__ __forceinline__ static void words4(const uint4& v, float mul, unsigned* w) {
+    words(v, mul, w);
+  }
+  __device__ __forceinline__ static int one(float v, float mul) { return q16(v, mul); }
+};
+
+// Sign-extend the two int16 halves of a 32-bit word.
+__device__ __forceinline__ int lo16(unsigned u) { return (int)(int16_t)(u & 0xffffu); }
+__device__ __forceinline__ int hi16(unsigned u) { return (int)u >> 16; }
+
+// ---------------------------------------------------------------------------
+// CUDA-core kernels
+// ---------------------------------------------------------------------------
+
 template <bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-gemv_int8_kernel(const int8_t* __restrict__ x, const float* __restrict__ x_scale,
-                 const int8_t* __restrict__ w, const float* __restrict__ w_scale,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int M, int C, int R) {
+gemv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const Int8Out o,
+                 int M, int C) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * kWarps + warp;
   const int m0 = blockIdx.y * kMT;
-  if (r >= R) return;
+  if (r >= o.R) return;
   const int mt = min(kMT, M - m0);
   const int8_t* wr = w + (size_t)r * C;
   const int8_t* xb = x + (size_t)m0 * C;
@@ -110,33 +272,27 @@ gemv_int8_kernel(const int8_t* __restrict__ x, const float* __restrict__ x_scale
 
 #pragma unroll
   for (int m = 0; m < kMT; ++m) acc[m] = (int)warp_sum((unsigned)acc[m]);
-  const float ws = w_scale[r];
 #pragma unroll
   for (int m = 0; m < kMT; ++m) {
-    if (m < mt && lane == m) {
-      float a = __fmul_rn(__fmul_rn((float)acc[m], x_scale[m0 + m]), ws);
-      if (bias != nullptr) a = __fadd_rn(a, bias[r]);
-      out[(size_t)(m0 + m) * R + r] = a;
-    }
+    if (m < mt && lane == m) o.store(acc[m], m0 + m, r, o.table);
   }
 }
 
-// Sign-extend the two int16 halves of a 32-bit word.
-__device__ __forceinline__ int lo16(unsigned u) { return (int)(int16_t)(u & 0xffffu); }
-__device__ __forceinline__ int hi16(unsigned u) { return (int)u >> 16; }
-
-template <bool kVec>
+// x_mul and w_mul: 2^frac_x and 2^frac_w (unused for int16 operands).
+template <typename Src, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-gemv_fixed_kernel(const int16_t* __restrict__ x, const int16_t* __restrict__ w,
-                  int16_t* __restrict__ out, int M, int C, int R, int shift) {
+gemv_fixed_kernel(const Src* __restrict__ x, const Src* __restrict__ w, const FixedOut o,
+                  float x_mul, float w_mul, int M, int C) {
+  using Q = Quant<Src>;
+  constexpr int V = 16 / (int)sizeof(Src);    // elements a 16-byte load
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * kWarps + warp;
   const int m0 = blockIdx.y * kMT;
-  if (r >= R) return;
+  if (r >= o.R) return;
   const int mt = min(kMT, M - m0);
-  const int16_t* wr = w + (size_t)r * C;
-  const int16_t* xb = x + (size_t)m0 * C;
+  const Src* wr = w + (size_t)r * C;
+  const Src* xb = x + (size_t)m0 * C;
 
   unsigned acc[kMT];
 #pragma unroll
@@ -144,28 +300,28 @@ gemv_fixed_kernel(const int16_t* __restrict__ x, const int16_t* __restrict__ w,
 
   if (kVec) {
 #pragma unroll 4
-    for (int c = lane * 8; c < C; c += 32 * 8) {
-      const uint4 wu = *reinterpret_cast<const uint4*>(wr + c);
-      const unsigned wwords[4] = {wu.x, wu.y, wu.z, wu.w};
+    for (int c = lane * V; c < C; c += 32 * V) {
+      unsigned ww[Q::kWords];
+      Q::words(*reinterpret_cast<const uint4*>(wr + c), w_mul, ww);
 #pragma unroll
       for (int m = 0; m < kMT; ++m) {
         if (m < mt) {
-          const uint4 xu = *reinterpret_cast<const uint4*>(xb + (size_t)m * C + c);
-          const unsigned xwords[4] = {xu.x, xu.y, xu.z, xu.w};
+          unsigned xw[Q::kWords];
+          Q::words(*reinterpret_cast<const uint4*>(xb + (size_t)m * C + c), x_mul, xw);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[m] += (unsigned)(lo16(xwords[j]) * lo16(wwords[j]));
-            acc[m] += (unsigned)(hi16(xwords[j]) * hi16(wwords[j]));
+          for (int j = 0; j < Q::kWords; ++j) {
+            acc[m] += (unsigned)(lo16(xw[j]) * lo16(ww[j]));
+            acc[m] += (unsigned)(hi16(xw[j]) * hi16(ww[j]));
           }
         }
       }
     }
   } else {
     for (int c = lane; c < C; c += 32) {
-      const int wv = wr[c];
+      const int wv = Q::one(wr[c], w_mul);
 #pragma unroll
       for (int m = 0; m < kMT; ++m) {
-        if (m < mt) acc[m] += (unsigned)((int)xb[(size_t)m * C + c] * wv);
+        if (m < mt) acc[m] += (unsigned)(Q::one(xb[(size_t)m * C + c], x_mul) * wv);
       }
     }
   }
@@ -174,44 +330,228 @@ gemv_fixed_kernel(const int16_t* __restrict__ x, const int16_t* __restrict__ w,
   for (int m = 0; m < kMT; ++m) acc[m] = warp_sum(acc[m]);
 #pragma unroll
   for (int m = 0; m < kMT; ++m) {
-    if (m < mt && lane == m) {
-      const int s = (int)acc[m] >> shift;            // arithmetic shift
-      out[(size_t)(m0 + m) * R + r] = (int16_t)min(max(s, -32768), 32767);
+    if (m < mt && lane == m) o.store(acc[m], m0 + m, r, o.table);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor cores: gemv_tc.cuh's skeleton
+// ---------------------------------------------------------------------------
+
+// int8: s8 operands straight from the ring; the cluster's exact int32 sum
+// through Int8Out.
+struct Int8Epi {
+  template <int N> using Mma = gemv_tc::DirectMma<Int8Epi, N>;
+  using Acc = int;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kElem = 1;
+  struct Smem {
+    float wb[2 * lut::kMaxTableRows];
+  };
+  Int8Out o;
+  __device__ void stage(Smem& s) const {
+    if (o.act) lut::stage(s.wb, o.table, o.sections);
+  }
+  __device__ __forceinline__ void operator()(const Smem& s, const int (&sum)[4], int m,
+                                             int r) const {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r + u < o.R) o.store(sum[u], m, r + u, s.wb);
+    }
+  }
+};
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// One stage's tile of `Rows` rows x 128 K elements of Src, as TMA left it
+// (sizeof(Src) boxes of Rows x 128 bytes, each in the 128-byte swizzle),
+// quantized (mul = 2^frac) and split into its hi (s8) and lo (u8) byte
+// planes of Rows x 128 bytes in the same swizzle: 16-byte chunk c of row
+// r at r * 128 + ((c ^ (r % 8)) << 4). A work item is 16 elements of a
+// row, one chunk of each plane; the consumer warpgroup shares the items.
+template <typename Src, int Rows>
+__device__ __forceinline__ void split_tile(uint32_t src, uint32_t hi, uint32_t lo, float mul) {
+  using Q = Quant<Src>;
+  constexpr int E = (int)sizeof(Src);
+  constexpr int kBox = Rows * gemv_tc::kKBytes;
+  for (int it = threadIdx.x; it < Rows * 8; it += gemv_tc::kConsumers) {
+    const int row = it >> 3, c = it & 7;
+    const uint32_t rowa = src + ((16 * c * E) >> 7) * kBox + row * gemv_tc::kKBytes;
+    const int q0 = ((16 * c * E) & 127) >> 4;
+    unsigned wd[8];
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      Q::words(lds128(rowa + (((q0 + j) ^ (row & 7)) << 4)), mul, wd + Q::kWords * j);
+    uint4 h, l;
+    h.x = __byte_perm(wd[0], wd[1], 0x7531);
+    l.x = __byte_perm(wd[0], wd[1], 0x6420);
+    h.y = __byte_perm(wd[2], wd[3], 0x7531);
+    l.y = __byte_perm(wd[2], wd[3], 0x6420);
+    h.z = __byte_perm(wd[4], wd[5], 0x7531);
+    l.z = __byte_perm(wd[4], wd[5], 0x6420);
+    h.w = __byte_perm(wd[6], wd[7], 0x7531);
+    l.w = __byte_perm(wd[6], wd[7], 0x6420);
+    const uint32_t off = row * gemv_tc::kKBytes + ((c ^ (row & 7)) << 4);
+    sts128(hi + off, h);
+    sts128(lo + off, l);
+  }
+}
+
+// This thread's wgmma A fragments of one stage's W tile (kRows x 128 K
+// elements of Src as TMA left it), quantized and split: hi[kk] and lo[kk]
+// the s8 and u8 fragments of K step kk (32 elements), a[i + 2 g] holding
+// row 16 (t / 32) + (t % 32) / 4 + 8 i, columns 32 kk + 16 g + 4 (t % 4)
+// .. + 3 (wgmma.cuh, mma_i8_rs).
+template <typename Src>
+__device__ __forceinline__ void split_a_frags(uint32_t src, float mul, uint32_t (&hi)[4][4],
+                                              uint32_t (&lo)[4][4]) {
+  using Q = Quant<Src>;
+  constexpr int E = (int)sizeof(Src);
+  constexpr int kBox = gemv_tc::kRows * gemv_tc::kKBytes;
+  const int t = threadIdx.x;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        const int cb = (32 * kk + 16 * g + 4 * (t % 4)) * E;   // byte of the row
+        const uint32_t a = src + (cb >> 7) * kBox + r * gemv_tc::kKBytes +
+                           ((((cb & 127) >> 4) ^ (r & 7)) << 4) + (cb & 15);
+        unsigned w[2];
+        if constexpr (E == 4) Q::words4(lds128(a), mul, w);
+        else Q::words4(lds64(a), mul, w);
+        hi[kk][i + 2 * g] = __byte_perm(w[0], w[1], 0x7531);
+        lo[kk][i + 2 * g] = __byte_perm(w[0], w[1], 0x6420);
+      }
     }
   }
 }
 
+// The fixed16 product on the 8-bit tensor cores: each stage's W tile
+// quantized and split straight into this thread's wgmma A fragments, x's
+// into its byte planes in shared memory (double-buffered: stage i writes
+// buffer i % 2, so the one barrier a stage also tells that every warp is
+// done with the wgmmas that read the buffer two stages ago), then the
+// four plane products. (W's planes in shared memory beside x's, read
+// through descriptors, measured slower on an H100 SXM at 700 W: 1.221
+// against 1.198 ms for a decode step's 145 linears, 14.84 against 13.69 us
+// for w_up at M = 64.)
+template <typename Src, int N>
+struct SplitMma {
+  using Acc = unsigned;
+  static constexpr int kBoxes = (int)sizeof(Src);   // 128 K elements of Src a stage
+  static constexpr int kK = gemv_tc::kKBytes;
+  static constexpr int kXPlane = N * gemv_tc::kKBytes;
+  static constexpr int kPlaneBytes = 4 * kXPlane;   // hi and lo, two buffers
+  int hh[N / 2], md[N / 2], ll[N / 2];
 
-// ---------------------------------------------------------------------------
-// gemv_pim_int8 on the s8 tensor cores
-// ---------------------------------------------------------------------------
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) hh[i] = md[i] = ll[i] = 0;
+  }
+  template <class Epi>
+  __device__ __forceinline__ void step(const Epi& epi, uint32_t w, uint32_t x, uint32_t planes,
+                                       int i) {
+    using wgmma::I8;
+    const uint32_t xh = planes + (i & 1) * 2 * kXPlane, xl = xh + kXPlane;
+    uint32_t ah[4][4], al[4][4];
+    split_a_frags<Src>(w, epi.w_mul, ah, al);
+    split_tile<Src, N>(x, xh, xl, epi.x_mul);
+    // x's planes, written through the generic proxy, are read by wgmma
+    // through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(gemv_tc::kConsumers) : "memory");
+    wgmma::fence_regs<16>(reinterpret_cast<int*>(&ah[0][0]));
+    wgmma::fence_regs<16>(reinterpret_cast<int*>(&al[0][0]));
+    wgmma::fence_regs<N / 2>(hh);
+    wgmma::fence_regs<N / 2>(md);
+    wgmma::fence_regs<N / 2>(ll);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {       // 32 elements of K a step
+      const uint64_t bh = wgmma::desc_sw128(xh + 32 * kk), bl = wgmma::desc_sw128(xl + 32 * kk);
+      wgmma::mma_i8_rs<N, I8::s8, I8::s8>(hh, ah[kk], bh);
+      wgmma::mma_i8_rs<N, I8::s8, I8::u8>(md, ah[kk], bl);
+      wgmma::mma_i8_rs<N, I8::u8, I8::s8>(md, al[kk], bh);
+      wgmma::mma_i8_rs<N, I8::u8, I8::u8>(ll, al[kk], bl);
+    }
+    wgmma::commit();
+    wgmma::wait_all();
+    // The A fragments stay live until the wgmmas that read them are done.
+    wgmma::fence_regs<16>(reinterpret_cast<int*>(&ah[0][0]));
+    wgmma::fence_regs<16>(reinterpret_cast<int*>(&al[0][0]));
+    wgmma::fence_regs<N / 2>(hh);
+    wgmma::fence_regs<N / 2>(md);
+    wgmma::fence_regs<N / 2>(ll);
+  }
+  // 65536 hh + 256 md + ll modulo 2^32.
+  __device__ __forceinline__ unsigned value(int i) const {
+    return ((unsigned)hh[i] << 16) + ((unsigned)md[i] << 8) + (unsigned)ll[i];
+  }
+};
 
-// The epilogue of gemv_tc.cuh's skeleton on s8 operands: the cluster's
-// exact int32 sum, scaled as above; f32 out.
-struct Int8Epi {
-  using Acc = int;
-  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  static constexpr int kElem = 1;
-  struct Smem {};
-  const float* x_scale;
-  const float* w_scale;
-  const float* bias;
-  float* out;
-  int R;
-  __device__ void stage(Smem&) const {}
-  __device__ __forceinline__ void operator()(const Smem&, const int (&sum)[4], int m,
+template <typename Src>
+struct FixedEpi {
+  template <int N> using Mma = SplitMma<Src, N>;
+  static constexpr CUtensorMapDataType kType = Quant<Src>::kType;
+  static constexpr int kElem = (int)sizeof(Src);
+  struct Smem {
+    float wb[2 * lut::kMaxTableRows];
+  };
+  FixedOut o;
+  float x_mul, w_mul;     // 2^frac_x, 2^frac_w
+  __device__ void stage(Smem& s) const {
+    if (o.act) lut::stage(s.wb, o.table, o.sections);
+  }
+  __device__ __forceinline__ void operator()(const Smem& s, const unsigned (&sum)[4], int m,
                                              int r) const {
-    const float xs = x_scale[m];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      if (r + u < R) {
-        float a = __fmul_rn(__fmul_rn((float)sum[u], xs), w_scale[r + u]);
-        if (bias != nullptr) a = __fadd_rn(a, bias[r + u]);
-        out[(size_t)m * R + r + u] = a;
-      }
+      if (r + u < o.R) o.store(sum[u], m, r + u, s.wb);
     }
   }
 };
+
+// n_tile 0: the CUDA-core kernel; else the tensor-core one.
+template <typename Src>
+int launch_fixed(const void* x, const void* w, const FixedOut& o, float x_mul, float w_mul,
+                 int M, int C, int n_tile, int cluster, cudaStream_t s) {
+  if (n_tile > 0) {
+    const FixedEpi<Src> epi{o, x_mul, w_mul};
+    return gemv_tc::run<FixedEpi<Src>, kFixedMaxN>(x, w, epi, M, C, o.R, n_tile, cluster, s);
+  }
+  dim3 grid((o.R + kWarps - 1) / kWarps, (M + kMT - 1) / kMT);
+  dim3 block(kWarps * 32);
+  // 16-byte loads need every row of x and w to start on a 16-byte boundary.
+  if ((C * (int)sizeof(Src)) % 16 == 0 && common::aligned16(x) && common::aligned16(w)) {
+    gemv_fixed_kernel<Src, true><<<grid, block, 0, s>>>((const Src*)x, (const Src*)w, o, x_mul,
+                                                        w_mul, M, C);
+  } else {
+    gemv_fixed_kernel<Src, false><<<grid, block, 0, s>>>((const Src*)x, (const Src*)w, o, x_mul,
+                                                         w_mul, M, C);
+  }
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // quantize_int8_rows
@@ -220,9 +560,7 @@ struct Int8Epi {
 constexpr int kQuantThreads = 256;   // a block a row
 
 __device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) { return round_bf16(v); }
 
 // max and min that keep a NaN, as torch's amax and clamp do (fmaxf and
 // fminf drop it); one instruction each, as fmaxf and fminf are.
@@ -272,35 +610,33 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, T* __restr
 
 extern "C" {
 
-// The CUDA-core kernel; bias may be null. Returns cudaGetLastError().
+// x (M, C) and w (R, C) int8; x_scale (M,), w_scale (R,) and bias (R,) or
+// null, each f32 (dtype 0) or bf16 (1); out (M, R) in out_dtype (0 f32,
+// 1 bf16); act 1 applies the LUT table (sections + 2 rows) to the value
+// in out's dtype. n_tile 0 takes the CUDA-core kernel (__dp4a; any C),
+// else the tensor-core kernel: C a multiple of 16, x and w 16-byte
+// aligned, n_tile the token tile (8, 16, 32, 64, 128 or 256), cluster the
+// blocks splitting C (1, 2, 4 or 8, at most the 128-wide K tiles of C).
+// Returns a CUDA error code (0 on success).
 int gemv_pim_int8(const void* x, const void* x_scale, const void* w, const void* w_scale,
-                  const void* bias, void* out, int M, int C, int R, void* stream) {
+                  const void* bias, const void* table, void* out, int M, int C, int R,
+                  int xs_dtype, int ws_dtype, int bias_dtype, int out_dtype, int act, float lo,
+                  float inv_step, int sections, int n_tile, int cluster, void* stream) {
+  if (act && (table == nullptr || sections < 1 || sections + 2 > lut::kMaxTableRows))
+    return (int)cudaErrorInvalidValue;
+  const Int8Out o{x_scale, w_scale, bias, (const float*)table, out, R, xs_dtype, ws_dtype,
+                  bias_dtype, out_dtype, act, lo, inv_step, sections};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_tile > 0) return gemv_tc::run(x, w, Int8Epi{o}, M, C, R, n_tile, cluster, stream);
   dim3 grid((R + kWarps - 1) / kWarps, (M + kMT - 1) / kMT);
   dim3 block(kWarps * 32);
-  cudaStream_t s = (cudaStream_t)stream;
   // 16-byte loads need every row of x and w to start on a 16-byte boundary.
   if (C % 16 == 0 && common::aligned16(x) && common::aligned16(w)) {
-    gemv_int8_kernel<true><<<grid, block, 0, s>>>(
-        (const int8_t*)x, (const float*)x_scale, (const int8_t*)w, (const float*)w_scale,
-        (const float*)bias, (float*)out, M, C, R);
+    gemv_int8_kernel<true><<<grid, block, 0, s>>>((const int8_t*)x, (const int8_t*)w, o, M, C);
   } else {
-    gemv_int8_kernel<false><<<grid, block, 0, s>>>(
-        (const int8_t*)x, (const float*)x_scale, (const int8_t*)w, (const float*)w_scale,
-        (const float*)bias, (float*)out, M, C, R);
+    gemv_int8_kernel<false><<<grid, block, 0, s>>>((const int8_t*)x, (const int8_t*)w, o, M, C);
   }
   return (int)cudaGetLastError();
-}
-
-// The tensor-core kernel: x (M, C) and w (R, C) int8, 16-byte aligned, C a
-// multiple of 16 (TMA's stride rule); n_tile the token tile (8, 16, 32,
-// 64, 128 or 256), cluster the blocks splitting C (1, 2, 4 or 8, at most
-// the 128-wide K tiles of C). Returns a CUDA error code (0 on success).
-int gemv_pim_int8_tc(const void* x, const void* x_scale, const void* w, const void* w_scale,
-                     const void* bias, void* out, int M, int C, int R, int n_tile, int cluster,
-                     void* stream) {
-  const Int8Epi epi{(const float*)x_scale, (const float*)w_scale, (const float*)bias,
-                    (float*)out, R};
-  return gemv_tc::run(x, w, epi, M, C, R, n_tile, cluster, stream);
 }
 
 // x (rows, C) contiguous, dtype 0 = float32, 1 = bfloat16; q (rows, C)
@@ -321,21 +657,39 @@ int quantize_int8_rows(const void* x, void* q, void* scale, int rows, int C, int
   return (int)cudaGetLastError();
 }
 
-// 0 <= shift < 32. Returns cudaGetLastError().
+// int16 x (M, C) and w (R, C) -> int16 out (M, R); 0 <= shift < 32.
+// n_tile 0 takes the CUDA-core kernel (any C), else the tensor-core one
+// (C a multiple of 16, x and w 16-byte aligned; n_tile 8, 16, 32 or 64,
+// cluster 1, 2, 4 or 8). Returns a CUDA error code (0 on success).
 int gemv_pim_fixed(const void* x, const void* w, void* out, int M, int C, int R, int shift,
-                   void* stream) {
+                   int n_tile, int cluster, void* stream) {
   if (shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
-  dim3 grid((R + kWarps - 1) / kWarps, (M + kMT - 1) / kMT);
-  dim3 block(kWarps * 32);
+  const FixedOut o{out, nullptr, nullptr, R, shift, 2, 0, 0, 1.0f, 0.0f, 1.0f, 1};
+  return launch_fixed<int16_t>(x, w, o, 1.0f, 1.0f, M, C, n_tile, cluster,
+                               (cudaStream_t)stream);
+}
+
+// The fixed16 linear layer: x (M, C) and w (R, C) in dtype (0 f32, 1
+// bf16), quantized to Q(frac_x) and Q(frac_w) as they load; bias (R,) or
+// null in bias_dtype; out (M, R) in x's dtype; act 1 applies the LUT
+// table. 0 <= frac_x, frac_w <= 30. n_tile and cluster as gemv_pim_fixed.
+// Returns a CUDA error code (0 on success).
+int gemv_pim_fixed_linear(const void* x, const void* w, const void* bias, const void* table,
+                          void* out, int M, int C, int R, int dtype, int bias_dtype,
+                          int frac_x, int frac_w, int act, float lo, float inv_step,
+                          int sections, int n_tile, int cluster, void* stream) {
+  if (frac_x < 0 || frac_x > 30 || frac_w < 0 || frac_w > 30) return (int)cudaErrorInvalidValue;
+  if (act && (table == nullptr || sections < 1 || sections + 2 > lut::kMaxTableRows))
+    return (int)cudaErrorInvalidValue;
+  const float x_mul = (float)(1 << frac_x), w_mul = (float)(1 << frac_w);
+  const FixedOut o{out, bias, (const float*)table, R, frac_w, dtype, bias_dtype, act,
+                   1.0f / x_mul, lo, inv_step, sections};
   cudaStream_t s = (cudaStream_t)stream;
-  if (C % 8 == 0 && common::aligned16(x) && common::aligned16(w)) {
-    gemv_fixed_kernel<true><<<grid, block, 0, s>>>(
-        (const int16_t*)x, (const int16_t*)w, (int16_t*)out, M, C, R, shift);
-  } else {
-    gemv_fixed_kernel<false><<<grid, block, 0, s>>>(
-        (const int16_t*)x, (const int16_t*)w, (int16_t*)out, M, C, R, shift);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_fixed<float>(x, w, o, x_mul, w_mul, M, C, n_tile, cluster, s);
+  if (dtype == 1)
+    return launch_fixed<__nv_bfloat16>(x, w, o, x_mul, w_mul, M, C, n_tile, cluster, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* gemv_pim_quant_error_string(int err) {

@@ -1,6 +1,6 @@
 // Hopper warpgroup matrix multiply (wgmma) and the shared-memory operand
 // descriptors of the tensor-core GEMVs (gemv_tc.cuh: gemv_pim.cu, bf16;
-// gemv_pim_quant.cu, s8).
+// gemv_pim_quant.cu, s8, and s8/u8 byte planes of int16 values).
 //
 // mma<N>(d, desc_a, desc_b) issues one wgmma.mma_async with A (64 x K) and
 // B (K x N) both K-major in shared memory, and adds into the accumulators
@@ -8,6 +8,12 @@
 //  * float d: m64nNk16, bf16 A and B, f32 accumulators;
 //  * int d:   m64nNk32, s8 A and B, s32 accumulators (K-major is the only
 //             layout wgmma takes for 8-bit types).
+// mma_i8_rs<N, A, B>(d, a, desc_b) is the integer one with each operand
+// signed (s8) or unsigned (u8) bytes, any pairing, and A from registers:
+// a[4] is this thread's fragment of the 64 x 32 A tile, four bytes a
+// register, a[i + 2 g] holding row 16 (t / 32) + (t % 32) / 4 + 8 i and
+// columns 16 g + 4 (t % 4) .. + 3 (the lowest column in the lowest byte).
+// No .satfinite: the s32 accumulators wrap modulo 2^32.
 // Either way a K step covers 32 bytes of a 128-byte swizzle row (16 bf16
 // or 32 int8), so the descriptors advance by 32 bytes a step. The fragment
 // of thread t of the warpgroup: d[4c + 2i + j] holds row
@@ -57,6 +63,10 @@ __device__ __forceinline__ void fence_regs(int* d) {
 
 template <int N> __device__ void mma(float* d, uint64_t a, uint64_t b);
 template <int N> __device__ void mma(int* d, uint64_t a, uint64_t b);
+
+// The byte types of an integer operand.
+enum class I8 { s8, u8 };
+template <int N, I8 A, I8 B> __device__ void mma_i8_rs(int* d, const uint32_t* a, uint64_t b);
 
 // The accumulator operands %0 .. %(R - 1) of an instruction with R of them.
 #define WGMMA_OPS_4 "%0, %1, %2, %3"
@@ -114,6 +124,32 @@ WGMMA_DEFINE(64, 32, 32, 33, 34)
 WGMMA_DEFINE(128, 64, 64, 65, 66)
 WGMMA_DEFINE(256, 128, 128, 129, 130)
 
+// mma_i8_rs: the A fragment is operands %R .. %R+3, then the B descriptor
+// (%R+4) and the scale-d flag (%R+5).
+#define WGMMA_DEFINE_I8_RS(N, R, A0, A1, A2, A3, B, P, TA, TB)                     \
+  template <>                                                                     \
+  __device__ __forceinline__ void mma_i8_rs<N, I8::TA, I8::TB>(                   \
+      int* d, const uint32_t* a, uint64_t b) {                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32." #TA "." #TB " {" \
+                 WGMMA_OPS_##R "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B  \
+                 ", p;\n}\n"                                                      \
+                 : WGMMA_D##R(WGMMA_S32, 0)                                       \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));   \
+  }
+#define WGMMA_DEFINE_I8_ALL(N, R, A0, A1, A2, A3, B, P)          \
+  WGMMA_DEFINE_I8_RS(N, R, A0, A1, A2, A3, B, P, s8, s8)          \
+  WGMMA_DEFINE_I8_RS(N, R, A0, A1, A2, A3, B, P, s8, u8)          \
+  WGMMA_DEFINE_I8_RS(N, R, A0, A1, A2, A3, B, P, u8, s8)          \
+  WGMMA_DEFINE_I8_RS(N, R, A0, A1, A2, A3, B, P, u8, u8)
+
+WGMMA_DEFINE_I8_ALL(8, 4, 4, 5, 6, 7, 8, 9)
+WGMMA_DEFINE_I8_ALL(16, 8, 8, 9, 10, 11, 12, 13)
+WGMMA_DEFINE_I8_ALL(32, 16, 16, 17, 18, 19, 20, 21)
+WGMMA_DEFINE_I8_ALL(64, 32, 32, 33, 34, 35, 36, 37)
+
+#undef WGMMA_DEFINE_I8_ALL
+#undef WGMMA_DEFINE_I8_RS
 #undef WGMMA_DEFINE
 #undef WGMMA_F32
 #undef WGMMA_S32

@@ -4,11 +4,12 @@ Q-format fixed16.
 `gemv_pim_float` launches the CUDA kernel `csrc/gemv_pim.cu`, which
 replaces the TPU kernel `src/repro/kernels/gemv_pim.py::gemv_pim_float`;
 `gemv_pim_plain` is its plain PyTorch version, the twin of the JAX oracle
-`repro.kernels.ref.gemv_pim_ref`. `gemv_pim_int8` and `gemv_pim_fixed`
-launch the two entry points of `csrc/gemv_pim_quant.cu`, which replace
-`gemv_pim_int8` and `gemv_pim_fixed` of the same TPU file; their plain
-versions `gemv_pim_int8_plain` and `gemv_pim_fixed_plain` are the twins
-of `ref.gemv_pim_int8_ref` and `ref.gemv_pim_fixed_ref`.
+`repro.kernels.ref.gemv_pim_ref`. `gemv_pim_int8`, `gemv_pim_fixed` and
+`gemv_pim_fixed_linear` launch the entry points of
+`csrc/gemv_pim_quant.cu`, which replace `gemv_pim_int8` and
+`gemv_pim_fixed` of the same TPU file; their plain versions
+`gemv_pim_int8_plain` and `gemv_pim_fixed_plain` are the twins of
+`ref.gemv_pim_int8_ref` and `ref.gemv_pim_fixed_ref`.
 
 x (M, C) @ w (R, C)^T with fp32 accumulation, optional bias, then an
 optional activation applied to the fp32 sum before the cast to x's dtype:
@@ -20,10 +21,18 @@ integer product exactly in float64, `core.quant.int32_matmul`):
 
   * int8: x_i8 (M, C) . w_i8 (R, C) summed in int32, then
     `(acc * x_scale[m]) * w_scale[r]` in f32, then `+ b[r]` in f32 when a
-    bias is given, each operation rounded on its own; f32 (M, R) out;
+    bias is given, each operation rounded on its own (scales and bias f32
+    or bf16), cast to `out_dtype` (f32 or bf16), then the LUT
+    `act_table` on the cast value: `SalPimEngine.linear`'s int8 route in
+    one launch after its two quantizations;
   * fixed16: x_q (M, C) . w_q (R, C) as int16 products summed in an
     int32 accumulator that wraps modulo 2^32, then an arithmetic shift
-    right by `shift` and saturation to int16; int16 (M, R) out.
+    right by `shift` and saturation to int16; int16 (M, R) out;
+  * the fixed16 linear layer (`gemv_pim_fixed_linear`): x and w in f32 or
+    bf16 quantized to Q(frac_x) and Q(frac_w) as the kernel loads them,
+    the fixed16 product shifting by frac_w, dequantized, cast to x's
+    dtype, `+ b` in x's dtype and the LUT, all in one launch
+    (`gemv_pim_fixed_linear_plain` composes the same steps op for op).
 
 Bound on the H100: the weight stream (R * C * itemsize bytes over
 3.35 TB/s) at decode widths; the notes in `csrc/gemv_pim.cu` and
@@ -37,10 +46,12 @@ split over a thread-block cluster); f32, or any other C, takes the
 CUDA-core kernel. `gemv_plan` makes that choice and the tensor-core
 kernel's tiling in plain Python; `gemv_pim_float.launches` counts every
 launch, `gemv_pim_float.tc_launches` those of the tensor-core kernel.
-`gemv_pim_int8` has the same two routes (`gemv_int8_plan`): int8 operands
-with C a multiple of 16 and 16-byte aligned rows on the s8 tensor cores,
-any other C on the `__dp4a` kernel; `gemv_pim_int8.tc_launches` counts
-the first. `quantize_int8_rows` is the per-row int8 quantization of
+The quantized GEMVs have the same two routes (`gemv_int8_plan`,
+`gemv_fixed_plan`): C a multiple of 16 and 16-byte aligned rows on the
+8-bit tensor cores (int8 on s8 operands; fixed16 on the four byte-plane
+products of each int16 one), any other C on the CUDA cores (`__dp4a` for
+int8); each wrapper's `tc_launches` counts the first.
+`quantize_int8_rows` is the per-row int8 quantization of
 `core.quant.quantize_int8_rows` (`quantize_int8_rows_plain`) in one
 launch, bit for bit; it replaces XLA ops of the JAX package, not a
 Pallas kernel.
@@ -76,6 +87,9 @@ TC_ROWS = 64
 TC_K = 64
 TC_K_INT8 = 128                # one 128-byte swizzle row of int8
 TC_N = (8, 16, 32, 64, 128, 256)
+# The fixed16 kernel keeps three accumulator sets of N / 2 registers a
+# thread (csrc/gemv_pim_quant.cu), so its token tile stops at 64.
+TC_N_FIXED = (8, 16, 32, 64)
 TC_MAX_CLUSTER = 8
 TC_CLUSTER_TOKENS = 256
 
@@ -92,13 +106,13 @@ class GemvPlan:
     k_tiles: int = 0
 
 
-def _tc_tiling(M: int, C: int, R: int, k_tile: int) -> GemvPlan:
+def _tc_tiling(M: int, C: int, R: int, k_tile: int, tiles=TC_N) -> GemvPlan:
     """The tensor-core kernels' tiling for x (M, C) @ w (R, C)^T in K tiles
-    of `k_tile` elements (`gemv_plan`)."""
-    fit = next((t for t in TC_N if t >= M), TC_N[-1])
+    of `k_tile` elements over token tiles `tiles` (`gemv_plan`)."""
+    fit = next((t for t in tiles if t >= M), tiles[-1])
     row_tiles, k_tiles = -(-R // TC_ROWS), -(-C // k_tile)
     n, cluster, blocks = fit, 1, 0
-    for t in TC_N[:TC_N.index(fit) + 1]:
+    for t in tiles[:tiles.index(fit) + 1]:
         grid = row_tiles * -(-M // t)
         if grid > _build.SMS:
             continue
@@ -135,6 +149,17 @@ def gemv_int8_plan(M: int, C: int, R: int, *, aligned: bool = True) -> GemvPlan:
     if C % 16 or not aligned:
         return GemvPlan("cuda_core")
     return _tc_tiling(M, C, R, TC_K_INT8)
+
+
+def gemv_fixed_plan(M: int, C: int, R: int, *, aligned: bool = True) -> GemvPlan:
+    """`gemv_plan` for the fixed16 GEMVs (int16 operands, or f32/bf16 ones
+    quantized as they load): the kernel on the 8-bit tensor cores, in K
+    tiles of 128 elements and token tiles of at most 64 (TC_N_FIXED), when
+    C % 16 == 0 and x and w are 16-byte aligned, else the CUDA-core
+    kernel."""
+    if C % 16 or not aligned:
+        return GemvPlan("cuda_core")
+    return _tc_tiling(M, C, R, TC_K_INT8, TC_N_FIXED)
 
 
 def gemv_pim_plain(x: torch.Tensor, w: torch.Tensor,
@@ -235,13 +260,19 @@ gemv_pim_float.tc_launches = 0
 
 def gemv_pim_int8_plain(x_i8: torch.Tensor, x_scale: torch.Tensor,
                         w_i8: torch.Tensor, w_scale: torch.Tensor,
-                        b: torch.Tensor | None = None) -> torch.Tensor:
+                        b: torch.Tensor | None = None, *,
+                        out_dtype: torch.dtype = torch.float32,
+                        act_table: LutTable | None = None) -> torch.Tensor:
     """Plain version: int32 product, `(acc * x_scale) * w_scale`, `+ b`,
-    all in f32 -> f32 (M, R)."""
+    all in f32 (the scales and the bias in f32 or bf16), cast to
+    `out_dtype`, then the LUT on the cast value."""
     acc = quant_lib.int32_matmul(x_i8, w_i8)
     out = acc.float() * x_scale[:, None].float() * w_scale[None, :].float()
     if b is not None:
         out = out + b.float()
+    out = out.to(out_dtype)
+    if act_table is not None:
+        out = lut_lib.apply_table(out, act_table)
     return out
 
 
@@ -251,20 +282,40 @@ def gemv_pim_fixed_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
     return quant_lib.requantize_i32_to_i16(quant_lib.int32_matmul(x_q, w_q), shift)
 
 
-def _check_quant(name, x, w, dtype, vectors):
+def gemv_pim_fixed_linear_plain(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor | None = None, *, frac_x: int,
+                                frac_w: int,
+                                act_table: LutTable | None = None) -> torch.Tensor:
+    """Plain version of the fixed16 linear layer, op for op the JAX
+    engine's: x in Q(frac_x) and w in Q(frac_w), the fixed GEMV shifting
+    by frac_w, dequantized to f32, cast to x's dtype, `+ b` in x's dtype,
+    then the LUT on that value."""
+    x_fmt, w_fmt = quant_lib.QFormat(frac_x), quant_lib.QFormat(frac_w)
+    out_q = gemv_pim_fixed_plain(x_fmt.quantize(x), w_fmt.quantize(w), shift=frac_w)
+    out = x_fmt.dequantize(out_q).to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    if act_table is not None:
+        out = lut_lib.apply_table(out, act_table)
+    return out
+
+
+def _check_quant(name, x, w, dtypes, vectors):
     """The checks of `_check_args` for a quantized GEMV: x (M, C) and w
-    (R, C) of `dtype`, each (name, tensor, length) of `vectors` an f32
-    vector of that length, all contiguous on one CUDA device."""
-    if x.dtype != dtype or w.dtype != dtype:
-        raise TypeError(f"{name} takes {dtype} x and w, got {x.dtype} and {w.dtype}")
+    (R, C) of one dtype among `dtypes`, each (name, tensor, length) of
+    `vectors` an f32 or bf16 vector of that length, all contiguous on one
+    CUDA device."""
+    if x.dtype not in dtypes or w.dtype != x.dtype:
+        want = " or ".join(str(d).split(".")[1] for d in dtypes)
+        raise TypeError(f"{name} takes {want} x and w, got {x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"need x (M, C) and w (R, C), got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
     if x.shape[1] == 0:
         raise ValueError(f"{name} needs C >= 1")
     for vname, t, n in vectors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{vname} must be torch.float32, got {t.dtype}")
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{vname} must be torch.float32 or torch.bfloat16, got {t.dtype}")
         if tuple(t.shape) != (n,):
             raise ValueError(f"{vname} must be ({n},), got {tuple(t.shape)}")
     tensors = [("x", x), ("w", w)] + [(v[0], v[1]) for v in vectors]
@@ -277,35 +328,56 @@ def _check_quant(name, x, w, dtype, vectors):
         raise ValueError(f"{name} takes CUDA tensors, got {x.device}")
 
 
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _lut_args(act_table: LutTable | None, device):
+    """(table, act, lo, inv_step, sections) of a quantized GEMV's LUT."""
+    if act_table is None:
+        return None, 0, 0.0, 1.0, 1
+    _build.check_table(act_table)
+    return (act_table.wb_on(device), 1, act_table.lo, act_table.inv_step,
+            act_table.sections)
+
+
+def _tiles(plan: GemvPlan) -> tuple[int, int]:
+    """(n_tile, cluster) of a C entry: n_tile 0 takes the CUDA-core kernel."""
+    return (plan.n_tile, plan.cluster) if plan.route == "tensor_core" else (0, 1)
+
+
+
 def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
-                  w_scale: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+                  w_scale: torch.Tensor, b: torch.Tensor | None = None, *,
+                  out_dtype: torch.dtype = torch.float32,
+                  act_table: LutTable | None = None) -> torch.Tensor:
     """Launch the CUDA kernel of `gemv_int8_plan`: int8 x (M, C) . int8 w
-    (R, C) with f32 row scales x_scale (M,), w_scale (R,) and optional f32
-    bias (R,) -> f32 (M, R)."""
+    (R, C) with row scales x_scale (M,), w_scale (R,) and optional bias
+    (R,), each f32 or bf16 -> (M, R) in `out_dtype` (f32 or bf16), the LUT
+    `act_table` applied to the cast value in the epilogue."""
     M, R = x_i8.shape[0], w_i8.shape[0]
     vectors = [("x_scale", x_scale, M), ("w_scale", w_scale, R)]
     if b is not None:
         vectors.append(("bias", b, R))
-    _check_quant("gemv_pim_int8", x_i8, w_i8, torch.int8, vectors)
-    out = torch.empty((M, R), dtype=torch.float32, device=x_i8.device)
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"gemv_pim_int8 writes float32 or bfloat16, not {out_dtype}")
+    _check_quant("gemv_pim_int8", x_i8, w_i8, (torch.int8,), vectors)
+    table, act, lo, inv_step, sections = _lut_args(act_table, x_i8.device)
+    out = torch.empty((M, R), dtype=out_dtype, device=x_i8.device)
     if M == 0 or R == 0:
         return out
     C = x_i8.shape[1]
-    aligned = x_i8.data_ptr() % 16 == 0 and w_i8.data_ptr() % 16 == 0
-    plan = gemv_int8_plan(M, C, R, aligned=aligned)
+    plan = gemv_int8_plan(M, C, R, aligned=_aligned(x_i8, w_i8))
     lib = _build.library("gemv_pim_quant")
-    args = (x_i8.data_ptr(), x_scale.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(),
-            _build.ptr(b), out.data_ptr(), M, C, R)
-    tc = plan.route == "tensor_core"
-    if tc:
-        rc = _build.cfunc(lib, "gemv_pim_int8_tc", "pppppp" + "iii" + "ii" + "p")(
-            *args, plan.n_tile, plan.cluster, _build.stream(x_i8))
-    else:
-        rc = _build.cfunc(lib, "gemv_pim_int8", "pppppp" + "iii" + "p")(
-            *args, _build.stream(x_i8))
+    code = _DTYPE_CODE
+    rc = _build.cfunc(lib, "gemv_pim_int8", "ppppppp" + "iii" + "iiiii" + "ffi" + "ii" + "p")(
+        x_i8.data_ptr(), x_scale.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(),
+        _build.ptr(b), _build.ptr(table), out.data_ptr(), M, C, R,
+        code[x_scale.dtype], code[w_scale.dtype], code[b.dtype] if b is not None else 0,
+        code[out_dtype], act, lo, inv_step, sections, *_tiles(plan), _build.stream(x_i8))
     _build.check(lib, "gemv_pim_quant", rc)
     gemv_pim_int8.launches += 1
-    gemv_pim_int8.tc_launches += tc
+    gemv_pim_int8.tc_launches += plan.route == "tensor_core"
     return out
 
 
@@ -339,21 +411,62 @@ def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def gemv_pim_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch.Tensor:
-    """Launch the CUDA kernel: int16 x (M, C) . int16 w (R, C), wrapping
-    int32 sum >> shift, saturated -> int16 (M, R)."""
+    """Launch the CUDA kernel of `gemv_fixed_plan`: int16 x (M, C) . int16
+    w (R, C), wrapping int32 sum >> shift, saturated -> int16 (M, R)."""
     if not 0 <= shift < 32:
         raise ValueError(f"shift must be in [0, 32), got {shift}")
-    _check_quant("gemv_pim_fixed", x_q, w_q, torch.int16, [])
-    M, R = x_q.shape[0], w_q.shape[0]
+    _check_quant("gemv_pim_fixed", x_q, w_q, (torch.int16,), [])
+    (M, C), R = x_q.shape, w_q.shape[0]
     out = torch.empty((M, R), dtype=torch.int16, device=x_q.device)
     if M == 0 or R == 0:
         return out
+    plan = gemv_fixed_plan(M, C, R, aligned=_aligned(x_q, w_q))
     lib = _build.library("gemv_pim_quant")
-    rc = _build.cfunc(lib, "gemv_pim_fixed", "ppp" + "iiii" + "p")(
-        x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, x_q.shape[1], R, shift,
-        torch.cuda.current_stream(x_q.device).cuda_stream)
+    rc = _build.cfunc(lib, "gemv_pim_fixed", "ppp" + "iiii" + "ii" + "p")(
+        x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, C, R, shift, *_tiles(plan),
+        _build.stream(x_q))
     _build.check(lib, "gemv_pim_quant", rc)
     gemv_pim_fixed.launches += 1
+    gemv_pim_fixed.tc_launches += plan.route == "tensor_core"
+    return out
+
+
+def gemv_pim_fixed_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                          frac_x: int, frac_w: int,
+                          act_table: LutTable | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel of `gemv_fixed_plan`: the fixed16 linear
+    layer of `gemv_pim_fixed_linear_plain` in one launch, x (M, C) and w
+    (R, C) in one dtype (f32 or bf16) quantized as they load, optional
+    bias (R,) in f32 or bf16 -> (M, R) in x's dtype."""
+    for name, frac in (("frac_x", frac_x), ("frac_w", frac_w)):
+        if not 0 <= frac <= 30:
+            raise ValueError(f"{name} must be in [0, 30], got {frac}")
+    vectors = [("bias", b, w.shape[0])] if b is not None else []
+    _check_quant("gemv_pim_fixed_linear", x, w, tuple(_DTYPE_CODE), vectors)
+    plan = gemv_fixed_plan(x.shape[0], x.shape[1], w.shape[0], aligned=_aligned(x, w))
+    return launch_fixed_linear(x, w, b, plan, frac_x=frac_x, frac_w=frac_w,
+                               act_table=act_table)
+
+
+def launch_fixed_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                        plan: GemvPlan, *, frac_x: int, frac_w: int,
+                        act_table: LutTable | None = None) -> torch.Tensor:
+    """`gemv_pim_fixed_linear` on a given plan, after its checks (the C
+    entry checks the plan; chip_smoke.py times the CUDA-core route so)."""
+    table, act, lo, inv_step, sections = _lut_args(act_table, x.device)
+    (M, C), R = x.shape, w.shape[0]
+    out = torch.empty((M, R), dtype=x.dtype, device=x.device)
+    if M == 0 or R == 0:
+        return out
+    lib = _build.library("gemv_pim_quant")
+    rc = _build.cfunc(lib, "gemv_pim_fixed_linear",
+                      "ppppp" + "iii" + "iiiii" + "ffi" + "ii" + "p")(
+        x.data_ptr(), w.data_ptr(), _build.ptr(b), _build.ptr(table), out.data_ptr(), M, C, R,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[b.dtype] if b is not None else 0, frac_x, frac_w,
+        act, lo, inv_step, sections, *_tiles(plan), _build.stream(x))
+    _build.check(lib, "gemv_pim_quant", rc)
+    gemv_pim_fixed_linear.launches += 1
+    gemv_pim_fixed_linear.tc_launches += plan.route == "tensor_core"
     return out
 
 
@@ -361,3 +474,6 @@ gemv_pim_int8.launches = 0
 gemv_pim_int8.tc_launches = 0
 quantize_int8_rows.launches = 0
 gemv_pim_fixed.launches = 0
+gemv_pim_fixed.tc_launches = 0
+gemv_pim_fixed_linear.launches = 0
+gemv_pim_fixed_linear.tc_launches = 0

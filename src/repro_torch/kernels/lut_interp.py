@@ -10,6 +10,10 @@ kernel rounds each operation on its own, so it is bit-exact to the plain
 version.
 
 Bound on the H100: one read and one write of every element over 3.35 TB/s.
+At a decode step's (4, 4096) that is 0.02 us, far under a launch; since
+the quantized GEMVs evaluate the table in their epilogues, no main path
+launches `lut_interp`. `empty_kernel` launches a kernel that does nothing,
+the launch floor that `chip_smoke.py` times beside it.
 """
 from __future__ import annotations
 
@@ -19,7 +23,6 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutTable
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
-
 
 
 def lut_interp_plain(x: torch.Tensor, table: LutTable) -> torch.Tensor:
@@ -46,6 +49,14 @@ def lut_interp(x: torch.Tensor, table: LutTable) -> torch.Tensor:
     _build.check(lib, "lut_interp", rc)
     lut_interp.launches += 1
     return out
+
+
+def empty_kernel(device) -> None:
+    """Launch an empty kernel on `device`'s current stream."""
+    lib = _build.library("lut_interp")
+    rc = _build.cfunc(lib, "empty_kernel", "p")(
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, "lut_interp", rc)
 
 
 lut_interp.launches = 0

@@ -35,11 +35,15 @@ def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
 
 
 def pim_linear_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
-                    w_scale: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """int8 (M, C) . int8 (R, C)^T with f32 row scales (and f32 bias) -> f32."""
+                    w_scale: torch.Tensor, b: torch.Tensor | None = None, *,
+                    out_dtype: torch.dtype = torch.float32,
+                    act_table: LutTable | None = None) -> torch.Tensor:
+    """int8 (M, C) . int8 (R, C)^T with row scales (and a bias) in f32 or
+    bf16, the rescale and bias in f32, cast to `out_dtype`, then the LUT."""
+    kw = dict(out_dtype=out_dtype, act_table=act_table)
     if x_i8.device.type == "cpu":
-        return gemv_k.gemv_pim_int8_plain(x_i8, x_scale, w_i8, w_scale, b)
-    return gemv_k.gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b)
+        return gemv_k.gemv_pim_int8_plain(x_i8, x_scale, w_i8, w_scale, b, **kw)
+    return gemv_k.gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b, **kw)
 
 
 def pim_quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,6 +59,17 @@ def pim_linear_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> tor
     if x_q.device.type == "cpu":
         return gemv_k.gemv_pim_fixed_plain(x_q, w_q, shift=shift)
     return gemv_k.gemv_pim_fixed(x_q, w_q, shift=shift)
+
+
+def pim_fixed_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                     frac_x: int, frac_w: int,
+                     act_table: LutTable | None = None) -> torch.Tensor:
+    """The fixed16 linear layer: float x (M, C) and w (R, C) in Q(frac_x)
+    and Q(frac_w), the fixed16 GEMV, dequantized to x's dtype, `+ b`, LUT."""
+    kw = dict(frac_x=frac_x, frac_w=frac_w, act_table=act_table)
+    if x.device.type == "cpu":
+        return gemv_k.gemv_pim_fixed_linear_plain(x, w, b, **kw)
+    return gemv_k.gemv_pim_fixed_linear(x, w, b, **kw)
 
 
 def pim_paged_attention(q, k_pages, v_pages, block_tables, length,

@@ -5,15 +5,16 @@ Here on the CPU: each plain PyTorch version against the JAX oracle in
 `repro.kernels.ref` (f32, 1e-5) and, at one small shape, against the Pallas
 kernel in interpret mode (1e-5; 3e-3 for LUT-exp attention, the JAX
 package's own bound for the online LUT softmax), plus the launchers'
-refusal of CPU tensors and of bad arguments; the float GEMV's plan (kernel
-choice, tiles, cluster) over every shape of the path, the single-walk
-decode's cluster and window at any table width, and the page walk
+refusal of CPU tensors and of bad arguments; the float and fixed16 GEMVs'
+plans (kernel choice, tiles, cluster) over every shape of the path, the
+single-walk decode's cluster and window at any table width, and the page walk
 that the decode kernel computes in LUT mode against the Pallas kernel in
 interpret mode (1e-5). On the card (`-m gpu`): each CUDA kernel against its
 plain version on the same inputs, the tensor-core GEMV at its ragged and
 cluster shapes and bit-identical across launches, the int8 and fixed16
-GEMVs bit for bit at the shapes of `chip_smoke.py` (their plain versions
-are held to the JAX oracles in test_torch_quant.py).
+GEMVs bit for bit at the shapes of `chip_smoke.py` on both routes, with
+the fused fixed16 linear layer and the int8 LUT epilogue (their plain
+versions are held to the JAX oracles in test_torch_quant.py).
 """
 from __future__ import annotations
 
@@ -86,6 +87,25 @@ def quant_gemv_inputs(M, C, R, seed=0):
     v = int(np.sqrt(5e8 / C))
     xq[0], wq[0], wq[1], wq[2] = v, v, -v, 32767
     return SimpleNamespace(x8=x8, w8=w8, xs=xs, ws=ws, b=b, xq=xq, wq=wq)
+
+
+def fixed_linear_inputs(M, C, R, seed=0):
+    """f32 operands of the fixed16 linear layer: `quant_gemv_inputs`' Q.10
+    x and Q.12 w as values (x row 0 at v = sqrt(5e8 / C) / 2^10, w rows 0
+    and 1 at +-v / 2^12: sums that saturate both ways after the shift),
+    w row 2 at 8 (Q.12 saturates it to 32767; its sum with x row 0 passes
+    2^31 and wraps), x's last row (M > 1) at 32 and w row 3 (R > 3) at -8,
+    the extremes of both formats (a sum of -32767 * 32768 * C, which
+    wraps), and a bias."""
+    qi = quant_gemv_inputs(M, C, R, seed)
+    x = qi.xq.astype(np.float32) / 2 ** 10
+    w = qi.wq.astype(np.float32) / 2 ** 12
+    w[2] = 8.0
+    if M > 1:
+        x[-1] = 32.0
+    if R > 3:
+        w[3] = -8.0
+    return x, w, (qi.b * 0.5).astype(np.float32)
 
 
 def _pool_inputs(B, H, Hkv, D, page, n_pages, lengths, Sq=None, seed=0):
@@ -373,6 +393,53 @@ def test_gemv_int8_plan(shape, want):
     assert gemv_pim.gemv_int8_plan(M, C, R, aligned=False).route == "cuda_core"
 
 
+# (M, C, R) -> (route, n_tile, cluster) of the fixed16 GEMVs at the
+# path's shapes: token tiles stop at 64 (three accumulator sets), K tiles
+# of 128 elements, and a C that is not a multiple of 16 on the CUDA cores.
+FIXED_PLANS = [((4, 1024, 1024), ("tensor_core", 8, 8)),
+               ((4, 1024, 4096), ("tensor_core", 8, 2)),
+               ((4, 4096, 1024), ("tensor_core", 8, 8)),
+               ((1, 1024, 50257), ("tensor_core", 8, 1)),
+               ((64, 1024, 4096), ("tensor_core", 64, 2)),
+               ((512, 1024, 4096), ("tensor_core", 64, 1)),
+               ((4, 1000, 1024), ("cuda_core", 0, 1)),
+               ((4, 1032, 1024), ("cuda_core", 0, 1))]
+
+
+@pytest.mark.parametrize("shape,want", FIXED_PLANS)
+def test_gemv_fixed_plan(shape, want):
+    """The fixed16 GEMVs' route and tiling: the 8-bit tensor cores whenever
+    C % 16 == 0 and the rows are aligned, else the CUDA cores."""
+    M, C, R = shape
+    plan = gemv_pim.gemv_fixed_plan(M, C, R)
+    assert (plan.route, plan.n_tile, plan.cluster) == want
+    assert gemv_pim.gemv_fixed_plan(M, C, R, aligned=False).route == "cuda_core"
+
+
+@pytest.mark.parametrize("R,C", PATH_SHAPES)
+def test_gemv_fixed_plan_covers_every_path_shape(R, C):
+    """M = 1..512 on every weight of the path: the tensor-core kernel with
+    a token tile in TC_N_FIXED no larger than the least that holds M (64
+    beyond), 128-element K tiles split over the cluster with none lost,
+    none twice and none empty, and every output written exactly once."""
+    for M in range(1, 513):
+        plan = gemv_pim.gemv_fixed_plan(M, C, R)
+        fit = min(n for n in gemv_pim.TC_N_FIXED if n >= min(M, 64))
+        assert plan.route == "tensor_core"
+        assert plan.n_tile in gemv_pim.TC_N_FIXED and plan.n_tile <= fit
+        assert plan.n_tiles == -(-M // plan.n_tile)
+        assert plan.row_tiles == -(-R // gemv_pim.TC_ROWS)
+        assert plan.k_tiles == -(-C // gemv_pim.TC_K_INT8)
+        assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= plan.k_tiles
+        ranges = [_k_range(plan, r) for r in range(plan.cluster)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_tiles
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert _blocks(plan) <= _build.SMS or plan.cluster == 1
+        if M in (1, 4, 64, 65, 512) and R < 50257:
+            assert torch.equal(_tile_writes(plan, M, R), torch.ones((M, R), dtype=torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # Paged prefill attention
 # ---------------------------------------------------------------------------
@@ -484,6 +551,34 @@ def test_quantized_launchers_refuse_bad_arguments():
         gemv_pim.gemv_pim_fixed(xq, w8, shift=12)
     with pytest.raises(ValueError, match="shift"):
         gemv_pim.gemv_pim_fixed(xq, wq, shift=32)
+
+
+def test_fused_quantized_launchers_refuse_bad_arguments():
+    """The fixed16 linear launcher and the int8 GEMV's epilogue options
+    raise on CPU tensors, mixed or integer dtypes, bad bias shapes, Q
+    formats past 30 fraction bits and an integer output dtype, before
+    anything reaches the card."""
+    x, w, b = (_t(a) for a in fixed_linear_inputs(2, 32, 8))
+    fn = gemv_pim.gemv_pim_fixed_linear
+    kw = dict(frac_x=10, frac_w=12)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(x, w, b, **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16 x and w"):
+        fn(x, w.to(torch.bfloat16), b, **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16 x and w"):
+        fn(x.to(torch.int16), w.to(torch.int16), **kw)
+    with pytest.raises(ValueError, match=r"bias must be \(8,\)"):
+        fn(x, w, b[:5], **kw)
+    with pytest.raises(ValueError, match="frac_w"):
+        fn(x, w, b, frac_x=10, frac_w=31)
+    qi = quant_gemv_inputs(2, 32, 8)
+    x8, xs, w8, ws = (_t(a) for a in (qi.x8, qi.xs, qi.w8, qi.ws))
+    with pytest.raises(TypeError, match="writes float32 or bfloat16"):
+        gemv_pim.gemv_pim_int8(x8, xs, w8, ws, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        gemv_pim.gemv_pim_int8(x8, xs.to(torch.bfloat16), w8, ws.to(torch.bfloat16),
+                               out_dtype=torch.bfloat16, act_table=TBANK.gelu)
+    assert fn.launches == 0 and gemv_pim.gemv_pim_int8.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +743,117 @@ def test_gemv_int8_routes_bit_for_bit(cuda, M, R, C, bias):
     torch.cuda.synchronize()
     assert gemv_pim.gemv_pim_int8.tc_launches == before + (C % 16 == 0)
     assert torch.equal(got, gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 64, 512])
+@pytest.mark.parametrize("R,C", QUANT_SHAPES + [(1024, 1000)])
+@pytest.mark.parametrize("shift", [10, 12])
+def test_gemv_fixed_routes_bit_for_bit(cuda, M, R, C, shift):
+    """The int16 kernel on the 8-bit tensor cores (counted by tc_launches)
+    wherever C % 16 == 0, on the CUDA cores at C = 1000; both bit for bit,
+    with rows that saturate both ways and one whose sum wraps."""
+    qi = quant_gemv_inputs(M, C, R, seed=M)
+    xq, wq = _t(qi.xq, cuda), _t(qi.wq, cuda)
+    fn = gemv_pim.gemv_pim_fixed
+    before = fn.tc_launches
+    got = fn(xq, wq, shift=shift)
+    torch.cuda.synchronize()
+    assert fn.tc_launches == before + (C % 16 == 0)
+    want = gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=shift)
+    assert torch.equal(got, want)
+    assert int(want[0, 0]) == 32767 and int(want[0, 1]) == -32768
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 64, 512])
+@pytest.mark.parametrize("R,C", QUANT_SHAPES + [(777, 1001), (1024, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "bias", "bias+lut", "f32 bias+lut"])
+def test_gemv_fixed_linear_routes_bit_for_bit(cuda, M, R, C, dtype, epi):
+    """The fixed16 linear layer in one launch, x and w quantized as they
+    load: on the 8-bit tensor cores wherever C % 16 == 0, else on the
+    CUDA cores; bit for bit the plain composition, with sums that saturate
+    both ways and sums that wrap past +-2^31, the bias in x's dtype or
+    f32, and the LUT GELU on the cast value."""
+    x, w, b = fixed_linear_inputs(M, C, R, seed=M)
+    x, w = (_t(a, cuda).to(dtype) for a in (x, w))
+    b = None if epi == "none" else _t(b, cuda).to(torch.float32 if "f32" in epi else dtype)
+    kw = dict(frac_x=10, frac_w=12, act_table=TBANK.gelu if "lut" in epi else None)
+    fn = gemv_pim.gemv_pim_fixed_linear
+    before = (fn.launches, fn.tc_launches)
+    got = fn(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1] + (C % 16 == 0))
+    want = gemv_pim.gemv_pim_fixed_linear_plain(x, w, b, **kw)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_gemv_fixed_misaligned_rows(cuda, dtype, offset):
+    """x starting `offset` elements past a 16-byte boundary: the CUDA-core
+    route (no TMA), bit for bit."""
+    M, C, R = 4, 1024, 1024
+    xf, wf, b = fixed_linear_inputs(M, C, R)
+    qi = quant_gemv_inputs(M, C, R)
+    x0 = _t(qi.xq if dtype == torch.int16 else xf, cuda).to(dtype)
+    w = _t(qi.wq if dtype == torch.int16 else wf, cuda).to(dtype)
+    buf = torch.zeros(M * C + 8, dtype=dtype, device=cuda)
+    x = buf[offset:offset + M * C].view(M, C)
+    x.copy_(x0)
+    assert x.data_ptr() % 16 != 0
+    if dtype == torch.int16:
+        fn, plain, args = gemv_pim.gemv_pim_fixed, gemv_pim.gemv_pim_fixed_plain, (x, w)
+        kw = dict(shift=12)
+    else:
+        fn, plain = gemv_pim.gemv_pim_fixed_linear, gemv_pim.gemv_pim_fixed_linear_plain
+        args, kw = (x, w, _t(b, cuda).to(dtype)), dict(frac_x=10, frac_w=12)
+    before = (fn.launches, fn.tc_launches)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, plain(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,R", [(4, 4096, 1024), (16, 1024, 1024), (64, 1024, 4096),
+                                   (512, 4096, 1024)])
+def test_gemv_fixed_kernels_are_deterministic(cuda, M, C, R):
+    """Both fixed16 kernels sum the cluster's partials in rank order: two
+    launches give the same bits."""
+    x, w, b = fixed_linear_inputs(M, C, R, seed=3)
+    x, w, b = (_t(a, cuda).to(torch.bfloat16) for a in (x, w, b))
+    kw = dict(frac_x=10, frac_w=12, act_table=TBANK.gelu)
+    first = gemv_pim.gemv_pim_fixed_linear(x, w, b, **kw)
+    second = gemv_pim.gemv_pim_fixed_linear(x, w, b, **kw)
+    qi = quant_gemv_inputs(M, C, R, seed=3)
+    xq, wq = _t(qi.xq, cuda), _t(qi.wq, cuda)
+    third = gemv_pim.gemv_pim_fixed(xq, wq, shift=12)
+    fourth = gemv_pim.gemv_pim_fixed(xq, wq, shift=12)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(third, fourth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 64])
+@pytest.mark.parametrize("R,C", [(1024, 1024), (4096, 1024), (50257, 1024), (777, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lut", [False, True])
+def test_gemv_int8_epilogue_bit_for_bit(cuda, M, R, C, dtype, lut):
+    """The q3 route's epilogue on both routes: scales and bias in x's
+    dtype, the output cast to x's dtype, the LUT GELU on the cast value."""
+    qi = quant_gemv_inputs(M, C, R, seed=M)
+    x8, w8 = _t(qi.x8, cuda), _t(qi.w8, cuda)
+    xs, ws, b = (_t(a, cuda).to(dtype) for a in (qi.xs, qi.ws * 0.05, qi.b))
+    kw = dict(out_dtype=dtype, act_table=TBANK.gelu if lut else None)
+    got = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, b, **kw)
+    torch.cuda.synchronize()
+    want = gemv_pim.gemv_pim_int8_plain(x8, xs, w8, ws, b, **kw)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
 
 
 def quantize_rows_input(rows, C, seed=0):

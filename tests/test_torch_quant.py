@@ -14,7 +14,13 @@ bit, with inputs made by numpy from a seed:
     `quant="fixed16"` branches, with and without bias and GELU, in exact
     and LUT mode, against the JAX engine's, in f32 and bf16;
   * `quantize_params_int8` of bridged fp params against the bridged JAX
-    `quantize_params_int8`.
+    `quantize_params_int8`;
+  * the plain versions of the fused routes that the card runs in one
+    launch: the fixed16 linear layer (`gemv_pim_fixed_linear_plain`) and
+    the int8 GEMV with q3's epilogue (scales and bias in x's dtype, the
+    cast, the LUT) against the JAX engine's branches, and the byte-plane
+    arithmetic of the fixed16 tensor-core kernel against the wrapping
+    int32 product.
 
 The JAX functions run eagerly, one operation at a time. Inside `jit`,
 XLA on the CPU multiplies by f32(1/127) instead of dividing and fuses the
@@ -29,7 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_kernels import quant_gemv_inputs
+from test_torch_kernels import fixed_linear_inputs, quant_gemv_inputs
 
 from repro.core import quant as jq
 from repro.core.salpim import SalPimConfig, SalPimEngine
@@ -39,6 +45,7 @@ from repro.models import api as jax_api
 from repro.configs import gpt2_medium as jax_gpt2
 from repro.serving import quantize as jquant
 from repro_torch import bridge
+from repro_torch.core import lut as tlut
 from repro_torch.core import quant as tq
 from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
 from repro_torch.core.salpim import SalPimEngine as TSalPimEngine
@@ -287,3 +294,93 @@ def test_quantize_params_int8_matches_jax():
     walk(got, want, "")
     assert n == 7            # wq, wk, wv, wo, w_up, w_down, lm_head
     assert got["blocks"]["attn"]["wq"].unbind()[1].shape == (64, 64)
+
+
+# ---------------------------------------------------------------------------
+# The fused quantized routes' plain versions
+# ---------------------------------------------------------------------------
+
+TBANK = tlut.LutBank.create(64)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("M,C,R", [(3, 64, 40), (4, 1001, 37), (2, 4096, 9)])
+def test_fixed_linear_plain_matches_jax_engine(M, C, R, lut, bias, dtype):
+    """`gemv_pim_fixed_linear_plain` (the kernel's plain version) is the
+    JAX engine's fixed16 branch, LUT GELU and all, bit for bit, with sums
+    that saturate both ways and sums that wrap past +-2^31."""
+    x, w, b = fixed_linear_inputs(M, C, R)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    jb, tb = _pair(b, dtype) if bias else (None, None)
+    mode = "lut" if lut else "exact"
+    jeng = SalPimEngine.create(SalPimConfig(quant="fixed16", nonlinear_mode=mode))
+    want = jeng.linear(jx, jw, jb, act="gelu" if lut else None)
+    got = gemv_pim.gemv_pim_fixed_linear_plain(tx, tw, tb, frac_x=10, frac_w=12,
+                                               act_table=TBANK.gelu if lut else None)
+    _same(got, want)
+    xq, wq = tq.QFormat(10).quantize(tx), tq.QFormat(12).quantize(tw)
+    sums = xq.double() @ wq.double().t()
+    out_q = gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=12)
+    assert int(out_q[0, 0]) == 32767 and int(out_q[0, 1]) == -32768
+    assert float(sums[0, 2]) >= 2 ** 31 and float(sums[-1, 3]) < -2 ** 31
+
+
+def _byte_plane_product(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The int32 product as the fixed16 tensor-core kernel forms it: each
+    int16 v split into hi = v >> 8 (s8) and lo = v & 0xFF (u8); three s32
+    accumulators that wrap (hi.hi; hi.lo + lo.hi; lo.lo); then 65536 hh +
+    256 md + ll modulo 2^32, as int32."""
+    xh, xl = x_q.long() >> 8, x_q.long() & 0xFF
+    wh, wl = w_q.long() >> 8, w_q.long() & 0xFF
+    assert int(xh.min()) >= -128 and int(xh.max()) <= 127 and int(xl.min()) >= 0
+    hh = tq.int32_matmul(xh, wh)
+    md = tq.wrap_int32(tq.int32_matmul(xh, wl).long() + tq.int32_matmul(xl, wh).long())
+    ll = tq.int32_matmul(xl, wl)
+    return tq.wrap_int32((hh.long() << 16) + (md.long() << 8) + ll.long())
+
+
+@pytest.mark.parametrize("M,C,R", [(4, 1024, 64), (3, 4096, 16), (3, 1001, 9)])
+def test_byte_planes_make_the_wrapping_int32_product(M, C, R):
+    """The identity the fixed16 tensor-core kernel relies on, bit for bit:
+    four 8-bit products combined modulo 2^32 are XLA's wrapping int32 dot,
+    on planted operands (the formats' extremes, negative values whose low
+    byte is 0x00 or 0xFF, sums past +-2^31)."""
+    qi = quant_gemv_inputs(M, C, R)
+    xq, wq = torch.from_numpy(qi.xq), torch.from_numpy(qi.wq)
+    xq[1] = 32767
+    xq[2, ::2], xq[2, 1::2] = -32768, -1
+    wq[3] = -32768
+    wq[4] = -256
+    wq[5] = 255
+    want = tq.int32_matmul(xq, wq)
+    assert torch.equal(_byte_plane_product(xq, wq), want)
+    exact = xq.double() @ wq.double().t()
+    assert bool((exact.abs() >= 2 ** 31).any())
+    assert torch.equal(gemv_pim.gemv_pim_fixed_plain(xq, wq, shift=12),
+                       tq.requantize_i32_to_i16(want, 12))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M,C,R", [(3, 64, 40), (4, 1001, 37)])
+def test_int8_lut_epilogue_matches_jax_engine(M, C, R, bias, dtype):
+    """The q3 route's one GEMV (`gemv_pim_int8_plain` with the scales of
+    `quantize_int8_rows` in x's dtype, the bias, the cast to x's dtype and
+    the LUT GELU) is the JAX engine's int8 LUT linear, bit for bit."""
+    x = _floats(M, C, std=1.5)
+    w = _floats(R, C, std=C ** -0.5, seed=1)
+    b = _floats(R, std=0.5, seed=2)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    jb, tb = _pair(b, dtype) if bias else (None, None)
+    jeng = SalPimEngine.create(SalPimConfig(quant="int8", nonlinear_mode="lut"))
+    want = jeng.linear(jx, jw, jb, act="gelu")
+    x_i8, xs = tq.quantize_int8_rows(tx)
+    w_i8, ws = tq.quantize_int8_rows(tw)
+    got = gemv_pim.gemv_pim_int8_plain(x_i8, xs, w_i8, ws, tb, out_dtype=tx.dtype,
+                                       act_table=TBANK.gelu)
+    _same(got, want)
+    assert got.dtype == tx.dtype and xs.dtype == tx.dtype
