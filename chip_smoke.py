@@ -12,7 +12,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
               main path's shapes in f32 and bf16: the paged kernels on fp,
               int8 (f32/bf16 scale rows) and int4 pools, and the KV-split
               kernel at K in {2, 4, 7, 16} on a 1024-token table, with its
-              combine (merge_partials), also against the unsplit kernel,
+              combine (merge_partials, bit for bit its split-order plain
+              twin, and the two replayed in a CUDA graph on their
+              programmatic edge), also against the unsplit kernel,
               and, through `paged_attention(..., kv_splits=K)` (the route),
               on planted keys at K 4/8/16 and at qwen2-1.5B's 131072 keys
               (K 8); the dense path's decode
@@ -60,10 +62,14 @@ Run from the root of a checkout. Phases, each of which fails the run:
               `SalPimConfig(quant="fixed16")`, q3 with `quant="int8"` and LUT
               nonlinearities, with phase 4's checks (145 `gemv_pim_int8` or
               `gemv_pim_fixed_linear` launches, all on the 8-bit tensor
-              cores, and no float GEMV a step and a chunk; q2's decode step
-              and chunk run the same PyTorch operations as the exact fp
-              ones plus the 24 eager GELUs, so no quantization,
-              dequantization or bias op is left around the fixed16 GEMV)
+              cores, and no float GEMV a step and a chunk; on q1 and q3
+              `gemv_pim_int8_linear`, x quantized in its load path, so no
+              quantize_int8_rows launch for x (q3's 145 are its weights);
+              each datapath's decode step and chunk run the fp path's
+              PyTorch operations plus only the eager GELUs, the QTensor
+              scales' unbind (q1) or the weights' quantization outputs
+              (q3), so no cast, quantization or bias op is left around a
+              quantized GEMV)
               and the first logits held to a one-shot prefill through
               the plain versions on the same datapath; each drain's share of
               greedy tokens with phase 4's exact drain, its decode step and
@@ -101,8 +107,12 @@ whose int32 sum wraps; then the int16 kernel and the fused fixed16 linear
 layer, bf16 and f32, bias and LUT, at M 1..512 over the model's shapes on
 the 8-bit tensor cores and at C 1000 and a misaligned x on the CUDA
 cores, sums planted to saturate both ways and to wrap past +-2^31, two
-launches bit for bit), and `quantize_int8_rows` bit for bit on
-f32 and bf16 rows (zero rows and .5 ties); the prefill kernel over g 1
+launches bit for bit), `quantize_int8_rows` bit for bit on f32 and bf16
+rows, in x's dtype and in f32, aligned and misaligned, 4..50257 rows of
+1024..4096 and rows streamed past 8 warps' registers (zero rows and .5
+ties), and the int8 linear layer (`gemv_pim_int8_linear`) over the
+model's shapes at M 1..512 in q1's and q3's forms, bit for bit its two
+launches and its plain version; the prefill kernel over g 1
 and 2, Sq 1/17/64 and starts 0/15/64/896 on every pool format (bf16, all
 on the tensor cores); the single walk at qwen2-1.5B's widths over 131072
 keys (in windows), at g 12 x D 192, and forced into windows of 1 and 3
@@ -110,10 +120,14 @@ pages at 384 keys on every pool format, all on planted keys that keep
 the outputs O(1); and times the int8 GEMV over a
 decode step and at `w_up`, the per-call quantization on the kernel, the
 prefill at start 896 and the 131072-key walk beside SDPA and the split.
-Phases 4-6 count every tensor-core launch: all 145 GEMVs of q1 and q3 on
-the s8 tensor cores and of q2 on the 8-bit ones, one quantize_int8_rows a
-linear for x (two in q3, for the weight too), every chunk's 24 prefill
-launches on the tensor-core kernel.
+Phases 4-6 count every tensor-core launch: all 145 linears of q1 and q3
+one `gemv_pim_int8_linear` launch each on the s8 tensor cores (x
+quantized in its load path; q3's 145 quantize_int8_rows launches are its
+weights') and of q2 on the 8-bit ones, every chunk's 24 prefill launches
+on the tensor-core kernel. Phase 3 also times the int8 linear layer over
+a decode step against the two launches it replaces, each weight shape's
+quantization against its bound, and the KV split's route with and
+without the combine's programmatic launch.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -421,14 +435,42 @@ def check_kernels(torch, tlut, quantize, collectives, gemv_pim, paged_attention,
                     e_m = compare(torch, name + " combine", got,
                                   merged.reshape(got.shape).to(dtype), TOL[dname])
                     errs["merge_partials"] = max(errs["merge_partials"], e_m)
+                    if not torch.equal(got, paged_attention.merge_partials_plain(m, l, acc,
+                                                                                 dtype)):
+                        raise AssertionError(f"{name}: merge_partials differs from "
+                                             "merge_partials_plain")
                     worst = max(worst, e)
             log(f"  paged_attention_split + merge_partials (also through "
                 f"paged_attention(kv_splits=K), the same bits), B={B} H={H} D={D} 64 "
                 f"pages lengths={lens_list} K=2/4/7/16 {fmt} pools, q {dname}, exact/LUT "
                 f"x window+softcap, vs plain (and vs unsplit, exact): max_abs_err "
                 f"{worst:.3e} (tol {TOL[dname]})")
-    log(f"  merge_partials vs merge_partial_softmax_stacked on the kernel's partials: "
-        f"max_abs_err {errs['merge_partials']:.3e}")
+    log(f"  merge_partials (launched to overlap the split kernel's tail) on the kernel's "
+        f"partials: bit-exact to merge_partials_plain (split order); vs "
+        f"merge_partial_softmax_stacked max_abs_err {errs['merge_partials']:.3e}")
+    # The route in a CUDA graph: the programmatic edge between the split
+    # kernel and the combine survives capture.
+    q = q32.to(torch.bfloat16)
+    k, v, ks, vs = make_pools(torch, quantize, k32, v32, "fp", torch.bfloat16)
+    want = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs, kv_splits=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs, kv_splits=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs, kv_splits=4)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("paged_attention(kv_splits=4) replayed in a CUDA graph differs "
+                                 "from the eager call")
+    del graph
+    log("  paged_attention(kv_splits=4) (split kernel + merge_partials on a programmatic "
+        "edge) captured in a CUDA graph: 3 replays bit-exact to the eager call")
     log("  LUT mode, online page walk vs the dense LUT plain versions (the TPU "
         "kernels' algebra, not a kernel error; the JAX package bounds it by 3e-3 at "
         "<= 23 keys): max gap " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
@@ -775,8 +817,15 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
         parts = paged_attention.paged_attention_split(q, *pools[0][:2], tables, lengths,
                                                       kv_splits=4)
         merge = time_graph(torch, lambda i: paged_attention.merge_partials(*parts, q.dtype), L)
-        merge_plain = time_graph(torch, lambda i: collectives.merge_partial_softmax_stacked(
+        merge_plain = time_graph(torch, lambda i: paged_attention.merge_partials_plain(
+            *parts, q.dtype), L)
+        merge_stacked = time_graph(torch, lambda i: collectives.merge_partial_softmax_stacked(
             *parts, axis=2), L)
+        # The route with the combine launched after the split kernel has
+        # finished (no programmatic edge), in the same harness.
+        no_pdl = time_graph(torch, lambda i: paged_attention.merge_partials(
+            *paged_attention.paged_attention_split(q, *pools[i][:2], tables, lengths,
+                                                   kv_splits=4), q.dtype, pdl=False), L)
         plain = time_graph(torch, lambda i: paged_attention.paged_attention_split_plain(
             q, *pools[i][:2], tables, lengths, kv_splits=4), L)
         dense = [(paged_attention.gather_paged_kv(k, tables),
@@ -799,12 +848,18 @@ def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, see
             ms=split4, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
             shape=f"split K=4 + merge_partials (the route), {shape}; K=8 "
                   f"{split8 * 1e3:.2f} us; split kernel alone {kernel4 * 1e3:.2f} us")
-        out["merge_partials"] = dict(ms=merge, plain_ms=merge_plain, library_ms=None,
-                                     bound_ms=m_bnd, bound_by=m_by,
-                                     shape=f"K=4 partials of {shape}")
+        out["merge_partials"] = dict(
+            ms=merge, plain_ms=merge_plain, library_ms=None, bound_ms=m_bnd, bound_by=m_by,
+            route_ms=split4, route_no_pdl_ms=no_pdl,
+            shape=f"K=4 partials of {shape}, launches back to back; the route (split K=4 + "
+                  f"combine) {split4 * 1e3:.2f} us with the combine on a programmatic edge, "
+                  f"{no_pdl * 1e3:.2f} us without; merge_partial_softmax_stacked "
+                  f"{merge_stacked * 1e3:.2f} us")
         rows.append(f"fp: split kernel alone (K=4) "
                     f"{kernel4 * 1e3:.2f} us, combine {merge * 1e3:.2f} us (plain "
-                    f"{merge_plain * 1e3:.2f} us, bound {m_bnd * 1e3:.2f} us); plain split "
+                    f"{merge_plain * 1e3:.2f} us, bound {m_bnd * 1e3:.2f} us); the route "
+                    f"K=4 {split4 * 1e3:.2f} us with the combine's programmatic launch, "
+                    f"{no_pdl * 1e3:.2f} us without; plain split "
                     f"{plain * 1e3:.2f} us; SDPA on pre-gathered K/V {lib * 1e3:.2f} us")
     for r in rows:
         log(f"  long-context decode attention [{lens_list}]: {r}")
@@ -1307,30 +1362,84 @@ def check_quant_kernels(torch, quant, tlut, gemv_pim, seed):
 
     qfn = gemv_pim.quantize_int8_rows
     ties = torch.tensor([2.5, -2.5, 3.5, -0.5, 0.5, 126.5, 1.5, 127.0], device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows, C in ((4, 1024), (64, 4096), (512, 1024), (4096, 1024), (50257, 1024)):
+    for dtype, compute in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                           (torch.bfloat16, torch.float32)):
+        for rows, C in ((4, 1024), (4, 4096), (64, 4096), (512, 1024), (1024, 1024),
+                        (4096, 1024), (1024, 4096), (50257, 1024), (3, 20000)):
             x = torch.randn((rows, C), generator=gen, device=dev)
             x = x * torch.tensor([1e-3, 0.5, 30.0], device=dev)[torch.arange(rows, device=dev) % 3,
                                                                 None]
             x[1] = 0.0
             x[2] = ties.repeat(C // 8)
             x = x.to(dtype)
-            before = qfn.launches
-            q, sc = qfn(x)
-            torch.cuda.synchronize()
-            if qfn.launches != before + 1:
-                raise AssertionError("quantize_int8_rows: not one launch")
-            wq, wsc = gemv_pim.quantize_int8_rows_plain(x)
-            name = f"quantize_int8_rows {rows}x{C} {dtype}"
-            same("quantize_int8_rows", name + " payload", q, wq)
-            same("quantize_int8_rows", name + " scale", sc, wsc)
-            if q[2, :6].tolist() != [2, -2, 4, 0, 0, 126] or bool(q[1].any()):
-                raise AssertionError(f"{name}: the ties or the zero row")
-        log(f"  quantize_int8_rows {str(dtype).split('.')[1]}: 4x1024 .. 50257x1024 rows, a "
-            "zero row and exact .5 ties: payload and scales bit-exact to the plain "
-            "function, one launch a call")
+            for start in (0, 1):              # 1: x starts past a 16-byte boundary
+                xs = x if start == 0 else torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(
+                    rows, C)
+                before = qfn.launches
+                q, sc = qfn(xs, compute=compute)
+                torch.cuda.synchronize()
+                if qfn.launches != before + 1:
+                    raise AssertionError("quantize_int8_rows: not one launch")
+                wq, wsc = gemv_pim.quantize_int8_rows_plain(xs.to(compute))
+                name = f"quantize_int8_rows {rows}x{C} {dtype} in {compute} start {start}"
+                same("quantize_int8_rows", name + " payload", q, wq)
+                same("quantize_int8_rows", name + " scale", sc, wsc)
+                if q[2, :6].tolist() != [2, -2, 4, 0, 0, 126] or bool(q[1].any()):
+                    raise AssertionError(f"{name}: the ties or the zero row")
+        log(f"  quantize_int8_rows {str(dtype).split('.')[1]} rows in "
+            f"{str(compute).split('.')[1]}: 4x1024 .. 50257x1024 and 3x20000 (streamed) "
+            "rows, aligned and one element past a 16-byte boundary, a zero row and exact .5 "
+            "ties: payload and scales bit-exact to the plain function, one launch a call")
+    check_int8_linear(torch, gemv_pim, tlut, gen, same)
     check_fixed_routes(torch, quant, tlut, gemv_pim, gen, same)
     return errs
+
+
+def check_int8_linear(torch, gemv_pim, tlut, gen, same):
+    """The int8 linear layer (`gemv_pim_int8_linear`) bit for bit with x's
+    quantize_int8_rows launch then `gemv_pim_int8`, and with its plain
+    version, over the model's shapes at M 1, 4, 8, 64 (one launch, x
+    quantized in the load path, on the s8 tensor cores) and 65, 512 (the
+    two launches), in q1's form (bf16 x quantized in f32, f32 weight
+    scales, bf16 bias) and q3's (bf16 x and weight scales, the bias, the
+    LUT GELU)."""
+    dev = torch.device("cuda")
+    fn = gemv_pim.gemv_pim_int8_linear
+    gelu = tlut.LutBank.create(64).gelu
+    one = two = 0
+    fused_at = set()
+    for R, C in QUANT_SHAPES:
+        w = (torch.randn((R, C), generator=gen, device=dev) * C ** -0.5).to(torch.bfloat16)
+        b = (torch.randn(R, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        forms = {"q1": (torch.float32, *gemv_pim.quantize_int8_rows_plain(w.float()), None),
+                 "q3": (torch.bfloat16, *gemv_pim.quantize_int8_rows_plain(w), gelu)}
+        for M in (1, 4, 8, 64, 65, 512):
+            x = (torch.randn((M, C), generator=gen, device=dev) * 1.5).to(torch.bfloat16)
+            for form, (compute, w8, ws, table) in forms.items():
+                before = (fn.launches, fn.tc_launches, gemv_pim.gemv_pim_int8.launches)
+                got = fn(x, w8, ws, b, compute=compute, act_table=table)
+                torch.cuda.synchronize()
+                d = (fn.launches - before[0], fn.tc_launches - before[1],
+                     gemv_pim.gemv_pim_int8.launches - before[2])
+                fused = gemv_pim.gemv_int8_linear_plan(M, C, R) is not None
+                if fused:
+                    fused_at.add(M)
+                if d != ((1, 1, 0) if fused else (0, 0, 1)):
+                    raise AssertionError(f"gemv_pim_int8_linear M={M} C={C} R={R}: launches "
+                                         f"(linear, its tensor-core ones, gemv_pim_int8) {d}")
+                one += d[0]
+                two += d[2]
+                label = f"gemv_pim_int8_linear {form} M={M} C={C} R={R}"
+                x8, xs = gemv_pim.quantize_int8_rows(x, compute=compute)
+                same("gemv_pim_int8", label, got, gemv_pim.gemv_pim_int8(
+                    x8, xs, w8, ws, b, out_dtype=x.dtype, act_table=table))
+                same("gemv_pim_int8", label + " (plain)", got, gemv_pim.gemv_pim_int8_linear_plain(
+                    x, w8, ws, b, compute=compute, act_table=table))
+        del w
+    log(f"  gemv_pim_int8_linear over the model's shapes at M 1, 4, 8, 64, 65, 512, q1's form "
+        f"(x in f32, f32 scales) and q3's (bf16 scales, bias, LUT GELU): {one} launches with x "
+        f"quantized in the load path (M {sorted(fused_at)}), {two} as quantize_int8_rows + "
+        "gemv_pim_int8: bit-exact to the two launches and to the plain version")
 
 
 def check_fixed_routes(torch, quant, tlut, gemv_pim, gen, same):
@@ -1647,17 +1756,20 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     x16 = {C: x_fmt.quantize(x) for C, x in xs.items()}
     layers = [("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
               ("attn", "wo", None), ("ffn", "w_up", None), ("ffn", "w_down", None)]
-    weights, int8_step, fixed_step, fused_step = [], [], [], []
+    weights, int8_step, fixed_step, fused_step, linear_step = [], [], [], [], []
     for i in range(L):
         for grp, wname, bname in layers:
             w, qw = bl[grp][wname][i], qb[grp][wname]
             b = bl[grp][bname][i].float() if bname else None
             weights.append(w)
             int8_step.append((*x8[w.shape[1]], qw.w_i8[i], qw.scale[i], b))
+            linear_step.append((xs[w.shape[1]], qw.w_i8[i], qw.scale[i],
+                                bl[grp][bname][i] if bname else None))
             fixed_step.append((x16[w.shape[1]], w_fmt.quantize(w)))
             fused_step.append((xs[w.shape[1]], w, bl[grp][bname][i] if bname else None))
     weights.append(params["lm_head"])
     int8_step.append((*x8[d], qparams["lm_head"].w_i8, qparams["lm_head"].scale, None))
+    linear_step.append((xs[d], qparams["lm_head"].w_i8, qparams["lm_head"].scale, None))
     fixed_step.append((x16[d], w_fmt.quantize(params["lm_head"])))
     fused_step.append((xs[d], params["lm_head"], None))
     n = len(int8_step)
@@ -1688,11 +1800,34 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     if not torch.equal(mm(n - 1)[:4, :cfg.vocab],
                        quant.int32_matmul(int8_step[-1][0], int8_step[-1][2])):
         raise AssertionError("torch._int_mm yardstick: not the int32 product")
-    bnd, by = bound_ms(i8_bytes, ops, "int8")
+    # The row times the route the main path runs: q1's int8 linear layer,
+    # bf16 x quantized in f32 in the kernel's load path, the bias in bf16,
+    # out in bf16, one launch a linear; beside it the GEMV alone on x
+    # quantized beforehand, and the two launches the route replaces.
+    f32 = torch.float32
+    route = per_step(lambda i: gemv_pim.gemv_pim_int8_linear(*linear_step[i], compute=f32))
+    route_plain = per_step(lambda i: gemv_pim.gemv_pim_int8_linear_plain(*linear_step[i],
+                                                                         compute=f32))
+
+    def two_launches(i):
+        x, w8, ws, b = linear_step[i]
+        return gemv_pim.gemv_pim_int8(*gemv_pim.quantize_int8_rows(x, compute=f32), w8, ws, b,
+                                      out_dtype=x.dtype)
+
+    two = per_step(two_launches)
+    lin_bytes = sum(w8.numel() + 4 * w8.shape[0] + 2 * x.numel()
+                    + (2 * w8.shape[0] if b is not None else 0) + 2 * x.shape[0] * w8.shape[0]
+                    for x, w8, _, b in linear_step)
+    bnd, by = bound_ms(lin_bytes, ops, "int8")
+    kb, kby = bound_ms(i8_bytes, ops, "int8")
     out["gemv_pim_int8"] = dict(
-        ms=ms, plain_ms=plain, library_ms=per_step(mm), bound_ms=bnd, bound_by=by,
-        shape=f"one decode step: {n} launches, M=4; library: torch._int_mm, the int32 "
-        "product alone, x padded to 32 rows")
+        ms=route, plain_ms=route_plain, library_ms=per_step(mm), bound_ms=bnd, bound_by=by,
+        kernel_alone_ms=ms, two_launch_ms=two,
+        shape=f"one decode step: {n} launches of the int8 linear layer (q1: bf16 x quantized "
+        f"in f32 in the kernel's load path, bf16 bias and out), M=4; the GEMV alone on x "
+        f"quantized beforehand {ms:.3f} ms (plain {plain:.3f} ms, bound {kb:.3f} ms); "
+        f"quantize_int8_rows + gemv_pim_int8, the two launches the route replaces, "
+        f"{two:.3f} ms; library: torch._int_mm, the int32 product alone, x padded to 32 rows")
     # The fixed16 row times the route the main path runs: the fused linear
     # layer on bf16 x and w (the same bytes as int16 ones), bias included.
     ms = per_step(lambda i: gemv_pim.gemv_pim_fixed_linear(*fused_step[i], **fkw))
@@ -1717,6 +1852,10 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     log("  gemv_pim_fixed_linear, a decode step's 145 calls, tensor cores against the "
         "CUDA-core route: " + ", ".join(f"M={M}: {a:.3f} against {b:.3f} ms"
                                          for M, (a, b) in cc.items()))
+    log(f"  gemv_pim_int8_linear, a decode step's {n} calls (q1's form): {route:.3f} ms "
+        f"against {two:.3f} ms for quantize_int8_rows + gemv_pim_int8 and "
+        f"{out['gemv_pim_int8']['kernel_alone_ms']:.3f} ms for the GEMV alone on x quantized "
+        f"beforehand; bound {out['gemv_pim_int8']['bound_ms']:.3f} ms")
     for name, r in out.items():
         if "shape" not in r:
             continue
@@ -1766,26 +1905,35 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
     # quantize_int8_rows kernel (one launch a weight), beside its plain
     # version (~10 eager ops a weight); and the eager Q.12 quantization that
     # quant="fixed16" ran before its kernel took it in.
-    qi8 = per_step(lambda i: gemv_pim.quantize_int8_rows(weights[i]))
+    qi8 = per_step(lambda i: gemv_pim.quantize_int8_rows(weights[i], static_input=True))
     qi8_plain = per_step(lambda i: quant.quantize_int8_rowwise(weights[i]))
     qf16 = per_step(lambda i: w_fmt.quantize(weights[i]))
     w_bytes = sum(w.numel() * 3 + 2 * w.shape[0] for w in weights)   # read bf16, write int8
     bq, byq = bound_ms(w_bytes, 0, "bfloat16")
-    # x's quantization before each int8 GEMV of a step: (4, C) f32 rows.
-    xf = [xs[w.shape[1]].float() for w in weights]
-    qx = per_step(lambda i: gemv_pim.quantize_int8_rows(xf[i]))
-    qx_plain = per_step(lambda i: quant.quantize_int8_rows(xf[i]))
+    # x's quantization as a launch of its own, which the int8 linear layer
+    # took into its load path at decode widths: (4, C) bf16 rows in f32.
+    xb = [xs[w.shape[1]] for w in weights]
+    qx = per_step(lambda i: gemv_pim.quantize_int8_rows(xb[i], compute=f32))
+    qx_plain = per_step(lambda i: quant.quantize_int8_rows(xb[i].float()))
+    variants = {}
+    for R, C in sorted({tuple(w.shape) for w in weights}):   # one weight a layer a shape
+        ws_ = [w for w in weights if tuple(w.shape) == (R, C)]
+        variants[(R, C)] = (len(ws_), gemv_pim.quant_plan(R, C, 2), time_graph(
+            torch, lambda i: gemv_pim.quantize_int8_rows(ws_[i], static_input=True), len(ws_)))
     log(f"  per-call weight quantization of a decode step's {n} bf16 weights on the "
         f"device: quantize_int8_rows kernel {qi8:.3f} ms (plain quantize_int8_rowwise "
-        f"{qi8_plain:.3f} ms, bound {bq:.3f} ms by {byq}); an eager Q.12 quantize (no "
-        f"longer on the fixed16 route) {qf16:.3f} ms; x's "
-        f"quantization before a step's {n} int8 GEMVs: kernel {qx:.3f} ms, plain "
-        f"{qx_plain:.3f} ms")
+        f"{qi8_plain:.3f} ms, bound {bq:.3f} ms by {byq}, {bq / qi8:.0%} of it); by shape "
+        + ", ".join(f"{R}x{C} x{k} plan {pl}: {t * 1e3:.2f} us"
+                    for (R, C), (k, pl, t) in variants.items())
+        + f"; an eager Q.12 quantize (no longer on the fixed16 route) {qf16:.3f} ms; x's "
+        f"quantization as its own launch before a step's {n} int8 GEMVs (taken into the "
+        f"int8 linear layer at decode widths): kernel {qx:.3f} ms, plain {qx_plain:.3f} ms")
     out["quantize_int8_rows"] = dict(
         ms=qi8, plain_ms=qi8_plain, library_ms=None, bound_ms=bq, bound_by=byq,
+        x_own_launch_ms=qx,
         shape=f"a decode step's {n} bf16 weights, one launch each (quant=\"int8\"); "
-              f"x (4, C) f32 of a step's {n} GEMVs: {qx:.3f} ms, plain {qx_plain:.3f} ms; "
-              "library: none")
+              f"x (4, C) bf16 in f32 of a step's {n} GEMVs as launches of their own: "
+              f"{qx:.3f} ms, plain {qx_plain:.3f} ms; library: none")
     return out, {"int8": qi8, "int8_plain": qi8_plain, "fixed16": qf16}
 
 
@@ -1921,14 +2069,15 @@ class TcCounter:
 
 TC = "gemv_pim_float.tc"
 TC8 = "gemv_pim_int8.tc"
+TC8L = "gemv_pim_int8_linear.tc"
 TCF = "gemv_pim_fixed_linear.tc"
 TCP = "paged_prefill_attention.tc"
 
 
 def serving_handles(torch):
-    """The kernel wrappers by name (their launch counters; TC, TC8, TCF and
-    TCP count the tensor-core launches of the float and int8 GEMVs, of the
-    fixed16 linear layer and of the paged prefill), the modules that `serve`
+    """The kernel wrappers by name (their launch counters; TC, TC8, TC8L, TCF
+    and TCP count the tensor-core launches of the float and int8 GEMVs, of
+    the int8 and fixed16 linear layers and of the paged prefill), the modules that `serve`
     takes and the plain versions that `plain_prefill_logits` takes."""
     from repro_torch.core import lut as tlut
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
@@ -1945,6 +2094,7 @@ def serving_handles(torch):
                "paged_attention_split": paged_attention.paged_attention_split,
                "merge_partials": paged_attention.merge_partials,
                "gemv_pim_int8": gemv_pim.gemv_pim_int8,
+               "gemv_pim_int8_linear": gemv_pim.gemv_pim_int8_linear,
                "gemv_pim_fixed": gemv_pim.gemv_pim_fixed,
                "gemv_pim_fixed_linear": gemv_pim.gemv_pim_fixed_linear,
                "decode_attention": attn.decode_attention,
@@ -1954,6 +2104,7 @@ def serving_handles(torch):
                "quantize_int8_rows": gemv_pim.quantize_int8_rows,
                TC: TcCounter(gemv_pim.gemv_pim_float),
                TC8: TcCounter(gemv_pim.gemv_pim_int8),
+               TC8L: TcCounter(gemv_pim.gemv_pim_int8_linear),
                TCF: TcCounter(gemv_pim.gemv_pim_fixed_linear),
                TCP: TcCounter(paged_prefill.paged_prefill_attention)}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
@@ -1968,11 +2119,12 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
           gemv="gemv_pim_float"):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
     chunks) on SAL-PIM datapath `quant`, checking every step's launches of
-    every kernel: every linear through the GEMV kernel `gemv` on the tensor
-    cores, x quantized by one quantize_int8_rows launch a linear on the int8
-    datapaths (and the weight by another with quant="int8"), every chunk's
-    attention on the tensor-core prefill kernel, no lut_interp (a LUT
-    activation rides every GEMV's epilogue)."""
+    every kernel: every linear one launch of the GEMV kernel `gemv` on the
+    tensor cores (on the int8 datapaths the int8 linear layer, x quantized
+    in its load path: no quantize_int8_rows launch for x, one for the
+    weight with quant="int8"), every chunk's attention on the tensor-core
+    prefill kernel, no lut_interp (a LUT activation rides every GEMV's
+    epilogue)."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     kv, sd = POOLS[fmt]
@@ -2008,16 +2160,26 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         expect = {name: 0 for name in kernels}
         expect.update({gemv: lin,
                        TC: lin if gemv == "gemv_pim_float" else 0,
-                       TC8: lin if gemv == "gemv_pim_int8" else 0,
+                       TC8L: lin if gemv == "gemv_pim_int8_linear" else 0,
                        TCF: lin if gemv == "gemv_pim_fixed_linear" else 0,
-                       "quantize_int8_rows": (2 * lin if quant == "int8" else
-                                              lin if gemv == "gemv_pim_int8" else 0),
+                       "quantize_int8_rows": lin if quant == "int8" else 0,
                        TCP: L * chunk,
                        "layernorm_lut": (2 * L + 1) * (dec + chunk),
                        "paged_attention": 0 if split else L * dec,
                        "paged_prefill_attention": L * chunk,
                        "paged_attention_split": L * dec if split else 0,
                        "merge_partials": L * dec if split else 0})
+        if gemv == "gemv_pim_int8_linear":
+            # A linear is one launch, x quantized in its load path, where
+            # gemv_int8_linear_plan tiles it (every linear of a decode step),
+            # else quantize_int8_rows then gemv_pim_int8 (a chunk's wider x;
+            # never its LM head, which takes the last token alone).
+            two = d["gemv_pim_int8"]
+            if two > 6 * L * chunk:
+                raise AssertionError(f"serve[{label}] step {steps}: {two} int8 linears took "
+                                     f"two launches; a decode step takes none")
+            expect.update({gemv: lin - two, TC8L: lin - two, "gemv_pim_int8": two, TC8: two,
+                           "quantize_int8_rows": (lin if quant == "int8" else 0) + two})
         if d != expect:
             raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                  f"{expect} (decode {dec}, chunk {chunk})")
@@ -2044,10 +2206,16 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
     tc = " (all on the tensor cores)"
-    n_q = {"int8": 2, "none": 1 if gemv == "gemv_pim_int8" else 0}.get(quant, 0) * (6 * L + 1)
-    qr = f", {n_q} quantize_int8_rows" if n_q else ""
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} {gemv}{tc}{qr}, {attn}, "
-        f"{2 * L + 1} layernorm_lut; per prefill chunk: {6 * L + 1} {gemv}{tc}{qr}, "
+    wq = f", {6 * L + 1} quantize_int8_rows (the weights)" if quant == "int8" else ""
+    if gemv == "gemv_pim_int8_linear":
+        dec_lin = f"{6 * L + 1} {gemv}{tc} (x quantized in the load path){wq}"
+        chunk_lin = (f"{6 * L + 1} int8 linears{wq}, each one {gemv} or, where no token tile "
+                     "holds the chunk's x, quantize_int8_rows + gemv_pim_int8 (all on the "
+                     "tensor cores)")
+    else:
+        dec_lin = chunk_lin = f"{6 * L + 1} {gemv}{tc}"
+    log(f"  serve[{label}] launches per decode step: {dec_lin}, {attn}, "
+        f"{2 * L + 1} layernorm_lut; per prefill chunk: {chunk_lin}, "
         f"{L} paged_prefill_attention (all on the tensor cores), {2 * L + 1} "
         f"layernorm_lut; no other kernel, no lut_interp (checked every step)")
     return eng, done, first, wall
@@ -2151,39 +2319,64 @@ def eager_ops(torch, fn):
     return counts
 
 
-def check_fixed_step_ops(torch, api, params, cfg, SalPimConfig, SalPimEngine):
-    """q2's prefill chunk and decode step dispatch exactly the exact fp
-    path's PyTorch operations plus one GELU a layer (exact mode's tanh
-    GELU, fused into the float GEMV, runs after a quantized one): the
-    fixed16 linear is its one kernel launch, with no quantization,
-    dequantization, cast or bias op around it."""
+def check_quant_step_ops(torch, api, params, qparams, cfg, SalPimConfig, SalPimEngine):
+    """The PyTorch operations of a prefill chunk and a decode step on each
+    quantized datapath against the fp path's on the same pools and
+    nonlinearities: q2 (fixed16) adds exactly one GELU a layer (exact
+    mode's tanh GELU, fused into the float GEMV, runs after a quantized
+    one); q1 (int8 weights, int8 pools) adds the same GELUs and the unbind
+    of each stacked QTensor's scales, and no cast (`aten._to_copy`) or other
+    op around its GEMVs; q3 (quant="int8", LUT) adds only the two outputs
+    that each weight's quantize_int8_rows launch allocates. Each linear is
+    its one GEMV launch, x quantized in the kernel."""
     dev = params["embed"].device
     B, page, max_pages, L = 4, 16, 16, cfg.n_layers
+    lin = 6 * L + 1
     tables = torch.arange(1, 1 + B * max_pages, dtype=torch.int32,
                           device=dev).reshape(B, max_pages)
     toks = torch.full((1, 64), 5, dtype=torch.int64, device=dev)
     start = torch.zeros(1, dtype=torch.int32, device=dev)
     tok = torch.full((B,), 5, dtype=torch.int32, device=dev)
-    got = {}
-    for quant in ("none", "fixed16"):
-        sal = SalPimEngine.create(SalPimConfig(quant=quant))
-        cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages, device=dev)
+
+    def ops(p, kv="model", sd="float32", **knobs):
+        sal = SalPimEngine.create(SalPimConfig(**knobs))
+        cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages,
+                                     kv_dtype=kv, kv_scale_dtype=sd, device=dev)
         chunk = eager_ops(torch, lambda: api.prefill_chunk(
-            params, toks, tables[:1], start, cache.k_pages, cache.v_pages, cfg, sal,
+            p, toks, tables[:1], start, cache.k_pages, cache.v_pages, cfg, sal,
             cache.k_scale, cache.v_scale))
         cache.lengths[:] = 64
         cache.block_tables.copy_(tables)
-        step = eager_ops(torch, lambda: api.decode_step(params, tok, cache, cfg, sal))
-        got[quant] = {"prefill chunk": chunk, "decode step": step}
+        step = eager_ops(torch, lambda: api.decode_step(p, tok, cache, cfg, sal))
+        return {"prefill chunk": chunk, "decode step": step}
+
+    gelu, unbind, empty = "aten.gelu.default", "aten.unbind.int", "aten.empty.memory_format"
+    # (label, its ops, the fp path's ops, the extra ops it may have in a
+    # chunk and in a decode step, what to say); None: any count. A chunk's
+    # x, too wide for the int8 linear layer's load path, is quantized by a
+    # quantize_int8_rows launch of its own, which allocates two outputs.
+    cases = [("q2", ops(params, quant="fixed16"), ops(params), {gelu: L}, {gelu: L},
+              "the exact GELU after w_up: no quantize, dequantize, cast or bias op around "
+              "the fixed16 GEMV"),
+             ("q1", ops(qparams, "int8"), ops(params, "int8"),
+              {gelu: L, unbind: None, empty: None}, {gelu: L, unbind: None},
+              "the exact GELU after w_up, the QTensor scales' unbind and, in a chunk, x's "
+              "quantize_int8_rows outputs: no cast, quantize or bias op around the int8 GEMV"),
+             ("q3", ops(params, quant="int8", nonlinear_mode="lut"),
+              ops(params, nonlinear_mode="lut"), {empty: None}, {empty: 2 * lin},
+              "the int8 payload and scale of each weight's quantize_int8_rows launch (and, "
+              "in a chunk, x's): no cast or bias op around the int8 GEMV")]
     torch.cuda.synchronize()
-    for what in ("prefill chunk", "decode step"):
-        fp, q2 = got["none"][what], got["fixed16"][what]
-        if dict(q2 - fp) != {"aten.gelu.default": L} or fp - q2:
-            raise AssertionError(f"q2 {what}: PyTorch operations beyond the fp path's: "
-                                 f"{dict(q2 - fp)}, missing {dict(fp - q2)}")
-        log(f"  q2 {what}: {sum(q2.values())} PyTorch operations dispatched, the exact fp "
-            f"path's {sum(fp.values())} + {L} aten.gelu (the exact GELU after w_up): no "
-            "quantize, dequantize, cast or bias op around the fixed16 GEMV")
+    for label, got, fp, chunk_extra, step_extra, what in cases:
+        for part, extra in (("prefill chunk", chunk_extra), ("decode step", step_extra)):
+            more, missing = dict(got[part] - fp[part]), dict(fp[part] - got[part])
+            bad = {k: n for k, n in more.items()
+                   if k not in extra or extra[k] not in (None, n)}
+            if bad or missing or any(n and k not in more for k, n in extra.items()):
+                raise AssertionError(f"{label} {part}: PyTorch operations beyond the fp "
+                                     f"path's {more} (allowed {extra}), missing {missing}")
+            log(f"  {label} {part}: {sum(got[part].values())} PyTorch operations dispatched, "
+                f"the fp path's {sum(fp[part].values())} + {more}: {what}")
 
 
 def time_model(torch, api, params, cfg, sal, prompts, card, label=None, fmt="fp"):
@@ -2564,16 +2757,18 @@ def main() -> int:
     log("== 6. quantized linear datapaths: max_len 256, phase 4's 8 requests")
     # (label, weights, SalPimConfig knobs, pool format, the GEMV kernel that
     # carries every linear)
-    qdrains = [("q1 int8 weights, int8 pools", qparams, dict(), "int8/f32", "gemv_pim_int8"),
+    qdrains = [("q1 int8 weights, int8 pools", qparams, dict(), "int8/f32",
+                "gemv_pim_int8_linear"),
                ("q2 fixed16", params, dict(quant="fixed16"), "fp", "gemv_pim_fixed_linear"),
                ("q3 int8 per call, lut", params, dict(quant="int8", mode="lut"), "fp",
-                "gemv_pim_int8")]
+                "gemv_pim_int8_linear")]
     qruns, counts_q = counted("quantized max_len 256", lambda: {
         label: serve(torch, mods, p, cfg, prompts, new_tokens, card, label=label, fmt=fmt,
                      gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
-        ["gemv_pim_int8", TC8, "quantize_int8_rows", "gemv_pim_fixed_linear", TCF,
+        ["gemv_pim_int8_linear", TC8L, "gemv_pim_int8", TC8, "quantize_int8_rows",
+         "gemv_pim_fixed_linear", TCF,
          "paged_attention", "paged_prefill_attention", TCP, "layernorm_lut"])
-    check_fixed_step_ops(torch, api, params, cfg, SalPimConfig, SalPimEngine)
+    check_quant_step_ops(torch, api, params, qparams, cfg, SalPimConfig, SalPimEngine)
     _, exact_done, _, _ = runs["exact"]
     for label, p, kw, fmt, _ in qdrains:
         _, done, first, _ = qruns[label]
@@ -2659,9 +2854,11 @@ def main() -> int:
     for name in SOURCE:
         t = times[name]
         src, replaces = SOURCE[name]
-        # The fixed16 kernel runs through two entries: the int16 GEMV and,
-        # on the main path, the fused linear layer.
-        entries = [name] + (["gemv_pim_fixed_linear"] if name == "gemv_pim_fixed" else [])
+        # The fixed16 and int8 kernels run through two entries each: the
+        # GEMV on quantized operands and, on the main path, the linear
+        # layer that quantizes x (and, for fixed16, w) in its load path.
+        entries = [name] + {"gemv_pim_fixed": ["gemv_pim_fixed_linear"],
+                            "gemv_pim_int8": ["gemv_pim_int8_linear"]}.get(name, [])
         by_path = {path: sum(c[e] for e in entries) for path, c in (
             ("max_len 256", counts_256), ("max_len 1024", counts_1024),
             ("quantized max_len 256", counts_q), ("dense", counts_dense))}
@@ -2669,11 +2866,11 @@ def main() -> int:
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in NOT_TPU_KERNELS:
             row["tpu_kernel"] = False
-        tc_key = {"gemv_pim_float": TC, "gemv_pim_int8": TC8, "gemv_pim_fixed": TCF,
-                  "paged_prefill_attention": TCP}
-        if name in tc_key:
-            row["tc_launches"] = sum(c[tc_key[name]] for c in (counts_256, counts_1024,
-                                                               counts_q, counts_dense))
+        tc_keys = {"gemv_pim_float": [TC], "gemv_pim_int8": [TC8, TC8L],
+                   "gemv_pim_fixed": [TCF], "paged_prefill_attention": [TCP]}
+        if name in tc_keys:
+            row["tc_launches"] = sum(c[k] for c in (counts_256, counts_1024, counts_q,
+                                                    counts_dense) for k in tc_keys[name])
         if name == "gemv_pim_float":
             row["chunk_145_launches"] = times["gemv_chunk"]
         if name == "paged_attention":

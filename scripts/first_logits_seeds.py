@@ -55,9 +55,9 @@ def main() -> int:
     # phases 4 and 6 drive them.
     drains = [("exact", False, dict(), "fp"),
               ("lut", False, dict(mode="lut"), "fp"),
-              ("q1", True, dict(gemv="gemv_pim_int8"), "int8/f32"),
+              ("q1", True, dict(gemv="gemv_pim_int8_linear"), "int8/f32"),
               ("q2", False, dict(quant="fixed16", gemv="gemv_pim_fixed_linear"), "fp"),
-              ("q3", False, dict(quant="int8", mode="lut", gemv="gemv_pim_int8"), "fp")]
+              ("q3", False, dict(quant="int8", mode="lut", gemv="gemv_pim_int8_linear"), "fp")]
     rows = []
     for seed in args.seeds:
         params = api.init_params(cfg, seed=seed, device="cuda")

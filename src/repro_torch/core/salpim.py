@@ -4,12 +4,16 @@ the paged attention calls and the nonlinear policy behind one object.
 `linear` takes one of four datapaths, in the JAX engine's order:
 
   * a `QTensor` weight (`serving.quantize.quantize_params_int8`):
-    `qtensor_linear`, x quantized per row in f32, the int8 GEMV, the bias
-    added in f32, the result cast to x's dtype;
-  * `quant="int8"`: x and the weight quantized per row on every call, each
-    in its own dtype (`core.quant.quantize_int8_rows`, one kernel launch
-    each on the card; bf16 weights give bf16 scales), then one int8 GEMV
-    launch whose epilogue takes the scales as they are, adds `b` in f32,
+    `qtensor_linear`, the int8 linear layer (`kernels.ops.pim_int8_linear`)
+    with x quantized per row in f32, the bias added in f32, the result
+    cast to x's dtype and, in LUT mode, the activation's table: one kernel
+    launch at decode widths;
+  * `quant="int8"`: the weight quantized per row on every call in its own
+    dtype (`core.quant.quantize_int8_rows`, one kernel launch on the card,
+    which reads the weight while the kernel before it runs; bf16 weights
+    give bf16 scales), then the int8 linear layer with x
+    quantized per row in x's dtype (in the GEMV's load path at decode
+    widths), whose epilogue takes the scales as they are, adds `b` in f32,
     casts to x's dtype and, in LUT mode, applies the activation's table;
   * `quant="fixed16"`: one launch on the card (`kernels.ops.
     pim_fixed_linear`): x in Q(`fixed_frac_x`) and the weight in
@@ -21,8 +25,8 @@ the paged attention calls and the nonlinear policy behind one object.
     activation fused into its epilogue (a LUT table in LUT mode, the tanh
     GELU in exact mode).
 
-On the two quantized routes an exact-mode activation runs after the
-GEMV, `self.nl.activation(act)`, as it does after a `QTensor` product.
+On the quantized routes an exact-mode activation runs after the GEMV,
+`self.nl.activation(act)`.
 The weights are quantized on every call, as the JAX package does; caching
 them is the pre-quantized path's job. Decode attention over the dense
 arena goes through the `decode_attention` kernel, paged decode and prefill
@@ -76,23 +80,21 @@ class SalPimEngine:
         """y = act(x @ w^T + b). x: (..., C), w: (R, C) or a QTensor."""
         lead = x.shape[:-1]
         cfg = self.config
-        if isinstance(w, QTensor):
-            out = qtensor_linear(x, w, b)
-            return self.nl.activation(act)(out) if act is not None else out
-        x2 = x.reshape(-1, x.shape[-1])
-        if cfg.quant not in ("int8", "fixed16"):
-            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
         # The activation's LUT rides the quantized GEMV's epilogue.
         table = getattr(self.nl.bank, act, None) if act and self.nl.mode == "lut" else None
-        if cfg.quant == "int8":
-            x_i8, x_scale = ops.pim_quantize_int8_rows(x2)
-            w_i8, w_scale = ops.pim_quantize_int8_rows(w)
-            out = ops.pim_linear_int8(x_i8, x_scale, w_i8, w_scale, b, out_dtype=x.dtype,
-                                      act_table=table)
+        if isinstance(w, QTensor):
+            out = qtensor_linear(x, w, b, act_table=table)
+        elif cfg.quant not in ("int8", "fixed16"):
+            x2 = x.reshape(-1, x.shape[-1])
+            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
+        elif cfg.quant == "int8":
+            w_i8, w_scale = ops.pim_quantize_int8_rows(w, static_input=True)
+            out = ops.pim_int8_linear(x.reshape(-1, x.shape[-1]), w_i8, w_scale, b,
+                                      act_table=table).reshape(*lead, -1)
         else:
-            out = ops.pim_fixed_linear(x2, w, b, frac_x=cfg.fixed_frac_x,
-                                       frac_w=cfg.fixed_frac_w, act_table=table)
-        out = out.reshape(*lead, -1)
+            out = ops.pim_fixed_linear(x.reshape(-1, x.shape[-1]), w, b,
+                                       frac_x=cfg.fixed_frac_x, frac_w=cfg.fixed_frac_w,
+                                       act_table=table).reshape(*lead, -1)
         if act is None or table is not None:
             return out
         return self.nl.activation(act)(out)

@@ -6,7 +6,8 @@
 //   kSplit  the KV split over the same pools (paged_attention_split.cu):
 //           one cluster a (sequence, kv head, split), each split walking
 //           its run of the table from m = -1e30 and leaving raw (m, l, acc)
-//           partials for merge_partials;
+//           partials for merge_partials, which it lets launch early
+//           (programmatic dependent launch, triggered as each block starts);
 //   kArena  the dense per-slot arena (decode_attention.cu): the (S, D) keys
 //           of a (slot, kv head) are one contiguous run, read as "pages" of
 //           256 keys, the TPU kernel's online-softmax block, the last one
@@ -405,6 +406,11 @@ decode_walk_kernel(const Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  // The combine, launched with programmatic stream serialization, may
+  // start as soon as every block of this grid has started: its blocks wait
+  // (griddepcontrol.wait) for this grid to finish before they read a
+  // partial, so it only takes its launch off the critical path.
+  if constexpr (kMode == kSplit) hopper::pdl_launch_dependents();
   const int ci = blockIdx.x / cs;              // this cluster's (b, kv head[, split])
   const int sp = kMode == kSplit ? ci % a.splits : 0;
   const int bh = kMode == kSplit ? ci / a.splits : ci;

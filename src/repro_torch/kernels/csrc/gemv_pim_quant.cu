@@ -67,14 +67,40 @@
 // not a multiple of the vector width (or a misaligned row) takes the
 // scalar path. int8 sums four bytes at a time with __dp4a.
 //
+// gemv_pim_int8_linear: the int8 linear layer in one launch at decode
+// widths (one token tile holds all of M, and a block's share of x is at
+// most 2 pieces of 16 elements a consumer thread): x (M, C) in f32 or bf16 is
+// quantized per row inside the kernel, as quantize_int8_rows below does
+// (in x's dtype, or in f32 for bf16 x), then the s8 product and the int8
+// epilogue with each row's scale from shared memory. Each block loads its
+// C-share of x into registers first thing, takes each row's absmax (from
+// those pieces when it holds whole rows, else reading its rows whole: x is
+// a few rows, in L2) and quantizes its share straight into the swizzled s8
+// tiles that its wgmmas read (x stays in shared memory for the whole K
+// loop, so only W rides the TMA ring, whose loads start while x is
+// quantized).
+//
 // quantize_int8_rows: x (rows, C) in f32 or bf16 -> q int8 (rows, C) and
-// scale (rows,) in x's dtype, core/quant.py::quantize_int8_rows in one
-// pass a row: absmax, scale = max(absmax, 1e-8) / 127, q = clip(round(x /
-// scale), +-127). Each step rounds as PyTorch's kernels do in x's dtype:
-// in bf16 the division is an f32 division rounded to bf16, round() is
-// half to even, so the result is bit for bit the plain function's. One
-// block a row (256 threads: a decode step's x has only 4 rows); bound by
-// reading x and writing q.
+// scale (rows,) in the compute dtype CT (x's, or f32 for bf16 x),
+// core/quant.py::quantize_int8_rows of x cast to CT: absmax, scale =
+// max(absmax, 1e-8) / 127, q = clip(round(x / scale), +-127). Each step
+// rounds as PyTorch's kernels do in CT: in bf16 the division is an f32
+// division rounded to bf16, round() is half to even, so the result is bit
+// for bit the plain function's. The quotient is x * r corrected once by an
+// FMA (r the correctly rounded 1 / scale, one a row), which gives the
+// correctly rounded x / scale where a full division costs some ten
+// instructions; the card tests hold it bit for bit to the plain function
+// over every bf16 value. Bound by bytes (reading x, writing q: 3 bytes an
+// element of a bf16 weight), at about 10^12 elements a second on the H100.
+// The design is the row kernels' (softmax_lut.cu, layernorm_lut.cu): a row
+// is held in the registers of a group of 1-8 warps, read once in 16-byte
+// pieces, its absmax taken by shuffle trees with max.NaN (one barrier
+// across a group's warps), quantized from the registers and stored in
+// packed 4- or 8-byte pieces; quant_plan in kernels/gemv_pim.py picks the
+// group and the groups a block, a persistent grid that fills the card
+// once walks the rows, and a call of few rows (x of a decode step) is
+// spread over more warps. Rows too wide for 8 warps' registers are
+// streamed by a block, read twice.
 #include "common.cuh"
 #include "gemv_tc.cuh"
 #include "lut.cuh"
@@ -96,6 +122,78 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 // v rounded to the output's dtype: bf16 or, when bf is false, f32.
 __device__ __forceinline__ float round_to_out(float v, int bf) { return bf ? round_bf16(v) : v; }
+
+// ---------------------------------------------------------------------------
+// The int8 row quantization's arithmetic, in CT (float or bf16)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) { return round_bf16(v); }
+
+// max and min that keep a NaN, as torch's amax and clamp do (fmaxf and
+// fminf drop it); one instruction each, as fmaxf and fminf are.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+struct MaxNan {
+  __device__ __forceinline__ float operator()(float a, float b) const { return max_nan(a, b); }
+};
+
+// A row's scale from its absmax (exact in any dtype): clamp(absmax,
+// min=1e-8) against 1e-8 rounded to CT, then / 127 rounded to CT. A row
+// holding a NaN gets a NaN scale, one holding an inf an inf scale.
+template <typename CT>
+__device__ __forceinline__ float row_scale(float amax) {
+  const float lo = round_to(1e-8f, CT{});
+  return round_to(__fdiv_rn(max_nan(amax, lo), 127.0f), CT{});
+}
+
+// x / s rounded to nearest, from r = 1 / s rounded to nearest (__frcp_rn):
+// q0 = x r, its remainder x - q0 s (exact in one FMA) and one correction
+// q0 + (x - q0 s) r (Markstein): three instructions where __fdiv_rn takes
+// some ten. Markstein's theorem asks for a faithful q0, which x r rounded
+// once may miss by an ulp; tests/test_torch_kernels.py holds the result to
+// the division on the card over every bf16 x and absmax, in bf16 and in
+// f32, and over f32 ties, near-ties and the 1e-8 floor.
+__device__ __forceinline__ float div_by(float x, float s, float r) {
+  const float q0 = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q0, s, x), r, q0);
+}
+
+// The int8 value of x in the low byte of the result: clip(round(x / s),
+// +-127), the quotient rounded to CT and then to an integer, half to even.
+// With a finite scale every quotient is finite (|x| <= absmax): clamped,
+// then rounded by adding 1.5 * 2^23, whose float's low byte is then the
+// int8 value. A NaN or inf scale takes the conversion, which turns a NaN
+// quotient into 0 as torch's int8 conversion does.
+__device__ __forceinline__ uint32_t q8_of(float v, bool finite) {
+  if (finite) return __float_as_uint(__fadd_rn(fminf(fmaxf(v, -127.0f), 127.0f), 12582912.0f));
+  return (uint32_t)min(max(__float2int_rn(v), -127), 127);
+}
+template <typename CT>
+__device__ __forceinline__ uint32_t q8(float x, float s, float r, bool finite) {
+  return q8_of(round_to(div_by(x, s, r), CT{}), finite);
+}
+// Two at a time: in bf16 the two quotients round in one packed conversion.
+template <typename CT>
+__device__ __forceinline__ void q8x2(float x0, float x1, float s, float r, bool finite,
+                                     uint32_t& b0, uint32_t& b1) {
+  float v0 = div_by(x0, s, r), v1 = div_by(x1, s, r);
+  if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
+    const float2 f = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+    v0 = f.x;
+    v1 = f.y;
+  }
+  b0 = q8_of(v0, finite);
+  b1 = q8_of(v1, finite);
+}
+
+// The low bytes of four words, in order, as one word.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
 
 // Element i of an f32 (bf == 0) or bf16 (bf == 1) vector, as f32.
 __device__ __forceinline__ float load_f(const void* p, size_t i, int bf) {
@@ -122,9 +220,10 @@ struct Int8Out {
   int R, xs_bf, ws_bf, bias_bf, out_bf, act;
   float lo, inv_step;
   int sections;
-  __device__ __forceinline__ void store(int acc, int m, int r, const float* wb) const {
-    float a = __fmul_rn(__fmul_rn((float)acc, load_f(x_scale, m, xs_bf)),
-                        load_f(w_scale, r, ws_bf));
+  // xs: x's scale of row m (x_scale[m], or from shared memory where x is
+  // quantized in the kernel).
+  __device__ __forceinline__ void store(int acc, float xs, int m, int r, const float* wb) const {
+    float a = __fmul_rn(__fmul_rn((float)acc, xs), load_f(w_scale, r, ws_bf));
     if (bias != nullptr) a = __fadd_rn(a, load_f(bias, r, bias_bf));
     a = round_to_out(a, out_bf);
     if (act) a = lut::eval(a, wb, lo, inv_step, sections);
@@ -274,7 +373,7 @@ gemv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
   for (int m = 0; m < kMT; ++m) acc[m] = (int)warp_sum((unsigned)acc[m]);
 #pragma unroll
   for (int m = 0; m < kMT; ++m) {
-    if (m < mt && lane == m) o.store(acc[m], m0 + m, r, o.table);
+    if (m < mt && lane == m) o.store(acc[m], load_f(o.x_scale, m0 + m, o.xs_bf), m0 + m, r, o.table);
   }
 }
 
@@ -354,9 +453,10 @@ struct Int8Epi {
   }
   __device__ __forceinline__ void operator()(const Smem& s, const int (&sum)[4], int m,
                                              int r) const {
+    const float xs = load_f(o.x_scale, m, o.xs_bf);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      if (r + u < o.R) o.store(sum[u], m, r + u, s.wb);
+      if (r + u < o.R) o.store(sum[u], xs, m, r + u, s.wb);
     }
   }
 };
@@ -460,9 +560,11 @@ template <typename Src, int N>
 struct SplitMma {
   using Acc = unsigned;
   static constexpr int kBoxes = (int)sizeof(Src);   // 128 K elements of Src a stage
+  static constexpr int kXBoxes = kBoxes;
   static constexpr int kK = gemv_tc::kKBytes;
+  static constexpr bool kPrologue = false;
   static constexpr int kXPlane = N * gemv_tc::kKBytes;
-  static constexpr int kPlaneBytes = 4 * kXPlane;   // hi and lo, two buffers
+  __host__ __device__ static int plane_bytes(int) { return 4 * kXPlane; }   // hi, lo; 2 buffers
   int hh[N / 2], md[N / 2], ll[N / 2];
 
   __device__ __forceinline__ void init() {
@@ -557,53 +659,397 @@ int launch_fixed(const void* x, const void* w, const FixedOut& o, float x_mul, f
 // quantize_int8_rows
 // ---------------------------------------------------------------------------
 
-constexpr int kQuantThreads = 256;   // a block a row
+constexpr int kQuantThreads = 256;   // 8 warps: a block's row groups, or one streamed row
 
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) { return round_bf16(v); }
+struct QuantArgs {
+  const void* x;
+  int8_t* q;
+  void* scale;            // (n_rows,) in CT
+  long long n_rows;
+  int C;
+  int wshift;             // log2 of W, the warps of a row's group (1, 2, 4 or 8)
+  int rows_per_block;     // groups a block: blockDim.x = 32 * W * rows_per_block
+  int vec;                // 16-byte pieces: x 16-byte aligned, C * sizeof(T) % 16 == 0
+  int early;              // x is written by no kernel in flight: read it before pdl_wait
+};
 
-// max and min that keep a NaN, as torch's amax and clamp do (fmaxf and
-// fminf drop it); one instruction each, as fmaxf and fminf are.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kQuantThreads)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                     int C) {
-  __shared__ float red[kQuantThreads / 32];
-  const size_t row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const T* xr = x + row * C;
-  float amax = 0.0f;                        // |x| and max are exact in T
-  for (int c = tid; c < C; c += kQuantThreads) amax = max_nan(amax, fabsf(common::to_f(xr[c])));
+// One piece of N elements of a row (n valid), quantized and stored: packed
+// in one 8-byte (bf16) or 4-byte (f32) store, or byte by byte.
+template <typename CT, typename T, int N>
+__device__ __forceinline__ void store_piece(const common::Pack<T, N>& p, float s, float r,
+                                            bool fin, int8_t* dst, bool vec, int n) {
+  uint32_t b[N];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (lane == 0) red[tid / 32] = amax;
-  __syncthreads();
-  amax = red[0];
+  for (int j = 0; j < N; j += 2) q8x2<CT>(p[j], p[j + 1], s, r, fin, b[j], b[j + 1]);
+  if (vec) {
+    if constexpr (N == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(b[0], b[1], b[2], b[3]),
+                                                  pack4(b[4], b[5], b[6], b[7]));
+    } else {
+      *reinterpret_cast<uint32_t*>(dst) = pack4(b[0], b[1], b[2], b[3]);
+    }
+  } else {
 #pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) amax = max_nan(amax, red[w]);
-  // clamp(absmax, min=1e-8) against 1e-8 in T, then / 127 rounded to T. A
-  // row holding a NaN gets a NaN scale and NaN quotients, which the clip
-  // keeps and the int8 conversion turns into what torch's does.
-  const float lo = round_to(1e-8f, T{});
-  const float s = round_to(__fdiv_rn(max_nan(amax, lo), 127.0f), T{});
-  if (tid == 0) scale[row] = common::from_f<T>(s);
-  int8_t* qr = q + row * C;
-  for (int c = tid; c < C; c += kQuantThreads) {
-    const float v = rintf(round_to(__fdiv_rn(common::to_f(xr[c]), s), T{}));
-    qr[c] = (int8_t)min_nan(max_nan(v, -127.0f), 127.0f);
+    for (int j = 0; j < N; ++j)
+      if (j < n) dst[j] = (int8_t)b[j];
   }
+}
+
+// max(a, |x|) over a piece's first n elements; a whole bf16 piece in
+// packed bf16 pairs (abs and max are exact in bf16, and __hmax2_nan keeps
+// a NaN as max.NaN does).
+template <typename T, int N>
+__device__ __forceinline__ float piece_absmax(const common::Pack<T, N>& p, float a, int n) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (n >= N) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p.v);
+      __nv_bfloat162 m = __habs2(h[0]);
+#pragma unroll
+      for (int j = 1; j < N / 2; ++j) m = __hmax2_nan(m, __habs2(h[j]));
+      return max_nan(a, max_nan(__low2float(m), __high2float(m)));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < n) a = max_nan(a, fabsf(p[j]));
+  return a;
+}
+
+// A row's scale, its reciprocal and whether it is finite; thread 0 of the
+// row stores the scale.
+template <typename CT>
+struct RowScale {
+  float s, r;
+  bool fin;
+  __device__ __forceinline__ RowScale(float amax, void* scale, long long row, bool first) {
+    s = row_scale<CT>(amax);
+    r = __frcp_rn(s);
+    fin = isfinite(s);
+    if (first) static_cast<CT*>(scale)[row] = common::from_f<CT>(s);
+  }
+};
+
+// Rows held in registers: lane t of a row's group of W warps holds pieces
+// c * 32 * W + t (c < CH) of N = 16 / sizeof(T) elements. The grid walks
+// the rows, rows_per_block groups a block at a time; every group of a
+// block takes the same number of turns, so the group reduction's barrier
+// (W > 1) is reached by all, its slots alternating between turns.
+template <typename T, typename CT, int CH>
+__global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(const QuantArgs a) {
+  constexpr int N = 16 / (int)sizeof(T);
+  __shared__ float red[2][kQuantThreads / 32];
+  const int W = 1 << a.wshift;
+  const int warp = threadIdx.x / 32;
+  const int t = (warp & (W - 1)) * 32 + threadIdx.x % 32;
+  const int GT = 32 * W;
+  const long long turn = (long long)gridDim.x * a.rows_per_block;
+  hopper::pdl_launch_dependents();
+  if (!a.early) hopper::pdl_wait();
+  int buf = 0;
+  for (long long row0 = (long long)blockIdx.x * a.rows_per_block; row0 < a.n_rows;
+       row0 += turn, buf ^= 1) {
+    const long long row = row0 + (warp >> a.wshift);
+    const int d = row < a.n_rows ? a.C : 0;    // a dead group reads and writes nothing
+    const T* xr = static_cast<const T*>(a.x) + row * a.C;
+    common::Pack<T, N> x[CH];
+    float amax = 0.0f;                        // |x| and max are exact in T
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int k0 = (c * GT + t) * N;
+      if (a.vec) {
+        if (k0 < d) x[c].load(xr + k0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          if (k0 + j < d) x[c].v[j] = xr[k0 + j];
+      }
+      if (k0 < d) amax = piece_absmax(x[c], amax, d - k0);
+    }
+    amax = common::group_reduce(amax, MaxNan(), red[buf], W);
+    if (d == 0) continue;
+    hopper::pdl_wait();                       // the outputs may be memory the kernel before reads
+    const RowScale<CT> rs(amax, a.scale, row, t == 0);
+    int8_t* qr = a.q + row * a.C;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int k0 = (c * GT + t) * N;
+      if (k0 < d) store_piece<CT>(x[c], rs.s, rs.r, rs.fin, qr + k0, a.vec, d - k0);
+    }
+  }
+}
+
+// Rows wider than 8 warps' registers: a block a row, read twice (the
+// absmax, then the quantization).
+template <typename T, typename CT>
+__global__ void __launch_bounds__(kQuantThreads) quantize_rows_streamed(const QuantArgs a) {
+  constexpr int N = 16 / (int)sizeof(T);
+  __shared__ float red[2][kQuantThreads / 32];
+  const int tid = threadIdx.x;
+  hopper::pdl_launch_dependents();
+  if (!a.early) hopper::pdl_wait();
+  int buf = 0;
+  for (long long row = blockIdx.x; row < a.n_rows; row += gridDim.x, buf ^= 1) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.C;
+    float amax = 0.0f;
+    if (a.vec) {
+      for (int k0 = tid * N; k0 < a.C; k0 += kQuantThreads * N) {
+        common::Pack<T, N> p;
+        p.load(xr + k0);
+        amax = piece_absmax(p, amax, N);
+      }
+    } else {
+      for (int c = tid; c < a.C; c += kQuantThreads)
+        amax = max_nan(amax, fabsf(common::to_f(xr[c])));
+    }
+    amax = common::group_reduce(amax, MaxNan(), red[buf], kQuantThreads / 32);
+    hopper::pdl_wait();
+    const RowScale<CT> rs(amax, a.scale, row, tid == 0);
+    int8_t* qr = a.q + row * a.C;
+    if (a.vec) {
+      for (int k0 = tid * N; k0 < a.C; k0 += kQuantThreads * N) {
+        common::Pack<T, N> p;
+        p.load(xr + k0);
+        store_piece<CT>(p, rs.s, rs.r, rs.fin, qr + k0, true, N);
+      }
+    } else {
+      for (int c = tid; c < a.C; c += kQuantThreads)
+        qr[c] = (int8_t)q8<CT>(common::to_f(xr[c]), rs.s, rs.r, rs.fin);
+    }
+  }
+}
+
+// Blocks of `threads` threads of kernel K resident on the card at once
+// (the occupancy calculator's count an SM times the SMs), once a shape.
+template <auto K>
+int resident_blocks(int threads) {
+  static int cached[kQuantThreads / 32 + 1] = {};
+  int& n = cached[threads / 32];
+  if (n == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, threads, 0) != cudaSuccess)
+      return 0;
+    n = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return n;
+}
+
+template <auto K>
+int launch_rows(const QuantArgs& a, int threads, int rows_per_block, cudaStream_t s) {
+  const long long need = (a.n_rows + rows_per_block - 1) / rows_per_block;
+  const int most = resident_blocks<K>(threads);
+  if (most == 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(need < most ? need : most), 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, K, a);
+}
+
+// chunks 0 streams a row a block; else chunks pieces a lane (1, 2, 4 or 8).
+template <typename T, typename CT>
+int launch_quant(const QuantArgs& a, int chunks, cudaStream_t s) {
+  constexpr int N = 16 / (int)sizeof(T);
+  const int W = 1 << a.wshift, R = a.rows_per_block;
+  if (chunks == 0) return launch_rows<quantize_rows_streamed<T, CT>>(a, kQuantThreads, 1, s);
+  if (R < 1 || W * R > kQuantThreads / 32 || (long long)chunks * 32 * W * N < a.C)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 32 * W * R;
+  switch (chunks) {
+    case 1: return launch_rows<quantize_rows_kernel<T, CT, 1>>(a, threads, R, s);
+    case 2: return launch_rows<quantize_rows_kernel<T, CT, 2>>(a, threads, R, s);
+    case 4: return launch_rows<quantize_rows_kernel<T, CT, 4>>(a, threads, R, s);
+    case 8: return launch_rows<quantize_rows_kernel<T, CT, 8>>(a, threads, R, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The int8 linear layer with x quantized in the load path
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxXRows = 32;   // its token tile: one tile holds every row of x
+constexpr int kXItems = 2;      // 16-element pieces of x a consumer thread holds
+
+// x stays in shared memory: the block's K tiles of x, quantized once
+// before the first stage into s8 tiles of N x 128 bytes in the 128-byte
+// swizzle; only W rides the ring, and each stage's 4 wgmmas read x's tile
+// of that stage. The consumers load their pieces of x into registers
+// first thing, so that the loads overlap the block's set-up and W's first
+// TMA loads.
+template <class Epi, int N>
+struct ResidentXMma : gemv_tc::DirectMma<Epi, N> {
+  using Base = gemv_tc::DirectMma<Epi, N>;
+  static constexpr int kXBoxes = 0;
+  static constexpr bool kPrologue = true;
+  __host__ __device__ static int plane_bytes(int nk) { return nk * N * gemv_tc::kKBytes; }
+  typename Epi::XRegs xr;
+  __device__ __forceinline__ void preload(const Epi& epi, int kt0, int nk, int M) {
+    epi.load_x(xr, kt0, nk, M);
+  }
+  __device__ __forceinline__ void prologue(const Epi& epi, typename Epi::Smem& es,
+                                           uint32_t planes, int kt0, int nk, int M) {
+    epi.template quantize_x<N>(xr, es, planes, kt0, nk, M);
+  }
+  __device__ __forceinline__ void step(const Epi& epi, uint32_t w, uint32_t, uint32_t planes,
+                                       int i) {
+    Base::step(epi, w, planes + i * N * gemv_tc::kKBytes, 0, i);
+  }
+};
+
+// x (M, C) in T quantized per row in CT, then Int8Out with each row's
+// scale from shared memory. A piece is 16 elements of a row's C-share
+// (one 16-byte chunk of its s8 tile); piece j of the block's M x (nk * 8)
+// is thread j % 128's (j / 128)-th, so a warp reads a row's share in
+// 32-byte runs.
+template <typename T, typename CT>
+struct Int8XEpi {
+  template <int N> using Mma = ResidentXMma<Int8XEpi, N>;
+  using Acc = int;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int kElem = 1;
+  static constexpr int kV = 16 / (int)sizeof(T);        // elements a 16-byte load
+  struct XRegs {
+    uint4 v[kXItems][16 / kV];
+  };
+  struct Smem {
+    float wb[2 * lut::kMaxTableRows];
+    unsigned amax[kMaxXRows];   // each row's absmax (a block holding whole rows), as bits
+    float xs[kMaxXRows];        // each row's scale
+    float xr[kMaxXRows];        // and its reciprocal
+  };
+  Int8Out o;
+  const T* x;
+  int C;
+  __device__ void stage(Smem& s) const {
+    if (o.act) lut::stage(s.wb, o.table, o.sections);
+    for (int i = threadIdx.x; i < kMaxXRows; i += blockDim.x) s.amax[i] = 0u;
+  }
+  __device__ __forceinline__ void operator()(const Smem& s, const int (&sum)[4], int m,
+                                             int r) const {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r + u < o.R) o.store(sum[u], s.xs[m], m, r + u, s.wb);
+    }
+  }
+
+  // Piece k of this thread: its row n and 16-element chunk ch of the share
+  // (-1 past M; the callers skip chunks past C).
+  __device__ __forceinline__ int piece(int k, int nk, int M, int& n) const {
+    const int it = threadIdx.x + k * gemv_tc::kConsumers;
+    n = it / (nk * 8);
+    return n < M ? it - n * nk * 8 : -1;
+  }
+
+  __device__ __forceinline__ void load_x(XRegs& r, int kt0, int nk, int M) const {
+#pragma unroll
+    for (int k = 0; k < kXItems; ++k) {
+      int n;
+      const int ch = piece(k, nk, M, n);
+      const int col = kt0 * gemv_tc::kKBytes + ch * 16;
+      if (ch >= 0 && col < C) {
+#pragma unroll
+        for (int p = 0; p < 16 / kV; ++p)
+          r.v[k][p] = common::ld16(x + (size_t)n * C + col + p * kV);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void set_scale(Smem& s, int m, float amax) {
+    s.xs[m] = row_scale<CT>(amax);
+    s.xr[m] = __frcp_rn(s.xs[m]);
+  }
+
+  // Each row's absmax, then each piece quantized from the registers into
+  // its chunk of the s8 tiles at `planes`. A block that holds whole rows
+  // (no cluster) takes the absmax of its pieces (shared-memory atomics on
+  // the bits of non-negative floats, whose order they keep, a NaN above
+  // all); a block of a cluster reads its rows whole, a warp a row, which
+  // measured faster on the H100 than exchanging the blocks' partial
+  // absmaxes over distributed shared memory behind a cluster barrier.
+  // Rows past M and columns past C are left as they are: they meet W's
+  // zero fill or give outputs that are not stored.
+  template <int N>
+  __device__ void quantize_x(const XRegs& r, Smem& s, uint32_t planes, int kt0, int nk,
+                             int M) const {
+    constexpr int kK = gemv_tc::kKBytes;
+    const int tid = threadIdx.x;
+    if (nk * kK >= C) {                  // this block's share is the whole row
+#pragma unroll
+      for (int k = 0; k < kXItems; ++k) {
+        int n;
+        const int ch = piece(k, nk, M, n);
+        if (ch >= 0 && ch * 16 < C) {
+          float a = 0.0f;
+#pragma unroll
+          for (int p = 0; p < 16 / kV; ++p) {
+            float e[kV];
+            common::Vec<T>::widen(r.v[k][p], e);
+#pragma unroll
+            for (int j = 0; j < kV; ++j) a = max_nan(a, fabsf(e[j]));
+          }
+          atomicMax(&s.amax[n], __float_as_uint(a));
+        }
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(gemv_tc::kConsumers) : "memory");
+      if (tid < M) set_scale(s, tid, __uint_as_float(s.amax[tid]));
+    } else {
+      const int warp = tid / 32, lane = tid % 32;
+      for (int m = warp; m < M; m += gemv_tc::kConsumers / 32) {
+        const T* xrow = x + (size_t)m * C;
+        float a = 0.0f;
+#pragma unroll 8
+        for (int c = lane * kV; c < C; c += 32 * kV) {
+          common::Pack<T, kV> pk;
+          pk.load(xrow + c);
+#pragma unroll
+          for (int j = 0; j < kV; ++j) a = max_nan(a, fabsf(pk[j]));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) a = max_nan(a, __shfl_xor_sync(0xffffffffu, a, off));
+        if (lane == 0) set_scale(s, m, a);
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(gemv_tc::kConsumers) : "memory");
+#pragma unroll
+    for (int k = 0; k < kXItems; ++k) {
+      int n;
+      const int ch = piece(k, nk, M, n);
+      if (ch >= 0 && kt0 * kK + ch * 16 < C) {
+        const float sc = s.xs[n], rc = s.xr[n];
+        const bool fin = isfinite(sc);
+        uint32_t b[16];
+#pragma unroll
+        for (int p = 0; p < 16 / kV; ++p) {
+          float e[kV];
+          common::Vec<T>::widen(r.v[k][p], e);
+#pragma unroll
+          for (int j = 0; j < kV; ++j) b[p * kV + j] = q8<CT>(e[j], sc, rc, fin);
+        }
+        const int i = ch >> 3, c = ch & 7;
+        sts128(planes + i * N * kK + n * kK + ((c ^ (n & 7)) << 4),
+               make_uint4(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]),
+                          pack4(b[8], b[9], b[10], b[11]), pack4(b[12], b[13], b[14], b[15])));
+      }
+    }
+    // x's tiles, written through the generic proxy, are read by wgmma
+    // through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(gemv_tc::kConsumers) : "memory");
+  }
+};
+
+template <typename T, typename CT>
+int launch_int8_linear(const void* x, const void* w, const Int8Out& o, int M, int C, int n_tile,
+                       int cluster, void* stream) {
+  const Int8XEpi<T, CT> epi{o, (const T*)x, C};
+  return gemv_tc::run<Int8XEpi<T, CT>, kMaxXRows>(x, w, epi, M, C, o.R, n_tile, cluster, stream);
 }
 
 }  // namespace
@@ -639,22 +1085,66 @@ int gemv_pim_int8(const void* x, const void* x_scale, const void* w, const void*
   return (int)cudaGetLastError();
 }
 
-// x (rows, C) contiguous, dtype 0 = float32, 1 = bfloat16; q (rows, C)
-// int8 and scale (rows,) in x's dtype. Returns cudaGetLastError().
-int quantize_int8_rows(const void* x, void* q, void* scale, int rows, int C, int dtype,
-                       void* stream) {
-  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    quantize_rows_kernel<float><<<rows, kQuantThreads, 0, s>>>((const float*)x, (int8_t*)q,
-                                                               (float*)scale, C);
-  } else if (dtype == 1) {
-    quantize_rows_kernel<__nv_bfloat16><<<rows, kQuantThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (int8_t*)q, (__nv_bfloat16*)scale, C);
-  } else {
+// x (rows, C) contiguous in dtype (0 = float32, 1 = bfloat16), quantized
+// in compute (0 = float32, 1 = bfloat16: bf16 x only); q (rows, C) int8
+// and scale (rows,) in the compute dtype. chunks (0: a block streams a row;
+// 1, 2, 4 or 8 pieces a lane), warps_per_row and rows_per_block are
+// quant_plan's; vec asks for 16-byte pieces (x 16-byte aligned, C a
+// multiple of 16 bytes of x). The kernel is launched with programmatic
+// stream serialization: it may start while the kernel before it runs (it
+// lets the one after it do the same), and waits for that kernel before it
+// writes its outputs and, unless early is 1 (no kernel in flight writes x:
+// a weight), before it reads x. Returns a CUDA error code (0 on success).
+int quantize_int8_rows(const void* x, void* q, void* scale, long long rows, int C, int dtype,
+                       int compute, int chunks, int warps_per_row, int rows_per_block, int vec,
+                       int early, void* stream) {
+  const int elem = dtype == 0 ? 4 : 2;
+  const int wshift = warps_per_row == 1 ? 0 : warps_per_row == 2 ? 1 : warps_per_row == 4 ? 2
+                     : warps_per_row == 8 ? 3 : -1;
+  if (rows <= 0 || C <= 0 || dtype < 0 || dtype > 1 || compute < 0 || compute > dtype ||
+      wshift < 0 || (vec && (!common::aligned16(x) || (C * elem) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
-  }
+  const QuantArgs a{x, (int8_t*)q, scale, rows, C, wshift, rows_per_block, vec, early};
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc;
+  if (dtype == 0) rc = launch_quant<float, float>(a, chunks, s);
+  else if (compute == 0) rc = launch_quant<__nv_bfloat16, float>(a, chunks, s);
+  else rc = launch_quant<__nv_bfloat16, __nv_bfloat16>(a, chunks, s);
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// The int8 linear layer in one launch: x (M, C) in dtype (0 f32, 1 bf16),
+// quantized per row in compute (0 f32, 1 bf16: bf16 x only) inside the
+// kernel, then gemv_pim_int8's product and epilogue with w (R, C) int8,
+// w_scale (R,) and bias (R,) or null in their dtypes, out (M, R) in
+// out_dtype, act 1 applying the LUT. On the s8 tensor cores only: C a
+// multiple of 16, x and w 16-byte aligned, M <= n_tile <= 32 (one token
+// tile holds every row), cluster as gemv_pim_int8, and the block's share of
+// x at most kXItems 16-element pieces a consumer thread (M times the
+// block's 128-element K tiles at most 32). Returns a CUDA error code (0 on
+// success).
+int gemv_pim_int8_linear(const void* x, const void* w, const void* w_scale, const void* bias,
+                         const void* table, void* out, int M, int C, int R, int dtype,
+                         int compute, int ws_dtype, int bias_dtype, int out_dtype, int act,
+                         float lo, float inv_step, int sections, int n_tile, int cluster,
+                         void* stream) {
+  if (act && (table == nullptr || sections < 1 || sections + 2 > lut::kMaxTableRows))
+    return (int)cudaErrorInvalidValue;
+  if (cluster < 1 || M < 1 || M > n_tile || n_tile > kMaxXRows)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = ((C + 127) / 128 + cluster - 1) / cluster;
+  if (M * per_block * 8 > gemv_tc::kConsumers * kXItems) return (int)cudaErrorInvalidValue;
+  const Int8Out o{nullptr, w_scale, bias, (const float*)table, out, R, 0, ws_dtype,
+                  bias_dtype, out_dtype, act, lo, inv_step, sections};
+  if (dtype == 0 && compute == 0)
+    return launch_int8_linear<float, float>(x, w, o, M, C, n_tile, cluster, stream);
+  if (dtype == 1 && compute == 0)
+    return launch_int8_linear<__nv_bfloat16, float>(x, w, o, M, C, n_tile, cluster, stream);
+  if (dtype == 1 && compute == 1)
+    return launch_int8_linear<__nv_bfloat16, __nv_bfloat16>(x, w, o, M, C, n_tile, cluster,
+                                                            stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // int16 x (M, C) and w (R, C) -> int16 out (M, R); 0 <= shift < 32.

@@ -2,7 +2,8 @@
 // bf16 -> f32 sums), gemv_pim_int8 (gemv_pim_quant.cu, s8 -> exact s32
 // sums) and gemv_pim_fixed (gemv_pim_quant.cu, int16 products as four
 // byte-plane products -> uint32 sums modulo 2^32):
-// out[m, r] = epilogue(sum_c x[m, c] w[r, c]).
+// out[m, r] = epilogue(sum_c x[m, c] w[r, c]); gemv_pim_int8_linear (the
+// same file) quantizes x in its load path through the policy hooks below.
 //
 //  * A and B swapped: a 64-row weight tile is the wgmma A operand (M side)
 //    and x, padded by TMA's zero fill to N tokens (8, 16, ... 256), is the
@@ -37,13 +38,17 @@
 // writes out[m, r + u] = f(sum[u]) for the u < 4 with r + u < R (Acc the
 // policy's accumulator type: float, int or unsigned).
 //
-// A Mma policy holds the consumer's accumulators: Acc; kBoxes, the TMA
-// boxes of each operand a stage; kK, the K elements a stage; kPlaneBytes
-// of shared memory of its own beside the ring; init(); step(epi, w, x,
-// planes, i), which adds stage i's product (w and x the shared-memory
-// addresses of the stage's tiles, planes that of its own memory) and
-// leaves the stage free to refill; and
-// value(j), the j-th accumulator of this thread's fragment.
+// A Mma policy holds the consumer's accumulators: Acc; kBoxes and
+// kXBoxes, the TMA boxes of W and of x a stage (kXBoxes 0: x does not ride
+// the ring); kK, the K elements a stage; plane_bytes(nk), the shared memory
+// of its own beside the ring for a block of nk K tiles; kPrologue, whether
+// the consumers run preload(epi, kt0, nk, M) first thing (before the
+// block's first barrier) and prologue(epi, es, planes, kt0, nk, M) before
+// the first stage; init();
+// step(epi, w, x, planes, i), which adds stage i's product (w and x the
+// shared-memory addresses of the stage's tiles, planes that of its own
+// memory) and leaves the stage free to refill; and value(j), the j-th
+// accumulator of this thread's fragment.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -75,8 +80,10 @@ template <class Epi, int N>
 struct DirectMma {
   using Acc = typename Epi::Acc;
   static constexpr int kBoxes = 1;
+  static constexpr int kXBoxes = 1;
   static constexpr int kK = kKBytes / Epi::kElem;
-  static constexpr int kPlaneBytes = 0;
+  static constexpr bool kPrologue = false;
+  __host__ __device__ static int plane_bytes(int) { return 0; }
   Acc acc[N / 2];
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -99,23 +106,23 @@ template <class Mma, int N>
 struct Cfg {
   static constexpr int kMaxStages = N <= 64 ? 8 : (N == 128 ? 6 : 3);
   static constexpr int kWBytes = Mma::kBoxes * kRows * kKBytes;
-  static constexpr int kXBytes = Mma::kBoxes * N * kKBytes;
+  static constexpr int kXBytes = Mma::kXBoxes * N * kKBytes;
   static constexpr int kStageBytes = kWBytes + kXBytes;     // a multiple of 1024
   static constexpr int kPartBytes = N * kPartStride * 4;    // aliases the ring
   // The ring holds `stages` stages (at most the K tiles of a block), then
-  // the policy's planes (1024-byte aligned), 2 * stages mbarriers, and
-  // room to align the data to 1024 bytes.
+  // the policy's planes for a block of nk K tiles (1024-byte aligned),
+  // 2 * stages mbarriers, and room to align the data to 1024 bytes.
   __host__ __device__ static int data_bytes(int stages) {
     const int d = stages * kStageBytes > kPartBytes ? stages * kStageBytes : kPartBytes;
     return (d + 1023) & ~1023;
   }
-  static int smem_bytes(int stages) {
-    return data_bytes(stages) + Mma::kPlaneBytes + 16 * stages + 1024;
+  static int smem_bytes(int stages, int nk) {
+    return data_bytes(stages) + Mma::plane_bytes(nk) + 16 * stages + 1024;
   }
   // The most stages that fit beside the planes.
-  static int max_stages() {
+  static int max_stages(int nk) {
     int s = kMaxStages;
-    while (s > 1 && smem_bytes(s) > kSmemMax) --s;
+    while (s > 1 && smem_bytes(s, nk) > kSmemMax) --s;
     return s;
   }
 };
@@ -140,15 +147,24 @@ kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtenso
   const int tok0 = blockIdx.y * N;
   const int kt0 = rank * k_tiles / cs;
   const int nk = (rank + 1) * k_tiles / cs - kt0;
+  const int per_block = (k_tiles + cs - 1) / cs;    // the most K tiles a rank holds
   const int tid = threadIdx.x;
+  // A kernel launched after this one with programmatic stream
+  // serialization (a weight's quantize_int8_rows) may start now; it waits
+  // for this grid before it writes.
+  hopper::pdl_launch_dependents();
 
   // The 128-byte swizzle wants 1024-byte aligned tiles.
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   Acc* part = reinterpret_cast<Acc*>(smem_raw + (base - raw));
   const uint32_t planes = base + C::data_bytes(stages);
-  const uint32_t full0 = planes + Mma::kPlaneBytes;
+  const uint32_t full0 = planes + Mma::plane_bytes(per_block);
   const uint32_t empty0 = full0 + 8 * stages;
+  Mma mma;
+  if constexpr (Mma::kPrologue) {
+    if (tid < kConsumers) mma.preload(epi, kt0, nk, M);
+  }
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       hopper::mbar_init(full0 + 8 * s, 1);
@@ -160,7 +176,7 @@ kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtenso
   __syncthreads();
 
   if (tid >= kConsumers) {
-    // Producer warp: one lane keeps the ring full.
+    // Producer warp: one lane keeps the ring full (W alone, or W and x).
     if (tid == kConsumers) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w))
                    : "memory");
@@ -176,15 +192,16 @@ kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtenso
         for (int b = 0; b < Mma::kBoxes; ++b) {
           const int k = (kt0 + i) * kK + b * kBoxK;
           hopper::tma_load_2d(stage + b * kRows * kKBytes, &tm_w, full0 + 8 * s, k, row0);
-          hopper::tma_load_2d(stage + C::kWBytes + b * N * kKBytes, &tm_x, full0 + 8 * s, k,
-                              tok0);
+          if constexpr (Mma::kXBoxes > 0)
+            hopper::tma_load_2d(stage + C::kWBytes + b * N * kKBytes, &tm_x, full0 + 8 * s, k,
+                                tok0);
         }
       }
     }
     __syncwarp();
   } else {
-    Mma mma;
     mma.init();
+    if constexpr (Mma::kPrologue) mma.prologue(epi, es, planes, kt0, nk, M);
     for (int i = 0; i < nk; ++i) {
       const int s = i % stages;
       hopper::mbar_wait(full0 + 8 * s, (i / stages) & 1);
@@ -250,13 +267,19 @@ int launch(const void* x, const void* w, const Epi& epi, int M, int C, int R, in
   constexpr int kBoxK = kKBytes / Epi::kElem;
   CUtensorMap tm_w, tm_x;
   int rc = hopper::tensor_map_2d(&tm_w, w, Epi::kType, Epi::kElem, R, C, kBoxK, kRows);
-  if (rc == 0) rc = hopper::tensor_map_2d(&tm_x, x, Epi::kType, Epi::kElem, M, C, kBoxK, N);
+  if (rc == 0) {
+    if constexpr (Mma::kXBoxes > 0)
+      rc = hopper::tensor_map_2d(&tm_x, x, Epi::kType, Epi::kElem, M, C, kBoxK, N);
+    else
+      tm_x = tm_w;              // unused: x does not ride the ring
+  }
   if (rc != 0) return rc;
   const int k_tiles = (C + kK - 1) / kK;
   const int per_block = (k_tiles + cluster - 1) / cluster;
-  const int most = Cf::max_stages();
+  const int most = Cf::max_stages(per_block);
   const int stages = per_block < most ? per_block : most;
-  const int smem = Cf::smem_bytes(stages);
+  const int smem = Cf::smem_bytes(stages, per_block);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   auto kern = kernel<Epi, N>;
   static int sized = 0;             // the largest size allowed so far
   if (smem > sized) {

@@ -3,7 +3,9 @@
 // (paged_attention.cu) and the paged prefill (paged_prefill.cu):
 // shared-memory mbarriers, 16-byte cp.async copies whose completion
 // arrives on an mbarrier or a commit group, and 2-D tensor copies through
-// a TMA descriptor, which the host encodes with tensor_map_2d.
+// a TMA descriptor, which the host encodes with tensor_map_2d; and
+// programmatic dependent launch (PDL), which lets a kernel start while the
+// one before it in the stream runs.
 #pragma once
 
 #include <cuda.h>
@@ -82,6 +84,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// PDL: a kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// may start once every block of the kernel before it has called
+// pdl_launch_dependents (or exited); pdl_wait then blocks until that kernel
+// has finished and its writes are visible. Without such a launch both are
+// no-ops.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -4,8 +4,8 @@ Q-format fixed16.
 `gemv_pim_float` launches the CUDA kernel `csrc/gemv_pim.cu`, which
 replaces the TPU kernel `src/repro/kernels/gemv_pim.py::gemv_pim_float`;
 `gemv_pim_plain` is its plain PyTorch version, the twin of the JAX oracle
-`repro.kernels.ref.gemv_pim_ref`. `gemv_pim_int8`, `gemv_pim_fixed` and
-`gemv_pim_fixed_linear` launch the entry points of
+`repro.kernels.ref.gemv_pim_ref`. `gemv_pim_int8`, `gemv_pim_int8_linear`,
+`gemv_pim_fixed` and `gemv_pim_fixed_linear` launch the entry points of
 `csrc/gemv_pim_quant.cu`, which replace `gemv_pim_int8` and
 `gemv_pim_fixed` of the same TPU file; their plain versions
 `gemv_pim_int8_plain` and `gemv_pim_fixed_plain` are the twins of
@@ -23,8 +23,13 @@ integer product exactly in float64, `core.quant.int32_matmul`):
     `(acc * x_scale[m]) * w_scale[r]` in f32, then `+ b[r]` in f32 when a
     bias is given, each operation rounded on its own (scales and bias f32
     or bf16), cast to `out_dtype` (f32 or bf16), then the LUT
-    `act_table` on the cast value: `SalPimEngine.linear`'s int8 route in
-    one launch after its two quantizations;
+    `act_table` on the cast value;
+  * the int8 linear layer (`gemv_pim_int8_linear`): float x quantized per
+    row (`quantize_int8_rows`, in x's dtype or in f32) and the int8 GEMV
+    above with out in x's dtype: `SalPimEngine.linear`'s int8 route after
+    its weight's quantization, and `qtensor_linear`, in one launch at
+    decode widths (`gemv_int8_linear_plan`), x's quantization then running
+    in the kernel's load path;
   * fixed16: x_q (M, C) . w_q (R, C) as int16 products summed in an
     int32 accumulator that wraps modulo 2^32, then an arithmetic shift
     right by `shift` and saturation to int16; int16 (M, R) out;
@@ -53,8 +58,8 @@ products of each int16 one), any other C on the CUDA cores (`__dp4a` for
 int8); each wrapper's `tc_launches` counts the first.
 `quantize_int8_rows` is the per-row int8 quantization of
 `core.quant.quantize_int8_rows` (`quantize_int8_rows_plain`) in one
-launch, bit for bit; it replaces XLA ops of the JAX package, not a
-Pallas kernel.
+launch, bit for bit, in x's dtype or in f32 (`compute`); it replaces XLA
+ops of the JAX package, not a Pallas kernel. `quant_plan` shapes it.
 """
 from __future__ import annotations
 
@@ -92,6 +97,19 @@ TC_N = (8, 16, 32, 64, 128, 256)
 TC_N_FIXED = (8, 16, 32, 64)
 TC_MAX_CLUSTER = 8
 TC_CLUSTER_TOKENS = 256
+# The int8 linear layer's consumer threads hold their block's share of x
+# in registers, at most INT8_LINEAR_PIECES pieces of 16 elements in all
+# (2 a thread), before they quantize it into shared memory; its token tile
+# holds every row.
+INT8_LINEAR_PIECES = 256
+# quantize_int8_rows (csrc/gemv_pim_quant.cu) holds a row in the registers
+# of 1-8 warps, at most QUANT_MAX_CHUNKS pieces of 16 bytes a lane, spread
+# over more warps until a lane holds QUANT_LANE_VALUES values (a weight's
+# rows all load at once, so its arithmetic is shared among as many warps
+# as its rows allow), in blocks of QUANT_BLOCK_WARPS warps.
+QUANT_MAX_CHUNKS = 8
+QUANT_LANE_VALUES = 16
+QUANT_BLOCK_WARPS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +167,49 @@ def gemv_int8_plan(M: int, C: int, R: int, *, aligned: bool = True) -> GemvPlan:
     if C % 16 or not aligned:
         return GemvPlan("cuda_core")
     return _tc_tiling(M, C, R, TC_K_INT8)
+
+
+def gemv_int8_linear_plan(M: int, C: int, R: int, *,
+                          aligned: bool = True) -> GemvPlan | None:
+    """The one-launch int8 linear layer's tiling (`gemv_pim_int8_linear`):
+    the s8 tensor-core kernel with x quantized in its load path, where
+    `gemv_int8_plan` takes the tensor cores: the least tile of TC_N that
+    holds all M rows, with `_tc_tiling`'s cluster, while a block's share of
+    x (M rows x its K tiles of 128) is at most INT8_LINEAR_PIECES pieces of
+    16 elements (a decode step; M * K tiles a block <= 32). None
+    otherwise: x is then quantized by its own `quantize_int8_rows` launch
+    before `gemv_pim_int8` (a prefill chunk, C % 16 != 0, a misaligned
+    row); a wider M would hold more of x a thread than its quantization
+    takes from the launch it saves."""
+    if C % 16 or not aligned or M < 1 or M > TC_N[-1]:
+        return None
+    fit = next(t for t in TC_N if t >= M)
+    plan = _tc_tiling(M, C, R, TC_K_INT8, (fit,))
+    per_block = -(-plan.k_tiles // plan.cluster)
+    return plan if M * per_block * TC_K_INT8 // 16 <= INT8_LINEAR_PIECES else None
+
+
+def quant_plan(n_rows: int, C: int, itemsize: int) -> tuple[int, int, int]:
+    """(chunks, warps_per_row, rows_per_block) of `quantize_int8_rows` for
+    rows of C elements of `itemsize` bytes: `_build.row_plan`'s pieces a
+    lane and warps a row (a call of few rows, as x of a decode step, is
+    spread over more warps), spread further while a lane holds more than
+    QUANT_LANE_VALUES values, and as many row groups a block as fill
+    QUANT_BLOCK_WARPS warps while the grid still gives every SM a block.
+    chunks 0 when 8 warps cannot hold a row: a block streams each row,
+    reading it twice."""
+    plan = _build.row_plan(n_rows, C, itemsize, QUANT_MAX_CHUNKS)
+    if plan is None:
+        return 0, _build.BLOCK_WARPS, 1
+    chunks, warps, _ = plan
+    n = 16 // itemsize
+    while warps < _build.ROW_GROUP_WARPS[-1] and chunks * n > QUANT_LANE_VALUES:
+        warps *= 2
+        chunks = _build._pow2_at_least(-(-C // (32 * warps * n)))
+    rows = max(1, QUANT_BLOCK_WARPS // warps)
+    while rows > 1 and -(-n_rows // rows) < _build.SMS:
+        rows //= 2
+    return chunks, warps, rows
 
 
 def gemv_fixed_plan(M: int, C: int, R: int, *, aligned: bool = True) -> GemvPlan:
@@ -276,6 +337,18 @@ def gemv_pim_int8_plain(x_i8: torch.Tensor, x_scale: torch.Tensor,
     return out
 
 
+def gemv_pim_int8_linear_plain(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
+                               b: torch.Tensor | None = None, *,
+                               compute: torch.dtype | None = None,
+                               act_table: LutTable | None = None) -> torch.Tensor:
+    """Plain version of the int8 linear layer: x quantized per row in
+    `compute` (x's dtype by default) by `quantize_int8_rows_plain`, then
+    `gemv_pim_int8_plain` with out in x's dtype and the LUT."""
+    x_i8, x_scale = quantize_int8_rows_plain(x.to(compute or x.dtype))
+    return gemv_pim_int8_plain(x_i8, x_scale, w_i8, w_scale, b, out_dtype=x.dtype,
+                               act_table=act_table)
+
+
 def gemv_pim_fixed_plain(x_q: torch.Tensor, w_q: torch.Tensor, *,
                          shift: int) -> torch.Tensor:
     """Plain version: wrapping int32 product, shift, saturate -> int16."""
@@ -300,14 +373,15 @@ def gemv_pim_fixed_linear_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _check_quant(name, x, w, dtypes, vectors):
-    """The checks of `_check_args` for a quantized GEMV: x (M, C) and w
-    (R, C) of one dtype among `dtypes`, each (name, tensor, length) of
-    `vectors` an f32 or bf16 vector of that length, all contiguous on one
-    CUDA device."""
-    if x.dtype not in dtypes or w.dtype != x.dtype:
+def _check_quant(name, x, w, dtypes, vectors, w_dtype=None):
+    """The checks of `_check_args` for a quantized GEMV: x (M, C) of a
+    dtype among `dtypes` and w (R, C) of x's dtype (or `w_dtype`), each
+    (name, tensor, length) of `vectors` an f32 or bf16 vector of that
+    length, all contiguous on one CUDA device."""
+    if x.dtype not in dtypes or w.dtype != (w_dtype or x.dtype):
         want = " or ".join(str(d).split(".")[1] for d in dtypes)
-        raise TypeError(f"{name} takes {want} x and w, got {x.dtype} and {w.dtype}")
+        w_want = "w" if w_dtype is None else f"{str(w_dtype).split('.')[1]} w"
+        raise TypeError(f"{name} takes {want} x and {w_want}, got {x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"need x (M, C) and w (R, C), got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
@@ -381,30 +455,87 @@ def gemv_pim_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tensor,
     return out
 
 
+def gemv_pim_int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
+                         b: torch.Tensor | None = None, *,
+                         compute: torch.dtype | None = None,
+                         act_table: LutTable | None = None) -> torch.Tensor:
+    """The int8 linear layer of `gemv_pim_int8_linear_plain`: x (M, C) f32
+    or bf16, quantized per row in `compute` (x's dtype, or f32 for bf16
+    x), . int8 w (R, C) with row scales w_scale (R,) and optional bias
+    (R,), each f32 or bf16 -> (M, R) in x's dtype, the LUT `act_table`
+    applied to the cast value. One launch with x's quantization in the
+    kernel's load path where `gemv_int8_linear_plan` gives a tiling, else
+    `quantize_int8_rows` then `gemv_pim_int8`."""
+    compute = _compute_dtype("gemv_pim_int8_linear", x, compute)
+    M, R = x.shape[0], w_i8.shape[0]
+    vectors = [("w_scale", w_scale, R)] + ([("bias", b, R)] if b is not None else [])
+    _check_quant("gemv_pim_int8_linear", x, w_i8, tuple(_DTYPE_CODE), vectors, torch.int8)
+    C = x.shape[1]
+    plan = gemv_int8_linear_plan(M, C, R, aligned=_aligned(x, w_i8))
+    if plan is None:
+        x_i8, x_scale = quantize_int8_rows(x, compute=compute)
+        return gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b, out_dtype=x.dtype,
+                             act_table=act_table)
+    table, act, lo, inv_step, sections = _lut_args(act_table, x.device)
+    out = torch.empty((M, R), dtype=x.dtype, device=x.device)
+    if R == 0:
+        return out
+    code = _DTYPE_CODE
+    lib = _build.library("gemv_pim_quant")
+    rc = _build.cfunc(lib, "gemv_pim_int8_linear",
+                      "pppppp" + "iii" + "iiiiii" + "ffi" + "ii" + "p")(
+        x.data_ptr(), w_i8.data_ptr(), w_scale.data_ptr(), _build.ptr(b), _build.ptr(table),
+        out.data_ptr(), M, C, R, code[x.dtype], code[compute], code[w_scale.dtype],
+        code[b.dtype] if b is not None else 0, code[x.dtype], act, lo, inv_step, sections,
+        plan.n_tile, plan.cluster, _build.stream(x))
+    _build.check(lib, "gemv_pim_quant", rc)
+    gemv_pim_int8_linear.launches += 1
+    gemv_pim_int8_linear.tc_launches += 1
+    return out
+
+
 quantize_int8_rows_plain = quant_lib.quantize_int8_rows
 
 
-def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: x (..., C) f32 or bf16 -> int8 (..., C) and
-    scale (...) in x's dtype, bit for bit `core.quant.quantize_int8_rows`
-    (`quantize_int8_rows_plain`) in one pass a row."""
+def _compute_dtype(name: str, x: torch.Tensor, compute: torch.dtype | None) -> torch.dtype:
+    """The dtype a row quantization computes in: x's, or f32 for bf16 x."""
+    compute = x.dtype if compute is None else compute
+    if compute not in _DTYPE_CODE or (compute == torch.bfloat16 and x.dtype != compute):
+        raise TypeError(f"{name} quantizes {x.dtype} x in its own dtype or in float32, "
+                        f"not {compute}")
+    return compute
+
+
+def quantize_int8_rows(x: torch.Tensor, *, compute: torch.dtype | None = None,
+                       static_input: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel of `quant_plan`: x (..., C) f32 or bf16 ->
+    int8 (..., C) and scale (...) in `compute` (x's dtype, or f32 for bf16
+    x), bit for bit `quantize_int8_rows_plain(x.to(compute))` in one pass
+    a row. The kernel may start while the kernel before it runs
+    (programmatic dependent launch) and waits for it before it writes;
+    `static_input` says that no kernel in flight writes x (a weight), so
+    the kernel reads x before that wait too."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize_int8_rows takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"quantize_int8_rows takes float32 or bfloat16, got {x.dtype}")
+    compute = _compute_dtype("quantize_int8_rows", x, compute)
     if x.dim() < 1 or x.shape[-1] == 0:
         raise ValueError(f"quantize_int8_rows needs rows of C >= 1, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
-    rows = scale.numel()
+    scale = torch.empty(x.shape[:-1], dtype=compute, device=x.device)
+    rows, C = scale.numel(), x.shape[-1]
     if rows == 0:
         return q, scale
+    chunks, warps, rows_per_block = quant_plan(rows, C, x.element_size())
+    vec = _build.vector_ok(x.element_size(), [C], x)
     lib = _build.library("gemv_pim_quant")
-    rc = _build.cfunc(lib, "quantize_int8_rows", "ppp" + "iii" + "p")(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, x.shape[-1],
-        _DTYPE_CODE[x.dtype], _build.stream(x))
+    rc = _build.cfunc(lib, "quantize_int8_rows", "ppp" + "l" + "i" * 8 + "p")(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, C, _DTYPE_CODE[x.dtype],
+        _DTYPE_CODE[compute], chunks, warps, rows_per_block, int(vec), int(static_input),
+        _build.stream(x))
     _build.check(lib, "gemv_pim_quant", rc)
     quantize_int8_rows.launches += 1
     return q, scale
@@ -472,6 +603,8 @@ def launch_fixed_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None
 
 gemv_pim_int8.launches = 0
 gemv_pim_int8.tc_launches = 0
+gemv_pim_int8_linear.launches = 0
+gemv_pim_int8_linear.tc_launches = 0
 quantize_int8_rows.launches = 0
 gemv_pim_fixed.launches = 0
 gemv_pim_fixed.tc_launches = 0

@@ -46,12 +46,27 @@ def pim_linear_int8(x_i8: torch.Tensor, x_scale: torch.Tensor, w_i8: torch.Tenso
     return gemv_k.gemv_pim_int8(x_i8, x_scale, w_i8, w_scale, b, **kw)
 
 
-def pim_quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def pim_int8_linear(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
+                    b: torch.Tensor | None = None, *, compute: torch.dtype | None = None,
+                    act_table: LutTable | None = None) -> torch.Tensor:
+    """The int8 linear layer: float x (M, C) quantized per row in `compute`
+    (x's dtype by default), . int8 (R, C)^T with row scales (and a bias) in
+    f32 or bf16, the rescale and bias in f32, cast to x's dtype, then the
+    LUT; one kernel launch at decode widths."""
+    kw = dict(compute=compute, act_table=act_table)
+    if x.device.type == "cpu":
+        return gemv_k.gemv_pim_int8_linear_plain(x, w_i8, w_scale, b, **kw)
+    return gemv_k.gemv_pim_int8_linear(x, w_i8, w_scale, b, **kw)
+
+
+def pim_quantize_int8_rows(x: torch.Tensor, *,
+                           static_input: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., C) -> int8 (..., C) + (...) scale in x's dtype (symmetric, per
-    row; `core.quant.quantize_int8_rows`)."""
+    row; `core.quant.quantize_int8_rows`); `static_input`: no kernel in
+    flight writes x (a weight), so the kernel may read it early."""
     if x.device.type == "cpu":
         return gemv_k.quantize_int8_rows_plain(x)
-    return gemv_k.quantize_int8_rows(x)
+    return gemv_k.quantize_int8_rows(x, static_input=static_input)
 
 
 def pim_linear_fixed(x_q: torch.Tensor, w_q: torch.Tensor, *, shift: int) -> torch.Tensor:

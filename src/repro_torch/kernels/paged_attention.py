@@ -21,9 +21,12 @@ tokens (`effective_kv_splits`), `paged_attention` routes to the KV-split
 kernels of `csrc/paged_attention_split.cu`, which replace
 `_paged_attention_split`: `paged_attention_split` writes raw (m, l, acc)
 partials per run of pages and `merge_partials` combines them in a second
-launch. Their plain versions are
+launch, which may start while the split kernel drains (programmatic
+dependent launch). Their plain versions are
 `paged_attention_split_plain` (the twin of `ref.paged_attention_split_ref`)
-and `distributed.collectives.merge_partial_softmax_stacked`.
+and `merge_partials_plain`, the function of
+`distributed.collectives.merge_partial_softmax_stacked` summed in split
+order, as the kernel sums, so that the two agree bit for bit.
 
 q (B, H, D) holds one query per sequence; the pools (P, Hkv, page, D) are
 shared by all sequences and read through block_tables (B, n_pages);
@@ -549,11 +552,33 @@ def paged_attention_split(q, k_pages, v_pages, block_tables, length,
     return m, l, acc
 
 
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `merge_partials`: partials (B, Hkv, K, g, 1 | 1 |
+    D) -> (B, Hkv * g, D) in out_dtype, the function of
+    `merge_partial_softmax_stacked(m, l, acc, axis=2)` with l corr and acc
+    corr added over the splits one at a time, in split order from 0 (a
+    reduction kernel may add in another order)."""
+    B, Hkv, K, g, D = acc.shape
+    m_glob = torch.amax(m, dim=2, keepdim=True)
+    m_glob = torch.where(m_glob <= -1e30, 0.0, m_glob)
+    corr = torch.exp(m - m_glob)
+    lc, ac = l * corr, acc * corr
+    l_glob = torch.zeros_like(lc[:, :, 0])
+    a_glob = torch.zeros_like(ac[:, :, 0])
+    for k in range(K):
+        l_glob = l_glob + lc[:, :, k]
+        a_glob = a_glob + ac[:, :, k]
+    out = a_glob / torch.clamp(l_glob, min=1e-9)
+    return out.reshape(B, Hkv * g, D).to(out_dtype)
+
+
 def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+                   out_dtype: torch.dtype, *, pdl: bool = True) -> torch.Tensor:
     """Launch the combine: partials (B, Hkv, K, g, 1 | 1 | D) -> (B, Hkv * g,
-    D) in out_dtype, the CUDA twin of
-    `merge_partial_softmax_stacked(m, l, acc, axis=2)`."""
+    D) in out_dtype, bit for bit `merge_partials_plain`; with `pdl`
+    (programmatic stream serialization) it may start as the kernel before
+    it drains (chip_smoke.py times both)."""
     B, Hkv, K, g, D = acc.shape
     for t_name, t, last in (("m", m, 1), ("l", l, 1), ("acc", acc, D)):
         if (t.device.type != "cuda" or t.dtype != torch.float32
@@ -566,9 +591,9 @@ def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     if B == 0:
         return out
     lib = _build.library("paged_attention_split")
-    rc = _fn(lib, "merge_partials", "p" * 4 + "i" * 5 + "p")(
+    rc = _fn(lib, "merge_partials", "p" * 4 + "i" * 6 + "p")(
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), B * Hkv, g, D,
-        K, _DTYPE_CODE[out_dtype], _stream(acc))
+        K, _DTYPE_CODE[out_dtype], int(pdl), _stream(acc))
     _build.check(lib, "paged_attention_split", rc)
     merge_partials.launches += 1
     return out

@@ -7,11 +7,12 @@ the FFN and the LM head; not `embed` or `pos_embed`) into a `QTensor`,
 int8 `w_i8` (..., R, C) with f32 `scale` (..., R), in the same place of
 the tree. `quantize_leaf` works in f32: scale = max(amax, 1e-8) / 127,
 w_i8 = clip(round(w / scale), +-127), each operation rounded on its own
-as in the JAX function run eagerly. `qtensor_linear` quantizes x (..., C)
-the same way in f32 and routes the s8 x s8 product through
-`kernels.ops.pim_linear_int8`, which is `gemv_pim_int8_ref`'s function
-exactly (int32 sum, `* x_scale * scale`, `+ b` in f32), so on the card it
-runs the int8 GEMV kernel; the result is cast to x's dtype.
+as in the JAX function run eagerly. `qtensor_linear` is
+`kernels.ops.pim_int8_linear` with f32 compute: x (..., C) quantized the
+same way in f32, the s8 x s8 product (`gemv_pim_int8_ref`'s function
+exactly: int32 sum, `* x_scale * scale`, `+ b` in f32), the result cast
+to x's dtype and, given a table, the LUT; on the card one kernel launch
+at decode widths, with no cast of x, b or the result around it.
 
 KV. One K or V vector per (token, head) is quantized with one symmetric
 amax scale, at the moment it is written into a page pool; the paged
@@ -81,15 +82,17 @@ def quantize_params_int8(params, path: str = ""):
     return params
 
 
-def qtensor_linear(x: torch.Tensor, q: QTensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x (..., C) @ QTensor (R, C) -> (..., R): s8 x s8 -> s32 product."""
+def qtensor_linear(x: torch.Tensor, q: QTensor, b: torch.Tensor | None = None, *,
+                   act_table=None) -> torch.Tensor:
+    """x (..., C) @ QTensor (R, C) -> (..., R) in x's dtype: s8 x s8 -> s32
+    product, the bias (in its own dtype) added in f32, then the LUT
+    `act_table` on the cast value."""
     # Imported here: kernels.paged_attention imports this module.
     from repro_torch.kernels import ops
     lead = x.shape[:-1]
-    x_i8, x_scale = ops.pim_quantize_int8_rows(x.reshape(-1, x.shape[-1]).float())
-    out = ops.pim_linear_int8(x_i8, x_scale, q.w_i8, q.scale,
-                              b.float() if b is not None else None)
-    return out.reshape(*lead, -1).to(x.dtype)
+    out = ops.pim_int8_linear(x.reshape(-1, x.shape[-1]), q.w_i8, q.scale, b,
+                              compute=torch.float32, act_table=act_table)
+    return out.reshape(*lead, -1)
 
 
 def quantize_vec(x: torch.Tensor, scale_dtype=torch.float32):

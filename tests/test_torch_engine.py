@@ -157,6 +157,16 @@ def test_int8_weights_and_pools_drain_matches_jax_engine(setup):
     assert teng.cache.k_pages.dtype == torch.int8
 
 
+def test_int8_weights_lut_drain_matches_jax_engine(setup):
+    """`quantize_params_int8` weights with LUT nonlinearities: the LUT GELU
+    rides the int8 linear layer's epilogue (`qtensor_linear(...,
+    act_table=...)`), on the cast value, as the JAX engine applies it after
+    `qtensor_linear`."""
+    teng = _drain_both(setup, mode="lut", transform=jax_quantize_params_int8,
+                       kv_cache_dtype="int8", prefill_chunk_tokens=8)
+    assert isinstance(teng.params["blocks"]["ffn"]["w_up"], QTensor)
+
+
 def test_import_guard():
     """No module of the port, and not chip_smoke.py, imports JAX or `repro`."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)

@@ -14,7 +14,10 @@ plain version on the same inputs, the tensor-core GEMV at its ragged and
 cluster shapes and bit-identical across launches, the int8 and fixed16
 GEMVs bit for bit at the shapes of `chip_smoke.py` on both routes, with
 the fused fixed16 linear layer and the int8 LUT epilogue (their plain
-versions are held to the JAX oracles in test_torch_quant.py).
+versions are held to the JAX oracles in test_torch_quant.py), the int8
+linear layer with x quantized in its load path bit for bit with its two
+launches, and `quantize_int8_rows` bit for bit over every launch shape
+of its plan, misaligned rows, f32 edge cases and every bf16 value.
 """
 from __future__ import annotations
 
@@ -886,3 +889,171 @@ def test_quantize_int8_rows_bit_for_bit(cuda, rows, C, dtype):
     assert torch.equal(scale[keep], want_scale[keep])
     assert torch.equal(q, want_q)
     assert int(q[1].abs().max()) == 0 and q[2, :6].tolist() == [2, -2, 4, 0, 0, 126]
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (x dtype, compute dtype) of the int8 row quantization: q3's x and the
+# weights in their own dtype, q1's bf16 x in f32.
+QUANT_MODES = [(F32, F32), (BF16, BF16), (BF16, F32)]
+
+
+def _quantize_same(x, compute, rows_with_nan=(), static_input=False):
+    """quantize_int8_rows on the card, one launch, against the plain
+    function of x cast to `compute`: payload and scale bit for bit (a
+    NaN row's scale NaN on both sides)."""
+    before = gemv_pim.quantize_int8_rows.launches
+    q, scale = gemv_pim.quantize_int8_rows(x, compute=compute, static_input=static_input)
+    torch.cuda.synchronize()
+    assert gemv_pim.quantize_int8_rows.launches == before + 1
+    want_q, want_scale = gemv_pim.quantize_int8_rows_plain(x.to(compute))
+    assert scale.dtype == compute and q.dtype == torch.int8
+    keep = torch.ones(scale.shape[0], dtype=torch.bool, device=x.device)
+    for r in rows_with_nan:
+        assert bool(scale[r].isnan()) and bool(want_scale[r].isnan())
+        keep[r] = False
+    assert torch.equal(scale[keep], want_scale[keep])
+    assert torch.equal(q, want_q)
+    return q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C", [(1, 16), (4, 1000), (4, 4096), (1024, 1024),
+                                    (1024, 4096), (20000, 1024), (5, 20000), (3, 50001)])
+@pytest.mark.parametrize("dtype,compute", QUANT_MODES)
+@pytest.mark.parametrize("static_input", [False, True])
+def test_quantize_int8_rows_plans_bit_for_bit(cuda, rows, C, dtype, compute, static_input):
+    """Every launch shape of `quant_plan` (a few rows spread over warps,
+    many rows a warp each in a persistent grid, rows past 8 warps'
+    registers streamed, ragged C element by element), in x's dtype and in
+    f32 on bf16 x, reading x before or after the wait for the kernel
+    before: zero rows, .5 ties and a NaN row included."""
+    x = _t(quantize_rows_input(max(rows, 4), C), cuda).to(dtype)[:rows].contiguous()
+    q = _quantize_same(x, compute, [3] if rows > 3 else [], static_input)
+    if rows > 2:
+        assert int(q[1].abs().max()) == 0 and q[2, :6].tolist() == [2, -2, 4, 0, 0, 126]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C", [(4, 1024), (1024, 1024), (4, 1000), (4, 20000)])
+@pytest.mark.parametrize("dtype,compute", QUANT_MODES)
+def test_quantize_int8_rows_misaligned_start(cuda, rows, C, dtype, compute):
+    """x starting one element past a 16-byte boundary: the kernel reads and
+    writes element by element, with the same bits."""
+    flat = _t(quantize_rows_input(rows, C).reshape(-1), cuda).to(dtype)
+    buf = torch.empty(rows * C + 1, dtype=dtype, device=cuda)
+    buf[1:] = flat
+    x = buf[1:].view(rows, C)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _quantize_same(x, compute, [3] if rows > 3 else [])
+
+
+def _every_bf16(device):
+    """Every finite bf16 value, as a (65280,) bf16 tensor (+-0 included)."""
+    bits = torch.arange(0, 0x7F80, dtype=torch.int32, device=device)
+    pos = bits.to(torch.int16).view(torch.bfloat16)
+    return torch.cat([pos, -pos])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [BF16, F32])
+def test_quantize_int8_rows_every_bf16_value(cuda, compute):
+    """The quotient x * r corrected once by an FMA is the correctly rounded
+    x / scale over the whole bf16 domain: a row for every non-negative
+    finite bf16 absmax a (32640 rows), each holding every finite bf16
+    value of magnitude <= a (0 elsewhere), quantized in bf16 (q3's x and
+    weights) and in f32 (q1's x), bit for bit the plain function."""
+    vals = _every_bf16(cuda)
+    amax = vals[: 0x7F80]                      # 0 and every positive finite value
+    for a in torch.split(amax, 2048):
+        x = torch.where(vals.abs()[None, :] <= a[:, None], vals[None, :],
+                        torch.zeros((), dtype=BF16, device=cuda))
+        _quantize_same(x.contiguous(), compute)
+
+
+@pytest.mark.gpu
+def test_quantize_int8_rows_f32_edges(cuda):
+    """f32 rows at the edges of the division: exact .5 ties at power-of-two
+    scales, values a few ulps from +-(k + .5) s and from +-127 s, the 1e-8
+    floor (absmax below, at and just above it, subnormal x), and random
+    values over the whole exponent range."""
+    rng = np.random.RandomState(11)
+    C = 1024
+    rows = []
+    for e in (-30, -3, 0, 5, 40):               # scale 2^e exactly
+        s = np.float32(2.0 ** e)
+        k = rng.randint(-127, 127, size=C).astype(np.float64) + 0.5
+        r = (k * s).astype(np.float32)
+        r[0] = np.float32(127 * s)
+        rows.append(r)
+    for _ in range(24):                          # near ties, random scales
+        a = np.float32(10.0 ** rng.uniform(-6, 6))
+        s = np.float32(np.float32(a) / np.float32(127))
+        k = rng.randint(-127, 127, size=C).astype(np.float64) + 0.5
+        r = (k * np.float64(s)).astype(np.float32)
+        r = np.nextafter(r, r * np.float32(rng.choice([-1, 1], size=C)) * 2)
+        r[: C // 4] = np.nextafter(np.float32(a), np.float32(0)) * rng.choice([-1, 1], C // 4)
+        r[0] = a
+        rows.append(r.astype(np.float32))
+    for a in (9e-9, 1e-8, np.nextafter(np.float32(1e-8), np.float32(1)), 1e-40):
+        rows.append((rng.rand(C) * 2 - 1).astype(np.float32) * np.float32(a))
+    rows.append(np.float32(10.0) ** rng.uniform(-45, 38, size=C).astype(np.float32)
+                * rng.choice([-1, 1], C).astype(np.float32))
+    x = torch.from_numpy(np.stack(rows).astype(np.float32)).to(cuda)
+    _quantize_same(x, F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 64])
+@pytest.mark.parametrize("C", [16, 1024, 4096])
+@pytest.mark.parametrize("dtype,compute", QUANT_MODES)
+@pytest.mark.parametrize("epi", ["none", "bias", "bias+lut"])
+def test_gemv_int8_linear_bit_for_bit(cuda, M, C, dtype, compute, epi):
+    """The int8 linear layer in one launch (x quantized in the kernel's
+    load path, on a cluster or one block; at M = 64 its two launches) is
+    bit for bit `quantize_int8_rows` then `gemv_pim_int8` on
+    the card, and the plain version: 1000 rows of w (a ragged row tile), a
+    zero row of x, q3's bf16 scales and bias or q1's f32 scales."""
+    rng = np.random.RandomState(M + C)
+    x = _t((rng.randn(M, C) * 1.5).astype(np.float32), cuda).to(dtype)
+    x[0, :] = 0 if M > 1 else x[0, :]
+    w = _t((rng.randn(1000, C) * C ** -0.5).astype(np.float32), cuda).to(dtype)
+    w8, ws = gemv_pim.quantize_int8_rows_plain(w.to(compute))
+    b = _t((rng.randn(1000) * 0.5).astype(np.float32), cuda).to(dtype) if epi != "none" else None
+    kw = dict(act_table=TBANK.gelu if epi == "bias+lut" else None)
+    fn = gemv_pim.gemv_pim_int8_linear
+    fused = gemv_pim.gemv_int8_linear_plan(M, C, 1000) is not None
+    assert fused == (M < 64)
+    before = (fn.launches, gemv_pim.quantize_int8_rows.launches, gemv_pim.gemv_pim_int8.launches)
+    got = fn(x, w8, ws, b, compute=compute, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, gemv_pim.quantize_int8_rows.launches,
+            gemv_pim.gemv_pim_int8.launches) == ((before[0] + 1, before[1], before[2]) if fused
+                                                 else (before[0], before[1] + 1, before[2] + 1))
+    x8, xs = gemv_pim.quantize_int8_rows(x, compute=compute)
+    want = gemv_pim.gemv_pim_int8(x8, xs, w8, ws, b, out_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got, gemv_pim.gemv_pim_int8_linear_plain(x, w8, ws, b, compute=compute,
+                                                                **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,C,aligned", [(65, 1024, True), (512, 1024, True),
+                                         (4, 1000, True), (4, 1024, False)])
+def test_gemv_int8_linear_two_launch_route(cuda, M, C, aligned):
+    """Where no token tile holds M, C % 16 != 0 or a row is misaligned,
+    `gemv_pim_int8_linear` quantizes x by its own launch, then runs
+    `gemv_pim_int8`, with the plain version's bits."""
+    rng = np.random.RandomState(M)
+    buf = _t((rng.randn(M * C + 1) * 1.5).astype(np.float32), cuda).to(BF16)
+    x = (buf[:-1] if aligned else buf[1:]).view(M, C)
+    w = _t((rng.randn(777, C) * C ** -0.5).astype(np.float32), cuda).to(BF16)
+    w8, ws = gemv_pim.quantize_int8_rows_plain(w)
+    before = (gemv_pim.gemv_pim_int8_linear.launches, gemv_pim.quantize_int8_rows.launches,
+              gemv_pim.gemv_pim_int8.launches)
+    got = gemv_pim.gemv_pim_int8_linear(x, w8, ws)
+    torch.cuda.synchronize()
+    assert (gemv_pim.gemv_pim_int8_linear.launches, gemv_pim.quantize_int8_rows.launches,
+            gemv_pim.gemv_pim_int8.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(got, gemv_pim.gemv_pim_int8_linear_plain(x, w8, ws))

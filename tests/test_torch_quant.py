@@ -384,3 +384,97 @@ def test_int8_lut_epilogue_matches_jax_engine(M, C, R, bias, dtype):
                                        act_table=TBANK.gelu)
     _same(got, want)
     assert got.dtype == tx.dtype and xs.dtype == tx.dtype
+
+
+# ---------------------------------------------------------------------------
+# The int8 linear layer in one launch (`gemv_pim_int8_linear`): its plain
+# twin against both JAX routes, and its planners
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("route", ["q1", "q3"])
+@pytest.mark.parametrize("M,C,R", [(4, 64, 40), (3, 1001, 37)])
+def test_int8_linear_plain_matches_jax_routes(M, C, R, route, bias, lut, dtype):
+    """`gemv_pim_int8_linear_plain`, the function the card runs in one
+    launch, is bit for bit the JAX engine's int8 route (q3: x quantized in
+    its own dtype, the weight by `quantize_int8_rowwise`) and
+    `qtensor_linear` (q1: x quantized in f32, QTensor weights, the bias in
+    its own dtype added in f32), each followed by the LUT GELU in LUT mode."""
+    x = _floats(M, C, std=1.5)
+    w = _floats(R, C, std=C ** -0.5, seed=1)
+    b = _floats(R, std=0.5, seed=2)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(w, dtype)
+    jb, tb = _pair(b, dtype) if bias else (None, None)
+    mode = "lut" if lut else "exact"
+    act = "gelu" if lut else None
+    table = TBANK.gelu if lut else None
+    if route == "q3":
+        want = SalPimEngine.create(SalPimConfig(quant="int8", nonlinear_mode=mode)).linear(
+            jx, jw, jb, act=act)
+        w_i8, w_scale = tq.quantize_int8_rows(tw)
+        got = gemv_pim.gemv_pim_int8_linear_plain(tx, w_i8, w_scale, tb, act_table=table)
+    else:
+        jqw = jquant.quantize_leaf(jw)
+        want = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)).linear(
+            jx, jqw, jb, act=act)
+        qw = bridge.params_from_numpy({"w": jax.tree.map(np.asarray, jqw)}, device="cpu")["w"]
+        got = gemv_pim.gemv_pim_int8_linear_plain(tx, qw.w_i8, qw.scale, tb,
+                                                  compute=torch.float32, act_table=table)
+        assert torch.equal(got, tquant.qtensor_linear(tx, qw, tb, act_table=table))
+    _same(got, want)
+    assert got.dtype == tx.dtype
+
+
+@pytest.mark.parametrize("rows,C,itemsize,want", [
+    (4, 1024, 2, (1, 4, 1)),          # x of a decode step, bf16: spread over 4 warps
+    (4, 1024, 4, (2, 4, 1)),          # q1's f32 x: 4 warps, 8 values a lane
+    (4, 4096, 4, (4, 8, 1)),          # f32 x before w_down
+    (4096, 1024, 2, (2, 2, 2)),       # w_up's rows: 2 warps a row, 16 values a lane
+    (50257, 1024, 2, (2, 2, 2)),      # the LM head
+    (1024, 4096, 2, (2, 8, 1)),       # w_down: 8 warps a row
+    (1024, 1024, 2, (2, 2, 2)),       # q/k/v/o
+    (4, 1000, 2, (1, 4, 1)),          # a ragged C
+    (7, 1001, 4, (2, 4, 1)),          # a ragged C, f32
+    (3, 20000, 2, (0, 8, 1)),         # past 8 warps' registers: streamed
+])
+def test_quant_plan(rows, C, itemsize, want):
+    """`quant_plan`'s pieces a lane, warps a row and rows a block."""
+    got = gemv_pim.quant_plan(rows, C, itemsize)
+    assert got == want
+    chunks, warps, rows_pb = got
+    assert warps * rows_pb <= 8
+    if chunks:
+        assert chunks * 32 * warps * (16 // itemsize) >= C
+
+
+@pytest.mark.parametrize("M,C,R,want", [
+    (4, 1024, 1024, (8, 8)),          # q/k/v/o at decode: one tile of 8 tokens
+    (4, 1024, 4096, (8, 2)),          # w_up
+    (4, 4096, 1024, (8, 8)),          # w_down: C over a cluster of 8
+    (4, 1024, 50257, (8, 1)),         # the LM head
+    (1, 1024, 50257, (8, 1)),         # a chunk's LM head: its last token
+    (1, 16, 1000, (8, 1)),
+    (8, 4096, 1024, (8, 8)),
+    (32, 1024, 1024, (32, 8)),
+])
+def test_gemv_int8_linear_plan(M, C, R, want):
+    """One token tile holds every row of x, and a block's share of x is at
+    most 256 pieces of 16 elements (2 a consumer thread)."""
+    plan = gemv_pim.gemv_int8_linear_plan(M, C, R)
+    assert plan is not None and (plan.n_tile, plan.cluster) == want
+    assert plan.n_tiles == 1 and plan.route == "tensor_core"
+    assert M * -(-plan.k_tiles // plan.cluster) * 8 <= gemv_pim.INT8_LINEAR_PIECES
+
+
+@pytest.mark.parametrize("M,C,R,aligned", [(64, 1024, 4096, True), (33, 1024, 1024, True),
+                                           (8, 1024, 50257, True), (16, 1024, 4096, True),
+                                           (512, 1024, 1024, True), (4, 1000, 1024, True),
+                                           (4, 1024, 1024, False), (0, 1024, 1024, True)])
+def test_gemv_int8_linear_plan_refuses(M, C, R, aligned):
+    """A prefill chunk's x, a block share past 256 pieces, C % 16 != 0 and a
+    misaligned row take two launches: `quantize_int8_rows`, then
+    `gemv_pim_int8`."""
+    assert gemv_pim.gemv_int8_linear_plan(M, C, R, aligned=aligned) is None

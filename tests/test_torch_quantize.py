@@ -3,7 +3,9 @@ bit: `quantize_vec` / `quantize_vec_int4` and their dequants (f32 and bf16
 scales, exact .5 ties), `pack_int4` / `unpack_int4` over every byte, the
 quantizing appends into int8/int4 pools, and the byte and split rules
 (`kv_vector_bytes`, `page_kv_bytes`, `effective_kv_splits`) over a grid
-of arguments."""
+of arguments; and the int8 weights' linear layer, `qtensor_linear`, on
+leading axes, with the bias in its own dtype and the LUT in its epilogue,
+against the JAX `qtensor_linear` followed by the JAX LUT."""
 from __future__ import annotations
 
 import itertools
@@ -199,3 +201,37 @@ def test_page_kv_bytes_matches_jax(which):
                                           sorted(SCALES)):
         assert (tkv.page_kv_bytes(tcfg, page, kv, sd)
                 == jkv.page_kv_bytes(jcfg, page, kv, sd)), (page, kv, sd)
+
+
+# ---------------------------------------------------------------------------
+# qtensor_linear: the int8 weights' linear layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype", list(SCALES))
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("lut", [False, True])
+def test_qtensor_linear_matches_jax(x_dtype, bias, lut):
+    """x (2, 3, C) through a QTensor (R, C): x quantized per row in f32, the
+    bias in x's dtype added in f32, cast to x's dtype, then (with a table)
+    the LUT GELU on the cast value, bit for bit the JAX `qtensor_linear`
+    followed by the JAX LUT; on the CPU the plain twin of the one-launch
+    int8 linear layer."""
+    from repro.core import lut as jlut
+    from repro_torch.core import lut as tlut
+    jd, td = SCALES[x_dtype]
+    rng = np.random.RandomState(5)
+    x = (rng.randn(2, 3, 48) * 1.5).astype(np.float32)
+    w = (rng.randn(40, 48) * 48 ** -0.5).astype(np.float32)
+    b = (rng.randn(40) * 0.5).astype(np.float32)
+    jw = jq.quantize_leaf(jnp.asarray(w).astype(jd))
+    qw = tq.QTensor(torch.from_numpy(np.asarray(jw.w_i8)),
+                    torch.from_numpy(np.asarray(jw.scale)))
+    jb = jnp.asarray(b).astype(jd) if bias else None
+    tb = torch.from_numpy(b).to(td) if bias else None
+    want = jq.qtensor_linear(jnp.asarray(x).astype(jd), jw, jb)
+    table = tlut.LutBank.create(64).gelu if lut else None
+    if lut:
+        want = jlut.apply_table(want, jlut.LutBank.create(64).gelu)
+    got = tq.qtensor_linear(torch.from_numpy(x).to(td), qw, tb, act_table=table)
+    assert got.shape == (2, 3, 40) and got.dtype == td
+    _same_bits(got, want)

@@ -149,6 +149,37 @@ def test_merge_matches_jax(jx):
     assert torch.equal(got[1, 1], torch.zeros(g, D))
 
 
+def _partials(B, Hkv, K, g, D, seed=0, device="cpu"):
+    """Split partials (m, l, acc) made with numpy: random ones, some empty
+    splits (m = -1e30, l = 0, acc = 0) and one all-empty (b, kv head)."""
+    rng = np.random.RandomState(seed)
+    m = rng.randn(B, Hkv, K, g, 1).astype(np.float32) * 3
+    l = rng.rand(B, Hkv, K, g, 1).astype(np.float32) * 4 + 0.1
+    acc = rng.randn(B, Hkv, K, g, D).astype(np.float32)
+    empty = rng.rand(B, Hkv, K, g) < 0.3
+    empty[-1, -1] = True
+    m[empty], l[empty], acc[empty] = -1e30, 0.0, 0.0
+    return tuple(torch.from_numpy(t).to(device) for t in (m, l, acc))
+
+
+@pytest.mark.parametrize("K", [1, 4, 7, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_partials_plain_matches_merge(jx, K, dtype):
+    """`merge_partials_plain`, the combine kernel's twin (split order), is
+    the JAX merge's function within 1e-5 (f32) and one bf16 rounding, and
+    an all-empty (b, kv head) gives 0."""
+    B, Hkv, g, D = 2, 3, 2, 24
+    m, l, acc = _partials(B, Hkv, K, g, D, seed=K)
+    got = paged_attention.merge_partials_plain(m, l, acc, dtype)
+    assert got.shape == (B, Hkv * g, D) and got.dtype == dtype
+    want = jx.coll.merge_partial_softmax_stacked(jx.arr(m), jx.arr(l), jx.arr(acc), axis=2)
+    want = np.asarray(want, np.float32).reshape(B, Hkv * g, D)
+    _close(got, want, 1e-5 if dtype == torch.float32 else 1e-2)
+    _close(got, merge_partial_softmax_stacked(m, l, acc, axis=2).reshape(B, Hkv * g, D),
+           1e-5 if dtype == torch.float32 else 1e-2)
+    assert torch.equal(got[-1, -g:].float(), torch.zeros(g, D))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions against the JAX oracles
 # ---------------------------------------------------------------------------
@@ -556,3 +587,53 @@ def test_split_kernel_on_planted_keys(cuda, pool, splits, lut, dtype, heads):
         assert (paged_attention.paged_attention_split.launches,
                 paged_attention.merge_partials.launches) == (before[0] + 1, before[1] + 1)
         assert torch.equal(routed, merged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 2, 4, 7, 16, 40])
+@pytest.mark.parametrize("g,D", [(1, 64), (2, 128), (6, 128), (12, 192), (1, 30), (3, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_partials_bit_for_bit(cuda, K, g, D, dtype):
+    """The combine kernel (a warp a row, launched with programmatic stream
+    serialization) is `merge_partials_plain` bit for bit: 16-byte pieces
+    where D % 4 == 0, columns one by one where not, more than 32 splits,
+    empty splits and an all-empty (b, kv head), one launch a call."""
+    m, l, acc = _partials(4, 3, K, g, D, seed=K + D, device=cuda)
+    before = paged_attention.merge_partials.launches
+    got = paged_attention.merge_partials(m, l, acc, dtype)
+    torch.cuda.synchronize()
+    assert paged_attention.merge_partials.launches == before + 1
+    assert torch.equal(got, paged_attention.merge_partials_plain(m, l, acc, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["fp", "int8-bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_route_replays_in_a_cuda_graph(cuda, pool, dtype):
+    """`paged_attention(..., kv_splits=4)`: the split kernel, then the
+    combine launched to overlap its tail, eager and captured in a CUDA
+    graph (the programmatic edge survives capture), the same bits as the
+    split's partials through `merge_partials_plain`."""
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=4, H=16, Hkv=16, D=64, page=16, n_pages=66,
+                                       lengths=[960, 981, 1003, 1020], seed=7, device=cuda)
+    q = q.to(dtype)
+    if pool == "fp":
+        k, v = k.to(dtype), v.to(dtype)
+    m, l, acc = paged_attention.paged_attention_split(q, k, v, tbl, lens, ks, vs, kv_splits=4)
+    want = paged_attention.merge_partials_plain(m, l, acc, dtype)
+    eager = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, kv_splits=4)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, kv_splits=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, kv_splits=4)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
