@@ -91,8 +91,39 @@ Run from the root of a checkout. Phases, each of which fails the run:
               eager dequantization, which the kernel's int8 read
               replaces, timed for comparison; and a 128-token admission's
               prefill, exact and LUT, on the device;
-  8. the kernels line, a JSON object with each kernel's error, times,
+  8. qwen2 — qwen2-1.5B at full width (28 layers, GQA 12/2, head_dim 128,
+              vocab 151936, RoPE, QKV bias, SwiGLU, RMSNorm; bf16, seeded
+              random weights) serves 8 requests of 32..128 prompt tokens
+              through ServingEngine as phase 4 does (page 16, 64-token
+              chunks), exact, LUT, with kv_splits=4 at max_len 1024, and
+              with int8 weights and pools (q1), with phase 4's checks at
+              197 linears, 28 attention and 57 layernorm_lut launches a
+              decode step; then its decode step and chunk on the host
+              clock and on the device;
+  9. gemma2/danube — gemma2-2B (head_dim 256, softcaps, local/global
+              windows, RMSNorm(1 + w), post-norms, embedding scale, GeGLU)
+              and h2o-danube3-4B (head_dim 120, a 4096-token window) at
+              their published widths, the depth cut to 2 layers, each
+              serving three short requests and one of 4200 prompt tokens
+              (past the window) exact and in LUT mode (gemma2's LUT final
+              softcap: one lut_interp a step and a chunk);
+ 10. nemotron — nemotron-4-340B at its published widths (d 18432, the
+              streamed layernorm_lut; head_dim 192, g 12, squared ReLU,
+              vocab 256000), one layer (13 B parameters), serving 2 short
+              requests, exact;
+ 11. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
+
+Phases 8-10 count every kernel's launches at every step, as phases 4-6
+do, and hold each request's first logits within FIRST_LOGITS_LIMIT of a
+one-shot prefill through the plain versions. Phase 3 also
+holds the kernels at those models' shapes (the float GEMV over their
+linears up to 256000 x 18432; the decode, prefill and arena walks at g x
+head_dim 6 x 128, 2 x 256 with softcap 50 and window 4096, 4 x 120 with
+the window, 12 x 192, over 4800 keys on every pool format; the norm's
+streamed rows at d 16392/18432 bf16 and 8200 f32, bit for bit) and times
+them (`time_model_kernels`: qwen2-1.5B's 197 GEMVs of a decode step, the
+decode and the chunk at each model's heads, the norm at (4, 18432)).
 
 Phases 4-6 also check the norms (49 layernorm_lut launches a decode step
 and a chunk) and that no path launches lut_interp (q3's LUT GELU rides the
@@ -111,10 +142,11 @@ launches bit for bit), `quantize_int8_rows` bit for bit on f32 and bf16
 rows, in x's dtype and in f32, aligned and misaligned, 4..50257 rows of
 1024..4096 and rows streamed past 8 warps' registers (zero rows and .5
 ties), and the int8 linear layer (`gemv_pim_int8_linear`) over the
-model's shapes at M 1..512 in q1's and q3's forms, bit for bit its two
-launches and its plain version; the prefill kernel over g 1
-and 2, Sq 1/17/64 and starts 0/15/64/896 on every pool format (bf16, all
-on the tensor cores); the single walk at qwen2-1.5B's widths over 131072
+GPT-2's and qwen2-1.5B's shapes at M 1..512 in q1's and q3's forms, bit
+for bit its two launches and its plain version; the prefill kernel (fp64
+sums) over g 1 and 2, Sq 1/17/64 and starts 0/15/64/896 on every pool
+format (bf16; the elements off the plain version's bits counted); the
+single walk at qwen2-1.5B's widths over 131072
 keys (in windows), at g 12 x D 192, and forced into windows of 1 and 3
 pages at 384 keys on every pool format, all on planted keys that keep
 the outputs O(1); and times the int8 GEMV over a
@@ -123,8 +155,7 @@ prefill at start 896 and the 131072-key walk beside SDPA and the split.
 Phases 4-6 count every tensor-core launch: all 145 linears of q1 and q3
 one `gemv_pim_int8_linear` launch each on the s8 tensor cores (x
 quantized in its load path; q3's 145 quantize_int8_rows launches are its
-weights') and of q2 on the 8-bit ones, every chunk's 24 prefill launches
-on the tensor-core kernel. Phase 3 also times the int8 linear layer over
+weights') and of q2 on the 8-bit ones. Phase 3 also times the int8 linear layer over
 a decode step against the two launches it replaces, each weight shape's
 quantization against its bound, and the KV split's route with and
 without the combine's programmatic launch.
@@ -197,6 +228,21 @@ SOURCE = {
 NOT_TPU_KERNELS = {"quantize_int8_rows"}
 # The model's GEMV shapes (R, C): q/k/v/o projections, w_up, w_down, LM head.
 QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
+# The RoPE models' attention shapes: (model, g = query heads a kv head,
+# head_dim, the options their layers pass: gemma2-2B's softcap and
+# 4096-token window, h2o-danube3-4B's window).
+MODEL_HEADS = [("qwen2-1.5b", 6, 128, {}),
+               ("gemma2-2b", 2, 256, {"softcap": 50.0, "window": 4096}),
+               ("h2o-danube3-4b", 4, 120, {"window": 4096}),
+               ("nemotron-4-340b", 12, 192, {})]
+# Their linears (R, C): q, k/v, o, w_gate/w_up, w_down, LM head.
+MODEL_GEMV_SHAPES = [
+    (1536, 1536), (256, 1536), (8960, 1536), (1536, 8960), (151936, 1536),      # qwen2
+    (2048, 2304), (1024, 2304), (2304, 2048), (9216, 2304), (2304, 9216),       # gemma2
+    (256000, 2304),
+    (3840, 3840), (960, 3840), (10240, 3840), (3840, 10240), (32000, 3840),     # danube
+    (18432, 18432), (1536, 18432), (73728, 18432), (18432, 73728),              # nemotron
+    (256000, 18432)]
 # Pool formats: (kv_cache_dtype, kv_scale_dtype); fp pools hold q's dtype.
 POOLS = {"fp": ("model", "float32"), "int8/f32": ("int8", "float32"),
          "int8/bf16": ("int8", "bfloat16"), "int4/bf16": ("int4", "bfloat16")}
@@ -521,7 +567,35 @@ def check_gemv_grid(torch, tlut, gemv_pim, seed):
         log(f"  gemv_pim_float grid ({calls // 2} shapes x options) {dname}, on the "
             f"{'/'.join(sorted(routes[dname]))} (the wrapper's route): max_abs_err {e:.3e} "
             f"(tol {TOL[dname]})")
-    return max(worst.values())
+    # The RoPE models' linears in bf16 at decode (M 1, 4) and chunk (M 64)
+    # widths, up to nemotron-4-340B's 256000 x 18432 LM head.
+    model_worst, model_calls = 0.0, 0
+    for R, C in MODEL_GEMV_SHAPES:
+        w = (torch.randn((R, C), generator=gen, device=dev) * C ** -0.5).bfloat16()
+        b = (torch.randn((R,), generator=gen, device=dev) * 0.5).bfloat16()
+        for M in (1, 4, 64):
+            x = (torch.randn((M, C), generator=gen, device=dev) * 0.5).bfloat16()
+            for act in (None, "lut", "gelu"):
+                kw = dict(act_table=bank.gelu if act == "lut" else None,
+                          act="gelu" if act == "gelu" else None)
+                for bias in (None, b):
+                    tc = fn.tc_launches
+                    got = fn(x, w, bias, **kw)
+                    torch.cuda.synchronize()
+                    if fn.tc_launches != tc + 1:
+                        raise AssertionError(f"gemv {M}x{C}x{R} bf16 ran on the CUDA cores")
+                    want = gemv_pim.gemv_pim_plain(x, w, bias, **kw)
+                    model_worst = max(model_worst, compare(
+                        torch, f"gemv {M}x{C}x{R} {act} bias={bias is not None} bf16", got,
+                        want, TOL["bfloat16"]))
+                    model_calls += 1
+                    del want
+        del w, b
+    log(f"  gemv_pim_float over the RoPE models' linears ({len(MODEL_GEMV_SHAPES)} (R, C) "
+        f"shapes, R up to 256000, C up to 73728, x M 1/4/64 x 6 epilogues = {model_calls} "
+        f"launches), bf16, all on the tensor cores: max_abs_err "
+        f"{model_worst:.3e} (tol {TOL['bfloat16']})")
+    return max(max(worst.values()), model_worst)
 
 
 def check_decode_grid(torch, tlut, quantize, paged_attention, seed):
@@ -566,6 +640,33 @@ def check_decode_grid(torch, tlut, quantize, paged_attention, seed):
     log(f"  paged_attention (new single walk) lengths {lens_list}, 64-page table, g 1 and "
         f"2, every pool format, f32 and bf16, exact (vs plain) and LUT (vs the page walk) "
         f"x window 300 + softcap 30: max_abs_err {worst:.3e} (tol 1e-4 f32, 3e-2 bf16)")
+    # The RoPE models' heads, bf16 on planted keys, past the 4096-token
+    # window of gemma2-2B and h2o-danube3-4B.
+    for model, g, D, mopts in MODEL_HEADS:
+        lens = [4700, 1500, 1]
+        q, k32, v32, tables, lengths = wide_decode_case(torch, gen, 3, 2 * g, 2, D, 300, lens,
+                                                        hot=8)
+        cs, win = paged_attention.decode_plan(3, 2, 300, g, D, 16, 2 * D)
+        m_worst = 0.0
+        for fmt in POOLS:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            for opts in (dict(mopts), dict(mopts, exp_table=bank.exp)):
+                got = paged_attention.paged_attention(q, k, v, tables, lengths, ks, vs, **opts)
+                torch.cuda.synchronize()
+                walk = "exp_table" in opts
+                plain = (paged_attention.paged_attention_online_plain if walk
+                         else paged_attention.paged_attention_plain)
+                want = plain(q, k, v, tables, lengths, ks, vs, **opts)
+                label = f"paged decode {model} g={g} D={D} {fmt} {sorted(opts)}"
+                if float(want.float().abs().amax()) <= 0.5:
+                    raise AssertionError(f"{label}: the planted keys did not dominate")
+                m_worst = max(m_worst, compare(torch, label, got, want, TOL["bfloat16"]))
+        log(f"  paged_attention at {model}'s heads (g {g}, D {D}, {mopts or 'no options'}), "
+            f"2 kv heads, lengths {lens} (cluster {cs}, runs of {win} pages), every pool "
+            f"format, bf16, planted keys, exact (vs plain) and LUT (vs the page walk): "
+            f"max_abs_err {m_worst:.3e} (tol {TOL['bfloat16']})")
+        worst = max(worst, m_worst)
+        del q, k32, v32, k, v, ks, vs
     return worst
 
 
@@ -773,6 +874,175 @@ def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill
     return out
 
 
+def time_model_kernels(torch, F, gemv_pim, paged_attention, paged_prefill, seed):
+    """Times at the RoPE models' shapes in bf16, beside the plain versions,
+    the matching PyTorch call and the bound: the 197 GEMVs of a
+    qwen2-1.5B decode step (M=4, seeded random weights of its shapes, one
+    set per layer, so every launch finds its weight cold in L2) and per
+    shape; the paged decode at 4 slots x 128..160 keys and the 64-token
+    chunk at start 64 at each model's heads (g x head_dim, 2 kv heads),
+    one pool per layer; SDPA on K/V gathered beforehand (GQA) as the
+    library yardstick."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    out = {}
+    cfg = get_config("qwen2_1_5b")
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    q_n, kv_n = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def randw(R, C):
+        return (torch.randn((R, C), generator=gen, device=dev) * C ** -0.5).bfloat16()
+
+    x_d = (torch.randn((4, d), generator=gen, device=dev) * 0.5).bfloat16()
+    x_f = (torch.randn((4, f), generator=gen, device=dev) * 0.5).bfloat16()
+    bias = {n: (torch.randn((n,), generator=gen, device=dev) * 0.5).bfloat16()
+            for n in (q_n, kv_n)}
+    step = []
+    for _ in range(L):
+        step += [(x_d, randw(q_n, d), bias[q_n]), (x_d, randw(kv_n, d), bias[kv_n]),
+                 (x_d, randw(kv_n, d), bias[kv_n]), (x_d, randw(d, q_n), None),
+                 (x_d, randw(f, d), None), (x_d, randw(f, d), None), (x_f, randw(d, f), None)]
+    step.append((x_d, randw(cfg.vocab, d), None))
+    nbytes = sum(2 * (x.shape[0] * x.shape[1] + w.numel() + (0 if b is None else b.numel())
+                      + x.shape[0] * w.shape[0]) for x, w, b in step)
+    flops = sum(2 * x.shape[0] * w.numel() for x, w, _ in step)
+    n = len(step)
+    ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(*step[i]), n) * n
+    plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_plain(*step[i]), n) * n
+    lib = time_graph(torch, lambda i: F.linear(*step[i]), n) * n
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"  gemv_pim_float, a qwen2-1.5B decode step's {n} launches (M=4, bf16, cold "
+        f"weights): {ms:.3f} ms, plain {plain:.3f} ms, F.linear {lib:.3f} ms, bound "
+        f"{bnd:.3f} ms ({by})")
+    out["gemv_pim_float"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                 bound_by=by, shape=f"qwen2-1.5B decode step: {n} launches, M=4")
+    for label, k in (("q", 0), ("k", 1), ("w_gate", 4), ("w_down", 6)):
+        ws = [step[7 * i + k] for i in range(L)]
+        t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(*ws[i]), L)
+        tl = time_graph(torch, lambda i: F.linear(*ws[i]), L)
+        x, w, _ = ws[0]
+        b1, _ = bound_ms(2 * (x.numel() + w.numel() + 4 * w.shape[0]), 2 * 4 * w.numel(),
+                         "bfloat16")
+        log(f"  gemv_pim_float qwen2 {label} M=4 C={w.shape[1]} R={w.shape[0]} bf16: "
+            f"{t * 1e3:.2f} us (bound {b1 * 1e3:.2f} us, F.linear {tl * 1e3:.2f} us)")
+    head = step[-1]
+    t = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(*head), 4)
+    tl = time_graph(torch, lambda i: F.linear(*head), 4)
+    b1, _ = bound_ms(2 * (4 * d + head[1].numel() + 4 * cfg.vocab), 8 * head[1].numel(),
+                     "bfloat16")
+    log(f"  gemv_pim_float qwen2 LM head M=4 C={d} R={cfg.vocab} bf16: {t * 1e3:.2f} us "
+        f"(bound {b1 * 1e3:.2f} us, F.linear {tl * 1e3:.2f} us)")
+    # q1's wide linears of a decode step (f32 weight scales, x quantized in
+    # f32): one launch each (w_down's share of x past the 4 pieces a thread
+    # holds in registers), against quantize_int8_rows + gemv_pim_int8.
+    f32 = torch.float32
+    for label, idx in (("w_gate", [7 * i + 4 for i in range(L)]),
+                       ("w_down", [7 * i + 6 for i in range(L)]), ("LM head", [n - 1])):
+        qs = [(step[i][0], *gemv_pim.quantize_int8_rows_plain(step[i][1].float()), step[i][2])
+              for i in idx]
+        x, w8 = qs[0][0], qs[0][1]
+        if gemv_pim.gemv_int8_linear_plan(*x.shape, w8.shape[0]) is None:
+            raise AssertionError(f"qwen2 q1 {label}: not one launch at M=4")
+        one = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_linear(*qs[i], compute=f32),
+                         len(qs))
+        two = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8(
+            *gemv_pim.quantize_int8_rows(qs[i][0], compute=f32), *qs[i][1:], out_dtype=x.dtype),
+            len(qs))
+        b1, _ = bound_ms(w8.numel() + 4 * w8.shape[0] + 2 * x.numel() + 8 * w8.shape[0],
+                         2 * 4 * w8.numel(), "int8")
+        log(f"  gemv_pim_int8_linear qwen2 q1 {label} M=4 C={x.shape[1]} R={w8.shape[0]}: "
+            f"{one * 1e3:.2f} us in one launch, {two * 1e3:.2f} us as quantize_int8_rows + "
+            f"gemv_pim_int8 (bound {b1 * 1e3:.2f} us)")
+        del qs
+    del step, head
+
+    # RoPE in a decode step: cos/sin once over the 4 slots' lengths, then q
+    # (12 heads) and k (2) rotated in each of the 28 layers, eager PyTorch.
+    from repro_torch.models.rope import apply_rope, rope_cos_sin
+    pos = torch.tensor([128, 137, 151, 160], dtype=torch.int32, device=dev)
+    qd = torch.randn((4, cfg.n_heads, cfg.head_dim), generator=gen, device=dev).bfloat16()
+    kd = torch.randn((4, cfg.n_kv_heads, cfg.head_dim), generator=gen, device=dev).bfloat16()
+
+    def rope_step(_=0):
+        cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        for _ in range(L):
+            apply_rope(qd[:, None], cos[:, None], sin[:, None])[:, 0]
+            apply_rope(kd[:, None], cos[:, None], sin[:, None])[:, 0]
+
+    n_ops = sum(eager_ops(torch, rope_step).values())
+    t = time_graph(torch, rope_step, 1)
+    log(f"  RoPE of a qwen2-1.5B decode step (cos/sin once, q and k in each of {L} layers): "
+        f"{n_ops} PyTorch operations, {t:.3f} ms on the device as a CUDA graph")
+    out["rope_step"] = dict(ops=n_ops, ms=t)
+
+    # Attention at each model's heads: 4 slots x 128..160 keys (decode) and
+    # a 64-token chunk at start 64 (prefill), 2 kv heads, page 16.
+    B, page, n_tbl, Hkv = 4, 16, 16, 2
+    P = 1 + B * n_tbl
+    tables = ((torch.randperm(P - 1, generator=gen, device=dev) + 1)
+              .reshape(B, n_tbl).to(torch.int32))
+    lens_list = [128, 137, 151, 160]
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    key_ok = torch.arange(n_tbl * page, device=dev)[None, :] < lengths[:, None].long()
+    for model, g, D, opts in MODEL_HEADS:
+        H = g * Hkv
+        pools = [tuple(torch.randn((P, Hkv, page, D), generator=gen, device=dev).bfloat16()
+                       for _ in range(2)) for _ in range(8)]
+        q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+        ms = time_graph(torch, lambda i: paged_attention.paged_attention(
+            q, *pools[i], tables, lengths, **opts), 8)
+        plain = time_graph(torch, lambda i: paged_attention.paged_attention_plain(
+            q, *pools[i], tables, lengths, **opts), 8)
+        dense = [tuple(paged_attention.gather_paged_kv(t, tables) for t in pl) for pl in pools]
+
+        def sdpa_decode(i):
+            return F.scaled_dot_product_attention(q[:, :, None], *dense[i], enable_gqa=True,
+                                                  attn_mask=key_ok[:, None, None])[:, :, 0]
+
+        if not opts:
+            compare(torch, f"sdpa decode yardstick at {model}'s heads", sdpa_decode(0),
+                    paged_attention.paged_attention_plain(q, *pools[0], tables, lengths),
+                    TOL["bfloat16"])
+        lib = time_graph(torch, sdpa_decode, 8)
+        kv = sum(lens_list) * Hkv * D * 2 * 2
+        bnd, by = bound_ms(kv + 2 * 2 * B * H * D + 4 * (tables.numel() + B),
+                           sum(lens_list) * H * D * 4, "bfloat16")
+        dec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+        # The chunk: 64 queries at start 64 of slot 0's table.
+        Sq, start = 64, 64
+        qp = torch.randn((1, Sq, H, D), generator=gen, device=dev).bfloat16()
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        ln, t1 = st + Sq, tables[:1].contiguous()
+        pms = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention(
+            qp, *pools[i], t1, ln, st, **opts), 8)
+        pplain = time_graph(torch, lambda i: paged_prefill.paged_prefill_attention_plain(
+            qp, *pools[i], t1, ln, st, **opts), 8)
+        n_keys = start + Sq
+        causal = (torch.arange(n_keys, device=dev)[None, :]
+                  <= start + torch.arange(Sq, device=dev)[:, None])
+        dense1 = [tuple(t[:1, :, :n_keys] for t in dd) for dd in dense]
+        qh = qp.transpose(1, 2)
+
+        def sdpa_prefill(i):
+            return F.scaled_dot_product_attention(qh, *dense1[i], attn_mask=causal,
+                                                  enable_gqa=True).transpose(1, 2)
+
+        plib = time_graph(torch, sdpa_prefill, 8)
+        keys = sum(start + r + 1 for r in range(Sq))
+        pbnd, pby = bound_ms(n_keys * Hkv * D * 2 * 2 + 2 * 2 * Sq * H * D + 4 * (n_tbl + 2),
+                             keys * H * D * 4, "bfloat16")
+        pre = dict(ms=pms, plain_ms=pplain, library_ms=plib, bound_ms=pbnd, bound_by=pby)
+        log(f"  {model}'s heads (g {g}, D {D}, {opts or 'no options'}) bf16: paged_attention "
+            f"4 x {lens_list} keys {ms * 1e3:.2f} us (plain {plain * 1e3:.2f}, SDPA "
+            f"{lib * 1e3:.2f}, bound {bnd * 1e3:.2f} us {by}); paged_prefill_attention Sq 64 "
+            f"at start 64 {pms * 1e3:.2f} us (plain {pplain * 1e3:.2f}, SDPA "
+            f"{plib * 1e3:.2f}, bound {pbnd * 1e3:.2f} us {pby})")
+        out[f"{model} heads"] = dict(decode=dec, prefill=pre)
+        del pools, dense, dense1
+    return out
+
+
 def time_long_kernels(torch, F, cfg, quantize, collectives, paged_attention, seed):
     """Decode attention at long context: B=4, H=16, D=64, page 16, a
     64-page table, lengths 960..1024, one pool set per layer (cold in L2 as
@@ -905,8 +1175,8 @@ def time_wide_decode(torch, F, paged_attention, seed):
     return dict(ms=one, bound_ms=bnd, library_ms=lib, split8_ms=split8, cluster=cs, win=win)
 
 
-def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layernorm_lut,
-                        lut_interp, seed):
+def check_dense_kernels(torch, tlut, quantize, attn, paged_attention, softmax_lut,
+                        layernorm_lut, lut_interp, seed):
     """The dense-cache path's four kernels against their plain versions at
     the main path's shapes, in f32 and bf16: decode attention over 256-,
     161- (a ragged last block) and 1024-position arenas, exact and LUT (LUT
@@ -1027,6 +1297,38 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
             f"the online walk: max_abs_err {worst:.3e} (tol {TOL['bfloat16']})")
         del k, v
 
+    # The RoPE models' heads over a 4800-position arena, bf16 and int8 (bf16
+    # scale rows), planted keys, past gemma2's and danube's 4096-token window.
+    for model, g, D, mopts in MODEL_HEADS:
+        lens = [4700, 1500, 1]
+        q, k32, v32, tables, lengths = wide_decode_case(torch, gen, 3, 2 * g, 2, D, 300, lens,
+                                                        hot=8)
+        ka, va = (paged_attention.gather_paged_kv(t, tables) for t in (k32, v32))
+        del k32, v32
+        (k8, ks), (v8, vs) = (quantize.quantize_vec(t, torch.bfloat16) for t in (ka, va))
+        arenas = {"bf16": (ka.bfloat16(), va.bfloat16(), None, None),
+                  "int8": (k8, v8, ks, vs)}
+        del ka, va
+        worst = 0.0
+        for name, (k, v, ksc, vsc) in arenas.items():
+            for opts in (dict(mopts), dict(mopts, exp_table=bank.exp)):
+                got = attn.decode_attention(q, k, v, lengths, ksc, vsc, **opts)
+                torch.cuda.synchronize()
+                lut = "exp_table" in opts
+                plain = attn.decode_attention_online_plain if lut else attn.decode_attention_plain
+                want = plain(q, k, v, lengths, ksc, vsc, **opts)
+                label = f"decode_attention {model} g={g} D={D} {name} arena lut={lut}"
+                if float(want.float().abs().amax()) <= 0.5:
+                    raise AssertionError(f"{label}: the planted keys did not dominate")
+                worst = max(worst, record("decode_attention", label, got, want,
+                                          TOL["bfloat16"]))
+        cs, win = paged_attention.arena_plan(3, 2, 4800, g, D, 2 * D)
+        log(f"  decode_attention at {model}'s heads (g {g}, D {D}, {mopts or 'no options'}), "
+            f"2 kv heads, arena 4800, lengths {lens} (cluster {cs}, windows of {win} blocks), "
+            f"bf16 and int8 arenas, planted keys, exact vs plain and LUT vs the online walk: "
+            f"max_abs_err {worst:.3e} (tol {TOL['bfloat16']})")
+        del q, arenas, k8, v8, ks, vs
+
     for S in (128, 960):
         x32 = randn(16, S, S, std=4.0)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1070,6 +1372,36 @@ def check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut, layerno
                                                  "elements differ from the plain version")
             log(f"  layernorm_lut ({M}, 1024) LN/RMS x LUT/exact {dname}, contiguous and "
                 "strided rows: bit-exact to the plain version")
+
+    # Rows past 8 warps' registers, streamed through a block (nemotron-4-340B's
+    # d 18432): bit for bit, in 16-byte pieces and, on rows of odd stride,
+    # element by element.
+    for d, dtype in ((16392, torch.bfloat16), (18432, torch.bfloat16), (8200, torch.float32)):
+        dname = str(dtype).split(".")[1]
+        M = 4
+        if layernorm_lut.layernorm_plan(M, d, dtype.itemsize)[0] != 0:
+            raise AssertionError(f"layernorm_lut ({M}, {d}) {dname} is not streamed")
+        x = (randn(M, d, std=3.0) + 0.5).to(dtype)
+        g, b = (randn(d, std=0.2) + 1.0).to(dtype), randn(d, std=0.2).to(dtype)
+        xo = torch.cat([x, x[:, :1]], dim=1)[:, :d]          # stride d + 1
+        for rms in (False, True):
+            for lut in (False, True):
+                for plus_one in ((False, True) if rms else (False,)):
+                    kw = dict(eps=1e-5, rsqrt_table=bank.rsqrt if lut else None, rms=rms,
+                              plus_one=plus_one)
+                    beta = None if rms else b
+                    got = layernorm_lut.layernorm_lut(x, g, beta, **kw)
+                    odd = layernorm_lut.layernorm_lut(xo, g, beta, **kw)
+                    torch.cuda.synchronize()
+                    want = layernorm_lut.layernorm_lut_plain(x, g, beta, wide_sums=True, **kw)
+                    label = f"layernorm_lut ({M}, {d}) rms={rms} lut={lut} {dname}"
+                    record("layernorm_lut", label, got, want, TOL[dname])
+                    for name, t in (("", got), (" odd stride", odd)):
+                        if not torch.equal(t, want):
+                            raise AssertionError(f"{label}{name}: {int((t != want).sum())} "
+                                                 "elements differ from the plain version")
+        log(f"  layernorm_lut ({M}, {d}) {dname}, streamed (a block a row), LN/RMS/RMS+1 x "
+            "LUT/exact, contiguous and odd-stride rows: bit-exact to the plain version")
 
     for M in (4, 64):
         x32 = randn(M, 4096, std=3.0)
@@ -1253,6 +1585,27 @@ def time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut, lu
                       f"layernorm_lut ({M}, {d}) bf16 LUT")
         del rows
 
+    # The streamed norm at nemotron-4-340B's width: a decode step's 4 rows of
+    # 18432 in bf16, LayerNorm, a block a row.
+    d, M = 18432, 4
+    g, b = (randn(d, std=0.2) + 1.0).bfloat16(), randn(d, std=0.2).bfloat16()
+    rows = [randn(M, d).bfloat16() for _ in range(n)]
+    ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(rows[i], g, b,
+                                                                 rsqrt_table=bank.rsqrt), n)
+    exact = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(rows[i], g, b), n)
+    plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
+        rows[i], g, b, rsqrt_table=bank.rsqrt, wide_sums=True), n)
+    lib = time_graph(torch, lambda i: F.layer_norm(rows[i], (d,), g, b, 1e-5), n)
+    bnd, by = bound_ms(2 * (2 * M * d + 2 * d), 8 * M * d, "float32")
+    out["layernorm_lut"]["shape"] += (
+        f"; ({M}, {d}) bf16 streamed (a block a row): {ms * 1e3:.2f} us (exact "
+        f"{exact * 1e3:.2f} us), plain {plain * 1e3:.2f} us, F.layer_norm {lib * 1e3:.2f} us, "
+        f"bound {bnd * 1e3:.2f} us")
+    log(f"  layernorm_lut [({M}, {d}) bf16 streamed, LUT rsqrt (exact rsqrt "
+        f"{exact * 1e3:.2f} us)]: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, library "
+        f"(F.layer_norm) {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+    del rows
+
     acts = [randn(4, cfg.d_ff, std=3.0) for _ in range(L)]
     ms = time_graph(torch, lambda i: lut_interp.lut_interp(acts[i], bank.gelu), L)
     plain = time_graph(torch, lambda i: lut_interp.lut_interp_plain(acts[i], bank.gelu), L)
@@ -1398,17 +1751,19 @@ def check_quant_kernels(torch, quant, tlut, gemv_pim, seed):
 def check_int8_linear(torch, gemv_pim, tlut, gen, same):
     """The int8 linear layer (`gemv_pim_int8_linear`) bit for bit with x's
     quantize_int8_rows launch then `gemv_pim_int8`, and with its plain
-    version, over the model's shapes at M 1, 4, 8, 64 (one launch, x
-    quantized in the load path, on the s8 tensor cores) and 65, 512 (the
-    two launches), in q1's form (bf16 x quantized in f32, f32 weight
-    scales, bf16 bias) and q3's (bf16 x and weight scales, the bias, the
+    version, over GPT-2's and qwen2-1.5B's shapes at M 1, 4, 8, 64 (one
+    launch, x quantized in the load path, on the s8 tensor cores, where
+    `gemv_int8_linear_plan` tiles it: past 4 pieces of x a thread, as
+    qwen2's w_down at decode, the rest loaded as they are quantized) and
+    65, 512 (the two launches), in q1's form (bf16 x quantized in f32, f32
+    weight scales, bf16 bias) and q3's (bf16 x and weight scales, the bias, the
     LUT GELU)."""
     dev = torch.device("cuda")
     fn = gemv_pim.gemv_pim_int8_linear
     gelu = tlut.LutBank.create(64).gelu
     one = two = 0
     fused_at = set()
-    for R, C in QUANT_SHAPES:
+    for R, C in QUANT_SHAPES + MODEL_GEMV_SHAPES[:5]:     # GPT-2's, then qwen2-1.5B's
         w = (torch.randn((R, C), generator=gen, device=dev) * C ** -0.5).to(torch.bfloat16)
         b = (torch.randn(R, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
         forms = {"q1": (torch.float32, *gemv_pim.quantize_int8_rows_plain(w.float()), None),
@@ -1436,7 +1791,8 @@ def check_int8_linear(torch, gemv_pim, tlut, gen, same):
                 same("gemv_pim_int8", label + " (plain)", got, gemv_pim.gemv_pim_int8_linear_plain(
                     x, w8, ws, b, compute=compute, act_table=table))
         del w
-    log(f"  gemv_pim_int8_linear over the model's shapes at M 1, 4, 8, 64, 65, 512, q1's form "
+    log(f"  gemv_pim_int8_linear over GPT-2's and qwen2-1.5B's shapes at M 1, 4, 8, 64, 65, "
+        f"512, q1's form "
         f"(x in f32, f32 scales) and q3's (bf16 scales, bias, LUT GELU): {one} launches with x "
         f"quantized in the load path (M {sorted(fused_at)}), {two} as quantize_int8_rows + "
         "gemv_pim_int8: bit-exact to the two launches and to the plain version")
@@ -1545,13 +1901,13 @@ def check_fixed_routes(torch, quant, tlut, gemv_pim, gen, same):
 
 
 def check_prefill_grid(torch, tlut, quantize, paged_prefill, seed):
-    """The paged prefill kernel with bf16 queries (the tensor-core kernel;
-    the wrapper's tc_launches must show it) over a 64-page table (page 16,
-    D 64): g in {1, 2} (16 query heads over 16 or 8 kv heads), chunks of
+    """The paged prefill kernel (fp64 sums) with bf16 queries over a 64-page
+    table (page 16, D 64): g in {1, 2} (16 query heads over 16 or 8 kv heads), chunks of
     Sq in {1, 17, 64} at starts {0, 15, 64, 896}, every pool format, exact
     and LUT, with and without window 300 and softcap 30: exact mode
     against the plain version, LUT mode against the page walk
-    (`paged_prefill_attention_online_plain`), at TOL."""
+    (`paged_prefill_attention_online_plain`), at TOL; the elements whose
+    bits differ from the plain version's are counted."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     bank = tlut.LutBank.create(64)
@@ -1560,7 +1916,7 @@ def check_prefill_grid(torch, tlut, quantize, paged_prefill, seed):
     table = (torch.randperm(P - 1, generator=gen, device=dev) + 1)[None].to(torch.int32)
     fn = paged_prefill.paged_prefill_attention
     worst = {}
-    calls = tc = 0
+    calls = differ = elems = 0
     opts_list = [{}, {"exp_table": bank.exp}, {"window": 300, "softcap": 30.0},
                  {"exp_table": bank.exp, "window": 300, "softcap": 30.0}]
     for Hkv in (16, 8):
@@ -1574,25 +1930,63 @@ def check_prefill_grid(torch, tlut, quantize, paged_prefill, seed):
                     st = torch.tensor([start], dtype=torch.int32, device=dev)
                     ln = st + Sq
                     for opts in opts_list:
-                        before = fn.tc_launches
+                        before = fn.launches
                         got = fn(q, k, v, table, ln, st, ks, vs, **opts)
                         torch.cuda.synchronize()
-                        tc += fn.tc_launches - before
-                        calls += 1
+                        calls += fn.launches - before
                         walk = "exp_table" in opts
                         plain = (paged_prefill.paged_prefill_attention_online_plain if walk
                                  else paged_prefill.paged_prefill_attention_plain)
                         want = plain(q, k, v, table, ln, st, ks, vs, **opts)
+                        differ += int((got != want.to(got.dtype)).sum())
+                        elems += got.numel()
                         e = compare(torch, f"paged prefill g={H // Hkv} {fmt} Sq={Sq} "
                                     f"start={start} {sorted(opts)}", got, want, TOL["bfloat16"])
                         key = "LUT vs the page walk" if walk else "exact vs plain"
                         worst[key] = max(worst.get(key, 0.0), e)
-    if tc != calls:
-        raise AssertionError(f"paged prefill grid: {tc} of {calls} launches on the tensor cores")
-    log(f"  paged_prefill_attention grid: {calls} launches, all on the tensor cores (the "
-        f"wrapper's count), g 1 and 2, Sq 1/17/64 at starts 0/15/64/896, every pool format, "
+    if calls != 2 * len(POOLS) * 3 * 4 * len(opts_list):
+        raise AssertionError(f"paged prefill grid: {calls} launches")
+    log(f"  paged_prefill_attention grid: {calls} launches (the wrapper's count), {differ} of "
+        f"{elems} elements off the plain version's bits, g 1 and 2, Sq 1/17/64 at starts 0/15/64/896, every pool format, "
         f"bf16, x window 300 + softcap 30: max_abs_err "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TOL['bfloat16']})")
+    # The RoPE models' heads over a 300-page table (4800 keys): chunks at
+    # the start, mid-prompt and past the 4096-token window, with queries of
+    # std 4 so that a few keys dominate each row (scores of std ~4).
+    for model, g, D, mopts in MODEL_HEADS:
+        P = 1 + 300
+        table = (torch.randperm(P - 1, generator=gen, device=dev) + 1)[None].to(torch.int32)
+        k32 = torch.randn((P, 2, page, D), generator=gen, device=dev)
+        v32 = torch.randn((P, 2, page, D), generator=gen, device=dev)
+        m_worst, m_calls, m_differ = 0.0, 0, 0
+        for fmt in POOLS:
+            k, v, ks, vs = make_pools(torch, quantize, k32, v32, fmt, torch.bfloat16)
+            for Sq, start in ((64, 0), (17, 15), (64, 4400)):
+                q = (4 * torch.randn((1, Sq, 2 * g, D), generator=gen, device=dev)).bfloat16()
+                st = torch.tensor([start], dtype=torch.int32, device=dev)
+                ln = st + Sq
+                for opts in (dict(mopts), dict(mopts, exp_table=bank.exp)):
+                    before = fn.launches
+                    got = fn(q, k, v, table, ln, st, ks, vs, **opts)
+                    torch.cuda.synchronize()
+                    m_calls += fn.launches - before
+                    walk = "exp_table" in opts
+                    plain = (paged_prefill.paged_prefill_attention_online_plain if walk
+                             else paged_prefill.paged_prefill_attention_plain)
+                    want = plain(q, k, v, table, ln, st, ks, vs, **opts)
+                    m_differ += int((got != want.to(got.dtype)).sum())
+                    m_worst = max(m_worst, compare(
+                        torch, f"paged prefill {model} g={g} D={D} {fmt} Sq={Sq} "
+                        f"start={start} {sorted(opts)}", got, want, TOL["bfloat16"]))
+        if m_calls != len(POOLS) * 3 * 2:
+            raise AssertionError(f"paged prefill at {model}'s heads: {m_calls} launches")
+        log(f"  paged_prefill_attention at {model}'s heads (g {g}, D {D}, "
+            f"{mopts or 'no options'}), Sq/start 64/0, 17/15, 64/4400 of a 4800-key table, "
+            f"every pool format, bf16, exact (vs plain) and LUT (vs the page walk), "
+            f"{m_calls} launches, {m_differ} elements off the plain version's bits: "
+            f"max_abs_err {m_worst:.3e} (tol {TOL['bfloat16']})")
+        worst[f"{model} heads"] = m_worst
+        del k32, v32, k, v, ks, vs
     return max(worst.values())
 
 
@@ -1941,18 +2335,29 @@ def time_quant_kernels(torch, quant, gemv_pim, params, qparams, cfg, seed):
 # Phase 4: serving
 # ---------------------------------------------------------------------------
 
-def plain_linear(F, sal, quant, qz, gemv_pim, lut_interp):
+def exact_activation(F, torch, act):
+    """The exact activation `act` in plain PyTorch (Nonlinear's exact
+    mode: the tanh GELU, SiLU, squared ReLU)."""
+    return {"gelu": lambda t: F.gelu(t, approximate="tanh"), "silu": F.silu,
+            "squared_relu": lambda t: torch.clamp(t, min=0.0) ** 2}[act]
+
+
+def plain_linear(torch, F, sal, quant, qz, gemv_pim, lut_interp):
     """`SalPimEngine.linear` of `sal` through plain functions alone: the
     float GEMV's plain version, or `core.quant`'s `int8_linear` and
     `fixed_linear` (the twins of the JAX package's), which compute the
     quantized datapaths with the integer product in float64, followed by
-    the activation's plain version."""
+    the activation's plain version (the LUT where the bank has a table for
+    it, else the exact function)."""
     cfg, nl = sal.config, sal.nl
 
+    def table(act):
+        return getattr(nl.bank, act, None) if nl.mode == "lut" else None
+
     def activation(out, act):
-        if nl.mode == "lut":
-            return lut_interp.lut_interp_plain(out, getattr(nl.bank, act))
-        return F.gelu(out, approximate="tanh")
+        if table(act) is not None:
+            return lut_interp.lut_interp_plain(out, table(act))
+        return exact_activation(F, torch, act)(out)
 
     def lin(x, w, b=None, act=None):
         if isinstance(w, qz.QTensor):
@@ -1968,10 +2373,12 @@ def plain_linear(F, sal, quant, qz, gemv_pim, lut_interp):
                 out = out + b.to(x.dtype)
         elif act is None:
             return gemv_pim.gemv_pim_plain(x, w, b)
-        elif nl.mode == "lut":
-            return gemv_pim.gemv_pim_plain(x, w, b, act_table=getattr(nl.bank, act))
+        elif table(act) is not None:
+            return gemv_pim.gemv_pim_plain(x, w, b, act_table=table(act))
+        elif act == "gelu":
+            return gemv_pim.gemv_pim_plain(x, w, b, act="gelu")
         else:
-            return gemv_pim.gemv_pim_plain(x, w, b, act=act)
+            out = gemv_pim.gemv_pim_plain(x, w, b)
         return activation(out, act) if act is not None else out
     return lin
 
@@ -1980,74 +2387,122 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
                          fmt="fp", online=True):
     """One-shot prefill of `prompt` through the plain versions only, on the
     linear datapath of `sal`: the reference for the engine's first logits.
-    Attention runs over a pool of format `fmt` (quantized per vector as the
-    engine writes it) with the paged plain version or, in LUT mode with
-    `online`, with the page walk the paged kernels compute
+    Any dense model of the port: learned positions or RoPE, LayerNorm or
+    RMSNorm (1 + w with `rmsnorm_plus1`), GQA, the sliding window of each
+    layer, softcaps, post-norms, a gated or plain MLP. Attention runs over
+    a pool of format `fmt` (quantized per vector as the engine writes it)
+    with the paged plain version or, in LUT mode with `online`, with the
+    page walk the paged kernels compute
     (`paged_prefill_attention_online_plain`:
     its LUT algebra is not the dense LUT softmax's); with fmt="dense" it is
     the dense path's masked softmax attention (the LUT softmax's plain
     version in LUT mode)."""
+    from repro_torch.models.rope import apply_rope, rope_cos_sin
     gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut, walk = plain
     dev = params["embed"].device
-    S, H, D, page = len(prompt), cfg.n_heads, cfg.head_dim, 16
+    S, H, Hkv, D, page = len(prompt), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
+    g = H // Hkv
+    scale = cfg.attn_scale if cfg.attn_scale is not None else D ** -0.5
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
-    x = params["embed"][toks].to(cfg.cdtype) + params["pos_embed"][:S].to(cfg.cdtype)
+    x = params["embed"][toks].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype))
+    if cfg.learned_pos_emb:
+        x = x + params["pos_embed"][:S].to(cfg.cdtype)
+        cos = sin = None
+    else:
+        cos, sin = rope_cos_sin(torch.arange(S, device=dev), D, cfg.rope_theta)
     n_pages = -(-S // page)
     table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     length = zero + S
     nl = sal.nl
     lut = nl.mode == "lut"
-    lin = plain_linear(F, sal, quant, qz, gemv_pim, lut_interp)
+    lin = plain_linear(torch, F, sal, quant, qz, gemv_pim, lut_interp)
     bl = params["blocks"]
 
     def norm(x, p, i=None):
-        g, b = (p["g"], p["b"]) if i is None else (p["g"][i], p["b"][i])
-        return layernorm_lut.layernorm_lut_plain(x, g, b, eps=cfg.norm_eps,
-                                                 rsqrt_table=nl.bank.rsqrt if lut else None,
-                                                 wide_sums=True)
+        g_, b_ = p["g"] if i is None else p["g"][i], p.get("b")
+        if b_ is not None and i is not None:
+            b_ = b_[i]
+        return layernorm_lut.layernorm_lut_plain(
+            x, g_, b_, eps=cfg.norm_eps, rsqrt_table=nl.bank.rsqrt if lut else None,
+            rms=cfg.norm != "layernorm", plus_one=cfg.norm == "rmsnorm_plus1",
+            wide_sums=True)
 
     def at(w, i):                                 # layer i of a stacked weight
         return qz.QTensor(w.w_i8[i], w.scale[i]) if isinstance(w, qz.QTensor) else w[i]
 
-    def pool(t):                                  # (S, H, D) -> (1 + n, H, page, D)
-        p = torch.zeros((n_pages * page, H, D), dtype=t.dtype, device=dev)
+    def bias(a, name, i):
+        return a[name][i] if name in a else None
+
+    def softcap(t, cap):
+        if lut:
+            return cap * lut_interp.lut_interp_plain(t / cap, nl.bank.tanh)
+        return cap * torch.tanh(t / cap)
+
+    def pool(t):                                  # (S, Hkv, D) -> (1 + n, Hkv, page, D)
+        p = torch.zeros((n_pages * page, Hkv, D), dtype=t.dtype, device=dev)
         p[:S] = t
-        p = p.reshape(n_pages, page, H, D).transpose(1, 2)
+        p = p.reshape(n_pages, page, Hkv, D).transpose(1, 2)
         return torch.cat([torch.zeros_like(p[:1]), p]).contiguous()
 
-    def dense_attention(q, k, v):                 # q (1, S, H, D), k/v (S, H, D)
-        sc = torch.einsum("bqhd,khd->bhqk", q.float(), k.float()) * D ** -0.5
+    def dense_attention(q, k, v, window):         # q (1, S, H, D), k/v (S, Hkv, D)
+        qg = q.reshape(1, S, Hkv, g, D)
+        sc = torch.einsum("bqhgd,khd->bhgqk", qg.float(), k.float()) * scale
+        if cfg.attn_softcap is not None:
+            sc = softcap(sc, cfg.attn_softcap)
         if lut:
             probs = softmax_lut.softmax_lut_plain(sc, nl.bank.exp, nl.bank.recip,
-                                                  causal=True)
+                                                  causal=True, window=window)
         else:
             mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+            if window is not None:
+                mask = mask & torch.ones_like(mask).triu(1 - window)
             probs = torch.softmax(torch.where(mask, sc, -torch.inf), dim=-1)
-        return torch.einsum("bhqk,khd->bqhd", probs.to(v.dtype), v)
+        out = torch.einsum("bhgqk,khd->bqhgd", probs.to(v.dtype), v)
+        return out.reshape(1, S, H, D)
 
     for i in range(cfg.n_layers):
         a, ffn = bl["attn"], bl["ffn"]
+        window = cfg.window_for_layer(i)
         h = norm(x, bl["ln1"], i)
-        q = lin(h, at(a["wq"], i), a["bq"][i]).reshape(1, S, H, D)
-        k = lin(h, at(a["wk"], i), a["bk"][i]).reshape(S, H, D)
-        v = lin(h, at(a["wv"], i), a["bv"][i]).reshape(S, H, D)
+        q = lin(h, at(a["wq"], i), bias(a, "bq", i)).reshape(1, S, H, D)
+        k = lin(h, at(a["wk"], i), bias(a, "bk", i)).reshape(S, Hkv, D)
+        v = lin(h, at(a["wv"], i), bias(a, "bv", i)).reshape(S, Hkv, D)
+        if cos is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         if fmt == "dense":
-            att = dense_attention(q, k, v)
+            att = dense_attention(q, k, v, window)
         else:
             kp, vp, ks, vs = make_pools(torch, qz, pool(k), pool(v), fmt, cfg.cdtype)
+            kw = dict(scale=scale, softcap=cfg.attn_softcap, window=window)
             if lut and online:
-                att = walk(q, kp, vp, table, length, zero, ks, vs,
-                           exp_table=nl.bank.exp).to(q.dtype)
+                att = walk(q, kp, vp, table, length, zero, ks, vs, exp_table=nl.bank.exp,
+                           **kw).to(q.dtype)
             else:
                 att = paged_prefill.paged_prefill_attention_plain(
-                    q, kp, vp, table, length, zero, ks, vs, scale=D ** -0.5,
-                    exp_table=nl.bank.exp if lut else None)
-        x = x + lin(att.reshape(S, H * D), at(a["wo"], i))
+                    q, kp, vp, table, length, zero, ks, vs,
+                    exp_table=nl.bank.exp if lut else None, **kw)
+        h = lin(att.reshape(S, H * D), at(a["wo"], i))
+        if cfg.post_norms:
+            h = norm(h, bl["post_ln1"], i)
+        x = x + h
         h = norm(x, bl["ln2"], i)
-        x = x + lin(lin(h, at(ffn["w_up"], i), act="gelu"), at(ffn["w_down"], i))
+        if cfg.gated_mlp:
+            h = (lin(h, at(ffn["w_gate"], i), act=cfg.activation)
+                 * lin(h, at(ffn["w_up"], i)))
+        else:
+            h = lin(h, at(ffn["w_up"], i), act=cfg.activation)
+        h = lin(h, at(ffn["w_down"], i))
+        if cfg.post_norms:
+            h = norm(h, bl["post_ln2"], i)
+        x = x + h
     x = norm(x[-1:], params["final_norm"])
-    return lin(x, params["lm_head"])[0].float()
+    logits = lin(x, params["lm_head"])[0].float()
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
 
 
 class TcCounter:
@@ -2071,13 +2526,27 @@ TC = "gemv_pim_float.tc"
 TC8 = "gemv_pim_int8.tc"
 TC8L = "gemv_pim_int8_linear.tc"
 TCF = "gemv_pim_fixed_linear.tc"
-TCP = "paged_prefill_attention.tc"
+
+
+def param_count(tree) -> int:
+    """Elements of every tensor in a nested dict of parameters."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return tree.numel()
+
+
+def step_counts(cfg) -> tuple[int, int]:
+    """(linears, norms) of one decode step or prefill chunk: q, k, v, o
+    and the MLP's two or three a layer plus the LM head; two norms a layer
+    (four with post-norms) plus the final one."""
+    L = cfg.n_layers
+    return (6 + int(cfg.gated_mlp)) * L + 1, (2 + 2 * int(cfg.post_norms)) * L + 1
 
 
 def serving_handles(torch):
-    """The kernel wrappers by name (their launch counters; TC, TC8, TC8L, TCF
-    and TCP count the tensor-core launches of the float and int8 GEMVs, of
-    the int8 and fixed16 linear layers and of the paged prefill), the modules that `serve`
+    """The kernel wrappers by name (their launch counters; TC, TC8, TC8L and
+    TCF count the tensor-core launches of the float and int8 GEMVs and of
+    the int8 and fixed16 linear layers), the modules that `serve`
     takes and the plain versions that `plain_prefill_logits` takes."""
     from repro_torch.core import lut as tlut
     from repro_torch.core.salpim import SalPimConfig, SalPimEngine
@@ -2105,8 +2574,7 @@ def serving_handles(torch):
                TC: TcCounter(gemv_pim.gemv_pim_float),
                TC8: TcCounter(gemv_pim.gemv_pim_int8),
                TC8L: TcCounter(gemv_pim.gemv_pim_int8_linear),
-               TCF: TcCounter(gemv_pim.gemv_pim_fixed_linear),
-               TCP: TcCounter(paged_prefill.paged_prefill_attention)}
+               TCF: TcCounter(gemv_pim.gemv_pim_fixed_linear)}
     mods = (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
             paged_attention, kernels)
     plain = (gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut,
@@ -2122,12 +2590,15 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     every kernel: every linear one launch of the GEMV kernel `gemv` on the
     tensor cores (on the int8 datapaths the int8 linear layer, x quantized
     in its load path: no quantize_int8_rows launch for x, one for the
-    weight with quant="int8"), every chunk's attention on the tensor-core
-    prefill kernel, no lut_interp (a LUT activation rides every GEMV's
-    epilogue)."""
+    weight with quant="int8"), every chunk's attention one prefill kernel
+    launch a layer, no lut_interp (a LUT activation rides every GEMV's
+    epilogue; a LUT-mode final softcap is one lut_interp a step and a
+    chunk, the LUT tanh of the logits)."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     kv, sd = POOLS[fmt]
+    n_lin, n_norm = step_counts(cfg)
+    softcap_lut = mode == "lut" and cfg.final_softcap is not None
     sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode, quant=quant))
     eng = ServingEngine(params, cfg, sal, EngineConfig(
         slots=4, max_len=max_len, paged=True, page_size=16, prefill_chunk_tokens=64,
@@ -2155,16 +2626,16 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         steps += 1
         d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
         dec, chunk = eng.decode_steps - n_dec, eng.prefill_chunks - n_chunk
-        L = cfg.n_layers                 # 6 linears a layer plus the LM head
-        lin = (6 * L + 1) * (dec + chunk)
+        L = cfg.n_layers
+        lin = n_lin * (dec + chunk)
         expect = {name: 0 for name in kernels}
         expect.update({gemv: lin,
                        TC: lin if gemv == "gemv_pim_float" else 0,
                        TC8L: lin if gemv == "gemv_pim_int8_linear" else 0,
                        TCF: lin if gemv == "gemv_pim_fixed_linear" else 0,
                        "quantize_int8_rows": lin if quant == "int8" else 0,
-                       TCP: L * chunk,
-                       "layernorm_lut": (2 * L + 1) * (dec + chunk),
+                       "layernorm_lut": n_norm * (dec + chunk),
+                       "lut_interp": dec + chunk if softcap_lut else 0,
                        "paged_attention": 0 if split else L * dec,
                        "paged_prefill_attention": L * chunk,
                        "paged_attention_split": L * dec if split else 0,
@@ -2175,7 +2646,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
             # else quantize_int8_rows then gemv_pim_int8 (a chunk's wider x;
             # never its LM head, which takes the last token alone).
             two = d["gemv_pim_int8"]
-            if two > 6 * L * chunk:
+            if two > (n_lin - 1) * chunk:
                 raise AssertionError(f"serve[{label}] step {steps}: {two} int8 linears took "
                                      f"two launches; a decode step takes none")
             expect.update({gemv: lin - two, TC8L: lin - two, "gemv_pim_int8": two, TC8: two,
@@ -2206,18 +2677,20 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
     tc = " (all on the tensor cores)"
-    wq = f", {6 * L + 1} quantize_int8_rows (the weights)" if quant == "int8" else ""
+    wq = f", {n_lin} quantize_int8_rows (the weights)" if quant == "int8" else ""
     if gemv == "gemv_pim_int8_linear":
-        dec_lin = f"{6 * L + 1} {gemv}{tc} (x quantized in the load path){wq}"
-        chunk_lin = (f"{6 * L + 1} int8 linears{wq}, each one {gemv} or, where no token tile "
+        dec_lin = f"{n_lin} {gemv}{tc} (x quantized in the load path){wq}"
+        chunk_lin = (f"{n_lin} int8 linears{wq}, each one {gemv} or, where no token tile "
                      "holds the chunk's x, quantize_int8_rows + gemv_pim_int8 (all on the "
                      "tensor cores)")
     else:
-        dec_lin = chunk_lin = f"{6 * L + 1} {gemv}{tc}"
+        dec_lin = chunk_lin = f"{n_lin} {gemv}{tc}"
+    interp = ("1 lut_interp (the final softcap's LUT tanh)" if softcap_lut
+              else "no lut_interp")
     log(f"  serve[{label}] launches per decode step: {dec_lin}, {attn}, "
-        f"{2 * L + 1} layernorm_lut; per prefill chunk: {chunk_lin}, "
-        f"{L} paged_prefill_attention (all on the tensor cores), {2 * L + 1} "
-        f"layernorm_lut; no other kernel, no lut_interp (checked every step)")
+        f"{n_norm} layernorm_lut; per prefill chunk: {chunk_lin}, "
+        f"{L} paged_prefill_attention, {n_norm} "
+        f"layernorm_lut; {interp}, no other kernel (checked every step)")
     return eng, done, first, wall
 
 
@@ -2679,7 +3152,7 @@ def main() -> int:
     errs["paged_attention_split"] = max(errs["paged_attention_split"], check_split_planted(
         torch, tlut, quantize, paged_attention, args.seed))
     errs.update(check_quant_kernels(torch, quant, tlut, gemv_pim, args.seed))
-    errs.update(check_dense_kernels(torch, tlut, attn, paged_attention, softmax_lut,
+    errs.update(check_dense_kernels(torch, tlut, quantize, attn, paged_attention, softmax_lut,
                                     layernorm_lut, lut_interp, args.seed))
     cfg = gpt2_medium.config()
     params = api.init_params(cfg, seed=args.seed, device="cuda")
@@ -2693,6 +3166,8 @@ def main() -> int:
     times.update(quant_times)
     times.update(time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut,
                                     lut_interp, args.seed))
+    model_times = time_model_kernels(torch, F, gemv_pim, paged_attention, paged_prefill,
+                                     args.seed)
 
     kernels, mods, plain = serving_handles(torch)
 
@@ -2717,7 +3192,7 @@ def main() -> int:
     runs, counts_256 = counted("max_len 256", lambda: {
         mode: serve(torch, mods, params, cfg, prompts, new_tokens, card, label=mode,
                     mode=mode) for mode in ("exact", "lut")},
-        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", TCP,
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
          "layernorm_lut"])
     for mode, (eng, done, first, _) in runs.items():
         sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
@@ -2736,7 +3211,7 @@ def main() -> int:
     long_runs, counts_1024 = counted("max_len 1024", lambda: {
         label: serve(torch, mods, params, cfg, long_prompts, new_tokens, card, label=label,
                      max_len=1024, **kw) for label, kw in drains},
-        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", TCP,
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
          "paged_attention_split", "merge_partials", "layernorm_lut"])
     (_, d1, _, _), (_, d2, _, _) = long_runs[drains[0][0]], long_runs[drains[1][0]]
     same = sum(a == b for u in d1 for a, b in zip(d1[u].generated, d2[u].generated))
@@ -2767,7 +3242,7 @@ def main() -> int:
                      gemv=gemv, **kw) for label, p, kw, fmt, gemv in qdrains},
         ["gemv_pim_int8_linear", TC8L, "gemv_pim_int8", TC8, "quantize_int8_rows",
          "gemv_pim_fixed_linear", TCF,
-         "paged_attention", "paged_prefill_attention", TCP, "layernorm_lut"])
+         "paged_attention", "paged_prefill_attention", "layernorm_lut"])
     check_quant_step_ops(torch, api, params, qparams, cfg, SalPimConfig, SalPimEngine)
     _, exact_done, _, _ = runs["exact"]
     for label, p, kw, fmt, _ in qdrains:
@@ -2849,7 +3324,98 @@ def main() -> int:
         torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)), 128,
         256, mode, card) for mode in ("exact", "lut")}
 
-    log("== 8. result")
+    log("== 8. qwen2-1.5B at full width (28 layers, d 1536, 12/2 heads, head_dim 128, "
+        "d_ff 8960, vocab 151936, bf16, random weights)")
+    from repro_torch.configs import get_config
+    qcfg = get_config("qwen2_1_5b")
+    qw = api.init_params(qcfg, seed=args.seed, device="cuda")
+    qw_q1 = quantize.quantize_params_int8(qw)
+    n_params = param_count(qw)
+    log(f"  {n_params / 1e9:.2f} B parameters, {2 * n_params / 2 ** 30:.1f} GiB in bf16")
+    q_prompts = [rng.randint(2, qcfg.vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
+    # (label, weights, serve's options)
+    q_drains = [("qwen2 exact", qw, dict()), ("qwen2 lut", qw, dict(mode="lut")),
+                ("qwen2 exact K=4 max_len 1024", qw, dict(max_len=1024, kv_splits=4)),
+                ("qwen2 q1 int8 weights, int8 pools", qw_q1,
+                 dict(fmt="int8/f32", gemv="gemv_pim_int8_linear"))]
+    q_runs, counts_qwen = counted("qwen2-1.5b", lambda: {
+        label: serve(torch, mods, p, qcfg, q_prompts, new_tokens, card, label=label, **kw)
+        for label, p, kw in q_drains},
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+         "paged_attention_split", "merge_partials", "gemv_pim_int8_linear", TC8L,
+         "gemv_pim_int8", TC8, "quantize_int8_rows", "layernorm_lut"])
+    for label, p, kw in q_drains:
+        _, done, first, _ = q_runs[label]
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=kw.get("mode", "exact")))
+        check_first_logits(torch, F, p, qcfg, sal, q_prompts, done, first, label,
+                           kw.get("fmt", "fp"), quant, quantize, plain)
+    qwen_ms = {mode: time_model(torch, api, qw, qcfg,
+                                SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+                                q_prompts, card, label=f"qwen2 {mode}")
+               for mode in ("exact", "lut")}
+    del qw, qw_q1, q_runs
+
+    log("== 9. gemma2-2B and h2o-danube3-4B at full width, 2 layers")
+    # Three prompts of 32..128 tokens and one of 4200, past the 4096-token
+    # sliding window of danube's every layer and gemma2's local ones.
+    gd_prompts = [rng.randint(2, 32000, size=int(n)) for n in rng.randint(32, 129, size=3)]
+    gd_prompts.append(rng.randint(2, 32000, size=4200))
+    gd_runs = {}
+
+    def drive_gd():
+        out = {}
+        for name in ("gemma2_2b", "h2o_danube3_4b"):
+            full = get_config(name)
+            mcfg = dataclasses.replace(full, n_layers=2)
+            log(f"  {full.name}: the published widths (d {full.d_model}, {full.n_heads}/"
+                f"{full.n_kv_heads} heads, head_dim {full.head_dim}, d_ff {full.d_ff}, vocab "
+                f"{full.vocab}), depth cut from {full.n_layers} to {mcfg.n_layers} layers; "
+                f"random weights; prompts of {[len(p) for p in gd_prompts]} tokens")
+            w = api.init_params(mcfg, seed=args.seed, device="cuda")
+            for mode in ("exact", "lut"):
+                label = f"{name} {mode}"
+                out[label] = (mcfg, w, mode, serve(torch, mods, w, mcfg, gd_prompts, new_tokens,
+                                                   card, label=label, mode=mode, max_len=4352))
+        return out
+
+    gd_runs, counts_gd = counted("gemma2-2b / h2o-danube3-4b", drive_gd, [
+        "gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", "layernorm_lut",
+        "lut_interp"])
+    for label, (mcfg, w, mode, (_, done, first, _)) in gd_runs.items():
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        check_first_logits(torch, F, w, mcfg, sal, gd_prompts, done, first, label, "fp",
+                           quant, quantize, plain)
+    del gd_runs
+    torch.cuda.empty_cache()
+
+    log("== 10. nemotron-4-340B at full width, 1 layer")
+    full = get_config("nemotron_4_340b")
+    ncfg = dataclasses.replace(full, n_layers=1)
+    nw = api.init_params(ncfg, seed=args.seed, device="cuda")
+    n_params = param_count(nw)
+    n_prompts = [rng.randint(2, ncfg.vocab, size=int(n)) for n in (40, 97)]
+    plan = layernorm_lut.layernorm_plan(4, ncfg.d_model, 2)
+    log(f"  {full.name}: the published widths (d {full.d_model}, {full.n_heads}/"
+        f"{full.n_kv_heads} heads, head_dim {full.head_dim}, d_ff {full.d_ff} squared ReLU, "
+        f"vocab {full.vocab}), depth cut from {full.n_layers} to 1 layer: "
+        f"{n_params / 1e9:.2f} B parameters, {2 * n_params / 2 ** 30:.1f} GiB in bf16; "
+        f"the norm's plan at (4, {ncfg.d_model}) bf16 {plan} (chunks 0: streamed)")
+    if plan[0] != 0:
+        raise AssertionError("nemotron's norms are not on the streamed path")
+    n_runs, counts_nem = counted("nemotron-4-340b", lambda: serve(
+        torch, mods, nw, ncfg, n_prompts, new_tokens, card, label="nemotron exact"),
+        ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", "layernorm_lut"])
+    _, done, first, _ = n_runs
+    check_first_logits(torch, F, nw, ncfg, SalPimEngine.create(SalPimConfig()), n_prompts,
+                       done, first, "nemotron exact", "fp", quant, quantize, plain)
+    del nw, n_runs
+    torch.cuda.empty_cache()
+
+    log("== 11. result")
+    all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
+                  ("quantized max_len 256", counts_q), ("dense", counts_dense),
+                  ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
+                  ("nemotron-4-340b", counts_nem)]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -2859,24 +3425,27 @@ def main() -> int:
         # layer that quantizes x (and, for fixed16, w) in its load path.
         entries = [name] + {"gemv_pim_fixed": ["gemv_pim_fixed_linear"],
                             "gemv_pim_int8": ["gemv_pim_int8_linear"]}.get(name, [])
-        by_path = {path: sum(c[e] for e in entries) for path, c in (
-            ("max_len 256", counts_256), ("max_len 1024", counts_1024),
-            ("quantized max_len 256", counts_q), ("dense", counts_dense))}
+        by_path = {path: sum(c[e] for e in entries) for path, c in all_counts}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path}
         if name in NOT_TPU_KERNELS:
             row["tpu_kernel"] = False
         tc_keys = {"gemv_pim_float": [TC], "gemv_pim_int8": [TC8, TC8L],
-                   "gemv_pim_fixed": [TCF], "paged_prefill_attention": [TCP]}
+                   "gemv_pim_fixed": [TCF]}
         if name in tc_keys:
-            row["tc_launches"] = sum(c[k] for c in (counts_256, counts_1024, counts_q,
-                                                    counts_dense) for k in tc_keys[name])
+            row["tc_launches"] = sum(c[k] for _, c in all_counts for k in tc_keys[name])
         if name == "gemv_pim_float":
             row["chunk_145_launches"] = times["gemv_chunk"]
         if name == "paged_attention":
             row["wide_131072_keys"] = times["wide"]
         if name == "lut_interp":
             row["launch_floor_ms"] = t["launch_floor_ms"]
+        if name == "gemv_pim_float":
+            row["qwen2_decode_step"] = model_times["gemv_pim_float"]
+        if name in ("paged_attention", "paged_prefill_attention"):
+            form = "decode" if name == "paged_attention" else "prefill"
+            row["model_heads"] = {m: model_times[f"{m} heads"][form]
+                                  for m, _, _, _ in MODEL_HEADS}
         rows.append({**row,
                      "max_abs_err": errs[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2888,6 +3457,9 @@ def main() -> int:
         + ", ".join(f"[{k}] {v['device']:.2f}" for k, v in dense_ms.items()))
     log(f"  dense 128-token admission, device ms: "
         + ", ".join(f"[{k}] {v:.3f}" for k, v in admission_ms.items()))
+    log(f"  qwen2-1.5B decode step / 64-token chunk, device ms (host clock ms): "
+        + ", ".join(f"[{k}] {v['dev_dec']:.2f} ({v['dec']:.2f}) / {v['dev_chunk']:.2f} "
+                    f"({v['chunk']:.2f})" for k, v in qwen_ms.items()) + f" ({card})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -86,7 +86,7 @@ class SalPimEngine:
             out = qtensor_linear(x, w, b, act_table=table)
         elif cfg.quant not in ("int8", "fixed16"):
             x2 = x.reshape(-1, x.shape[-1])
-            return self._float_linear(x2, w, b, act).reshape(*lead, -1)
+            return self._float_linear(x2, w, b, act, table).reshape(*lead, -1)
         elif cfg.quant == "int8":
             w_i8, w_scale = ops.pim_quantize_int8_rows(w, static_input=True)
             out = ops.pim_int8_linear(x.reshape(-1, x.shape[-1]), w_i8, w_scale, b,
@@ -99,13 +99,13 @@ class SalPimEngine:
             return out
         return self.nl.activation(act)(out)
 
-    def _float_linear(self, x2, w, b, act):
-        """The float GEMV with the activation fused into its epilogue."""
-        if act is None:
-            return ops.pim_linear(x2, w, b)
-        if self.nl.mode == "lut":
-            return ops.pim_linear(x2, w, b, act_table=getattr(self.nl.bank, act))
-        if act == "gelu":
+    def _float_linear(self, x2, w, b, act, table):
+        """The float GEMV with the activation fused into its epilogue: the
+        LUT `table`, or the exact GELU; an activation with neither (exact
+        SiLU, squared ReLU, which has no table) runs after the GEMV."""
+        if act is None or table is not None:
+            return ops.pim_linear(x2, w, b, act_table=table)
+        if act == "gelu" and self.nl.mode == "exact":
             return ops.pim_linear(x2, w, b, act="gelu")
         return self.nl.activation(act)(ops.pim_linear(x2, w, b))
 

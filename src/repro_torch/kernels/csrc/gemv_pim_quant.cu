@@ -69,13 +69,15 @@
 //
 // gemv_pim_int8_linear: the int8 linear layer in one launch at decode
 // widths (one token tile holds all of M, and a block's share of x is at
-// most 2 pieces of 16 elements a consumer thread): x (M, C) in f32 or bf16 is
+// most kMaxXPieces pieces of 16 elements): x (M, C) in f32 or bf16 is
 // quantized per row inside the kernel, as quantize_int8_rows below does
 // (in x's dtype, or in f32 for bf16 x), then the s8 product and the int8
 // epilogue with each row's scale from shared memory. Each block loads its
-// C-share of x into registers first thing, takes each row's absmax (from
-// those pieces when it holds whole rows, else reading its rows whole: x is
-// a few rows, in L2) and quantizes its share straight into the swizzled s8
+// C-share of x (its first 4 pieces a consumer thread) into registers first
+// thing, takes each row's absmax (from those pieces when they are its
+// whole rows, else reading its rows whole: x is a few rows, in L2) and
+// quantizes its share (any further pieces loaded as it goes) straight
+// into the swizzled s8
 // tiles that its wgmmas read (x stays in shared memory for the whole K
 // loop, so only W rides the TMA ring, whose loads start while x is
 // quantized).
@@ -875,7 +877,8 @@ int launch_quant(const QuantArgs& a, int chunks, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxXRows = 32;   // its token tile: one tile holds every row of x
-constexpr int kXItems = 2;      // 16-element pieces of x a consumer thread holds
+constexpr int kXItems = 4;      // 16-element pieces of x a consumer thread holds
+constexpr int kMaxXPieces = 2048;  // 16-element pieces of x a block quantizes
 
 // x stays in shared memory: the block's K tiles of x, quantized once
 // before the first stage into s8 tiles of N x 128 bytes in the 128-byte
@@ -947,11 +950,12 @@ struct Int8XEpi {
     return n < M ? it - n * nk * 8 : -1;
   }
 
-  __device__ __forceinline__ void load_x(XRegs& r, int kt0, int nk, int M) const {
+  // Pieces k0 .. k0 + kXItems - 1 of this thread.
+  __device__ __forceinline__ void load_x(XRegs& r, int kt0, int nk, int M, int k0 = 0) const {
 #pragma unroll
     for (int k = 0; k < kXItems; ++k) {
       int n;
-      const int ch = piece(k, nk, M, n);
+      const int ch = piece(k0 + k, nk, M, n);
       const int col = kt0 * gemv_tc::kKBytes + ch * 16;
       if (ch >= 0 && col < C) {
 #pragma unroll
@@ -966,12 +970,44 @@ struct Int8XEpi {
     s.xr[m] = __frcp_rn(s.xs[m]);
   }
 
-  // Each row's absmax, then each piece quantized from the registers into
-  // its chunk of the s8 tiles at `planes`. A block that holds whole rows
-  // (no cluster) takes the absmax of its pieces (shared-memory atomics on
-  // the bits of non-negative floats, whose order they keep, a NaN above
-  // all); a block of a cluster reads its rows whole, a warp a row, which
-  // measured faster on the H100 than exchanging the blocks' partial
+  // Pieces k0 .. k0 + kXItems - 1 of this thread, held in `r`, quantized
+  // with their rows' scales into their chunks of the s8 tiles at `planes`.
+  template <int N>
+  __device__ __forceinline__ void store_x(const XRegs& r, const Smem& s, uint32_t planes,
+                                          int kt0, int nk, int M, int k0) const {
+    constexpr int kK = gemv_tc::kKBytes;
+#pragma unroll
+    for (int k = 0; k < kXItems; ++k) {
+      int n;
+      const int ch = piece(k0 + k, nk, M, n);
+      if (ch >= 0 && kt0 * kK + ch * 16 < C) {
+        const float sc = s.xs[n], rc = s.xr[n];
+        const bool fin = isfinite(sc);
+        uint32_t b[16];
+#pragma unroll
+        for (int p = 0; p < 16 / kV; ++p) {
+          float e[kV];
+          common::Vec<T>::widen(r.v[k][p], e);
+#pragma unroll
+          for (int j = 0; j < kV; ++j) b[p * kV + j] = q8<CT>(e[j], sc, rc, fin);
+        }
+        const int i = ch >> 3, c = ch & 7;
+        sts128(planes + i * N * kK + n * kK + ((c ^ (n & 7)) << 4),
+               make_uint4(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]),
+                          pack4(b[8], b[9], b[10], b[11]), pack4(b[12], b[13], b[14], b[15])));
+      }
+    }
+  }
+
+  // Each row's absmax, then each piece quantized into its chunk of the s8
+  // tiles at `planes`: the kXItems a thread loaded first thing from the
+  // registers, any further ones (a share past kXItems pieces a thread,
+  // as the wide linears of a decode step have) loaded kXItems at a time
+  // from L2 as they are quantized. A block that holds whole rows in its
+  // registers (no cluster) takes the absmax of its pieces (shared-memory
+  // atomics on the bits of non-negative floats, whose order they keep, a
+  // NaN above all); any other block reads its rows whole, a warp a row,
+  // which measured faster on the H100 than exchanging the blocks' partial
   // absmaxes over distributed shared memory behind a cluster barrier.
   // Rows past M and columns past C are left as they are: they meet W's
   // zero fill or give outputs that are not stored.
@@ -980,7 +1016,8 @@ struct Int8XEpi {
                              int M) const {
     constexpr int kK = gemv_tc::kKBytes;
     const int tid = threadIdx.x;
-    if (nk * kK >= C) {                  // this block's share is the whole row
+    const int pieces = M * nk * 8;
+    if (nk * kK >= C && pieces <= gemv_tc::kConsumers * kXItems) {   // whole rows, held
 #pragma unroll
       for (int k = 0; k < kXItems; ++k) {
         int n;
@@ -1017,26 +1054,11 @@ struct Int8XEpi {
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(gemv_tc::kConsumers) : "memory");
-#pragma unroll
-    for (int k = 0; k < kXItems; ++k) {
-      int n;
-      const int ch = piece(k, nk, M, n);
-      if (ch >= 0 && kt0 * kK + ch * 16 < C) {
-        const float sc = s.xs[n], rc = s.xr[n];
-        const bool fin = isfinite(sc);
-        uint32_t b[16];
-#pragma unroll
-        for (int p = 0; p < 16 / kV; ++p) {
-          float e[kV];
-          common::Vec<T>::widen(r.v[k][p], e);
-#pragma unroll
-          for (int j = 0; j < kV; ++j) b[p * kV + j] = q8<CT>(e[j], sc, rc, fin);
-        }
-        const int i = ch >> 3, c = ch & 7;
-        sts128(planes + i * N * kK + n * kK + ((c ^ (n & 7)) << 4),
-               make_uint4(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]),
-                          pack4(b[8], b[9], b[10], b[11]), pack4(b[12], b[13], b[14], b[15])));
-      }
+    store_x<N>(r, s, planes, kt0, nk, M, 0);
+    for (int k0 = kXItems; k0 * gemv_tc::kConsumers < pieces; k0 += kXItems) {
+      XRegs more;
+      load_x(more, kt0, nk, M, k0);
+      store_x<N>(more, s, planes, kt0, nk, M, k0);
     }
     // x's tiles, written through the generic proxy, are read by wgmma
     // through the async proxy.
@@ -1121,9 +1143,8 @@ int quantize_int8_rows(const void* x, void* q, void* scale, long long rows, int 
 // out_dtype, act 1 applying the LUT. On the s8 tensor cores only: C a
 // multiple of 16, x and w 16-byte aligned, M <= n_tile <= 32 (one token
 // tile holds every row), cluster as gemv_pim_int8, and the block's share of
-// x at most kXItems 16-element pieces a consumer thread (M times the
-// block's 128-element K tiles at most 32). Returns a CUDA error code (0 on
-// success).
+// x at most kMaxXPieces 16-element pieces (M times the block's 128-element
+// K tiles at most 256). Returns a CUDA error code (0 on success).
 int gemv_pim_int8_linear(const void* x, const void* w, const void* w_scale, const void* bias,
                          const void* table, void* out, int M, int C, int R, int dtype,
                          int compute, int ws_dtype, int bias_dtype, int out_dtype, int act,
@@ -1134,7 +1155,7 @@ int gemv_pim_int8_linear(const void* x, const void* w, const void* w_scale, cons
   if (cluster < 1 || M < 1 || M > n_tile || n_tile > kMaxXRows)
     return (int)cudaErrorInvalidValue;
   const int per_block = ((C + 127) / 128 + cluster - 1) / cluster;
-  if (M * per_block * 8 > gemv_tc::kConsumers * kXItems) return (int)cudaErrorInvalidValue;
+  if (M * per_block * 8 > kMaxXPieces) return (int)cudaErrorInvalidValue;
   const Int8Out o{nullptr, w_scale, bias, (const float*)table, out, R, 0, ws_dtype,
                   bias_dtype, out_dtype, act, lo, inv_step, sections};
   if (dtype == 0 && compute == 0)

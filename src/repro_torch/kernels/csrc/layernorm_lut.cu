@@ -35,7 +35,12 @@
 //     with W > 1 the group's warps in order through shared memory after one
 //     barrier;
 //   * the rsqrt table, one evaluation a row, is read from device memory,
-//     not staged; the output is written from the registers.
+//     not staged; the output is written from the registers;
+//   * rows past 8 warps' registers (d > 16384 in bf16, 8192 in f32:
+//     nemotron-4-340B's 18432) take a block a row and are streamed: read
+//     once a pass (the mean, the centred variance, the output), in 16-byte
+//     pieces where allowed, with the same fp64 sums, so the result is the
+//     same bits as the plain version's.
 #include "common.cuh"
 #include "lut.cuh"
 
@@ -174,9 +179,107 @@ __global__ void __launch_bounds__(kThreads) layernorm_rows(Args a) {
   }
 }
 
+// Rows past the registers: a block a row, streamed from device memory.
+// Thread t takes the pieces i = t, t + kThreads, ... of N elements: with
+// a.vec the 16-byte piece at i * N, else the elements
+// (i / kThreads) * kThreads * N + j * kThreads + i % kThreads, so that a
+// warp's loads stay coalesced either way.
+template <typename T, typename G>
+__global__ void __launch_bounds__(kThreads) layernorm_stream(Args a) {
+  constexpr int N = 16 / (int)sizeof(T);
+  __shared__ double red[2][kWarps];
+  const long long row = blockIdx.x;
+  const int d = a.d;
+  const T* xr = static_cast<const T*>(a.x) + row * a.x_stride;
+  const G* gamma = static_cast<const G*>(a.gamma);
+  const G* beta = static_cast<const G*>(a.beta);
+  T* orow = static_cast<T*>(a.out) + row * d;
+  constexpr int kSpan = kThreads * N;
+  const int n_pieces = a.vec ? d / N : (d + kSpan - 1) / kSpan * kThreads;
+
+  // The index of element j of piece i, or -1 past d.
+  auto index = [&](int i, int j) {
+    const int k = a.vec ? i * N + j
+                        : (i / kThreads) * kThreads * N + j * kThreads + i % kThreads;
+    return k < d ? k : -1;
+  };
+  auto load = [&](int i, Pack<T, N>& x) {
+    if (a.vec) {
+      x.load(xr + i * N);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int k = index(i, j);
+        if (k >= 0) x.v[j] = xr[k];
+      }
+    }
+  };
+
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n_pieces; i += kThreads) {
+    Pack<T, N> x;
+    load(i, x);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (index(i, j) >= 0) {
+        const float v = x[j];
+        s += a.rms ? (double)__fmul_rn(v, v) : (double)v;
+      }
+    }
+  }
+  const float m = row_mean(s, red[0], kWarps, d);
+  float mean = 0.0f, var = m;
+  if (!a.rms) {
+    mean = m;
+    s = 0.0;
+    for (int i = threadIdx.x; i < n_pieces; i += kThreads) {
+      Pack<T, N> x;
+      load(i, x);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (index(i, j) >= 0) {
+          const float xc = __fsub_rn(x[j], mean);
+          s += (double)__fmul_rn(xc, xc);
+        }
+      }
+    }
+    var = row_mean(s, red[1], kWarps, d);
+  }
+  const float v = __fadd_rn(var, a.eps);
+  const float inv = a.use_lut ? lut::rsqrt(v, a.rsqrt_wb, a.lo, a.inv_step, a.sections)
+                              : rsqrtf(v);
+
+  for (int i = threadIdx.x; i < n_pieces; i += kThreads) {
+    Pack<T, N> x, o;
+    Pack<G, N> g, b;
+    load(i, x);
+    if (a.vec) {
+      g.load(gamma + i * N);
+      if (beta != nullptr) b.load(beta + i * N);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int k = index(i, j);
+      if (k < 0) continue;
+      const float xc = a.rms ? x[j] : __fsub_rn(x[j], mean);
+      float gj = a.vec ? g[j] : to_f(gamma[k]);
+      if (a.plus_one) gj = __fadd_rn(1.0f, gj);
+      float r = __fmul_rn(__fmul_rn(xc, inv), gj);
+      if (beta != nullptr) r = __fadd_rn(r, a.vec ? b[j] : to_f(beta[k]));
+      o.v[j] = from_f<T>(r);
+      if (!a.vec) orow[k] = o.v[j];
+    }
+    if (a.vec) o.store(orow + i * N);
+  }
+}
+
 template <typename T, typename G>
 int launch(const Args& a, int chunks, cudaStream_t s) {
   constexpr int N = 16 / (int)sizeof(T);
+  if (chunks == 0) {
+    layernorm_stream<T, G><<<(unsigned)a.n_rows, kThreads, 0, s>>>(a);
+    return 0;
+  }
   const int W = 1 << a.wshift, R = a.rows_per_block;
   if (R < 1 || W * R > kWarps || (long long)chunks * 32 * W * N < a.d)
     return (int)cudaErrorInvalidValue;
@@ -206,8 +309,9 @@ extern "C" {
 // dtype (x's and out's) and gdtype (gamma's and beta's): 0 = float32,
 // 1 = bfloat16. beta and rsqrt_wb may be null (rsqrt_wb when use_lut is 0).
 // out is (n_rows, d) contiguous. chunks, warps_per_row and rows_per_block
-// are layernorm_plan's; vec asks for 16-byte pieces (x, out, gamma and beta
-// 16-byte aligned, x_stride and d multiples of 16 bytes of x's elements).
+// are layernorm_plan's (chunks 0: a block a row, streamed); vec asks for
+// 16-byte pieces (x, out, gamma and beta 16-byte aligned, x_stride and d
+// multiples of 16 bytes of x's elements).
 // Returns a CUDA error code (0 on success).
 int layernorm_lut(const void* x, const void* gamma, const void* beta, const float* rsqrt_wb,
                   void* out, long long n_rows, int d, long long x_stride, float eps,

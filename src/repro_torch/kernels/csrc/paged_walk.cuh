@@ -1,14 +1,17 @@
-// The block-table page walk of the CUDA-core (f32) paged prefill
-// (paged_prefill.cu); its pool formats, their row readers (Row) and the
-// dispatch also serve the decode walk (decode_walk.cuh: the single walk,
-// the KV split and the dense arena) and the tensor-core prefill.
+// The block-table page walk of the paged prefill (paged_prefill.cu); its
+// pool formats, their row readers (Row) and the dispatch also serve the
+// decode walk (decode_walk.cuh: the single walk, the KV split and the
+// dense arena).
 //
 // One thread block owns `rows` query rows of one (sequence b, kv head h),
 // a block of the Sq * g rows of a prefill chunk. It walks the sequence's
 // block table itself (Hopper has no scalar prefetch) over the logical
-// pages [page_lo, page_hi) it is given. It stages a chunk of up to kMaxChunkPages pages of K and V in shared
-// memory as fp32, and then runs the TPU kernels' online softmax page by
-// page, in the same order and with the same algebra:
+// pages [page_lo, page_hi) it is given. It stages a chunk of up to
+// kMaxChunkPages pages of K and V in shared memory (dequantized in fp32
+// as the plain versions do, then held as fp64: each value is converted
+// once, not at each of its uses), and then runs
+// the TPU kernels' online softmax page by page, in the same order and with
+// the same algebra:
 //
 //   scores = (q . k) * scale [-> softcap * tanh(scores / softcap)]
 //   masked scores = NEG_INF (-1e30); m_new = max(m_prev, max(scores))
@@ -16,13 +19,27 @@
 //   p = LUT(scores - m_new), corr = LUT(max(m_prev - m_new, lo)) LUT
 //   p = 0 outside the mask; l = l * corr + sum(p); acc = acc * corr + p . v
 //
-// and the caller writes acc / max(l, 1e-9). A key position k is valid for the row with
-// absolute query position qpos when k < length, k <= qpos and, with a
-// window, k > qpos - window. Pages past the last valid key of the block
-// are not read. Physical page ids outside the pool read the trash page 0.
+// and the caller writes acc / max(l, 1e-9), rounded to fp32 and then to
+// q's dtype. A key position k is valid for the row with absolute query
+// position qpos when k < length, k <= qpos and, with a window, k >
+// qpos - window. Pages past the last valid key of the block are not read.
+// Physical page ids outside the pool read the trash page 0.
+//
+// Every sum, the scores, the statistics and acc are fp64 (q, K and V,
+// fp32 values, are exact in it, and so is each product); a LUT is evaluated
+// in fp32, as core/lut.py's table, on its fp64 argument rounded to fp32.
+// The output is then within a few fp64 ulps of the exact one whatever the
+// order of the sums, so it rounds to the bits of the plain version
+// (`paged_prefill_attention_plain`, fp64 too) but where the exact output
+// lies within those ulps of a rounding boundary: bit for bit in practice.
+// An fp32 walk's last bits move 1e-4 of its bf16 outputs, and a quantized
+// datapath (int8 activations) turns each moved bit into moved int8 codes:
+// a 28-layer model's first logits then drift from the plain path's by
+// 5.7e-2 (qwen2-1.5B, q1, scripts/logit_drift.py), past their gate.
 //
 // Pool formats (template parameter Pool of the staging copy), each
-// widened to fp32 as it is staged, as `_dequant_page` does after its DMA:
+// widened to fp32 as it is staged, as `_dequant_page` does after its DMA
+// (and stored as fp64 by the prefill walk):
 //   FpPool<T>    pages of the model dtype T (float or bf16), D values a row;
 //   Int8Pool<S>  int8 payload, D bytes a row, times the row's scale (S =
 //                float or bf16, read in its storage dtype);
@@ -31,14 +48,17 @@
 //                high nibble, sign-extended in int arithmetic, times the
 //                row's scale.
 //
-// The walk is latency-bound at the engine's sizes (16 rows a prefill
-// block), so each pass spreads its work over
-// the whole block and keeps independent work in flight per thread: the
-// staging copy issues kLoadIlp 16-byte loads of K and of V before it
-// stores any, each (row, key) dot product is split over a group of up to
-// 32 threads that reduce with shuffles and runs four partial sums, the
-// p . V sums run four partial sums over the page's keys, and the softmax
-// statistics of a row are one warp's work.
+// The walk is latency-bound at the engine's sizes (8 rows a prefill
+// block), so it takes a chunk of up to kMaxChunkPages pages (as many as
+// kWalkSmem holds) at a time, each step of the page walk a pass over the
+// whole chunk by the whole block, a barrier between passes: the staging
+// copy (kLoadIlp 16-byte loads of K and of V in flight before it stores
+// any), every (row, key) score (a dot product split over a group of up to
+// 32 threads when there are few, four partial sums each), each page's
+// maximum of a row, the running maximum and corr of a row page by page,
+// every p, each page's sum of p of a row, and acc (and l) page by page,
+// each output's p . V in four partial sums. So a chunk of 8 pages takes 8
+// barriers where a walk page by page takes 26.
 #pragma once
 
 #include "common.cuh"
@@ -50,11 +70,13 @@ using common::from_f;
 using common::to_f;
 
 constexpr float kNegInf = -1e30f;
+constexpr double kNegInfD = -1e30;
 constexpr int kThreads = 256;
 constexpr int kMaxTableRows = lut::kMaxTableRows;
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kMaxChunkPages = 8;
+constexpr int kWalkSmem = 226 * 1024;
 constexpr int kLoadIlp = 4;
 
 struct Args {
@@ -81,41 +103,45 @@ struct Args {
   int vec;                  // 1: payload rows are whole 16-byte vectors, pools aligned
 };
 
-// Shared-memory layout, all 4-byte words. K rows are padded to D + 1 so
-// that the per-key dot products of neighbouring threads hit distinct banks.
+// Shared-memory layout: the fp64 state first (8-byte aligned), then the
+// fp32 staging, then ints. K rows are padded to D + 1 so that the per-key
+// dot products of neighbouring threads hit distinct banks.
 struct Smem {
-  float* q;      // rows * D
-  float* acc;    // rows * D
-  float* m;      // rows
-  float* l;      // rows
-  float* corr;   // rows
-  int* qpos;     // rows
-  float* sc;     // rows * page
-  float* k;      // chunk * page * (D + 1)
-  float* v;      // chunk * page * D
-  int* tbl;      // chunk
+  double* acc;   // rows * D
+  double* q;     // rows * D
+  double* m;     // rows
+  double* l;     // rows
+  double* corr;  // rows * kMaxChunkPages: each page's corr
+  double* pm;    // rows * kMaxChunkPages: each page's maximum, then m_new
+  double* ps;    // rows * kMaxChunkPages: each page's sum of p
+  double* sc;    // rows * chunk * page: scores, then p
+  double* k;     // chunk * page * (D + 1)
+  double* v;     // chunk * page * D
   float* wb;     // 2 * kMaxTableRows
+  int* qpos;     // rows
+  int* tbl;      // kMaxChunkPages
 };
 
-__host__ __device__ inline int fixed_words(int rows, int d, int page) {
-  return 2 * rows * d + 4 * rows + rows * page + 2 * kMaxTableRows;
+__host__ __device__ inline int fixed_bytes(int rows, int d) {
+  return 8 * (2 * rows * d + 2 * rows + 3 * rows * kMaxChunkPages) +
+         4 * (2 * kMaxTableRows + rows + kMaxChunkPages);
 }
 
-__host__ __device__ inline int page_words(int d, int page) {
-  return page * (d + 1) + page * d + 1;
+__host__ __device__ inline int page_bytes(int rows, int d, int page) {
+  return 8 * (rows * page + page * (d + 1) + page * d);
 }
 
 __host__ __device__ inline int smem_bytes(int rows, int d, int page, int chunk) {
-  return 4 * (fixed_words(rows, d, page) + chunk * page_words(d, page));
+  return fixed_bytes(rows, d) + chunk * page_bytes(rows, d, page);
 }
 
-// Largest page chunk that keeps the block within 48 KB (at least 1 page,
-// at most kMaxChunkPages); 0 when even one page exceeds the SM's limit.
+// Largest page chunk within kWalkSmem (at least 1 page, at most
+// kMaxChunkPages); 0 when even one page exceeds the SM's limit.
 inline int pick_chunk(int rows, int d, int page) {
-  const int fixed = 4 * fixed_words(rows, d, page);
-  const int per = 4 * page_words(d, page);
+  const int fixed = fixed_bytes(rows, d);
+  const int per = page_bytes(rows, d, page);
   if (fixed + per > kSmemMax) return 0;
-  int ch = (kSmemDefault - fixed) / per;
+  int ch = (kWalkSmem - fixed) / per;
   if (ch < 1) ch = 1;
   if (ch > kMaxChunkPages) ch = kMaxChunkPages;
   return ch;
@@ -133,13 +159,15 @@ struct FpPool {
   static constexpr bool kScaled = false;
   __host__ __device__ static int row_payload(int d) { return d; }
   __device__ __forceinline__ static float scale(const void*, size_t) { return 1.0f; }
-  __device__ __forceinline__ static void put16(const uint4& raw, float, float* row, int c, int) {
+  template <typename O>
+  __device__ __forceinline__ static void put16(const uint4& raw, float, O* row, int c, int) {
     float f[common::Vec<T>::N];
     common::Vec<T>::widen(raw, f);
 #pragma unroll
     for (int n = 0; n < common::Vec<T>::N; ++n) row[c + n] = f[n];
   }
-  __device__ __forceinline__ static void put1(P x, float, float* row, int c, int) {
+  template <typename O>
+  __device__ __forceinline__ static void put1(P x, float, O* row, int c, int) {
     row[c] = to_f(x);
   }
 };
@@ -152,12 +180,14 @@ struct Int8Pool {
   __device__ __forceinline__ static float scale(const void* sc, size_t i) {
     return to_f(reinterpret_cast<const S*>(sc)[i]);
   }
-  __device__ __forceinline__ static void put16(const uint4& raw, float sc, float* row, int c, int) {
+  template <typename O>
+  __device__ __forceinline__ static void put16(const uint4& raw, float sc, O* row, int c, int) {
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int n = 0; n < 16; ++n) row[c + n] = (float)b[n] * sc;
   }
-  __device__ __forceinline__ static void put1(P x, float sc, float* row, int c, int) {
+  template <typename O>
+  __device__ __forceinline__ static void put1(P x, float sc, O* row, int c, int) {
     row[c] = (float)x * sc;
   }
 };
@@ -174,11 +204,13 @@ struct Int4Pool {
   // nibble: element c + D/2, sign-extended by the arithmetic shift x >> 4.
   __device__ __forceinline__ static float lo4(int v) { return (float)(((v & 0xF) ^ 8) - 8); }
   __device__ __forceinline__ static float hi4(int v) { return (float)(v >> 4); }
-  __device__ __forceinline__ static void put1(P x, float sc, float* row, int c, int d) {
+  template <typename O>
+  __device__ __forceinline__ static void put1(P x, float sc, O* row, int c, int d) {
     row[c] = lo4(x) * sc;
     row[c + d / 2] = hi4(x) * sc;
   }
-  __device__ __forceinline__ static void put16(const uint4& raw, float sc, float* row, int c, int d) {
+  template <typename O>
+  __device__ __forceinline__ static void put16(const uint4& raw, float sc, O* row, int c, int d) {
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int n = 0; n < 16; ++n) put1(b[n], sc, row, c + n, d);
@@ -321,19 +353,22 @@ int dispatch(int dtype, int fmt, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-__device__ inline Smem carve(float* base, int rows, int d, int page, int chunk) {
+__device__ inline Smem carve(double* base, int rows, int d, int page, int chunk) {
   Smem s;
-  float* p = base;
-  s.q = p; p += rows * d;
-  s.acc = p; p += rows * d;
-  s.m = p; p += rows;
-  s.l = p; p += rows;
-  s.corr = p; p += rows;
-  s.qpos = reinterpret_cast<int*>(p); p += rows;
-  s.sc = p; p += rows * page;
+  double* pd = base;
+  s.acc = pd; pd += rows * d;
+  s.q = pd; pd += rows * d;
+  s.m = pd; pd += rows;
+  s.l = pd; pd += rows;
+  s.corr = pd; pd += rows * kMaxChunkPages;
+  s.pm = pd; pd += rows * kMaxChunkPages;
+  s.ps = pd; pd += rows * kMaxChunkPages;
+  s.sc = pd; pd += rows * chunk * page;
+  s.k = pd; pd += chunk * page * (d + 1);
+  s.v = pd; pd += chunk * page * d;
+  float* p = reinterpret_cast<float*>(pd);
   s.wb = p; p += 2 * kMaxTableRows;
-  s.k = p; p += chunk * page * (d + 1);
-  s.v = p; p += chunk * page * d;
+  s.qpos = reinterpret_cast<int*>(p); p += rows;
   s.tbl = reinterpret_cast<int*>(p);
   return s;
 }
@@ -343,8 +378,8 @@ __device__ __forceinline__ bool key_valid(int kpos, int qpos, int length, int wi
 }
 
 // Copy `nch` pages of this block's kv head, whose physical ids are in
-// s.tbl, into s.k (padded rows) and s.v as fp32, dequantized with their
-// scale rows when the pool is quantized.
+// s.tbl, into s.k (padded rows) and s.v, dequantized in fp32 with their
+// scale rows when the pool is quantized, held as fp64.
 template <class Pool>
 __device__ void stage_pages(const Args& a, const Smem& s, int h, int nch) {
   using P = typename Pool::P;
@@ -404,19 +439,20 @@ __device__ void stage_pages(const Args& a, const Smem& s, int h, int nch) {
   }
 }
 
-// sum over i = first, first + step, ... < n of a[i] * b[i * stride], in
-// four independent partial sums so that the shared-memory loads overlap.
-__device__ __forceinline__ float strided_dot(const float* a, const float* b, int first,
-                                             int step, int n, int stride) {
-  float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+// sum over i = first, first + step, ... < n of a[i] * b[i * stride] in
+// fp64, in four independent partial sums so that the shared-memory loads
+// overlap.
+__device__ __forceinline__ double strided_dot(const double* a, const double* b, int first,
+                                              int step, int n, int stride) {
+  double d0 = 0.0, d1 = 0.0, d2 = 0.0, d3 = 0.0;
   int i = first;
   for (; i + 3 * step < n; i += 4 * step) {
-    d0 = fmaf(a[i], b[i * stride], d0);
-    d1 = fmaf(a[i + step], b[(i + step) * stride], d1);
-    d2 = fmaf(a[i + 2 * step], b[(i + 2 * step) * stride], d2);
-    d3 = fmaf(a[i + 3 * step], b[(i + 3 * step) * stride], d3);
+    d0 = fma(a[i], b[i * stride], d0);
+    d1 = fma(a[i + step], b[(i + step) * stride], d1);
+    d2 = fma(a[i + 2 * step], b[(i + 2 * step) * stride], d2);
+    d3 = fma(a[i + 3 * step], b[(i + 3 * step) * stride], d3);
   }
-  for (; i < n; i += step) d0 = fmaf(a[i], b[i * stride], d0);
+  for (; i < n; i += step) d0 = fma(a[i], b[i * stride], d0);
   return (d0 + d1) + (d2 + d3);
 }
 
@@ -432,26 +468,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Before the call the block has filled s.q (rows x D, fp32), s.qpos, and
+// The exp table at an fp64 argument: core/lut.py's fp32 evaluation of it
+// rounded to fp32.
+__device__ __forceinline__ double lut_exp(const Args& a, const float* wb, double x) {
+  return (double)lut::eval((float)x, wb, a.lo, a.inv_step, a.sections);
+}
+
+// Before the call the block has filled s.q (rows x D, fp32 values), s.qpos, and
 // s.wb (when use_lut), and synchronised. After it, s.m, s.l and s.acc hold
 // the running max, the softmax denominator and the unnormalised output of
-// every row over the logical pages [page_lo, page_hi) of the table.
+// every row over the logical pages [page_lo, page_hi) of the table, fp64.
 template <class Pool>
 __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows,
                      int page_lo, int page_hi) {
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int n_warps = blockDim.x / 32;
+  const int nt = blockDim.x;
   const int D = a.d;
   const int page = a.page;
+  const int cp = a.chunk_pages;
   const int length = a.lengths[b];
+  const double scale = a.scale, cap = a.softcap;
 
-  for (int i = tid; i < rows; i += blockDim.x) {
-    s.m[i] = kNegInf;
-    s.l[i] = 0.0f;
+  for (int i = tid; i < rows; i += nt) {
+    s.m[i] = kNegInfD;
+    s.l[i] = 0.0;
   }
-  for (int i = tid; i < rows * D; i += blockDim.x) s.acc[i] = 0.0f;
+  for (int i = tid; i < rows * D; i += nt) s.acc[i] = 0.0;
 
   // Keys past the block's last query position are masked for every row.
   int max_q = -1;
@@ -459,17 +501,13 @@ __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows,
   const int kv_end = min(length, max_q + 1);
   int n_pages = kv_end > 0 ? (kv_end + page - 1) / page : 0;
   n_pages = min(n_pages, min(a.n_table, page_hi));
-
-  // tpk threads (a power of two, at most a warp) share one (row, key) dot
-  // product: as many as keep the block's threads busy.
-  const int n_pairs = rows * page;
-  int tpk = 1;
-  while (tpk < 32 && 2 * tpk * n_pairs <= (int)blockDim.x) tpk *= 2;
   __syncthreads();
 
-  for (int p0 = page_lo; p0 < n_pages; p0 += a.chunk_pages) {
-    const int nch = min(a.chunk_pages, n_pages - p0);
-    for (int i = tid; i < nch; i += blockDim.x) {
+  for (int p0 = page_lo; p0 < n_pages; p0 += cp) {
+    const int nch = min(cp, n_pages - p0);
+    const int keys = nch * page;
+    const int base_pos = p0 * page;
+    for (int i = tid; i < nch; i += nt) {
       int phys = a.block_tables[(size_t)b * a.n_table + p0 + i];
       s.tbl[i] = (phys >= 0 && phys < a.n_pool) ? phys : 0;
     }
@@ -477,71 +515,95 @@ __device__ void walk(const Args& a, const Smem& s, int b, int h, int rows,
     stage_pages<Pool>(a, s, h, nch);
     __syncthreads();
 
-    for (int i = 0; i < nch; ++i) {
-      const int base_pos = (p0 + i) * page;
-      // Scores of every (row, key) pair of this page. The loop bound is the
-      // same for every thread, so whole warps reach the shuffles.
-      for (int t0 = 0; t0 < n_pairs * tpk; t0 += blockDim.x) {
-        const int t = t0 + tid;
-        const int pair = t / tpk;
-        const int sub = t % tpk;
-        float dot = 0.0f;
-        if (pair < n_pairs) {
-          const int r = pair / page;
-          const float* qr = s.q + r * D;
-          const float* kr = s.k + (i * page + pair - r * page) * (D + 1);
-          dot = strided_dot(qr, kr, sub, tpk, D, 1);
-        }
-        for (int off = tpk / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (pair < n_pairs && sub == 0) {
-          const int r = pair / page;
-          const int j = pair - r * page;
-          float sc = dot * a.scale;
-          if (a.softcap > 0.0f) sc = a.softcap * tanhf(sc / a.softcap);
-          s.sc[pair] = key_valid(base_pos + j, s.qpos[r], length, a.window) ? sc : kNegInf;
-        }
+    // Scores of every (row, key) pair of the chunk: tpk threads (a power
+    // of two, at most a warp) a dot product, as many as keep the block
+    // busy. The loop bound is the same for every thread, so whole warps
+    // reach the shuffles.
+    const int n_pairs = rows * keys;
+    int tpk = 1;
+    while (tpk < 32 && 2 * tpk * n_pairs <= nt) tpk *= 2;
+    for (int t0 = 0; t0 < n_pairs * tpk; t0 += nt) {
+      const int t = t0 + tid;
+      const int pair = t / tpk;
+      const int sub = t % tpk;
+      double dot = 0.0;
+      if (pair < n_pairs) {
+        const int r = pair / keys;
+        dot = strided_dot(s.q + r * D, s.k + (pair - r * keys) * (D + 1), sub, tpk, D, 1);
       }
-      __syncthreads();
-      // Online-softmax statistics, one warp per row.
-      for (int r = warp; r < rows; r += n_warps) {
-        float* scr = s.sc + r * page;
-        const float m_prev = s.m[r];
-        float m_cur = kNegInf;
-        for (int j = lane; j < page; j += 32) m_cur = fmaxf(m_cur, scr[j]);
-        const float m_new = fmaxf(m_prev, warp_max(m_cur));
-        float corr;
-        if (a.use_lut) {
-          corr = lut::eval(fmaxf(m_prev - m_new, a.lo), s.wb, a.lo, a.inv_step, a.sections);
-        } else {
-          corr = expf(m_prev - m_new);
-        }
-        float lsum = 0.0f;
-        for (int j = lane; j < page; j += 32) {
-          float p = a.use_lut ? lut::eval(scr[j] - m_new, s.wb, a.lo, a.inv_step, a.sections)
-                              : expf(scr[j] - m_new);
-          if (!key_valid(base_pos + j, s.qpos[r], length, a.window)) p = 0.0f;
-          scr[j] = p;
-          lsum += p;
-        }
-        lsum = warp_sum(lsum);
-        if (lane == 0) {
-          s.l[r] = s.l[r] * corr + lsum;
-          s.m[r] = m_new;
-          s.corr[r] = corr;
-        }
+      for (int off = tpk / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (pair < n_pairs && sub == 0) {
+        const int r = pair / keys;
+        const int kk = pair - r * keys;
+        double sc = dot * scale;
+        if (cap > 0.0) sc = cap * tanh(sc / cap);
+        s.sc[r * cp * page + kk] =
+            key_valid(base_pos + kk, s.qpos[r], length, a.window) ? sc : kNegInfD;
       }
-      __syncthreads();
-      // acc = acc * corr + p . V over this page.
-      for (int t = tid; t < rows * D; t += blockDim.x) {
-        const int r = t / D;
-        const int dd = t - r * D;
-        const float* pr = s.sc + r * page;
-        const float* vv = s.v + (i * page) * D + dd;
-        s.acc[t] = s.acc[t] * s.corr[r] + strided_dot(pr, vv, 0, 1, page, D);
-      }
-      __syncthreads();
     }
+    __syncthreads();
+    // Each page's maximum of each row. Page i starts at its key i % page,
+    // so that neighbouring threads read distinct banks.
+    for (int t = tid; t < rows * nch; t += nt) {
+      const int r = t / nch, i = t - r * nch;
+      const double* sp = s.sc + r * cp * page + i * page;
+      double mx = kNegInfD;
+      for (int j = 0, jj = i % page; j < page; ++j, jj = jj + 1 < page ? jj + 1 : 0)
+        mx = fmax(mx, sp[jj]);
+      s.pm[r * kMaxChunkPages + i] = mx;
+    }
+    __syncthreads();
+    // The running maximum of each row page by page: m_new and corr.
+    for (int r = tid; r < rows; r += nt) {
+      double m = s.m[r];
+      for (int i = 0; i < nch; ++i) {
+        const double m_new = fmax(m, s.pm[r * kMaxChunkPages + i]);
+        s.corr[r * kMaxChunkPages + i] =
+            a.use_lut ? lut_exp(a, s.wb, fmax(m - m_new, (double)a.lo)) : exp(m - m_new);
+        s.pm[r * kMaxChunkPages + i] = m_new;
+        m = m_new;
+      }
+      s.m[r] = m;
+    }
+    __syncthreads();
+    // p of every (row, key) pair, 0 outside the mask.
+    for (int t = tid; t < rows * keys; t += nt) {
+      const int r = t / keys, kk = t - r * keys;
+      double* sp = s.sc + r * cp * page + kk;
+      const double x = *sp - s.pm[r * kMaxChunkPages + kk / page];
+      double p = a.use_lut ? lut_exp(a, s.wb, x) : exp(x);
+      if (!key_valid(base_pos + kk, s.qpos[r], length, a.window)) p = 0.0;
+      *sp = p;
+    }
+    __syncthreads();
+    // Each page's sum of p of each row.
+    for (int t = tid; t < rows * nch; t += nt) {
+      const int r = t / nch, i = t - r * nch;
+      const double* sp = s.sc + r * cp * page + i * page;
+      double sum = 0.0;
+      for (int j = 0, jj = i % page; j < page; ++j, jj = jj + 1 < page ? jj + 1 : 0)
+        sum += sp[jj];
+      s.ps[r * kMaxChunkPages + i] = sum;
+    }
+    __syncthreads();
+    // l = l * corr + sum(p) and acc = acc * corr + p . V, page by page.
+    for (int r = tid; r < rows; r += nt) {
+      double l = s.l[r];
+      for (int i = 0; i < nch; ++i)
+        l = l * s.corr[r * kMaxChunkPages + i] + s.ps[r * kMaxChunkPages + i];
+      s.l[r] = l;
+    }
+    for (int t = tid; t < rows * D; t += nt) {
+      const int r = t / D;
+      const int dd = t - r * D;
+      const double* pr = s.sc + r * cp * page;
+      double acc = s.acc[t];
+      for (int i = 0; i < nch; ++i)
+        acc = acc * s.corr[r * kMaxChunkPages + i] +
+              strided_dot(pr + i * page, s.v + (i * page) * D + dd, 0, 1, page, D);
+      s.acc[t] = acc;
+    }
+    __syncthreads();
   }
 }
 

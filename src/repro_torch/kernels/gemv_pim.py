@@ -97,11 +97,13 @@ TC_N = (8, 16, 32, 64, 128, 256)
 TC_N_FIXED = (8, 16, 32, 64)
 TC_MAX_CLUSTER = 8
 TC_CLUSTER_TOKENS = 256
-# The int8 linear layer's consumer threads hold their block's share of x
-# in registers, at most INT8_LINEAR_PIECES pieces of 16 elements in all
-# (2 a thread), before they quantize it into shared memory; its token tile
-# holds every row.
-INT8_LINEAR_PIECES = 256
+# The int8 linear layer's consumer threads quantize their block's share of
+# x into shared memory, at most INT8_LINEAR_PIECES pieces of 16 elements
+# (16 a thread: 4 held in registers from the start, the rest loaded as
+# they are quantized); its token tile holds every row, at most
+# INT8_LINEAR_ROWS.
+INT8_LINEAR_PIECES = 2048
+INT8_LINEAR_ROWS = 32
 # quantize_int8_rows (csrc/gemv_pim_quant.cu) holds a row in the registers
 # of 1-8 warps, at most QUANT_MAX_CHUNKS pieces of 16 bytes a lane, spread
 # over more warps until a lane holds QUANT_LANE_VALUES values (a weight's
@@ -174,14 +176,15 @@ def gemv_int8_linear_plan(M: int, C: int, R: int, *,
     """The one-launch int8 linear layer's tiling (`gemv_pim_int8_linear`):
     the s8 tensor-core kernel with x quantized in its load path, where
     `gemv_int8_plan` takes the tensor cores: the least tile of TC_N that
-    holds all M rows, with `_tc_tiling`'s cluster, while a block's share of
-    x (M rows x its K tiles of 128) is at most INT8_LINEAR_PIECES pieces of
-    16 elements (a decode step; M * K tiles a block <= 32). None
-    otherwise: x is then quantized by its own `quantize_int8_rows` launch
-    before `gemv_pim_int8` (a prefill chunk, C % 16 != 0, a misaligned
-    row); a wider M would hold more of x a thread than its quantization
-    takes from the launch it saves."""
-    if C % 16 or not aligned or M < 1 or M > TC_N[-1]:
+    holds all M <= INT8_LINEAR_ROWS rows, with `_tc_tiling`'s cluster,
+    while a block's share of x (M rows x its K tiles of 128) is at most
+    INT8_LINEAR_PIECES pieces of 16 elements (a decode step; M * K tiles a
+    block <= 256). None otherwise: x is then quantized by its own
+    `quantize_int8_rows` launch before `gemv_pim_int8` (a prefill chunk,
+    C % 16 != 0, a misaligned row); a wider share would keep the block's
+    wgmmas waiting on more of x than its quantization takes from the launch
+    it saves."""
+    if C % 16 or not aligned or M < 1 or M > INT8_LINEAR_ROWS:
         return None
     fit = next(t for t in TC_N if t >= M)
     plan = _tc_tiling(M, C, R, TC_K_INT8, (fit,))

@@ -21,7 +21,9 @@ Bound on the H100: one read and one write of every row over 3.35 TB/s.
 `layernorm_plan` shapes the launch: the row, gamma and beta held in the
 registers of a group of warps and read once, a warp a row up to d = 2048
 in bf16 (1024 in f32) and up to 8 warps past it; a call of few rows (a
-decode step's 4) spreads each row until a lane holds 8 values.
+decode step's 4) spreads each row until a lane holds 8 values. Rows past
+8 warps' registers (d > 16384 in bf16, 8192 in f32) take a block a row
+and are streamed, one read of the row a pass, with the same sums.
 """
 from __future__ import annotations
 
@@ -39,13 +41,9 @@ MAX_CHUNKS = 8
 
 def layernorm_plan(n_rows: int, d: int, itemsize: int) -> tuple[int, int, int]:
     """(chunks, warps_per_row, rows_per_block) of the kernel's launch
-    (`_build.row_plan`); raises for rows past 8 warps' registers."""
+    (`_build.row_plan`); chunks 0 streams each row through a block."""
     plan = _build.row_plan(n_rows, d, itemsize, MAX_CHUNKS)
-    if plan is None:
-        limit = MAX_CHUNKS * 16 // itemsize * 32 * _build.ROW_GROUP_WARPS[-1]
-        raise ValueError(f"layernorm_lut takes rows of at most {limit} elements of "
-                         f"{itemsize} bytes, got d={d}")
-    return plan
+    return plan if plan is not None else (0, _build.BLOCK_WARPS, 1)
 
 
 def layernorm_lut_plain(x: torch.Tensor, gamma: torch.Tensor,

@@ -299,21 +299,23 @@ def online_walk(q, k, v, qpos, length, page, splits, *, scale,
                 exp_table: LutTable | None = None, softcap: float | None = None,
                 window: int | None = None) -> torch.Tensor:
     """The TPU kernels' online softmax in plain PyTorch: rows q (B, Hkv, R,
-    D) at absolute positions qpos (B, R) against dense fp32 keys k, v (B,
-    Hkv, n * page, D) valid below length (B,), walked page by page over
+    D) at absolute positions qpos (B, R) against dense keys k, v (B, Hkv,
+    n * page, D) of q's dtype (fp32, or fp64 for the prefill's twin: a LUT
+    is then evaluated in fp32 on its argument rounded to fp32) valid below
+    length (B,), walked page by page over
     `splits` runs of ceil(n / splits) pages, the runs merged by
     `merge_partial_softmax_stacked`. Per page, m_new = max(m, max(s)),
     p = exp(s - m_new) and corr = exp(m - m_new), or in LUT mode
     p = LUT(s - m_new) and corr = LUT(max(m - m_new, lo)); p = 0 outside
     the mask; l = l * corr + sum(p), acc = acc * corr + p . v. Returns
-    acc / max(l, 1e-9) as (B, Hkv, R, D) f32."""
+    acc / max(l, 1e-9) as (B, Hkv, R, D) in q's dtype."""
     B, Hkv, S, D = k.shape
     n = S // page
     pps = -(-n // splits)
     lens = length.long()[:, None, None]
     parts = []
     for sp in range(splits):
-        m = torch.full((*q.shape[:3], 1), NEG_INF, device=q.device)
+        m = torch.full((*q.shape[:3], 1), NEG_INF, dtype=q.dtype, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(q)
         for pg in range(sp * pps, min((sp + 1) * pps, n)):
@@ -329,9 +331,9 @@ def online_walk(q, k, v, qpos, length, page, splits, *, scale,
             sc = torch.where(mask, sc, NEG_INF)
             m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
             if exp_table is not None:
-                p = lut_lib.apply_table(sc - m_new, exp_table)
-                corr = lut_lib.apply_table(torch.clamp(m - m_new, min=exp_table.lo),
-                                           exp_table)
+                p = lut_lib.apply_table((sc - m_new).float(), exp_table).to(q.dtype)
+                corr = lut_lib.apply_table(torch.clamp(m - m_new, min=exp_table.lo).float(),
+                                           exp_table).to(q.dtype)
             else:
                 p, corr = torch.exp(sc - m_new), torch.exp(m - m_new)
             p = torch.where(mask, p, 0.0)

@@ -16,15 +16,16 @@ with bf16 scale rows). Optional LUT exp, softcap and sliding window.
 `paged_prefill_attention_online_plain` is the page-ordered online softmax
 that the kernel and the TPU kernel compute in LUT mode, in plain PyTorch.
 
+The kernel and both plain versions keep every sum in fp64 (a LUT is
+evaluated in fp32 on its argument rounded to fp32, and the output is
+rounded to fp32, then to q's dtype), so the kernel's output is the plain
+version's bit for bit in practice: a quantized datapath's first logits
+then stay those of the plain path over any depth.
+
 Bound on the H100: the valid K and V bytes over 3.35 TB/s at the engine's
 chunk sizes; the note in `csrc/paged_prefill.cu` gives the design.
-`prefill_plan` picks its kernel: bf16 queries on the tensor cores where
-the shapes allow (`paged_prefill_attention.tc_launches` counts them),
-else the CUDA-core page walk.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -34,40 +35,10 @@ from repro_torch.kernels.paged_attention import (
     _DTYPE_CODE, _exp, _fn, _mask_args, _stream, check_paged_args,
     gather_paged_kv, online_walk, ptr)
 
-# The tensor-core kernel (csrc/paged_prefill.cu): 16-row query tiles, 4
-# warps a block each walking a run of the tile's pages, clusters of up to
-# PREFILL_MAX_CLUSTER blocks a tile; head_dim one of PREFILL_TC_DIMS,
-# pages of at most PREFILL_TC_MAX_PAGE keys.
-PREFILL_TC_DIMS = (16, 32, 64, 128)
-PREFILL_TC_MAX_PAGE = 32
-PREFILL_MAX_CLUSTER = 4
-PREFILL_TILE_ROWS = 16
 
-
-@dataclasses.dataclass(frozen=True)
-class PrefillPlan:
-    """Which kernel runs a prefill chunk, and the tensor-core kernel's
-    blocks a row tile."""
-    route: str                 # "tensor_core" or "cuda_core"
-    cluster: int = 1
-
-
-def prefill_plan(B: int, Sq: int, H: int, Hkv: int, D: int, page: int,
-                 page_bytes: int, dtype: torch.dtype, *, aligned: bool = True) -> PrefillPlan:
-    """The tensor-core kernel for bf16 q with D in PREFILL_TC_DIMS, a page
-    of at most PREFILL_TC_MAX_PAGE keys whose K (or V) bytes are whole
-    16-byte vectors (`page_bytes`) and 16-byte aligned pools; else the
-    CUDA-core walk. The cluster is doubled from 1 while the grid of
-    B x Hkv x ceil(Sq * g / 16) tiles stays within `_build.SMS` blocks, at
-    most PREFILL_MAX_CLUSTER."""
-    if (dtype != torch.bfloat16 or D not in PREFILL_TC_DIMS or page > PREFILL_TC_MAX_PAGE
-            or page_bytes % 16 or not aligned):
-        return PrefillPlan("cuda_core")
-    blocks = B * Hkv * -(-Sq * (H // Hkv) // PREFILL_TILE_ROWS)
-    cs = 1
-    while cs < PREFILL_MAX_CLUSTER and 2 * cs * blocks <= _build.SMS:
-        cs *= 2
-    return PrefillPlan("tensor_core", cs)
+def _f32(x: float | None) -> float | None:
+    """x rounded to fp32, as the kernel takes its scale and softcap."""
+    return None if x is None else float(torch.tensor(x, dtype=torch.float32))
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, length,
@@ -76,15 +47,18 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, length,
                                   exp_table: LutTable | None = None,
                                   softcap: float | None = None,
                                   window: int | None = None) -> torch.Tensor:
-    """Plain version (mirrors `paged_prefill_attention_ref`)."""
+    """Plain version (mirrors `paged_prefill_attention_ref`), in fp64 on
+    K and V dequantized in fp32, as the kernel: the LUT exp in fp32 on its
+    argument rounded to fp32, the output rounded to fp32, then q's dtype."""
     B, Sq, H, D = q.shape
     # (B, Hkv, S, D) -> seq-major (B, S, Hkv, D), the dense prefill layout.
-    k = gather_paged_kv(k_pages, block_tables, k_scales, D).float().transpose(1, 2)
-    v = gather_paged_kv(v_pages, block_tables, v_scales, D).float().transpose(1, 2)
+    k = gather_paged_kv(k_pages, block_tables, k_scales, D).float().double().transpose(1, 2)
+    v = gather_paged_kv(v_pages, block_tables, v_scales, D).float().double().transpose(1, 2)
     S, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    qg = q.float().reshape(B, Sq, Hkv, g, D)
+    scale = _f32(scale if scale is not None else 1.0 / (D ** 0.5))
+    softcap = _f32(softcap)
+    qg = q.float().double().reshape(B, Sq, Hkv, g, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
@@ -100,11 +74,13 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, length,
     scores = torch.where(mask_b, scores, -torch.inf)
     m = torch.amax(scores, dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    e = torch.where(mask_b, _exp(scores - m, exp_table), 0.0)
+    x = scores - m
+    e = _exp(x, None) if exp_table is None else _exp(x.float(), exp_table).double()
+    e = torch.where(mask_b, e, 0.0)
     s = torch.sum(e, dim=-1, keepdim=True)
     probs = e * (1.0 / torch.clamp(s, min=1e-9))
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return out.reshape(B, Sq, H, D).float().to(q.dtype)
 
 
 def paged_prefill_attention_online_plain(q, k_pages, v_pages, block_tables, length,
@@ -115,19 +91,21 @@ def paged_prefill_attention_online_plain(q, k_pages, v_pages, block_tables, leng
                                          window: int | None = None) -> torch.Tensor:
     """`online_walk` for a prefill chunk: q (B, Sq, H, D) at positions
     start .. start + Sq - 1 over the gathered, dequantized pages, one walk
-    over the whole table -> (B, Sq, H, D) f32. In LUT mode the function the
-    kernels and the TPU kernel compute."""
+    over the whole table, in fp64 as the kernel -> (B, Sq, H, D) f32
+    (rounded from fp64). In LUT mode the function the kernels and the TPU
+    kernel compute."""
     B, Sq, H, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
     g = H // Hkv
-    kd = gather_paged_kv(k_pages, block_tables, k_scales, D).float()
-    vd = gather_paged_kv(v_pages, block_tables, v_scales, D).float()
-    rows = q.float().reshape(B, Sq, Hkv, g, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, Sq * g, D)
+    kd = gather_paged_kv(k_pages, block_tables, k_scales, D).float().double()
+    vd = gather_paged_kv(v_pages, block_tables, v_scales, D).float().double()
+    rows = q.float().double().reshape(B, Sq, Hkv, g, D).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, Sq * g, D)
     qpos = start.long()[:, None] + torch.arange(Sq * g, device=q.device)[None] // g
     out = online_walk(rows, kd, vd, qpos, length, page, 1,
-                      scale=scale if scale is not None else D ** -0.5,
-                      exp_table=exp_table, softcap=softcap, window=window)
-    return out.reshape(B, Hkv, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D)
+                      scale=_f32(scale if scale is not None else D ** -0.5),
+                      exp_table=exp_table, softcap=_f32(softcap), window=window)
+    return out.reshape(B, Hkv, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D).float()
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, length, start,
@@ -136,8 +114,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, length, start,
                             exp_table: LutTable | None = None,
                             softcap: float | None = None,
                             window: int | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel of `prefill_plan`: q (B, Sq, H, D) -> out
-    (B, Sq, H, D)."""
+    """Launch the CUDA kernel: q (B, Sq, H, D) -> out (B, Sq, H, D)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
     fmt = check_paged_args("paged_prefill_attention", q, k_pages, v_pages,
@@ -149,26 +126,15 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, length, start,
     if B == 0 or Sq == 0:
         return out
     wb, masks = _mask_args(D, scale, softcap, window, exp_table, q.device)
-    page_bytes = page * k_pages.shape[-1] * k_pages.element_size()
-    aligned = k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
-    plan = prefill_plan(B, Sq, H, Hkv, D, page, page_bytes, q.dtype, aligned=aligned)
     lib = _build.library("paged_prefill")
-    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
-            ptr(v_scales), block_tables.data_ptr(), length.data_ptr(),
-            start.data_ptr(), wb, out.data_ptr(), B, Sq, H, Hkv, D, page, P,
-            block_tables.shape[1], *masks)
-    tc = plan.route == "tensor_core"
-    if tc:
-        rc = _fn(lib, "paged_prefill_attention_tc", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
-            *args, fmt, plan.cluster, _stream(q))
-    else:
-        rc = _fn(lib, "paged_prefill_attention", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
-            *args, _DTYPE_CODE[q.dtype], fmt, _stream(q))
+    rc = _fn(lib, "paged_prefill_attention", "p" * 10 + "i" * 8 + "ffiiffiii" + "p")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales), ptr(v_scales),
+        block_tables.data_ptr(), length.data_ptr(), start.data_ptr(), wb, out.data_ptr(),
+        B, Sq, H, Hkv, D, page, P, block_tables.shape[1], *masks, _DTYPE_CODE[q.dtype], fmt,
+        _stream(q))
     _build.check(lib, "paged_prefill", rc)
     paged_prefill_attention.launches += 1
-    paged_prefill_attention.tc_launches += tc
     return out
 
 
 paged_prefill_attention.launches = 0
-paged_prefill_attention.tc_launches = 0

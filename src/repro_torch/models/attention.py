@@ -1,7 +1,8 @@
 """Multi-head attention, full-sequence and decode forms over the dense
 per-slot arena, prefill-chunk and decode forms over the paged pools (the
-port of `repro.models.attention`, without the mesh branch and without
-RoPE, which GPT-2's learned positions do not use).
+port of `repro.models.attention`, without the mesh branch). With RoPE
+(cos/sin given) q and k are rotated after the projection and before K is
+returned or written to the arena or the pages.
 
 The full-sequence form keeps the JAX package's two einsums (Q x K^T and
 S x V over the same (B, S, Hkv, D) layout), outside any kernel as in the
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rope import apply_rope
 from repro_torch.serving import kvcache
 from repro_torch.serving.quantize import quantize_vec
 
@@ -54,12 +56,16 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                engine: SalPimEngine):
-    """x (B, D) -> q (B, H, Dh), k/v (B, Hkv, Dh)."""
+                engine: SalPimEngine, cos=None, sin=None):
+    """x (B, D) -> q (B, H, Dh), k/v (B, Hkv, Dh), q and k rotated by
+    cos/sin (B, Dh/2) when given."""
     B, _ = x.shape
     q = engine.linear(x, p["wq"], p.get("bq")).reshape(B, cfg.n_heads, cfg.head_dim)
     k = engine.linear(x, p["wk"], p.get("bk")).reshape(B, cfg.n_kv_heads, cfg.head_dim)
     v = engine.linear(x, p["wv"], p.get("bv")).reshape(B, cfg.n_kv_heads, cfg.head_dim)
+    if cos is not None:
+        q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
     return q, k, v
 
 
@@ -89,13 +95,18 @@ def _masked_softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_fullseq(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                      engine: SalPimEngine, *, window: Optional[int] = None,
-                      causal: bool = True, return_kv: bool = False):
-    """x (B, S, D) -> out (B, S, D), and with return_kv the K/V in the
-    arena layout (B, Hkv, S, Dh). Queries run in chunks of cfg.attn_chunk
-    when S is longer than and a multiple of it, as the JAX scan does."""
+                      engine: SalPimEngine, *, cos=None, sin=None,
+                      window: Optional[int] = None, causal: bool = True,
+                      return_kv: bool = False):
+    """x (B, S, D) -> out (B, S, D), and with return_kv the K/V (K
+    rotated) in the arena layout (B, Hkv, S, Dh); cos/sin (S, Dh/2) or
+    None. Queries run in chunks of cfg.attn_chunk when S is longer than
+    and a multiple of it, as the JAX scan does."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, engine)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     chunk = cfg.attn_chunk
     if S > chunk and S % chunk == 0:
         out = torch.cat([
@@ -120,6 +131,8 @@ def attention_decode(
     cfg: ModelConfig,
     engine: SalPimEngine,
     *,
+    cos: Optional[torch.Tensor] = None,  # (B, Dh/2) RoPE at each slot's length
+    sin: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     kv_scales: Optional[tuple] = None,   # (k_scale, v_scale) (B, Hkv, Smax) bf16
 ):
@@ -128,7 +141,7 @@ def attention_decode(
     for the int8 arena, quantized with its bf16 scale; then attend over
     length + 1 keys. Returns (out, cache_k, cache_v[, k_scale, v_scale])."""
     B, _ = x.shape
-    q, k, v = _decode_qkv(p, x, cfg, engine)
+    q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
     int8_kv = kv_scales is not None
     if int8_kv:
         ksc, vsc = kv_scales
@@ -166,17 +179,22 @@ def attention_prefill_chunk_paged(
     cfg: ModelConfig,
     engine: SalPimEngine,
     *,
+    cos: Optional[torch.Tensor] = None,       # (B, S, Dh/2) RoPE at the chunk's positions
+    sin: Optional[torch.Tensor] = None,
     window: Optional[int],
     k_scale: Optional[torch.Tensor] = None,   # (P, Hkv, page) int8/int4 scale rows
     v_scale: Optional[torch.Tensor] = None,
 ):
-    """Write the chunk's K/V into its pool pages (in place; quantized with
+    """Write the chunk's K/V (K rotated) into its pool pages (in place; quantized with
     its scale rows in an int8/int4 pool), then attend over all resident KV
     [0, start+S) read back through the block table, the chunk's own
     included. Returns (out, k_pages, v_pages), plus (k_scale, v_scale)
     when the pool is quantized."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, engine)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     pools = kvcache.append_chunk_kv_pages(k_pages, v_pages, block_tables, start,
                                           k, v, k_scale, v_scale)
     att = engine.paged_prefill_attention(
@@ -196,6 +214,8 @@ def attention_decode_paged(
     cfg: ModelConfig,
     engine: SalPimEngine,
     *,
+    cos: Optional[torch.Tensor] = None,       # (B, Dh/2) RoPE at each slot's length
+    sin: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,   # (P, Hkv, page) int8/int4 scale rows
     v_scale: Optional[torch.Tensor] = None,
@@ -205,7 +225,7 @@ def attention_decode_paged(
     length + 1 keys. Returns (out, k_pages, v_pages), plus
     (k_scale, v_scale) when the pool is quantized."""
     B, _ = x.shape
-    q, k, v = _decode_qkv(p, x, cfg, engine)
+    q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
     pools = kvcache.append_kv_pages(k_pages, v_pages, block_tables, lengths,
                                     k, v, k_scale, v_scale)
     att = engine.paged_decode_attention(

@@ -1,5 +1,6 @@
 """Decoder blocks over the dense arena and the paged KV cache: norm wiring
-and residuals (the port of `repro.models.blocks`, dense family)."""
+and residuals (the port of `repro.models.blocks`, dense family). cos/sin
+are RoPE's (None with learned positions), passed to the attention."""
 from __future__ import annotations
 
 import torch
@@ -48,7 +49,8 @@ def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
 def apply_decoder_block_prefill_chunk_paged(
     p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_tables: torch.Tensor, start: torch.Tensor, length: torch.Tensor,
-    cfg: ModelConfig, engine: SalPimEngine, *, window, kv_scales=None,
+    cfg: ModelConfig, engine: SalPimEngine, *, cos=None, sin=None, window,
+    kv_scales=None,
 ):
     """Prefill block over one prompt chunk against the paged pool.
     Returns (x', k_pages, v_pages[, k_scale, v_scale]); the pools are
@@ -58,13 +60,13 @@ def apply_decoder_block_prefill_chunk_paged(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_prefill_chunk_paged(
             p["attn"], h, k_pages, v_pages, block_tables, start, length,
-            cfg, engine, window=window, k_scale=ksc, v_scale=vsc))
+            cfg, engine, cos=cos, sin=sin, window=window, k_scale=ksc, v_scale=vsc))
 
 
 def apply_decoder_block_decode_paged(
     p: dict, x: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
-    engine: SalPimEngine, *, window, kv_scales=None,
+    engine: SalPimEngine, *, cos=None, sin=None, window, kv_scales=None,
 ):
     """Single-token step against a paged cache. Returns (x', k', v'[,
     k_scale', v_scale'])."""
@@ -73,27 +75,28 @@ def apply_decoder_block_decode_paged(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_decode_paged(
             p["attn"], h, k_pages, v_pages, block_tables, lengths, cfg,
-            engine, window=window, k_scale=ksc, v_scale=vsc))
+            engine, cos=cos, sin=sin, window=window, k_scale=ksc, v_scale=vsc))
 
 
 def apply_decoder_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                                engine: SalPimEngine, *, window):
+                                engine: SalPimEngine, *, cos=None, sin=None, window):
     """Full-sequence block that also returns (k, v) (B, Hkv, S, Dh) for
     the dense arena."""
     return _decode_block_skeleton(
         p, x, cfg, engine,
-        lambda h: attn_lib.attention_fullseq(p["attn"], h, cfg, engine, window=window,
-                                             causal=cfg.causal, return_kv=True))
+        lambda h: attn_lib.attention_fullseq(p["attn"], h, cfg, engine, cos=cos, sin=sin,
+                                             window=window, causal=cfg.causal,
+                                             return_kv=True))
 
 
 def apply_decoder_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                cache_v: torch.Tensor, lengths: torch.Tensor,
-                               cfg: ModelConfig, engine: SalPimEngine, *, window,
-                               kv_scales=None):
+                               cfg: ModelConfig, engine: SalPimEngine, *, cos=None,
+                               sin=None, window, kv_scales=None):
     """Single-token step against the dense arena. Returns (x', k', v'[,
     k_scale', v_scale']); the arena is written in place."""
     return _decode_block_skeleton(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_decode(p["attn"], h, cache_k, cache_v, lengths,
-                                            cfg, engine, window=window,
+                                            cfg, engine, cos=cos, sin=sin, window=window,
                                             kv_scales=kv_scales))

@@ -15,7 +15,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves "dense" only
+    family: str                      # the port serves "dense" only (RoPE or
+                                     # learned positions)
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,6 +27,8 @@ class ModelConfig:
 
     # attention flavour
     qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[tuple[int, ...]] = None  # qwen2-vl M-RoPE
     sliding_window: Optional[int] = None
     local_global_pattern: bool = False
     attn_softcap: Optional[float] = None

@@ -6,6 +6,11 @@ Parameters are a plain dict with the JAX pytree's keys; each block weight
 is stacked on a leading layer axis, and a Python loop over layers takes the
 place of `lax.scan`. Each layer gets `cfg.window_for_layer(i)` (None for
 global attention) where the JAX scan passes a traced sentinel width.
+
+Positions are learned (`pos_embed`, GPT-2) or rotary: each entry point
+computes RoPE's cos/sin once (`_rope`: over arange(S) for the dense
+prefill, start + arange(S) per sequence for a paged chunk, the cache
+lengths for a decode step) and every layer rotates its q and k with them.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rope import rope_cos_sin
 from repro_torch.serving.kvcache import PagedCache
 from repro_torch.serving.quantize import QTensor, quantize_vec
 
@@ -48,8 +54,8 @@ class Cache:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if not cfg.learned_pos_emb:
-        raise NotImplementedError("RoPE models are not ported yet")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (the VLM path) is not ported yet")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -74,8 +80,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
         "embed": normal((cfg.vocab, d), 0.02),
         "final_norm": blk.init_norm(cfg, ones, zeros),
         "lm_head": normal((cfg.vocab, d), d ** -0.5),
-        "pos_embed": normal((cfg.max_seq, d), 0.02),
     }
+    if cfg.learned_pos_emb:
+        p["pos_embed"] = normal((cfg.max_seq, d), 0.02)
     blocks = {
         "ln1": blk.init_norm(cfg, ones, zeros, (L,)),
         "attn": attn_lib.init_attention(normal, zeros, cfg, L),
@@ -102,12 +109,23 @@ def _layers(blocks: dict, n_layers: int) -> list[dict]:
     return unbind(blocks)
 
 
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """positions (...,) -> cos/sin (..., Dh/2), (None, None) with learned
+    positions (M-RoPE is refused by `_check_supported`)."""
+    if cfg.learned_pos_emb:
+        return None, None
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor) -> torch.Tensor:
     x = p["embed"][tokens.long()].to(cfg.cdtype)
     if cfg.embed_scale:
-        x = x * cfg.d_model ** 0.5
-    return x + p["pos_embed"][positions.long()].to(cfg.cdtype)
+        # The JAX package rounds the scale to the compute dtype first.
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype))
+    if cfg.learned_pos_emb:
+        x = x + p["pos_embed"][positions.long()].to(cfg.cdtype)
+    return x
 
 
 def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -146,11 +164,12 @@ def _paged_chunk_forward(params: dict, tokens: torch.Tensor,
     start = start.to(torch.int32)
     pos = start[:, None].long() + torch.arange(S, device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg, pos)
+    cos, sin = _rope(cfg, pos)
     length = start + S
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, *_ = blk.apply_decoder_block_prefill_chunk_paged(
             bp, x, k_pages[i], v_pages[i], block_tables, start, length, cfg,
-            engine, window=cfg.window_for_layer(i),
+            engine, cos=cos, sin=sin, window=cfg.window_for_layer(i),
             kv_scales=_kv_scales(k_scales, v_scales, i))
     return x
 
@@ -202,11 +221,13 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     B, S = tokens.shape
     if max_len < S:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
-    x = _embed(params, tokens, cfg, torch.arange(S, device=tokens.device)[None])
+    pos = torch.arange(S, device=tokens.device)
+    x = _embed(params, tokens, cfg, pos[None])
+    cos, sin = _rope(cfg, pos)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     cache.lengths.fill_(S)
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, (k, v) = blk.apply_decoder_block_prefill(bp, x, cfg, engine,
+        x, (k, v) = blk.apply_decoder_block_prefill(bp, x, cfg, engine, cos=cos, sin=sin,
                                                     window=cfg.window_for_layer(i))
         if cache.quantized:
             k, cache.k_scale[i, :, :, :S] = quantize_vec(k, torch.bfloat16)
@@ -229,10 +250,11 @@ def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
         return _decode_step_paged(params, token, cache, cfg, engine)
     _check_supported(cfg)
     x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
+    cos, sin = _rope(cfg, cache.lengths)
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
         x, *_ = blk.apply_decoder_block_decode(
-            bp, x, cache.k[i], cache.v[i], cache.lengths, cfg, engine,
+            bp, x, cache.k[i], cache.v[i], cache.lengths, cfg, engine, cos=cos, sin=sin,
             window=cfg.window_for_layer(i), kv_scales=scales)
     new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
     return _logits(params, x, cfg, engine), new_cache
@@ -246,10 +268,11 @@ def _decode_step_paged(params: dict, token: torch.Tensor, cache,
     _check_supported(cfg)
     _check_scales(cache.k_pages, cache.k_scale)
     x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
+    cos, sin = _rope(cfg, cache.lengths)
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, *_ = blk.apply_decoder_block_decode_paged(
             bp, x, cache.k_pages[i], cache.v_pages[i], cache.block_tables,
-            cache.lengths, cfg, engine, window=cfg.window_for_layer(i),
+            cache.lengths, cfg, engine, cos=cos, sin=sin, window=cfg.window_for_layer(i),
             kv_scales=_kv_scales(cache.k_scale, cache.v_scale, i))
     new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
     return _logits(params, x, cfg, engine), new_cache

@@ -28,7 +28,10 @@ On the card (`-m gpu`): each of the four CUDA kernels against its plain
 version; `lut_interp` and `layernorm_lut` bit for bit (the norm also on
 strided rows of odd stride), `softmax_lut` on both sides of each limit of
 its plan, two launches bit for bit, LUT-mode `decode_attention` held to
-the online plain version. JAX is imported inside fixtures only, so the card,
+the online plain version, also at the RoPE models' heads (g x head_dim 6 x
+128, 2 x 256, 4 x 120, 12 x 192) over 4800 positions, on the bf16 and the
+int8 arena; the norm's rows past 8 warps' registers (8200 f32, 16392 and
+18432 bf16) streamed, bit for bit. JAX is imported inside fixtures only, so the card,
 which has no JAX, collects this file.
 """
 from __future__ import annotations
@@ -50,6 +53,7 @@ from repro_torch.kernels import decode_attention, layernorm_lut, lut_interp, ops
 from repro_torch.kernels import _build, paged_attention
 from repro_torch.models import api
 from repro_torch.serving import engine as tengine
+from repro_torch.serving import quantize
 from repro_torch.serving.config import EngineConfig, GenConfig
 
 TBANK = tlut.LutBank.create(64)
@@ -538,7 +542,9 @@ LAYERNORM_PLANS = [((4, 1024, 2), (1, 4, 1)), ((64, 1024, 2), (1, 4, 1)),
                    ((5, 96, 4), (1, 1, 1)), ((4, 2048, 2), (1, 8, 1)),
                    ((4, 2049, 2), (2, 8, 1)), ((4096, 2048, 2), (8, 1, 1)),
                    ((4096, 2049, 2), (8, 2, 1)), ((4, 16384, 2), (8, 8, 1)),
-                   ((4, 8192, 4), (8, 8, 1))]
+                   ((4, 8192, 4), (8, 8, 1)), ((4, 2304, 2), (2, 8, 1)),
+                   ((4, 3840, 2), (2, 8, 1)), ((4, 16392, 2), (0, 8, 1)),
+                   ((4, 18432, 2), (0, 8, 1)), ((4, 8200, 4), (0, 8, 1))]
 
 
 @pytest.mark.parametrize("shape,want", SOFTMAX_PLANS)
@@ -558,14 +564,19 @@ def test_layernorm_plan(shape, want):
     chunks, warps, rows = plan = layernorm_lut.layernorm_plan(*shape)
     assert plan == want
     assert chunks <= layernorm_lut.MAX_CHUNKS and warps * rows <= 8
-    assert chunks * 32 * warps * (16 // itemsize) >= d
+    if chunks:
+        assert chunks * 32 * warps * (16 // itemsize) >= d
 
 
 @pytest.mark.parametrize("itemsize,limit", [(2, 16384), (4, 8192)])
 def test_layernorm_plan_refuses_rows_past_a_block(itemsize, limit):
-    layernorm_lut.layernorm_plan(4, limit, itemsize)
-    with pytest.raises(ValueError, match=f"at most {limit} elements"):
-        layernorm_lut.layernorm_plan(4, limit + 1, itemsize)
+    """Rows up to 8 warps' registers keep the register plan; one element
+    more and the row is streamed through a block (chunks 0, 8 warps, one
+    row a block), at any width: the plan no longer refuses a row."""
+    assert layernorm_lut.layernorm_plan(4, limit, itemsize) == (
+        layernorm_lut.MAX_CHUNKS, 8, 1)
+    for d in (limit + 1, 2 * limit + 3, 18432):
+        assert layernorm_lut.layernorm_plan(4, d, itemsize) == (0, 8, 1)
 
 
 def test_row_plan_covers_every_width():
@@ -669,10 +680,13 @@ def test_lut_interp_kernel_bit_exact(cuda, shape, dtype, name):
 
 
 # Rows on both sides of each limit of `layernorm_plan` (a warp: 1024 f32 or
-# 2048 bf16 values; 8 warps: 8192 or 16384), widths that are not whole
-# 16-byte pieces (98 in f32, 98 and 1030 in bf16), and the main paths' rows.
+# 2048 bf16 values; 8 warps: 8192 or 16384, past which rows are streamed),
+# widths that are not whole 16-byte pieces (98 in f32, 98 and 1030 in
+# bf16), and the main paths' rows (GPT-2 1024, qwen2 1536, gemma2 2304,
+# danube 3840, nemotron 18432).
 LN_CARD_SHAPES = [(4, 1024), (64, 1024), (512, 1024), (5, 96), (3, 98), (3, 1030),
-                  (4, 1028), (4, 1536), (4, 2048), (4, 2056), (2, 8192), (2, 16384)]
+                  (4, 1028), (4, 1536), (4, 2048), (4, 2056), (2, 8192), (2, 16384),
+                  (4, 2304), (4, 3840), (4, 8200), (4, 16392), (4, 18432), (3, 18438)]
 
 
 @pytest.mark.gpu
@@ -681,12 +695,8 @@ LN_CARD_SHAPES = [(4, 1024), (64, 1024), (512, 1024), (5, 96), (3, 98), (3, 1030
 @pytest.mark.parametrize("rms,lut,plus_one", [(False, False, False), (False, True, False),
                                               (True, False, True), (True, True, False)])
 def test_layernorm_kernel_matches_plain(cuda, M, d, dtype, rms, lut, plus_one):
-    """Bit for bit; f32 rows past 8 warps' registers are refused by name."""
-    if dtype == torch.float32 and d > 8192:
-        with pytest.raises(ValueError, match="at most 8192 elements"):
-            layernorm_lut.layernorm_lut(torch.zeros(M, d, device=cuda),
-                                        torch.ones(d, device=cuda))
-        return
+    """Bit for bit, rows past 8 warps' registers (f32 past 8192, bf16 past
+    16384) streamed through a block."""
     x, g, b = (_t(a, cuda).to(dtype) for a in _ln_input(M, d))
     kw = dict(eps=1e-5, rsqrt_table=TBANK.rsqrt if lut else None, rms=rms,
               plus_one=plus_one)
@@ -810,6 +820,47 @@ def test_decode_attention_kernel_on_planted_keys(cuda, case, g, D, dtype, opts):
     want = plain(q, k, v, lengths, **kw)
     assert float(want[lengths > 1].float().abs().amax()) > 0.5
     _close(got, want.float().cpu(), _tol(dtype))
+
+
+# The RoPE models' heads, 2 kv heads each: (g, head_dim, their layers'
+# options): qwen2-1.5B, gemma2-2B (softcap 50, a 4096-token window),
+# h2o-danube3-4B (the window), nemotron-4-340B.
+MODEL_HEADS = [(6, 128, {}), (2, 256, {"softcap": 50.0, "window": 4096}),
+               (4, 120, {"window": 4096}), (12, 192, {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", MODEL_HEADS)
+@pytest.mark.parametrize("arena", ["bf16", "int8"])
+@pytest.mark.parametrize("lut", [False, True])
+def test_decode_attention_kernel_at_model_heads(cuda, heads, arena, lut):
+    """A 4800-position arena, lengths 4700, 1500 and 1, planted keys (in
+    the window's span), bf16 queries, the bf16 arena and the int8 one with
+    bf16 scale rows: exact mode against the plain version, LUT mode against
+    the online block walk, within 3e-2; one launch a call."""
+    g, D, opts = heads
+    lens = [4700, 1500, 1]
+    B, H, S = 3, 2 * g, 4800
+    rng = np.random.RandomState(g + D)
+    q, k, v = _arena_inputs(B, H, 2, S, D, seed=g + D)
+    _plant_arena(rng, q, k, v, lens, hot=6, window=opts.get("window"))
+    q, k, v = (_t(a, cuda) for a in (q, k, v))
+    q = q.bfloat16()
+    if arena == "int8":
+        (k, ks), (v, vs) = (quantize.quantize_vec(t, torch.bfloat16) for t in (k, v))
+    else:
+        k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+    lengths = _t(np.asarray(lens, np.int32), cuda)
+    kw = _attn_kw(dict(opts, lut=lut), TBANK)
+    before = decode_attention.decode_attention.launches
+    got = decode_attention.decode_attention(q, k, v, lengths, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == before + 1
+    plain = (decode_attention.decode_attention_online_plain if lut
+             else decode_attention.decode_attention_plain)
+    want = plain(q, k, v, lengths, ks, vs, **kw)
+    assert float(want[:2].float().abs().amax()) > 0.5
+    _close(got, want.float().cpu(), 3e-2)
 
 
 @pytest.mark.gpu

@@ -11,7 +11,8 @@ single-walk decode's cluster and window at any table width, and the page walk
 that the decode kernel computes in LUT mode against the Pallas kernel in
 interpret mode (1e-5). On the card (`-m gpu`): each CUDA kernel against its
 plain version on the same inputs, the tensor-core GEMV at its ragged and
-cluster shapes and bit-identical across launches, the int8 and fixed16
+cluster shapes (and the RoPE models' LM heads of 151936 and 256000 rows)
+and bit-identical across launches, the int8 and fixed16
 GEMVs bit for bit at the shapes of `chip_smoke.py` on both routes, with
 the fused fixed16 linear layer and the int8 LUT epilogue (their plain
 versions are held to the JAX oracles in test_torch_quant.py), the int8
@@ -664,6 +665,30 @@ def test_gemv_tensor_core_kernel_matches_plain(cuda, M, R, C, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 64])
+@pytest.mark.parametrize("R,C", [(151936, 1536), (256000, 2304), (8960, 1536),
+                                 (1536, 8960), (960, 3840)])
+@pytest.mark.parametrize("act", [None, "lut"])
+def test_gemv_tensor_core_kernel_at_rope_model_shapes(cuda, M, R, C, act):
+    """bf16 through the tensor-core kernel at the RoPE models' LM heads
+    (qwen2-1.5B's 151936 rows, gemma2-2B's 256000, both ragged on the
+    64-row tile), qwen2's w_up and w_down, and h2o-danube3-4B's k/v (C
+    3840, 30 K tiles), bias on, within 3e-2. Inputs are drawn on the card
+    from a seeded generator."""
+    gen = torch.Generator(device=cuda).manual_seed(R + C + M)
+    x = (torch.randn((M, C), generator=gen, device=cuda) * 0.5).bfloat16()
+    w = (torch.randn((R, C), generator=gen, device=cuda) * C ** -0.5).bfloat16()
+    b = (torch.randn((R,), generator=gen, device=cuda) * 0.5).bfloat16()
+    kw = dict(act_table=TBANK.silu if act == "lut" else None)
+    before = gemv_pim.gemv_pim_float.tc_launches
+    got = gemv_pim.gemv_pim_float(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert gemv_pim.gemv_pim_float.tc_launches == before + 1
+    want = gemv_pim.gemv_pim_plain(x, w, b, **kw)
+    _close(got, want.float().cpu().numpy(), 3e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M,C,R", [(4, 4096, 1024), (64, 1024, 4096), (65, 4096, 1024)])
 def test_gemv_tensor_core_kernel_is_deterministic(cuda, M, C, R):
     """The cluster's partials are summed in rank order: two launches give
@@ -1004,12 +1029,14 @@ def test_quantize_int8_rows_f32_edges(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 4, 8, 64])
-@pytest.mark.parametrize("C", [16, 1024, 4096])
+@pytest.mark.parametrize("C", [16, 1024, 4096, 8960])
 @pytest.mark.parametrize("dtype,compute", QUANT_MODES)
 @pytest.mark.parametrize("epi", ["none", "bias", "bias+lut"])
 def test_gemv_int8_linear_bit_for_bit(cuda, M, C, dtype, compute, epi):
     """The int8 linear layer in one launch (x quantized in the kernel's
-    load path, on a cluster or one block; at M = 64 its two launches) is
+    load path, on a cluster or one block; at C 8960 and M 4 or 8 a block's
+    share past the 4 pieces a thread held in registers; at M = 64 its two
+    launches) is
     bit for bit `quantize_int8_rows` then `gemv_pim_int8` on
     the card, and the plain version: 1000 rows of w (a ragged row tile), a
     zero row of x, q3's bf16 scales and bias or q1's f32 scales."""

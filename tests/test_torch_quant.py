@@ -462,7 +462,7 @@ def test_quant_plan(rows, C, itemsize, want):
 ])
 def test_gemv_int8_linear_plan(M, C, R, want):
     """One token tile holds every row of x, and a block's share of x is at
-    most 256 pieces of 16 elements (2 a consumer thread)."""
+    most INT8_LINEAR_PIECES pieces of 16 elements."""
     plan = gemv_pim.gemv_int8_linear_plan(M, C, R)
     assert plan is not None and (plan.n_tile, plan.cluster) == want
     assert plan.n_tiles == 1 and plan.route == "tensor_core"
@@ -470,11 +470,12 @@ def test_gemv_int8_linear_plan(M, C, R, want):
 
 
 @pytest.mark.parametrize("M,C,R,aligned", [(64, 1024, 4096, True), (33, 1024, 1024, True),
-                                           (8, 1024, 50257, True), (16, 1024, 4096, True),
+                                           (32, 1536, 8960, True), (16, 8960, 1536, True),
                                            (512, 1024, 1024, True), (4, 1000, 1024, True),
                                            (4, 1024, 1024, False), (0, 1024, 1024, True)])
 def test_gemv_int8_linear_plan_refuses(M, C, R, aligned):
-    """A prefill chunk's x, a block share past 256 pieces, C % 16 != 0 and a
-    misaligned row take two launches: `quantize_int8_rows`, then
+    """A prefill chunk's x, a block share past INT8_LINEAR_PIECES pieces
+    (qwen2-1.5B's `w_gate` at 32 rows, its `w_down` at 16), C % 16 != 0
+    and a misaligned row take two launches: `quantize_int8_rows`, then
     `gemv_pim_int8`."""
     assert gemv_pim.gemv_int8_linear_plan(M, C, R, aligned=aligned) is None

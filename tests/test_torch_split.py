@@ -18,7 +18,10 @@ every pool format, LUT mode held to the page walk it computes, at the
 limits of its shared memory (the widest table, and a cluster the table's
 width sets), and forced into windows at a few hundred keys on every pool
 format; the wide and windowed cases plant dominant keys so that their
-outputs are O(1) and the tolerance binds.
+outputs are O(1) and the tolerance binds; the decode and prefill
+kernels at the RoPE models' heads (g x head_dim 6 x 128, 2 x 256 with a
+softcap and a window, 4 x 120 with a window, 12 x 192) over 4800 keys on
+every pool format.
 """
 from __future__ import annotations
 
@@ -237,6 +240,28 @@ def test_online_prefill_matches_pallas_interpret(jx, pool, opts):
     got = paged_prefill.paged_prefill_attention_online_plain(
         q, k, v, tbl, lens, starts, ks, vs, **_kw(opts, TBANK))
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("opts", [{}, {"softcap": 5.0, "window": 19}])
+def test_prefill_page_walk_is_the_one_shot_softmax_in_fp64(pool, opts):
+    """In fp64 the page walk (`paged_prefill_attention_online_plain`, the
+    order of the prefill kernel's sums) and the one-shot softmax of
+    `paged_prefill_attention_plain` round to the same bf16 bits: the order
+    of an fp64 sum cannot show in a bf16 output, which is what lets the
+    kernel match its plain version bit for bit."""
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=2, H=12, Hkv=2, D=32, page=4, n_pages=24,
+                                       lengths=[40, 93], Sq=29, seed=11)
+    q = (3 * q).bfloat16()
+    if pool == "fp":
+        k, v = k.bfloat16(), v.bfloat16()
+    starts = lens - 29
+    walk = paged_prefill.paged_prefill_attention_online_plain(q, k, v, tbl, lens, starts,
+                                                              ks, vs, **opts)
+    one_shot = paged_prefill.paged_prefill_attention_plain(q, k, v, tbl, lens, starts,
+                                                          ks, vs, **opts)
+    assert one_shot.dtype == torch.bfloat16 and float(one_shot.float().abs().amax()) > 0.5
+    assert torch.equal(walk.to(torch.bfloat16), one_shot)
 
 
 @pytest.mark.parametrize("pool", ["fp", "int8-f32", "int4"])
@@ -505,11 +530,12 @@ def test_decode_kernel_walks_windows(cuda, pool, opts, heads, win_pages):
 @pytest.mark.parametrize("pool", POOLS)
 @pytest.mark.parametrize("opts", [{}, {"lut": True}, {"lut": True, "softcap": 5.0, "window": 300}])
 def test_prefill_tensor_core_kernel_matches_walk(cuda, pool, opts):
-    """bf16 chunks on the tensor-core prefill kernel (counted by
-    tc_launches) at g 1 and 2, Sq 1, 17 and 64, starts 0, 15, 64 and 896 of
-    a 64-page table: exact mode against the plain version, LUT mode against
-    the page walk (`paged_prefill_attention_online_plain`), within 3e-2;
-    f32 chunks take the CUDA-core walk."""
+    """bf16 chunks on the prefill kernel (one launch each; the kernel
+    replaced the tensor-core one, whose fp32 sums left the plain version's
+    bits) at g 1 and 2, Sq 1, 17 and 64, starts 0, 15, 64 and 896 of a
+    64-page table: exact mode against the plain version, LUT mode against
+    the page walk (`paged_prefill_attention_online_plain`), bit for bit
+    (both sum in fp64); f32 chunks too."""
     kw = _kw(opts, TBANK)
     for g in (1, 2):
         for Sq in (1, 17, 64):
@@ -520,20 +546,20 @@ def test_prefill_tensor_core_kernel_matches_walk(cuda, pool, opts):
                 st = lens - Sq
                 if pool == "fp":
                     k, v = k.bfloat16(), v.bfloat16()
-                before = paged_prefill.paged_prefill_attention.tc_launches
+                before = paged_prefill.paged_prefill_attention.launches
                 got = paged_prefill.paged_prefill_attention(q.bfloat16(), k, v, tbl, lens, st,
                                                             ks, vs, **kw)
                 torch.cuda.synchronize()
-                assert paged_prefill.paged_prefill_attention.tc_launches == before + 1
+                assert paged_prefill.paged_prefill_attention.launches == before + 1
                 plain = (paged_prefill.paged_prefill_attention_online_plain if opts.get("lut")
                          else paged_prefill.paged_prefill_attention_plain)
                 want = plain(q.bfloat16(), k, v, tbl, lens, st, ks, vs, **kw)
-                _close(got, want.float().cpu().numpy(), 3e-2)
-    before = paged_prefill.paged_prefill_attention.tc_launches
+                assert torch.equal(got, want.to(got.dtype))
     if pool != "fp":
-        paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, ks, vs, **kw)
-        torch.cuda.synchronize()
-        assert paged_prefill.paged_prefill_attention.tc_launches == before
+        got = paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, ks, vs, **kw)
+        plain = (paged_prefill.paged_prefill_attention_online_plain if opts.get("lut")
+                 else paged_prefill.paged_prefill_attention_plain)
+        assert torch.equal(got, plain(q, k, v, tbl, lens, st, ks, vs, **kw).to(got.dtype))
 
 
 # g = 6 over head_dim 64 and g = 8 over head_dim 128; a 66-page table of
@@ -637,3 +663,69 @@ def test_split_route_replays_in_a_cuda_graph(cuda, pool, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# The RoPE models' attention heads, 2 kv heads each: (g, head_dim, the
+# options their layers pass). qwen2-1.5B g 6 x 128; gemma2-2B g 2 x 256
+# with softcap 50 and a 4096-token window; h2o-danube3-4B g 4 x 120 (bf16
+# rows of 240 bytes, int4 rows of 60: not whole 16-byte pieces) with the
+# window; nemotron-4-340B g 12 x 192.
+MODEL_HEADS = [(6, 128, {}), (2, 256, {"softcap": 50.0, "window": 4096}),
+               (4, 120, {"window": 4096}), (12, 192, {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("heads", MODEL_HEADS)
+def test_decode_kernel_at_model_heads(cuda, pool, lut, heads):
+    """The single walk over a 300-page table (4800 keys), lengths 4700,
+    1500 and 1, bf16 queries on every pool format, planted keys: exact mode
+    against the plain version, LUT mode against the page walk, within 3e-2;
+    the window cuts the 4700-key row."""
+    g, D, opts = heads
+    q, k, v, ks, vs, tbl, lens = _case(pool, B=3, H=2 * g, Hkv=2, D=D, page=16, n_pages=300,
+                                       lengths=[4700, 1500, 1], seed=D + g, device=cuda,
+                                       hot=8)
+    q = q.bfloat16()
+    if pool == "fp":
+        k, v = k.bfloat16(), v.bfloat16()
+    kw = _kw(dict(opts, lut=lut), TBANK)
+    before = paged_attention.paged_attention.launches
+    got = paged_attention.paged_attention(q, k, v, tbl, lens, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_attention.launches == before + 1
+    plain = (paged_attention.paged_attention_online_plain if lut
+             else paged_attention.paged_attention_plain)
+    want = plain(q, k, v, tbl, lens, ks, vs, **kw)
+    assert float(want.float().abs().amax()) > 0.5
+    _close(got, want.float().cpu().numpy(), 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("lut", [False, True])
+@pytest.mark.parametrize("heads", MODEL_HEADS)
+def test_prefill_kernel_at_model_heads(cuda, pool, lut, heads):
+    """bf16 chunks over a 300-page table: 64 queries at start 0, 17 at 15
+    and 64 at 4400 (past the 4096-token window), queries of std 4 so that a
+    few keys dominate each row; exact mode against the plain version, LUT
+    mode against the page walk, bit for bit (both sum in fp64)."""
+    g, D, opts = heads
+    kw = _kw(dict(opts, lut=lut), TBANK)
+    for Sq, start in ((64, 0), (17, 15), (64, 4400)):
+        q, k, v, ks, vs, tbl, lens = _case(pool, B=1, H=2 * g, Hkv=2, D=D, page=16,
+                                           n_pages=300, lengths=[start + Sq], Sq=Sq,
+                                           seed=start + D, device=cuda)
+        q = (4 * q).bfloat16()
+        if pool == "fp":
+            k, v = k.bfloat16(), v.bfloat16()
+        st = lens - Sq
+        before = paged_prefill.paged_prefill_attention.launches
+        got = paged_prefill.paged_prefill_attention(q, k, v, tbl, lens, st, ks, vs, **kw)
+        torch.cuda.synchronize()
+        assert paged_prefill.paged_prefill_attention.launches == before + 1
+        plain = (paged_prefill.paged_prefill_attention_online_plain if lut
+                 else paged_prefill.paged_prefill_attention_plain)
+        want = plain(q, k, v, tbl, lens, st, ks, vs, **kw)
+        assert torch.equal(got, want.to(got.dtype))
