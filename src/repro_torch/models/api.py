@@ -6,6 +6,8 @@ and paged entry points of `repro.models.api`).
     init_cache(cfg, batch, max_len, device="cuda")
     prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
                   k_scales=None, v_scales=None)
+    verify_tokens(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
+                  k_scales=None, v_scales=None)
     decode_step(params, token, cache, cfg, engine)
     init_paged_cache(cfg, batch, num_pages, page_size, max_pages, kv_dtype=None,
                      kv_scale_dtype="float32", device="cuda")
@@ -35,6 +37,22 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
     k_pages, v_pages); int8/int4 pools pass their scale pools and get the
     5-tuple with them."""
     return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
+                            v_pages, cfg, engine, k_scales, v_scales)
+
+
+def verify_tokens(params: dict, tokens: torch.Tensor,
+                  block_tables: torch.Tensor, start: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  cfg: ModelConfig, engine: SalPimEngine,
+                  k_scales=None, v_scales=None):
+    """Speculative verify pass: score each slot's k+1 candidate tokens
+    [t0, d1..dk] at positions start..start+k in one paged-prefill-shaped
+    forward, writing their K/V into the slot's pages in place. Returns
+    (logits (B, k+1, V), k_pages, v_pages[, k_scales, v_scales]); the
+    serving engine rolls rejected tail positions back in-pool."""
+    if cfg.family == "encdec":
+        raise ValueError("speculative verify unsupported for encdec")
+    return tf.verify_tokens(params, tokens, block_tables, start, k_pages,
                             v_pages, cfg, engine, k_scales, v_scales)
 
 

@@ -1,6 +1,6 @@
 """Decoder-only LM over the dense per-slot KV arena (`Cache`: `prefill`,
-`decode_step`) and over a paged KV cache (`prefill_chunk`, the paged
-`decode_step`): the port of the dense family of `repro.models.transformer`.
+`decode_step`) and over a paged KV cache (`prefill_chunk`,
+`verify_tokens`, the paged `decode_step`): the port of the dense family of `repro.models.transformer`.
 
 Parameters are a plain dict with the JAX pytree's keys; each block weight
 is stacked on a leading layer axis, and a Python loop over layers takes the
@@ -124,7 +124,10 @@ def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
         # The JAX package rounds the scale to the compute dtype first.
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype))
     if cfg.learned_pos_emb:
-        x = x + p["pos_embed"][positions.long()].to(cfg.cdtype)
+        # A verify pass's padded rows can run past max_seq; they read the
+        # last row (their logits and K/V are never used).
+        pos = positions.long().clamp_max(p["pos_embed"].shape[0] - 1)
+        x = x + p["pos_embed"][pos].to(cfg.cdtype)
     return x
 
 
@@ -191,6 +194,24 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
     x = _paged_chunk_forward(params, tokens, block_tables, start, k_pages,
                              v_pages, cfg, engine, k_scales, v_scales)
     logits = _logits(params, x[:, -1], cfg, engine)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
+
+
+def verify_tokens(params: dict, tokens: torch.Tensor,
+                  block_tables: torch.Tensor, start: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  cfg: ModelConfig, engine: SalPimEngine,
+                  k_scales=None, v_scales=None):
+    """Speculative verify pass: `prefill_chunk`'s forward with the LM head
+    at all S positions. tokens (B, S = k+1) hold each slot's [t0, d1..dk]
+    at positions start[b] .. start[b] + k; their K/V are written into the
+    pages in place. Returns (logits (B, S, V), k_pages, v_pages[, k_scales,
+    v_scales])."""
+    x = _paged_chunk_forward(params, tokens, block_tables, start, k_pages,
+                             v_pages, cfg, engine, k_scales, v_scales)
+    logits = _logits(params, x, cfg, engine)
     if k_scales is not None:
         return logits, k_pages, v_pages, k_scales, v_scales
     return logits, k_pages, v_pages

@@ -3,13 +3,13 @@
 `EngineConfig` keeps the JAX package's field names and defaults, so a
 config reads the same in both packages. The port serves FIFO over the
 dense per-slot arena (`paged=False`, the default) and over paged fp, int8
-and int4 pools, with or without KV-split decode; every feature it lacks
-raises `NotImplementedError` in `validate` instead of being ignored, and
-the JAX package's rules for chunked prefill, the pool dtype, the scale
-dtype and `kv_splits` raise its `ValueError`s word for word.
-`prefix_sharing` defaults to True as in the JAX package and, as there,
-means nothing to the dense arena; a paged config for the port passes
-`prefix_sharing=False`.
+and int4 pools, with or without KV-split decode, prefix sharing
+(`prefix_sharing`, on by default as in the JAX package; it means nothing
+to the dense arena) and speculative decoding (`speculative=SpecConfig(...)`
+from `serving/speculative.py`). Every feature it lacks raises
+`NotImplementedError` in `validate` instead of being ignored, and the JAX
+package's rules for chunked prefill, the pool dtype, the scale dtype,
+`kv_splits` and speculation raise its `ValueError`s word for word.
 """
 from __future__ import annotations
 
@@ -55,10 +55,6 @@ class EngineConfig:
     def validate(self, model_cfg) -> None:
         """Raise on what the port does not serve, then on bad values."""
         missing = []
-        if self.paged and self.prefix_sharing:
-            missing.append("prefix_sharing=True")
-        if self.speculative is not None:
-            missing.append("speculative decoding")
         if self.scheduler is not None and getattr(self.scheduler, "name", None) != "fifo":
             missing.append("schedulers other than FIFO")
         if self.telemetry is not None:
@@ -115,3 +111,14 @@ class EngineConfig:
                     "kv_splits requires paged=True: the KV-split path "
                     "partitions the block-table page walk; the dense "
                     "backend has no pages to split")
+        if self.speculative is not None:
+            self.speculative.validate()
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding requires paged=True: rollback "
+                    "is in-pool (rewind lengths + unmap tail pages)")
+            if self.gen.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: acceptance "
+                    "compares drafts against argmax, which is exact "
+                    "only at temperature 0")

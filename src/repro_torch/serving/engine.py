@@ -29,10 +29,21 @@ pool's byte budget, so quantized pools hold proportionally more pages.
 `kv_splits=K` runs decode attention as K page runs merged by the
 combine, once the block table spans KV_SPLIT_MIN_CONTEXT tokens.
 
+With `prefix_sharing` (the default) admission maps the longest run of
+cached full prompt pages another request registered (`BlockAllocator.
+admit_tokens`) and the prompt cursor starts past them; a chunk or a decode
+write that would land in a still-shared page first forks it (COW:
+`fork_page` + `kvcache.copy_page`, payload and scale rows). With
+`speculative=SpecConfig(...)` each step after the chunk is a draft-verify
+round (`_spec_round`): t0 from `last_logits`, the drafter's proposals, one
+`verify_tokens` pass over (slots, k+1), greedy acceptance, and the
+rejected tail rewound in the pool (`BlockAllocator.rewind` +
+`kvcache.rewind_slot`).
+
 FIFO admission and the decode step are shared by both modes.
 Construction: `ServingEngine(params, cfg, engine, EngineConfig(slots=4,
-max_len=256), device="cuda")`, with `paged=True, prefix_sharing=False`
-for the paged mode. Features the port lacks raise `NotImplementedError`
+max_len=256), device="cuda")`, with `paged=True` for the paged mode.
+Features the port lacks raise `NotImplementedError`
 (`EngineConfig.validate`).
 """
 from __future__ import annotations
@@ -52,6 +63,7 @@ from repro_torch.serving import kvcache as kv
 from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.scheduler import FifoScheduler
+from repro_torch.serving.speculative import greedy_accept, make_drafter
 
 __all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine", "generate"]
 
@@ -129,6 +141,13 @@ class Request:
     done: bool = False
     # Prompt tokens whose KV is already resident in the slot's pages.
     prefill_cursor: int = 0
+    # Tokens covered by prefix-cache pages mapped at admission: pages this
+    # request borrowed (COW-forked before any write), as opposed to the
+    # fresh pages it registered itself.
+    shared_prompt_tokens: int = 0
+    # Drafts proposed for this request and accepted by the verify pass.
+    proposed: int = 0
+    accepted: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -170,13 +189,27 @@ class ServingEngine:
         self._generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self._host_len = np.zeros((self.slots,), np.int64)
         self.prefill_tokens = 0
+        self.prefill_tokens_saved = 0
         self.peak_pages = 0
         self.decode_steps = 0
         self.prefill_chunks = 0
+        # Speculative counters: drafts proposed and accepted; verify_passes
+        # counts verify launches (one a round, shared by every slot),
+        # spec_rounds slot-level rounds (one model stream each).
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.verify_passes = 0
+        self.spec_rounds = 0
         self._step_sec = 0.0
         self._admit_sec = 0.0
         self._chunk_sec = 0.0
+        self._draft_sec = 0.0
+        self._verify_sec = 0.0
         self._decode_sec = 0.0
+        self.spec = config.speculative
+        self.drafter = (make_drafter(config.speculative, self.engine,
+                                     self.max_len)
+                        if config.speculative is not None else None)
 
         self.paged = config.paged
         if self.paged:
@@ -198,11 +231,18 @@ class ServingEngine:
                 model_cfg, page_size, "model")
             num_pages = budget // kv.page_kv_bytes(
                 model_cfg, page_size, kv_dtype, config.kv_scale_dtype) + 1
-        self.allocator = kv.BlockAllocator(num_pages, page_size)
+        self.allocator = kv.BlockAllocator(
+            num_pages, page_size, prefix_sharing=config.prefix_sharing,
+            pin_budget_pages=self.scheduler.pin_budget_pages)
         self.cache = model_api.init_paged_cache(
             model_cfg, self.slots, num_pages, page_size, self.max_pages,
             kv_dtype=kv_dtype, kv_scale_dtype=config.kv_scale_dtype,
             device=self.device)
+        # A verify pass pads every row to k+1 positions, up to max_len + k
+        # - 1: trash columns past the table take the writes that fall off
+        # it (the JAX engine drops them).
+        self._verify_pad = (-(-(self.max_len + self.spec.k) // page_size)
+                            - self.max_pages if self.spec is not None else 0)
 
     def submit(self, prompt, max_new_tokens: int = 32) -> int:
         prompt = np.asarray(prompt)
@@ -223,10 +263,14 @@ class ServingEngine:
         self.queue.append(Request(self._uid, prompt, max_new_tokens))
         return self._uid
 
-    def _place_paged(self, slot: int, req: Request):
+    def _place_paged(self, slot: int, req: Request, shared_tokens: int):
         """Install an admitted request; its prompt KV is produced chunk by
-        chunk by _prefill_tick."""
-        req.prefill_cursor = 0
+        chunk by _prefill_tick. A shared prefix advances the cursor (a
+        fully covered prompt recomputes its last token for its logits; that
+        chunk COW-forks the shared page it writes into)."""
+        req.shared_prompt_tokens = shared_tokens
+        req.prefill_cursor = min(shared_tokens, len(req.prompt) - 1)
+        self.prefill_tokens_saved += req.prefill_cursor
         self._host_len[slot] = 0
         self.active[slot] = req
 
@@ -252,7 +296,11 @@ class ServingEngine:
     def _prefill_tick(self):
         """Run at most one prompt chunk for one mid-prefill slot (FIFO: the
         oldest uid). The slot joins the decode batch only when the cursor
-        reaches the end of the prompt."""
+        reaches the end of the prompt.
+
+        Slots prefill in admission (uid) order, so a request that maps a
+        donor's registered pages runs no chunk before the donor has written
+        them all."""
         cand = [(r.uid, i) for i, r in enumerate(self.active)
                 if r is not None and r.prefilling]
         if not cand:
@@ -262,6 +310,16 @@ class ServingEngine:
         start = req.prefill_cursor
         budget = self.prefill_chunk_tokens or len(req.prompt)
         end = min(len(req.prompt), start + budget)
+        # COW: fork any still-shared *borrowed* page this chunk writes into
+        # (only the recomputed last token of a fully covered prompt can).
+        # Pages past the borrowed prefix are this request's own: writing
+        # them is the registered content later sharers mapped.
+        ps = self.allocator.page_size
+        borrowed = req.shared_prompt_tokens // ps
+        for logical in range(start // ps, min((end - 1) // ps + 1, borrowed)):
+            if self.allocator.refcount(self.allocator.pages_of(req.uid)[logical]) > 1:
+                old, new = self.allocator.fork_page(req.uid, logical)
+                kv.copy_page(self.cache, old, new)
         pages = self.allocator.pages_of(req.uid)
         row = torch.full((1, self.max_pages), kv.TRASH_PAGE, dtype=torch.int32)
         row[0, :len(pages)] = torch.as_tensor(pages, dtype=torch.int32)
@@ -299,23 +357,37 @@ class ServingEngine:
         else:
             # Park the slot at length 0: decode_step does not advance it.
             self.cache.lengths[slot] = 0
+        if self.drafter is not None:
+            self.drafter.release(slot)
         self._host_len[slot] = 0
 
     def _map_write_range(self, slot: int, req: Request, first: int,
                          n_writes: int):
-        """Map pages so KV writes at positions first..first+n-1 land in the
-        slot's own pages: extend where a position falls off the mapped
-        pages (reservations make this infallible)."""
+        """Map/fork pages so KV writes at positions first..first+n-1 land
+        in private pages: extend where a position falls off the mapped
+        pages (reservations make this infallible), COW-fork a still-shared
+        page a write would touch."""
+        ps = self.allocator.page_size
         for pos in range(first, first + n_writes):
             if self.allocator.needs_extend(req.uid, pos):
                 page = self.allocator.extend(req.uid)
-                n_mapped = len(self.allocator.pages_of(req.uid))
-                self.cache.block_tables[slot, n_mapped - 1] = page
+                self._repoint(slot, len(self.allocator.pages_of(req.uid)) - 1, page)
+            else:
+                logical = pos // ps
+                page = self.allocator.pages_of(req.uid)[logical]
+                if self.allocator.refcount(page) > 1:
+                    old, new = self.allocator.fork_page(req.uid, logical)
+                    kv.copy_page(self.cache, old, new)
+                    self._repoint(slot, logical, new)
+
+    def _repoint(self, slot: int, logical: int, page: int):
+        self.cache.block_tables[slot, logical] = page
 
     def step(self) -> int:
         """One engine step: admit, run at most one prompt chunk, then one
-        decode step across all fully prefilled slots. Returns the amount
-        of outstanding work (live decodes + mid-prefill slots + queue)."""
+        decode step (with `speculative`, one draft-verify round) across all
+        fully prefilled slots. Returns the amount of outstanding work (live
+        decodes + mid-prefill slots + queue)."""
         t_start = time.perf_counter()
         try:
             return self._step_inner()
@@ -336,6 +408,8 @@ class ServingEngine:
                  if r is not None and not r.prefilling]
         if not ready:
             return n_prefilling + len(self.queue)
+        if self.spec is not None:
+            return self._spec_round(ready) + n_prefilling + len(self.queue)
         t_dec = time.perf_counter()
         toks = sample(self.last_logits, self._generator,
                       temperature=self.gen.temperature, top_k=self.gen.top_k)
@@ -369,6 +443,97 @@ class ServingEngine:
         self._decode_sec += time.perf_counter() - t_dec
         return int(mask.sum()) + n_prefilling + len(self.queue)
 
+    def _spec_round(self, ready: list[int]) -> int:
+        """One draft-verify round over the fully prefilled slots; returns
+        the slots still live after it.
+
+        t0 is the argmax of last_logits (no model call). Each continuing
+        slot gets up to spec.k drafts (no more than its reservation has
+        room for), one verify pass writes every candidate's K/V and scores
+        all k+1 positions, and greedy acceptance commits the longest
+        matching prefix. The rejected tail rolls back in the pool: lengths
+        rewind and now-empty tail pages return to the free list and the
+        slot's reservation. Slots outside the round keep all-trash rows,
+        so their padded rows write the trash page."""
+        k = self.spec.k
+        t_draft0 = time.perf_counter()
+        host_logits = self.last_logits.cpu().numpy()
+        survivors: list[tuple[int, Request, int, np.ndarray]] = []
+        for i in ready:
+            req = self.active[i]
+            t0 = int(np.argmax(host_logits[i]))
+            req.generated.append(t0)
+            if (len(req.generated) >= req.max_new_tokens
+                    or (self.gen.stop_on_eos and t0 == self.gen.eos_id)):
+                self._release(i, req)
+                continue
+            # With G tokens generated the reservation holds at most
+            # max_new - G - 1 draft writes after t0's; a slot out of room
+            # verifies t0 alone (a decode step through the verify pass).
+            k_i = min(k, req.max_new_tokens - len(req.generated) - 1)
+            context = np.concatenate(
+                [req.prompt, np.asarray(req.generated, np.int64)])
+            drafts = (np.asarray(self.drafter.propose(i, context, k_i))[:k_i]
+                      if k_i > 0 else np.zeros((0,), np.int64))
+            req.proposed += len(drafts)
+            self.spec_proposed += len(drafts)
+            survivors.append((i, req, t0, drafts))
+        self._draft_sec += time.perf_counter() - t_draft0
+        if not survivors:
+            return 0
+        t_ver0 = time.perf_counter()
+        tokens = np.zeros((self.slots, k + 1), np.int64)
+        starts = np.zeros((self.slots,), np.int32)
+        for i, req, t0, drafts in survivors:
+            L = int(self._host_len[i])
+            tokens[i, 0] = t0
+            tokens[i, 1:1 + len(drafts)] = drafts
+            starts[i] = L
+            # Pages for t0 and the drafts; padded positions past them land
+            # in the tail of a mapped page (dead data past the rewind
+            # length) or in the trash page, through the trash columns
+            # past max_len.
+            self._map_write_range(i, req, L, 1 + len(drafts))
+        self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+        c = self.cache
+        tables = (torch.nn.functional.pad(c.block_tables, (0, self._verify_pad),
+                                          value=kv.TRASH_PAGE)
+                  if self._verify_pad else c.block_tables)
+        vlogits = model_api.verify_tokens(
+            self.params, torch.as_tensor(tokens, device=self.device),
+            tables, torch.as_tensor(starts, device=self.device),
+            c.k_pages, c.v_pages, self.cfg, self.engine, c.k_scale,
+            c.v_scale)[0]
+        self.verify_passes += 1
+        self.spec_rounds += len(survivors)
+        # Acceptance needs only the argmaxes.
+        greedy = torch.argmax(vlogits, dim=-1).cpu().numpy()
+        rows, cols = [], []
+        for i, req, t0, drafts in survivors:
+            a, hit_eos = greedy_accept(drafts, greedy[i], eos_id=self.gen.eos_id,
+                                       stop_on_eos=self.gen.stop_on_eos)
+            req.generated.extend(int(t) for t in drafts[:a])
+            req.accepted += a
+            self.spec_accepted += a
+            if hit_eos:
+                self._release(i, req)
+                continue
+            new_len = int(starts[i]) + 1 + a
+            self.allocator.rewind(req.uid, new_len)
+            kv.rewind_slot(self.cache, i, new_len,
+                           len(self.allocator.pages_of(req.uid)))
+            self._host_len[i] = new_len
+            rows.append(i)
+            cols.append(a)
+        if rows:
+            # One scatter: each live slot's next-round logits are the verify
+            # logits after its last accepted token.
+            r = torch.as_tensor(rows, device=self.device)
+            self.last_logits[r] = vlogits[
+                r, torch.as_tensor(cols, device=self.device)].float()
+        self._verify_sec += time.perf_counter() - t_ver0
+        return len(rows)
+
     def run(self, max_steps: int = 10000) -> list[Request]:
         """Drive steps until drained; returns requests finished during this
         call."""
@@ -381,21 +546,39 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Token counts, page high-water mark and host-clock phase times
-        (the device runs asynchronously; the decode phase waits for it when
-        it reads the sampled tokens)."""
+        (the device runs asynchronously; the decode and verify phases wait
+        for it when they read tokens). Speculative fields: proposed /
+        accepted drafts, acceptance_rate, verify_passes (launches),
+        spec_rounds (slot-level rounds), verify_per_token (rounds per
+        emitted token) and tokens_per_pass (its inverse); all 0 with
+        speculation off. A ratio with a zero denominator reads 0.0."""
+        def ratio(num, den):
+            return num / den if den else 0.0
+
         reqs = self.finished + [r for r in self.active if r is not None]
         tokens = sum(len(r.generated) for r in reqs)
+        spec_tokens = tokens if self.spec is not None else 0
         return {
             "tokens": tokens,
             "tokens_budget": sum(r.max_new_tokens for r in reqs),
-            "sec_per_token": self._step_sec / tokens if tokens else 0.0,
+            "sec_per_token": ratio(self._step_sec, tokens),
             "step_sec": self._step_sec,
             "admit_sec": self._admit_sec,
             "chunk_prefill_sec": self._chunk_sec,
+            "draft_sec": self._draft_sec,
+            "verify_sec": self._verify_sec,
             "decode_sec": self._decode_sec,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
             "peak_pages": self.peak_pages,
             "used_pages": self.allocator.used_pages if self.paged else 0,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "acceptance_rate": ratio(self.spec_accepted, self.spec_proposed),
+            "verify_passes": self.verify_passes,
+            "spec_rounds": self.spec_rounds,
+            "verify_per_token": ratio(self.spec_rounds, spec_tokens),
+            "tokens_per_pass": ratio(spec_tokens, self.spec_rounds),
         }

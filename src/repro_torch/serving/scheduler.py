@@ -1,12 +1,15 @@
 """Scheduler (the port of `repro.serving.scheduler`, FIFO only): strict
-FIFO admission (paged: under the page watermark, no skip past a blocked
-head; dense: into any free slot), prompt chunks in admission (uid) order,
-no preemption."""
+FIFO admission (paged: under the page watermark net of shared prefix
+pages, no skip past a blocked head; dense: into any free slot), prompt
+chunks in admission (uid) order, no preemption, no pinned prefix pages."""
 from __future__ import annotations
 
 
 class FifoScheduler:
     name = "fifo"
+    preemptive = False
+    reserve = True
+    pin_budget_pages = 0
 
     def schedule_admissions(self, eng) -> None:
         for slot in range(eng.slots):
@@ -16,9 +19,11 @@ class FifoScheduler:
                     eng.queue.pop(0)
                     eng._place_dense(slot, req)
                     continue
-                pages = eng.allocator.admit(req.uid, len(req.prompt),
-                                            req.max_new_tokens)
-                if pages is None:
+                # admit_tokens changes no state on refusal, so a waiting
+                # head reserves nothing.
+                res = eng.allocator.admit_tokens(req.uid, req.prompt,
+                                                 req.max_new_tokens)
+                if res is None:
                     if not any(r is not None for r in eng.active):
                         # Nothing holds pages, yet the head does not fit:
                         # it never will (submit() bounds the gross worst
@@ -31,9 +36,11 @@ class FifoScheduler:
                             f"pool has {eng.allocator.num_pages - 1}")
                     break
                 eng.queue.pop(0)
-                eng._place_paged(slot, req)
+                eng._place_paged(slot, req, res[1])
         if eng.paged:
             eng.peak_pages = max(eng.peak_pages, eng.allocator.used_pages)
 
     def select_prefill_slot(self, eng, cand: list[tuple[int, int]]) -> int:
+        # Strict admission (uid) order: a sharer cannot run a chunk before
+        # its donor has written every page the sharer mapped.
         return min(cand)[1]

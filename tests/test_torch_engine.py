@@ -3,10 +3,12 @@ drains token-identical in exact and LUT mode at chunk sizes None and 8, on
 int8 (f32 and bf16 scale rows) and int4 pools, with the KV-split decode
 engaged (`kv_splits=4`, a 1024-token block table), and on the quantized
 linear datapaths (`quant="int8"` exact and LUT, `quant="fixed16"`, and
-`quantize_params_int8` weights with int8 pools), all pages returned; plus
-the port's guards (no JAX or `repro` imports in the
-package, no silent CPU fallback, unsupported features raise, bad pool and
-split settings raise the JAX package's `ValueError`s)."""
+`quantize_params_int8` weights with int8 pools), all pages returned; the
+default paged config (prefix sharing on) and speculative configs drained
+against the JAX engine; plus the port's guards (no JAX or `repro` imports
+in the package, no silent CPU fallback, unsupported features raise, bad
+pool, split and speculative settings raise the JAX package's
+`ValueError`s)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.config import GenConfig as JaxGenConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro.serving.quantize import quantize_params_int8 as jax_quantize_params_int8
+from repro.serving.speculative import SpecConfig as JaxSpecConfig
 from repro_torch import bridge
 from repro_torch.configs import gpt2_medium
 from repro_torch.core.salpim import SalPimConfig as TSalPimConfig
@@ -34,6 +37,7 @@ from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.quantize import QTensor
 from repro_torch.serving.scheduler import FifoScheduler
+from repro_torch.serving.speculative import SpecConfig
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SLOTS, MAX_LEN, PAGE = 2, 32, 4
@@ -197,8 +201,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"prefix_sharing": True}, {"speculative": object()}, {"scheduler": object()},
-    {"telemetry": object()}, {"mesh": object()},
+    {"scheduler": object()}, {"telemetry": object()}, {"mesh": object()},
     {"hardware": "h100"},
 ])
 def test_unsupported_engine_features_raise(setup, change):
@@ -232,12 +235,74 @@ def test_bad_pool_settings_raise_jax_value_errors(setup, change, head_dim):
     assert str(terr.value) == str(jerr.value)
 
 
+@pytest.mark.parametrize("change", [
+    {}, {"speculative": SpecConfig(mode="ngram", k=4)},
+    {"speculative": SpecConfig(mode="ngram", k=2), "prefill_chunk_tokens": 8,
+     "kv_cache_dtype": "int8"},
+])
+def test_default_sharing_and_speculative_configs_drain(setup, change):
+    """The paged engine's default (prefix sharing on) and speculative
+    decoding, once refused, construct and drain token for token with the
+    JAX engine; every page, reservation and cached page comes back."""
+    jcfg, jparams, tparams, prompts, new = setup
+    # The donor prompts[3] (17 tokens: 4 full pages) is followed by an exact
+    # repeat (the fully covered path) and a sharer of its first 2 pages.
+    prompts = prompts[:4] + [prompts[3].copy(), np.concatenate([prompts[3][:8], [5, 6]])] \
+        + prompts[4:]
+    new = new[:4] + [3, 4] + new[4:]
+    jchange = dict(change)
+    if "speculative" in change:
+        spec = change["speculative"]
+        jchange["speculative"] = JaxSpecConfig(mode=spec.mode, k=spec.k)
+    jeng = JaxServingEngine(jparams, jcfg, SalPimEngine.create(SalPimConfig()),
+                            JaxEngineConfig(slots=SLOTS, max_len=MAX_LEN, paged=True,
+                                            page_size=PAGE,
+                                            gen=JaxGenConfig(stop_on_eos=False),
+                                            **jchange))
+    teng = ServingEngine(tparams, gpt2_medium.smoke_config(), TSalPimEngine.create(),
+                         EngineConfig(slots=SLOTS, max_len=MAX_LEN, paged=True,
+                                      page_size=PAGE, gen=GenConfig(stop_on_eos=False),
+                                      **change), device="cpu")
+    assert teng.config.prefix_sharing
+    assert _drain(teng, prompts, new) == _drain(jeng, prompts, new)
+    a = teng.allocator
+    assert (a.used_pages, a.reserved_pages, a.cached_pages) == (0, 0, 0)
+    st = teng.stats()
+    assert st["prefill_tokens_saved"] == jeng.prefill_tokens_saved > 0
+    assert st["verify_passes"] == jeng.verify_passes
+    assert (st["verify_passes"] > 0) == ("speculative" in change)
+
+
+@pytest.mark.parametrize("change", [
+    {"paged": False}, {"gen": "sampled"},
+])
+def test_speculative_refusals_raise_jax_value_errors(setup, change):
+    """Speculation needs the paged pool and greedy decoding: the port
+    raises the JAX package's ValueErrors, word for word."""
+    jcfg, _, tparams, _, _ = setup
+    kw = dict(slots=1, max_len=16, paged=True)
+    kw.update(change)
+    jkw, tkw = dict(kw), dict(kw)
+    if change.get("gen") == "sampled":
+        jkw["gen"], tkw["gen"] = JaxGenConfig(temperature=1.0), GenConfig(temperature=1.0)
+    with pytest.raises(ValueError) as jerr:
+        JaxEngineConfig(speculative=JaxSpecConfig(), **jkw).validate(jcfg)
+    with pytest.raises(ValueError) as terr:
+        ServingEngine(tparams, gpt2_medium.smoke_config(), TSalPimEngine.create(),
+                      EngineConfig(speculative=SpecConfig(), **tkw), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert ("paged=True" if change.get("paged") is False else "greedy-only") in str(terr.value)
+
+
 def test_fifo_scheduler_and_default_sharing():
     cfg = gpt2_medium.smoke_config()
     EngineConfig(slots=1, max_len=8, paged=True, prefix_sharing=False,
                  scheduler=FifoScheduler()).validate(cfg)
-    with pytest.raises(NotImplementedError, match="prefix_sharing"):
-        EngineConfig(slots=1, max_len=8, paged=True).validate(cfg)
+    default = EngineConfig(slots=1, max_len=8, paged=True)
+    assert default.prefix_sharing
+    default.validate(cfg)
+    assert FifoScheduler.pin_budget_pages == 0 and FifoScheduler.reserve
+    assert not FifoScheduler.preemptive
     for quant in ("int8", "fixed16"):
         qcfg = TSalPimEngine.create(TSalPimConfig(quant=quant)).config
         assert (qcfg.quant, qcfg.fixed_frac_w, qcfg.fixed_frac_x) == (quant, 12, 10)
