@@ -3,7 +3,7 @@
 on one NVIDIA GPU.
 
     python3 scripts/logit_drift.py [--model qwen2_1_5b] [--seed 0] [--prompts 8]
-                                   [--plain OP,...]
+                                   [--plain OP,...] [--pools FMT] [--mode exact|lut]
 
 The model at its published widths gets seeded random weights (and, for the
 q1 datapath, `quantize_params_int8` of them with int8 pools); the prompts
@@ -13,7 +13,12 @@ through the kernels, once with every `kernels.ops` entry replaced by its
 plain version (the layer code, the chunks and the pools the same), and
 the hidden states are compared after every layer (max |diff| / max |h|).
 `--plain` names `kernels.ops` entries that stay plain on the kernels' side
-too, so that the gap left is the other kernels'.
+too, so that the gap left is the other kernels'. By default the fp
+weights on fp pools and the q1 datapath (int8 weights and pools) run;
+`--pools` (fp, int8/f32, int8/bf16 or int4/bf16) runs the fp weights on
+that pool format alone, and `--mode lut` the LUT nonlinearities (the plain
+side's prefill attention then the page walk the kernels compute,
+`paged_prefill_attention_online_plain`).
 Then the plain path runs a third time with each token embedding element
 moved by one bf16 step (its bit pattern +- 1, the sign at random): how far that
 moves the first logits is the model's own amplification of one rounding,
@@ -36,6 +41,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--plain", default="", help="ops held plain on both sides, comma-separated")
+    ap.add_argument("--pools", choices=("fp", "int8/f32", "int8/bf16", "int4/bf16"))
+    ap.add_argument("--mode", choices=("exact", "lut"), default="exact")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import numpy as np
@@ -83,7 +90,10 @@ def main() -> int:
         "pim_int8_linear": gemv_k.gemv_pim_int8_linear_plain,
         "pim_quantize_int8_rows": lambda x, static_input=False: (
             gemv_k.quantize_int8_rows_plain(x)),
-        "pim_paged_prefill_attention": pf_k.paged_prefill_attention_plain,
+        # The page walk returns f32; the kernel, as the plain version, q's dtype.
+        "pim_paged_prefill_attention": (
+            (lambda q, *a, **k: pf_k.paged_prefill_attention_online_plain(q, *a, **k).to(
+                q.dtype)) if args.mode == "lut" else pf_k.paged_prefill_attention_plain),
         "pim_paged_attention": lambda *a, kv_splits=None, **k: paged_k.paged_attention_plain(
             *a, **k),
         "pim_layernorm": lambda *a, **k: ln_k.layernorm_lut_plain(*a, wide_sums=True, **k),
@@ -97,7 +107,7 @@ def main() -> int:
         raise SystemExit(f"--plain: unknown ops {sorted(unknown)}")
     kernel_side = {**kernel_ops, **{n: plain_ops[n] for n in held}}
 
-    def forward(p, prompt, plain, kv, perturb=None):
+    def forward(p, prompt, plain, kv, sd, perturb=None):
         """Chunked prefill of one prompt (64-token chunks) into a fresh
         pool; returns the hidden states after each layer (the last
         chunk's) and the first logits."""
@@ -107,10 +117,10 @@ def main() -> int:
             S, page = len(prompt), 16
             n_pages = -(-S // page)
             cache = api.init_paged_cache(cfg, 1, 1 + n_pages, page, n_pages, kv_dtype=kv,
-                                         device=dev)
+                                         kv_scale_dtype=sd, device=dev)
             table = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)[None]
             toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
-            sal = SalPimEngine.create(SalPimConfig())
+            sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=args.mode))
             layers = tf._layers(p["blocks"], cfg.n_layers)
             for a in range(0, S, 64):
                 tk = toks[:, a:a + 64]
@@ -137,23 +147,30 @@ def main() -> int:
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
-    datapaths = [("fp", params, "model"),
-                 ("q1", quantize.quantize_params_int8(params), "int8")]
+    if args.pools is None:
+        datapaths = [("fp", params, "model", "float32"),
+                     ("q1", quantize.quantize_params_int8(params), "int8", "float32")]
+    else:
+        kv, sd = {"fp": ("model", "float32"), "int8/f32": ("int8", "float32"),
+                  "int8/bf16": ("int8", "bfloat16"),
+                  "int4/bf16": ("int4", "bfloat16")}[args.pools]
+        datapaths = [(f"fp weights, {args.pools} pools", params, kv, sd)]
     summary = {}
-    for label, p, kv in datapaths:
+    for label, p, kv, sd in datapaths:
         per_layer = np.zeros(cfg.n_layers)
         kernel_gap, ulp_gap = [], []
         for j, prompt in enumerate(prompts):
-            h_k, lg_k = forward(p, prompt, False, kv)
-            h_p, lg_p = forward(p, prompt, True, kv)
+            h_k, lg_k = forward(p, prompt, False, kv, sd)
+            h_p, lg_p = forward(p, prompt, True, kv, sd)
             gen = torch.Generator(device=dev).manual_seed(j)
             sign = (torch.randint(0, 2, (len(prompt), cfg.d_model), generator=gen, device=dev)
                     * 2 - 1).to(torch.int16)
-            _, lg_u = forward(p, prompt, True, kv, perturb=sign)
+            _, lg_u = forward(p, prompt, True, kv, sd, perturb=sign)
             per_layer = np.maximum(per_layer, [rel(a, b) for a, b in zip(h_k, h_p)])
             kernel_gap.append(rel(lg_k, lg_p))
             ulp_gap.append(rel(lg_u, lg_p))
-        row = {"model": cfg.name, "datapath": label, "seed": args.seed, "card": card,
+        row = {"model": cfg.name, "datapath": label, "mode": args.mode, "seed": args.seed,
+               "card": card,
                "held_plain": held,
                "first_logits_kernel_vs_plain": kernel_gap,
                "first_logits_plain_one_step_vs_plain": ulp_gap,
@@ -161,7 +178,8 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         summary[label] = (max(kernel_gap), max(ulp_gap))
     for label, (k, u) in summary.items():
-        print(f"{cfg.name} {label}: first logits, kernels vs plain at most {k:.3e}; the plain "
+        print(f"{cfg.name} {label} ({args.mode}): first logits, kernels vs plain at most "
+              f"{k:.3e}; the plain "
               f"path against itself with the embeddings one bf16 step off at most {u:.3e} "
               f"({card})")
     return 0

@@ -1,15 +1,17 @@
 """Engine configuration (the port of `repro.serving.config`).
 
 `EngineConfig` keeps the JAX package's field names and defaults, so a
-config reads the same in both packages. The port serves FIFO over the
-dense per-slot arena (`paged=False`, the default) and over paged fp, int8
-and int4 pools, with or without KV-split decode, prefix sharing
-(`prefix_sharing`, on by default as in the JAX package; it means nothing
-to the dense arena) and speculative decoding (`speculative=SpecConfig(...)`
-from `serving/speculative.py`). Every feature it lacks raises
-`NotImplementedError` in `validate` instead of being ignored, and the JAX
-package's rules for chunked prefill, the pool dtype, the scale dtype,
-`kv_splits` and speculation raise its `ValueError`s word for word.
+config reads the same in both packages. The port serves the dense
+per-slot arena (`paged=False`, the default) and paged fp, int8 and int4
+pools, with or without KV-split decode, prefix sharing (`prefix_sharing`,
+on by default as in the JAX package; it means nothing to the dense arena),
+speculative decoding (`speculative=SpecConfig(...)` from
+`serving/speculative.py`) and either scheduler of `serving/scheduler.py`
+(`FifoScheduler`, the default, or the preemptive `SloScheduler`, paged
+only). Every feature it lacks raises `NotImplementedError` in `validate`
+instead of being ignored, and the JAX package's rules for preemption,
+chunked prefill, the pool dtype, the scale dtype, `kv_splits` and
+speculation raise its `ValueError`s word for word.
 """
 from __future__ import annotations
 
@@ -55,8 +57,6 @@ class EngineConfig:
     def validate(self, model_cfg) -> None:
         """Raise on what the port does not serve, then on bad values."""
         missing = []
-        if self.scheduler is not None and getattr(self.scheduler, "name", None) != "fifo":
-            missing.append("schedulers other than FIFO")
         if self.telemetry is not None:
             missing.append("telemetry")
         if self.mesh is not None:
@@ -66,6 +66,12 @@ class EngineConfig:
         if missing:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(missing))
+        if self.scheduler is not None and self.scheduler.preemptive \
+                and not self.paged:
+            raise ValueError(
+                "preemptive scheduling requires paged=True: preemption "
+                "swaps pool pages to the host tier, which the dense "
+                "backend does not have")
         if self.slots < 1 or self.max_len < 1:
             raise ValueError("slots and max_len must be >= 1")
         if self.paged and self.page_size < 1:

@@ -40,11 +40,22 @@ round (`_spec_round`): t0 from `last_logits`, the drafter's proposals, one
 rejected tail rewound in the pool (`BlockAllocator.rewind` +
 `kvcache.rewind_slot`).
 
-FIFO admission and the decode step are shared by both modes.
-Construction: `ServingEngine(params, cfg, engine, EngineConfig(slots=4,
-max_len=256), device="cuda")`, with `paged=True` for the paged mode.
-Features the port lacks raise `NotImplementedError`
-(`EngineConfig.validate`).
+`scheduler=` (serving/scheduler.py) makes the admission, prefill-order
+and preemption decisions. `FifoScheduler` (the default, both modes) admits
+in strict FIFO order under the watermark and never preempts.
+`SloScheduler` (paged only) admits by priority class
+(`submit(priority=...)`, lower = more urgent) under optimistic admission
+and preempts when the pool runs dry (`_preempt`): a decoding victim's
+pages go to the host swap tier (`kvcache.swap_out_slot` into
+`swap_tier`) with its `last_logits` row, and `_swap_in` restores them into
+fresh pages, so the request resumes bit for bit; a mid-prefill victim is
+aborted and prefilled again on re-admission. Parked requests wait in
+`swapped` and count as outstanding work in `step()` and `stats()`.
+
+The decode step is shared by both modes. Construction:
+`ServingEngine(params, cfg, engine, EngineConfig(slots=4, max_len=256),
+device="cuda")`, with `paged=True` for the paged mode. Features the port
+lacks raise `NotImplementedError` (`EngineConfig.validate`).
 """
 from __future__ import annotations
 
@@ -62,7 +73,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache as kv
 from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.sampling import sample
-from repro_torch.serving.scheduler import FifoScheduler
+from repro_torch.serving.scheduler import FifoScheduler, SwappedRequest
 from repro_torch.serving.speculative import greedy_accept, make_drafter
 
 __all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine", "generate"]
@@ -133,6 +144,14 @@ def generate(params: dict, prompts: torch.Tensor, model_cfg: ModelConfig,
 
 
 @dataclasses.dataclass
+class _Counters:
+    """Lifetime counts of the scheduler's actions."""
+    preemptions: int = 0
+    swap_outs: int = 0
+    swap_ins: int = 0
+
+
+@dataclasses.dataclass
 class Request:
     uid: int
     prompt: np.ndarray
@@ -148,6 +167,10 @@ class Request:
     # Drafts proposed for this request and accepted by the verify pass.
     proposed: int = 0
     accepted: int = 0
+    # Scheduling class (lower = more urgent; FIFO ignores it) and the times
+    # this request was preempted off its slot.
+    priority: int = 0
+    preemptions: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -155,7 +178,7 @@ class Request:
 
 
 class ServingEngine:
-    """Continuous batching over a dense arena or a paged pool, FIFO."""
+    """Continuous batching over a dense arena or a paged pool."""
 
     def __init__(self, params: dict, model_cfg: ModelConfig,
                  engine: SalPimEngine, config: EngineConfig, *,
@@ -183,6 +206,11 @@ class ServingEngine:
         self.queue: list[Request] = []
         self.active: list[Optional[Request]] = [None] * self.slots
         self.finished: list[Request] = []
+        # Preempted requests parked off the device, and the host tier that
+        # holds their KV.
+        self.swapped: list[SwappedRequest] = []
+        self.swap_tier = kv.HostSwapTier()
+        self._counters = _Counters()
         self.last_logits = torch.zeros((self.slots, model_cfg.vocab),
                                        dtype=torch.float32, device=self.device)
         self._uid = 0
@@ -244,8 +272,22 @@ class ServingEngine:
         self._verify_pad = (-(-(self.max_len + self.spec.k) // page_size)
                             - self.max_pages if self.spec is not None else 0)
 
-    def submit(self, prompt, max_new_tokens: int = 32) -> int:
+    @property
+    def preemptions(self) -> int:
+        return self._counters.preemptions
+
+    @property
+    def swap_outs(self) -> int:
+        return self._counters.swap_outs
+
+    @property
+    def swap_ins(self) -> int:
+        return self._counters.swap_ins
+
+    def submit(self, prompt, max_new_tokens: int = 32, priority: int = 0) -> int:
         prompt = np.asarray(prompt)
+        if priority < 0:
+            raise ValueError(f"priority must be >= 0, got {priority}")
         worst = kv.BlockAllocator.worst_case_tokens(len(prompt), max_new_tokens)
         if worst > self.max_len:
             raise ValueError(
@@ -260,7 +302,8 @@ class ServingEngine:
                     f"request needs {need} pages worst case but the pool "
                     f"has {usable}; no reservation was made")
         self._uid += 1
-        self.queue.append(Request(self._uid, prompt, max_new_tokens))
+        self.queue.append(Request(self._uid, prompt, max_new_tokens,
+                                  priority=priority))
         return self._uid
 
     def _place_paged(self, slot: int, req: Request, shared_tokens: int):
@@ -293,14 +336,159 @@ class ServingEngine:
         self._host_len[slot] = len(req.prompt)
         self.active[slot] = req
 
-    def _prefill_tick(self):
-        """Run at most one prompt chunk for one mid-prefill slot (FIFO: the
-        oldest uid). The slot joins the decode batch only when the cursor
-        reaches the end of the prompt.
+    # -- preemption mechanisms (the policy is in scheduler.py) --------------
+    def _admit_queued(self, req: Request, slot: int, reserve: bool = True) -> bool:
+        """Admit a queued request (not necessarily the head) into `slot`;
+        False when the pool refuses."""
+        res = self.allocator.admit_tokens(req.uid, req.prompt, req.max_new_tokens,
+                                          reserve=reserve)
+        if res is None:
+            return False
+        self.queue.remove(req)
+        self._place_paged(slot, req, res[1])
+        return True
 
-        Slots prefill in admission (uid) order, so a request that maps a
-        donor's registered pages runs no chunk before the donor has written
-        them all."""
+    def _preemptable(self, slot: int) -> bool:
+        """A decoding slot can always be preempted: its pages are written
+        through its length, so its blob is exact. A mid-prefill slot can
+        only be aborted, and only while no sharer holds a page it
+        registered (refcount > 1 past its borrowed prefix: content another
+        request mapped and waits for this donor to write)."""
+        req = self.active[slot]
+        if req is None:
+            return False
+        if not req.prefilling:
+            return True
+        a = self.allocator
+        borrowed = req.shared_prompt_tokens // a.page_size
+        return all(a.refcount(p) <= 1 for p in a.pages_of(req.uid)[borrowed:])
+
+    def _prefix_ready(self, slot: int) -> bool:
+        """True when every prefix page this slot borrowed has been written
+        by its registrant: no other mid-prefill request still owes content
+        to a page this slot mapped. A scheduler that reorders prefill (SLO)
+        must not run a sharer's chunk before; FIFO's uid order implies it."""
+        req = self.active[slot]
+        if req is None or req.shared_prompt_tokens == 0:
+            return True
+        a = self.allocator
+        ps = a.page_size
+        borrowed = set(a.pages_of(req.uid)[:req.shared_prompt_tokens // ps])
+        for r in self.active:
+            if r is None or r is req or not r.prefilling:
+                continue
+            pages = a.pages_of(r.uid)
+            for j in range(r.shared_prompt_tokens // ps, len(pages)):
+                if pages[j] in borrowed and r.prefill_cursor < (j + 1) * ps:
+                    return False
+        return True
+
+    def _preempt(self, slot: int):
+        """Take a slot's request off the device into `swapped`. A decoding
+        victim's pages (payload and scale rows) go to the host tier and its
+        `last_logits` row is saved; a mid-prefill victim is aborted (its
+        pages are not all written): the pages it registered are
+        unregistered, its saved-prefill credit taken back, its cursor
+        reset. Either way its pages are released, the slot is cleared to
+        the trash page, and the drafter drops the slot."""
+        req = self.active[slot]
+        a = self.allocator
+        if req.prefilling:
+            a.unregister(req.uid, from_logical=req.shared_prompt_tokens // a.page_size)
+            self.prefill_tokens_saved -= min(req.shared_prompt_tokens,
+                                             len(req.prompt) - 1)
+            req.prefill_cursor = 0
+            req.shared_prompt_tokens = 0
+            entry = SwappedRequest(req, 0)
+            kv.clear_slot(self.cache, slot)
+        else:
+            n_kv = int(self._host_len[slot])
+            _, blob = kv.swap_out_slot(self.cache, slot, a.pages_of(req.uid), n_kv)
+            self.swap_tier.put(req.uid, blob)
+            entry = SwappedRequest(req, n_kv, has_blob=True,
+                                   logits=self.last_logits[slot].to("cpu", copy=True))
+            req.shared_prompt_tokens = 0
+            self._counters.swap_outs += 1
+        a.release(req.uid)
+        self.active[slot] = None
+        self._host_len[slot] = 0
+        if self.drafter is not None:
+            # The slot id is about to be reused; a draft model prefills its
+            # cache again from the request's context on re-contact.
+            self.drafter.release(slot)
+        req.preemptions += 1
+        self._counters.preemptions += 1
+        self.swapped.append(entry)
+
+    def _swap_in(self, entry: SwappedRequest, slot: int, reserve: bool = True) -> bool:
+        """Re-admit a preempted request into `slot`; False when the pool
+        refuses. An aborted entry is admitted afresh (prefill runs again
+        and may re-hit the prefix cache); a swapped one gets fresh private
+        pages, its blob and its logits row back, and resumes bit for bit."""
+        req = entry.req
+        a = self.allocator
+        if not entry.has_blob:
+            res = a.admit_tokens(req.uid, req.prompt, req.max_new_tokens,
+                                 reserve=reserve)
+            if res is None:
+                return False
+            self.swapped.remove(entry)
+            self._place_paged(slot, req, res[1])
+            return True
+        worst = a.pages_for(a.worst_case_tokens(len(req.prompt), req.max_new_tokens))
+        pages = a.admit_restored(req.uid, a.pages_for(entry.n_kv), worst,
+                                 reserve=reserve)
+        if pages is None:
+            return False
+        kv.swap_in_slot(self.cache, slot, pages, self.swap_tier.pop(req.uid))
+        self.last_logits[slot] = entry.logits.to(self.device)
+        self._host_len[slot] = entry.n_kv
+        self.active[slot] = req
+        self.swapped.remove(entry)
+        self._counters.swap_ins += 1
+        return True
+
+    def _ensure_decode_capacity(self):
+        """Optimistic admission reserves nothing, so before sampling the
+        free list must cover every page the coming decode (or verify)
+        round may map: one extend a slot that crosses a page boundary
+        (over k+1 positions with speculation) and one fork where the write
+        lands in a still-shared page. Pins are reclaimed first, then
+        victims preempted; before sampling, so a victim's state is a clean
+        point to resume from."""
+        a = self.allocator
+        ps = a.page_size
+        span = 1 + (self.spec.k if self.spec is not None else 0)
+        while True:
+            need = 0
+            for i, r in enumerate(self.active):
+                if r is None or r.prefilling:
+                    continue
+                L = int(self._host_len[i])
+                pages = a.pages_of(r.uid)
+                need += max(a.pages_for(L + span) - len(pages), 0)
+                logical = L // ps
+                if logical < len(pages) and a.refcount(pages[logical]) > 1:
+                    need += 1
+            if a.free_pages >= need:
+                return
+            a.reclaim_pinned(need - a.free_pages)
+            if a.free_pages >= need:
+                return
+            victim = self.scheduler.pick_victim(self, None)
+            if victim is None:
+                return
+            self._preempt(victim)
+
+    def _prefill_tick(self):
+        """Run at most one prompt chunk for one mid-prefill slot, the one
+        the scheduler selects (FIFO: the oldest uid). The slot joins the
+        decode batch only when the cursor reaches the end of the prompt.
+
+        Under FIFO slots prefill in admission (uid) order, so a request
+        that maps a donor's registered pages runs no chunk before the donor
+        has written them all; a reordering scheduler keeps the same rule
+        through `_prefix_ready`."""
         cand = [(r.uid, i) for i, r in enumerate(self.active)
                 if r is not None and r.prefilling]
         if not cand:
@@ -314,13 +502,29 @@ class ServingEngine:
         # (only the recomputed last token of a fully covered prompt can).
         # Pages past the borrowed prefix are this request's own: writing
         # them is the registered content later sharers mapped.
-        ps = self.allocator.page_size
+        a = self.allocator
+        ps = a.page_size
         borrowed = req.shared_prompt_tokens // ps
-        for logical in range(start // ps, min((end - 1) // ps + 1, borrowed)):
-            if self.allocator.refcount(self.allocator.pages_of(req.uid)[logical]) > 1:
-                old, new = self.allocator.fork_page(req.uid, logical)
+        fork_range = range(start // ps, min((end - 1) // ps + 1, borrowed))
+        if self.scheduler.preemptive:
+            # Optimistic admission reserved nothing: the free list must
+            # cover this chunk's forks, preempting victims (never this
+            # slot) when it is dry.
+            forks = sum(1 for logical in fork_range
+                        if a.refcount(a.pages_of(req.uid)[logical]) > 1)
+            if forks > a.free_pages:
+                a.reclaim_pinned(forks - a.free_pages)
+            while forks > a.free_pages:
+                victim = self.scheduler.pick_victim(self, None,
+                                                    protect=frozenset((slot,)))
+                if victim is None:
+                    return   # retry next step
+                self._preempt(victim)
+        for logical in fork_range:
+            if a.refcount(a.pages_of(req.uid)[logical]) > 1:
+                old, new = a.fork_page(req.uid, logical)
                 kv.copy_page(self.cache, old, new)
-        pages = self.allocator.pages_of(req.uid)
+        pages = a.pages_of(req.uid)
         row = torch.full((1, self.max_pages), kv.TRASH_PAGE, dtype=torch.int32)
         row[0, :len(pages)] = torch.as_tensor(pages, dtype=torch.int32)
         row = row.to(self.device)
@@ -387,7 +591,7 @@ class ServingEngine:
         """One engine step: admit, run at most one prompt chunk, then one
         decode step (with `speculative`, one draft-verify round) across all
         fully prefilled slots. Returns the amount of outstanding work (live
-        decodes + mid-prefill slots + queue)."""
+        decodes + mid-prefill slots + queued and swapped requests)."""
         t_start = time.perf_counter()
         try:
             return self._step_inner()
@@ -402,14 +606,19 @@ class ServingEngine:
             t = time.perf_counter()
             self._prefill_tick()
             self._chunk_sec += time.perf_counter() - t
+            if self.scheduler.preemptive:
+                # The pool must cover this round's extends and forks before
+                # sampling (may preempt).
+                self._ensure_decode_capacity()
         n_prefilling = sum(1 for r in self.active
                            if r is not None and r.prefilling)
         ready = [i for i, r in enumerate(self.active)
                  if r is not None and not r.prefilling]
+        parked = len(self.queue) + len(self.swapped)
         if not ready:
-            return n_prefilling + len(self.queue)
+            return n_prefilling + parked
         if self.spec is not None:
-            return self._spec_round(ready) + n_prefilling + len(self.queue)
+            return self._spec_round(ready) + n_prefilling + parked
         t_dec = time.perf_counter()
         toks = sample(self.last_logits, self._generator,
                       temperature=self.gen.temperature, top_k=self.gen.top_k)
@@ -441,7 +650,7 @@ class ServingEngine:
         self._host_len += mask
         self.decode_steps += 1
         self._decode_sec += time.perf_counter() - t_dec
-        return int(mask.sum()) + n_prefilling + len(self.queue)
+        return int(mask.sum()) + n_prefilling + parked
 
     def _spec_round(self, ready: list[int]) -> int:
         """One draft-verify round over the fully prefilled slots; returns
@@ -540,7 +749,8 @@ class ServingEngine:
         start = len(self.finished)
         for _ in range(max_steps):
             n = self.step()
-            if n == 0 and not self.queue and all(a is None for a in self.active):
+            if (n == 0 and not self.queue and not self.swapped
+                    and all(a is None for a in self.active)):
                 break
         return self.finished[start:]
 
@@ -551,11 +761,17 @@ class ServingEngine:
         accepted drafts, acceptance_rate, verify_passes (launches),
         spec_rounds (slot-level rounds), verify_per_token (rounds per
         emitted token) and tokens_per_pass (its inverse); all 0 with
-        speculation off. A ratio with a zero denominator reads 0.0."""
+        speculation off. model_sec_per_token charges only the decode and
+        verify phases. Scheduler fields: the policy's name, lifetime
+        preemptions / swap_outs / swap_ins, requests swapped out now, the
+        host tier's byte high-water mark and the pinned prefix pages now.
+        Tokens count finished, active and swapped requests. A ratio with a
+        zero denominator reads 0.0."""
         def ratio(num, den):
             return num / den if den else 0.0
 
-        reqs = self.finished + [r for r in self.active if r is not None]
+        reqs = (self.finished + [r for r in self.active if r is not None]
+                + [e.req for e in self.swapped])
         tokens = sum(len(r.generated) for r in reqs)
         spec_tokens = tokens if self.spec is not None else 0
         return {
@@ -568,6 +784,7 @@ class ServingEngine:
             "draft_sec": self._draft_sec,
             "verify_sec": self._verify_sec,
             "decode_sec": self._decode_sec,
+            "model_sec_per_token": ratio(self._decode_sec + self._verify_sec, tokens),
             "prefill_tokens": self.prefill_tokens,
             "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefill_chunks": self.prefill_chunks,
@@ -581,4 +798,11 @@ class ServingEngine:
             "spec_rounds": self.spec_rounds,
             "verify_per_token": ratio(self.spec_rounds, spec_tokens),
             "tokens_per_pass": ratio(spec_tokens, self.spec_rounds),
+            "scheduler": self.scheduler.name,
+            "preemptions": self.preemptions,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swapped": len(self.swapped),
+            "swap_bytes_peak": self.swap_tier.bytes_peak,
+            "pinned_pages": self.allocator.pinned_pages if self.paged else 0,
         }

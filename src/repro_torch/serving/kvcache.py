@@ -22,8 +22,16 @@
   * `BlockAllocator` — a copy of the host-side free-list allocator with
     watermark admission, per-page refcounts and the content-addressed
     prefix cache (hash chain over full pages, `_chain_key`), COW
-    `fork_page`, speculative `rewind` and pinned refcount-0 pages. The
-    swap tier's `admission_probe` and `admit_restored` are not ported.
+    `fork_page`, speculative `rewind` and pinned refcount-0 pages, and the
+    swap tier's admissions: `admission_probe` (a dry run of `admit_tokens`)
+    and `admit_restored` (private pages for a restored slot).
+  * The host swap tier: `swap_out_slot` gathers a preempted slot's pages
+    (payload and scale rows) into a `SwappedKV` of CPU tensors in the
+    pools' own dtypes, an exact bit copy, and clears the slot;
+    `swap_in_slot` writes a blob into fresh pages, the slot's table row and
+    its length, in place. `HostSwapTier` keys the blobs by request uid.
+    Plain tensor copies on the current stream, no pinned buffers: the slow
+    tier, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -219,11 +227,15 @@ def write_prompt_pages(cache: PagedCache, slot: int, page_ids: list[int],
     return cache
 
 
+def _pools(cache: PagedCache):
+    return (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale)
+
+
 def copy_page(cache: PagedCache, src: int, dst: int) -> PagedCache:
     """COW fork: duplicate physical page `src` into `dst` on every layer,
     in place: the payload and, in a quantized pool, the scale rows, so the
     fork owns private scales from its first write."""
-    for pool in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale):
+    for pool in _pools(cache):
         if pool is not None:
             pool[:, dst] = pool[:, src]
     return cache
@@ -247,6 +259,89 @@ def rewind_slot(cache: PagedCache, slot: int, new_len: int,
     next appends."""
     cache.lengths[slot] = new_len
     cache.block_tables[slot, keep_pages:] = TRASH_PAGE
+    return cache
+
+
+@dataclasses.dataclass
+class SwappedKV:
+    """One preempted slot's KV, gathered to host RAM: the pools restricted
+    to the slot's pages, page-major, bit for bit (payload and, in a
+    quantized pool, the scale rows), so a slot restored into any fresh
+    pages continues as if it had never left the device.
+
+    n_tokens: valid tokens the pages held at swap-out
+    k, v:     (L, n_pages, Hkv, page_size, Dh) CPU tensors in the pool's
+              dtype (Dh/2 int8 for an int4 pool)
+    k_scale, v_scale: (L, n_pages, Hkv, page_size) or None (fp pools)
+    """
+
+    n_tokens: int
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
+
+
+class HostSwapTier:
+    """Swapped-out slots' `SwappedKV` blobs keyed by request uid, with
+    their bytes now and at the high-water mark."""
+
+    def __init__(self):
+        self._blobs: dict[int, SwappedKV] = {}
+        self.bytes_peak = 0
+
+    def __len__(self) -> int:
+        return len(self._blobs)
+
+    @property
+    def bytes_used(self) -> int:
+        return sum(b.nbytes for b in self._blobs.values())
+
+    def put(self, uid: int, blob: SwappedKV) -> None:
+        if uid in self._blobs:
+            raise ValueError(f"uid {uid} already swapped")
+        self._blobs[uid] = blob
+        self.bytes_peak = max(self.bytes_peak, self.bytes_used)
+
+    def pop(self, uid: int) -> SwappedKV:
+        return self._blobs.pop(uid)
+
+
+def swap_out_slot(cache: PagedCache, slot: int, page_ids: list[int],
+                  n_tokens: int) -> tuple[PagedCache, SwappedKV]:
+    """Copy `page_ids`' payload (and scale rows) to host RAM and clear the
+    slot: returns (cache, blob), the cache changed in place. The caller
+    releases the device pages afterwards."""
+    ids = torch.as_tensor(page_ids, dtype=torch.long, device=cache.k_pages.device)
+    host = [None if t is None else t.index_select(1, ids).cpu()
+            for t in _pools(cache)]
+    return clear_slot(cache, slot), SwappedKV(n_tokens, *host)
+
+
+def swap_in_slot(cache: PagedCache, slot: int, page_ids: list[int],
+                 blob: SwappedKV) -> PagedCache:
+    """Restore a swapped slot, in place: the blob's pages into the fresh
+    `page_ids`, the slot's table row and its length. The inverse of
+    `swap_out_slot` up to the physical page numbers."""
+    if len(page_ids) != blob.n_pages:
+        raise ValueError(f"{len(page_ids)} pages for a blob of {blob.n_pages}")
+    ids = torch.as_tensor(page_ids, dtype=torch.long, device=cache.k_pages.device)
+    for pool, saved in zip(_pools(cache), (blob.k, blob.v, blob.k_scale, blob.v_scale)):
+        if pool is not None:
+            pool.index_copy_(1, ids, saved.to(pool.device))
+    cache.block_tables[slot] = TRASH_PAGE
+    cache.block_tables[slot, :len(page_ids)] = ids.to(torch.int32)
+    cache.lengths[slot] = blob.n_tokens
     return cache
 
 
@@ -453,24 +548,15 @@ class BlockAllocator:
         if uid in self._pages:
             raise ValueError(f"uid {uid} already admitted")
         tokens = np.asarray(tokens)
-        n_tok = int(tokens.shape[0])
-        keys, hits = self._walk_hits(tokens)
-        n_shared = len(hits)
-        shared_tokens = n_shared * self.page_size
-        total = self.pages_for(self.worst_case_tokens(n_tok, max_new_tokens))
-        fork = int(shared_tokens >= n_tok)       # fully covered prompt
-        worst_new = total - n_shared + fork
-        n0 = self.pages_for(n_tok)
-        need_now = worst_new if reserve else n0 - n_shared + fork
-
-        def shortage():
-            return need_now - (self.available_pages if reserve
-                               else len(self._free))
-
-        if shortage() > 0:
-            self.reclaim_pinned(shortage(), protect=frozenset(hits))
-        if shortage() > 0:
+        keys, hits, worst_new, need_now = self._plan(tokens, max_new_tokens,
+                                                     reserve)
+        if self._shortage(need_now, reserve) > 0:
+            self.reclaim_pinned(self._shortage(need_now, reserve),
+                                protect=frozenset(hits))
+        if self._shortage(need_now, reserve) > 0:
             return None
+        n_shared = len(hits)
+        n0 = self.pages_for(int(tokens.shape[0]))
         fresh = [self._alloc() for _ in range(n0 - n_shared)]
         for p in hits:
             if p in self._pinned:        # revive: back to refcount 1
@@ -487,7 +573,43 @@ class BlockAllocator:
         self._reserve_mode[uid] = reserve
         if reserve:
             self._reserved += worst_new - len(fresh)
-        return list(pages), shared_tokens
+        return list(pages), n_shared * self.page_size
+
+    def _plan(self, tokens: np.ndarray, max_new_tokens: int, reserve: bool):
+        """(chain keys, hits, worst-case new pages, pages admission must
+        find now) for `tokens`: the longest cached run is mapped, not
+        drawn; a fully covered prompt needs one fork page (the engine
+        recomputes its last token, whose write must COW the final shared
+        page). With `reserve` the worst case is needed now, else only the
+        pages prefill writes. A pure lookup."""
+        n_tok = int(tokens.shape[0])
+        keys, hits = self._walk_hits(tokens)
+        n_shared = len(hits)
+        fork = int(n_shared * self.page_size >= n_tok)
+        total = self.pages_for(self.worst_case_tokens(n_tok, max_new_tokens))
+        worst_new = total - n_shared + fork
+        need_now = (worst_new if reserve
+                    else self.pages_for(n_tok) - n_shared + fork)
+        return keys, hits, worst_new, need_now
+
+    def _shortage(self, need_now: int, reserve: bool) -> int:
+        """Pages `need_now` lacks: against the watermark with `reserve`,
+        against the free list without."""
+        return need_now - (self.available_pages if reserve else len(self._free))
+
+    def admission_probe(self, tokens, max_new_tokens: int,
+                        reserve: bool = True) -> tuple[int, int]:
+        """A dry run of `admit_tokens`, changing nothing: (need_now,
+        reclaimable_pins). `need_now` is exactly the draw admission would
+        make now (cached prefix pages cost nothing); `reclaimable_pins` the
+        pinned pages a shortage could evict for it, pins the prompt hits
+        left out (they revive in place and are protected from reclaim). A
+        preemptive scheduler evicts victims only for a candidate that can
+        fit after all."""
+        _, hits, _, need_now = self._plan(np.asarray(tokens), max_new_tokens,
+                                          reserve)
+        hit_set = frozenset(hits)
+        return need_now, sum(1 for p in self._pinned if p not in hit_set)
 
     def needs_extend(self, uid: int, next_token_pos: int) -> bool:
         """True when the write at `next_token_pos` falls off mapped pages."""
@@ -549,10 +671,36 @@ class BlockAllocator:
             dropped.append(p)
         return dropped
 
+    def admit_restored(self, uid: int, n_pages: int, worst_pages: int,
+                       reserve: bool = True) -> Optional[list[int]]:
+        """Re-admit a swapped-out sequence: `n_pages` fresh private pages
+        (the caller restores their payload with `swap_in_slot`) under a
+        lifetime quota of `worst_pages`, nothing looked up in or registered
+        with the prefix cache. Pins are reclaimed to cover a shortage; None
+        when the pool still cannot cover it (no state changes then)."""
+        if uid in self._pages:
+            raise ValueError(f"uid {uid} already admitted")
+        if n_pages > worst_pages:
+            raise ValueError(f"{n_pages} pages over a quota of {worst_pages}")
+        need_now = worst_pages if reserve else n_pages
+        if self._shortage(need_now, reserve) > 0:
+            self.reclaim_pinned(self._shortage(need_now, reserve))
+        if self._shortage(need_now, reserve) > 0:
+            return None
+        pages = [self._alloc() for _ in range(n_pages)]
+        self._pages[uid] = pages
+        self._quota[uid] = worst_pages
+        self._owned[uid] = n_pages
+        self._reserve_mode[uid] = reserve
+        if reserve:
+            self._reserved += worst_pages - n_pages
+        return list(pages)
+
     def unregister(self, uid: int, from_logical: int = 0) -> None:
         """Drop the prefix-cache entries of uid's pages at logical index >=
-        `from_logical` (pages registered at admission whose contents will
-        never be written)."""
+        `from_logical`: pages registered at admission whose contents will
+        never be written (a mid-prefill sequence aborted by preemption
+        calls it before its release)."""
         for p in self._pages[uid][from_logical:]:
             self._drop_key(p)
 

@@ -27,6 +27,7 @@ from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.config import GenConfig as JaxGenConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro.serving.quantize import quantize_params_int8 as jax_quantize_params_int8
+from repro.serving.scheduler import SloScheduler as JaxSloScheduler
 from repro.serving.speculative import SpecConfig as JaxSpecConfig
 from repro_torch import bridge
 from repro_torch.configs import gpt2_medium
@@ -36,7 +37,7 @@ from repro_torch.models import api
 from repro_torch.serving.config import EngineConfig, GenConfig
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.quantize import QTensor
-from repro_torch.serving.scheduler import FifoScheduler
+from repro_torch.serving.scheduler import FifoScheduler, SloScheduler
 from repro_torch.serving.speculative import SpecConfig
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -201,7 +202,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"scheduler": object()}, {"telemetry": object()}, {"mesh": object()},
+    {"telemetry": object()}, {"mesh": object()},
     {"hardware": "h100"},
 ])
 def test_unsupported_engine_features_raise(setup, change):
@@ -211,6 +212,46 @@ def test_unsupported_engine_features_raise(setup, change):
     with pytest.raises(NotImplementedError):
         ServingEngine(tparams, gpt2_medium.smoke_config(), TSalPimEngine.create(),
                       EngineConfig(**kw), device="cpu")
+
+
+def test_preemptive_requires_paged(setup):
+    """The SLO scheduler serves the paged engine; on the dense backend the
+    port raises the JAX package's ValueError, word for word."""
+    jcfg, _, tparams, _, _ = setup
+    cfg = gpt2_medium.smoke_config()
+    EngineConfig(slots=1, max_len=16, paged=True, scheduler=SloScheduler()).validate(cfg)
+    ServingEngine(tparams, cfg, TSalPimEngine.create(),
+                  EngineConfig(slots=1, max_len=16, paged=True, scheduler=SloScheduler(3)),
+                  device="cpu")
+    with pytest.raises(ValueError) as jerr:
+        JaxEngineConfig(slots=1, max_len=16, scheduler=JaxSloScheduler()).validate(jcfg)
+    with pytest.raises(ValueError) as terr:
+        ServingEngine(tparams, cfg, TSalPimEngine.create(),
+                      EngineConfig(slots=1, max_len=16, scheduler=SloScheduler()), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert str(terr.value).startswith("preemptive scheduling requires paged=True")
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_stats_keys_match_jax_engine(setup, paged):
+    """stats() carries every key of the JAX engine's but the roofline (the
+    cost model is not ported), model_sec_per_token among them: 0.0 on an
+    empty drain, decode plus verify seconds a token after one."""
+    jcfg, jparams, tparams, prompts, new = setup
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, paged=paged)
+    jeng = JaxServingEngine(jparams, jcfg, SalPimEngine.create(SalPimConfig()),
+                            JaxEngineConfig(gen=JaxGenConfig(stop_on_eos=False), **kw))
+    teng = ServingEngine(tparams, gpt2_medium.smoke_config(), TSalPimEngine.create(),
+                         EngineConfig(gen=GenConfig(stop_on_eos=False), **kw), device="cpu")
+    st, jst = teng.stats(), jeng.stats()
+    assert set(jst) - {"roofline"} <= set(st)
+    assert st["model_sec_per_token"] == jst["model_sec_per_token"] == 0.0
+    assert (st["scheduler"], st["swapped"], st["pinned_pages"]) == ("fifo", 0, 0)
+    _drain(teng, prompts[:2], new[:2])
+    st = teng.stats()
+    assert st["model_sec_per_token"] == pytest.approx(
+        (st["decode_sec"] + st["verify_sec"]) / st["tokens"])
+    assert st["model_sec_per_token"] > 0
 
 
 @pytest.mark.parametrize("change,head_dim", [
