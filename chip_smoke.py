@@ -159,7 +159,28 @@ Run from the root of a checkout. Phases, each of which fails the run:
               between the waves, prompt tokens saved on the second); an
               `ngram` k=4 drain under the same pressure (token share with
               its calm FIFO drain reported); each drain's stats();
- 13. the kernels line, a JSON object with each kernel's error, times,
+ 13. telemetry — the observability layer and the roofline cost model on
+              the paged and dense engines, GPT-2 medium at full width (4
+              slots, page 16, 64-token chunks, max_len 256): phase 4's 8
+              requests exact with telemetry off, on, and on with
+              `annotate=True` under `torch.profiler` (CPU and CUDA
+              activity); an `ngram` k=4 drain with sharing and phase 12's
+              SLO drain on its 24 pages, each off and on under the
+              profiler; a dense drain on under the profiler, held to phase
+              7's d1. Gates: greedy tokens and first logits bit for bit off
+              and on, every step's launches equal off and on (and as phase
+              4 expects them), the disabled registry empty after its drain,
+              each on drain's Chrome trace balanced and its snapshot's
+              counters equal to stats(), `h100` detected, decode
+              memory-bound in `stats()["roofline"]`, one profiler scope a
+              step and a model call, each holding at least its call's
+              counted kernels; reported: each drain's roofline (modeled
+              bytes and FLOPs, achieved GB/s on the host clock), one decode
+              step's traced breakdown (device us under each scope against
+              its host us), host ms a step and a token off and on; then
+              `python -m repro_torch.launch.serve --full --requests 8
+              --slots 4` must finish its 8 requests;
+ 14. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -220,9 +241,11 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -231,11 +254,11 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-# CUDA cores f32; bf16 and int8 dense tensor cores. An int16 product is
-# four 8-bit ones (hi.hi, hi.lo, lo.hi, lo.lo byte planes), which the
-# fixed16 kernel runs on the int8 tensor cores: a quarter of their rate.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "int16": 1979e12 / 4}
+# CUDA cores f32; int8 dense tensor cores. An int16 product is four 8-bit
+# ones (hi.hi, hi.lo, lo.hi, lo.lo byte planes), which the fixed16 kernel
+# runs on the int8 tensor cores: a quarter of their rate. The bf16 peak and
+# the memory rate are the roofline cost model's `h100` spec (bound_ms).
+PEAK_FLOPS = {"float32": 67e12, "int8": 1979e12, "int16": 1979e12 / 4}
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # In LUT mode the paged kernels run the TPU kernels' online softmax
 # (corr = LUT(max(m_prev - m_new, lo)) page by page), a different function
@@ -340,8 +363,10 @@ def time_graph(torch, fn, n_calls: int, reps: int = 20) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    from repro_torch.serving.costmodel import HARDWARE_SPECS
+    h100 = HARDWARE_SPECS["h100"]
+    t_bytes = nbytes / h100.peak_bytes_per_sec
+    t_ops = flops / (h100.peak_flops if dtype == "bfloat16" else PEAK_FLOPS[dtype])
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2646,6 +2671,34 @@ def param_count(tree) -> int:
     return tree.numel()
 
 
+# Parameters the analytic count (ModelConfig.param_count, the JAX package's
+# formula, which prices the roofline's weight stream) leaves out: learned
+# positions, LayerNorm shifts and gemma2's post-norms.
+UNCOUNTED = re.compile(r"^pos_embed$|/b$|^blocks/post_ln\d/")
+
+
+def check_param_count(tree, cfg, label: str) -> int:
+    """The tensors' count against cfg.param_count(): equal once the
+    UNCOUNTED tensors are set aside. Returns the tensors' count."""
+    def leaves(t, path=""):
+        for k, v in t.items():
+            name = f"{path}/{k}" if path else k
+            if isinstance(v, dict):
+                yield from leaves(v, name)
+            else:
+                yield name, v.numel()
+
+    n = param_count(tree)
+    left_out = sum(c for name, c in leaves(tree) if UNCOUNTED.search(name))
+    log(f"  {label}: {n} parameters in its tensors = the analytic count "
+        f"{cfg.param_count()} + {left_out} it leaves out (positions, LayerNorm shifts, "
+        "post-norms)")
+    if n != cfg.param_count() + left_out:
+        raise AssertionError(f"{label}: {n} parameters, analytic {cfg.param_count()} + "
+                             f"{left_out}")
+    return n
+
+
 def step_counts(cfg) -> tuple[int, int]:
     """(linears, norms) of one decode step or prefill chunk: q, k, v, o
     and the MLP's two or three a layer plus the LM head; two norms a layer
@@ -2777,7 +2830,8 @@ class DonorWatch:
 def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
           mode="exact", max_len=256, fmt="fp", kv_splits=None, quant="none",
           gemv="gemv_pim_float", sharing=False, spec=None, drafter=None, gaps=None,
-          scheduler=None, num_pages=None, priority=0, late=()):
+          scheduler=None, num_pages=None, priority=0, late=(), telemetry=None,
+          on_step=None):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
     chunks) on SAL-PIM datapath `quant`, checking every step's launches of
     every kernel: every linear one launch of the GEMV kernel `gemv` on the
@@ -2804,7 +2858,9 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     Every request must finish, every page, reservation and swap blob come
     back (pages the scheduler's pin budget keeps excepted);
     `eng.preempt_log` lists each preemption as (decode steps and verify
-    passes run, uid, mid-prefill)."""
+    passes run, uid, mid-prefill). `telemetry` (a Telemetry) goes to the
+    engine; `on_step(launches, calls)` is called after each step with its
+    launches and its decode steps, chunks and verify passes."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     from repro_torch.serving import kvcache
@@ -2816,7 +2872,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         slots=4, max_len=max_len, paged=True, page_size=16, prefill_chunk_tokens=64,
         prefix_sharing=sharing, speculative=spec, kv_cache_dtype=kv, kv_scale_dtype=sd,
         kv_splits=kv_splits, scheduler=scheduler, num_pages=num_pages,
-        gen=GenConfig(stop_on_eos=False)), device="cuda")
+        telemetry=telemetry, gen=GenConfig(stop_on_eos=False)), device="cuda")
     if drafter is not None:
         eng.drafter = drafter
     eng.preempt_log, eng.between = [], None
@@ -2942,6 +2998,8 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
             if d != expect:
                 raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                      f"{expect} (decode {dec}, chunk {chunk}, verify {ver})")
+            if on_step is not None:
+                on_step(d, {"decode": dec, "chunk": chunk, "verify": ver})
             want_draft = dense_expect(kernels, L, dense_calls["decode"], dense_calls["prefill"],
                                       mode == "lut")
             if {n_: draft[n_] for n_ in kernels} != want_draft:
@@ -3592,6 +3650,17 @@ def swap_roundtrip(torch, api, kvcache, params, cfg, sal, fmt, card, prompt):
     return blob.nbytes, o, i
 
 
+def slo_arrivals(np, cfg, seed):
+    """Phase 12's urgent requests (two on one 64-token prefix, two of
+    48..96 tokens) and the generator that drew them."""
+    rng = np.random.RandomState(seed + 12)
+    prefix = rng.randint(2, cfg.vocab, size=64)
+    urgent = [np.concatenate([prefix, rng.randint(2, cfg.vocab, size=int(n))])
+              for n in rng.randint(16, 33, size=2)]
+    urgent += [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(48, 97, size=2)]
+    return rng, urgent
+
+
 def slo_phase(torch, F, np, mods, plain, counted, quant, quantize, params, cfg, prompts,
               card, seed):
     """Phase 12: swap round trips on fp, int8/f32 and int4/bf16 pools, then
@@ -3608,15 +3677,11 @@ def slo_phase(torch, F, np, mods, plain, counted, quant, quantize, params, cfg, 
     from repro_torch.serving import kvcache
     from repro_torch.serving.scheduler import SloScheduler
     from repro_torch.serving.speculative import SpecConfig
-    rng = np.random.RandomState(seed + 12)
     exact = SalPimEngine.create(SalPimConfig())
     swap_ms = {fmt: swap_roundtrip(torch, api, kvcache, params, cfg, exact, fmt, card,
                                    prompts[int(np.argmax([len(p) for p in prompts]))])
                for fmt in ("fp", "int8/f32", "int4/bf16")}
-    prefix = rng.randint(2, cfg.vocab, size=64)
-    urgent = [np.concatenate([prefix, rng.randint(2, cfg.vocab, size=int(n))])
-              for n in rng.randint(16, 33, size=2)]
-    urgent += [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(48, 97, size=2)]
+    rng, urgent = slo_arrivals(np, cfg, seed)
     late = [(SLO_ARRIVAL_STEP, urgent, 32, 0)]
     everyone = list(prompts) + urgent
     pin_prefix = rng.randint(2, cfg.vocab, size=64)
@@ -3727,6 +3792,331 @@ def slo_phase(torch, F, np, mods, plain, counted, quant, quantize, params, cfg, 
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: telemetry and the roofline
+# ---------------------------------------------------------------------------
+
+def trace_balanced(events) -> bool:
+    """Every B of a Chrome trace closed by an E on its tid, well nested."""
+    stacks = {}
+    for e in events:
+        if e["ph"] == "B":
+            stacks.setdefault(e["tid"], []).append(e["name"])
+        elif e["ph"] == "E":
+            if not stacks.get(e["tid"]):
+                return False
+            stacks[e["tid"]].pop()
+    return not any(stacks.values())
+
+
+TEL_SCOPES = ("serve_step", "prefill_chunk", "decode_step", "verify_tokens",
+              "dense_admit_prefill")
+CALL_SCOPES = TEL_SCOPES[1:]
+# The engine steps torch.profiler records in an annotated drain, from the
+# first: a whole drain's trace takes minutes to read.
+TRACE_STEPS = 20
+# The port's CUDA kernels, by the names of their __global__ functions.
+OUR_KERNELS = re.compile(r"gemv|decode_walk|paged_prefill|layernorm_|softmax_rows|"
+                         r"softmax_stream|lut_interp|merge_kernel|quantize_rows")
+
+
+@dataclasses.dataclass
+class Scope:
+    """One engine scope of a trace: its host interval (ns) and the CUDA
+    kernels launched inside it, (name, device us)."""
+    name: str
+    start: int
+    end: int
+    kernels: list
+
+    @property
+    def host_us(self) -> float:
+        return (self.end - self.start) / 1e3
+
+    @property
+    def device_us(self) -> float:
+        return sum(d for _, d in self.kernels)
+
+    def ours(self) -> list:
+        return [k for k in self.kernels if OUR_KERNELS.search(k[0])]
+
+    def holds(self, other) -> bool:
+        return self.start <= other.start and other.end <= self.end
+
+
+def traced_scopes(torch, prof) -> dict:
+    """The engine's scopes in a torch.profiler trace by name, each with the
+    CUDA kernels launched inside it. torch.profiler attaches a kernel to
+    the PyTorch operation that launched it, and the port's kernels,
+    launched through ctypes, to none (they are traced, unattributed): so a
+    kernel is matched here to its launch call by CUPTI correlation id, and
+    the call to the scope around it by time."""
+    from torch.autograd import DeviceType
+    kernels, launches = {}, []
+    scopes = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        name, t0 = e.name(), e.start_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if name not in TEL_SCOPES:             # not a scope's device span
+                kernels[e.correlation_id()] = (name, e.duration_ns() / 1e3)
+        elif name in TEL_SCOPES:
+            scopes[name].append(Scope(name, t0, t0 + e.duration_ns(), []))
+        elif "aunch" in name:     # cudaLaunchKernel(ExC), cuLaunchKernel(Ex)
+            launches.append((t0, e.correlation_id()))
+    launches.sort()
+    starts = [t for t, _ in launches]
+    for rows in scopes.values():
+        for sc in rows:
+            lo = bisect.bisect_left(starts, sc.start)
+            hi = bisect.bisect_right(starts, sc.end)
+            sc.kernels = [kernels[c] for _, c in launches[lo:hi] if c in kernels]
+    return scopes
+
+
+def check_scopes(torch, prof, window, label, ours_per_call, card):
+    """The annotated drain's trace over the steps the profiler recorded
+    (`window`: each one's model calls): one serve_step scope a step, one
+    scope a model call inside it, and under every call's scope exactly its
+    counted launches of the port's kernels (`ours_per_call`). Prints one
+    decode step's traced breakdown and the medians over the window."""
+    t0 = time.perf_counter()
+    scopes = traced_scopes(torch, prof)
+    n = {k: len(v) for k, v in scopes.items()}
+    want = {"serve_step": len(window)}
+    for scope, key in zip(CALL_SCOPES, ("chunk", "decode", "verify", "admit")):
+        want[scope] = sum(c.get(key, 0) for c in window)
+    want = {k: v for k, v in want.items() if v}
+    steps = scopes["serve_step"]
+    calls = [c for name in CALL_SCOPES for c in scopes.get(name, [])]
+    inside = sum(1 for c in calls if any(st.holds(c) for st in steps))
+    if n != want or inside != len(calls):
+        raise AssertionError(f"trace[{label}]: scopes {n} ({inside} of {len(calls)} calls "
+                             f"inside a serve_step), expected {want}")
+    for c in calls:
+        ours = c.ours()
+        if len(ours) != ours_per_call[c.name]:
+            raise AssertionError(
+                f"trace[{label}]: a {c.name} scope holds {len(ours)} of the port's kernels "
+                f"({len(c.kernels)} kernels in all); its call launches "
+                f"{ours_per_call[c.name]}")
+    decode_only = []
+    for st in steps:
+        held = [c for c in calls if st.holds(c)]
+        if [c.name for c in held] == ["decode_step"]:
+            decode_only.append((st, held[0]))
+    if decode_only:
+        st, dec = decode_only[len(decode_only) // 2]
+        ours_us = sum(d for _, d in dec.ours())
+        by_name = collections.Counter()
+        for k, d in dec.kernels:
+            k = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+            by_name[re.split(r"[<(]", k, maxsplit=1)[0]] += d
+        top = "; ".join(f"{k} {v:.1f}" for k, v in by_name.most_common(5))
+        log(f"  trace[{label}] one decode step (the middle one of {len(decode_only)} "
+            f"decode-only steps traced): serve_step {st.host_us:.1f} us on the host, "
+            f"{st.device_us:.1f} us of device time under it ({len(st.kernels)} kernels); "
+            f"decode_step {dec.host_us:.1f} us on the host, {dec.device_us:.1f} us of device "
+            f"time ({len(dec.kernels)} kernels: the port's {len(dec.ours())}, "
+            f"{ours_us:.1f} us; PyTorch's {len(dec.kernels) - len(dec.ours())}, "
+            f"{dec.device_us - ours_us:.1f} us); the host outside decode_step "
+            f"{st.host_us - dec.host_us:.1f} us; device busy "
+            f"{100 * st.device_us / st.host_us:.1f}% of the step; by device us: {top} "
+            f"({card})")
+        med = {"host": statistics.median(s.host_us for s, _ in decode_only),
+               "dev": statistics.median(s.device_us for s, _ in decode_only),
+               "dec_host": statistics.median(d.host_us for _, d in decode_only),
+               "dec_dev": statistics.median(d.device_us for _, d in decode_only),
+               "dec_ours": statistics.median(sum(x for _, x in d.ours())
+                                             for _, d in decode_only)}
+        log(f"  trace[{label}] medians over {len(decode_only)} decode-only steps: serve_step "
+            f"{med['host']:.1f} us host / {med['dev']:.1f} us device; decode_step "
+            f"{med['dec_host']:.1f} us host / {med['dec_dev']:.1f} us device, "
+            f"{med['dec_ours']:.1f} us of it the port's kernels ({card})")
+    for name in ("prefill_chunk", "verify_tokens", "dense_admit_prefill"):
+        rows = scopes.get(name)
+        if rows:
+            log(f"  trace[{label}] {len(rows)} {name} scopes: median "
+                f"{statistics.median(r.host_us for r in rows):.1f} us host / "
+                f"{statistics.median(r.device_us for r in rows):.1f} us device, "
+                f"{ours_per_call[name]} of the port's kernels each ({card})")
+    log(f"  trace[{label}]: steps 1..{len(window)} traced, {sum(n.values())} scopes, "
+        f"{sum(len(st.kernels) for st in steps)} kernels under the serve_step scopes; read "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
+def roofline_report(eng, label, card, hardware) -> None:
+    """stats()["roofline"] of a drain, a line a phase; each drain's decode
+    must be memory-bound on the card's roofline."""
+    roof = eng.stats()["roofline"]
+    for phase, r in roof.items():
+        log(f"  roofline[{label}] {phase}: modeled {r['modeled_bytes'] / 1e9:.3f} GB and "
+            f"{r['modeled_flops'] / 1e9:.1f} GFLOP over {r['sec'] * 1e3:.1f} ms of host "
+            f"clock = {r['achieved_gbps']:.2f} GB/s, {r['arithmetic_intensity']:.2f} "
+            f"FLOP/byte: {r['bound']}-bound on {eng.cost_model.hardware.name} ({card})")
+    if roof.get("decode", {}).get("bound") not in (None, "memory"):
+        raise AssertionError(f"roofline[{label}]: decode {roof['decode']['bound']}-bound")
+    if hardware["name"] != "h100":
+        raise AssertionError(f"roofline[{label}]: hardware {hardware}")
+
+
+def telemetry_phase(torch, np, mods, counted, params, cfg, prompts, card, seed, dense_ref):
+    """Phase 13: GPT-2 medium drains with telemetry off and on. Paged
+    (max_len 256, page 16, 64-token chunks): phase 4's 8 requests exact
+    (off; on; on with annotate=True under torch.profiler), an ngram k=4
+    drain with sharing and phase 12's SLO drain on SLO_PAGES pages (each
+    off, then on and annotated under the profiler); one dense drain on
+    (annotated, under the profiler), held to phase 7's d1 drain. Gates:
+    tokens and first logits bit for bit off and on, per-step launches
+    equal, the disabled registry empty, the Chrome trace balanced, `h100`
+    detected, decode memory-bound, the scopes holding their kernels.
+    Then `python -m repro_torch.launch.serve --full --requests 8 --slots
+    4` as a user runs it. Returns the path's launch counts."""
+    from repro_torch.serving.scheduler import SloScheduler
+    from repro_torch.serving.speculative import SpecConfig
+    from repro_torch.serving.telemetry import NULL_TELEMETRY, Telemetry
+    from torch.profiler import ProfilerActivity, profile, schedule
+    n_lin, n_norm = step_counts(cfg)
+    L = cfg.n_layers
+    # The port's launches a model call: the GEMVs, the norms and one
+    # attention a layer (an exact dense admission's is PyTorch's SDPA).
+    ours_per_call = {"decode_step": n_lin + n_norm + L, "prefill_chunk": n_lin + n_norm + L,
+                     "verify_tokens": n_lin + n_norm + L, "dense_admit_prefill": n_lin + n_norm}
+    _, urgent = slo_arrivals(np, cfg, seed)
+    ngram = SpecConfig(mode="ngram", k=VERIFY_K)
+    # (label, serve's options, new tokens, telemetry settings); a drain under
+    # SloScheduler gets a fresh one each run
+    slo = dict(num_pages=SLO_PAGES, priority=1, late=[(SLO_ARRIVAL_STEP, urgent, 32, 0)],
+               sharing=True)
+    drains = [("t1 fp exact", dict(), 32, ("off", "on", "on+profiler")),
+              ("t2 fp ngram k=4 sharing", dict(spec=ngram, sharing=True), 32,
+               ("off", "on+profiler")),
+              ("t3 fp exact slo", slo, 64, ("off", "on+profiler"))]
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def traced(drain, ps, new, **kw):
+        """`drain` under torch.profiler (CPU and CUDA activity), its first
+        TRACE_STEPS steps recorded."""
+        log_ = []
+        with profile(activities=activities, schedule=schedule(
+                wait=0, warmup=0, active=TRACE_STEPS, repeat=1)) as prof:
+            def on_step(d, c):
+                log_.append((d, c))
+                if len(log_) == TRACE_STEPS:
+                    # The recording ends at this step: its last kernels may
+                    # still run, and CUPTI records only what completed.
+                    torch.cuda.synchronize()
+                prof.step()
+            run = drain(torch, mods, params, cfg, ps, new, card, on_step=on_step, **kw)
+        return run, log_, prof
+
+    def drive():
+        out = {}
+        for label, kw, new, modes in drains:
+            runs = {}
+            for tel_mode in modes:
+                opts = dict(kw, scheduler=SloScheduler() if kw is slo else None)
+                tel = (None if tel_mode == "off" else
+                       Telemetry(enabled=True, annotate=tel_mode == "on+profiler"))
+                tag = f"{label} telemetry {tel_mode}"
+                if tel_mode == "on+profiler":
+                    runs[tel_mode] = traced(serve, prompts, new, label=tag, telemetry=tel,
+                                            **opts)
+                else:
+                    log_ = []
+                    run = serve(torch, mods, params, cfg, prompts, new, card, label=tag,
+                                telemetry=tel, on_step=lambda d, c: log_.append((d, c)),
+                                **opts)
+                    runs[tel_mode] = (run, log_, None)
+            out[label] = runs
+        out["t4 dense exact"] = {"on+profiler": traced(
+            serve_dense, prompts, 32, label="t4 dense exact telemetry on+profiler",
+            telemetry=Telemetry(enabled=True, annotate=True))}
+        return out
+
+    runs, counts = counted("telemetry", drive, [
+        "gemv_pim_float", TC, "paged_attention", "paged_prefill_attention", "layernorm_lut",
+        "decode_attention"])
+    for label, by_mode in runs.items():
+        ref_mode = "off" if "off" in by_mode else None
+        if ref_mode is None:                       # the dense drain: phase 7's d1
+            _, ref_done, ref_first, _ = dense_ref
+            ref_log = None
+        else:
+            (ref_eng, ref_done, ref_first, _), ref_log, _ = by_mode["off"]
+            if ref_eng.telemetry is not NULL_TELEMETRY or not ref_eng.telemetry.registry.empty \
+                    or ref_eng.telemetry.requests or ref_eng.telemetry.steps:
+                raise AssertionError(f"{label}: the disabled telemetry recorded something")
+            log(f"  serve[{label} telemetry off]: the disabled registry is empty after the "
+                "drain")
+        for mode, ((eng, done, first, wall), step_log, prof) in by_mode.items():
+            if mode == ref_mode:
+                continue
+            same = all(done[u].generated == ref_done[u].generated for u in ref_done)
+            same_first = sum(torch.equal(first[u], ref_first[u]) for u in ref_first)
+            if not same or same_first != len(ref_first) or set(done) != set(ref_done):
+                raise AssertionError(f"{label} telemetry {mode}: tokens equal {same}, first "
+                                     f"logits bit for bit {same_first}/{len(ref_first)}")
+            if ref_log is not None and step_log != ref_log:
+                raise AssertionError(f"{label} telemetry {mode}: per-step launches differ "
+                                     f"from telemetry off ({len(step_log)} against "
+                                     f"{len(ref_log)} steps)")
+            tel = eng.telemetry
+            snap = tel.snapshot()
+            events = tel.chrome_trace_events()
+            if not trace_balanced(events):
+                raise AssertionError(f"{label} telemetry {mode}: the Chrome trace does not "
+                                     "balance")
+            st = eng.stats()
+            c = snap["counters"]
+            sched = snap["scheduler"]
+            if (c.get("tokens.generated") != st["tokens"]
+                    or c.get("requests.finished") != len(done)
+                    or snap["steps"]["count"] != len(step_log)
+                    or sched.get("preempt", 0) != st["preemptions"]
+                    or sched.get("swap_out", 0) != st["swap_outs"]
+                    or sched.get("swap_in", 0) != st["swap_ins"]):
+                raise AssertionError(f"{label} telemetry {mode}: snapshot {c}, {sched} "
+                                     f"against stats {st}")
+            hw = snap["roofline"]["hardware"]
+            log(f"  serve[{label} telemetry {mode}]: tokens and first logits bit for bit "
+                f"{'phase 7 d1' if ref_log is None else 'telemetry off'}'s"
+                f"{'' if ref_log is None else ', launches equal at each of ' + str(len(step_log)) + ' steps'}; "
+                f"Chrome trace of {len(events)} events balanced; {snap['steps']['count']} "
+                f"steps, counters {json.dumps(c, sort_keys=True)}; scheduler {sched}; "
+                f"prefix cache {snap['prefix_cache']}; admission {snap['admission']}; "
+                f"hardware {hw}")
+            roofline_report(eng, f"{label} telemetry {mode}", card, hw)
+            if prof is not None:
+                check_scopes(torch, prof, [c for _, c in step_log[:TRACE_STEPS]], label,
+                             ours_per_call, card)
+        if "on" in by_mode:
+            (eng_on, _, _, _), _, _ = by_mode["on"]
+            (eng_p, _, _, _), _, _ = by_mode["on+profiler"]
+            (eng_off, _, _, _), _, _ = by_mode["off"]
+            rows = []
+            for mode, e in (("off", eng_off), ("on", eng_on), ("on+profiler", eng_p)):
+                st = e.stats()
+                steps = e.telemetry.snapshot()["steps"]["count"] if mode != "off" else \
+                    len(by_mode["off"][1])
+                rows.append(f"{mode} {1e3 * st['step_sec'] / steps:.2f} ms a step, "
+                            f"{1e3 * st['sec_per_token']:.3f} ms a token")
+            log(f"  serve[{label}] host clock, telemetry " + "; ".join(rows) +
+                f" (reported, not a gate; {card})")
+    log("  launch: python -m repro_torch.launch.serve --full --requests 8 --slots 4")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--full", "--requests", "8",
+         "--slots", "4"], capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+    for line in (res.stdout + res.stderr).strip().splitlines()[-6:]:
+        log(f"    {line}")
+    if res.returncode != 0 or "8 requests through 4 slots" not in res.stdout:
+        raise AssertionError(f"launch/serve.py exited {res.returncode}")
+    log(f"  launch/serve.py finished its 8 requests in {time.perf_counter() - t0:.1f} s "
+        "(process start included)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the dense cache
 # ---------------------------------------------------------------------------
 
@@ -3775,17 +4165,20 @@ def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompt
 
 
 def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
-                mode="exact", max_len=256):
+                mode="exact", max_len=256, telemetry=None, on_step=None):
     """Drain `prompts` through ServingEngine(paged=False) (4 slots; the
     arena is int8 when cfg.kv_dtype says so), checking every step's
     launches: per decode step 145 GEMV, 24 decode_attention, 49
     layernorm_lut; per admission 145 GEMV, 49 layernorm_lut and, in LUT
-    mode, 24 softmax_lut; no paged kernel."""
+    mode, 24 softmax_lut; no paged kernel. `telemetry` goes to the engine;
+    `on_step(launches, calls)` is called after each step with its launches
+    and its decode steps and admissions."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
     eng = ServingEngine(params, cfg, sal, EngineConfig(
-        slots=4, max_len=max_len, gen=GenConfig(stop_on_eos=False)), device="cuda")
+        slots=4, max_len=max_len, gen=GenConfig(stop_on_eos=False), telemetry=telemetry),
+        device="cuda")
     first: dict[int, object] = {}
     place = eng._place_dense
 
@@ -3809,6 +4202,8 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         if d != expect:
             raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                  f"{expect} (decode {dec}, admissions {adm})")
+        if on_step is not None:
+            on_step(d, {"decode": dec, "admit": adm})
         if n == 0 and not eng.queue and all(r is None for r in eng.active):
             break
         if steps > 4000:
@@ -4009,6 +4404,7 @@ def main() -> int:
         return result, counts
 
     log("== 4. serve GPT-2 medium (full width, random weights)")
+    check_param_count(params, cfg, "gpt2-medium")
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
     new_tokens = 32
@@ -4153,7 +4549,7 @@ def main() -> int:
     qcfg = get_config("qwen2_1_5b")
     qw = api.init_params(qcfg, seed=args.seed, device="cuda")
     qw_q1 = quantize.quantize_params_int8(qw)
-    n_params = param_count(qw)
+    n_params = check_param_count(qw, qcfg, "qwen2-1.5b")
     log(f"  {n_params / 1e9:.2f} B parameters, {2 * n_params / 2 ** 30:.1f} GiB in bf16")
     q_prompts = [rng.randint(2, qcfg.vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
     # (label, weights, serve's options)
@@ -4215,7 +4611,7 @@ def main() -> int:
     full = get_config("nemotron_4_340b")
     ncfg = dataclasses.replace(full, n_layers=1)
     nw = api.init_params(ncfg, seed=args.seed, device="cuda")
-    n_params = param_count(nw)
+    n_params = check_param_count(nw, ncfg, "nemotron-4-340b, 1 layer")
     n_prompts = [rng.randint(2, ncfg.vocab, size=int(n)) for n in (40, 97)]
     plan = layernorm_lut.layernorm_plan(4, ncfg.d_model, 2)
     log(f"  {full.name}: the published widths (d {full.d_model}, {full.n_heads}/"
@@ -4250,12 +4646,20 @@ def main() -> int:
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     torch.cuda.empty_cache()
 
-    log("== 13. result")
+    log("== 13. telemetry: counters, request traces, Chrome traces, profiler scopes and "
+        "the roofline (GPT-2 medium)")
+    t13 = time.perf_counter()
+    counts_tel = telemetry_phase(torch, np, mods, counted, params, cfg, prompts, card,
+                                 args.seed, dense_runs["d1 exact"])
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== 14. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
-                  ("slo/swap", counts_slo)]
+                  ("slo/swap", counts_slo), ("telemetry", counts_tel)]
     rows = []
     for name in SOURCE:
         t = times[name]

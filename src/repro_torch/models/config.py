@@ -1,6 +1,7 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
 that the dense serving paths (paged pools and the dense arena) read, with
-the same names and defaults."""
+the same names and defaults, and its analytic parameter counts (the
+roofline cost model's weight stream, `serving/costmodel.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,3 +82,26 @@ class ModelConfig:
         if self.local_global_pattern:
             return self.sliding_window if i % 2 == 0 else None
         return self.sliding_window
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the JAX
+        package's formula for the dense family: q, k, v, o (+ QKV bias),
+        the MLP's two or three matrices and two norm scales a layer, the
+        embedding, the LM head and the final norm. Learned positions,
+        linear biases other than QKV's and LayerNorm shifts are not
+        counted, as in the reference."""
+        if self.family != "dense":
+            raise NotImplementedError(f"family {self.family!r} is not ported yet")
+        d, v = self.d_model, self.vocab
+        n_q = self.n_heads * self.head_dim
+        n_kv = self.n_kv_heads * self.head_dim
+        attn = d * n_q + 2 * d * n_kv + n_q * d
+        if self.qkv_bias:
+            attn += n_q + 2 * n_kv
+        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        blocks = self.n_layers * (attn + mlp + 2 * d)
+        return v * d + blocks + v * d + d
+
+    def active_param_count(self) -> int:
+        """Parameters one token reads: all of them (no MoE in the port)."""
+        return self.param_count()

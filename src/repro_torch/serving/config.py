@@ -8,10 +8,14 @@ on by default as in the JAX package; it means nothing to the dense arena),
 speculative decoding (`speculative=SpecConfig(...)` from
 `serving/speculative.py`) and either scheduler of `serving/scheduler.py`
 (`FifoScheduler`, the default, or the preemptive `SloScheduler`, paged
-only). Every feature it lacks raises `NotImplementedError` in `validate`
-instead of being ignored, and the JAX package's rules for preemption,
-chunked prefill, the pool dtype, the scale dtype, `kv_splits` and
-speculation raise its `ValueError`s word for word.
+only), with or without telemetry (`telemetry=Telemetry(...)` from
+`serving/telemetry.py`), its roofline priced against `hardware` (a key of
+`serving/costmodel.HARDWARE_SPECS`; None: the engine's device decides).
+The one feature it lacks, mesh sharding, raises `NotImplementedError` in
+`validate` instead of being ignored, and the JAX package's rules for
+preemption, chunked prefill, the pool dtype, the scale dtype, the
+hardware name, `kv_splits` and speculation raise its `ValueError`s word
+for word.
 """
 from __future__ import annotations
 
@@ -54,18 +58,14 @@ class EngineConfig:
         return (self.kv_cache_dtype if self.kv_cache_dtype is not None
                 else model_cfg.kv_dtype)
 
+    def tensor_parallel(self) -> int:
+        """The pool shard count: 1, as `mesh=` is refused."""
+        return 1
+
     def validate(self, model_cfg) -> None:
         """Raise on what the port does not serve, then on bad values."""
-        missing = []
-        if self.telemetry is not None:
-            missing.append("telemetry")
         if self.mesh is not None:
-            missing.append("mesh sharding")
-        if self.hardware is not None:
-            missing.append("the roofline cost model (hardware=)")
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing))
+            raise NotImplementedError("not ported yet: mesh sharding")
         if self.scheduler is not None and self.scheduler.preemptive \
                 and not self.paged:
             raise ValueError(
@@ -108,6 +108,12 @@ class EngineConfig:
                     "kv_cache_dtype='int4' requires "
                     "kv_scale_dtype='bfloat16': f32 scale rows would "
                     "spend the bytes the nibble packing just saved")
+        if self.hardware is not None:
+            from repro_torch.serving.costmodel import HARDWARE_SPECS
+            if self.hardware not in HARDWARE_SPECS:
+                raise ValueError(
+                    f"unknown hardware {self.hardware!r}; known roofline "
+                    f"specs: {sorted(HARDWARE_SPECS)}")
         if self.kv_splits is not None:
             if self.kv_splits < 1:
                 raise ValueError(

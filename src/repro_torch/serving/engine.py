@@ -52,10 +52,25 @@ fresh pages, so the request resumes bit for bit; a mid-prefill victim is
 aborted and prefilled again on re-admission. Parked requests wait in
 `swapped` and count as outstanding work in `step()` and `stats()`.
 
+Every step is priced by the roofline cost model (`serving/costmodel.py`):
+the step's shape (decode lengths from the host's `_host_len`, the chunk,
+the verify rows, draft forwards, a dense admission's prompt) becomes
+modeled bytes and FLOPs per phase, always accumulated (host arithmetic),
+and `stats()["roofline"]` sets them against the phase times and the
+hardware's ridge (`EngineConfig.hardware`, else the engine's device).
+`telemetry=Telemetry(enabled=True)` (serving/telemetry.py) records, at
+step boundaries and from host state only, per-step phase records with
+their modeled costs, pool and queue gauges, request lifecycles, and the
+allocator's, scheduler's and drafter's counters; with `annotate=True`
+each step and each model call runs in a `torch.profiler.record_function`
+scope. The default records nothing, and the kernels launched and the
+outputs are the same with telemetry on or off.
+
 The decode step is shared by both modes. Construction:
 `ServingEngine(params, cfg, engine, EngineConfig(slots=4, max_len=256),
-device="cuda")`, with `paged=True` for the paged mode. Features the port
-lacks raise `NotImplementedError` (`EngineConfig.validate`).
+device="cuda")`, with `paged=True` for the paged mode. Mesh sharding, the
+one feature the port lacks, raises `NotImplementedError`
+(`EngineConfig.validate`).
 """
 from __future__ import annotations
 
@@ -72,9 +87,11 @@ from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache as kv
 from repro_torch.serving.config import EngineConfig, GenConfig
+from repro_torch.serving.costmodel import CostModel, StepShape
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.scheduler import FifoScheduler, SwappedRequest
 from repro_torch.serving.speculative import greedy_accept, make_drafter
+from repro_torch.serving.telemetry import NULL_TELEMETRY, Telemetry
 
 __all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine", "generate"]
 
@@ -143,12 +160,35 @@ def generate(params: dict, prompts: torch.Tensor, model_cfg: ModelConfig,
     return out, stats
 
 
-@dataclasses.dataclass
 class _Counters:
-    """Lifetime counts of the scheduler's actions."""
-    preemptions: int = 0
-    swap_outs: int = 0
-    swap_ins: int = 0
+    """Lifetime counts of the scheduler's actions (preemptions, swap-outs,
+    swap-ins), each incremented in one place together with its telemetry
+    `sched.*` counter, so that stats() and the snapshot cannot drift."""
+
+    def __init__(self, telemetry: Telemetry):
+        self._tel = telemetry
+        self.preemptions = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
+
+    def preempt(self) -> None:
+        self.preemptions += 1
+        self._tel.count("sched.preempt")
+
+    def swap_out(self, pages: int) -> None:
+        self.swap_outs += 1
+        self._tel.count("sched.swap_out")
+        self._tel.count("sched.swap_out_pages", pages)
+
+    def swap_in(self, pages: int) -> None:
+        self.swap_ins += 1
+        self._tel.count("sched.swap_in")
+        self._tel.count("sched.swap_in_pages", pages)
+
+    def readmit(self) -> None:
+        # An aborted mid-prefill entry is admitted again without a blob: no
+        # pages move, so only the telemetry event fires.
+        self._tel.count("sched.readmit")
 
 
 @dataclasses.dataclass
@@ -200,6 +240,8 @@ class ServingEngine:
         self.slots = config.slots
         self.max_len = config.max_len
         self.gen = config.gen
+        self.telemetry = (config.telemetry if config.telemetry is not None
+                          else NULL_TELEMETRY)
         self.scheduler = (config.scheduler if config.scheduler is not None
                           else FifoScheduler())
         self.prefill_chunk_tokens = config.prefill_chunk_tokens
@@ -210,7 +252,7 @@ class ServingEngine:
         # holds their KV.
         self.swapped: list[SwappedRequest] = []
         self.swap_tier = kv.HostSwapTier()
-        self._counters = _Counters()
+        self._counters = _Counters(self.telemetry)
         self.last_logits = torch.zeros((self.slots, model_cfg.vocab),
                                        dtype=torch.float32, device=self.device)
         self._uid = 0
@@ -234,9 +276,22 @@ class ServingEngine:
         self._draft_sec = 0.0
         self._verify_sec = 0.0
         self._decode_sec = 0.0
+        self._step_idx = 0
+        # The roofline: modeled bytes and FLOPs per phase, accumulated every
+        # step from what ran (host arithmetic, telemetry on or off);
+        # stats()["roofline"] sets them against the phase times, and
+        # telemetry also gets each step's.
+        self.cost_model = CostModel.from_configs(model_cfg, config,
+                                                 device=self.device)
+        self._phase_bytes = {p: 0.0 for p in ("admit", "chunk_prefill", "draft",
+                                              "verify", "decode")}
+        self._phase_flops = dict(self._phase_bytes)
+        self._shape: Optional[StepShape] = None
+        if self.telemetry.enabled:
+            self.telemetry.attach_roofline(self.cost_model.describe())
         self.spec = config.speculative
         self.drafter = (make_drafter(config.speculative, self.engine,
-                                     self.max_len)
+                                     self.max_len, telemetry=self.telemetry)
                         if config.speculative is not None else None)
 
         self.paged = config.paged
@@ -244,6 +299,7 @@ class ServingEngine:
             self._init_pool(model_cfg, config)
         else:
             self.allocator = None
+            self.page_bytes = None
             self.cache = model_api.init_cache(model_cfg, self.slots, self.max_len,
                                               device=self.device)
 
@@ -252,15 +308,17 @@ class ServingEngine:
         page_size, num_pages = config.page_size, config.num_pages
         self.max_pages = -(-self.max_len // page_size)
         kv_dtype = config.resolved_kv_dtype(model_cfg)
+        self.page_bytes = kv.page_kv_bytes(model_cfg, page_size, kv_dtype,
+                                           config.kv_scale_dtype)
         if num_pages is None:
             # The fp dense cache's byte budget, plus the trash page: int8
             # and int4 pages cost fewer bytes, so the budget holds more.
             budget = self.slots * self.max_pages * kv.page_kv_bytes(
                 model_cfg, page_size, "model")
-            num_pages = budget // kv.page_kv_bytes(
-                model_cfg, page_size, kv_dtype, config.kv_scale_dtype) + 1
+            num_pages = budget // self.page_bytes + 1
         self.allocator = kv.BlockAllocator(
             num_pages, page_size, prefix_sharing=config.prefix_sharing,
+            telemetry=self.telemetry,
             pin_budget_pages=self.scheduler.pin_budget_pages)
         self.cache = model_api.init_paged_cache(
             model_cfg, self.slots, num_pages, page_size, self.max_pages,
@@ -290,6 +348,7 @@ class ServingEngine:
             raise ValueError(f"priority must be >= 0, got {priority}")
         worst = kv.BlockAllocator.worst_case_tokens(len(prompt), max_new_tokens)
         if worst > self.max_len:
+            self.telemetry.count("admission.rejected.over_max_len")
             raise ValueError(
                 f"request can occupy {worst} cache positions "
                 f"(prompt {len(prompt)}, max_new {max_new_tokens}) "
@@ -298,12 +357,15 @@ class ServingEngine:
             need = self.allocator.pages_for(worst)
             usable = self.allocator.num_pages - 1
             if need > usable:
+                self.telemetry.count("admission.rejected.over_pool_capacity")
                 raise ValueError(
                     f"request needs {need} pages worst case but the pool "
                     f"has {usable}; no reservation was made")
         self._uid += 1
         self.queue.append(Request(self._uid, prompt, max_new_tokens,
                                   priority=priority))
+        self.telemetry.request_submitted(self._uid, len(prompt), max_new_tokens,
+                                         priority=priority)
         return self._uid
 
     def _place_paged(self, slot: int, req: Request, shared_tokens: int):
@@ -315,15 +377,23 @@ class ServingEngine:
         req.prefill_cursor = min(shared_tokens, len(req.prompt) - 1)
         self.prefill_tokens_saved += req.prefill_cursor
         self._host_len[slot] = 0
+        self.telemetry.request_admitted(req.uid, slot, shared_tokens)
         self.active[slot] = req
 
     def _place_dense(self, slot: int, req: Request):
         """Install a request into a dense slot: a batch-of-1 prefill of the
         whole prompt, written in place into the slot's rows of the arena
         (every position up to max_len) and of last_logits."""
+        tel = self.telemetry
+        tel.request_admitted(req.uid, slot, 0)
+        t0c = tel.now() if tel.enabled else 0.0
         toks = torch.as_tensor(req.prompt[None], dtype=torch.int64, device=self.device)
-        logits1, cache1 = model_api.prefill(self.params, {"tokens": toks}, self.cfg,
-                                            self.engine, max_len=self.max_len)
+        with tel.annotation("dense_admit_prefill"):
+            logits1, cache1 = model_api.prefill(self.params, {"tokens": toks}, self.cfg,
+                                                self.engine, max_len=self.max_len)
+        if tel.enabled:
+            # The whole prompt in one prefill: one chunk span.
+            tel.chunk(req.uid, t0c, tel.now(), len(req.prompt))
         c = self.cache
         for dst, src in ((c.k, cache1.k), (c.v, cache1.v), (c.k_scale, cache1.k_scale),
                          (c.v_scale, cache1.v_scale)):
@@ -335,6 +405,8 @@ class ServingEngine:
         req.prefill_cursor = len(req.prompt)
         self._host_len[slot] = len(req.prompt)
         self.active[slot] = req
+        if self._shape is not None:
+            self._shape.admit_prompt_tokens += len(req.prompt)
 
     # -- preemption mechanisms (the policy is in scheduler.py) --------------
     def _admit_queued(self, req: Request, slot: int, reserve: bool = True) -> bool:
@@ -403,12 +475,13 @@ class ServingEngine:
             kv.clear_slot(self.cache, slot)
         else:
             n_kv = int(self._host_len[slot])
-            _, blob = kv.swap_out_slot(self.cache, slot, a.pages_of(req.uid), n_kv)
+            ids = a.pages_of(req.uid)
+            _, blob = kv.swap_out_slot(self.cache, slot, ids, n_kv)
             self.swap_tier.put(req.uid, blob)
             entry = SwappedRequest(req, n_kv, has_blob=True,
                                    logits=self.last_logits[slot].to("cpu", copy=True))
             req.shared_prompt_tokens = 0
-            self._counters.swap_outs += 1
+            self._counters.swap_out(pages=len(ids))
         a.release(req.uid)
         self.active[slot] = None
         self._host_len[slot] = 0
@@ -417,7 +490,7 @@ class ServingEngine:
             # cache again from the request's context on re-contact.
             self.drafter.release(slot)
         req.preemptions += 1
-        self._counters.preemptions += 1
+        self._counters.preempt()
         self.swapped.append(entry)
 
     def _swap_in(self, entry: SwappedRequest, slot: int, reserve: bool = True) -> bool:
@@ -434,10 +507,11 @@ class ServingEngine:
                 return False
             self.swapped.remove(entry)
             self._place_paged(slot, req, res[1])
+            self._counters.readmit()
             return True
+        n_map = a.pages_for(entry.n_kv)
         worst = a.pages_for(a.worst_case_tokens(len(req.prompt), req.max_new_tokens))
-        pages = a.admit_restored(req.uid, a.pages_for(entry.n_kv), worst,
-                                 reserve=reserve)
+        pages = a.admit_restored(req.uid, n_map, worst, reserve=reserve)
         if pages is None:
             return False
         kv.swap_in_slot(self.cache, slot, pages, self.swap_tier.pop(req.uid))
@@ -445,7 +519,7 @@ class ServingEngine:
         self._host_len[slot] = entry.n_kv
         self.active[slot] = req
         self.swapped.remove(entry)
-        self._counters.swap_ins += 1
+        self._counters.swap_in(pages=n_map)
         return True
 
     def _ensure_decode_capacity(self):
@@ -531,10 +605,13 @@ class ServingEngine:
         toks = torch.as_tensor(req.prompt[start:end], dtype=torch.int64,
                                device=self.device)[None]
         start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
-        res = model_api.prefill_chunk(
-            self.params, toks, row, start_t, self.cache.k_pages,
-            self.cache.v_pages, self.cfg, self.engine, self.cache.k_scale,
-            self.cache.v_scale)
+        tel = self.telemetry
+        t0c = tel.now() if tel.enabled else 0.0
+        with tel.annotation("prefill_chunk"):
+            res = model_api.prefill_chunk(
+                self.params, toks, row, start_t, self.cache.k_pages,
+                self.cache.v_pages, self.cfg, self.engine, self.cache.k_scale,
+                self.cache.v_scale)
         if self.cache.quantized:
             logits1, _, _, _, _ = res
         else:
@@ -550,6 +627,10 @@ class ServingEngine:
             self.last_logits[slot] = logits1[0].float()
             self._host_len[slot] = end
         self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
+        if self._shape is not None:
+            self._shape.chunk = (start, end - start)
+        if tel.enabled:
+            tel.chunk(req.uid, t0c, tel.now(), end - start)
 
     def _release(self, slot: int, req: Request):
         req.done = True
@@ -564,6 +645,7 @@ class ServingEngine:
         if self.drafter is not None:
             self.drafter.release(slot)
         self._host_len[slot] = 0
+        self.telemetry.request_finished(req.uid)
 
     def _map_write_range(self, slot: int, req: Request, first: int,
                          n_writes: int):
@@ -591,14 +673,47 @@ class ServingEngine:
         """One engine step: admit, run at most one prompt chunk, then one
         decode step (with `speculative`, one draft-verify round) across all
         fully prefilled slots. Returns the amount of outstanding work (live
-        decodes + mid-prefill slots + queued and swapped requests)."""
+        decodes + mid-prefill slots + queued and swapped requests).
+
+        Phase times (admit / chunk prefill / draft / verify / decode) and
+        the step's modeled costs accumulate into stats(); with telemetry
+        enabled the step also records its phase split, modeled costs and
+        the pool and queue gauges at the step boundary."""
+        tel = self.telemetry
         t_start = time.perf_counter()
+        self._step_idx += 1
+        before = ((self._admit_sec, self._chunk_sec, self._draft_sec,
+                   self._verify_sec, self._decode_sec) if tel.enabled else None)
+        self._shape = StepShape()
         try:
-            return self._step_inner()
+            with tel.step_annotation(self._step_idx):
+                return self._step_inner()
         finally:
-            self._step_sec += time.perf_counter() - t_start
+            dur = time.perf_counter() - t_start
+            self._step_sec += dur
+            costs = self.cost_model.step_costs(self._shape)
+            self._shape = None
+            for phase, c in costs.items():
+                self._phase_bytes[phase] += c.bytes
+                self._phase_flops[phase] += c.flops
+            if tel.enabled:
+                a = self.allocator
+                tel.record_step(
+                    t_start, dur,
+                    self._admit_sec - before[0],
+                    self._chunk_sec - before[1],
+                    self._draft_sec - before[2],
+                    self._verify_sec - before[3],
+                    self._decode_sec - before[4],
+                    a.used_pages if a is not None else 0,
+                    a.free_pages if a is not None else 0,
+                    a.available_pages if a is not None else 0,
+                    len(self.queue),
+                    sum(1 for r in self.active if r is not None and r.prefilling),
+                    costs={p: (c.bytes, c.flops) for p, c in costs.items()})
 
     def _step_inner(self) -> int:
+        tel = self.telemetry
         t = time.perf_counter()
         self.scheduler.schedule_admissions(self)
         self._admit_sec += time.perf_counter() - t
@@ -624,9 +739,11 @@ class ServingEngine:
                       temperature=self.gen.temperature, top_k=self.gen.top_k)
         host_toks = toks.cpu().numpy()
         mask = np.zeros((self.slots,), bool)
+        t_emit = tel.now() if tel.enabled else 0.0
         for i in ready:
             req = self.active[i]
             req.generated.append(int(host_toks[i]))
+            tel.tokens(req.uid, t_emit)
             if (len(req.generated) >= req.max_new_tokens
                     or (self.gen.stop_on_eos
                         and host_toks[i] == self.gen.eos_id)):
@@ -644,11 +761,17 @@ class ServingEngine:
                     continue
                 self._map_write_range(i, req, int(self._host_len[i]), 1)
             self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
-        logits, self.cache = model_api.decode_step(
-            self.params, toks, self.cache, self.cfg, self.engine)
+        with tel.annotation("decode_step"):
+            logits, self.cache = model_api.decode_step(
+                self.params, toks, self.cache, self.cfg, self.engine)
         self.last_logits = logits.float()
         self._host_len += mask
         self.decode_steps += 1
+        if self._shape is not None:
+            # Post-append resident lengths of the live slots: what the
+            # decode attention just read through the block table.
+            self._shape.decode_ran = True
+            self._shape.decode_lens = [int(x) for x, m in zip(self._host_len, mask) if m]
         self._decode_sec += time.perf_counter() - t_dec
         return int(mask.sum()) + n_prefilling + parked
 
@@ -665,7 +788,9 @@ class ServingEngine:
         slot's reservation. Slots outside the round keep all-trash rows,
         so their padded rows write the trash page."""
         k = self.spec.k
+        tel = self.telemetry
         t_draft0 = time.perf_counter()
+        t_round0 = tel.now() if tel.enabled else 0.0
         host_logits = self.last_logits.cpu().numpy()
         survivors: list[tuple[int, Request, int, np.ndarray]] = []
         for i in ready:
@@ -674,6 +799,7 @@ class ServingEngine:
             req.generated.append(t0)
             if (len(req.generated) >= req.max_new_tokens
                     or (self.gen.stop_on_eos and t0 == self.gen.eos_id)):
+                tel.tokens(req.uid, t_round0)
                 self._release(i, req)
                 continue
             # With G tokens generated the reservation holds at most
@@ -698,6 +824,12 @@ class ServingEngine:
             tokens[i, 0] = t0
             tokens[i, 1:1 + len(drafts)] = drafts
             starts[i] = L
+            if self._shape is not None:
+                self._shape.verify.append((L, 1 + len(drafts)))
+                if self.spec.mode == "draft-model":
+                    # One draft forward a proposed token (as the reference
+                    # prices it: the weight stream dominates).
+                    self._shape.draft_forwards += len(drafts)
             # Pages for t0 and the drafts; padded positions past them land
             # in the tail of a mapped page (dead data past the rewind
             # length) or in the trash page, through the trash columns
@@ -708,15 +840,17 @@ class ServingEngine:
         tables = (torch.nn.functional.pad(c.block_tables, (0, self._verify_pad),
                                           value=kv.TRASH_PAGE)
                   if self._verify_pad else c.block_tables)
-        vlogits = model_api.verify_tokens(
-            self.params, torch.as_tensor(tokens, device=self.device),
-            tables, torch.as_tensor(starts, device=self.device),
-            c.k_pages, c.v_pages, self.cfg, self.engine, c.k_scale,
-            c.v_scale)[0]
+        with tel.annotation("verify_tokens"):
+            vlogits = model_api.verify_tokens(
+                self.params, torch.as_tensor(tokens, device=self.device),
+                tables, torch.as_tensor(starts, device=self.device),
+                c.k_pages, c.v_pages, self.cfg, self.engine, c.k_scale,
+                c.v_scale)[0]
         self.verify_passes += 1
         self.spec_rounds += len(survivors)
         # Acceptance needs only the argmaxes.
         greedy = torch.argmax(vlogits, dim=-1).cpu().numpy()
+        t_acc = tel.now() if tel.enabled else 0.0
         rows, cols = [], []
         for i, req, t0, drafts in survivors:
             a, hit_eos = greedy_accept(drafts, greedy[i], eos_id=self.gen.eos_id,
@@ -724,6 +858,11 @@ class ServingEngine:
             req.generated.extend(int(t) for t in drafts[:a])
             req.accepted += a
             self.spec_accepted += a
+            if tel.enabled:
+                # 1 + a tokens commit together: a burst, so the deltas inside
+                # the round are recorded as zeros.
+                tel.tokens(req.uid, t_acc, 1 + a)
+                tel.spec_round(req.uid, t_round0, t_acc, len(drafts), a)
             if hit_eos:
                 self._release(i, req)
                 continue
@@ -766,7 +905,7 @@ class ServingEngine:
         preemptions / swap_outs / swap_ins, requests swapped out now, the
         host tier's byte high-water mark and the pinned prefix pages now.
         Tokens count finished, active and swapped requests. A ratio with a
-        zero denominator reads 0.0."""
+        zero denominator reads 0.0. `roofline`: `_roofline_stats`."""
         def ratio(num, den):
             return num / den if den else 0.0
 
@@ -805,4 +944,35 @@ class ServingEngine:
             "swapped": len(self.swapped),
             "swap_bytes_peak": self.swap_tier.bytes_peak,
             "pinned_pages": self.allocator.pinned_pages if self.paged else 0,
+            "roofline": self._roofline_stats(),
         }
+
+    def _roofline_stats(self) -> dict:
+        """Per-phase roofline over everything this engine has run, from the
+        modeled-cost accumulators and the phase times (host clock): modeled
+        bytes and FLOPs, achieved GB/s, arithmetic intensity, and the
+        memory/compute-bound class against the cost model's hardware.
+        Phases that never ran are left out. The telemetry snapshot carries
+        the windowed, per-step version of the same numbers."""
+        sec = {"admit": self._admit_sec,
+               "chunk_prefill": self._chunk_sec,
+               "draft": self._draft_sec,
+               "verify": self._verify_sec,
+               "decode": self._decode_sec}
+        hw = self.cost_model.hardware
+        out = {}
+        for phase, nbytes in self._phase_bytes.items():
+            if nbytes <= 0.0:
+                continue
+            nflops = self._phase_flops[phase]
+            s = sec[phase]
+            intensity = nflops / nbytes
+            out[phase] = {
+                "modeled_bytes": nbytes,
+                "modeled_flops": nflops,
+                "sec": s,
+                "achieved_gbps": nbytes / s / 1e9 if s else 0.0,
+                "arithmetic_intensity": intensity,
+                "bound": hw.classify(intensity),
+            }
+        return out

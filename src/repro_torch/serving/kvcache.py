@@ -45,6 +45,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.serving.quantize import quantize_vec, quantize_vec_int4
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 TRASH_PAGE = 0  # physical page 0: scribble target for unmapped writes
 _SCALE_DTYPES = ("float32", "bfloat16")
@@ -374,10 +375,18 @@ class BlockAllocator:
     shared pages. A shared page must be `fork_page`d (COW) before any write
     lands in it. `pin_budget_pages` > 0 keeps up to that many cached pages
     alive at refcount 0 (0 never pins).
+
+    `telemetry` (serving/telemetry.py, optional) receives the reference's
+    page-economy counters at the same decisions: pages allocated, freed and
+    rewound, COW forks, prefix-cache page hits and misses (full prompt
+    pages, the unit the cache shares at), watermark and optimistic
+    admission refusals, pins, pin evictions and pin hits. All no-ops when
+    the telemetry is disabled or absent.
     """
 
     def __init__(self, num_pages: int, page_size: int,
-                 prefix_sharing: bool = False, pin_budget_pages: int = 0):
+                 prefix_sharing: bool = False, telemetry=None,
+                 pin_budget_pages: int = 0):
         if num_pages < 2:
             raise ValueError("need at least trash + 1 usable page")
         if page_size < 1:
@@ -386,6 +395,7 @@ class BlockAllocator:
         self.page_size = page_size
         self.prefix_sharing = prefix_sharing
         self.pin_budget_pages = pin_budget_pages
+        self._tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self._free = list(range(num_pages - 1, TRASH_PAGE, -1))
         self._reserved = 0
         self._pages: dict[int, list[int]] = {}
@@ -445,6 +455,7 @@ class BlockAllocator:
     def _alloc(self) -> int:
         page = self._free.pop()
         self._ref[page] = 1
+        self._tel.count("pool.pages_allocated")
         return page
 
     def _drop_key(self, page: int) -> None:
@@ -461,9 +472,11 @@ class BlockAllocator:
                 # Pin: the page keeps its bytes and prefix-cache entry at
                 # refcount 0; a later admission hit revives it.
                 self._pinned[page] = None
+                self._tel.count("sched.pin")
                 return
             self._drop_key(page)
             self._free.append(page)
+            self._tel.count("pool.pages_freed")
 
     def reclaim_pinned(self, n: int, protect=()) -> int:
         """Evict up to `n` pinned pages (oldest pin first, skipping
@@ -478,6 +491,8 @@ class BlockAllocator:
             del self._pinned[page]
             self._drop_key(page)
             self._free.append(page)
+            self._tel.count("pool.pages_freed")
+            self._tel.count("sched.pin_evict")
             freed += 1
         return freed
 
@@ -520,6 +535,7 @@ class BlockAllocator:
         worst = self.pages_for(self.worst_case_tokens(prompt_tokens,
                                                       max_new_tokens))
         if self.available_pages < worst:
+            self._tel.count("pool.watermark_refusals")
             return None
         n0 = self.pages_for(prompt_tokens)
         pages = [self._alloc() for _ in range(n0)]
@@ -554,14 +570,21 @@ class BlockAllocator:
             self.reclaim_pinned(self._shortage(need_now, reserve),
                                 protect=frozenset(hits))
         if self._shortage(need_now, reserve) > 0:
+            self._refused(reserve)
             return None
         n_shared = len(hits)
-        n0 = self.pages_for(int(tokens.shape[0]))
+        n_tok = int(tokens.shape[0])
+        # Hit/miss accounting over *full* prompt pages, the unit the prefix
+        # cache shares at (partial tail pages are never cached).
+        self._tel.count("prefix_cache.page_hits", n_shared)
+        self._tel.count("prefix_cache.page_misses", n_tok // self.page_size - n_shared)
+        n0 = self.pages_for(n_tok)
         fresh = [self._alloc() for _ in range(n0 - n_shared)]
         for p in hits:
             if p in self._pinned:        # revive: back to refcount 1
                 del self._pinned[p]
                 self._ref[p] = 1
+                self._tel.count("sched.pin_hits")
             else:
                 self._ref[p] += 1
         pages = hits + fresh
@@ -591,6 +614,10 @@ class BlockAllocator:
         need_now = (worst_new if reserve
                     else self.pages_for(n_tok) - n_shared + fork)
         return keys, hits, worst_new, need_now
+
+    def _refused(self, reserve: bool) -> None:
+        self._tel.count("pool.watermark_refusals" if reserve
+                        else "pool.admit_refusals")
 
     def _shortage(self, need_now: int, reserve: bool) -> int:
         """Pages `need_now` lacks: against the watermark with `reserve`,
@@ -644,6 +671,7 @@ class BlockAllocator:
         new = self._draw(uid, "fork")
         self._decref(old)
         pages[logical_idx] = new
+        self._tel.count("pool.cow_forks")
         return old, new
 
     def rewind(self, uid: int, n_tokens: int) -> list[int]:
@@ -669,6 +697,7 @@ class BlockAllocator:
             if self._reserve_mode[uid]:
                 self._reserved += 1
             dropped.append(p)
+        self._tel.count("pool.pages_rewound", len(dropped))
         return dropped
 
     def admit_restored(self, uid: int, n_pages: int, worst_pages: int,
@@ -686,6 +715,7 @@ class BlockAllocator:
         if self._shortage(need_now, reserve) > 0:
             self.reclaim_pinned(self._shortage(need_now, reserve))
         if self._shortage(need_now, reserve) > 0:
+            self._refused(reserve)
             return None
         pages = [self._alloc() for _ in range(n_pages)]
         self._pages[uid] = pages

@@ -51,6 +51,10 @@ Safety rules the policies keep (the engine's helpers enforce them):
     evicted evicts no one: futile evictions would preempt the same victims
     every step (livelock). `SloScheduler` guards every eviction with
     `BlockAllocator.admission_probe`.
+
+Each step a candidate waits at the pool (FIFO: the head refused at the
+watermark; SLO: a candidate that does not fit) counts one
+`admission.blocked_steps` in the engine's telemetry.
 """
 from __future__ import annotations
 
@@ -128,6 +132,9 @@ class FifoScheduler:
                 res = eng.allocator.admit_tokens(req.uid, req.prompt,
                                                  req.max_new_tokens)
                 if res is None:
+                    # One blocked step each engine step the head waits at
+                    # the watermark (head-of-line blocking).
+                    eng.telemetry.count("admission.blocked_steps")
                     if not any(r is not None for r in eng.active):
                         # Nothing holds pages, yet the head does not fit:
                         # it never will (submit() bounds the gross worst
@@ -192,6 +199,7 @@ class SloScheduler:
                 # give up its slot (and pages), but only for a candidate
                 # that fits afterwards.
                 if not self._feasible(eng, item, prio):
+                    eng.telemetry.count("admission.blocked_steps")
                     continue
                 victim = self.pick_victim(eng, below_priority=prio)
                 if victim is None:
@@ -199,6 +207,7 @@ class SloScheduler:
                 eng._preempt(victim)
                 slot = victim
             if not self._admit_with_evictions(eng, item, slot, prio):
+                eng.telemetry.count("admission.blocked_steps")
                 if not any(r is not None for r in eng.active):
                     # Nothing holds pages, yet the candidate does not fit:
                     # it never will (submit() bounds the gross worst case,

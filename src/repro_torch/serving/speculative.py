@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models import api as model_api
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +137,13 @@ class DraftModelDrafter:
     """
 
     def __init__(self, params: dict, cfg, engine: SalPimEngine,
-                 max_len: int, headroom: int):
+                 max_len: int, headroom: int, telemetry=None):
         if cfg.family == "encdec":
             raise ValueError("draft-model drafting unsupported for encdec")
         self.params = params
+        # Draft-model forwards are work the target's verify pass amortizes:
+        # counted, so that telemetry can price a round.
+        self._tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.cfg = cfg
         self.engine = engine
         self.device = params["embed"].device
@@ -159,12 +163,14 @@ class DraftModelDrafter:
             logits, cache = model_api.prefill(
                 self.params, {"tokens": self._tokens(context[None])},
                 self.cfg, self.engine, max_len=self.max_len)
+            self._tel.count("spec.draft_prefills")
         else:
             _, cache, logits = st
             for t in context[len(fed):]:
                 logits, cache = model_api.decode_step(
                     self.params, self._tokens([t]), cache, self.cfg,
                     self.engine)
+            self._tel.count("spec.draft_decode_steps", len(context) - len(fed))
         st = [context.copy(), cache, logits]
         self._state[slot] = st
         return st
@@ -181,6 +187,7 @@ class DraftModelDrafter:
             logits, cache = model_api.decode_step(
                 self.params, self._tokens([drafts[j]]), cache, self.cfg,
                 self.engine)
+        self._tel.count("spec.draft_decode_steps", max(k - 1, 0))
         # Draft-side rollback: rewind to the committed context; st[2]
         # keeps the logits after it.
         cache.lengths = torch.full_like(cache.lengths, len(fed))
@@ -192,14 +199,15 @@ class DraftModelDrafter:
 
 
 def make_drafter(spec: SpecConfig, engine: SalPimEngine,
-                 max_len: int) -> Drafter:
+                 max_len: int, telemetry=None) -> Drafter:
     """Build the drafter a ServingEngine's SpecConfig asks for."""
     spec.validate()
     if spec.mode == "ngram":
         return NgramDrafter(ngram_max=spec.ngram_max,
                             ngram_min=spec.ngram_min)
     return DraftModelDrafter(spec.draft_params, spec.draft_cfg, engine,
-                             max_len=max_len, headroom=spec.k + 1)
+                             max_len=max_len, headroom=spec.k + 1,
+                             telemetry=telemetry)
 
 
 def greedy_accept(drafts: np.ndarray, greedy_tokens: np.ndarray,

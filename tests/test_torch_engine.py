@@ -39,6 +39,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.quantize import QTensor
 from repro_torch.serving.scheduler import FifoScheduler, SloScheduler
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.telemetry import Telemetry
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SLOTS, MAX_LEN, PAGE = 2, 32, 4
@@ -202,10 +203,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"telemetry": object()}, {"mesh": object()},
-    {"hardware": "h100"},
+    {"mesh": object(), "telemetry": Telemetry(enabled=True)}, {"mesh": object()},
+    {"mesh": object(), "hardware": "h100"},
 ])
 def test_unsupported_engine_features_raise(setup, change):
+    """Mesh sharding is refused, also beside the telemetry and roofline
+    options the port serves."""
     _, _, tparams, _, _ = setup
     kw = dict(slots=1, max_len=16, paged=True, prefix_sharing=False)
     kw.update(change)
