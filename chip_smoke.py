@@ -180,7 +180,32 @@ Run from the root of a checkout. Phases, each of which fails the run:
               its host us), host ms a step and a token off and on; then
               `python -m repro_torch.launch.serve --full --requests 8
               --slots 4` must finish its 8 requests;
- 14. the kernels line, a JSON object with each kernel's error, times,
+ 14. moe    — the MoE family on the paged engine and the dense arena:
+              olmoe-1B-7B at full width and all 16 layers (64 experts top-8,
+              expert d_ff 1024, cap factor 1.25; bf16 random weights) serves
+              phase 4's 8 requests (4 slots, page 16, 64-token chunks,
+              max_len 256) exact, LUT, with `quantize_params_int8` weights on
+              int8/bf16 pools (q1), on the dense arena and with `ngram` k=4
+              and sharing; phi-3.5-MoE at its published widths (16 experts
+              top-2, expert d_ff 6400, LayerNorm), 2 layers, exact and LUT.
+              Launches checked every step: a decode step's linears a
+              `gemv_pim_float` each, the f32 routers (one a layer) on the
+              CUDA cores and the rest on the tensor cores, in LUT mode the
+              experts' SiLU one lut_interp a layer. Each drain runs again
+              under `plain_ops` (no kernel launched), its prompts routed to
+              the kernel drain's top-k experts (`RoutingRecorder`), and its
+              first logits are held to the kernel drain's within
+              FIRST_LOGITS_LIMIT: which tokens an expert drops depends on
+              every token of a call, and random-weight routing is chaotic
+              (one near-tie flip moves a token enough to flip more), so a
+              one-shot prefill (another grouping), a free-running plain
+              drain and a verify pass against decode steps are reported,
+              not gated; the top-k sets the plain path's own weights would
+              have chosen otherwise are counted. Then olmoe's decode step
+              and chunk on the host clock and the device beside the bound of
+              streaming every weight, and lut_interp and the f32 routers at
+              the MoE shapes;
+ 15. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -243,6 +268,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -311,7 +337,8 @@ QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
 MODEL_HEADS = [("qwen2-1.5b", 6, 128, {}),
                ("gemma2-2b", 2, 256, {"softcap": 50.0, "window": 4096}),
                ("h2o-danube3-4b", 4, 120, {"window": 4096}),
-               ("nemotron-4-340b", 12, 192, {})]
+               ("nemotron-4-340b", 12, 192, {}),
+               ("olmoe-1b-7b", 1, 128, {}), ("phi-3.5-moe", 4, 128, {})]
 # Their linears (R, C): q, k/v, o, w_gate/w_up, w_down, LM head.
 MODEL_GEMV_SHAPES = [
     (1536, 1536), (256, 1536), (8960, 1536), (1536, 8960), (151936, 1536),      # qwen2
@@ -320,6 +347,11 @@ MODEL_GEMV_SHAPES = [
     (3840, 3840), (960, 3840), (10240, 3840), (3840, 10240), (32000, 3840),     # danube
     (18432, 18432), (1536, 18432), (73728, 18432), (18432, 73728),              # nemotron
     (256000, 18432)]
+# The MoE models' linears in bf16 (R, C): olmoe-1B-7B's q/k/v/o and LM head,
+# phi-3.5-MoE's q/o, k/v and LM head; their f32 routers (E, d) on the CUDA
+# cores. The experts are batched products (torch.bmm), not GEMVs.
+MOE_GEMV_SHAPES = [(2048, 2048), (50304, 2048), (4096, 4096), (1024, 4096), (32064, 4096)]
+ROUTER_SHAPES = [(64, 2048), (16, 4096)]
 # Pool formats: (kv_cache_dtype, kv_scale_dtype); fp pools hold q's dtype.
 POOLS = {"fp": ("model", "float32"), "int8/f32": ("int8", "float32"),
          "int8/bf16": ("int8", "bfloat16"), "int4/bf16": ("int4", "bfloat16")}
@@ -677,7 +709,32 @@ def check_gemv_grid(torch, tlut, gemv_pim, seed):
         f"shapes, R up to 256000, C up to 73728, x M 1/4/20/64 x 6 epilogues = {model_calls} "
         f"launches), bf16, all on the tensor cores: max_abs_err "
         f"{model_worst:.3e} (tol {TOL['bfloat16']})")
-    return max(max(worst.values()), model_worst)
+    # The MoE models: their bf16 linears at the paths' widths (M 4 decode,
+    # 20 verify, 64 chunk, up to 128 a dense admission) on the tensor
+    # cores, and their f32 routers on the CUDA cores, no epilogue.
+    moe_worst = {"bfloat16": 0.0, "float32": 0.0}
+    moe_calls = 0
+    for shapes, dtype in ((MOE_GEMV_SHAPES, torch.bfloat16), (ROUTER_SHAPES, torch.float32)):
+        dname = str(dtype).split(".")[1]
+        for R, C in shapes:
+            w = (torch.randn((R, C), generator=gen, device=dev) * C ** -0.5).to(dtype)
+            for M in (1, 4, 20, 64, 65, 128, 256):
+                x = (torch.randn((M, C), generator=gen, device=dev) * 0.5).to(dtype)
+                tc = fn.tc_launches
+                got = fn(x, w)
+                torch.cuda.synchronize()
+                if (fn.tc_launches > tc) != (dtype == torch.bfloat16):
+                    raise AssertionError(f"gemv {M}x{C}x{R} {dname} took the wrong route")
+                moe_worst[dname] = max(moe_worst[dname], compare(
+                    torch, f"gemv {M}x{C}x{R} {dname}", got, gemv_pim.gemv_pim_plain(x, w),
+                    TOL[dname]))
+                moe_calls += 1
+            del w
+    log(f"  gemv_pim_float over the MoE models' linears ({len(MOE_GEMV_SHAPES)} bf16 shapes "
+        f"on the tensor cores, max_abs_err {moe_worst['bfloat16']:.3e}) and routers "
+        f"({ROUTER_SHAPES} f32 on the CUDA cores, max_abs_err {moe_worst['float32']:.3e}) "
+        f"at M 1/4/20/64/65/128/256: {moe_calls} launches (tol {TOL})")
+    return max(max(worst.values()), model_worst, *moe_worst.values())
 
 
 def check_decode_grid(torch, tlut, quantize, paged_attention, seed):
@@ -2701,10 +2758,21 @@ def check_param_count(tree, cfg, label: str) -> int:
 
 def step_counts(cfg) -> tuple[int, int]:
     """(linears, norms) of one decode step or prefill chunk: q, k, v, o
-    and the MLP's two or three a layer plus the LM head; two norms a layer
+    and the MLP's two or three a layer (an MoE layer's router: its experts
+    are batched products, no GEMV) plus the LM head; two norms a layer
     (four with post-norms) plus the final one."""
     L = cfg.n_layers
-    return (6 + int(cfg.gated_mlp)) * L + 1, (2 + 2 * int(cfg.post_norms)) * L + 1
+    mlp = 1 if cfg.family == "moe" else 2 + int(cfg.gated_mlp)
+    return (4 + mlp) * L + 1, (2 + 2 * int(cfg.post_norms)) * L + 1
+
+
+def moe_counts(cfg, mode) -> tuple[int, int]:
+    """(f32 router GEMVs, lut_interp launches) of one pass of an MoE model:
+    a router a layer, on the CUDA cores; in LUT mode the experts' SiLU a
+    layer (no GEMV epilogue carries it). (0, 0) for a dense model."""
+    if cfg.family != "moe":
+        return 0, 0
+    return cfg.n_layers, cfg.n_layers if mode == "lut" else 0
 
 
 def serving_handles(torch):
@@ -2831,7 +2899,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
           mode="exact", max_len=256, fmt="fp", kv_splits=None, quant="none",
           gemv="gemv_pim_float", sharing=False, spec=None, drafter=None, gaps=None,
           scheduler=None, num_pages=None, priority=0, late=(), telemetry=None,
-          on_step=None):
+          on_step=None, plain=False):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
     chunks) on SAL-PIM datapath `quant`, checking every step's launches of
     every kernel: every linear one launch of the GEMV kernel `gemv` on the
@@ -2860,12 +2928,21 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     `eng.preempt_log` lists each preemption as (decode steps and verify
     passes run, uid, mid-prefill). `telemetry` (a Telemetry) goes to the
     engine; `on_step(launches, calls)` is called after each step with its
-    launches and its decode steps, chunks and verify passes."""
+    launches and its decode steps, chunks and verify passes.
+
+    An MoE model's routers are f32 GEMVs on the CUDA cores, one a layer
+    (`gemv_pim_float` on every datapath but quant="int8"), and in LUT mode
+    its experts' SiLU one lut_interp a layer. With `plain` (the drain run
+    under `plain_ops`) no kernel may launch at all."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     from repro_torch.serving import kvcache
     kv, sd = POOLS[fmt]
     n_lin, n_norm = step_counts(cfg)
+    n_route, n_act = moe_counts(cfg, mode)
+    if quant != "none":
+        n_route = 0                # quant="int8"/"fixed16" carry the routers too
+    n_gemv = n_lin - n_route
     softcap_lut = mode == "lut" and cfg.final_softcap is not None
     sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode, quant=quant))
     eng = ServingEngine(params, cfg, sal, EngineConfig(
@@ -2970,7 +3047,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
             ver = eng.verify_passes - n_ver
             L = cfg.n_layers
             passes = dec + chunk + ver
-            lin = n_lin * passes
+            lin = n_gemv * passes
             expect = {name: 0 for name in kernels}
             expect.update({gemv: lin,
                            TC: lin if gemv == "gemv_pim_float" else 0,
@@ -2978,30 +3055,33 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
                            TCF: lin if gemv == "gemv_pim_fixed_linear" else 0,
                            "quantize_int8_rows": lin if quant == "int8" else 0,
                            "layernorm_lut": n_norm * passes,
-                           "lut_interp": passes if softcap_lut else 0,
+                           "lut_interp": passes * (int(softcap_lut) + n_act),
                            "paged_attention": 0 if split else L * dec,
                            "paged_prefill_attention": L * (chunk + ver),
                            "paged_attention_split": L * dec if split else 0,
                            "merge_partials": L * dec if split else 0})
+            expect["gemv_pim_float"] += n_route * passes
             if gemv == "gemv_pim_int8_linear":
                 # A linear is one launch, x quantized in its load path, where
                 # gemv_int8_linear_plan tiles it (every linear of a decode step),
                 # else quantize_int8_rows then gemv_pim_int8 (a chunk's wider x;
                 # never its LM head, which takes the last token alone).
                 two = d["gemv_pim_int8"]
-                if two > (n_lin - 1) * chunk:
+                if two > (n_gemv - 1) * chunk:
                     raise AssertionError(f"serve[{label}] step {steps}: {two} int8 linears "
                                          f"took two launches; a decode step takes none")
                 expect.update({gemv: lin - two, TC8L: lin - two, "gemv_pim_int8": two,
                                TC8: two,
                                "quantize_int8_rows": (lin if quant == "int8" else 0) + two})
+            if plain:
+                expect = {name: 0 for name in kernels}
             if d != expect:
                 raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                      f"{expect} (decode {dec}, chunk {chunk}, verify {ver})")
             if on_step is not None:
                 on_step(d, {"decode": dec, "chunk": chunk, "verify": ver})
-            want_draft = dense_expect(kernels, L, dense_calls["decode"], dense_calls["prefill"],
-                                      mode == "lut")
+            want_draft = dense_expect(kernels, cfg, dense_calls["decode"],
+                                      dense_calls["prefill"], mode == "lut")
             if {n_: draft[n_] for n_ in kernels} != want_draft:
                 raise AssertionError(f"serve[{label}] step {steps}: draft launches "
                                      f"{dict(draft)}, expected {want_draft} ({dict(dense_calls)} "
@@ -3048,19 +3128,29 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
                              f"out, {len(eng.swap_tier)} blobs in the swap tier")
     if len(first) != len(uids):
         raise AssertionError(f"serve[{label}]: first logits of {len(first)} requests")
+    eng.verify_reach = reach[0]
+    eng.cow_forks = watch.forks if watch is not None else 0
+    eng.watch_sec = watch.sec if watch is not None else 0.0
+    if plain:
+        log(f"  serve[{label}] under plain_ops: no kernel launched (checked every step)")
+        return eng, done, first, wall
     L = cfg.n_layers
     attn = (f"{L} paged_attention_split + {L} merge_partials" if split
             else f"{L} paged_attention")
     tc = " (all on the tensor cores)"
     wq = f", {n_lin} quantize_int8_rows (the weights)" if quant == "int8" else ""
     if gemv == "gemv_pim_int8_linear":
-        dec_lin = f"{n_lin} {gemv}{tc} (x quantized in the load path){wq}"
-        chunk_lin = (f"{n_lin} int8 linears{wq}, each one {gemv} or, where no token tile "
+        dec_lin = f"{n_gemv} {gemv}{tc} (x quantized in the load path){wq}"
+        chunk_lin = (f"{n_gemv} int8 linears{wq}, each one {gemv} or, where no token tile "
                      "holds the chunk's x, quantize_int8_rows + gemv_pim_int8 (all on the "
                      "tensor cores)")
     else:
-        dec_lin = chunk_lin = f"{n_lin} {gemv}{tc}"
+        dec_lin = chunk_lin = f"{n_gemv} {gemv}{tc}"
+    if n_route:
+        routers = f" + {n_route} f32 routers (gemv_pim_float on the CUDA cores)"
+        dec_lin, chunk_lin = dec_lin + routers, chunk_lin + routers
     interp = ("1 lut_interp (the final softcap's LUT tanh)" if softcap_lut
+              else f"{n_act} lut_interp (the experts' LUT SiLU)" if n_act
               else "no lut_interp")
     if spec is None:
         log(f"  serve[{label}] launches per decode step: {dec_lin}, {attn}, "
@@ -3070,16 +3160,13 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     else:
         log(f"  serve[{label}] launches per verify pass ({st['verify_passes']} passes over "
             f"(slots, k+1) = {sorted(verify_shapes)}, M = 20 at every linear): {chunk_lin}, "
-            f"{L} paged_prefill_attention, {n_norm} layernorm_lut, no paged_attention; the "
-            f"same per prefill chunk; no decode step; the draft model's launches those of "
-            f"its dense prefills and decode steps (checked every step)")
+            f"{L} paged_prefill_attention, {n_norm} layernorm_lut, {interp}, no "
+            f"paged_attention; the same per prefill chunk; no decode step; the draft model's "
+            f"launches those of its dense prefills and decode steps (checked every step)")
         if verify_shapes - {(4, spec.k + 1)}:
             raise AssertionError(f"serve[{label}]: verify passes over {verify_shapes}")
         log(f"  serve[{label}] verify positions end at {reach[0]} (max_len {max_len}); the "
             f"verify pass's table {reach[1]} columns against the cache's {eng.max_pages}")
-    eng.verify_reach = reach[0]
-    eng.cow_forks = watch.forks if watch is not None else 0
-    eng.watch_sec = watch.sec if watch is not None else 0.0
     if watch is not None and st["prefill_tokens_saved"]:
         log(f"  serve[{label}] prefix sharing: {st['prefill_tokens_saved']} prompt tokens "
             f"not prefilled, {watch.forks} COW forks, donor pages bit for bit at every fork "
@@ -3303,14 +3390,17 @@ def time_model(torch, api, params, cfg, sal, prompts, card, label=None, fmt="fp"
 VERIFY_K = 4
 
 
-def check_verify(torch, api, params, cfg, sal, fmt, label, card, prompts, timed=False):
+def check_verify(torch, api, params, cfg, sal, fmt, label, card, prompts, timed=False,
+                 gate=True):
     """From one resident state (4 slots, 128-token prompts, page 16): five
     greedy decode steps, and one verify pass over the same 5 tokens on a
     copy of the pools. The verify logits at each position must be within
     FIRST_LOGITS_LIMIT of the decode logits there (max |diff| / max
     |logit|). With `timed`, a verify pass (4 slots x 5 tokens) and a decode
     step on the host clock (eager, synchronised) and on the device (a CUDA
-    graph's replay)."""
+    graph's replay). With `gate` False (an MoE model: a verify pass routes
+    its 20 tokens at another capacity than a decode step its 4, so the two
+    are different functions) the gap is reported only."""
     dev = params["embed"].device
     B, page, max_pages, S = 4, 16, 16, 128
     kv, sd = POOLS[fmt]
@@ -3351,9 +3441,9 @@ def check_verify(torch, api, params, cfg, sal, fmt, label, card, prompts, timed=
     log(f"  verify vs decode [{label}] ({fmt}, {sal.nl.mode}): 4 slots x {VERIFY_K + 1} "
         f"positions from 128 resident tokens, max |diff| / max |logit| by position "
         + ", ".join(f"{g:.3e}" for g in gaps)
-        + f" (limit {FIRST_LOGITS_LIMIT:.0e}); argmax equal at {agree}/{VERIFY_K + 1} positions "
-        "for all 4 slots")
-    if max(gaps) > FIRST_LOGITS_LIMIT:
+        + (f" (limit {FIRST_LOGITS_LIMIT:.0e})" if gate else " (reported, not a gate)")
+        + f"; argmax equal at {agree}/{VERIFY_K + 1} positions for all 4 slots")
+    if gate and max(gaps) > FIRST_LOGITS_LIMIT:
         raise AssertionError(f"verify vs decode [{label}]: {max(gaps):.3e}")
     if not timed:
         return None
@@ -4120,15 +4210,20 @@ def telemetry_phase(torch, np, mods, counted, params, cfg, prompts, card, seed, 
 # Phase 7: the dense cache
 # ---------------------------------------------------------------------------
 
-def dense_expect(kernels, L, dec, prefills, lut):
+def dense_expect(kernels, cfg, dec, prefills, lut):
     """Launches of `dec` dense decode steps and `prefills` whole-prompt
-    prefills: 6 linears a layer plus the LM head, 2 norms a layer plus the
-    final one, one attention a layer (decode_attention; the LUT softmax
-    in a LUT-mode prefill), nothing else; every GEMV on the tensor cores."""
+    prefills: `step_counts`' linears and norms, one attention a layer
+    (decode_attention; the LUT softmax in a LUT-mode prefill), an MoE
+    model's LUT SiLU a layer in LUT mode, nothing else; every bf16 GEMV on
+    the tensor cores (an MoE model's f32 routers on the CUDA cores)."""
+    L, passes = cfg.n_layers, dec + prefills
+    n_lin, n_norm = step_counts(cfg)
+    n_route, n_act = moe_counts(cfg, "lut" if lut else "exact")
     expect = {name: 0 for name in kernels}
-    expect.update({"gemv_pim_float": (6 * L + 1) * (dec + prefills),
-                   TC: (6 * L + 1) * (dec + prefills),
-                   "layernorm_lut": (2 * L + 1) * (dec + prefills),
+    expect.update({"gemv_pim_float": n_lin * passes,
+                   TC: (n_lin - n_route) * passes,
+                   "layernorm_lut": n_norm * passes,
+                   "lut_interp": n_act * passes,
                    "decode_attention": L * dec,
                    "softmax_lut": L * prefills if lut else 0})
     return expect
@@ -4148,7 +4243,7 @@ def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompt
     wall = time.perf_counter() - t0
     d = {n: k.launches - before[n] for n, k in kernels.items()}
     mode = sal.nl.mode
-    expect = dense_expect(kernels, cfg.n_layers, new_tokens, 1, mode == "lut")
+    expect = dense_expect(kernels, cfg, new_tokens, 1, mode == "lut")
     if d != expect:
         raise AssertionError(f"generate[{mode}]: launches {d}, expected {expect}")
     if tuple(out.shape) != (len(prompts), new_tokens) or not bool(
@@ -4165,14 +4260,15 @@ def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompt
 
 
 def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
-                mode="exact", max_len=256, telemetry=None, on_step=None):
+                mode="exact", max_len=256, telemetry=None, on_step=None, plain=False):
     """Drain `prompts` through ServingEngine(paged=False) (4 slots; the
     arena is int8 when cfg.kv_dtype says so), checking every step's
     launches: per decode step 145 GEMV, 24 decode_attention, 49
     layernorm_lut; per admission 145 GEMV, 49 layernorm_lut and, in LUT
-    mode, 24 softmax_lut; no paged kernel. `telemetry` goes to the engine;
-    `on_step(launches, calls)` is called after each step with its launches
-    and its decode steps and admissions."""
+    mode, 24 softmax_lut; no paged kernel (`dense_expect` for other
+    models). `telemetry` goes to the engine; `on_step(launches, calls)` is
+    called after each step with its launches and its decode steps and
+    admissions. With `plain` (under `plain_ops`) no kernel may launch."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
@@ -4198,7 +4294,9 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         steps += 1
         d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
         dec, adm = eng.decode_steps - n_dec, len(first) - n_adm
-        expect = dense_expect(kernels, cfg.n_layers, dec, adm, mode == "lut")
+        expect = dense_expect(kernels, cfg, dec, adm, mode == "lut")
+        if plain:
+            expect = {name: 0 for name in kernels}
         if d != expect:
             raise AssertionError(f"serve[{label}] step {steps}: launches {d}, expected "
                                  f"{expect} (decode {dec}, admissions {adm})")
@@ -4227,11 +4325,14 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         raise AssertionError(f"serve[{label}]: slots not parked ({parked}) or first logits "
                              f"of {len(first)} requests")
     L = cfg.n_layers
+    want = dense_expect(kernels, cfg, 1, 0, mode == "lut")
     sm = f", {L} softmax_lut" if mode == "lut" else ""
-    log(f"  serve[{label}] launches per decode step: {6 * L + 1} gemv_pim_float (all on "
-        f"the tensor cores), {L} decode_attention, {2 * L + 1} layernorm_lut; per admission "
-        f"prefill: {6 * L + 1} gemv_pim_float (tensor cores), {2 * L + 1} layernorm_lut{sm}; "
-        "no paged kernel (checked every step)")
+    act = f", {want['lut_interp']} lut_interp" if want["lut_interp"] else ""
+    if not plain:
+        log(f"  serve[{label}] launches per decode step: {want['gemv_pim_float']} "
+            f"gemv_pim_float ({want[TC]} on the tensor cores), {L} decode_attention, "
+            f"{want['layernorm_lut']} layernorm_lut{act}; per admission prefill: the same "
+            f"GEMVs and norms{sm}{act}; no paged kernel (checked every step)")
     return eng, done, first, wall
 
 
@@ -4296,6 +4397,404 @@ def time_dense_admission(torch, api, params, cfg, sal, S, max_len, label, card):
     log(f"  dense admission [{label}] ({card}): a {S}-token prompt, arena {max_len}: "
         f"{device:.3f} ms on the device")
     return device
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the MoE family
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_ops(mode):
+    """Every `kernels.ops` entry of the serving paths held to its plain
+    PyTorch version, as `scripts/logit_drift.py --plain` holds them: in LUT
+    mode the decode, prefill and arena walks' plain page walks (the LUT
+    algebra the kernels compute). A drain run inside launches no kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import gemv_pim as gk
+    from repro_torch.kernels import layernorm_lut as ln
+    from repro_torch.kernels import lut_interp as li
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pf
+    from repro_torch.kernels import softmax_lut as sm
+    lut = mode == "lut"
+    walk = pa.paged_attention_online_plain if lut else pa.paged_attention_plain
+    table = {
+        "lut_apply": li.lut_interp_plain,
+        "pim_linear": gk.gemv_pim_plain,
+        "pim_int8_linear": gk.gemv_pim_int8_linear_plain,
+        "pim_quantize_int8_rows": lambda x, static_input=False: gk.quantize_int8_rows_plain(x),
+        "pim_fixed_linear": gk.gemv_pim_fixed_linear_plain,
+        "pim_paged_prefill_attention": (
+            (lambda q, *a, **k: pf.paged_prefill_attention_online_plain(q, *a, **k).to(
+                q.dtype)) if lut else pf.paged_prefill_attention_plain),
+        "pim_paged_attention": lambda q, *a, kv_splits=None, **k: walk(q, *a, **k).to(q.dtype),
+        "pim_layernorm": lambda *a, **k: ln.layernorm_lut_plain(*a, wide_sums=True, **k),
+        "pim_softmax": sm.softmax_lut_plain,
+        "pim_decode_attention": (da.decode_attention_online_plain if lut
+                                 else da.decode_attention_plain),
+    }
+    saved = {name: getattr(ops, name) for name in table}
+    for name, fn in table.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+class RoutingRecorder:
+    """Each MoE layer call's router weights (T, E) and keep mask (G, kTg),
+    kept on the card, tagged "prompt" inside a prefill chunk or a dense
+    admission (whose inputs are the request's own prompt, whatever the
+    other requests generate) and "step" elsewhere.
+
+    With `replay` (another drain's calls) each prompt call takes the top-k
+    experts that drain chose at the same call, in its order, weighted by
+    this drain's own router weights, renormalised: the same dispatch and
+    capacity drops, so that the two drains' prompts differ only where
+    their kernels do. Which tokens an expert keeps is a discontinuous
+    function of every token's routing, and random-weight routing is
+    chaotic: a near-tie flip in one layer moves that token's later layers
+    far enough to flip more (a free-running plain drain of olmoe parts
+    from the kernels' in a quarter of its top-8 sets). `self.own` counts
+    the prompt calls' top-k sets this drain's weights would have chosen
+    otherwise, and the largest top-k / top-(k+1) gap of its own weights at
+    one: how near a tie each such flip was."""
+
+    def __init__(self, moe_lib, api):
+        self.moe, self.api, self.calls, self.kind = moe_lib, api, [], "step"
+        self.own = (0, 0, 0.0)
+
+    @contextlib.contextmanager
+    def recording(self, replay=None):
+        import torch
+        self.calls, self.own = [], (0, 0, 0.0)
+        m, api = self.moe, self.api
+        rw, disp, route = m.router_weights, m.dispatch, m.route
+        chunk, prefill = api.prefill_chunk, api.prefill
+        forced = iter([c[1] for c in replay if c[0] == "prompt"] if replay else [])
+
+        def weights(*a, **k):
+            w = rw(*a, **k)
+            self.calls.append([self.kind, w.detach().clone(), None])
+            return w
+
+        def dispatch(*a, **k):
+            plan = disp(*a, **k)
+            self.calls[-1][2] = plan.keep.clone()
+            return plan
+
+        def replayed(router, xt, cfg, engine):
+            if replay is None or self.kind != "prompt":
+                return route(router, xt, cfg, engine)
+            w, other = m.router_weights(router, xt, engine), next(forced)
+            if other.shape != w.shape:
+                raise AssertionError(f"replayed routing: shape {tuple(other.shape)} "
+                                     f"against {tuple(w.shape)}")
+            k = cfg.top_k
+            ti = torch.sort(other, dim=-1, descending=True, stable=True).indices[:, :k]
+            mine = torch.sort(w, dim=-1, descending=True, stable=True)
+            differ = (mine.indices[:, :k].sort(-1).values != ti.sort(-1).values).any(-1)
+            n, total, gap = self.own
+            if bool(differ.any()):
+                gap = max(gap, float((mine.values[:, k - 1] - mine.values[:, k])[differ].max()))
+            self.own = (n + int(differ.sum()), total + differ.numel(), gap)
+            tw = w.gather(-1, ti)
+            return tw / tw.sum(-1, keepdim=True).clamp_min(1e-9), ti
+
+        def prompt(fn):
+            def call(*a, **k):
+                self.kind = "prompt"
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.kind = "step"
+            return call
+
+        m.router_weights, m.dispatch, m.route = weights, dispatch, replayed
+        api.prefill_chunk, api.prefill = prompt(chunk), prompt(prefill)
+        try:
+            yield self
+        finally:
+            m.router_weights, m.dispatch, m.route = rw, disp, route
+            api.prefill_chunk, api.prefill = chunk, prefill
+        if replay is not None and next(forced, None) is not None:
+            raise AssertionError("replayed routing: the drain made fewer prompt calls")
+
+
+def routing_diff(torch, got, want, k):
+    """The prompt calls of two drains' records, in order: (token-layer
+    top-k sets that differ, of all; keep entries that differ, of all; the
+    largest top-k / top-(k+1) weight gap, in `got`, at a differing set)."""
+    a = [c for c in got if c[0] == "prompt"]
+    b = [c for c in want if c[0] == "prompt"]
+    if [tuple(c[1].shape) for c in a] != [tuple(c[1].shape) for c in b]:
+        raise AssertionError("the two drains' prompt calls differ in shape")
+    sets = n_sets = keeps = n_keep = 0
+    gap = 0.0
+    for (_, wa, ka), (_, wb, kb) in zip(a, b):
+        sa = torch.sort(wa, dim=-1, descending=True, stable=True)
+        ia = sa.indices[:, :k].sort(-1).values
+        ib = torch.sort(wb, dim=-1, descending=True, stable=True).indices[:, :k].sort(-1).values
+        differ = (ia != ib).any(-1)
+        sets += int(differ.sum())
+        n_sets += differ.numel()
+        keeps += int((ka != kb).sum())
+        n_keep += ka.numel()
+        if bool(differ.any()):
+            g = (sa.values[:, k - 1] - sa.values[:, k])[differ]
+            gap = max(gap, float(g.max()))
+    return sets, n_sets, keeps, n_keep, gap
+
+
+def one_shot_plain_logits(torch, api, params, cfg, sal, prompt, fmt):
+    """First logits of `prompt` prefilled as one chunk through the plain
+    versions (fmt "dense": the dense prefill): the MoE layers group and
+    cap its tokens all together, not chunk by chunk as the engine does."""
+    dev = params["embed"].device
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    with plain_ops(sal.nl.mode):
+        if fmt == "dense":
+            return api.prefill(params, {"tokens": toks}, cfg, sal,
+                               max_len=toks.shape[1])[0][0].float()
+        kv, sd = POOLS[fmt]
+        n = -(-toks.shape[1] // 16)
+        cache = api.init_paged_cache(cfg, 1, 1 + n, 16, n, kv_dtype=kv, kv_scale_dtype=sd,
+                                     device=dev)
+        table = torch.arange(1, n + 1, dtype=torch.int32, device=dev)[None]
+        return api.prefill_chunk(params, toks, table, torch.zeros(1, dtype=torch.int32,
+                                                                  device=dev),
+                                 cache.k_pages, cache.v_pages, cfg, sal, cache.k_scale,
+                                 cache.v_scale)[0][0].float()
+
+
+def moe_drains(torch, mods, rec, cfg, drains, prompts, new_tokens, card, plain=False,
+               replay=None):
+    """Run each (label, params, options) drain of an MoE model: through the
+    kernels, or with `plain` under `plain_ops` (no kernel may launch) and,
+    given `replay` (the kernel drains' results), each prompt call on the
+    kernel drain's top-k experts (`RoutingRecorder`); the routing of each
+    recorded. Returns {label: (serve's result, calls, own choices)}."""
+    out = {}
+    for label, p, kw in drains:
+        kw = dict(kw)
+        dense, mode = kw.pop("dense", False), kw.get("mode", "exact")
+        tag = (f"{label}, plain" + (", replayed routing" if replay else "")) if plain else label
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_ops(mode))
+            stack.enter_context(rec.recording(replay[label][1] if replay else None))
+            if dense:
+                run = serve_dense(torch, mods, p, cfg, prompts, new_tokens, card, label=tag,
+                                  mode=mode, plain=plain)
+            else:
+                run = serve(torch, mods, p, cfg, prompts, new_tokens, card, label=tag,
+                            plain=plain, **kw)
+        out[label] = (run, rec.calls, rec.own)
+    return out
+
+
+def logits_gap(torch, done, first, other):
+    """max over requests of max |diff| / max |logit| of two drains' first
+    logits, and the requests whose greedy first tokens agree."""
+    worst = max(float((first[u].float() - other[u].float()).abs().max()
+                      / other[u].float().abs().max()) for u in done)
+    return worst, sum(int(first[u].argmax()) == int(other[u].argmax()) for u in done)
+
+
+def check_moe_drains(torch, api, SalPimConfig, SalPimEngine, cfg, drains, runs, plains,
+                     prompts, new_tokens):
+    """Each drain's first logits against the same drain on the plain
+    versions, its prompts routed as the kernel drain routed them (gated at
+    FIRST_LOGITS_LIMIT), and against a one-shot plain prefill (reported:
+    another grouping of the tokens); the top-k sets the plain drain would
+    have chosen otherwise, and the token share (reported)."""
+    for label, p, kw in drains:
+        (eng, done, first, _), _, _ = runs[label]
+        (_, pdone, pfirst, _), _, (own, n_own, gap) = plains[label]
+        mode = kw.get("mode", "exact")
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        fmt = "dense" if kw.get("dense") else kw.get("fmt", "fp")
+        worst, agree = logits_gap(torch, done, first, pfirst)
+        shot = max(logits_gap(torch, [u], first, {u: one_shot_plain_logits(
+            torch, api, p, cfg, sal, prompts[i], fmt)})[0] for i, u in enumerate(sorted(done)))
+        same, firsts, _ = token_share(done, pdone, new_tokens)
+        log(f"  serve[{label}] first logits vs the same drain on the plain versions (its "
+            f"prompts on the kernel drain's routing): max |diff| / max |logit| = {worst:.3e} "
+            f"(limit {FIRST_LOGITS_LIMIT:.0e}); first tokens equal {agree}/{len(done)}; vs a "
+            f"one-shot plain prefill of each prompt {shot:.3e} (reported: the engine's chunks "
+            f"group and cap the tokens otherwise)")
+        near = (f"; the largest top-{cfg.top_k}/top-{cfg.top_k + 1} gap of its own router "
+                f"weights at one {gap:.3e} (a near-tie, not a kernel fault)" if own else "")
+        log(f"  serve[{label}] routing: on the same decisions so far, the plain path's own "
+            f"weights choose another top-{cfg.top_k} set at {own} of {n_own} token-layers of "
+            f"the prompts{near}; greedy tokens shared {same}/{len(done) * new_tokens}, first "
+            f"divergent position per request {firsts} (reported)")
+        if worst > FIRST_LOGITS_LIMIT:
+            raise AssertionError(f"serve[{label}]: first logits differ from the plain drain's "
+                                 f"by {worst:.3e}")
+
+
+def free_running_plain(torch, mods, rec, cfg, label, params, prompts, new_tokens, card, run):
+    """Reported, not a gate: the drain on the plain versions with its own
+    routing, against the kernel drain `run`: first logits, routing of the
+    prompts' chunks, greedy tokens."""
+    (_, done, first, _), calls, _ = run
+    free = moe_drains(torch, mods, rec, cfg, [(label, params, {})], prompts, new_tokens, card,
+                      plain=True)
+    (_, fdone, ffirst, _), fcalls, _ = free[label]
+    worst, agree = logits_gap(torch, done, first, ffirst)
+    sets, n_sets, keeps, n_keep, gap = routing_diff(torch, calls, fcalls, cfg.top_k)
+    same, _, _ = token_share(done, fdone, new_tokens)
+    log(f"  serve[{label}] against the plain drain with its own routing (reported, not a "
+        f"gate): first logits {worst:.3e}, first tokens equal {agree}/{len(done)}; in the "
+        f"prompts {sets} of {n_sets} top-{cfg.top_k} sets and {keeps} of {n_keep} keep "
+        f"entries differ (the largest top-{cfg.top_k}/top-{cfg.top_k + 1} gap at one "
+        f"{gap:.3e}); greedy tokens shared {same}/{len(done) * new_tokens}")
+
+
+def time_moe_kernels(torch, F, tlut, gemv_pim, lut_interp, seed):
+    """The kernels at the MoE path's own shapes, bf16 lut_interp bit for bit
+    and timed at an olmoe decode step's expert SiLU (1, 64, 4, 1024), a
+    64-token chunk's (2, 64, 8, 1024) and a 4 x 64 batch's (8, 64, 8, 1024)
+    ((G, E, C, f); the products' (E, G*C, f) outputs), beside F.silu (the
+    exact function, no LUT) and the bound; the f32 router GEMVs (64, 2048)
+    and (16, 4096) at M 4 and 256 against F.linear and the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    bank = tlut.LutBank.create(64)
+    out = {"lut_interp": {}, "router": {}}
+    for shape in ((1, 64, 4, 1024), (2, 64, 8, 1024), (8, 64, 8, 1024)):
+        G, E, C, f = shape
+        xs = [(3 * torch.randn((E, G * C, f), generator=gen, device=dev)).bfloat16()
+              for _ in range(16)]
+        got = lut_interp.lut_interp(xs[0], bank.silu)
+        if not torch.equal(got, lut_interp.lut_interp_plain(xs[0], bank.silu)):
+            raise AssertionError(f"lut_interp {shape}: not bit for bit its plain version")
+        ms = time_graph(torch, lambda i: lut_interp.lut_interp(xs[i], bank.silu), 16)
+        plain = time_graph(torch, lambda i: lut_interp.lut_interp_plain(xs[i], bank.silu), 16)
+        silu = time_graph(torch, lambda i: F.silu(xs[i]), 16)
+        n = xs[0].numel()
+        bnd, by = bound_ms(2 * 2 * n, 2 * n, "float32")
+        log(f"  lut_interp at the MoE experts' SiLU {shape} bf16: bit for bit its plain "
+            f"version; {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, F.silu (exact) "
+            f"{silu * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+        out["lut_interp"][str(shape)] = dict(ms=ms, plain_ms=plain, silu_ms=silu, bound_ms=bnd,
+                                             bound_by=by)
+    for R, C in ROUTER_SHAPES:
+        ws = [torch.randn((R, C), generator=gen, device=dev) * C ** -0.5 for _ in range(16)]
+        for M in (4, 256):
+            x = torch.randn((M, C), generator=gen, device=dev)
+            ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(x, ws[i]), 16)
+            plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_plain(x, ws[i]), 16)
+            lib = time_graph(torch, lambda i: F.linear(x, ws[i]), 16)
+            bnd, by = bound_ms(4 * (M * C + R * C + M * R), 2 * M * R * C, "float32")
+            log(f"  gemv_pim_float router ({R}, {C}) f32 at M {M} (CUDA cores): "
+                f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, F.linear {lib * 1e3:.2f} us, "
+                f"bound {bnd * 1e3:.2f} us ({by})")
+            out["router"][f"({R}, {C}) M {M}"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                      bound_ms=bnd, bound_by=by)
+    return out
+
+
+def moe_phase(torch, F, np, mods, counted, quantize, prompts, new_tokens, card, seed):
+    """Phase 14: olmoe-1B-7B at full width and depth (exact, LUT, q1, the
+    dense arena, ngram k=4 with sharing) and phi-3.5-MoE at its published
+    widths, 2 layers (exact, LUT), each drain run again under `plain_ops`
+    and held to it; the launches of each path counted apart. Returns
+    ({path: counts}, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lut as tlut
+    from repro_torch.kernels import gemv_pim, lut_interp
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.speculative import SpecConfig
+    api, SalPimConfig, SalPimEngine = mods[0], mods[1], mods[2]
+    rec = RoutingRecorder(moe_lib, api)
+    counts, times = {}, {}
+    path_kernels = ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+                    "layernorm_lut", "lut_interp"]
+
+    cfg = get_config("olmoe_1b_7b")
+    params = api.init_params(cfg, seed=seed, device="cuda")
+    n_params = check_param_count(params, cfg, "olmoe-1b-7b")
+    t0 = time.perf_counter()
+    q1 = quantize.quantize_params_int8(params)
+    torch.cuda.synchronize()
+    log(f"  olmoe-1B-7B at full width and depth ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"expert d_ff {cfg.moe_ff}, cap factor {cfg.router_cap_factor}, vocab {cfg.vocab}): "
+        f"{n_params / 1e9:.2f} B parameters, {2 * n_params / 1e9:.1f} GB in bf16, "
+        f"{cfg.active_param_count() / 1e9:.2f} B active a token; random weights; "
+        f"quantize_params_int8 (a layer at a time) {time.perf_counter() - t0:.1f} s")
+    drains = [("olmoe exact", params, dict()),
+              ("olmoe lut", params, dict(mode="lut")),
+              ("olmoe q1 int8 weights, int8/bf16 pools", q1,
+               dict(fmt="int8/bf16", gemv="gemv_pim_int8_linear")),
+              ("olmoe dense exact", params, dict(dense=True)),
+              ("olmoe ngram k=4 sharing", params,
+               dict(sharing=True, spec=SpecConfig(mode="ngram", k=VERIFY_K)))]
+    runs, counts["olmoe-1b-7b"] = counted("olmoe-1b-7b", lambda: moe_drains(
+        torch, mods, rec, cfg, drains, prompts, new_tokens, card),
+        path_kernels + ["gemv_pim_int8_linear", TC8L, "decode_attention"])
+    plains = moe_drains(torch, mods, rec, cfg, drains, prompts, new_tokens, card, plain=True,
+                        replay=runs)
+    check_moe_drains(torch, api, SalPimConfig, SalPimEngine, cfg, drains, runs, plains,
+                     prompts, new_tokens)
+    free_running_plain(torch, mods, rec, cfg, "olmoe exact", params, prompts, new_tokens,
+                       card, runs["olmoe exact"])
+    st = runs["olmoe ngram k=4 sharing"][0][0].stats()
+    log(f"  serve[olmoe ngram k=4 sharing] stats: acceptance {st['acceptance_rate']:.3f}, "
+        f"{st['verify_passes']} verify passes for {st['tokens']} tokens")
+    sal = {m: SalPimEngine.create(SalPimConfig(nonlinear_mode=m)) for m in ("exact", "lut")}
+    for mode in ("exact", "lut"):
+        times[f"olmoe {mode}"] = time_model(torch, api, params, cfg, sal[mode], prompts, card,
+                                            label=f"olmoe {mode}")
+    times["olmoe verify"] = check_verify(torch, api, params, cfg, sal["exact"], "fp",
+                                         "olmoe exact", card, prompts, timed=True, gate=False)
+    expert_bytes = 2 * cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.moe_ff
+    stream = 2 * (n_params - cfg.vocab * cfg.d_model)     # every weight but the embedding
+    bnd, _ = bound_ms(stream, 0, "bfloat16")
+    active, _ = bound_ms(2 * (cfg.active_param_count() - cfg.vocab * cfg.d_model), 0,
+                         "bfloat16")
+    times["olmoe bound"] = dict(stream=stream, experts=expert_bytes, bound_ms=bnd,
+                                active_bound_ms=active)
+    d = times["olmoe exact"]
+    log(f"  olmoe decode step (4 slots): device {d['dev_dec']:.2f} ms, host clock "
+        f"{d['dec']:.2f} ms; bound {bnd:.2f} ms streaming every weight once "
+        f"({stream / 1e9:.2f} GB, {expert_bytes / 1e9:.2f} GB of it the 64 experts a layer that "
+        f"the reference's batched products read), {active:.2f} ms at the active experts alone "
+        f"(the cost model's price) ({card})")
+    del params, q1, runs, plains
+    rec.calls = []
+    torch.cuda.empty_cache()
+
+    full = get_config("phi35_moe_42b")
+    pcfg = dataclasses.replace(full, n_layers=2)
+    pw = api.init_params(pcfg, seed=seed, device="cuda")
+    n_params = check_param_count(pw, pcfg, "phi-3.5-MoE, 2 layers")
+    log(f"  {full.name}: the published widths (d {full.d_model}, {full.n_heads}/"
+        f"{full.n_kv_heads} heads, head_dim {full.head_dim}, {full.n_experts} experts "
+        f"top-{full.top_k}, expert d_ff {full.moe_ff}, LayerNorm, vocab {full.vocab}), depth "
+        f"cut from {full.n_layers} to {pcfg.n_layers} layers: {n_params / 1e9:.2f} B "
+        f"parameters, {2 * n_params / 1e9:.1f} GB in bf16; random weights")
+    rng = np.random.RandomState(seed + 14)
+    p_prompts = [rng.randint(2, pcfg.vocab, size=len(p)) for p in prompts]
+    p_drains = [("phi exact", pw, dict()), ("phi lut", pw, dict(mode="lut"))]
+    p_runs, counts["phi-3.5-moe"] = counted("phi-3.5-moe", lambda: moe_drains(
+        torch, mods, rec, pcfg, p_drains, p_prompts, new_tokens, card), path_kernels)
+    p_plains = moe_drains(torch, mods, rec, pcfg, p_drains, p_prompts, new_tokens, card,
+                          plain=True, replay=p_runs)
+    check_moe_drains(torch, api, SalPimConfig, SalPimEngine, pcfg, p_drains, p_runs,
+                     p_plains, p_prompts, new_tokens)
+    times["phi exact"] = time_model(torch, api, pw, pcfg, sal["exact"], p_prompts, card,
+                                    label="phi exact (2 layers)")
+    del pw, p_runs, p_plains
+    rec.calls = []
+    torch.cuda.empty_cache()
+    times["kernels"] = time_moe_kernels(torch, F, tlut, gemv_pim, lut_interp, seed)
+    return counts, times
 
 
 def main() -> int:
@@ -4654,12 +5153,20 @@ def main() -> int:
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
     torch.cuda.empty_cache()
 
-    log("== 14. result")
+    log("== 14. moe: olmoe-1B-7B at full width and depth, phi-3.5-MoE at its published "
+        "widths (2 layers)")
+    t14 = time.perf_counter()
+    counts_moe, moe_times = moe_phase(torch, F, np, mods, counted, quantize, prompts,
+                                      new_tokens, card, args.seed)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    log("== 15. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
-                  ("slo/swap", counts_slo), ("telemetry", counts_tel)]
+                  ("slo/swap", counts_slo), ("telemetry", counts_tel),
+                  *counts_moe.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -4684,6 +5191,9 @@ def main() -> int:
             row["wide_131072_keys"] = times["wide"]
         if name == "lut_interp":
             row["launch_floor_ms"] = t["launch_floor_ms"]
+            row["moe_expert_silu"] = moe_times["kernels"]["lut_interp"]
+        if name == "gemv_pim_float":
+            row["moe_router_f32"] = moe_times["kernels"]["router"]
         if name == "gemv_pim_float":
             row["qwen2_decode_step"] = model_times["gemv_pim_float"]
         if name in ("paged_attention", "paged_prefill_attention"):
@@ -4709,6 +5219,12 @@ def main() -> int:
         + ", ".join(f"[{k}] {v['verify_dev']:.3f} ({v['verify_host']:.2f}) / "
                     f"{v['decode_dev']:.3f} ({v['decode_host']:.2f})"
                     for k, v in verify_ms.items()) + f" ({card})")
+    log(f"  MoE decode step / 64-token chunk, device ms (host clock ms): "
+        + ", ".join(f"[{k}] {v['dev_dec']:.2f} ({v['dec']:.2f}) / {v['dev_chunk']:.2f} "
+                    f"({v['chunk']:.2f})" for k, v in moe_times.items()
+                    if k in ("olmoe exact", "olmoe lut", "phi exact"))
+        + f"; olmoe's bound {moe_times['olmoe bound']['bound_ms']:.2f} ms streaming every "
+        f"weight ({card})")
     log(f"  swap of one request's 9 pages, host clock ms (blob bytes): "
         + ", ".join(f"[{k}] out {o:.3f}, in {i:.3f} ({b})" for k, (b, o, i) in swap_ms.items())
         + f" ({card})")

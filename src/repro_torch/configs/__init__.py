@@ -13,12 +13,15 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-# The dense models of the JAX package's registry that the port serves.
+# The models of the JAX package's registry that the port serves: the dense
+# family and the MoE family.
 ARCHS = ["qwen2_1_5b", "gemma2_2b", "nemotron_4_340b", "h2o_danube3_4b",
-         "gpt2_medium"]
+         "gpt2_medium", "olmoe_1b_7b", "phi35_moe_42b"]
 
 # Published names that do not map to a module by "-"/"." -> "_".
-ALIASES = {"h2o-danube-3-4b": "h2o_danube3_4b"}
+ALIASES = {"h2o-danube-3-4b": "h2o_danube3_4b",
+           "phi3.5-moe-42b": "phi35_moe_42b",
+           "phi3.5-moe-42b-a6.6b": "phi35_moe_42b"}
 
 
 def normalize(name: str) -> str:

@@ -80,9 +80,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_pages: int,
                      kv_dtype: str | None = None,
                      kv_scale_dtype: str = "float32", *, device="cuda"):
-    """Paged KV cache for the dense family (see serving/kvcache.py):
-    kv_dtype None defers to cfg.kv_dtype ("model", "int8" or "int4")."""
-    if cfg.family != "dense":
+    """Paged KV cache for the dense and MoE families (see
+    serving/kvcache.py): kv_dtype None defers to cfg.kv_dtype ("model",
+    "int8" or "int4")."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"paged cache for family {cfg.family!r}")
     return kvcache.init_paged_cache(
         cfg, batch, num_pages, page_size, max_pages,

@@ -1,6 +1,8 @@
-"""Decoder blocks over the dense arena and the paged KV cache: norm wiring
-and residuals (the port of `repro.models.blocks`, dense family). cos/sin
-are RoPE's (None with learned positions), passed to the attention."""
+"""Decoder blocks over the dense arena and the paged KV cache: norm wiring,
+residuals and the per-family FFN (the port of `repro.models.blocks`, dense
+and MoE families: `p["moe"]` through `moe.apply_moe`, else `p["ffn"]`).
+cos/sin are RoPE's (None with learned positions), passed to the
+attention."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +10,7 @@ import torch
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
 
@@ -40,7 +43,8 @@ def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
         h = apply_norm(p["post_ln1"], h, cfg, engine)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg, engine)
-    h = ffn_lib.apply_ffn(p["ffn"], h, cfg, engine)
+    h = (moe_lib.apply_moe(p["moe"], h, cfg, engine) if cfg.family == "moe"
+         else ffn_lib.apply_ffn(p["ffn"], h, cfg, engine))
     if cfg.post_norms:
         h = apply_norm(p["post_ln2"], h, cfg, engine)
     return (x + h, *cache_out)

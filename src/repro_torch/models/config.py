@@ -1,7 +1,8 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
-that the dense serving paths (paged pools and the dense arena) read, with
-the same names and defaults, and its analytic parameter counts (the
-roofline cost model's weight stream, `serving/costmodel.py`)."""
+that the serving paths (paged pools and the dense arena) of the dense and
+MoE families read, with the same names and defaults, and its analytic
+parameter counts (the roofline cost model's weight stream,
+`serving/costmodel.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,8 +17,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves "dense" only (RoPE or
-                                     # learned positions)
+    family: str                      # the port serves "dense" (RoPE or learned
+                                     # positions) and "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,6 +47,17 @@ class ModelConfig:
     post_norms: bool = False
     embed_scale: bool = False
     tie_embeddings: bool = False
+
+    # MoE (family "moe"): n_experts experts of width moe_d_ff (d_ff when 0),
+    # top_k a token; each group's expert takes at most its capacity
+    # (models/moe.py `_capacity`, router_cap_factor). moe_impl "shardmap"
+    # is the reference's expert-parallel dispatch under a mesh; without one
+    # (the port refuses `mesh=`) it runs the grouped dispatch, as "gspmd".
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    router_cap_factor: float = 1.25
+    moe_impl: str = "gspmd"
 
     # dtypes
     param_dtype: str = "bfloat16"
@@ -77,6 +89,10 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    @property
+    def moe_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def window_for_layer(self, i: int) -> Optional[int]:
         """SWA width for layer i (gemma2 alternates local/global)."""
         if self.local_global_pattern:
@@ -85,12 +101,12 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the JAX
-        package's formula for the dense family: q, k, v, o (+ QKV bias),
-        the MLP's two or three matrices and two norm scales a layer, the
-        embedding, the LM head and the final norm. Learned positions,
-        linear biases other than QKV's and LayerNorm shifts are not
-        counted, as in the reference."""
-        if self.family != "dense":
+        package's formula for the dense and MoE families: q, k, v, o (+ QKV
+        bias), the MLP's two or three matrices (MoE: every expert's, and
+        the router) and two norm scales a layer, the embedding, the LM head
+        and the final norm. Learned positions, linear biases other than
+        QKV's and LayerNorm shifts are not counted, as in the reference."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {self.family!r} is not ported yet")
         d, v = self.d_model, self.vocab
         n_q = self.n_heads * self.head_dim
@@ -98,10 +114,19 @@ class ModelConfig:
         attn = d * n_q + 2 * d * n_kv + n_q * d
         if self.qkv_bias:
             attn += n_q + 2 * n_kv
-        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        mats = 3 if self.gated_mlp else 2
+        if self.family == "moe":
+            mlp = self.n_experts * mats * d * self.moe_ff + d * self.n_experts  # + router
+        else:
+            mlp = mats * d * self.d_ff
         blocks = self.n_layers * (attn + mlp + 2 * d)
         return v * d + blocks + v * d + d
 
     def active_param_count(self) -> int:
-        """Parameters one token reads: all of them (no MoE in the port)."""
-        return self.param_count()
+        """Parameters one token reads: all of them, less the experts it
+        does not route to (n_experts - top_k a layer) in the MoE family."""
+        total = self.param_count()
+        if self.family != "moe":
+            return total
+        per_expert = (3 if self.gated_mlp else 2) * self.d_model * self.moe_ff
+        return total - self.n_layers * (self.n_experts - self.top_k) * per_expert

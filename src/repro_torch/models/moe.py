@@ -1,0 +1,162 @@
+"""Mixture-of-Experts (olmoe 64e/top-8, phi3.5 16e/top-2): the port of
+`repro.models.moe`'s grouped dispatch (`_apply_moe_gspmd`, without the
+training-only `return_aux`).
+
+A call's T tokens split into G groups (`_num_groups`); within a group each
+expert takes at most C of the group's Tg tokens (`_capacity`, the GShard
+capacity at `router_cap_factor`). Which tokens are dropped therefore
+depends on every token of the call, as in the reference.
+
+  * routing (`route`): the f32 router through `SalPimEngine.linear` (the
+    float GEMV, on the CUDA cores on the card), the engine's softmax (LUT
+    exp and reciprocal in LUT mode), the top k by a stable descending sort
+    (`jax.lax.top_k` breaks a tie toward the lower index, `torch.topk`
+    does not), renormalised;
+  * dispatch (`dispatch`): the assignments in slot-major order (every
+    token's first choice, then every token's second, ...), so earlier
+    tokens win capacity; an assignment's position in its expert is the
+    count of earlier ones, and it is kept when that is below C;
+  * the expert FFN on an expert-major buffer (E, G*C, d): each kept
+    assignment's row written at its own position (one writer a position;
+    the dropped ones go to a trash row past the buffer), two or three
+    batched products over the experts (`torch.bmm`, as the reference's
+    einsums run outside any Pallas kernel) and the activation between them
+    (`engine.nl.activation`: the `lut_interp` kernel in LUT mode on the
+    card, which takes the products' contiguous (E, G*C, f) outputs);
+  * combine: each token's k outputs, times their weights (zero where
+    dropped), added in choice order with one rounding a step in the
+    compute dtype: bit for bit the reference's bf16 scatter-add on the CPU,
+    and deterministic on the card (no atomic adds).
+
+`moe_impl="shardmap"` is the reference's expert-parallel dispatch under a
+mesh; with no mesh it falls to the grouped path, as here (the port refuses
+`mesh=`, `EngineConfig.validate`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.quantize import QTensor
+
+
+def init_moe(normal, cfg: ModelConfig, n_layers: int) -> dict:
+    """Stacked (L, ...) expert weights with the JAX package's stds, in
+    `cfg.pdtype`; the router (L, E, d) stays f32 at every param dtype."""
+    d, f, e, L = cfg.d_model, cfg.moe_ff, cfg.n_experts, n_layers
+    p = {
+        "router": normal((L, e, d), d ** -0.5, torch.float32),
+        "w_up": normal((L, e, f, d), d ** -0.5),
+        "w_down": normal((L, e, d, f), f ** -0.5),
+    }
+    if cfg.gated_mlp:
+        p["w_gate"] = normal((L, e, f, d), d ** -0.5)
+    return p
+
+
+def _as_weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """A weight operand in `dtype`: an int8 `QTensor` dequantized as
+    `w_i8 * scale` in `dtype`, as the reference does."""
+    if isinstance(w, QTensor):
+        return w.w_i8.to(dtype) * w.scale[..., None].to(dtype)
+    return w.to(dtype)
+
+
+def _num_groups(n_tokens: int) -> int:
+    for g in (256, 128, 64, 32, 16, 8, 4, 2):
+        if n_tokens % g == 0 and n_tokens // g >= 32:
+            return g
+    return 1
+
+
+def _capacity(cfg: ModelConfig, group_tokens: int) -> int:
+    cap = int(cfg.router_cap_factor * cfg.top_k * group_tokens / cfg.n_experts)
+    return min(max(cap, cfg.top_k), group_tokens)
+
+
+def router_weights(router: torch.Tensor, xt: torch.Tensor,
+                   engine: SalPimEngine) -> torch.Tensor:
+    """xt (T, d) -> the router's softmax weights (T, E) in f32."""
+    return engine.softmax(engine.linear(xt.float(), router), axis=-1)
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
+          engine: SalPimEngine) -> tuple[torch.Tensor, torch.Tensor]:
+    """xt (T, d) -> (weights (T, k) f32 renormalised, experts (T, k) int64),
+    each row's choices in descending weight, a tie to the lower index."""
+    weights = router_weights(router, xt, engine)
+    topw, topi = torch.sort(weights, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :cfg.top_k], topi[:, :cfg.top_k]
+    return topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), topi
+
+
+@dataclasses.dataclass
+class Dispatch:
+    """Where each assignment goes. Rows are (G, k*Tg) in slot-major order:
+    column j*Tg + t is token t's j-th choice."""
+
+    capacity: int
+    expert: torch.Tensor      # (G, kTg) int64
+    pos: torch.Tensor         # (G, kTg) its position in the expert's rows
+    keep: torch.Tensor        # (G, kTg) bool: pos < capacity
+    weight: torch.Tensor      # (G, kTg) f32, 0 where dropped
+
+
+def dispatch(topw: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig,
+             n_groups: int) -> Dispatch:
+    G, k = n_groups, cfg.top_k
+    Tg = topi.shape[0] // G
+    C = _capacity(cfg, Tg)
+    eid = topi.reshape(G, Tg, k).transpose(1, 2).reshape(G, k * Tg)
+    w = topw.reshape(G, Tg, k).transpose(1, 2).reshape(G, k * Tg)
+    onehot = eid[..., None] == torch.arange(cfg.n_experts, device=eid.device)
+    pos = onehot.long().cumsum(1).gather(-1, eid[..., None])[..., 0] - 1
+    keep = pos < C
+    return Dispatch(C, eid, pos, keep, w * keep)
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              engine: SalPimEngine) -> torch.Tensor:
+    """x (..., D) -> (..., D), experts dropping past their capacity."""
+    if cfg.moe_impl not in ("gspmd", "shardmap"):
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    T, E, k = xt.shape[0], cfg.n_experts, cfg.top_k
+    G = _num_groups(T)
+    Tg = T // G
+    plan = dispatch(*route(p["router"], xt, cfg, engine), cfg, G)
+    C = plan.capacity
+    dev = x.device
+
+    # Expert-major rows: assignment (g, j*Tg + t) kept at position pos of
+    # expert e is row e*G*C + g*C + pos; the dropped ones write row E*G*C.
+    base = plan.expert * (G * C) + torch.arange(G, device=dev)[:, None] * C
+    rows = torch.where(plan.keep, base + plan.pos, E * G * C)
+    tok = torch.arange(Tg, device=dev).repeat(k)                      # (kTg,)
+    xg = xt.reshape(G, Tg, d)
+    buf = xt.new_zeros((E * G * C + 1, d))
+    buf[rows.reshape(-1)] = xg[:, tok].reshape(-1, d)
+    buf = buf[:E * G * C].view(E, G * C, d)
+
+    act = engine.nl.activation(cfg.activation)
+    up = torch.bmm(buf, _as_weight(p["w_up"], x.dtype).transpose(1, 2))
+    if cfg.gated_mlp:
+        gate = torch.bmm(buf, _as_weight(p["w_gate"], x.dtype).transpose(1, 2))
+        h = act(gate) * up
+    else:
+        h = act(up)
+    out_buf = torch.bmm(h, _as_weight(p["w_down"], x.dtype).transpose(1, 2))
+
+    # Combine in choice order; a dropped assignment reads its expert's last
+    # row (as the reference's safe position C - 1) at weight 0.
+    gathered = out_buf.reshape(E * G * C, d)[
+        (base + torch.where(plan.keep, plan.pos, C - 1)).reshape(-1)].view(G, k * Tg, d)
+    contrib = gathered * plan.weight[..., None].to(x.dtype)
+    out = torch.zeros_like(xg)
+    for j in range(k):
+        out = out + contrib[:, j * Tg:(j + 1) * Tg]
+    return out.reshape(*lead, d)

@@ -1,6 +1,8 @@
 """Decoder-only LM over the dense per-slot KV arena (`Cache`: `prefill`,
 `decode_step`) and over a paged KV cache (`prefill_chunk`,
-`verify_tokens`, the paged `decode_step`): the port of the dense family of `repro.models.transformer`.
+`verify_tokens`, the paged `decode_step`): the port of the dense and MoE
+families of `repro.models.transformer` (an MoE block's FFN is
+`models/moe.py`).
 
 Parameters are a plain dict with the JAX pytree's keys; each block weight
 is stacked on a leading layer axis, and a Python loop over layers takes the
@@ -24,6 +26,7 @@ from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import rope_cos_sin
 from repro_torch.serving.kvcache import PagedCache
@@ -52,7 +55,7 @@ class Cache:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (the VLM path) is not ported yet")
@@ -65,9 +68,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=None):
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (x * std).to(cfg.pdtype)
+        return x.mul_(std).to(dtype or cfg.pdtype)
 
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=cfg.pdtype)
@@ -87,8 +90,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
         "ln1": blk.init_norm(cfg, ones, zeros, (L,)),
         "attn": attn_lib.init_attention(normal, zeros, cfg, L),
         "ln2": blk.init_norm(cfg, ones, zeros, (L,)),
-        "ffn": ffn_lib.init_ffn(normal, cfg, L),
     }
+    if cfg.family == "moe":
+        blocks["moe"] = moe_lib.init_moe(normal, cfg, L)
+    else:
+        blocks["ffn"] = ffn_lib.init_ffn(normal, cfg, L)
     if cfg.post_norms:
         blocks["post_ln1"] = blk.init_norm(cfg, ones, zeros, (L,))
         blocks["post_ln2"] = blk.init_norm(cfg, ones, zeros, (L,))

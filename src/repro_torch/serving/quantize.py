@@ -3,7 +3,8 @@ int8 weights with one scale a row, and write-time KV quantization.
 
 Weights. `quantize_params_int8` rewrites every matmul weight leaf of a
 parameter tree (keys matching `_QUANT_PATHS`: the attention projections,
-the FFN and the LM head; not `embed` or `pos_embed`) into a `QTensor`,
+the FFN, an MoE layer's experts and the LM head; not `embed`,
+`pos_embed` or the MoE router, which stays f32) into a `QTensor`,
 int8 `w_i8` (..., R, C) with f32 `scale` (..., R), in the same place of
 the tree. `quantize_leaf` works in f32: scale = max(amax, 1e-8) / 127,
 w_i8 = clip(round(w / scale), +-127), each operation rounded on its own
@@ -67,7 +68,17 @@ class QTensor:
 
 
 def quantize_leaf(w: torch.Tensor) -> QTensor:
-    w_i8, scale = quant_lib.quantize_int8_rows(w.float())
+    """One scale a row, in f32. A stacked leaf of more than two dims is
+    quantized a leading slice at a time (a row's scale depends on its row
+    alone, so the result is the same bits), which keeps the f32 copy and
+    its temporaries to one slice: an MoE layer's experts."""
+    if w.ndim <= 2:
+        w_i8, scale = quant_lib.quantize_int8_rows(w.float())
+        return QTensor(w_i8=w_i8, scale=scale)
+    w_i8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+    for i in range(w.shape[0]):
+        w_i8[i], scale[i] = quant_lib.quantize_int8_rows(w[i].float())
     return QTensor(w_i8=w_i8, scale=scale)
 
 

@@ -14,8 +14,10 @@
     pools and with `kv_splits`) and dense (`generate()` and
     `ServingEngine(paged=False)`), on prompts long enough that the smoke
     sliding window of 16 cuts keys;
-  * `_check_supported` still refuses the MoE, SSM, hybrid, encoder-decoder
-    and M-RoPE (VLM) configs of the JAX registry.
+  * `_check_supported` still refuses the SSM, hybrid, encoder-decoder and
+    M-RoPE (VLM) configs of the JAX registry (the MoE family is served,
+    tests/test_torch_moe.py), and an MoE config's expert-parallel
+    `moe_impl="shardmap"` still finds `mesh=` refused.
 """
 from __future__ import annotations
 
@@ -318,12 +320,12 @@ def test_qwen2_split_decode_drain_matches_jax_engine(qwen2):
     assert eng.engine.config.kv_splits == 4 and eng.max_pages * 16 >= 1024
 
 
-@pytest.mark.parametrize("name", ["olmoe_1b_7b", "phi35_moe_42b", "mamba2_370m",
-                                  "zamba2_1_2b", "whisper_large_v3", "qwen2_vl_2b"])
+@pytest.mark.parametrize("name", ["mamba2_370m", "zamba2_1_2b", "whisper_large_v3",
+                                  "qwen2_vl_2b"])
 def test_check_supported_refuses_other_families(name):
-    """The MoE, SSM, hybrid and encoder-decoder families, and M-RoPE (the
-    VLM's dense config), stay refused: the port's config built from the
-    JAX config's fields it carries."""
+    """The SSM, hybrid and encoder-decoder families, and M-RoPE (the VLM's
+    dense config), stay refused: the port's config built from the JAX
+    config's fields it carries."""
     jcfg = jax_get_config(name, smoke=True)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)})
     with pytest.raises(NotImplementedError):
@@ -332,6 +334,21 @@ def test_check_supported_refuses_other_families(name):
         api.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config(name)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_moe_shardmap_with_mesh_is_refused(paged):
+    """An MoE config asking for the expert-parallel dispatch serves without
+    a mesh (the grouped dispatch, as the reference without one); `mesh=`
+    stays refused."""
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b", smoke=True), moe_impl="shardmap")
+    params = api.init_params(cfg, device="cpu")
+    sal = TSalPimEngine.create()
+    tengine.ServingEngine(params, cfg, sal, EngineConfig(slots=2, max_len=32, paged=paged),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tengine.ServingEngine(params, cfg, sal, EngineConfig(slots=2, max_len=32, paged=paged,
+                                                             mesh=object()), device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["exact", "lut"])
