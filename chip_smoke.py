@@ -205,7 +205,43 @@ Run from the root of a checkout. Phases, each of which fails the run:
               and chunk on the host clock and the device beside the bound of
               streaming every weight, and lut_interp and the f32 routers at
               the MoE shapes;
- 15. the kernels line, a JSON object with each kernel's error, times,
+ 15. ssm/hybrid — the SSM and hybrid families on the dense cache (the
+              reference serves them on nothing else): mamba2-370m (48
+              Mamba2 layers, d 1024, state 128) and zamba2-1.2B (38 Mamba2
+              layers, d 2048, state 64, one shared attention + GeGLU block
+              before each of 7 segments) at full width and depth, bf16
+              random weights, each serving phase 4's 8 requests through
+              ServingEngine(paged=False) (4 slots, max_len 256) exact and
+              LUT, mamba2 also with `quantize_params_int8` weights (q1),
+              and `generate()` on 4 prompts of 128 tokens, exact. Gates:
+              every request finishes and every slot parks at length 0;
+              every step's launches (mamba2: 97 GEMVs, all on the tensor
+              cores, and 97 layernorm_lut a decode step, in LUT mode 144
+              lut_interp, no attention kernel; zamba2: 126 GEMVs, 91
+              norms, 7 decode_attention, in LUT mode 114 lut_interp and 7
+              softmax_lut an admission; q1: 97 one-launch int8 linears a
+              step); within FIRST_LOGITS_LIMIT, every stage of each
+              prompt's prefill (a Mamba2 layer, a shared-block
+              application, the head) through the kernels against the
+              plain versions on the same input, each request's first
+              logits and its logits after its first decode step against
+              a batch of one through the kernels (the engine's state
+              handoff), and q1's first logits against a one-shot plain
+              prefill; the model's state handoff in f32 within
+              F32_HANDOFF_LIMIT. At this depth one bf16 step of the
+              embeddings moves the plain path's own first logits past
+              FIRST_LOGITS_LIMIT, so the bf16 one-shot comparisons with
+              the plain path and across the prefill/decode boundary are
+              reported beside that measure. Reported too: each model's
+              decode step and
+              128-token admission on the host clock and on the device
+              beside the step's bound and the eager PyTorch operations a
+              step, each drain's roofline, and `python -m
+              repro_torch.launch.serve --arch mamba2-370m --full
+              --requests 8 --slots 4`, which must finish. Phase 3 holds
+              and times the kernels at these models' shapes
+              (`time_ssm_kernels`);
+ 16. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -2730,8 +2766,9 @@ def param_count(tree) -> int:
 
 # Parameters the analytic count (ModelConfig.param_count, the JAX package's
 # formula, which prices the roofline's weight stream) leaves out: learned
-# positions, LayerNorm shifts and gemma2's post-norms.
-UNCOUNTED = re.compile(r"^pos_embed$|/b$|^blocks/post_ln\d/")
+# positions, LayerNorm shifts, gemma2's post-norms, and a Mamba2 layer's
+# conv bias and dt bias.
+UNCOUNTED = re.compile(r"^pos_embed$|/b$|^blocks/post_ln\d/|/conv_b$|/dt_bias$")
 
 
 def check_param_count(tree, cfg, label: str) -> int:
@@ -2749,30 +2786,49 @@ def check_param_count(tree, cfg, label: str) -> int:
     left_out = sum(c for name, c in leaves(tree) if UNCOUNTED.search(name))
     log(f"  {label}: {n} parameters in its tensors = the analytic count "
         f"{cfg.param_count()} + {left_out} it leaves out (positions, LayerNorm shifts, "
-        "post-norms)")
+        "post-norms, conv and dt biases)")
     if n != cfg.param_count() + left_out:
         raise AssertionError(f"{label}: {n} parameters, analytic {cfg.param_count()} + "
                              f"{left_out}")
     return n
 
 
+def attention_layers(cfg) -> int:
+    """Attention calls a pass: one a layer; none in the SSM family; one an
+    application of the hybrid's shared block."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.hybrid_attn_every)
+    return cfg.n_layers
+
+
 def step_counts(cfg) -> tuple[int, int]:
     """(linears, norms) of one decode step or prefill chunk: q, k, v, o
     and the MLP's two or three a layer (an MoE layer's router: its experts
     are batched products, no GEMV) plus the LM head; two norms a layer
-    (four with post-norms) plus the final one."""
-    L = cfg.n_layers
+    (four with post-norms) plus the final one. A Mamba2 layer: in_proj and
+    out_proj, the block norm and the gated norm; the hybrid's shared block
+    counts at each application."""
+    L, A = cfg.n_layers, attention_layers(cfg)
     mlp = 1 if cfg.family == "moe" else 2 + int(cfg.gated_mlp)
-    return (4 + mlp) * L + 1, (2 + 2 * int(cfg.post_norms)) * L + 1
+    norms = 2 + 2 * int(cfg.post_norms)
+    if cfg.family in ("ssm", "hybrid"):
+        return 2 * L + (4 + mlp) * A + 1, 2 * L + norms * A + 1
+    return (4 + mlp) * L + 1, norms * L + 1
 
 
-def moe_counts(cfg, mode) -> tuple[int, int]:
-    """(f32 router GEMVs, lut_interp launches) of one pass of an MoE model:
-    a router a layer, on the CUDA cores; in LUT mode the experts' SiLU a
-    layer (no GEMV epilogue carries it). (0, 0) for a dense model."""
+def router_act_counts(cfg, mode) -> tuple[int, int]:
+    """(f32 router GEMVs, lut_interp launches) of one pass: an MoE model's
+    router a layer, on the CUDA cores, and in LUT mode its experts' SiLU a
+    layer (no GEMV epilogue carries it); in LUT mode a Mamba2 layer's conv
+    SiLU, dt softplus and gate SiLU. (0, 0) for a dense model."""
+    lut = mode == "lut"
+    if cfg.family in ("ssm", "hybrid"):
+        return 0, 3 * cfg.n_layers if lut else 0
     if cfg.family != "moe":
         return 0, 0
-    return cfg.n_layers, cfg.n_layers if mode == "lut" else 0
+    return cfg.n_layers, cfg.n_layers if lut else 0
 
 
 def serving_handles(torch):
@@ -2939,7 +2995,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     from repro_torch.serving import kvcache
     kv, sd = POOLS[fmt]
     n_lin, n_norm = step_counts(cfg)
-    n_route, n_act = moe_counts(cfg, mode)
+    n_route, n_act = router_act_counts(cfg, mode)
     if quant != "none":
         n_route = 0                # quant="int8"/"fixed16" carry the routers too
     n_gemv = n_lin - n_route
@@ -4210,22 +4266,30 @@ def telemetry_phase(torch, np, mods, counted, params, cfg, prompts, card, seed, 
 # Phase 7: the dense cache
 # ---------------------------------------------------------------------------
 
-def dense_expect(kernels, cfg, dec, prefills, lut):
+def dense_expect(kernels, cfg, dec, prefills, lut, gemv="gemv_pim_float", two=0):
     """Launches of `dec` dense decode steps and `prefills` whole-prompt
-    prefills: `step_counts`' linears and norms, one attention a layer
-    (decode_attention; the LUT softmax in a LUT-mode prefill), an MoE
-    model's LUT SiLU a layer in LUT mode, nothing else; every bf16 GEMV on
-    the tensor cores (an MoE model's f32 routers on the CUDA cores)."""
-    L, passes = cfg.n_layers, dec + prefills
+    prefills: `step_counts`' linears and norms, `attention_layers`'
+    attention (decode_attention; the LUT softmax in a LUT-mode prefill),
+    `router_act_counts`' LUT activations in LUT mode, nothing else; every
+    bf16 GEMV on the tensor cores (an MoE model's f32 routers on the CUDA
+    cores). With gemv "gemv_pim_int8_linear" (int8 weights) each linear is
+    one int8 linear layer launch, but for the `two` that took
+    quantize_int8_rows + gemv_pim_int8 (a prefill's wider x)."""
+    A, passes = attention_layers(cfg), dec + prefills
     n_lin, n_norm = step_counts(cfg)
-    n_route, n_act = moe_counts(cfg, "lut" if lut else "exact")
+    n_route, n_act = router_act_counts(cfg, "lut" if lut else "exact")
+    lin = (n_lin - n_route) * passes
     expect = {name: 0 for name in kernels}
-    expect.update({"gemv_pim_float": n_lin * passes,
-                   TC: (n_lin - n_route) * passes,
+    expect.update({"gemv_pim_float": n_route * passes,
                    "layernorm_lut": n_norm * passes,
                    "lut_interp": n_act * passes,
-                   "decode_attention": L * dec,
-                   "softmax_lut": L * prefills if lut else 0})
+                   "decode_attention": A * dec,
+                   "softmax_lut": A * prefills if lut else 0})
+    if gemv == "gemv_pim_float":
+        expect.update({"gemv_pim_float": n_lin * passes, TC: lin})
+    else:
+        expect.update({gemv: lin - two, TC8L: lin - two, "gemv_pim_int8": two, TC8: two,
+                       "quantize_int8_rows": two})
     return expect
 
 
@@ -4260,15 +4324,20 @@ def drive_generate(torch, generate, GenConfig, kernels, params, cfg, sal, prompt
 
 
 def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
-                mode="exact", max_len=256, telemetry=None, on_step=None, plain=False):
+                mode="exact", max_len=256, telemetry=None, on_step=None, plain=False,
+                gemv="gemv_pim_float", handoff=None):
     """Drain `prompts` through ServingEngine(paged=False) (4 slots; the
     arena is int8 when cfg.kv_dtype says so), checking every step's
     launches: per decode step 145 GEMV, 24 decode_attention, 49
     layernorm_lut; per admission 145 GEMV, 49 layernorm_lut and, in LUT
     mode, 24 softmax_lut; no paged kernel (`dense_expect` for other
-    models). `telemetry` goes to the engine; `on_step(launches, calls)` is
+    models; `gemv` the kernel that carries the linears: the int8 linear
+    layer for int8 weights, where a decode step takes no two-launch
+    linear). `telemetry` goes to the engine; `on_step(launches, calls)` is
     called after each step with its launches and its decode steps and
-    admissions. With `plain` (under `plain_ops`) no kernel may launch."""
+    admissions. With `plain` (under `plain_ops`) no kernel may launch.
+    `handoff`, a dict, collects each request's logits after its first
+    decode step (uid -> logits)."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
@@ -4294,7 +4363,15 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         steps += 1
         d = {n_: k.launches - before[n_] for n_, k in kernels.items()}
         dec, adm = eng.decode_steps - n_dec, len(first) - n_adm
-        expect = dense_expect(kernels, cfg, dec, adm, mode == "lut")
+        two = d["gemv_pim_int8"]
+        if two > (step_counts(cfg)[0] - 1) * adm:
+            raise AssertionError(f"serve[{label}] step {steps}: {two} int8 linears took two "
+                                 f"launches; a decode step takes none")
+        expect = dense_expect(kernels, cfg, dec, adm, mode == "lut", gemv, two)
+        if handoff is not None:
+            for i, r in enumerate(eng.active):
+                if r is not None and len(r.generated) == 1 and r.uid not in handoff:
+                    handoff[r.uid] = eng.last_logits[i].clone()
         if plain:
             expect = {name: 0 for name in kernels}
         if d != expect:
@@ -4311,10 +4388,10 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     done = {r.uid: r for r in eng.finished}
     st = eng.stats()
     c = eng.cache
-    arena = sum(t.numel() * t.element_size() for t in (c.k, c.v, c.k_scale, c.v_scale)
-                if t is not None)
+    arena = sum(t.numel() * t.element_size() for f in dataclasses.fields(c)
+                if f.name != "lengths" and (t := getattr(c, f.name)) is not None)
     parked = c.lengths.tolist()
-    log(f"  serve[{label}]: dense {'int8' if c.quantized else 'fp'} arena "
+    log(f"  serve[{label}]: dense {'int8' if c.quantized else 'fp'} cache "
         f"({arena / 2 ** 20:.1f} MiB, {max_len} positions x 4 slots), {mode}: finished "
         f"{len(done)}/{len(uids)}, slot lengths after the drain {parked}, "
         f"{st['decode_steps']} decode steps, {st['tokens']} tokens in {wall:.3f} s = "
@@ -4324,15 +4401,16 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     if parked != [0] * 4 or len(first) != len(uids):
         raise AssertionError(f"serve[{label}]: slots not parked ({parked}) or first logits "
                              f"of {len(first)} requests")
-    L = cfg.n_layers
-    want = dense_expect(kernels, cfg, 1, 0, mode == "lut")
-    sm = f", {L} softmax_lut" if mode == "lut" else ""
+    A = attention_layers(cfg)
+    want = dense_expect(kernels, cfg, 1, 0, mode == "lut", gemv)
+    sm = f", {A} softmax_lut" if mode == "lut" and A else ""
     act = f", {want['lut_interp']} lut_interp" if want["lut_interp"] else ""
+    tc = TC if gemv == "gemv_pim_float" else TC8L
     if not plain:
-        log(f"  serve[{label}] launches per decode step: {want['gemv_pim_float']} "
-            f"gemv_pim_float ({want[TC]} on the tensor cores), {L} decode_attention, "
+        log(f"  serve[{label}] launches per decode step: {want[gemv]} {gemv} ({want[tc]} on "
+            f"the tensor cores), {want['decode_attention']} decode_attention, "
             f"{want['layernorm_lut']} layernorm_lut{act}; per admission prefill: the same "
-            f"GEMVs and norms{sm}{act}; no paged kernel (checked every step)")
+            f"linears and norms{sm}{act}; no paged kernel (checked every step)")
     return eng, done, first, wall
 
 
@@ -4797,6 +4875,477 @@ def moe_phase(torch, F, np, mods, counted, quantize, prompts, new_tokens, card, 
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# The SSM and hybrid models' linears in bf16 (R, C): mamba2-370m's in_proj,
+# out_proj and LM head; zamba2-1.2B's in_proj, out_proj, LM head, and its
+# shared block's q/k/v/o, GeGLU w_gate/w_up and w_down.
+SSM_GEMV_SHAPES = [(4384, 1024), (1024, 2048), (50280, 1024),
+                   (8384, 2048), (2048, 4096), (32000, 2048),
+                   (2048, 2048), (8192, 2048), (2048, 8192)]
+
+
+def time_ssm_kernels(torch, F, tlut, gemv_pim, layernorm_lut, lut_interp, attn, softmax_lut,
+                     seed):
+    """The kernels at the SSM and hybrid paths' shapes, each held to its
+    plain version and timed beside it, a PyTorch call and its bound: the
+    float GEMV at every linear of the two models at a decode step's M 4
+    (within the bf16 tolerance, on the tensor cores); q1's int8 linear
+    layer at mamba2's in_proj, out_proj and LM head (bit for bit, one
+    launch); layernorm_lut's RMSNorm at (4, 1024), (4, 2048) and the gated
+    norm at (4, 2048), (4, 4096) bf16 (bit for bit); lut_interp's SiLU at
+    the conv's (4, 2304) and (4, 4224) bf16 and softplus at dt's (4, 32)
+    and (4, 64) f32 (bit for bit); decode_attention over one application
+    of zamba2's shared arena (4 slots x 32 heads x 64, 256 positions) and
+    softmax_lut at its 128-token admission's causal scores. Returns
+    ({kernel: max abs error}, {kernel: [timing rows]})."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    bank = tlut.LutBank.create(64)
+    errs, rows = collections.defaultdict(float), collections.defaultdict(list)
+    f32, n = torch.float32, 8
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def record(name, shape, ms, plain, lib, lib_name, bnd, by):
+        rows[name].append(dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bnd, bound_by=by))
+        lib_s = "none" if lib is None else f"{lib * 1e3:.2f} us"
+        log(f"  {name} at {shape}: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
+            f"{lib_name} {lib_s}, bound {bnd * 1e3:.2f} us ({by})")
+
+    for R, C in SSM_GEMV_SHAPES:
+        x = randn(4, C)
+        ws = [randn(R, C, std=C ** -0.5) for _ in range(n)]
+        before = gemv_pim.gemv_pim_float.tc_launches
+        got = gemv_pim.gemv_pim_float(x, ws[0])
+        if gemv_pim.gemv_pim_float.tc_launches != before + 1:
+            raise AssertionError(f"gemv_pim_float ({R}, {C}) M 4: not on the tensor cores")
+        errs["gemv_pim_float"] = max(errs["gemv_pim_float"], compare(
+            torch, f"gemv_pim_float ({R}, {C}) M 4", got, gemv_pim.gemv_pim_plain(x, ws[0]),
+            TOL["bfloat16"]))
+        ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(x, ws[i]), n)
+        plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_plain(x, ws[i]), n)
+        lib = time_graph(torch, lambda i: F.linear(x, ws[i]), n)
+        bnd, by = bound_ms(2 * (4 * C + R * C + 4 * R), 2 * 4 * R * C, "bfloat16")
+        record("gemv_pim_float", f"({R}, {C}) bf16 M 4", ms, plain, lib, "F.linear", bnd, by)
+        if (R, C) in SSM_GEMV_SHAPES[:3]:                           # mamba2's q1 linears
+            qs = [gemv_pim.quantize_int8_rows_plain(w.float()) for w in ws]
+            if gemv_pim.gemv_int8_linear_plan(4, C, R) is None:
+                raise AssertionError(f"q1 ({R}, {C}): not one launch at M 4")
+            got = gemv_pim.gemv_pim_int8_linear(x, *qs[0], compute=f32)
+            if not torch.equal(got, gemv_pim.gemv_pim_int8_linear_plain(x, *qs[0],
+                                                                        compute=f32)):
+                raise AssertionError(f"gemv_pim_int8_linear ({R}, {C}): not bit for bit")
+            ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_linear(x, *qs[i],
+                                                                           compute=f32), n)
+            plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_linear_plain(
+                x, *qs[i], compute=f32), n)
+            bnd, by = bound_ms(2 * 4 * C + R * C + 4 * R + 2 * 4 * R, 2 * 4 * R * C, "int8")
+            record("gemv_pim_int8", f"q1 ({R}, {C}) int8, f32 scales, x bf16 M 4, one "
+                   f"launch (bit for bit)", ms, plain, lib, "F.linear (bf16 weight)", bnd, by)
+        del ws
+
+    for M, d, what in ((4, 1024, "mamba2's block norm"), (4, 2048, "zamba2's block norm, "
+                       "mamba2's gated norm"), (4, 4096, "zamba2's gated norm")):
+        xs = [randn(M, d) for _ in range(n)]
+        g = randn(d, std=0.2) + 1.0
+        got = layernorm_lut.layernorm_lut(xs[0], g, None, rsqrt_table=bank.rsqrt, rms=True)
+        if not torch.equal(got, layernorm_lut.layernorm_lut_plain(
+                xs[0], g, None, rsqrt_table=bank.rsqrt, rms=True, wide_sums=True)):
+            raise AssertionError(f"layernorm_lut ({M}, {d}): not bit for bit")
+        ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(
+            xs[i], g, None, rsqrt_table=bank.rsqrt, rms=True), n)
+        plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
+            xs[i], g, None, rsqrt_table=bank.rsqrt, rms=True, wide_sums=True), n)
+        lib = time_graph(torch, lambda i: F.layer_norm(xs[i], (d,), g, None, 1e-6), n)
+        bnd, by = bound_ms(2 * (2 * M * d + d), 6 * M * d, "float32")
+        record("layernorm_lut", f"({M}, {d}) bf16 RMSNorm, LUT rsqrt ({what}; bit for bit)",
+               ms, plain, lib, "F.layer_norm", bnd, by)
+
+    for shape, dtype, name, lib_fn in (((4, 2304), torch.bfloat16, "silu", F.silu),
+                                       ((4, 4224), torch.bfloat16, "silu", F.silu),
+                                       ((4, 32), f32, "softplus", F.softplus),
+                                       ((4, 64), f32, "softplus", F.softplus)):
+        table = getattr(bank, name)
+        xs = [randn(*shape, std=3.0, dtype=dtype) for _ in range(n)]
+        if not torch.equal(lut_interp.lut_interp(xs[0], table),
+                           lut_interp.lut_interp_plain(xs[0], table)):
+            raise AssertionError(f"lut_interp {name} {shape}: not bit for bit")
+        ms = time_graph(torch, lambda i: lut_interp.lut_interp(xs[i], table), n)
+        plain = time_graph(torch, lambda i: lut_interp.lut_interp_plain(xs[i], table), n)
+        lib = time_graph(torch, lambda i: lib_fn(xs[i]), n)
+        size = xs[0].numel() * xs[0].element_size()
+        bnd, by = bound_ms(2 * size, 2 * xs[0].numel(), "float32")
+        record("lut_interp", f"{shape} {str(dtype)[6:]} LUT {name} (bit for bit)", ms, plain,
+               lib, f"F.{name} (exact)", bnd, by)
+
+    H, D, S, lens = 32, 64, 256, [128, 137, 151, 160]
+    q = randn(4, H, D)
+    arenas = [(randn(4, H, S, D), randn(4, H, S, D)) for _ in range(7)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    key_ok = torch.arange(S, device=dev)[None, :] < lengths[:, None].long()
+    errs["decode_attention"] = compare(
+        torch, "decode_attention at zamba2's heads", attn.decode_attention(q, *arenas[0], lengths),
+        attn.decode_attention_plain(q, *arenas[0], lengths), TOL["bfloat16"])
+    ms = time_graph(torch, lambda i: attn.decode_attention(q, *arenas[i], lengths), 7)
+    plain = time_graph(torch, lambda i: attn.decode_attention_plain(q, *arenas[i], lengths), 7)
+    lib = time_graph(torch, lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *arenas[i], attn_mask=key_ok[:, None, None])[:, :, 0], 7)
+    keys = sum(lens) * H
+    bnd, by = bound_ms(2 * keys * D * 2 + 2 * (2 * 4 * H * D) + 4 * 4, 4 * keys * D, "bfloat16")
+    record("decode_attention", f"zamba2's shared arena: B 4 x H {H} x D {D}, arena {S}, "
+           f"lengths {lens}, bf16", ms, plain, lib, "SDPA with a length mask", bnd, by)
+    del arenas
+
+    scores = [randn(1, H, 1, 128, 128, std=4.0, dtype=f32) for _ in range(7)]
+    got = softmax_lut.softmax_lut(scores[0], bank.exp, bank.recip, causal=True)
+    errs["softmax_lut"] = compare(torch, "softmax_lut at zamba2's admission", got,
+                                  softmax_lut.softmax_lut_plain(scores[0], bank.exp,
+                                                                bank.recip, causal=True),
+                                  TOL["float32"])
+    ms = time_graph(torch, lambda i: softmax_lut.softmax_lut(scores[i], bank.exp, bank.recip,
+                                                             causal=True), 7)
+    plain = time_graph(torch, lambda i: softmax_lut.softmax_lut_plain(
+        scores[i], bank.exp, bank.recip, causal=True), 7)
+    lib = time_graph(torch, lambda i: torch.softmax(scores[i], dim=-1), 7)
+    valid = H * 128 * 129 // 2
+    bnd, by = bound_ms(4 * valid + 4 * H * 128 * 128, 5 * valid, "float32")
+    record("softmax_lut", f"({H}*128, 128) f32 causal scores of zamba2's 128-token admission",
+           ms, plain, lib, "torch.softmax (unmasked)", bnd, by)
+    return dict(errs), dict(rows)
+
+
+def time_ssm_model(torch, api, params, cfg, sal, label, card, n_params):
+    """The decode step at 4 slots (lengths 128..160, random state and
+    arenas) and a 128-token admission (a batch of 1, max_len 256): on the
+    host clock around eager calls with a synchronise, and on the device
+    alone, each replayed as a CUDA graph; beside the step's bound, the
+    weights streamed once (every one but the embedding, whose 4 rows are
+    gathered) plus the SSM state and conv window read and written and the
+    shared arenas' keys read, and the eager PyTorch operations a step."""
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cache = api.init_cache(cfg, 4, 256, device=dev)
+    cache.ssm.copy_(torch.randn(cache.ssm.shape, generator=gen, device=dev) * 0.1)
+    cache.conv.copy_(torch.randn(cache.conv.shape, generator=gen, device=dev))
+    for t in (cache.shared_k, cache.shared_v):
+        if t is not None:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    lens = [128, 137, 151, 160]
+    cache.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    tok = torch.full((4,), 5, dtype=torch.int32, device=dev)
+    step_ms = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(params, tok, cache, cfg, sal)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    host = statistics.median(step_ms[2:])
+    device = time_graph(torch, lambda i: api.decode_step(params, tok, cache, cfg, sal), 1)
+    ops = eager_ops(torch, lambda: api.decode_step(params, tok, cache, cfg, sal))
+    toks = torch.randint(2, cfg.vocab, (1, 128), generator=gen, device=dev)
+    adm_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(params, {"tokens": toks}, cfg, sal, max_len=256)
+        torch.cuda.synchronize()
+        adm_ms.append(1e3 * (time.perf_counter() - t0))
+    adm_host = statistics.median(adm_ms[1:])
+    adm_dev = time_graph(torch, lambda i: api.prefill(params, {"tokens": toks}, cfg, sal,
+                                                      max_len=256), 1)
+    weights = 2 * (n_params - cfg.vocab * cfg.d_model)
+    state = cache.ssm.numel() * 4 + cache.conv.numel() * 2
+    kv = (2 * 2 * cfg.n_kv_heads * cfg.head_dim * sum(l + 1 for l in lens)
+          * attention_layers(cfg) if cfg.family == "hybrid" else 0)
+    bnd, by = bound_ms(weights + 2 * state + kv, 2 * 4 * n_params, "bfloat16")
+    top = ", ".join(f"{k.replace('aten.', '').replace('.default', '')} {v}"
+                    for k, v in ops.most_common(8))
+    log(f"  decode step [{label}] ({card}): {host:.2f} ms eager on the host clock, "
+        f"{device:.3f} ms on the device (host share {1 - device / host:.0%}), 4 slots x "
+        f"{lens} context; bound {bnd:.3f} ms ({by}: {weights / 1e9:.3f} GB of weights once, "
+        f"{2 * state / 1e9:.3f} GB of SSM state and conv window read and written, "
+        f"{kv / 1e9:.3f} GB of shared keys and values read); {sum(ops.values())} eager "
+        f"PyTorch operations a step ({top}, ...)")
+    log(f"  128-token admission [{label}] ({card}): {adm_host:.2f} ms eager on the host clock, "
+        f"{adm_dev:.3f} ms on the device")
+    return dict(host=host, device=device, bound_ms=bnd, bound_by=by, weights=weights,
+                state=2 * state, kv=kv, ops=sum(ops.values()), admit_host=adm_host,
+                admit_device=adm_dev)
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def ssm_stage_gaps(torch, params, cfg, sal, toks):
+    """Each stage of an SSM or hybrid model's prefill of `toks` (B, S) (a
+    Mamba2 layer with its norm and residual, an application of the
+    hybrid's shared block, the final norm and LM head at the last
+    position) run through the kernels and through the plain versions
+    (`plain_ops`) on the same input, the kernels' output feeding the next
+    stage: each stage's gap is its own kernels' rounding, not the depth's
+    amplification of the roundings before it. Returns the largest max
+    |diff| / max |out| and its stage."""
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import transformer as tf
+    pos = torch.arange(toks.shape[1], device=toks.device)
+    x = tf._embed(params, toks, cfg, pos[None])
+    cos, sin = tf._rope(cfg, pos)
+    layers = tf._layers(params["blocks"], cfg.n_layers)
+    stages = []
+    for a, (s, e) in enumerate(tf._hybrid_segments(cfg)):
+        if cfg.family == "hybrid":
+            stages.append((f"shared block {a}", lambda h: blk.apply_decoder_block_prefill(
+                params["shared_attn"], h, cfg, sal, cos=cos, sin=sin, window=None)[0]))
+        for i in range(s, e):
+            stages.append((f"layer {i}", lambda h, bp=layers[i]: h + m2.apply_mamba2(
+                bp["mamba"], blk.apply_norm(bp["norm"], h, cfg, sal), cfg, sal)))
+    stages.append(("the final norm and LM head", lambda h: tf._logits(params, h[:, -1], cfg,
+                                                                         sal)))
+    worst, where = 0.0, None
+    for label, fn in stages:
+        out = fn(x)
+        with plain_ops(sal.nl.mode):
+            gap = rel_gap(out, fn(x))
+        if gap >= worst:
+            worst, where = gap, label
+        x = out
+    return worst, where
+
+
+def plain_one_step_gap(torch, api, params, cfg, sal, prompt) -> float:
+    """How far the plain path's first logits move when every token
+    embedding element moves by one bf16 step (its bit pattern +- 1, the
+    sign from a seed): the model's own amplification of one rounding, no
+    kernel involved (as `scripts/logit_drift.py` measures it)."""
+    from repro_torch.models import transformer as tf
+    embed = tf._embed
+    gen = torch.Generator(device="cuda").manual_seed(len(prompt))
+    sign = (torch.randint(0, 2, (len(prompt), cfg.d_model), generator=gen, device="cuda")
+            * 2 - 1).to(torch.int16)
+
+    def perturbed(*a, **k):
+        x = embed(*a, **k)
+        return (x.view(torch.int16) + sign * (x[0] != 0)).view(x.dtype)
+
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+    with plain_ops(sal.nl.mode):
+        base = api.prefill(params, {"tokens": toks}, cfg, sal, max_len=len(prompt))[0][0]
+        tf._embed = perturbed
+        try:
+            moved = api.prefill(params, {"tokens": toks}, cfg, sal, max_len=len(prompt))[0][0]
+        finally:
+            tf._embed = embed
+    return rel_gap(moved, base)
+
+
+def check_ssm_drain(torch, api, params, cfg, sal, label, prompts, done, first, handoff, *,
+                    plain_gate):
+    """The gates of an SSM or hybrid drain, each request at a time, within
+    FIRST_LOGITS_LIMIT: its first logits against a one-shot kernel prefill
+    of its prompt (the admission's own computation); every stage of that
+    prefill through the kernels against the plain versions on the same
+    input (`ssm_stage_gaps`); its logits after its first decode step
+    against a one-shot kernel prefill of the prompt and one kernel decode
+    step of that token, a batch of one (the engine's state handoff into
+    and out of its slot). With `plain_gate` (a bit-exact datapath) its first
+    logits against a one-shot prefill on the plain versions too. Reported
+    beside them: the first logits against the plain one-shot prefill, the
+    handoff against a one-shot kernel prefill of the prompt and the token,
+    and the plain path's own move under one bf16 step of its embeddings
+    (two requests) - bf16 roundings amplified by the depth."""
+    adm = stage = hand = shot = model_hand = 0.0
+    where, agree = None, 0
+    for u, prompt in zip(sorted(done), prompts):
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+        logits, cache = api.prefill(params, {"tokens": toks}, cfg, sal, max_len=256)
+        adm = max(adm, rel_gap(first[u], logits[0]))
+        gap, at = ssm_stage_gaps(torch, params, cfg, sal, toks)
+        if gap >= stage:
+            stage, where = gap, at
+        g0 = done[u].generated[0]
+        step, _ = api.decode_step(params, torch.tensor([g0], dtype=torch.int32, device="cuda"),
+                                  cache, cfg, sal)
+        hand = max(hand, rel_gap(handoff[u], step[0]))
+        want = one_shot_plain_logits(torch, api, params, cfg, sal, prompt, "dense")
+        shot = max(shot, rel_gap(first[u], want))
+        agree += int(int(want.argmax()) == g0)
+        ext = torch.cat([toks, torch.tensor([[g0]], device="cuda")], dim=1)
+        model_hand = max(model_hand, rel_gap(handoff[u], api.prefill(
+            params, {"tokens": ext}, cfg, sal, max_len=256)[0][0]))
+    noise = max(plain_one_step_gap(torch, api, params, cfg, sal, p) for p in prompts[:2])
+    log(f"  serve[{label}] first logits vs a one-shot kernel prefill {adm:.3e}; each stage "
+        f"of the prefill through the kernels vs the plain versions on the same input at most "
+        f"{stage:.3e} ({where}); the logits after the first decode step vs a one-shot kernel "
+        f"prefill and decode step, a batch of one, {hand:.3e} (limit {FIRST_LOGITS_LIMIT:.0e} "
+        f"each)")
+    log(f"  serve[{label}] reported: first logits vs a one-shot plain prefill {shot:.3e}"
+        f"{f' (limit {FIRST_LOGITS_LIMIT:.0e})' if plain_gate else ''}, first tokens equal "
+        f"{agree}/{len(done)}; after the first decode step vs a one-shot kernel prefill of "
+        f"the prompt and that token {model_hand:.3e}; the plain path's own move under one "
+        f"bf16 step of its embeddings {noise:.3e}")
+    if max(adm, stage, hand) > FIRST_LOGITS_LIMIT or (plain_gate and shot > FIRST_LOGITS_LIMIT):
+        raise AssertionError(f"serve[{label}]: admission {adm:.3e}, stage {stage:.3e} "
+                             f"({where}), handoff {hand:.3e}, one-shot plain {shot:.3e}")
+
+
+# The state handoff in f32 (weights and compute), where depth does not
+# amplify roundings past this: a wrong conv window or state moves the
+# logits by O(1).
+F32_HANDOFF_LIMIT = 1e-3
+
+
+def check_f32_handoff(torch, api, params, cfg, sal, label, prompts):
+    """The model's state handoff with f32 weights and compute through the
+    kernels (the float GEMV on the CUDA cores): a prefill of each prompt
+    and one decode step of a token against a one-shot prefill of the
+    prompt and the token, within F32_HANDOFF_LIMIT."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    p32 = f32(params)
+    worst = 0.0
+    for prompt in prompts:
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+        _, cache = api.prefill(p32, {"tokens": toks}, cfg32, sal, max_len=256)
+        tok = torch.tensor([7], dtype=torch.int32, device="cuda")
+        step, _ = api.decode_step(p32, tok, cache, cfg32, sal)
+        ext = torch.cat([toks, tok[None].long()], dim=1)
+        worst = max(worst, rel_gap(step[0], api.prefill(
+            p32, {"tokens": ext}, cfg32, sal, max_len=256)[0][0]))
+    log(f"  state handoff [{label}] in f32 (weights and compute): a prefill and one decode "
+        f"step vs a one-shot prefill of the prompt and the token, {len(prompts)} prompts: "
+        f"{worst:.3e} (limit {F32_HANDOFF_LIMIT:.0e})")
+    if worst > F32_HANDOFF_LIMIT:
+        raise AssertionError(f"state handoff [{label}] in f32: {worst:.3e}")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(torch, np, mods, counted, quantize, prompts, new_tokens, card, seed):
+    """Phase 15: mamba2-370m and zamba2-1.2B at full width and depth, bf16
+    random weights, on the dense cache (the reference serves them on
+    nothing else): phase 4's 8 requests through ServingEngine(paged=False)
+    (4 slots, max_len 256) exact and LUT for both and with
+    quantize_params_int8 weights (q1) for mamba2, and generate() on 4
+    prompts of 128 tokens, exact, for both. Gates: every request finishes,
+    every slot parks at 0, every step's launches (`dense_expect`), and
+    `check_ssm_drain`'s within FIRST_LOGITS_LIMIT (each stage of a prompt's
+    prefill, kernels against the plain versions on the same input; the
+    engine's first logits and its logits after the first decode step
+    against a batch of one; q1, bit for bit on the plain path, against a
+    one-shot plain prefill), generate()'s batch stage by stage, and the
+    state handoff in f32 (`check_f32_handoff`). At full depth bf16
+    roundings amplified by 38-48 layers move the first logits by more than
+    FIRST_LOGITS_LIMIT on the plain path alone (one bf16 step of the
+    embeddings), so the one-shot comparisons against the plain path and
+    across the prefill/decode boundary are reported beside that measure.
+    Reported: each model's decode step and 128-token admission
+    (`time_ssm_model`), each drain's roofline, and launch/serve.py serving
+    mamba2-370m at full width. Returns ({path:
+    counts}, {label: times})."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import generate
+    api, SalPimConfig, SalPimEngine, _, GenConfig = mods[:5]
+    kernels = mods[-1]
+    counts, times = {}, {}
+    path_kernels = ["gemv_pim_float", TC, "layernorm_lut", "lut_interp"]
+    gen_prompts = np.random.RandomState(seed + 15).randint(2, 32000, size=(4, 128))
+    for name in ("mamba2_370m", "zamba2_1_2b"):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, seed=seed, device="cuda")
+        n_params = check_param_count(params, cfg, cfg.name)
+        segs = f", shared attention + GeGLU before each of {attention_layers(cfg)} segments" \
+            if cfg.family == "hybrid" else ""
+        log(f"  {cfg.name} at full width and depth ({cfg.n_layers} Mamba2 layers, d "
+            f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+            f"{cfg.ssm_headdim}, state {cfg.ssm_state}, vocab {cfg.vocab}{segs}): "
+            f"{n_params / 1e9:.3f} B parameters, {2 * n_params / 1e9:.2f} GB in bf16; random "
+            f"weights ({time.perf_counter() - t0:.1f} s)")
+        rng = np.random.RandomState(seed + 15)
+        ps = prompts if cfg.vocab >= 50257 else [rng.randint(2, cfg.vocab, size=len(p))
+                                                 for p in prompts]
+        drains = [("exact", params, dict()), ("lut", params, dict(mode="lut"))]
+        if cfg.family == "ssm":
+            drains.append(("q1 int8 weights", quantize.quantize_params_int8(params),
+                           dict(gemv="gemv_pim_int8_linear")))
+        handoffs = {label: {} for label, _, _ in drains}
+        short = cfg.name.split("-")[0]
+
+        def drive():
+            out = {}
+            sal = SalPimEngine.create(SalPimConfig())
+            out["generate"] = drive_generate(torch, generate, GenConfig, kernels, params, cfg,
+                                             sal, gen_prompts, new_tokens)
+            for label, p, kw in drains:
+                out[label] = serve_dense(torch, mods, p, cfg, ps, new_tokens, card,
+                                         label=f"{short} {label}", handoff=handoffs[label],
+                                         **kw)
+            return out
+
+        extra = ["decode_attention", "softmax_lut"] if cfg.family == "hybrid" else \
+            ["gemv_pim_int8_linear", TC8L]
+        runs, counts[cfg.name] = counted(cfg.name, drive, path_kernels + extra)
+        for label, p, kw in drains:
+            eng, done, first, _ = runs[label]
+            mode = kw.get("mode", "exact")
+            sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+            check_ssm_drain(torch, api, p, cfg, sal, f"{short} {label}", ps, done, first,
+                            handoffs[label], plain_gate=label.startswith("q1"))
+            roofline_report(eng, f"{short} {label}", card,
+                            eng.cost_model.describe()["hardware"])
+            dec = eng.stats()["roofline"]["decode"]
+            log(f"  roofline[{short} {label}] modeled decode bytes a step: "
+                f"{dec['modeled_bytes'] / eng.decode_steps / 1e9:.3f} GB (the weight stream; "
+                f"the cost model prices no SSM state)")
+        sal = SalPimEngine.create(SalPimConfig())
+        gen_toks = torch.as_tensor(gen_prompts, device="cuda")
+        worst, where = ssm_stage_gaps(torch, params, cfg, sal, gen_toks)
+        logits = api.prefill(params, {"tokens": gen_toks}, cfg, sal, max_len=129)[0]
+        shot = max(rel_gap(logits[b], one_shot_plain_logits(torch, api, params, cfg, sal,
+                                                            gen_prompts[b], "dense"))
+                   for b in range(len(gen_prompts)))
+        log(f"  generate[{short}] prefill of the batch of 4, each stage through the kernels "
+            f"vs the plain versions on the same input: at most {worst:.3e} ({where}; limit "
+            f"{FIRST_LOGITS_LIMIT:.0e}); first logits vs one-shot plain prefills {shot:.3e} "
+            f"(reported)")
+        if worst > FIRST_LOGITS_LIMIT:
+            raise AssertionError(f"generate[{short}]: {where} differs by {worst:.3e}")
+        check_f32_handoff(torch, api, params, cfg, SalPimEngine.create(SalPimConfig()), short,
+                          ps[:2])
+        for mode in ("exact", "lut"):
+            times[f"{short} {mode}"] = time_ssm_model(
+                torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+                f"{short} {mode}", card, n_params)
+        del params, drains, runs
+        torch.cuda.empty_cache()
+    log("  launch: python -m repro_torch.launch.serve --arch mamba2-370m --full --requests 8 "
+        "--slots 4")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mamba2-370m", "--full",
+         "--requests", "8", "--slots", "4"], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+    for line in (res.stdout + res.stderr).strip().splitlines()[-6:]:
+        log(f"    {line}")
+    if res.returncode != 0 or "8 requests through 4 slots" not in res.stdout:
+        raise AssertionError(f"launch/serve.py --arch mamba2-370m exited {res.returncode}")
+    log(f"  launch/serve.py served mamba2-370m's 8 requests in {time.perf_counter() - t0:.1f} "
+        "s (process start included)")
+    return counts, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4885,6 +5434,10 @@ def main() -> int:
                                     lut_interp, args.seed))
     model_times = time_model_kernels(torch, F, gemv_pim, paged_attention, paged_prefill,
                                      args.seed)
+    ssm_errs, ssm_kernel_times = time_ssm_kernels(torch, F, tlut, gemv_pim, layernorm_lut,
+                                                  lut_interp, attn, softmax_lut, args.seed)
+    for name, e in ssm_errs.items():
+        errs[name] = max(errs[name], e)
 
     kernels, mods, plain = serving_handles(torch)
 
@@ -5159,14 +5712,22 @@ def main() -> int:
     counts_moe, moe_times = moe_phase(torch, F, np, mods, counted, quantize, prompts,
                                       new_tokens, card, args.seed)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
 
-    log("== 15. result")
+    log("== 15. ssm/hybrid: mamba2-370m and zamba2-1.2B at full width and depth on the dense "
+        "cache")
+    t15 = time.perf_counter()
+    counts_ssm, ssm_times = ssm_phase(torch, np, mods, counted, quantize, prompts,
+                                      new_tokens, card, args.seed)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    log("== 16. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
-                  *counts_moe.items()]
+                  *counts_moe.items(), *counts_ssm.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -5196,6 +5757,8 @@ def main() -> int:
             row["moe_router_f32"] = moe_times["kernels"]["router"]
         if name == "gemv_pim_float":
             row["qwen2_decode_step"] = model_times["gemv_pim_float"]
+        if name in ssm_kernel_times:
+            row["ssm_shapes"] = ssm_kernel_times[name]
         if name in ("paged_attention", "paged_prefill_attention"):
             form = "decode" if name == "paged_attention" else "prefill"
             row["model_heads"] = {m: model_times[f"{m} heads"][form]
@@ -5225,6 +5788,11 @@ def main() -> int:
                     if k in ("olmoe exact", "olmoe lut", "phi exact"))
         + f"; olmoe's bound {moe_times['olmoe bound']['bound_ms']:.2f} ms streaming every "
         f"weight ({card})")
+    log(f"  SSM/hybrid decode step (4 slots) / 128-token admission, device ms (host clock "
+        f"ms), bound ms: "
+        + ", ".join(f"[{k}] {v['device']:.3f} ({v['host']:.2f}) / {v['admit_device']:.3f} "
+                    f"({v['admit_host']:.2f}), {v['bound_ms']:.3f}" for k, v in ssm_times.items())
+        + f" ({card})")
     log(f"  swap of one request's 9 pages, host clock ms (blob bytes): "
         + ", ".join(f"[{k}] out {o:.3f}, in {i:.3f} ({b})" for k, (b, o, i) in swap_ms.items())
         + f" ({card})")

@@ -24,6 +24,13 @@ moved by one bf16 step (its bit pattern +- 1, the sign at random): how far that
 moves the first logits is the model's own amplification of one rounding,
 with no kernel involved. Prints one JSON line a datapath and a summary.
 Gates nothing.
+
+The SSM and hybrid models (`--model mamba2_370m`, `zamba2_1_2b`) serve on
+the dense cache alone: each prompt runs as one dense prefill (the prompts
+of `chip_smoke.py`'s phase 15), the hidden states compared at the input
+of every norm of the block stack (a Mamba2 layer's block norm, the shared
+block's two) and the final one; and the plain path runs once more with
+f32 weights and f32 compute, against which both bf16 sides are set.
 """
 from __future__ import annotations
 
@@ -78,7 +85,11 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     gpt2_vocab = 50257
     prompts = [rng.randint(2, gpt2_vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
-    if cfg.name != "gpt2-medium":
+    ssm = cfg.family in ("ssm", "hybrid")
+    if ssm and cfg.vocab < gpt2_vocab:           # phase 15's prompts for zamba2
+        rng15 = np.random.RandomState(args.seed + 15)
+        prompts = [rng15.randint(2, cfg.vocab, size=len(p)) for p in prompts]
+    elif cfg.name != "gpt2-medium" and not ssm:
         [rng.randint(2, gpt2_vocab, size=int(n)) for n in rng.randint(896, 961, size=4)]
         [rng.randint(2, gpt2_vocab, size=128) for _ in range(4)]
         prompts = [rng.randint(2, cfg.vocab, size=int(n)) for n in rng.randint(32, 129, size=8)]
@@ -107,10 +118,43 @@ def main() -> int:
         raise SystemExit(f"--plain: unknown ops {sorted(unknown)}")
     kernel_side = {**kernel_ops, **{n: plain_ops[n] for n in held}}
 
+    def dense_forward(p, prompt, plain, perturb=None, c=cfg):
+        """One dense prefill of the prompt (the SSM and hybrid families);
+        returns the last token's hidden state at the input of every norm
+        of the stack and the first logits."""
+        for name, fn in (plain_ops if plain else kernel_side).items():
+            setattr(ops, name, fn)
+        hidden, norm, embed = [], blk.apply_norm, tf._embed
+
+        def recording(q, x, *a, **k):
+            if x.dim() == 3:
+                hidden.append(x[0, -1].float())
+            return norm(q, x, *a, **k)
+
+        def perturbed(*a, **k):
+            x = embed(*a, **k)
+            step = perturb[:x.shape[1]] * (x[0] != 0)
+            return (x.view(torch.int16) + step.to(torch.int16)).view(x.dtype)
+
+        blk.apply_norm = recording
+        if perturb is not None:
+            tf._embed = perturbed
+        try:
+            toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+            sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=args.mode))
+            logits, _ = api.prefill(p, {"tokens": toks}, c, sal, max_len=len(prompt))
+            return hidden, logits[0].float()
+        finally:
+            blk.apply_norm, tf._embed = norm, embed
+            for name, fn in kernel_ops.items():
+                setattr(ops, name, fn)
+
     def forward(p, prompt, plain, kv, sd, perturb=None):
         """Chunked prefill of one prompt (64-token chunks) into a fresh
         pool; returns the hidden states after each layer (the last
         chunk's) and the first logits."""
+        if ssm:
+            return dense_forward(p, prompt, plain, perturb)
         for name, fn in (plain_ops if plain else kernel_side).items():
             setattr(ops, name, fn)
         try:
@@ -155,10 +199,17 @@ def main() -> int:
                   "int8/bf16": ("int8", "bfloat16"),
                   "int4/bf16": ("int4", "bfloat16")}[args.pools]
         datapaths = [(f"fp weights, {args.pools} pools", params, kv, sd)]
+    if ssm:
+        import dataclasses
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+
+        def f32(tree):
+            return {k: f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+        params32 = f32(params)
     summary = {}
     for label, p, kv, sd in datapaths:
-        per_layer = np.zeros(cfg.n_layers)
-        kernel_gap, ulp_gap = [], []
+        per_layer = None
+        kernel_gap, ulp_gap, f32_gap = [], [], []
         for j, prompt in enumerate(prompts):
             h_k, lg_k = forward(p, prompt, False, kv, sd)
             h_p, lg_p = forward(p, prompt, True, kv, sd)
@@ -166,15 +217,21 @@ def main() -> int:
             sign = (torch.randint(0, 2, (len(prompt), cfg.d_model), generator=gen, device=dev)
                     * 2 - 1).to(torch.int16)
             _, lg_u = forward(p, prompt, True, kv, sd, perturb=sign)
-            per_layer = np.maximum(per_layer, [rel(a, b) for a, b in zip(h_k, h_p)])
+            gaps = [rel(a, b) for a, b in zip(h_k, h_p)]
+            per_layer = gaps if per_layer is None else np.maximum(per_layer, gaps)
             kernel_gap.append(rel(lg_k, lg_p))
             ulp_gap.append(rel(lg_u, lg_p))
+            if ssm and label == "fp":
+                _, lg_32 = dense_forward(params32, prompt, True, c=cfg32)
+                f32_gap.append((rel(lg_k, lg_32), rel(lg_p, lg_32)))
         row = {"model": cfg.name, "datapath": label, "mode": args.mode, "seed": args.seed,
                "card": card,
                "held_plain": held,
                "first_logits_kernel_vs_plain": kernel_gap,
                "first_logits_plain_one_step_vs_plain": ulp_gap,
                "hidden_kernel_vs_plain_by_layer": [float(v) for v in per_layer]}
+        if f32_gap:
+            row["first_logits_kernel_and_plain_vs_f32_plain"] = f32_gap
         print(json.dumps(row), flush=True)
         summary[label] = (max(kernel_gap), max(ulp_gap))
     for label, (k, u) in summary.items():

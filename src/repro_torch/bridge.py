@@ -7,14 +7,19 @@ torch tensors. bfloat16 leaves (numpy's `ml_dtypes` bfloat16) keep their
 bits. A leaf with `w_i8` and `scale` fields (the JAX package's
 `QTensor` of int8 serving, after `jax.tree.map(np.asarray, ...)`) becomes
 the port's `QTensor`; it is recognised by its fields, as the JAX engine
-recognises it by name. Nothing here imports JAX.
+recognises it by name. `paged_cache_from_numpy` and
+`dense_cache_from_numpy` carry caches the same way. Nothing here imports
+JAX.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.transformer import Cache
 from repro_torch.serving.kvcache import PagedCache
 from repro_torch.serving.quantize import QTensor
 
@@ -48,3 +53,13 @@ def paged_cache_from_numpy(lengths, block_tables, k_pages, v_pages,
         k_pages=tensor_from_numpy(k_pages, device),
         v_pages=tensor_from_numpy(v_pages, device),
     )
+
+
+def dense_cache_from_numpy(cache, device="cuda"):
+    """The port's dense `Cache` from one whose fields are numpy arrays or
+    None (a JAX `Cache` after `jax.tree.map(np.asarray, cache)`): lengths,
+    the arena and its scales, the SSM state, the conv window and the
+    hybrid's shared KV, whichever it holds."""
+    return Cache(**{f.name: None if getattr(cache, f.name, None) is None
+                    else tensor_from_numpy(getattr(cache, f.name), device)
+                    for f in dataclasses.fields(Cache)})

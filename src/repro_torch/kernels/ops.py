@@ -19,10 +19,12 @@ from repro_torch.kernels import softmax_lut as sm_k
 
 
 def lut_apply(x: torch.Tensor, table: LutTable) -> torch.Tensor:
-    """Apply a LUT table elementwise to x of any shape."""
+    """Apply a LUT table elementwise to x of any shape and strides (the
+    kernel reads a contiguous copy of a strided view, such as Mamba2's
+    gate, a slice of in_proj's output)."""
     if x.device.type == "cpu":
         return lut_k.lut_interp_plain(x, table)
-    return lut_k.lut_interp(x, table)
+    return lut_k.lut_interp(x.contiguous(), table)
 
 
 def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

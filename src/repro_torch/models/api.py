@@ -1,5 +1,6 @@
 """Model API the serving engine and the tests use (the port of the dense
-and paged entry points of `repro.models.api`).
+and paged entry points of `repro.models.api`; the SSM and hybrid families
+have the dense ones only).
 
     init_params(cfg, seed=0, device="cuda")
     prefill(params, {"tokens": tokens}, cfg, engine, max_len)
@@ -82,7 +83,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      kv_scale_dtype: str = "float32", *, device="cuda"):
     """Paged KV cache for the dense and MoE families (see
     serving/kvcache.py): kv_dtype None defers to cfg.kv_dtype ("model",
-    "int8" or "int4")."""
+    "int8" or "int4"). The SSM and hybrid families serve on the dense
+    cache alone and raise the reference's ValueError."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"paged cache unsupported for family {cfg.family!r}")
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"paged cache for family {cfg.family!r}")
     return kvcache.init_paged_cache(

@@ -1,8 +1,8 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
-that the serving paths (paged pools and the dense arena) of the dense and
-MoE families read, with the same names and defaults, and its analytic
-parameter counts (the roofline cost model's weight stream,
-`serving/costmodel.py`)."""
+that the serving paths read (the paged pools and the dense arena of the
+dense and MoE families; the dense cache of the SSM and hybrid families),
+with the same names and defaults, and its analytic parameter counts (the
+roofline cost model's weight stream, `serving/costmodel.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +18,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class ModelConfig:
     name: str
     family: str                      # the port serves "dense" (RoPE or learned
-                                     # positions) and "moe"
+                                     # positions), "moe", "ssm" (Mamba2) and
+                                     # "hybrid" (zamba2: Mamba2 + one shared
+                                     # attention block)
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,6 +61,19 @@ class ModelConfig:
     router_cap_factor: float = 1.25
     moe_impl: str = "gspmd"
 
+    # SSM (Mamba2 / SSD, families "ssm" and "hybrid"): state size N, d_inner
+    # = ssm_expand * d_model in heads of ssm_headdim, prefill in chunks of
+    # ssm_chunk, a causal conv of width ssm_conv
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+
+    # hybrid (zamba2): the shared attention block runs before each segment
+    # of hybrid_attn_every Mamba2 layers
+    hybrid_attn_every: int = 0
+
     # dtypes
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -90,6 +105,14 @@ class ModelConfig:
         return _DTYPES[self.param_dtype]
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def moe_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
@@ -101,12 +124,15 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the JAX
-        package's formula for the dense and MoE families: q, k, v, o (+ QKV
-        bias), the MLP's two or three matrices (MoE: every expert's, and
-        the router) and two norm scales a layer, the embedding, the LM head
-        and the final norm. Learned positions, linear biases other than
-        QKV's and LayerNorm shifts are not counted, as in the reference."""
-        if self.family not in ("dense", "moe"):
+        package's formula: q, k, v, o (+ QKV bias), the MLP's two or three
+        matrices (MoE: every expert's, and the router) and two norm scales
+        a layer, the embedding, the LM head and the final norm. A Mamba2
+        layer counts in_proj, out_proj, the conv's weights, A_log, D, the
+        gated norm and its block norm (not the conv bias or dt_bias); the
+        hybrid's shared attention block counts once. Learned positions,
+        linear biases other than QKV's and LayerNorm shifts are not
+        counted, as in the reference."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(f"family {self.family!r} is not ported yet")
         d, v = self.d_model, self.vocab
         n_q = self.n_heads * self.head_dim
@@ -119,7 +145,15 @@ class ModelConfig:
             mlp = self.n_experts * mats * d * self.moe_ff + d * self.n_experts  # + router
         else:
             mlp = mats * d * self.d_ff
-        blocks = self.n_layers * (attn + mlp + 2 * d)
+        if self.family in ("ssm", "hybrid"):
+            din, nh, N = self.d_inner, self.ssm_heads, self.ssm_state
+            ssm = (d * (2 * din + 2 * N + nh) + din * d + self.ssm_conv * (din + 2 * N)
+                   + 2 * nh + din)
+            blocks = self.n_layers * (ssm + d)
+            if self.family == "hybrid":
+                blocks += attn + mlp + 2 * d
+        else:
+            blocks = self.n_layers * (attn + mlp + 2 * d)
         return v * d + blocks + v * d + d
 
     def active_param_count(self) -> int:

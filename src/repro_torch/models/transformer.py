@@ -1,8 +1,15 @@
-"""Decoder-only LM over the dense per-slot KV arena (`Cache`: `prefill`,
+"""Decoder-only LM over the dense per-slot cache (`Cache`: `prefill`,
 `decode_step`) and over a paged KV cache (`prefill_chunk`,
-`verify_tokens`, the paged `decode_step`): the port of the dense and MoE
-families of `repro.models.transformer` (an MoE block's FFN is
-`models/moe.py`).
+`verify_tokens`, the paged `decode_step`): the port of the dense, MoE, SSM
+and hybrid families of `repro.models.transformer` (an MoE block's FFN is
+`models/moe.py`, a Mamba2 block `models/mamba2.py`).
+
+The SSM family (mamba2) is a stack of `{"norm", "mamba"}` blocks; the
+hybrid (zamba2) runs one shared, unstacked attention + MLP block
+(`params["shared_attn"]`) before each segment of `hybrid_attn_every`
+Mamba2 layers (`_hybrid_segments`), with a KV arena of its own for each
+of those applications (`Cache.shared_k/v`). Both serve on the dense cache
+only, as in the reference: the paged entry points raise its `ValueError`.
 
 Parameters are a plain dict with the JAX pytree's keys; each block weight
 is stacked on a leading layer axis, and a Python loop over layers takes the
@@ -26,6 +33,7 @@ from repro_torch.core.salpim import SalPimEngine
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import rope_cos_sin
@@ -35,30 +43,61 @@ from repro_torch.serving.quantize import QTensor, quantize_vec
 
 @dataclasses.dataclass
 class Cache:
-    """Decode-time state over the dense per-slot arena.
+    """Decode-time state over the dense per-slot arena. A field the family
+    does not use is None.
 
     lengths:          (B,) int32                valid tokens per sequence
     k, v:             (L, B, Hkv, Smax, Dh)     the compute dtype, or int8
     k_scale, v_scale: (L, B, Hkv, Smax) bf16    dequant scales of the int8
                                                 arena (cfg.kv_dtype "int8")
+    ssm:              (L, B, H, N, P) f32       Mamba2 state
+    conv:             (L, B, K-1, d_inner+2N)   Mamba2 conv window, compute dtype
+    shared_k/v:       (A, B, Hkv, Smax, Dh)     the hybrid's shared block's KV,
+                                                one arena an application
     """
 
     lengths: torch.Tensor
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
+    shared_k: Optional[torch.Tensor] = None
+    shared_v: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+_SSM_FAMILIES = ("ssm", "hybrid")
+
+
+def _check_supported(cfg: ModelConfig, paged: Optional[str] = None) -> None:
+    """Refuse what the port does not serve: encdec and M-RoPE; and, when
+    `paged` names a paged entry point's structure, the SSM and hybrid
+    families with the reference's ValueError."""
+    if cfg.family not in ("dense", "moe", *_SSM_FAMILIES):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE (the VLM path) is not ported yet")
+    if paged is not None and cfg.family in _SSM_FAMILIES:
+        raise ValueError(f"{paged} unsupported for family {cfg.family!r}")
+
+
+def _hybrid_segments(cfg: ModelConfig) -> list[tuple[int, int]]:
+    """[(start, end)) Mamba2 layer segments: the whole stack for the SSM
+    family; the hybrid's shared block runs before each of its segments."""
+    if cfg.family != "hybrid":
+        return [(0, cfg.n_layers)]
+    every = max(cfg.hybrid_attn_every, 1)
+    return [(s, min(s + every, cfg.n_layers)) for s in range(0, cfg.n_layers, every)]
+
+
+def _unstack(tree: dict) -> dict:
+    """The single layer of stacked (1, ...) parameters."""
+    return {k: _unstack(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -86,6 +125,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     }
     if cfg.learned_pos_emb:
         p["pos_embed"] = normal((cfg.max_seq, d), 0.02)
+    if cfg.family in _SSM_FAMILIES:
+        p["blocks"] = {"norm": blk.init_norm(cfg, ones, zeros, (L,)),
+                       "mamba": m2.init_mamba2(normal, cfg, L)}
+        if cfg.family == "hybrid":
+            p["shared_attn"] = {
+                "ln1": blk.init_norm(cfg, ones, zeros),
+                "attn": _unstack(attn_lib.init_attention(normal, zeros, cfg, 1)),
+                "ln2": blk.init_norm(cfg, ones, zeros),
+                "ffn": _unstack(ffn_lib.init_ffn(normal, cfg, 1)),
+            }
+        return p
     blocks = {
         "ln1": blk.init_norm(cfg, ones, zeros, (L,)),
         "attn": attn_lib.init_attention(normal, zeros, cfg, L),
@@ -117,8 +167,9 @@ def _layers(blocks: dict, n_layers: int) -> list[dict]:
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     """positions (...,) -> cos/sin (..., Dh/2), (None, None) with learned
-    positions (M-RoPE is refused by `_check_supported`)."""
-    if cfg.learned_pos_emb:
+    positions and in the SSM family, which has no attention (M-RoPE is
+    refused by `_check_supported`)."""
+    if cfg.learned_pos_emb or cfg.family == "ssm":
         return None, None
     return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
@@ -167,7 +218,7 @@ def _paged_chunk_forward(params: dict, tokens: torch.Tensor,
     stack, writing each layer's chunk K/V (and, for an int8/int4 pool, its
     scale rows in the (L, P, Hkv, page) scale pools) into its pages in
     place. Returns the hidden states (B, S, D)."""
-    _check_supported(cfg)
+    _check_supported(cfg, paged="paged prefill")
     _check_scales(k_pages, k_scales)
     B, S = tokens.shape
     start = start.to(torch.int32)
@@ -225,11 +276,26 @@ def verify_tokens(params: dict, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> Cache:
     """Empty dense arena with room for max_len tokens a sequence; int8
-    payload with bf16 scales when cfg.kv_dtype is "int8"."""
+    payload with bf16 scales when cfg.kv_dtype is "int8". The SSM family
+    gets its state and conv window, the hybrid also its shared block's
+    KV arenas, always in the compute dtype (as in the reference)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.family in _SSM_FAMILIES:
+        L = cfg.n_layers
+        cache = Cache(
+            lengths=lengths,
+            ssm=torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+                            dtype=torch.float32, device=dev),
+            conv=torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                             dtype=cfg.cdtype, device=dev))
+        if cfg.family == "hybrid":
+            shared = (len(_hybrid_segments(cfg)),) + shape[1:]
+            cache.shared_k = torch.zeros(shared, dtype=cfg.cdtype, device=dev)
+            cache.shared_v = torch.zeros(shared, dtype=cfg.cdtype, device=dev)
+        return cache
     if cfg.kv_dtype == "int8":
         return Cache(lengths=lengths,
                      k=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -253,6 +319,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     cos, sin = _rope(cfg, pos)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     cache.lengths.fill_(S)
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_stack(params, x, cache, cfg, engine, cos, sin, prefill=True)
+        return _logits(params, x[:, -1], cfg, engine), cache
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, (k, v) = blk.apply_decoder_block_prefill(bp, x, cfg, engine, cos=cos, sin=sin,
                                                     window=cfg.window_for_layer(i))
@@ -278,6 +347,10 @@ def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
     _check_supported(cfg)
     x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
     cos, sin = _rope(cfg, cache.lengths)
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_stack(params, x, cache, cfg, engine, cos, sin, prefill=False)
+        new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
+        return _logits(params, x, cfg, engine), new_cache
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
         x, *_ = blk.apply_decoder_block_decode(
@@ -292,7 +365,7 @@ def _decode_step_paged(params: dict, token: torch.Tensor, cache,
     """token (B,) -> (logits (B, V), cache with advanced lengths). The pools
     (and an int8/int4 cache's scale pools) are updated in place; block
     tables are shared across layers."""
-    _check_supported(cfg)
+    _check_supported(cfg, paged="paged cache")
     _check_scales(cache.k_pages, cache.k_scale)
     x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
     cos, sin = _rope(cfg, cache.lengths)
@@ -303,3 +376,37 @@ def _decode_step_paged(params: dict, token: torch.Tensor, cache,
             kv_scales=_kv_scales(cache.k_scale, cache.v_scale, i))
     new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
     return _logits(params, x, cfg, engine), new_cache
+
+
+def _ssm_stack(params: dict, x: torch.Tensor, cache: Cache, cfg: ModelConfig,
+               engine: SalPimEngine, cos, sin, *, prefill: bool) -> torch.Tensor:
+    """The SSM or hybrid block stack over the prompt (`prefill`: x (B, S,
+    D), the cache's rows filled from empty) or one decode step (x (B, D),
+    the cache written in place): each Mamba2 layer's state and conv
+    window, and the hybrid's shared block before each segment, its KV in
+    `shared_k/v[a]` for application a. Returns the hidden states."""
+    layers = _layers(params["blocks"], cfg.n_layers)
+    S = x.shape[1] if prefill else None
+    for a, (s, e) in enumerate(_hybrid_segments(cfg)):
+        if cfg.family == "hybrid":
+            shared = params["shared_attn"]
+            if prefill:
+                x, (k, v) = blk.apply_decoder_block_prefill(shared, x, cfg, engine, cos=cos,
+                                                            sin=sin, window=None)
+                cache.shared_k[a, :, :, :S] = k
+                cache.shared_v[a, :, :, :S] = v
+            else:
+                x, *_ = blk.apply_decoder_block_decode(
+                    shared, x, cache.shared_k[a], cache.shared_v[a], cache.lengths, cfg,
+                    engine, cos=cos, sin=sin, window=None)
+        for i in range(s, e):
+            bp = layers[i]
+            r = blk.apply_norm(bp["norm"], x, cfg, engine)
+            if prefill:
+                o, cache.ssm[i], cache.conv[i] = m2.apply_mamba2(bp["mamba"], r, cfg, engine,
+                                                                 return_state=True)
+            else:
+                o, *_ = m2.mamba2_decode_step(bp["mamba"], r, cache.ssm[i], cache.conv[i],
+                                              cfg, engine)
+            x = x + o
+    return x

@@ -10,9 +10,12 @@ then max_new_tokens decode steps in a Python loop (the JAX package's
 width of `slots`, in one of two modes.
 
 Dense (`paged=False`, the default): one arena of `max_len` positions a
-slot. Admission prefills the whole prompt as a batch of one and writes it
-into the slot's rows of the arena and its `last_logits` in place; a
-released slot parks at length 0.
+slot (the SSM family: a state and a conv window a layer; the hybrid: those
+and its shared block's arenas). Admission prefills the whole prompt as a
+batch of one and writes it into the slot's rows of the cache and its
+`last_logits` in place; a released slot parks at length 0. The SSM and
+hybrid families serve in this mode only: `paged=True` raises the
+reference's `ValueError`.
 
 Paged (`paged=True`): slots share one KV page pool. A request is admitted
 only when its worst-case page count can be reserved, its prompt is
@@ -382,7 +385,7 @@ class ServingEngine:
 
     def _place_dense(self, slot: int, req: Request):
         """Install a request into a dense slot: a batch-of-1 prefill of the
-        whole prompt, written in place into the slot's rows of the arena
+        whole prompt, written in place into the slot's rows of the cache
         (every position up to max_len) and of last_logits."""
         tel = self.telemetry
         tel.request_admitted(req.uid, slot, 0)
@@ -395,10 +398,13 @@ class ServingEngine:
             # The whole prompt in one prefill: one chunk span.
             tel.chunk(req.uid, t0c, tel.now(), len(req.prompt))
         c = self.cache
-        for dst, src in ((c.k, cache1.k), (c.v, cache1.v), (c.k_scale, cache1.k_scale),
-                         (c.v_scale, cache1.v_scale)):
-            if dst is not None:
-                dst[:, slot] = src[:, 0]
+        # Every tensor of the slot (KV, scales, SSM state, conv window, the
+        # shared block's KV), so that a reused slot keeps nothing of its
+        # last request.
+        for f in dataclasses.fields(c):
+            dst = getattr(c, f.name)
+            if f.name != "lengths" and dst is not None:
+                dst[:, slot] = getattr(cache1, f.name)[:, 0]
         c.lengths[slot] = len(req.prompt)
         self.last_logits[slot] = logits1[0].float()
         self.prefill_tokens += len(req.prompt)

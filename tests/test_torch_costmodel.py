@@ -10,9 +10,9 @@ package.
     off: modeled bytes, an empty registry), the snapshot's roofline, and
     `kv_splits` moving no modeled byte;
   * cost-model parity: `step_costs` and `describe()` equal to the JAX
-    cost model's to 1e-12 relative over seeded `StepShape`s, on the five
-    registry configs, smoke and full, fp, int8 and int4 pools, paged and
-    dense, with a draft model;
+    cost model's to 1e-12 relative over seeded `StepShape`s, on every
+    registry config (the SSM and hybrid ones too), smoke and full, fp,
+    int8 and int4 pools, paged and dense, with a draft model;
   * the port's analytic parameter counts equal to the JAX package's;
   * the port's specs: `h100` at 989 TFLOP/s bf16 and 3.35 TB/s, no TPU
     spec (`hardware="tpu-v4"` raises the reference's `ValueError`),

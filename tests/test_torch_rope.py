@@ -320,12 +320,11 @@ def test_qwen2_split_decode_drain_matches_jax_engine(qwen2):
     assert eng.engine.config.kv_splits == 4 and eng.max_pages * 16 >= 1024
 
 
-@pytest.mark.parametrize("name", ["mamba2_370m", "zamba2_1_2b", "whisper_large_v3",
-                                  "qwen2_vl_2b"])
+@pytest.mark.parametrize("name", ["whisper_large_v3", "qwen2_vl_2b"])
 def test_check_supported_refuses_other_families(name):
-    """The SSM, hybrid and encoder-decoder families, and M-RoPE (the VLM's
-    dense config), stay refused: the port's config built from the JAX
-    config's fields it carries."""
+    """The encoder-decoder family and M-RoPE (the VLM's dense config) stay
+    refused: the port's config built from the JAX config's fields it
+    carries."""
     jcfg = jax_get_config(name, smoke=True)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)})
     with pytest.raises(NotImplementedError):
