@@ -241,7 +241,36 @@ Run from the root of a checkout. Phases, each of which fails the run:
               --requests 8 --slots 4`, which must finish. Phase 3 holds
               and times the kernels at these models' shapes
               (`time_ssm_kernels`);
- 16. the kernels line, a JSON object with each kernel's error, times,
+ 16. encdec — whisper-large-v3 at its published widths and depth (32
+              encoder + 32 decoder layers, d 1280, 20 heads x 64, d_ff
+              5120, vocab 51866, enc_seq 1500; bf16 random weights, 1.64 B
+              parameters) through generate(extra_inputs={"frames": ...}),
+              its one entry point (ServingEngine refuses the family, as the
+              reference cannot serve it there): frames (4, 1500, 1280) from
+              the seed, 4 prompts of 32..128 tokens, 32 new ones, exact,
+              LUT and q1. Gates: every call's launches (a decode step 257
+              GEMVs, 64 decode_attention over the self and the 1500-key
+              cross arenas, 97 norms; an admission 513 GEMVs, 162 norms, 96
+              softmax_lut in LUT mode; q1 on the int8 routes), the cross
+              arenas bit for bit the admission's after the last step;
+              within FIRST_LOGITS_LIMIT each stage of the admission and of
+              the first decode step through the kernels against the plain
+              versions on the same input, each sequence's first and
+              first-decode logits against a batch of one, and q1's first
+              logits against a one-shot plain prefill (the others'
+              reported). Reported: the decode step and the admission on
+              the host clock and the device beside their bounds, and the
+              eager operations a step. Phase 3 holds and times the kernels
+              at its shapes (`time_encdec_kernels`: the GEMV and q1's int8
+              linear at M 6000, decode_attention over the cross and self
+              arenas, softmax_lut on 120000 rows of 1500 keys, layernorm_lut
+              at (6000, 1280) with beta);
+ 17. vlm    — qwen2-vl-2B's text path (qwen2's widths and 28 layers, M-RoPE
+              sections (16, 24, 24)): phase 4's 8 requests through the
+              paged engine, exact, with phase 4's checks, and generate() on
+              4 prompts of 128 tokens; first logits against a one-shot
+              plain prefill; its decode step and chunk timed;
+ 18. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -2616,7 +2645,7 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
                          fmt="fp", online=True):
     """One-shot prefill of `prompt` through the plain versions only, on the
     linear datapath of `sal`: the reference for the engine's first logits.
-    Any dense model of the port: learned positions or RoPE, LayerNorm or
+    Any dense model of the port: learned positions, RoPE or M-RoPE, LayerNorm or
     RMSNorm (1 + w with `rmsnorm_plus1`), GQA, the sliding window of each
     layer, softcaps, post-norms, a gated or plain MLP. Attention runs over
     a pool of format `fmt` (quantized per vector as the engine writes it)
@@ -2626,7 +2655,7 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
     its LUT algebra is not the dense LUT softmax's); with fmt="dense" it is
     the dense path's masked softmax attention (the LUT softmax's plain
     version in LUT mode)."""
-    from repro_torch.models.rope import apply_rope, rope_cos_sin
+    from repro_torch.models.rope import apply_rope, mrope_cos_sin, rope_cos_sin
     gemv_pim, paged_prefill, layernorm_lut, lut_interp, softmax_lut, walk = plain
     dev = params["embed"].device
     S, H, Hkv, D, page = len(prompt), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
@@ -2639,6 +2668,9 @@ def plain_prefill_logits(torch, F, params, cfg, sal, prompt, quant, qz, plain,
     if cfg.learned_pos_emb:
         x = x + params["pos_embed"][:S].to(cfg.cdtype)
         cos = sin = None
+    elif cfg.mrope_sections is not None:          # the text path: three equal streams
+        cos, sin = mrope_cos_sin(torch.arange(S, device=dev)[None].expand(3, S), D,
+                                 cfg.rope_theta, cfg.mrope_sections)
     else:
         cos, sin = rope_cos_sin(torch.arange(S, device=dev), D, cfg.rope_theta)
     n_pages = -(-S // page)
@@ -2766,9 +2798,10 @@ def param_count(tree) -> int:
 
 # Parameters the analytic count (ModelConfig.param_count, the JAX package's
 # formula, which prices the roofline's weight stream) leaves out: learned
-# positions, LayerNorm shifts, gemma2's post-norms, and a Mamba2 layer's
-# conv bias and dt bias.
-UNCOUNTED = re.compile(r"^pos_embed$|/b$|^blocks/post_ln\d/|/conv_b$|/dt_bias$")
+# positions (the decoder's, in whisper), LayerNorm shifts, gemma2's
+# post-norms, a Mamba2 layer's conv bias and dt bias, and whisper's
+# encoder's final norm.
+UNCOUNTED = re.compile(r"^pos_embed$|/b$|^blocks/post_ln\d/|/conv_b$|/dt_bias$|^enc_norm/g$")
 
 
 def check_param_count(tree, cfg, label: str) -> int:
@@ -2786,7 +2819,7 @@ def check_param_count(tree, cfg, label: str) -> int:
     left_out = sum(c for name, c in leaves(tree) if UNCOUNTED.search(name))
     log(f"  {label}: {n} parameters in its tensors = the analytic count "
         f"{cfg.param_count()} + {left_out} it leaves out (positions, LayerNorm shifts, "
-        "post-norms, conv and dt biases)")
+        "post-norms, conv and dt biases, an encoder's final norm)")
     if n != cfg.param_count() + left_out:
         raise AssertionError(f"{label}: {n} parameters, analytic {cfg.param_count()} + "
                              f"{left_out}")
@@ -5346,6 +5379,572 @@ def ssm_phase(torch, np, mods, counted, quantize, prompts, new_tokens, card, see
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 at the encoder-decoder's shapes; phases 16-17
+# ---------------------------------------------------------------------------
+
+# whisper-large-v3's admission at 4 slots: 4 x 1500 frames through the
+# encoder (M 6000 at every encoder linear and the decoder's cross K/V).
+WHISPER_M = 4 * 1500
+
+
+def time_encdec_kernels(torch, F, tlut, gemv_pim, layernorm_lut, attn, softmax_lut, seed):
+    """The kernels at whisper-large-v3's shapes, each held to its plain
+    version and timed beside it, a PyTorch call and its bound: the float
+    GEMV at the encoder's M 6000 (d x d with the QKV bias, w_up with the
+    tanh GELU, w_down; within the bf16 tolerance, on the tensor cores, its
+    `gemv_plan` printed) and q1's int8 linear there (quantize_int8_rows +
+    gemv_pim_int8, bit for bit); decode_attention over the 1500-key cross
+    arena (4 slots x 20 kv heads, g 1, D 64, every key valid) and the
+    161-position self arena (128..160 keys), exact and LUT (LUT held to the
+    online walk), `arena_plan` printed; softmax_lut on the encoder's
+    120000 unmasked f32 rows of 1500 keys (its plan printed); layernorm_lut
+    at (6000, 1280) bf16 with beta, exact and LUT rsqrt, bit for bit.
+    Returns ({kernel: max abs error}, {kernel: [timing rows]})."""
+    from repro_torch.kernels.paged_attention import arena_plan
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    bank = tlut.LutBank.create(64)
+    errs, rows = collections.defaultdict(float), collections.defaultdict(list)
+    f32, bf16, M, d = torch.float32, torch.bfloat16, WHISPER_M, 1280
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def record(name, shape, ms, plain, lib, lib_name, bnd, by):
+        rows[name].append(dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bnd, bound_by=by))
+        log(f"  {name} at {shape}: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, "
+            f"{lib_name} {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+
+    x = randn(M, d)
+    for R, C, what, act, bias in ((d, d, "d x d + QKV bias (q, k, v, o; cross K/V)", None,
+                                   True),
+                                  (4 * d, d, "w_up + tanh GELU", "gelu", False),
+                                  (d, 4 * d, "w_down", None, False)):
+        n = 3
+        xin = x if C == d else randn(M, C)
+        ws = [randn(R, C, std=C ** -0.5) for _ in range(n)]
+        b = randn(R, std=0.1) if bias else None
+        plan = gemv_pim.gemv_plan(M, C, R, bf16)
+        before = gemv_pim.gemv_pim_float.tc_launches
+        got = gemv_pim.gemv_pim_float(xin, ws[0], b, act=act)
+        if gemv_pim.gemv_pim_float.tc_launches != before + 1:
+            raise AssertionError(f"gemv_pim_float ({R}, {C}) M {M}: not on the tensor cores")
+        errs["gemv_pim_float"] = max(errs["gemv_pim_float"], compare(
+            torch, f"gemv_pim_float ({R}, {C}) M {M}", got,
+            gemv_pim.gemv_pim_plain(xin, ws[0], b, act=act), TOL["bfloat16"]))
+        ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_float(xin, ws[i], b, act=act), n)
+        plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_plain(xin, ws[i], b, act=act), n)
+        gelu = (lambda t: F.gelu(t, approximate="tanh")) if act else (lambda t: t)
+        lib = time_graph(torch, lambda i: gelu(F.linear(xin, ws[i], b)), n)
+        bnd, by = bound_ms(2 * (M * C + R * C + M * R), 2 * M * R * C, "bfloat16")
+        record("gemv_pim_float", f"({R}, {C}) bf16 M {M}, {what}; plan {plan}", ms, plain, lib,
+               "F.linear" + (" + F.gelu" if act else ""), bnd, by)
+        qs = [gemv_pim.quantize_int8_rows_plain(w.float()) for w in ws]
+        qb = b.float() if b is not None else None
+        got = gemv_pim.gemv_pim_int8_linear(xin, *qs[0], qb, compute=f32)
+        if not torch.equal(got, gemv_pim.gemv_pim_int8_linear_plain(xin, *qs[0], qb,
+                                                                    compute=f32)):
+            raise AssertionError(f"q1 int8 linear ({R}, {C}) M {M}: not bit for bit")
+        ms = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_linear(xin, *qs[i], qb,
+                                                                       compute=f32), n)
+        plain = time_graph(torch, lambda i: gemv_pim.gemv_pim_int8_linear_plain(
+            xin, *qs[i], qb, compute=f32), n)
+        lib = time_graph(torch, lambda i: F.linear(xin, ws[i], b), n)
+        bnd, by = bound_ms(2 * M * C + R * C + 4 * R + 2 * M * R, 2 * M * R * C, "int8")
+        record("gemv_pim_int8", f"q1 ({R}, {C}) int8, f32 scales, x bf16 M {M} "
+               f"(quantize_int8_rows + gemv_pim_int8, bit for bit)", ms, plain, lib,
+               "F.linear (bf16 weight)", bnd, by)
+        del ws, qs
+
+    H, D = 20, 64
+    q = randn(4, H, D)
+    for S, lens, what in ((1500, [1500] * 4, "cross arena"),
+                          (161, [128, 137, 151, 160], "self arena")):
+        n = 4
+        arenas = [(randn(4, H, S, D), randn(4, H, S, D)) for _ in range(n)]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        plan = arena_plan(4, H, S, 1, D, 2 * D)
+        for mode, table, want_fn in (("exact", None, attn.decode_attention_plain),
+                                     ("lut", bank.exp, attn.decode_attention_online_plain)):
+            got = attn.decode_attention(q, *arenas[0], lengths, exp_table=table)
+            errs["decode_attention"] = max(errs["decode_attention"], compare(
+                torch, f"decode_attention {what} {mode}", got,
+                want_fn(q, *arenas[0], lengths, exp_table=table), TOL["bfloat16"]))
+        ms = time_graph(torch, lambda i: attn.decode_attention(q, *arenas[i], lengths), n)
+        plain = time_graph(torch, lambda i: attn.decode_attention_plain(q, *arenas[i],
+                                                                        lengths), n)
+        key_ok = torch.arange(S, device=dev)[None, :] < lengths[:, None].long()
+        lib = time_graph(torch, lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], *arenas[i], attn_mask=key_ok[:, None, None])[:, :, 0], n)
+        keys = sum(lens) * H
+        bnd, by = bound_ms(2 * keys * D * 2 + 2 * (2 * 4 * H * D) + 4 * 4, 4 * keys * D,
+                           "bfloat16")
+        record("decode_attention", f"whisper's {what}: B 4 x H {H} (g 1) x D {D}, arena {S}, "
+               f"lengths {lens}, bf16, arena_plan {plan} (exact and LUT checked)", ms, plain,
+               lib, "SDPA with a length mask", bnd, by)
+        del arenas
+
+    n = 3
+    scores = [randn(4, H, 1, 1500, 1500, std=4.0, dtype=f32) for _ in range(n)]
+    plan = softmax_lut.softmax_plan(4 * H * 1500, 1500, 4)
+    got = softmax_lut.softmax_lut(scores[0], bank.exp, bank.recip)
+    errs["softmax_lut"] = max(errs["softmax_lut"], compare(
+        torch, "softmax_lut at whisper's encoder", got,
+        softmax_lut.softmax_lut_plain(scores[0], bank.exp, bank.recip), TOL["float32"]))
+    del got
+    ms = time_graph(torch, lambda i: softmax_lut.softmax_lut(scores[i], bank.exp, bank.recip),
+                    n, reps=10)
+    plain = time_graph(torch, lambda i: softmax_lut.softmax_lut_plain(scores[i], bank.exp,
+                                                                      bank.recip), n, reps=5)
+    lib = time_graph(torch, lambda i: torch.softmax(scores[i], dim=-1), n, reps=10)
+    elems = 4 * H * 1500 * 1500
+    bnd, by = bound_ms(2 * 4 * elems, 5 * elems, "float32")
+    record("softmax_lut", f"({4 * H}*1500, 1500) f32 unmasked scores of whisper's encoder "
+           f"(4 x 1500 frames); plan (chunks, warps a row, rows a block) {plan}", ms, plain,
+           lib, "torch.softmax", bnd, by)
+    del scores
+    torch.cuda.empty_cache()
+
+    xs = [randn(M, d) for _ in range(6)]
+    g, beta = randn(d, std=0.2) + 1.0, randn(d, std=0.2)
+    plan = layernorm_lut.layernorm_plan(M, d, 2)
+    for table in (None, bank.rsqrt):
+        got = layernorm_lut.layernorm_lut(xs[0], g, beta, rsqrt_table=table)
+        if not torch.equal(got, layernorm_lut.layernorm_lut_plain(xs[0], g, beta,
+                                                                  rsqrt_table=table,
+                                                                  wide_sums=True)):
+            raise AssertionError(f"layernorm_lut ({M}, {d}) rsqrt_table={table is not None}: "
+                                 "not bit for bit")
+    ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut(xs[i], g, beta,
+                                                                 rsqrt_table=bank.rsqrt), 6)
+    plain = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_plain(
+        xs[i], g, beta, rsqrt_table=bank.rsqrt, wide_sums=True), 6)
+    lib = time_graph(torch, lambda i: F.layer_norm(xs[i], (d,), g, beta, 1e-5), 6)
+    bnd, by = bound_ms(2 * (2 * M * d + 2 * d), 8 * M * d, "float32")
+    record("layernorm_lut", f"({M}, {d}) bf16 LayerNorm with beta, LUT rsqrt (whisper's "
+           f"encoder; exact and LUT bit for bit); plan {plan}", ms, plain, lib,
+           "F.layer_norm", bnd, by)
+    return dict(errs), dict(rows)
+
+
+def encdec_linear_shapes(cfg, B, S):
+    """(M, C, R) of every linear an admission of B prompts of S tokens runs,
+    in order: each encoder layer's q, k, v, o, w_up, w_down over B x enc_seq
+    frames; each decoder layer's self q, k, v, o and cross q over the
+    prompt, cross K/V over the frames, cross o, w_up, w_down; the LM head
+    at the last positions."""
+    d, f, Me, Md = cfg.d_model, cfg.d_ff, B * cfg.enc_seq, B * S
+    enc = [(Me, d, d)] * 4 + [(Me, d, f), (Me, f, d)]
+    dec = [(Md, d, d)] * 5 + [(Me, d, d)] * 2 + [(Md, d, d), (Md, d, f), (Md, f, d)]
+    return enc * cfg.n_enc_layers + dec * cfg.n_layers + [(B, d, cfg.vocab)]
+
+
+def encdec_expect(kernels, cfg, dec, prefills, lut, gemv="gemv_pim_float", two=0):
+    """Launches of `dec` encoder-decoder decode steps and `prefills`
+    admissions: a decode step 8 linears a decoder layer (self q, k, v, o;
+    cross q, o; w_up; w_down: the cross K/V of the new token are not
+    projected) + the LM head, 3 norms a layer + the final one, 2
+    decode_attention a layer (self, cross); an admission 6 linears an
+    encoder layer and 10 a decoder layer + the LM head, 2 norms an encoder
+    layer + its final one and 3 a decoder layer + the final one, in LUT
+    mode one softmax_lut an encoder layer and 2 a decoder layer. With int8
+    weights (gemv "gemv_pim_int8_linear") `two` linears take
+    quantize_int8_rows + gemv_pim_int8."""
+    Le, L = cfg.n_enc_layers, cfg.n_layers
+    n_lin = (8 * L + 1) * dec + (6 * Le + 10 * L + 1) * prefills
+    expect = {name: 0 for name in kernels}
+    expect.update({"layernorm_lut": (3 * L + 1) * dec + (2 * Le + 3 * L + 2) * prefills,
+                   "decode_attention": 2 * L * dec,
+                   "softmax_lut": (Le + 2 * L) * prefills if lut else 0})
+    if gemv == "gemv_pim_float":
+        expect.update({"gemv_pim_float": n_lin, TC: n_lin})
+    else:
+        expect.update({gemv: n_lin - two, TC8L: n_lin - two, "gemv_pim_int8": two, TC8: two,
+                       "quantize_int8_rows": two})
+    return expect
+
+
+class EncdecWatch:
+    """Wraps `api.prefill` and `api.decode_step` (which `generate()` calls)
+    while open: checks each call's launches against `encdec_expect`, and
+    keeps the admission's logits, the first decode step's, a copy of the
+    cross arenas the admission wrote and the last cache."""
+
+    def __init__(self, torch, api, kernels, cfg, lut, gemv, two):
+        self.torch, self.api, self.kernels, self.cfg = torch, api, kernels, cfg
+        self.lut, self.gemv, self.two = lut, gemv, two
+        self.first = self.first_decode = self.cross = self.cache = None
+        self.steps = 0
+
+    def _counted(self, fn, dec, prefills, two):
+        def call(*a, **k):
+            before = {n: c.launches for n, c in self.kernels.items()}
+            out = fn(*a, **k)
+            d = {n: c.launches - before[n] for n, c in self.kernels.items()}
+            want = encdec_expect(self.kernels, self.cfg, dec, prefills, self.lut, self.gemv,
+                                 two)
+            if d != want:
+                raise AssertionError(f"{fn.__name__}: launches {d}, expected {want}")
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = self.api.prefill, self.api.decode_step
+        prefill = self._counted(self.api.prefill, 0, 1, self.two)
+        decode = self._counted(self.api.decode_step, 1, 0, 0)
+
+        def watched_prefill(*a, **k):
+            logits, cache = prefill(*a, **k)
+            self.first = logits.clone()
+            self.cross = (cache.cross_k.clone(), cache.cross_v.clone())
+            self.cache = cache
+            return logits, cache
+
+        def watched_decode(*a, **k):
+            logits, cache = decode(*a, **k)
+            if self.steps == 0:
+                self.first_decode = logits.clone()
+            self.steps += 1
+            self.cache = cache
+            return logits, cache
+
+        self.api.prefill, self.api.decode_step = watched_prefill, watched_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.api.prefill, self.api.decode_step = self.saved
+        return False
+
+    def cross_static(self) -> bool:
+        return (self.torch.equal(self.cache.cross_k, self.cross[0])
+                and self.torch.equal(self.cache.cross_v, self.cross[1]))
+
+
+def encdec_stage_gaps(torch, params, cfg, sal, toks, frames, first_tokens):
+    """Each stage of an admission and of the first decode step through the
+    kernels against the plain versions (`plain_ops`) on the same input, the
+    kernels' output feeding the next stage: each encoder layer and its
+    final norm, each decoder layer over the prompt (cross-attending the
+    kernels' encoder output) and the head; then each decoder layer of the
+    decode step on a copy of the admission's cache, and the head. Returns
+    the largest max |diff| / max |out| and its stage."""
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    enc_layers = tf._layers(params["enc_blocks"], cfg.n_enc_layers)
+    dec_layers = tf._layers(params["dec_blocks"], cfg.n_layers)
+    B, S = toks.shape
+    worst, where = 0.0, None
+
+    def stage(label, fn, x):
+        nonlocal worst, where
+        out = fn(x)
+        with plain_ops(sal.nl.mode):
+            gap = rel_gap(out, fn(x))
+        if gap >= worst:
+            worst, where = gap, label
+        return out
+
+    x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
+    for i, bp in enumerate(enc_layers):
+        x = stage(f"encoder layer {i}", lambda h, bp=bp: encdec.encode_layer(bp, h, cfg, sal), x)
+    enc = stage("the encoder's final norm", lambda h: blk.apply_norm(
+        params["enc_norm"], h, cfg, sal), x)
+    pos = torch.arange(S, device=toks.device)
+    x = encdec._dec_embed(params, toks, pos[None].expand(B, S), cfg)
+    for i, bp in enumerate(dec_layers):
+        x = stage(f"decoder layer {i} (prefill)", lambda h, bp=bp: encdec.decode_layer_prefill(
+            bp, h, enc, cfg, sal)[0], x)
+    stage("the final norm and LM head (prefill)", lambda h: encdec._logits(params, h[:, -1],
+                                                                          cfg, sal), x)
+    _, cache = encdec.prefill(params, frames, toks, cfg, sal, max_len=S + 1)
+    x = encdec._dec_embed(params, first_tokens[:, None], cache.lengths[:, None], cfg)[:, 0]
+    enc_len = torch.full((B,), cfg.enc_seq, dtype=torch.int32, device=toks.device)
+    for i, bp in enumerate(dec_layers):
+        x = stage(f"decoder layer {i} (decode step)", lambda h, bp=bp, i=i: (
+            encdec.decode_layer_step(bp, h, cache, i, enc_len, cfg, sal)), x)
+    stage("the final norm and LM head (decode step)", lambda h: encdec._logits(
+        params, h, cfg, sal), x)
+    del cache
+    return worst, where
+
+
+def whisper_generate(torch, mods, params, cfg, sal, toks, frames, new_tokens, label, *,
+                     gemv="gemv_pim_float"):
+    """generate(extra_inputs={"frames": ...}) of the batch `toks` (B, S),
+    each call's launches checked (`EncdecWatch`: every decode step and the
+    admission); the cross arenas after the last decode step must be the
+    admission's bit for bit. Returns (tokens, the watch, seconds)."""
+    from repro_torch.kernels import gemv_pim
+    from repro_torch.serving.engine import generate
+    api, GenConfig, kernels = mods[0], mods[4], mods[-1]
+    B, S = toks.shape
+    two = 0
+    if gemv != "gemv_pim_float":
+        two = sum(gemv_pim.gemv_int8_linear_plan(*shape) is None
+                  for shape in encdec_linear_shapes(cfg, B, S))
+    lut = sal.nl.mode == "lut"
+    with EncdecWatch(torch, api, kernels, cfg, lut, gemv, two) as watch:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = generate(params, toks, cfg, sal,
+                           GenConfig(max_new_tokens=new_tokens, stop_on_eos=False),
+                           extra_inputs={"frames": frames}, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if watch.steps != new_tokens or watch.first is None:
+        raise AssertionError(f"generate[{label}]: {watch.steps} decode steps")
+    if tuple(out.shape) != (B, new_tokens) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"generate[{label}]: tokens {tuple(out.shape)} out of range")
+    if not watch.cross_static():
+        raise AssertionError(f"generate[{label}]: the cross arenas changed after the admission")
+    dec = encdec_expect(kernels, cfg, 1, 0, lut, gemv)
+    adm = encdec_expect(kernels, cfg, 0, 1, lut, gemv, two)
+    tc = TC if gemv == "gemv_pim_float" else TC8L
+    two_s = (f" ({two} of them quantize_int8_rows + gemv_pim_int8)" if two else "")
+    log(f"  generate[{label}]: {B} x {S} prompt tokens over {B} x {cfg.enc_seq} frames, "
+        f"{new_tokens} new tokens, {st['tokens']} tokens; prefill {st['prefill_sec'] * 1e3:.1f} "
+        f"ms, decode {st['decode_sec'] * 1e3:.1f} ms = {st['sec_per_token'] * 1e3:.2f} ms per "
+        f"token a sequence; {wall:.3f} s in all")
+    log(f"  generate[{label}] launches checked at every call: a decode step {dec[gemv]} {gemv} "
+        f"({dec[tc]} on the tensor cores), {dec['decode_attention']} decode_attention, "
+        f"{dec['layernorm_lut']} layernorm_lut; the admission {adm[gemv] + adm['gemv_pim_int8']} "
+        f"linears{two_s}, {adm['layernorm_lut']} layernorm_lut, {adm['softmax_lut']} "
+        f"softmax_lut; no paged kernel; the cross arenas ({2 * watch.cross[0].numel() * 2 / 1e9:.3f} "
+        f"GB) after the last decode step bit for bit the admission's")
+    return out, watch, wall
+
+
+def check_whisper_drain(torch, api, params, cfg, sal, label, toks, frames, out, watch, *,
+                        plain_gate):
+    """The gates of a whisper generate() drain, within FIRST_LOGITS_LIMIT:
+    every stage of the admission and of the first decode step through the
+    kernels against the plain versions on the same input
+    (`encdec_stage_gaps`); each sequence's first logits and first-decode
+    logits against a batch of one through the kernels (its prompt and its
+    frames alone: another M at every linear and another B at the
+    attention); with `plain_gate` (q1, bit for bit on the plain path) the
+    first logits against a one-shot prefill on the plain versions.
+    Reported: that one-shot comparison, and whether the batch-of-one
+    comparisons are bit for bit."""
+    B, S = toks.shape
+    stage, where = encdec_stage_gaps(torch, params, cfg, sal, toks, frames, out[:, 0])
+    first = dec = 0.0
+    exact = 0
+    for b in range(B):
+        logits, cache = api.prefill(params, {"tokens": toks[b:b + 1], "frames": frames[b:b + 1]},
+                                    cfg, sal, max_len=S + 2)
+        step, _ = api.decode_step(params, out[b:b + 1, 0].to(torch.int32), cache, cfg, sal)
+        first = max(first, rel_gap(watch.first[b], logits[0]))
+        dec = max(dec, rel_gap(watch.first_decode[b], step[0]))
+        exact += int(torch.equal(watch.first[b], logits[0])) + int(
+            torch.equal(watch.first_decode[b], step[0]))
+    with plain_ops(sal.nl.mode):
+        want = api.prefill(params, {"tokens": toks, "frames": frames}, cfg, sal,
+                           max_len=S)[0].float()
+    shot = max(rel_gap(watch.first[b], want[b]) for b in range(B))
+    agree = sum(int(int(want[b].argmax()) == int(out[b, 0])) for b in range(B))
+    log(f"  generate[{label}] each stage of the admission and the first decode step through "
+        f"the kernels vs the plain versions on the same input at most {stage:.3e} ({where}); "
+        f"first logits vs a batch of one through the kernels {first:.3e}, first-decode logits "
+        f"{dec:.3e} ({exact}/{2 * B} bit for bit) (limit {FIRST_LOGITS_LIMIT:.0e} each)")
+    log(f"  generate[{label}] first logits vs a one-shot plain prefill {shot:.3e}"
+        f"{f' (limit {FIRST_LOGITS_LIMIT:.0e})' if plain_gate else ' (reported)'}, first "
+        f"tokens equal {agree}/{B}")
+    if max(stage, first, dec) > FIRST_LOGITS_LIMIT or (plain_gate and shot > FIRST_LOGITS_LIMIT):
+        raise AssertionError(f"generate[{label}]: stage {stage:.3e} ({where}), batch of one "
+                             f"{first:.3e} / {dec:.3e}, one-shot plain {shot:.3e}")
+    return dict(stage=stage, first=first, first_decode=dec, exact=exact, shot=shot)
+
+
+def time_whisper(torch, api, params, cfg, sal, toks, frames, label, card, n_params):
+    """whisper's decode step at 4 slots on an admission's cache (128..
+    tokens of context, the 1500-key cross arenas) and the admission itself
+    (4 x 1500 frames and the prompts, max_len S + 33): on the host clock
+    around eager calls with a synchronise, and on the device alone, each
+    replayed as a CUDA graph; beside their bounds (the step: the decoder's
+    weights it reads, the LM head, the cross arenas and the self keys and
+    values once; the admission: the larger of its linears' bf16 operations
+    and the f32 Q.K^T products over their peaks, plus the S.V products),
+    and the eager PyTorch operations of a step."""
+    B, S = toks.shape
+    max_len = S + 33
+    _, cache = api.prefill(params, {"tokens": toks, "frames": frames}, cfg, sal, max_len=max_len)
+    tok = torch.full((B,), 5, dtype=torch.int32, device="cuda")
+    step_ms = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(params, tok, cache, cfg, sal)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    host = statistics.median(step_ms[2:])
+    device = time_graph(torch, lambda i: api.decode_step(params, tok, cache, cfg, sal), 1)
+    ops = eager_ops(torch, lambda: api.decode_step(params, tok, cache, cfg, sal))
+    del cache
+    adm_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(params, {"tokens": toks, "frames": frames}, cfg, sal, max_len=max_len)
+        torch.cuda.synchronize()
+        adm_ms.append(1e3 * (time.perf_counter() - t0))
+    adm_host = statistics.median(adm_ms[1:])
+    adm_dev = time_graph(torch, lambda i: api.prefill(params, {"tokens": toks, "frames": frames},
+                                                      cfg, sal, max_len=max_len), 1, reps=5)
+    d, L, Le, V = cfg.d_model, cfg.n_layers, cfg.n_enc_layers, cfg.vocab
+    H, Dh, Senc = cfg.n_heads, cfg.head_dim, cfg.enc_seq
+    weights = 2 * (L * (6 * d * d + 2 * d * cfg.d_ff) + V * d)
+    cross = 2 * 2 * L * B * H * Senc * Dh
+    self_kv = 2 * 2 * L * H * Dh * (B * S + B)
+    bnd, by = bound_ms(weights + cross + self_kv, 2 * B * (n_params - V * d), "bfloat16")
+    lin_flops = 2 * sum(m * c * r for m, c, r in encdec_linear_shapes(cfg, B, S))
+    qk = 2 * B * H * Dh * (Le * Senc * Senc + L * (S * S + S * Senc))
+    adm_bnd = 1e3 * (lin_flops / 989e12 + qk / PEAK_FLOPS["float32"] + qk / 989e12)
+    top = ", ".join(f"{k.replace('aten.', '').replace('.default', '')} {v}"
+                    for k, v in ops.most_common(8))
+    log(f"  decode step [{label}] ({card}): {host:.2f} ms eager on the host clock, "
+        f"{device:.3f} ms on the device (host share {1 - device / host:.0%}), {B} slots x {S} "
+        f"context + the {Senc}-key cross arenas; bound {bnd:.3f} ms ({by}: {weights / 1e9:.3f} "
+        f"GB of decoder weights and LM head, {cross / 1e9:.3f} GB of cross K/V, "
+        f"{self_kv / 1e9:.4f} GB of self K/V); {sum(ops.values())} eager PyTorch operations a "
+        f"step ({top}, ...)")
+    log(f"  admission [{label}] ({card}): {B} x {Senc} frames + {B} x {S} tokens, "
+        f"{adm_host:.2f} ms eager on the host clock, {adm_dev:.3f} ms on the device; bound "
+        f"{adm_bnd:.2f} ms ({lin_flops / 1e12:.2f} TFLOP of bf16 linears at 989 TFLOP/s, "
+        f"{qk / 1e12:.3f} TFLOP of f32 Q.K^T at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s "
+        f"and as much S.V in bf16)")
+    return dict(host=host, device=device, bound_ms=bnd, bound_by=by, ops=sum(ops.values()),
+                admit_host=adm_host, admit_device=adm_dev, admit_bound_ms=adm_bnd)
+
+
+def whisper_phase(torch, np, mods, counted, quantize, card, seed, new_tokens):
+    """Phase 16: whisper-large-v3 at its published widths and depth (32
+    encoder + 32 decoder layers, d 1280, 20 heads x 64, d_ff 5120, vocab
+    51866, enc_seq 1500; bf16 random weights from `seed`), served through
+    generate(extra_inputs={"frames": ...}), its one entry point (the
+    reference's ServingEngine cannot serve it): frames (4, 1500, 1280)
+    from `seed`, 4 prompts of 32..128 tokens (one length a drain, which
+    generate() needs), new_tokens new ones; drains exact, LUT and q1
+    (`quantize_params_int8` weights). Gates: each call's launches
+    (`EncdecWatch`), the cross arenas static, and `check_whisper_drain`'s.
+    Reported: the decode step and the admission on the host clock and the
+    device (`time_whisper`), exact and LUT; `ServingEngine` refusing the
+    family. Returns ({path: counts}, times)."""
+    from repro_torch.configs import get_config
+    api, SalPimConfig, SalPimEngine, EngineConfig, _, ServingEngine = mods[:6]
+    cfg = get_config("whisper_large_v3")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=seed, device="cuda")
+    n_params = check_param_count(params, cfg, cfg.name)
+    log(f"  {cfg.name} at full width and depth ({cfg.n_enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d {cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, enc_seq {cfg.enc_seq}): {n_params / 1e9:.3f} B "
+        f"parameters, {2 * n_params / 1e9:.2f} GB in bf16; random weights "
+        f"({time.perf_counter() - t0:.1f} s)")
+    try:
+        ServingEngine(params, cfg, SalPimEngine.create(), EngineConfig(slots=4, max_len=256),
+                      device="cuda")
+        raise AssertionError("ServingEngine served the encoder-decoder family")
+    except ValueError as e:
+        log(f"  ServingEngine refuses it: {e}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    frames = torch.randn((4, cfg.enc_seq, cfg.d_model), generator=gen, device="cuda").to(
+        cfg.cdtype)
+    rng = np.random.RandomState(seed + 16)
+    lens = [int(n) for n in rng.randint(32, 129, size=3)]
+    qparams = quantize.quantize_params_int8(params)
+    drains = [("whisper exact", params, "exact", "gemv_pim_float"),
+              ("whisper lut", params, "lut", "gemv_pim_float"),
+              ("whisper q1 int8 weights", qparams, "exact", "gemv_pim_int8_linear")]
+    toks = {label: torch.as_tensor(rng.randint(2, cfg.vocab, size=(4, n)), device="cuda")
+            for (label, *_), n in zip(drains, lens)}
+
+    def drive():
+        return {label: whisper_generate(torch, mods, p, cfg,
+                                        SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+                                        toks[label], frames, new_tokens, label, gemv=gemv)
+                for label, p, mode, gemv in drains}
+
+    runs, counts = counted(cfg.name, drive, ["gemv_pim_float", TC, "decode_attention",
+                                             "layernorm_lut", "softmax_lut",
+                                             "gemv_pim_int8_linear", TC8L, "gemv_pim_int8", TC8,
+                                             "quantize_int8_rows"])
+    gates = {}
+    for label, p, mode, gemv in drains:
+        out, watch, _ = runs[label]
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        gates[label] = check_whisper_drain(torch, api, p, cfg, sal, label, toks[label], frames,
+                                           out, watch, plain_gate=gemv != "gemv_pim_float")
+    del runs, qparams
+    torch.cuda.empty_cache()
+    times = {}
+    t_toks = torch.as_tensor(rng.randint(2, cfg.vocab, size=(4, 128)), device="cuda")
+    for mode in ("exact", "lut"):
+        times[f"whisper {mode}"] = time_whisper(
+            torch, api, params, cfg, SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
+            t_toks, frames, f"whisper {mode}", card, n_params)
+    del params
+    torch.cuda.empty_cache()
+    return {cfg.name: counts}, dict(times=times, gates=gates)
+
+
+def vlm_phase(torch, F, np, mods, counted, plain, quant, quantize, prompts, new_tokens, card,
+              seed):
+    """Phase 17: qwen2-vl-2B's text path at full width and depth (28
+    layers; qwen2's widths with M-RoPE sections (16, 24, 24); bf16 random
+    weights from `seed`): phase 4's 8 requests through the paged engine,
+    exact (phase 4's checks at every step), and generate() on 4 prompts of
+    128 tokens, exact; first logits of both against a one-shot plain
+    prefill within FIRST_LOGITS_LIMIT; then its decode step and chunk
+    (`time_model`). Returns ({path: counts}, times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import generate
+    api, SalPimConfig, SalPimEngine, _, GenConfig = mods[:5]
+    kernels = mods[-1]
+    cfg = get_config("qwen2_vl_2b")
+    params = api.init_params(cfg, seed=seed, device="cuda")
+    n_params = check_param_count(params, cfg, cfg.name)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads x {cfg.head_dim}, M-RoPE sections {cfg.mrope_sections}, vocab {cfg.vocab}: "
+        f"{n_params / 1e9:.3f} B parameters; the text path (M-RoPE's three streams each "
+        f"token's position)")
+    gen_prompts = np.random.RandomState(seed + 17).randint(2, cfg.vocab, size=(4, 128))
+    sal = SalPimEngine.create(SalPimConfig())
+
+    def drive():
+        return {"paged": serve(torch, mods, params, cfg, prompts, new_tokens, card,
+                               label="qwen2-vl exact"),
+                "generate": drive_generate(torch, generate, GenConfig, kernels, params, cfg,
+                                           sal, gen_prompts, new_tokens)}
+
+    runs, counts = counted(cfg.name, drive, ["gemv_pim_float", TC, "paged_attention",
+                                             "paged_prefill_attention", "decode_attention",
+                                             "layernorm_lut"])
+    _, done, first, _ = runs["paged"]
+    check_first_logits(torch, F, params, cfg, sal, prompts, done, first, "qwen2-vl exact", "fp",
+                       quant, quantize, plain)
+    logits, _ = api.prefill(params, {"tokens": torch.as_tensor(gen_prompts, device="cuda")},
+                            cfg, sal, max_len=129)
+    worst, agree = 0.0, 0
+    for b in range(len(gen_prompts)):
+        want = plain_prefill_logits(torch, F, params, cfg, sal, gen_prompts[b], quant, quantize,
+                                    plain, "dense")
+        worst = max(worst, rel_gap(logits[b], want))
+        agree += int(int(torch.argmax(want)) == int(runs["generate"][b, 0]))
+    log(f"  generate[qwen2-vl exact] first logits vs a plain one-shot prefill (dense): "
+        f"{worst:.3e} (limit {FIRST_LOGITS_LIMIT:.0e}); first tokens equal {agree}/"
+        f"{len(gen_prompts)}")
+    if worst > FIRST_LOGITS_LIMIT:
+        raise AssertionError(f"generate[qwen2-vl exact]: first logits differ by {worst:.3e}")
+    times = time_model(torch, api, params, cfg, sal, prompts, card, label="qwen2-vl exact")
+    del params, runs
+    torch.cuda.empty_cache()
+    return {cfg.name: counts}, times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5437,6 +6036,11 @@ def main() -> int:
     ssm_errs, ssm_kernel_times = time_ssm_kernels(torch, F, tlut, gemv_pim, layernorm_lut,
                                                   lut_interp, attn, softmax_lut, args.seed)
     for name, e in ssm_errs.items():
+        errs[name] = max(errs[name], e)
+    encdec_errs, encdec_kernel_times = time_encdec_kernels(torch, F, tlut, gemv_pim,
+                                                           layernorm_lut, attn, softmax_lut,
+                                                           args.seed)
+    for name, e in encdec_errs.items():
         errs[name] = max(errs[name], e)
 
     kernels, mods, plain = serving_handles(torch)
@@ -5720,14 +6324,28 @@ def main() -> int:
     counts_ssm, ssm_times = ssm_phase(torch, np, mods, counted, quantize, prompts,
                                       new_tokens, card, args.seed)
     log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
 
-    log("== 16. result")
+    log("== 16. encdec: whisper-large-v3 at full width and depth through generate()")
+    t16 = time.perf_counter()
+    counts_encdec, whisper = whisper_phase(torch, np, mods, counted, quantize, card, args.seed,
+                                           new_tokens)
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    log("== 17. vlm: qwen2-vl-2B's text path (M-RoPE) at full width")
+    t17 = time.perf_counter()
+    counts_vlm, vlm_ms = vlm_phase(torch, F, np, mods, counted, plain, quant, quantize, prompts,
+                                   new_tokens, card, args.seed)
+    log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    log("== 18. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
-                  *counts_moe.items(), *counts_ssm.items()]
+                  *counts_moe.items(), *counts_ssm.items(), *counts_encdec.items(),
+                  *counts_vlm.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -5759,6 +6377,8 @@ def main() -> int:
             row["qwen2_decode_step"] = model_times["gemv_pim_float"]
         if name in ssm_kernel_times:
             row["ssm_shapes"] = ssm_kernel_times[name]
+        if name in encdec_kernel_times:
+            row["encdec_shapes"] = encdec_kernel_times[name]
         if name in ("paged_attention", "paged_prefill_attention"):
             form = "decode" if name == "paged_attention" else "prefill"
             row["model_heads"] = {m: model_times[f"{m} heads"][form]
@@ -5793,6 +6413,14 @@ def main() -> int:
         + ", ".join(f"[{k}] {v['device']:.3f} ({v['host']:.2f}) / {v['admit_device']:.3f} "
                     f"({v['admit_host']:.2f}), {v['bound_ms']:.3f}" for k, v in ssm_times.items())
         + f" ({card})")
+    log(f"  whisper decode step (4 slots) / admission (4 x 1500 frames + 4 x 128 tokens), "
+        f"device ms (host clock ms), bounds ms: "
+        + ", ".join(f"[{k}] {v['device']:.3f} ({v['host']:.2f}) / {v['admit_device']:.2f} "
+                    f"({v['admit_host']:.2f}), {v['bound_ms']:.3f} / {v['admit_bound_ms']:.2f}"
+                    for k, v in whisper["times"].items()) + f" ({card})")
+    log(f"  qwen2-vl-2B decode step / 64-token chunk, device ms (host clock ms): "
+        f"{vlm_ms['dev_dec']:.2f} ({vlm_ms['dec']:.2f}) / {vlm_ms['dev_chunk']:.2f} "
+        f"({vlm_ms['chunk']:.2f}) ({card})")
     log(f"  swap of one request's 9 pages, host clock ms (blob bytes): "
         + ", ".join(f"[{k}] out {o:.3f}, in {i:.3f} ({b})" for k, (b, o, i) in swap_ms.items())
         + f" ({card})")

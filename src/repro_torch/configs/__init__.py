@@ -13,10 +13,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-# The models of the JAX package's registry that the port serves: the dense
-# and MoE families, and the SSM and hybrid families (the dense cache only).
+# The models of the JAX package's registry, all of which the port serves:
+# the dense (with the VLM's text path) and MoE families, and the SSM,
+# hybrid and encoder-decoder families (the dense cache only).
 ARCHS = ["qwen2_1_5b", "gemma2_2b", "nemotron_4_340b", "h2o_danube3_4b",
-         "gpt2_medium", "olmoe_1b_7b", "phi35_moe_42b", "mamba2_370m", "zamba2_1_2b"]
+         "gpt2_medium", "olmoe_1b_7b", "phi35_moe_42b", "mamba2_370m", "zamba2_1_2b",
+         "whisper_large_v3", "qwen2_vl_2b"]
 
 # Published names that do not map to a module by "-"/"." -> "_".
 ALIASES = {"h2o-danube-3-4b": "h2o_danube3_4b",

@@ -10,7 +10,11 @@ published widths (GPT-2 medium by default) with seeded random weights;
 `--smoke` (the default) the CPU-sized twin. `--device` is `cuda` unless
 the CPU is asked for. `--mode continuous` drains the requests through
 `ServingEngine` (the dense arena, `max_len` positions a slot); `--mode
-batch` runs `generate()` on prompts of 8 tokens.
+batch` runs `generate()` on prompts of 8 tokens. Every model of the
+registry serves (`--arch qwen2-vl-2b` on its text path) but the
+encoder-decoder one: `--arch whisper-large-v3` exits at once with
+`ServingEngine`'s refusal, which names `generate(...,
+extra_inputs={"frames": ...})` as its entry point.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch import configs as cfg_lib
 from repro_torch.core.salpim import SalPimConfig, SalPimEngine
 from repro_torch.models import api
 from repro_torch.serving.config import EngineConfig, GenConfig
-from repro_torch.serving.engine import ServingEngine, generate
+from repro_torch.serving.engine import ENCDEC_REFUSAL, ServingEngine, generate
 from repro_torch.serving.quantize import quantize_params_int8
 
 
@@ -48,6 +52,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = cfg_lib.get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        ap.error(ENCDEC_REFUSAL)
     if args.int8:
         cfg = dataclasses.replace(cfg, kv_dtype="int8")
     engine = SalPimEngine.create(SalPimConfig(

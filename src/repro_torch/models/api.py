@@ -1,9 +1,11 @@
 """Model API the serving engine and the tests use (the port of the dense
-and paged entry points of `repro.models.api`; the SSM and hybrid families
-have the dense ones only).
+and paged entry points of `repro.models.api`; the SSM, hybrid and
+encoder-decoder families have the dense ones only, and the paged ones
+raise the reference's ValueError for them).
 
     init_params(cfg, seed=0, device="cuda")
     prefill(params, {"tokens": tokens}, cfg, engine, max_len)
+    prefill(params, {"tokens": tokens, "frames": frames}, ...)   # encdec
     init_cache(cfg, batch, max_len, device="cuda")
     prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
                   k_scales=None, v_scales=None)
@@ -18,12 +20,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, seed=seed, device=device)
     return tf.init_params(cfg, seed=seed, device=device)
 
 
@@ -37,6 +42,8 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
     attending over all resident KV. Returns (last-position logits,
     k_pages, v_pages); int8/int4 pools pass their scale pools and get the
     5-tuple with them."""
+    if cfg.family == "encdec":
+        raise ValueError("paged prefill unsupported for encdec")
     return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
                             v_pages, cfg, engine, k_scales, v_scales)
 
@@ -60,13 +67,22 @@ def verify_tokens(params: dict, tokens: torch.Tensor,
 def prefill(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine,
             max_len: int):
     """batch["tokens"] (B, S) -> (last-position logits (B, V), a dense
-    `Cache` of max_len positions primed with the prompt)."""
+    `Cache` of max_len positions primed with the prompt). The
+    encoder-decoder family also takes batch["frames"] (B, enc_seq, D), the
+    stub frontend's embeddings; other keys (the VLM's "patch_embeds") are
+    ignored, as the reference's prefill ignores them."""
+    if cfg.family == "encdec":
+        return encdec.prefill(params, batch["frames"], batch["tokens"], cfg, engine,
+                              max_len=max_len)
     return tf.prefill(params, batch["tokens"], cfg, engine, max_len=max_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> tf.Cache:
     """Empty dense arena (L, batch, Hkv, max_len, Dh); int8 with bf16
-    scales when cfg.kv_dtype is "int8"."""
+    scales when cfg.kv_dtype is "int8"; the encoder-decoder's also holds
+    its cross arenas (L, batch, Hkv, enc_seq, Dh)."""
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, device=device)
     return tf.init_cache(cfg, batch, max_len, device=device)
 
 
@@ -74,6 +90,8 @@ def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
                 engine: SalPimEngine):
     """token (B,) -> (logits (B, V), the dense `Cache` or `PagedCache` with
     advanced lengths)."""
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, token, cache, cfg, engine)
     return tf.decode_step(params, token, cache, cfg, engine)
 
 
@@ -83,12 +101,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      kv_scale_dtype: str = "float32", *, device="cuda"):
     """Paged KV cache for the dense and MoE families (see
     serving/kvcache.py): kv_dtype None defers to cfg.kv_dtype ("model",
-    "int8" or "int4"). The SSM and hybrid families serve on the dense
-    cache alone and raise the reference's ValueError."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise ValueError(f"paged cache unsupported for family {cfg.family!r}")
+    "int8" or "int4"). The SSM, hybrid and encoder-decoder families serve
+    on the dense cache alone and raise the reference's ValueError."""
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"paged cache for family {cfg.family!r}")
+        raise ValueError(f"paged cache unsupported for family {cfg.family!r}")
     return kvcache.init_paged_cache(
         cfg, batch, num_pages, page_size, max_pages,
         kv_dtype=kv_dtype if kv_dtype is not None else cfg.kv_dtype,

@@ -10,7 +10,15 @@ JAX package; the softmax between them goes through the engine, the
 `softmax_lut` kernel in LUT mode. Decode over the dense arena runs the
 `decode_attention` kernel, which reads the int8 arena with its scale rows
 itself, bit for bit as the JAX package's whole-arena dequantization before
-the kernel (the plain version runs that dequantization)."""
+the kernel (the plain version runs that dequantization).
+
+Cross-attention (the encoder-decoder's): the full-sequence form takes
+`kv_x`, the encoder output, as the source of K and V, and the decode form
+with `update_cache=False` attends over a static arena (the cross K/V
+written at prefill) of `lengths` keys without writing it. There the new
+token's own K and V would be thrown away, as the reference throws them
+away, so only q is projected: a cross block's decode costs two GEMVs (q,
+o), not four."""
 from __future__ import annotations
 
 from typing import Optional
@@ -44,15 +52,18 @@ def init_attention(normal, zeros, cfg: ModelConfig, n_layers: int) -> dict:
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 engine: SalPimEngine):
-    """x (B, S, D) -> q (B, S, H, Dh), k/v (B, S, Hkv, Dh)."""
+                 engine: SalPimEngine, kv_x: Optional[torch.Tensor] = None):
+    """x (B, S, D) -> q (B, S, H, Dh), k/v (B, Skv, Hkv, Dh) projected from
+    kv_x (B, Skv, D), the cross-attention source, when given, else from x."""
     B, S, _ = x.shape
+    kv_in = x if kv_x is None else kv_x
+    Skv = kv_in.shape[1]
     q = engine.linear(x, p["wq"], p.get("bq"))
-    k = engine.linear(x, p["wk"], p.get("bk"))
-    v = engine.linear(x, p["wv"], p.get("bv"))
+    k = engine.linear(kv_in, p["wk"], p.get("bk"))
+    v = engine.linear(kv_in, p["wv"], p.get("bv"))
     return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+            k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim))
 
 
 def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -97,16 +108,20 @@ def _masked_softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_fullseq(p: dict, x: torch.Tensor, cfg: ModelConfig,
                       engine: SalPimEngine, *, cos=None, sin=None,
                       window: Optional[int] = None, causal: bool = True,
-                      return_kv: bool = False):
+                      kv_x: Optional[torch.Tensor] = None, return_kv: bool = False):
     """x (B, S, D) -> out (B, S, D), and with return_kv the K/V (K
-    rotated) in the arena layout (B, Hkv, S, Dh); cos/sin (S, Dh/2) or
-    None. Queries run in chunks of cfg.attn_chunk when S is longer than
-    and a multiple of it, as the JAX scan does."""
+    rotated) in the arena layout (B, Hkv, Skv, Dh); cos/sin (S, Dh/2) or
+    None. With kv_x (B, Skv, D), the cross-attention source, K and V are
+    projected from it, and K is not rotated (the reference rotates it only
+    by positions of the source, which no caller has). Queries run in
+    chunks of cfg.attn_chunk when S is longer than and a multiple of it,
+    as the JAX scan does."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, engine)
+    q, k, v = _project_qkv(p, x, cfg, engine, kv_x)
     if cos is not None:
         q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if kv_x is None:
+            k = apply_rope(k, cos, sin)
     chunk = cfg.attn_chunk
     if S > chunk and S % chunk == 0:
         out = torch.cat([
@@ -134,16 +149,39 @@ def attention_decode(
     cos: Optional[torch.Tensor] = None,  # (B, Dh/2) RoPE at each slot's length
     sin: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    update_cache: bool = True,
     kv_scales: Optional[tuple] = None,   # (k_scale, v_scale) (B, Hkv, Smax) bf16
 ):
     """One decode step against the dense arena: write each slot's K/V at
     its length (all at lengths[0] with cfg.decode_uniform), in place and,
     for the int8 arena, quantized with its bf16 scale; then attend over
-    length + 1 keys. Returns (out, cache_k, cache_v[, k_scale, v_scale])."""
+    length + 1 keys. Returns (out, cache_k, cache_v[, k_scale, v_scale]).
+    With update_cache=False the arena is static (cross-attention): only q
+    is projected, nothing is written, and each slot attends over its
+    `lengths` keys."""
     B, _ = x.shape
-    q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
     int8_kv = kv_scales is not None
-    if int8_kv:
+    if update_cache:
+        q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
+        _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg)
+        valid = lengths + 1
+    else:
+        q = engine.linear(x, p["wq"], p.get("bq")).reshape(B, cfg.n_heads, cfg.head_dim)
+        if cos is not None:
+            q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        valid = lengths
+    att = engine.decode_attention(q, cache_k, cache_v, valid,
+                                  *(kv_scales if int8_kv else ()), scale=_scale(cfg),
+                                  softcap=cfg.attn_softcap, window=window)
+    out = engine.linear(att.reshape(B, -1), p["wo"])
+    return (out, cache_k, cache_v, *(kv_scales if int8_kv else ()))
+
+
+def _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg: ModelConfig) -> None:
+    """Write each slot's new K/V (B, Hkv, Dh) at its length (all at
+    lengths[0] with cfg.decode_uniform), in place; quantized with its bf16
+    scale into the int8 arena when kv_scales are given."""
+    if kv_scales is not None:
         ksc, vsc = kv_scales
         (k_store, k_new_sc), (v_store, v_new_sc) = (quantize_vec(k, torch.bfloat16),
                                                     quantize_vec(v, torch.bfloat16))
@@ -156,16 +194,9 @@ def attention_decode(
         for dst, src in writes:
             dst.index_copy_(2, pos, src[:, :, None].to(dst.dtype))
     else:
-        b_idx = torch.arange(B, device=x.device)
+        b_idx = torch.arange(k.shape[0], device=k.device)
         for dst, src in writes:
             dst[b_idx, :, lengths.long()] = src.to(dst.dtype)
-    att = engine.decode_attention(q, cache_k, cache_v, lengths + 1,
-                                  *(kv_scales if int8_kv else ()), scale=_scale(cfg),
-                                  softcap=cfg.attn_softcap, window=window)
-    out = engine.linear(att.reshape(B, -1), p["wo"])
-    if int8_kv:
-        return out, cache_k, cache_v, ksc, vsc
-    return out, cache_k, cache_v
 
 
 def attention_prefill_chunk_paged(

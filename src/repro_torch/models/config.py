@@ -1,8 +1,9 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
 that the serving paths read (the paged pools and the dense arena of the
-dense and MoE families; the dense cache of the SSM and hybrid families),
-with the same names and defaults, and its analytic parameter counts (the
-roofline cost model's weight stream, `serving/costmodel.py`)."""
+dense and MoE families; the dense cache of the SSM, hybrid and
+encoder-decoder families), with the same names and defaults, and its
+analytic parameter counts (the roofline cost model's weight stream,
+`serving/costmodel.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,10 +18,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # the port serves "dense" (RoPE or learned
-                                     # positions), "moe", "ssm" (Mamba2) and
-                                     # "hybrid" (zamba2: Mamba2 + one shared
-                                     # attention block)
+    family: str                      # the port serves "dense" (RoPE, M-RoPE or
+                                     # learned positions), "moe", "ssm"
+                                     # (Mamba2), "hybrid" (zamba2: Mamba2 + one
+                                     # shared attention block) and "encdec"
+                                     # (whisper: an encoder over stub frames,
+                                     # a decoder with cross-attention)
     n_layers: int
     d_model: int
     n_heads: int
@@ -73,6 +76,11 @@ class ModelConfig:
     # hybrid (zamba2): the shared attention block runs before each segment
     # of hybrid_attn_every Mamba2 layers
     hybrid_attn_every: int = 0
+
+    # encdec (whisper): n_enc_layers encoder layers over enc_seq frame
+    # embeddings, the audio frontend's output, given precomputed
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
 
     # dtypes
     param_dtype: str = "bfloat16"
@@ -129,11 +137,14 @@ class ModelConfig:
         a layer, the embedding, the LM head and the final norm. A Mamba2
         layer counts in_proj, out_proj, the conv's weights, A_log, D, the
         gated norm and its block norm (not the conv bias or dt_bias); the
-        hybrid's shared attention block counts once. Learned positions,
-        linear biases other than QKV's and LayerNorm shifts are not
-        counted, as in the reference."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(f"family {self.family!r} is not ported yet")
+        hybrid's shared attention block counts once. An encoder-decoder
+        counts its encoder layers, its decoder layers with a second
+        (cross) attention and a third norm, and the encoder's positions
+        (enc_seq x d), but not the encoder's final norm. Learned decoder
+        positions, linear biases other than QKV's and LayerNorm shifts are
+        not counted, as in the reference."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+            raise ValueError(f"unknown model family {self.family!r}")
         d, v = self.d_model, self.vocab
         n_q = self.n_heads * self.head_dim
         n_kv = self.n_kv_heads * self.head_dim
@@ -152,9 +163,13 @@ class ModelConfig:
             blocks = self.n_layers * (ssm + d)
             if self.family == "hybrid":
                 blocks += attn + mlp + 2 * d
+        elif self.family == "encdec":
+            blocks = (self.n_enc_layers * (attn + mlp + 2 * d)
+                      + self.n_layers * (2 * attn + mlp + 3 * d))
         else:
             blocks = self.n_layers * (attn + mlp + 2 * d)
-        return v * d + blocks + v * d + d
+        enc_pos = self.enc_seq * d if self.family == "encdec" else 0
+        return v * d + enc_pos + blocks + v * d + d
 
     def active_param_count(self) -> int:
         """Parameters one token reads: all of them, less the experts it

@@ -2,7 +2,9 @@
 `decode_step`) and over a paged KV cache (`prefill_chunk`,
 `verify_tokens`, the paged `decode_step`): the port of the dense, MoE, SSM
 and hybrid families of `repro.models.transformer` (an MoE block's FFN is
-`models/moe.py`, a Mamba2 block `models/mamba2.py`).
+`models/moe.py`, a Mamba2 block `models/mamba2.py`). The encoder-decoder
+family is `models/encdec.py` on this module's `Cache`; `models/api.py`
+dispatches to it.
 
 The SSM family (mamba2) is a stack of `{"norm", "mamba"}` blocks; the
 hybrid (zamba2) runs one shared, unstacked attention + MLP block
@@ -20,6 +22,9 @@ Positions are learned (`pos_embed`, GPT-2) or rotary: each entry point
 computes RoPE's cos/sin once (`_rope`: over arange(S) for the dense
 prefill, start + arange(S) per sequence for a paged chunk, the cache
 lengths for a decode step) and every layer rotates its q and k with them.
+With M-RoPE (qwen2-vl, `cfg.mrope_sections`) `_rope` broadcasts those
+positions to the three streams (temporal, height, width) of the text
+path, as the reference does, on every path alike.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.rope import rope_cos_sin
+from repro_torch.models.rope import mrope_cos_sin, rope_cos_sin
 from repro_torch.serving.kvcache import PagedCache
 from repro_torch.serving.quantize import QTensor, quantize_vec
 
@@ -54,6 +59,9 @@ class Cache:
     conv:             (L, B, K-1, d_inner+2N)   Mamba2 conv window, compute dtype
     shared_k/v:       (A, B, Hkv, Smax, Dh)     the hybrid's shared block's KV,
                                                 one arena an application
+    cross_k/v:        (L, B, Hkv, Senc, Dh)     the encoder-decoder's cross-
+                                                attention K/V, compute dtype,
+                                                written at prefill, static after
     """
 
     lengths: torch.Tensor
@@ -65,6 +73,8 @@ class Cache:
     conv: Optional[torch.Tensor] = None
     shared_k: Optional[torch.Tensor] = None
     shared_v: Optional[torch.Tensor] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -72,17 +82,17 @@ class Cache:
 
 
 _SSM_FAMILIES = ("ssm", "hybrid")
+# The families that serve on the dense cache alone, as in the reference.
+_DENSE_ONLY_FAMILIES = (*_SSM_FAMILIES, "encdec")
 
 
 def _check_supported(cfg: ModelConfig, paged: Optional[str] = None) -> None:
-    """Refuse what the port does not serve: encdec and M-RoPE; and, when
-    `paged` names a paged entry point's structure, the SSM and hybrid
-    families with the reference's ValueError."""
-    if cfg.family not in ("dense", "moe", *_SSM_FAMILIES):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (the VLM path) is not ported yet")
-    if paged is not None and cfg.family in _SSM_FAMILIES:
+    """Refuse a family the JAX registry does not have; and, when `paged`
+    names a paged entry point's structure, the SSM, hybrid and
+    encoder-decoder families with the reference's ValueError."""
+    if cfg.family not in ("dense", "moe", *_DENSE_ONLY_FAMILIES):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    if paged is not None and cfg.family in _DENSE_ONLY_FAMILIES:
         raise ValueError(f"{paged} unsupported for family {cfg.family!r}")
 
 
@@ -167,10 +177,13 @@ def _layers(blocks: dict, n_layers: int) -> list[dict]:
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
     """positions (...,) -> cos/sin (..., Dh/2), (None, None) with learned
-    positions and in the SSM family, which has no attention (M-RoPE is
-    refused by `_check_supported`)."""
+    positions and in the SSM family, which has no attention. With M-RoPE
+    the text positions drive all three streams."""
     if cfg.learned_pos_emb or cfg.family == "ssm":
         return None, None
+    if cfg.mrope_sections is not None:
+        pos3 = positions[None].expand((3, *positions.shape))
+        return mrope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
     return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 

@@ -4,7 +4,12 @@
 `generate(params, prompts, cfg, engine, gen)` runs one prefill over a
 batch of prompts into a dense arena of S + max_new_tokens + 1 positions,
 then max_new_tokens decode steps in a Python loop (the JAX package's
-`lax.scan`), sequences that hit EOS padding with EOS.
+`lax.scan`), sequences that hit EOS padding with EOS. `extra_inputs` joins
+the prefill's batch: the encoder-decoder family (whisper) serves through
+`generate(..., extra_inputs={"frames": frames})` alone, and
+`ServingEngine` refuses it (`ENCDEC_REFUSAL`), since the reference's
+dense admission prefills without frames and its paged cache refuses the
+family.
 
 `ServingEngine` batches requests continuously over a fixed decode batch
 width of `slots`, in one of two modes.
@@ -99,6 +104,11 @@ from repro_torch.serving.telemetry import NULL_TELEMETRY, Telemetry
 __all__ = ["EngineConfig", "GenConfig", "Request", "ServingEngine", "generate"]
 
 
+ENCDEC_REFUSAL = ("ServingEngine does not serve the encoder-decoder family (its prefill "
+                  "needs the frames): use generate(params, prompts, cfg, engine, gen, "
+                  "extra_inputs={\"frames\": frames})")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -106,13 +116,16 @@ def _sync(device: torch.device) -> None:
 
 def generate(params: dict, prompts: torch.Tensor, model_cfg: ModelConfig,
              engine: SalPimEngine, gen: GenConfig, *,
+             extra_inputs: Optional[dict] = None,
              generator: Optional[torch.Generator] = None,
              device="cuda") -> tuple[torch.Tensor, dict]:
     """prompts (B, S) -> (generated tokens (B, max_new_tokens) int32, stats).
 
     One prefill over the batch, then one decode step a token over the
     dense arena; a sequence that emitted EOS (with `stop_on_eos`) keeps
-    emitting EOS. Sampling draws from `generator` (a seeded one when None),
+    emitting EOS. `extra_inputs` (the encoder-decoder's {"frames": (B,
+    enc_seq, D)}, a tensor or an array) joins the prefill's batch.
+    Sampling draws from `generator` (a seeded one when None),
     so only greedy decoding matches the JAX package token for token.
     stats: prefill_sec, decode_sec, sec_per_token (decode time a sequence
     per real token), tokens (up to and including each first EOS),
@@ -125,8 +138,8 @@ def generate(params: dict, prompts: torch.Tensor, model_cfg: ModelConfig,
         generator = torch.Generator(device=dev).manual_seed(0)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model_api.prefill(params, {"tokens": prompts}, model_cfg, engine,
-                                      max_len=S + T + 1)
+    batch = {"tokens": prompts, **(extra_inputs or {})}
+    logits, cache = model_api.prefill(params, batch, model_cfg, engine, max_len=S + T + 1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -226,6 +239,8 @@ class ServingEngine:
     def __init__(self, params: dict, model_cfg: ModelConfig,
                  engine: SalPimEngine, config: EngineConfig, *,
                  device="cuda"):
+        if model_cfg.family == "encdec":
+            raise ValueError(ENCDEC_REFUSAL)
         config.validate(model_cfg)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:

@@ -2,9 +2,13 @@
 
   * `models/rope.py`: `rope_freqs`, `rope_cos_sin`, `mrope_cos_sin` and
     `apply_rope` (f32 and bf16) against `repro.models.rope` on the same
-    numpy-seeded inputs; text-only M-RoPE equals RoPE;
-  * the four RoPE smoke configs (`qwen2_1_5b`, `gemma2_2b`,
-    `h2o_danube3_4b`, `nemotron_4_340b`), the JAX weights carried across
+    numpy-seeded inputs; text-only M-RoPE equals RoPE; `transformer._rope`
+    with M-RoPE (positions broadcast to the three streams) within 1e-6 of
+    the JAX `_rope` at the dense prefill's, a chunk's and a decode step's
+    positions;
+  * the five RoPE smoke configs (`qwen2_1_5b`, `gemma2_2b`,
+    `h2o_danube3_4b`, `nemotron_4_340b` and `qwen2_vl_2b`, the VLM's text
+    path on M-RoPE), the JAX weights carried across
     by `bridge.params_from_numpy`: the registry's fields equal the JAX
     package's; the parameter tree has the JAX keys (no `pos_embed`); the
     logits of a paged chunk prefill (two chunks) and of the dense prefill,
@@ -14,10 +18,14 @@
     pools and with `kv_splits`) and dense (`generate()` and
     `ServingEngine(paged=False)`), on prompts long enough that the smoke
     sliding window of 16 cuts keys;
-  * `_check_supported` still refuses the SSM, hybrid, encoder-decoder and
-    M-RoPE (VLM) configs of the JAX registry (the MoE family is served,
-    tests/test_torch_moe.py), and an MoE config's expert-parallel
-    `moe_impl="shardmap"` still finds `mesh=` refused.
+  * qwen2-vl-2b smoke on the paged engine's other paths (int8 and int4
+    pools, the KV split, `ngram` speculation with prefix sharing, the SLO
+    scheduler, telemetry) token for token with the JAX engine;
+  * `_check_supported` serves every family of the JAX registry, refuses
+    an unknown one, and refuses the paged entry points for the
+    encoder-decoder family (tests/test_torch_encdec.py), and an MoE
+    config's expert-parallel `moe_impl="shardmap"` still finds `mesh=`
+    refused.
 """
 from __future__ import annotations
 
@@ -33,6 +41,10 @@ from repro.configs import get_config as jax_get_config
 from repro.core.salpim import SalPimConfig, SalPimEngine
 from repro.models import api as jax_api
 from repro.models import rope as jrope
+from repro.models import transformer as jtf
+from repro.serving import scheduler as jsched
+from repro.serving import telemetry as jtel
+from repro.serving.speculative import SpecConfig as JaxSpecConfig
 from repro.serving import engine as jengine
 from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.config import GenConfig as JaxGenConfig
@@ -44,8 +56,11 @@ from repro_torch.models import api, rope, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import engine as tengine
 from repro_torch.serving.config import EngineConfig, GenConfig
+from repro_torch.serving.scheduler import SloScheduler
+from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.telemetry import Telemetry
 
-ROPE_MODELS = ["qwen2_1_5b", "gemma2_2b", "h2o_danube3_4b", "nemotron_4_340b"]
+ROPE_MODELS = ["qwen2_1_5b", "gemma2_2b", "h2o_danube3_4b", "nemotron_4_340b", "qwen2_vl_2b"]
 LOGIT_TOL = 1e-4
 PAGE, N_PAGES, MAX_PAGES = 4, 24, 10
 
@@ -121,6 +136,23 @@ def test_mrope_matches_jax_and_text_mrope_equals_rope():
         c1, s1 = rope.rope_cos_sin(pos, hd, 1e6)
         c2, s2 = rope.mrope_cos_sin(pos[None].expand(3, 13), hd, 1e6, sections)
         assert torch.equal(c1, c2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("shape", [(40,), (3,), (2, 9)])
+def test_mrope_rope_helper_matches_jax(smoke, shape):
+    """`transformer._rope` of qwen2-vl-2b (M-RoPE) at the positions of a
+    dense prefill (S,), a decode step (B,) and a paged chunk (B, S):
+    cos/sin within 1e-6 of the JAX `_rope`, which broadcasts the text
+    positions to the three streams."""
+    cfg, jcfg = get_config("qwen2_vl_2b", smoke=smoke), jax_get_config("qwen2_vl_2b",
+                                                                      smoke=smoke)
+    pos = np.random.RandomState(len(shape)).randint(0, 4000, size=shape).astype(np.int32)
+    tc, ts = transformer._rope(cfg, torch.from_numpy(pos))
+    jc, js = jtf._rope(jcfg, jnp.asarray(pos))
+    assert tuple(tc.shape) == (*shape, cfg.head_dim // 2)
+    _close(tc, jc, 1e-6)
+    _close(ts, js, 1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +281,11 @@ def _same_tokens(got, want):
         assert g == w, f"request {i} differs first at token {k}: {g} != {w}"
 
 
-def _drain_both(model, mode="exact", **kw):
+def _drain_both(model, mode="exact", jkw=None, tkw=None, **kw):
     """The same requests through the JAX and the port's ServingEngine (2
-    slots, max_len 40): the same greedy tokens, every page back."""
+    slots, max_len 40): the same greedy tokens, every page back. `jkw` and
+    `tkw` go to one side's EngineConfig alone (each package's own
+    speculative, scheduler or telemetry object)."""
     name, jcfg, jparams, cfg, tparams = model
     rng = np.random.RandomState(7)
     prompts = [rng.randint(2, jcfg.vocab, size=n) for n in LENS]
@@ -260,10 +294,12 @@ def _drain_both(model, mode="exact", **kw):
         kw = dict(dict(page_size=PAGE, prefix_sharing=False), **kw)
     jeng, teng = _engines(mode)
     want = _drain(jengine.ServingEngine(
-        jparams, jcfg, jeng, JaxEngineConfig(gen=JaxGenConfig(stop_on_eos=False), **kw)),
+        jparams, jcfg, jeng, JaxEngineConfig(gen=JaxGenConfig(stop_on_eos=False), **kw,
+                                             **(jkw or {}))),
         prompts, NEW)
     eng = tengine.ServingEngine(tparams, cfg, teng,
-                                EngineConfig(gen=GenConfig(stop_on_eos=False), **kw),
+                                EngineConfig(gen=GenConfig(stop_on_eos=False), **kw,
+                                             **(tkw or {})),
                                 device="cpu")
     _same_tokens(_drain(eng, prompts, NEW), want)
     assert eng.stats()["tokens"] == sum(NEW)
@@ -320,19 +356,75 @@ def test_qwen2_split_decode_drain_matches_jax_engine(qwen2):
     assert eng.engine.config.kv_splits == 4 and eng.max_pages * 16 >= 1024
 
 
+@pytest.fixture(scope="module")
+def qwen2_vl():
+    jcfg = jax_get_config("qwen2_vl_2b", smoke=True)
+    jparams = jax_api.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    return "qwen2_vl_2b", jcfg, jparams, get_config("qwen2_vl_2b", smoke=True), tparams
+
+
+def _telemetry_pair():
+    clock = [iter(np.arange(1e6) * 1e-3) for _ in range(2)]
+    return (dict(telemetry=jtel.Telemetry(enabled=True, clock=lambda: float(next(clock[0])))),
+            dict(telemetry=Telemetry(enabled=True, clock=lambda: float(next(clock[1])))))
+
+
+# qwen2-vl-2b on the paged engine's other paths: (nonlinear mode, the
+# options both engines take, a function of no arguments giving each side's
+# own objects (JAX's, the port's)).
+VL_PATHS = {
+    "int8/f32 pools, chunks of 8": ("exact", dict(kv_cache_dtype="int8",
+                                                  prefill_chunk_tokens=8), None),
+    "int4/bf16 pools, lut": ("lut", dict(kv_cache_dtype="int4", kv_scale_dtype="bfloat16"),
+                             None),
+    "kv_splits=4 at max_len 1024": ("exact", dict(max_len=1024, page_size=16, kv_splits=4,
+                                                  prefill_chunk_tokens=8), None),
+    "ngram k=4 with sharing": ("exact", dict(prefix_sharing=True, prefill_chunk_tokens=8),
+                               lambda: (dict(speculative=JaxSpecConfig(mode="ngram", k=4)),
+                                        dict(speculative=SpecConfig(mode="ngram", k=4)))),
+    "slo on 12 pages": ("exact", dict(num_pages=12, prefill_chunk_tokens=8),
+                        lambda: (dict(scheduler=jsched.SloScheduler()),
+                                 dict(scheduler=SloScheduler()))),
+    "telemetry": ("exact", dict(prefill_chunk_tokens=8), _telemetry_pair),
+}
+
+
+@pytest.mark.parametrize("path", list(VL_PATHS))
+def test_qwen2_vl_serving_paths_match_jax_engine(qwen2_vl, path):
+    """The VLM's text path on the paged engine's paths beyond those of the
+    ROPE_MODELS drains: token for token with the JAX engine, every page
+    back (telemetry: the same counters)."""
+    mode, kw, sides = VL_PATHS[path]
+    jkw, tkw = sides() if sides is not None else (None, None)
+    eng = _drain_both(qwen2_vl, mode, jkw=jkw, tkw=tkw, paged=True, **kw)
+    if "telemetry" in path:
+        got = tkw["telemetry"].snapshot()["counters"]
+        want = jkw["telemetry"].snapshot()["counters"]
+        assert got == want and got
+    if "kv_cache_dtype" in kw:
+        assert eng.cache.quantized
+
+
 @pytest.mark.parametrize("name", ["whisper_large_v3", "qwen2_vl_2b"])
 def test_check_supported_refuses_other_families(name):
-    """The encoder-decoder family and M-RoPE (the VLM's dense config) stay
-    refused: the port's config built from the JAX config's fields it
-    carries."""
+    """The port's config built from the JAX config's fields it carries:
+    served (the encoder-decoder family and M-RoPE, the VLM's text path,
+    were the last two families refused); a family the JAX registry does
+    not have is refused, and the encoder-decoder family is refused on the
+    paged entry points, as the reference refuses it there."""
     jcfg = jax_get_config(name, smoke=True)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError):
-        transformer._check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        api.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config(name)
+    assert cfg == get_config(name, smoke=True)
+    transformer._check_supported(cfg)
+    assert api.init_params(cfg, device="cpu")["embed"].shape == (cfg.vocab, cfg.d_model)
+    with pytest.raises(ValueError, match="unknown model family"):
+        transformer._check_supported(dataclasses.replace(cfg, family="vlm"))
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="paged prefill unsupported"):
+            transformer._check_supported(cfg, paged="paged prefill")
+    else:
+        transformer._check_supported(cfg, paged="paged prefill")
 
 
 @pytest.mark.parametrize("paged", [True, False])
