@@ -270,7 +270,16 @@ Run from the root of a checkout. Phases, each of which fails the run:
               paged engine, exact, with phase 4's checks, and generate() on
               4 prompts of 128 tokens; first logits against a one-shot
               plain prefill; its decode step and chunk timed;
- 18. the kernels line, a JSON object with each kernel's error, times,
+ 18. train  — GPT-2 medium at full width and depth (bf16, remat "block")
+              on batches of 8 x 1024 tokens: the three backward kernels
+              (lut_interp_backward bit for bit on (8192, 4096) bf16,
+              layernorm_lut_backward on (8192, 1024) bf16 exact and LUT,
+              softmax_lut_backward on (8*16*1024, 1024) f32 causal) against
+              their plain twins and timed; one step's loss and gradients,
+              exact and LUT, through the kernels against the plain path;
+              `run_training` in LUT mode, 4 AdamW steps, and a resume from
+              its step-2 checkpoint against the straight run;
+ 19. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -392,8 +401,17 @@ SOURCE = {
     # and int8_linear's quantization of x) in one CUDA kernel.
     "quantize_int8_rows": ("src/repro_torch/kernels/csrc/gemv_pim_quant.cu",
                            "src/repro/core/quant.py:125"),
+    # Not TPU kernels: the gradients the JAX package takes by XLA's autodiff
+    # of its LUT functions (apply_table, Nonlinear.layernorm, softmax).
+    "lut_interp_backward": ("src/repro_torch/kernels/csrc/backward.cu",
+                            "src/repro/core/lut.py:121"),
+    "layernorm_lut_backward": ("src/repro_torch/kernels/csrc/backward.cu",
+                               "src/repro/core/nonlinear.py:110"),
+    "softmax_lut_backward": ("src/repro_torch/kernels/csrc/backward.cu",
+                             "src/repro/core/nonlinear.py:98"),
 }
-NOT_TPU_KERNELS = {"quantize_int8_rows"}
+NOT_TPU_KERNELS = {"quantize_int8_rows", "lut_interp_backward", "layernorm_lut_backward",
+                   "softmax_lut_backward"}
 # The model's GEMV shapes (R, C): q/k/v/o projections, w_up, w_down, LM head.
 QUANT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (50257, 1024)]
 # The RoPE models' attention shapes: (model, g = query heads a kv head,
@@ -2892,6 +2910,9 @@ def serving_handles(torch):
                "layernorm_lut": layernorm_lut.layernorm_lut,
                "lut_interp": lut_interp.lut_interp,
                "quantize_int8_rows": gemv_pim.quantize_int8_rows,
+               "lut_interp_backward": lut_interp.lut_interp_backward,
+               "layernorm_lut_backward": layernorm_lut.layernorm_lut_backward,
+               "softmax_lut_backward": softmax_lut.softmax_lut_backward,
                TC: TcCounter(gemv_pim.gemv_pim_float),
                TC8: TcCounter(gemv_pim.gemv_pim_int8),
                TC8L: TcCounter(gemv_pim.gemv_pim_int8_linear),
@@ -5945,6 +5966,324 @@ def vlm_phase(torch, F, np, mods, counted, plain, quant, quantize, prompts, new_
     return {cfg.name: counts}, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training on one card
+# ---------------------------------------------------------------------------
+
+def time_events(torch, fn, reps: int = 5) -> float:
+    """Median ms of `fn()` between two CUDA events, after one warm-up call
+    (for calls that run autograd, which a CUDA graph does not capture)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def autograd_of(torch, f, inputs, dy):
+    """The gradients of f(*inputs) against dy by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(f(*leaves), leaves, dy)
+
+
+def check_backward_kernels(torch, F, tlut, layernorm_lut, lut_interp, softmax_lut, card, seed):
+    """Phase 18 (a): the three backward kernels against their plain twins
+    at the training path's shapes (GPT-2 medium, batch 8 x seq 1024):
+    `lut_interp_backward` on w_up's (8192, 4096) bf16 LUT GELU, bit for
+    bit; `layernorm_lut_backward` on (8192, 1024) bf16 LayerNorm rows with
+    beta, exact and LUT rsqrt (3e-2); `softmax_lut_backward` on the
+    (8*16*1024, 1024) f32 causal LUT softmax of one layer (1e-5). Each is
+    timed beside its plain twin (autograd of the plain version), the
+    library's counterpart (autograd of F.gelu, F.layer_norm,
+    torch.softmax) and its bound. Returns (errs, times)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    bank = tlut.LutBank.create(64)
+    errs, times = {}, {}
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    # The LUT GELU's slope kernel.
+    x, dy = randn(8192, 4096, std=3.0), randn(8192, 4096)
+    got = lut_interp.lut_interp_backward(x, dy, bank.gelu)
+    torch.cuda.synchronize()
+    want = lut_interp.lut_interp_backward_plain(x, dy, bank.gelu)
+    off = int((got != want).sum())
+    log(f"  lut_interp_backward (8192, 4096) bf16 GELU: {off} of {got.numel()} elements off "
+        "the plain twin's bits")
+    if off:
+        raise AssertionError("lut_interp_backward is not bit for bit its plain twin")
+    errs["lut_interp_backward"] = 0.0
+    ms = time_graph(torch, lambda i: lut_interp.lut_interp_backward(x, dy, bank.gelu), 4)
+    plain = time_events(torch, lambda: lut_interp.lut_interp_backward_plain(x, dy, bank.gelu))
+    lib = time_events(torch, lambda: autograd_of(
+        torch, lambda t: F.gelu(t, approximate="tanh"), [x], dy))
+    bnd, by = bound_ms(3 * x.numel() * 2, 2 * x.numel(), "bfloat16")
+    times["lut_interp_backward"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+        shape="(8192, 4096) bf16, w_up's LUT GELU at batch 8 x seq 1024; library: autograd "
+              "of F.gelu(tanh)")
+    log(f"  lut_interp_backward [(8192, 4096) bf16]: {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"autograd of F.gelu {lib:.4f} ms, bound {bnd:.4f} ms ({by}) ({card})")
+
+    # The LayerNorm's backward, exact and LUT rsqrt.
+    n, d = 8192, 1024
+    x, dy = randn(n, d, std=2.0), randn(n, d)
+    g, b = randn(d, std=0.2) + 1.0, randn(d, std=0.2)
+    worst, row = 0.0, None
+    for mode, table in (("exact", None), ("lut", bank.rsqrt)):
+        kw = dict(eps=1e-5, rsqrt_table=table)
+        got = layernorm_lut.layernorm_lut_backward(x, g, b, dy, **kw)
+        torch.cuda.synchronize()
+        want = layernorm_lut.layernorm_lut_backward_plain(x, g, b, dy, **kw)
+        for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+            worst = max(worst, compare(torch, f"layernorm_lut_backward {mode} {name}", a, w,
+                                       TOL["bfloat16"]))
+        again = layernorm_lut.layernorm_lut_backward(x, g, b, dy, **kw)
+        if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+            raise AssertionError("layernorm_lut_backward: dgamma/dbeta differ between runs")
+        ms = time_graph(torch, lambda i: layernorm_lut.layernorm_lut_backward(x, g, b, dy, **kw),
+                        4)
+        plain = time_events(torch, lambda: layernorm_lut.layernorm_lut_backward_plain(
+            x, g, b, dy, **kw))
+        log(f"  layernorm_lut_backward [({n}, {d}) bf16, beta, {mode}]: within "
+            f"{TOL['bfloat16']:.0e} of the plain twin, dgamma/dbeta the same bits twice; "
+            f"{ms:.4f} ms, plain {plain:.4f} ms ({card})")
+        if mode == "lut":
+            lib = time_events(torch, lambda: autograd_of(
+                torch, lambda t, gg, bb: F.layer_norm(t, (d,), gg, bb, 1e-5), [x, g, b], dy))
+            bnd, by = bound_ms(3 * n * d * 2 + 4 * d * 2, 10 * n * d, "bfloat16")
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                       shape=f"({n}, {d}) bf16 LayerNorm with beta, LUT rsqrt (dx, dgamma, "
+                             "dbeta); library: autograd of F.layer_norm")
+            log(f"  layernorm_lut_backward: autograd of F.layer_norm {lib:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by}) ({card})")
+    errs["layernorm_lut_backward"] = worst
+    times["layernorm_lut_backward"] = row
+
+    # The causal LUT softmax of one layer's scores (f32).
+    B, H, S = 8, 16, 1024
+    x = randn(B, H, S, S, std=2.0, dtype=torch.float32)
+    dy = randn(B, H, S, S, dtype=torch.float32)
+    kw = dict(q_offset=0, causal=True, window=None)
+    got = softmax_lut.softmax_lut_backward(x, dy, bank.exp, bank.recip, **kw)
+    torch.cuda.synchronize()
+    want = softmax_lut.softmax_lut_backward_plain(x, dy, bank.exp, bank.recip, **kw)
+    errs["softmax_lut_backward"] = compare(torch, "softmax_lut_backward", got, want, 1e-5)
+    del got, want
+    ms = time_graph(torch, lambda i: softmax_lut.softmax_lut_backward(
+        x, dy, bank.exp, bank.recip, **kw), 2)
+    plain = time_events(torch, lambda: softmax_lut.softmax_lut_backward_plain(
+        x, dy, bank.exp, bank.recip, **kw), reps=3)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+
+    def library():
+        return autograd_of(torch, lambda t: torch.softmax(t.masked_fill(~mask, -torch.inf), -1),
+                           [x], dy)
+    lib = time_events(torch, library, reps=3)
+    visible = B * H * S * (S + 1) // 2
+    bnd, by = bound_ms(2 * visible * 4 + x.numel() * 4, 6 * visible, "float32")
+    times["softmax_lut_backward"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+        shape=f"({B}*{H}*{S}, {S}) f32 causal, one layer's scores at batch 8 x seq 1024; "
+              "bound on the visible keys; library: autograd of a masked torch.softmax")
+    log(f"  softmax_lut_backward [({B}*{H}*{S}, {S}) f32 causal]: within "
+        f"1e-05 of the plain twin (max {errs['softmax_lut_backward']:.3e}); "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, autograd of torch.softmax {lib:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by}) ({card})")
+    del x, dy
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+@contextlib.contextmanager
+def plain_training(mode):
+    """Every kernel of the training path held to its plain version: the
+    `ops` entries plain (`plain_ops`) and no autograd Function, so that
+    autograd differentiates the plain versions themselves."""
+    from repro_torch.core import nonlinear
+    route = nonlinear.autograd_route
+    nonlinear.autograd_route = lambda *a: False
+    try:
+        with plain_ops(mode):
+            yield
+    finally:
+        nonlinear.autograd_route = route
+
+
+def train_phase(torch, np, mods, counted, card, seed, cfg=None, B=8, S=1024, device="cuda"):
+    """Phase 18: training GPT-2 medium at full width and depth (24 layers,
+    d 1024, vocab 50257; bf16, remat "block") on batches of 8 x 1024
+    tokens from `data.tokens`. (b) one step's loss and gradients, exact
+    and LUT, through the kernels against the plain path on the same
+    parameters and batch (loss and global gradient norm within 3e-2;
+    each leaf's largest gap reported); (c) `run_training` in LUT mode, 4
+    AdamW steps (the losses finite; s/step, tokens/s, peak memory, each
+    kernel's launches a step), saving at step 2; (d) a second
+    `run_training` from that checkpoint runs steps 3-4, against the
+    straight run (the embedding's backward adds with atomics on the card,
+    so the gap is gated at 1e-3 and whether it is bit for bit is said).
+    (`cfg`, `B`, `S` and `device` let the phase be rehearsed small on
+    the CPU.) Returns ({path: counts}, summary)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.runtime import optimizer as opt
+    from repro_torch.runtime.train_loop import (TrainConfig, batch_to_device, make_train_step,
+                                                run_training)
+    api, SalPimConfig, SalPimEngine = mods[:3]
+    cfg = cfg or get_config("gpt2_medium")
+    cuda = device == "cuda"
+    dcfg = data_lib.data_config_for_model(cfg, S, B, seed=seed)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}, remat {cfg.remat!r}; batch {B} x {S} tokens")
+
+    # (b) one step, kernels against the plain path; and the plain path
+    # against itself with the embeddings moved one bf16 step, the size of
+    # the gaps that bf16 rounding alone makes (a LUT's gradient is
+    # piecewise constant, and a softmax row's max takes a share of the
+    # row's gradient, so one rounding can move a section or a max).
+    t_b = time.perf_counter()
+    params = api.init_params(cfg, seed=seed, device=device)
+    batch = batch_to_device(data_lib.batch_at(dcfg, 0), device)
+    moved = dict(params, embed=(params["embed"].float() * (1 + 2 ** -8)).to(cfg.pdtype))
+    summary = {}
+
+    def by_leaf(ga, gb):
+        gaps = {key: float((a.float() - w.float()).abs().max()
+                           / w.float().abs().max().clamp_min(1e-30))
+                for key, a, w in zip(named_leaves(ga), opt.tree_leaves(ga), opt.tree_leaves(gb))}
+        return sorted(gaps.items(), key=lambda kv: -kv[1])
+
+    for mode in ("exact", "lut"):
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+
+        def loss_fn(p, b):
+            return api.loss_fn(p, b, cfg, sal)
+
+        (lk, _), gk = opt.value_and_grad(loss_fn, params, batch)
+        nk = float(opt.global_norm(gk))
+        with plain_training(mode):
+            (lp, _), gp = opt.value_and_grad(loss_fn, params, batch)
+            (_, _), gq = opt.value_and_grad(loss_fn, moved, batch)
+        np_ = float(opt.global_norm(gp))
+        top, own = by_leaf(gk, gp), by_leaf(gq, gp)
+        del gk, gp, gq
+        dl, dn = abs(float(lk) - float(lp)) / abs(float(lp)), abs(nk - np_) / np_
+        log(f"  step[{mode}]: loss {float(lk):.6f} (plain {float(lp):.6f}, gap {dl:.3e}); global "
+            f"grad norm {nk:.6f} (plain {np_:.6f}, gap {dn:.3e}); limit 3e-2 each")
+        log(f"  step[{mode}] largest relative grad gap by leaf (max |kernel - plain| / max "
+            f"|plain|; reported): " + ", ".join(f"{k} {v:.3e}" for k, v in top))
+        log(f"  step[{mode}] the plain path against itself, embeddings one bf16 step apart "
+            f"(reported): " + ", ".join(f"{k} {v:.3e}" for k, v in own)
+            + " (bk's gradient is 0 in exact arithmetic: rounding noise on both sides)")
+        summary[f"gap_{mode}"] = (dl, dn, top, own)
+        if not (dl <= 3e-2 and dn <= 3e-2) or not np.isfinite(float(lk)):
+            raise AssertionError(f"step[{mode}]: kernels part from the plain path")
+    del params, moved, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"  (b) took {time.perf_counter() - t_b:.1f} s")
+
+    # (c) + (d): run_training in LUT mode, a straight run and a resumed one.
+    sal = SalPimEngine.create(SalPimConfig(nonlinear_mode="lut"))
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+    runs = {}
+
+    def drive():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            runs["base"] = torch.cuda.memory_allocated()
+        tc = TrainConfig(steps=4, ckpt_dir=str(root / "straight"), ckpt_every=2, keep=2,
+                         log_every=1, async_ckpt=False)
+        runs["straight"] = run_training(cfg, tc, ocfg, dcfg, engine=sal, seed=seed,
+                                        device=device)
+        runs["peak"] = torch.cuda.max_memory_allocated() - runs["base"] if cuda else 0
+        shutil.copytree(root / "straight" / "step_00000002", root / "resumed" / "step_00000002")
+        tc = dataclasses.replace(tc, ckpt_dir=str(root / "resumed"), ckpt_every=100)
+        runs["resumed"] = run_training(cfg, tc, ocfg, dcfg, engine=sal, seed=seed,
+                                       device=device)
+        return runs
+
+    path_kernels = ["gemv_pim_float", TC, "layernorm_lut", "softmax_lut", "lut_interp",
+                    "lut_interp_backward", "layernorm_lut_backward", "softmax_lut_backward"]
+    _, counts = counted("train", drive, path_kernels)
+    hist = runs["straight"]["history"]
+    losses = [r["loss"] for r in hist]
+    if len(losses) != 4 or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    sec = statistics.median(r["sec_per_step"] for r in hist[1:])
+    steps = 6
+    per_step = {k: counts[k] / steps for k in path_kernels}
+    log(f"  run_training[lut] 4 AdamW steps: losses {[round(v, 6) for v in losses]}; median "
+        f"{sec:.4f} s/step over steps 2-4 ({B * S / sec:.0f} tokens/s), peak memory "
+        f"{runs['peak'] / 2 ** 30:.2f} GiB (max_memory_allocated above the "
+        f"{runs.get('base', 0) / 2 ** 30:.2f} GiB the earlier phases still hold) ({card})")
+    log(f"  launches a step (6 steps: 4 straight, 2 resumed): "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    res = runs["resumed"]["history"]
+    if [r["step"] for r in res] != [2, 3]:
+        raise AssertionError(f"resumed run took steps {[r['step'] for r in res]}")
+    gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(res, hist[2:])]
+    same = [a["loss"] == b["loss"] for a, b in zip(res, hist[2:])]
+    pa, pb = runs["resumed"]["params"], runs["straight"]["params"]
+    bits = all(torch.equal(a, b) for a, b in zip(opt.tree_leaves(pa), opt.tree_leaves(pb)))
+    log(f"  resume from the step-2 checkpoint: steps 3-4 losses "
+        f"{[round(r['loss'], 6) for r in res]} against the straight run's "
+        f"{[round(r['loss'], 6) for r in hist[2:]]}: relative gaps "
+        f"{', '.join(f'{g:.3e}' for g in gaps)} (limit 1e-3, for a backward that adds with "
+        f"atomics), losses bit for bit {same}, parameters after step 4 bit for bit: {bits}")
+    if max(gaps) > 1e-3:
+        raise AssertionError("train: the resumed run parts from the straight one")
+    del runs["resumed"], pa, pb
+
+    # The plain path's own 4 steps from the same parameters and batches
+    # (reported): where the losses go is the optimizer's doing, not the
+    # kernels'.
+    t_p = time.perf_counter()
+    step_fn = make_train_step(cfg, sal, ocfg)
+    p = api.init_params(cfg, seed=seed, device=device)
+    st = opt.init_opt_state(p)
+    plain_losses = []
+    with plain_training("lut"):
+        for i in range(4):
+            p, st, m = step_fn(p, st, batch_to_device(data_lib.batch_at(dcfg, i), device))
+            plain_losses.append(float(m["loss"]))
+    del p, st
+    log(f"  the plain path's 4 steps from the same start: losses "
+        f"{[round(v, 6) for v in plain_losses]}; relative gaps to the kernels' "
+        + ", ".join(f"{abs(a - b) / abs(b):.3e}" for a, b in zip(losses, plain_losses))
+        + f" (reported; {time.perf_counter() - t_p:.1f} s)")
+    summary.update(losses=losses, plain_losses=plain_losses, sec_per_step=sec,
+                   tokens_per_s=B * S / sec, peak_gib=runs["peak"] / 2 ** 30, per_step=per_step)
+    del runs
+    shutil.rmtree(root, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"train": counts}, summary
+
+
+def named_leaves(tree, pre=""):
+    """Leaf paths of nested dicts in `optimizer.tree_leaves`' order."""
+    out = []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out += named_leaves(tree[k], f"{pre}{k}/")
+        else:
+            out.append(f"{pre}{k}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6338,14 +6677,23 @@ def main() -> int:
                                    new_tokens, card, args.seed)
     log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    log("== 18. result")
+    log("== 18. train: GPT-2 medium at full width and depth, batch 8 x seq 1024")
+    t18 = time.perf_counter()
+    bw_errs, bw_times = check_backward_kernels(torch, F, tlut, layernorm_lut, lut_interp,
+                                               softmax_lut, card, args.seed)
+    errs.update(bw_errs)
+    times.update(bw_times)
+    counts_train, train = train_phase(torch, np, mods, counted, card, args.seed)
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    log("== 19. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
                   *counts_moe.items(), *counts_ssm.items(), *counts_encdec.items(),
-                  *counts_vlm.items()]
+                  *counts_vlm.items(), *counts_train.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -6421,6 +6769,9 @@ def main() -> int:
     log(f"  qwen2-vl-2B decode step / 64-token chunk, device ms (host clock ms): "
         f"{vlm_ms['dev_dec']:.2f} ({vlm_ms['dec']:.2f}) / {vlm_ms['dev_chunk']:.2f} "
         f"({vlm_ms['chunk']:.2f}) ({card})")
+    log(f"  training step (GPT-2 medium, 8 x 1024 tokens, LUT, remat), host clock: "
+        f"{train['sec_per_step']:.4f} s/step, {train['tokens_per_s']:.0f} tokens/s, peak "
+        f"{train['peak_gib']:.2f} GiB ({card})")
     log(f"  swap of one request's 9 pages, host clock ms (blob bytes): "
         + ", ".join(f"[{k}] out {o:.3f}, in {i:.3f} ({b})" for k, (b, o, i) in swap_ms.items())
         + f" ({card})")

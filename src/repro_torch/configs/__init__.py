@@ -5,7 +5,8 @@ the registry part of `repro.configs`, which imports JAX).
     get_config("qwen2_1_5b", smoke=True)     # the CPU-sized twin
 
 Each module has `config()` and `smoke_config()` with the JAX package's
-fields, less those the port's `ModelConfig` does not carry (`remat`).
+fields that the port's `ModelConfig` carries (`remat` among them: the
+smoke twins set "none", as the JAX package's do).
 """
 from __future__ import annotations
 

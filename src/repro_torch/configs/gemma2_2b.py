@@ -30,5 +30,5 @@ def smoke_config() -> ModelConfig:
         activation="gelu", gated_mlp=True, norm="rmsnorm_plus1",
         post_norms=True, embed_scale=True,
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

@@ -22,5 +22,5 @@ def smoke_config() -> ModelConfig:
         qkv_bias=True, learned_pos_emb=True,
         activation="gelu", gated_mlp=False, norm="layernorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

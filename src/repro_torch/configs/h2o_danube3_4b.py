@@ -22,5 +22,5 @@ def smoke_config() -> ModelConfig:
         d_ff=160, vocab=512, head_dim=16, sliding_window=16,
         activation="silu", gated_mlp=True, norm="rmsnorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

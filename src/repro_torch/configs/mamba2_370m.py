@@ -22,5 +22,5 @@ def smoke_config() -> ModelConfig:
         ssm_state=16, ssm_expand=2, ssm_headdim=16, ssm_chunk=8,
         activation="silu", norm="rmsnorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256,
+        max_seq=256, remat="none",
     )

@@ -22,5 +22,5 @@ def smoke_config() -> ModelConfig:
         d_ff=384, vocab=512, head_dim=16,
         activation="squared_relu", gated_mlp=False, norm="layernorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

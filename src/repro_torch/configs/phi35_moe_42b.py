@@ -24,5 +24,5 @@ def smoke_config() -> ModelConfig:
         n_experts=4, top_k=2, moe_d_ff=96, router_cap_factor=64.0,
         activation="silu", gated_mlp=True, norm="layernorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

@@ -25,5 +25,5 @@ def smoke_config() -> ModelConfig:
         qkv_bias=True, rope_theta=1_000_000.0,
         activation="silu", gated_mlp=True, norm="rmsnorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

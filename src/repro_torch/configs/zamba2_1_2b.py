@@ -26,5 +26,5 @@ def smoke_config() -> ModelConfig:
         hybrid_attn_every=2,
         activation="gelu", gated_mlp=True, norm="rmsnorm",
         param_dtype="float32", compute_dtype="float32",
-        max_seq=256, attn_chunk=32,
+        max_seq=256, attn_chunk=32, remat="none",
     )

@@ -7,6 +7,20 @@ LUT activations and the LUT attention softmax go through `kernels.ops`,
 so a CUDA tensor runs the port's kernels (`layernorm_lut` in both modes,
 `lut_interp`, `softmax_lut`) and a CPU tensor their plain versions, which
 are op for op the code the JAX package's `Nonlinear` runs inline.
+
+Training: a kernel's output has no `grad_fn` (the kernels are called
+through ctypes), so on the card, whenever autograd records
+(`autograd_route`), each kernel call runs inside a `torch.autograd.Function`
+whose backward is the kernel's backward kernel: `LutApply` (`lut_interp`
+forward, `lut_interp_backward`), `Norm` (`layernorm_lut`,
+`layernorm_lut_backward`) and `LutSoftmax` (`softmax_lut`,
+`softmax_lut_backward`). They compute what autograd of the plain versions
+computes, which is what `jax.grad` of the JAX package's LUT functions
+computes: a table's gradient is its section's slope, and the LUT
+reciprocal and rsqrt, read from the float's bits, have gradient 0, so a
+norm's inv and a softmax's 1/sum are constants under the gradient. On the
+CPU the plain versions run under autograd directly. Every other op (the
+exact activations and softmax, the routers' softmax) is PyTorch's.
 """
 from __future__ import annotations
 
@@ -19,6 +33,68 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core.lut import LutBank
 from repro_torch.kernels import ops
 from repro_torch.kernels.softmax_lut import attention_mask
+
+
+def records(*tensors) -> bool:
+    """Whether autograd records an op on these tensors (None skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def autograd_route(x: torch.Tensor, *others) -> bool:
+    """Whether a kernel call on x (and its other tensor operands) runs
+    inside its autograd Function: on a CUDA tensor while autograd records.
+    On the CPU the plain versions are differentiated by autograd itself."""
+    return x.device.type == "cuda" and records(x, *others)
+
+
+class LutApply(torch.autograd.Function):
+    """`ops.lut_apply` with the slope kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x)
+        ctx.table = table
+        return ops.lut_apply(x, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return ops.lut_apply_backward(x, dy.contiguous(), ctx.table), None
+
+
+class Norm(torch.autograd.Function):
+    """`ops.pim_layernorm` (LayerNorm / RMSNorm) with the norm's backward
+    kernel: dx, dgamma and dbeta."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, rsqrt_table, rms, plus_one):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.kw = dict(eps=eps, rsqrt_table=rsqrt_table, rms=rms, plus_one=plus_one)
+        return ops.pim_layernorm(x, gamma, beta, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dg, db = ops.pim_layernorm_backward(x, gamma, beta, dy.contiguous(), **ctx.kw)
+        return dx, dg, db, None, None, None, None
+
+
+class LutSoftmax(torch.autograd.Function):
+    """`ops.pim_softmax` (the masked LUT softmax) with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, exp_table, recip_table, q_offset, causal, window):
+        ctx.save_for_backward(x)
+        ctx.args = (exp_table, recip_table)
+        ctx.kw = dict(q_offset=q_offset, causal=causal, window=window)
+        return ops.pim_softmax(x, exp_table, recip_table, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        dx = ops.pim_softmax_backward(x, dy.contiguous(), *ctx.args, **ctx.kw)
+        return dx, None, None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,29 +114,34 @@ class Nonlinear:
         return cls(mode=mode, bank=bank, sections=sections)
 
     # -- scalar activations -------------------------------------------------
+    def _lut(self, x: torch.Tensor, table) -> torch.Tensor:
+        if autograd_route(x):
+            return LutApply.apply(x, table)
+        return ops.lut_apply(x, table)
+
     def gelu(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return ops.lut_apply(x, self.bank.gelu)
+            return self._lut(x, self.bank.gelu)
         return F.gelu(x, approximate="tanh")
 
     def silu(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return ops.lut_apply(x, self.bank.silu)
+            return self._lut(x, self.bank.silu)
         return F.silu(x)
 
     def tanh(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return ops.lut_apply(x, self.bank.tanh)
+            return self._lut(x, self.bank.tanh)
         return torch.tanh(x)
 
     def sigmoid(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return ops.lut_apply(x, self.bank.sigmoid)
+            return self._lut(x, self.bank.sigmoid)
         return torch.sigmoid(x)
 
     def softplus(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "lut":
-            return ops.lut_apply(x, self.bank.softplus)
+            return self._lut(x, self.bank.softplus)
         return F.softplus(x)
 
     def exp_neg(self, x: torch.Tensor) -> torch.Tensor:
@@ -109,6 +190,9 @@ class Nonlinear:
         None or k > q - window). LUT mode takes `ops.pim_softmax`, which
         derives the mask per row; exact mode is `softmax(where=mask)`."""
         if self.mode == "lut":
+            if autograd_route(scores):
+                return LutSoftmax.apply(scores, self.bank.exp, self.bank.recip, q_offset,
+                                        causal, window)
             return ops.pim_softmax(scores, self.bank.exp, self.bank.recip,
                                    q_offset=q_offset, causal=causal, window=window)
         mask = attention_mask(scores.shape[-2], scores.shape[-1], q_offset,
@@ -118,16 +202,19 @@ class Nonlinear:
     def _rsqrt_table(self):
         return self.bank.rsqrt if self.mode == "lut" else None
 
+    def _norm(self, x, gamma, beta, eps, rms, plus_one) -> torch.Tensor:
+        if autograd_route(x, gamma, beta):
+            return Norm.apply(x, gamma, beta, eps, self._rsqrt_table(), rms, plus_one)
+        return ops.pim_layernorm(x, gamma, beta, eps=eps, rsqrt_table=self._rsqrt_table(),
+                                 rms=rms, plus_one=plus_one)
+
     def layernorm(self, x: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
-        return ops.pim_layernorm(x, gamma, beta, eps=eps,
-                                 rsqrt_table=self._rsqrt_table())
+        return self._norm(x, gamma, beta, eps, False, False)
 
     def rmsnorm(self, x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
                 *, plus_one: bool = False) -> torch.Tensor:
-        return ops.pim_layernorm(x, gamma, None, eps=eps,
-                                 rsqrt_table=self._rsqrt_table(), rms=True,
-                                 plus_one=plus_one)
+        return self._norm(x, gamma, None, eps, True, plus_one)
 
     def softcap(self, x: torch.Tensor, cap: float) -> torch.Tensor:
         """Logit soft-capping: cap * tanh(x / cap) via LUT tanh."""

@@ -27,6 +27,7 @@ the paged attention calls and the nonlinear policy behind one object.
 
 On the quantized routes an exact-mode activation runs after the GEMV,
 `self.nl.activation(act)`.
+
 The weights are quantized on every call, as the JAX package does; caching
 them is the pre-quantized path's job. Decode attention over the dense
 arena goes through the `decode_attention` kernel, paged decode and prefill
@@ -34,6 +35,16 @@ attention through the paged kernels over fp, int8 or int4 pools;
 `kv_splits` engages the KV-split decode kernel at long context. The norms
 and the LUT softmax of the dense prefill go through `Nonlinear`, which
 routes them to their kernels.
+
+Training: on the card, while autograd records, the float route runs in
+`Linear`, a `torch.autograd.Function` whose forward is the float GEMV
+with its bias and no epilogue (the backward needs the pre-activation) and
+whose backward is dX, dW and db as `torch.matmul` and a sum, products the
+JAX package leaves to XLA; the activation then runs on its own, a LUT
+table through `Nonlinear`'s `LutApply` and the exact GELU as PyTorch's
+tanh GELU. With no recording the fused launch stays. The quantized
+routes and `QTensor` weights refuse to train: their gradient would be a
+rounding's.
 """
 from __future__ import annotations
 
@@ -42,9 +53,33 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import nonlinear as nl_lib
 from repro_torch.core.nonlinear import Nonlinear
 from repro_torch.kernels import ops
 from repro_torch.serving.quantize import QTensor, qtensor_linear
+
+
+class Linear(torch.autograd.Function):
+    """x2 (M, C) @ w (R, C)^T + b through `ops.pim_linear`; the gradients
+    as `torch.matmul` in x's dtype (f32 accumulation), db summed in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b):
+        ctx.save_for_backward(x2, w)
+        ctx.b_dtype = b.dtype if b is not None else None
+        return ops.pim_linear(x2.contiguous(), w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dy, w.to(dy.dtype))
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(dy.t(), x2.to(dy.dtype)).to(w.dtype)
+        if ctx.b_dtype is not None and ctx.needs_input_grad[2]:
+            db = dy.float().sum(0).to(ctx.b_dtype)
+        return dx, dw, db
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +115,11 @@ class SalPimEngine:
         """y = act(x @ w^T + b). x: (..., C), w: (R, C) or a QTensor."""
         lead = x.shape[:-1]
         cfg = self.config
+        if (isinstance(w, QTensor) or cfg.quant != "none") and nl_lib.records(
+                x, w if isinstance(w, torch.Tensor) else None, b):
+            raise ValueError("training runs the float datapath only: quant="
+                             f"{cfg.quant!r} and QTensor weights have no gradient but a "
+                             "rounding's")
         # The activation's LUT rides the quantized GEMV's epilogue.
         table = getattr(self.nl.bank, act, None) if act and self.nl.mode == "lut" else None
         if isinstance(w, QTensor):
@@ -102,7 +142,11 @@ class SalPimEngine:
     def _float_linear(self, x2, w, b, act, table):
         """The float GEMV with the activation fused into its epilogue: the
         LUT `table`, or the exact GELU; an activation with neither (exact
-        SiLU, squared ReLU, which has no table) runs after the GEMV."""
+        SiLU, squared ReLU, which has no table) runs after the GEMV. While
+        autograd records on the card, `Linear` and then the activation."""
+        if nl_lib.autograd_route(x2, w, b):
+            out = Linear.apply(x2, w, b)
+            return self.nl.activation(act)(out) if act is not None else out
         if act is None or table is not None:
             return ops.pim_linear(x2, w, b, act_table=table)
         if act == "gelu" and self.nl.mode == "exact":

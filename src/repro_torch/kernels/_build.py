@@ -24,7 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemv_pim", "gemv_pim_quant", "paged_attention", "paged_attention_split",
            "paged_prefill", "decode_attention", "softmax_lut", "layernorm_lut",
-           "lut_interp")
+           "lut_interp", "backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -29,6 +29,15 @@ __device__ __forceinline__ float eval(float x, const float* wb, float lo, float 
   return __fadd_rn(__fmul_rn(wb[2 * idx], x), wb[2 * idx + 1]);
 }
 
+// The slope w[idx] of eval's section for x: eval's derivative in x, the
+// gradient that autograd of apply_table gives (the backward kernels).
+__device__ __forceinline__ float slope(float x, const float* wb, float lo, float inv_step,
+                                       int sections) {
+  float f = floorf(__fmul_rn(__fsub_rn(x, lo), inv_step));
+  f = fminf(fmaxf(f, -1.0f), (float)sections);
+  return wb[2 * ((int)f + 1)];
+}
+
 // x = m * 2^e with m in [0.5, 1), taken from the bits of a positive finite
 // x, as core/lut.py's _frexp does.
 __device__ __forceinline__ float frexp_bits(float x, int* e) {

@@ -24,6 +24,17 @@ in bf16 (1024 in f32) and up to 8 warps past it; a call of few rows (a
 decode step's 4) spreads each row until a lane holds 8 values. Rows past
 8 warps' registers (d > 16384 in bf16, 8192 in f32) take a block a row
 and are streamed, one read of the row a pass, with the same sums.
+
+`layernorm_lut_backward` (`csrc/backward.cu`, which replaces no TPU
+kernel: the JAX package differentiates `Nonlinear.layernorm` and
+`rmsnorm` with XLA's autodiff) is the gradient for training, what
+`layernorm_lut_backward_plain` (autograd of `layernorm_lut_plain`)
+computes: dx, dgamma and dbeta. With the LUT rsqrt, inv is a constant
+under the gradient (the range reduction reads the float's bits), so dx =
+inv * (g dy - mean(g dy)) for LayerNorm and inv * g dy for RMSNorm; with
+the exact rsqrt the full derivative. dgamma and dbeta are reduced over
+rows in chunks of `BACKWARD_CHUNK_ROWS`, each into its own partial row,
+then the partials in order: no atomics, the same bits on every run.
 """
 from __future__ import annotations
 
@@ -37,6 +48,8 @@ from repro_torch.kernels._build import DTYPE_CODE as _DTYPE_CODE
 # The most 16-byte pieces of a row a lane holds in registers, beside as
 # many of gamma and of beta: 64 bf16 or 32 f32 values of x.
 MAX_CHUNKS = 8
+# Rows a block of the backward's column sums adds into one partial row.
+BACKWARD_CHUNK_ROWS = 64
 
 
 def layernorm_plan(n_rows: int, d: int, itemsize: int) -> tuple[int, int, int]:
@@ -121,3 +134,68 @@ def layernorm_lut(x: torch.Tensor, gamma: torch.Tensor,
 
 
 layernorm_lut.launches = 0
+
+
+def layernorm_lut_backward_plain(x: torch.Tensor, gamma: torch.Tensor,
+                                 beta: torch.Tensor | None, dy: torch.Tensor, *,
+                                 eps: float = 1e-5, rsqrt_table: LutTable | None = None,
+                                 rms: bool = False, plus_one: bool = False):
+    """Plain version of the backward: autograd of `layernorm_lut_plain` ->
+    (dx, dgamma, dbeta or None)."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        gr = gamma.detach().requires_grad_(True)
+        br = beta.detach().requires_grad_(True) if beta is not None else None
+        out = layernorm_lut_plain(xr, gr, br, eps=eps, rsqrt_table=rsqrt_table, rms=rms,
+                                  plus_one=plus_one)
+        grads = torch.autograd.grad(out, [t for t in (xr, gr, br) if t is not None], dy)
+    return grads[0], grads[1], grads[2] if beta is not None else None
+
+
+def layernorm_lut_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor | None,
+                           dy: torch.Tensor, *, eps: float = 1e-5,
+                           rsqrt_table: LutTable | None = None, rms: bool = False,
+                           plus_one: bool = False):
+    """Launch the backward kernels over the rows of x (..., d) -> (dx in x's
+    dtype, dgamma and dbeta (or None without beta) in gamma's)."""
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"layernorm_lut_backward takes CUDA tensors, got {x.device}")
+    if (x.dtype not in _DTYPE_CODE or gamma.dtype not in _DTYPE_CODE or dy.dtype != x.dtype
+            or dy.shape != x.shape):
+        raise TypeError(f"layernorm_lut_backward takes x and dy of one shape and dtype "
+                        f"(float32 or bfloat16), got x {x.dtype}, dy {dy.dtype}, "
+                        f"gamma {gamma.dtype}")
+    d = x.shape[-1]
+    for name, t in [("gamma", gamma)] + ([("beta", beta)] if beta is not None else []):
+        if tuple(t.shape) != (d,) or t.device != x.device or t.dtype != gamma.dtype:
+            raise ValueError(f"{name} must be a ({d},) {gamma.dtype} tensor on {x.device}")
+    _build.check_table(rsqrt_table)
+    x2, dy2 = x.reshape(-1, d).contiguous(), dy.reshape(-1, d).contiguous()
+    n = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dgamma = torch.zeros_like(gamma)
+    dbeta = torch.zeros_like(beta) if beta is not None else None
+    if n == 0 or d == 0:
+        return dx.reshape(x.shape), dgamma, dbeta
+    rows = max(BACKWARD_CHUNK_ROWS, -(-n // 65535))
+    chunks = -(-n // rows)
+    dev = x.device
+    mean = torch.empty(n, dtype=torch.float32, device=dev)
+    inv = torch.empty(n, dtype=torch.float32, device=dev)
+    partial = torch.empty((2 if beta is not None else 1, chunks, d), dtype=torch.float32,
+                          device=dev)
+    wb = rsqrt_table.wb_on(dev) if rsqrt_table is not None else None
+    lo, inv_step, sections = ((rsqrt_table.lo, rsqrt_table.inv_step, rsqrt_table.sections)
+                              if rsqrt_table is not None else (0.25, 1.0, 1))
+    lib = _build.library("backward")
+    rc = _build.cfunc(lib, "layernorm_lut_backward", "p" * 10 + "li" + "fffi" + "iiiii" + "p")(
+        x2.data_ptr(), dy2.data_ptr(), gamma.contiguous().data_ptr(), _build.ptr(wb),
+        dx.data_ptr(), dgamma.data_ptr(), _build.ptr(dbeta), mean.data_ptr(), inv.data_ptr(),
+        partial.data_ptr(), n, d, eps, lo, inv_step, sections, int(rms), int(plus_one), rows,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[gamma.dtype], _build.stream(x))
+    _build.check(lib, "backward", rc)
+    layernorm_lut_backward.launches += 1
+    return dx.reshape(x.shape), dgamma, dbeta
+
+
+layernorm_lut_backward.launches = 0

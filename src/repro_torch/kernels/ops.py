@@ -27,6 +27,13 @@ def lut_apply(x: torch.Tensor, table: LutTable) -> torch.Tensor:
     return lut_k.lut_interp(x.contiguous(), table)
 
 
+def lut_apply_backward(x: torch.Tensor, dy: torch.Tensor, table: LutTable) -> torch.Tensor:
+    """The gradient of `lut_apply`: dy * W[sec(x)], in x's dtype."""
+    if x.device.type == "cpu":
+        return lut_k.lut_interp_backward_plain(x, dy, table)
+    return lut_k.lut_interp_backward(x, dy, table)
+
+
 def pim_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                *, act_table: LutTable | None = None,
                act: str | None = None) -> torch.Tensor:
@@ -147,6 +154,16 @@ def pim_layernorm(x, gamma, beta=None, *, eps: float = 1e-5,
     return ln_k.layernorm_lut(x, gamma, beta, **kw)
 
 
+def pim_layernorm_backward(x, gamma, beta, dy, *, eps: float = 1e-5,
+                           rsqrt_table: LutTable | None = None, rms: bool = False,
+                           plus_one: bool = False):
+    """The gradient of `pim_layernorm` -> (dx, dgamma, dbeta or None)."""
+    kw = dict(eps=eps, rsqrt_table=rsqrt_table, rms=rms, plus_one=plus_one)
+    if x.device.type == "cpu":
+        return ln_k.layernorm_lut_backward_plain(x, gamma, beta, dy, **kw)
+    return ln_k.layernorm_lut_backward(x, gamma, beta, dy, **kw)
+
+
 def pim_softmax(x: torch.Tensor, exp_table: LutTable, recip_table: LutTable, *,
                 q_offset: int = 0, causal: bool = False,
                 window: int | None = None) -> torch.Tensor:
@@ -156,3 +173,13 @@ def pim_softmax(x: torch.Tensor, exp_table: LutTable, recip_table: LutTable, *,
     if x.device.type == "cpu":
         return sm_k.softmax_lut_plain(x, exp_table, recip_table, **kw)
     return sm_k.softmax_lut(x, exp_table, recip_table, **kw)
+
+
+def pim_softmax_backward(x: torch.Tensor, dy: torch.Tensor, exp_table: LutTable,
+                         recip_table: LutTable, *, q_offset: int = 0, causal: bool = False,
+                         window: int | None = None) -> torch.Tensor:
+    """The gradient of `pim_softmax` with respect to its scores x."""
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    if x.device.type == "cpu":
+        return sm_k.softmax_lut_backward_plain(x, dy, exp_table, recip_table, **kw)
+    return sm_k.softmax_lut_backward(x, dy, exp_table, recip_table, **kw)

@@ -19,6 +19,15 @@ over 3.35 TB/s. `softmax_plan` shapes the launch: a warp a row up to 1024
 keys (a call of few rows spreads a row over more warps), the row held in
 registers and read once; a group of up to 8 warps a row up to 8192 keys;
 a block a row, streamed, past that.
+
+`softmax_lut_backward` (`csrc/backward.cu`, which replaces no TPU kernel:
+the JAX package differentiates `Nonlinear.softmax` with XLA's autodiff)
+is the gradient for training, what `softmax_lut_backward_plain` (autograd
+of `softmax_lut_plain`) computes: r = 1/sum is a constant under the
+gradient (the LUT reciprocal reads the float's bits), a visible key gets
+t_j = dy_j * r * W_exp[sec(x_j - m)], the row's max element(s) also
+-sum_j t_j, shared equally among ties (the gradient of the max), and a
+masked key 0. A warp a row, over the row's visible keys only.
 """
 from __future__ import annotations
 
@@ -114,3 +123,53 @@ def softmax_lut(x: torch.Tensor, exp_table: LutTable, recip_table: LutTable,
 
 
 softmax_lut.launches = 0
+
+
+def softmax_lut_backward_plain(x: torch.Tensor, dy: torch.Tensor, exp_table: LutTable,
+                               recip_table: LutTable, *, q_offset: int = 0,
+                               causal: bool = False, window: int | None = None) -> torch.Tensor:
+    """Plain version of the backward: autograd of `softmax_lut_plain`."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        out = softmax_lut_plain(xr, exp_table, recip_table, q_offset=q_offset, causal=causal,
+                                window=window)
+        (dx,) = torch.autograd.grad(out, xr, dy)
+    return dx
+
+
+def softmax_lut_backward(x: torch.Tensor, dy: torch.Tensor, exp_table: LutTable,
+                         recip_table: LutTable, *, q_offset: int = 0, causal: bool = False,
+                         window: int | None = None) -> torch.Tensor:
+    """Launch the backward kernel over the rows of x (..., Sk): dx in x's dtype."""
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"softmax_lut_backward takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODE or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise TypeError(f"softmax_lut_backward takes x and dy of one shape and dtype (float32 "
+                        f"or bfloat16), got {x.dtype}, {dy.dtype}")
+    _build.check_table(exp_table)
+    _build.check_table(recip_table)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    masked = causal or window is not None
+    if masked and x.dim() < 2:
+        raise ValueError("a causal or window mask needs x (..., Sq, Sk)")
+    x, dy = x.contiguous(), dy.contiguous()
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    Sk = x.shape[-1]
+    Sq = x.shape[-2] if masked else 1
+    lib = _build.library("backward")
+    rc = _build.cfunc(lib, "softmax_lut_backward", "ppppp" + "li" + "ffi" * 2 + "iiiii" + "ip")(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), exp_table.wb_on(x.device).data_ptr(),
+        recip_table.wb_on(x.device).data_ptr(), x.numel() // Sk, Sk,
+        exp_table.lo, exp_table.inv_step, exp_table.sections,
+        recip_table.lo, recip_table.inv_step, recip_table.sections,
+        int(masked), q_offset, Sq, int(causal), window if window is not None else 0,
+        _DTYPE_CODE[x.dtype], _build.stream(x))
+    _build.check(lib, "backward", rc)
+    softmax_lut_backward.launches += 1
+    return dx
+
+
+softmax_lut_backward.launches = 0

@@ -1,9 +1,11 @@
-"""Model API the serving engine and the tests use (the port of the dense
-and paged entry points of `repro.models.api`; the SSM, hybrid and
-encoder-decoder families have the dense ones only, and the paged ones
-raise the reference's ValueError for them).
+"""Model API the serving engine, the train loop and the tests use (the port
+of `repro.models.api`; the SSM, hybrid and encoder-decoder families have
+the dense entry points only, and the paged ones raise the reference's
+ValueError for them).
 
     init_params(cfg, seed=0, device="cuda")
+    loss_fn(params, batch, cfg, engine)          # train objective -> (loss, metrics)
+    forward_logits(params, batch, cfg, engine)   # teacher-forced logits (B, S, V)
     prefill(params, {"tokens": tokens}, cfg, engine, max_len)
     prefill(params, {"tokens": tokens, "frames": frames}, ...)   # encdec
     init_cache(cfg, batch, max_len, device="cuda")
@@ -14,6 +16,10 @@ raise the reference's ValueError for them).
     decode_step(params, token, cache, cfg, engine)
     init_paged_cache(cfg, batch, num_pages, page_size, max_pages, kv_dtype=None,
                      kv_scale_dtype="float32", device="cuda")
+
+The VLM stub: when batch["patch_embeds"] (B, P, D) is given, it
+overwrites the embeddings of the first P positions (`_splice_patches`,
+training only: the serving entry points ignore it, as the reference's do).
 """
 from __future__ import annotations
 
@@ -30,6 +36,45 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     if cfg.family == "encdec":
         return encdec.init_params(cfg, seed=seed, device=device)
     return tf.init_params(cfg, seed=seed, device=device)
+
+
+def _splice_patches(batch: dict, x: torch.Tensor) -> torch.Tensor:
+    """The first P positions of x (B, S, D) replaced by batch["patch_embeds"]
+    (B, P, D) when it is given."""
+    pe = batch.get("patch_embeds")
+    if pe is None:
+        return x
+    return torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+
+
+def _vlm_forward(params: dict, batch: dict, cfg: ModelConfig,
+                 engine: SalPimEngine) -> torch.Tensor:
+    tokens = batch["tokens"]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _splice_patches(batch, tf._embed(params, tokens, cfg, pos[None]))
+    cos, sin = tf._rope(cfg, pos)
+    return tf._logits(params, tf.decoder_stack(params, x, cfg, engine, cos, sin), cfg, engine)
+
+
+def forward_logits(params: dict, batch: dict, cfg: ModelConfig,
+                   engine: SalPimEngine) -> torch.Tensor:
+    """Teacher-forced logits (B, S, V) of a batch of tensors on the params'
+    device: tokens, and frames (encdec) or patch_embeds (the VLM)."""
+    if cfg.family == "encdec":
+        return encdec.forward(params, batch["frames"], batch["tokens"], cfg, engine)
+    if batch.get("patch_embeds") is not None:
+        return _vlm_forward(params, batch, cfg, engine)
+    return tf.forward(params, batch["tokens"], cfg, engine)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine):
+    """The training objective: (masked mean NLL, metrics), as the reference's."""
+    if cfg.family == "encdec":
+        return encdec.loss_fn(params, batch, cfg, engine)
+    if batch.get("patch_embeds") is not None:
+        loss, _, _, mask, _ = tf.token_nll(_vlm_forward(params, batch, cfg, engine), batch)
+        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
+    return tf.loss_fn(params, batch, cfg, engine)
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Decoder blocks over the dense arena and the paged KV cache: norm wiring,
+"""Decoder blocks, cache-free (`apply_decoder_block`, the training
+forward) and over the dense arena and the paged KV cache: norm wiring,
 residuals and the per-family FFN (the port of `repro.models.blocks`, dense
 and MoE families: `p["moe"]` through `moe.apply_moe`, else `p["ffn"]`).
 cos/sin are RoPE's (None with learned positions), passed to the
@@ -48,6 +49,16 @@ def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
     if cfg.post_norms:
         h = apply_norm(p["post_ln2"], h, cfg, engine)
     return (x + h, *cache_out)
+
+
+def apply_decoder_block(p: dict, x: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
+                        *, cos=None, sin=None, window) -> torch.Tensor:
+    """Full-sequence block with no cache (the teacher-forced forward):
+    x (B, S, D) -> (B, S, D)."""
+    return _decode_block_skeleton(
+        p, x, cfg, engine,
+        lambda h: (attn_lib.attention_fullseq(p["attn"], h, cfg, engine, cos=cos, sin=sin,
+                                              window=window, causal=cfg.causal),))[0]
 
 
 def apply_decoder_block_prefill_chunk_paged(

@@ -1,5 +1,5 @@
 """Model configuration: the fields of `repro.models.config.ModelConfig`
-that the serving paths read (the paged pools and the dense arena of the
+that the serving and training paths read (the paged pools and the dense arena of the
 dense and MoE families; the dense cache of the SSM, hybrid and
 encoder-decoder families), with the same names and defaults, and its
 analytic parameter counts (the roofline cost model's weight stream,
@@ -94,6 +94,11 @@ class ModelConfig:
     # dense arena storage: "model" (= compute dtype) or "int8" (per-vector
     # bf16 scales); the paged pools take EngineConfig.kv_cache_dtype
     kv_dtype: str = "model"
+
+    # training: "block" recomputes each layer in the backward pass
+    # (`torch.utils.checkpoint`, as `jax.checkpoint` on the JAX scan's body);
+    # "none" keeps every activation
+    remat: str = "block"
 
     # dense decode cache append: True = every sequence writes at lengths[0]
     # (steady-state batch decode); False = each at its own length

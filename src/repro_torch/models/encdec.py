@@ -1,6 +1,6 @@
 """Encoder-decoder transformer, the whisper-large-v3 backbone (the port of
-`repro.models.encdec`'s serving entry points: `init_params`, `encode`,
-`prefill`, `decode_step`).
+`repro.models.encdec`: `init_params`, `encode`, `prefill`, `decode_step`,
+and the teacher-forced `forward` and `loss_fn` of training).
 
 The audio conv frontend is a stub, as in the reference: `encode` takes
 precomputed frame embeddings (B, enc_seq, d_model). The encoder is
@@ -38,7 +38,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Cache, _layers
+from repro_torch.models.transformer import Cache, _layers, remat, token_nll
 from repro_torch.serving.kvcache import PagedCache
 
 
@@ -111,8 +111,9 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
            engine: SalPimEngine) -> torch.Tensor:
     """frames (B, enc_seq, D) stub embeddings -> encoder output (B, enc_seq, D)."""
     x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
+    layer = remat(encode_layer, cfg)
     for bp in _layers(params["enc_blocks"], cfg.n_enc_layers):
-        x = encode_layer(bp, x, cfg, engine)
+        x = layer(bp, x, cfg, engine)
     return blk.apply_norm(params["enc_norm"], x, cfg, engine)
 
 
@@ -137,6 +138,32 @@ def decode_layer_prefill(bp: dict, h: torch.Tensor, enc: torch.Tensor, cfg: Mode
     h = h + r
     r = blk.apply_norm(bp["ln2"], h, cfg, engine)
     return h + ffn_lib.apply_ffn(bp["ffn"], r, cfg, engine), self_kv, cross_kv
+
+
+def _decode_layer(bp: dict, h: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
+                  engine: SalPimEngine) -> torch.Tensor:
+    return decode_layer_prefill(bp, h, enc, cfg, engine)[0]
+
+
+def forward(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+            engine: SalPimEngine) -> torch.Tensor:
+    """Teacher-forced decoder over the encoder output of frames (B,
+    enc_seq, D): tokens (B, S) -> logits (B, S, V)."""
+    enc = encode(params, frames, cfg, engine)
+    B, S = tokens.shape
+    x = _dec_embed(params, tokens, torch.arange(S, device=tokens.device)[None].expand(B, S),
+                   cfg)
+    layer = remat(_decode_layer, cfg)
+    for bp in _layers(params["dec_blocks"], cfg.n_layers):
+        x = layer(bp, x, enc, cfg, engine)
+    return _logits(params, x, cfg, engine)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine):
+    """batch {frames, tokens, labels, mask} -> (loss, {loss, tokens})."""
+    loss, _, _, mask, _ = token_nll(
+        forward(params, batch["frames"], batch["tokens"], cfg, engine), batch)
+    return loss, {"loss": loss.detach(), "tokens": mask.sum()}
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -1,7 +1,8 @@
-"""Decoder-only LM over the dense per-slot cache (`Cache`: `prefill`,
-`decode_step`) and over a paged KV cache (`prefill_chunk`,
-`verify_tokens`, the paged `decode_step`): the port of the dense, MoE, SSM
-and hybrid families of `repro.models.transformer` (an MoE block's FFN is
+"""Decoder-only LM: the teacher-forced forward and its loss (`forward`,
+`loss_fn`, the training objective), over the dense per-slot cache
+(`Cache`: `prefill`, `decode_step`) and over a paged KV cache
+(`prefill_chunk`, `verify_tokens`, the paged `decode_step`): the port of
+the dense, MoE, SSM and hybrid families of `repro.models.transformer` (an MoE block's FFN is
 `models/moe.py`, a Mamba2 block `models/mamba2.py`). The encoder-decoder
 family is `models/encdec.py` on this module's `Cache`; `models/api.py`
 dispatches to it.
@@ -25,6 +26,12 @@ lengths for a decode step) and every layer rotates its q and k with them.
 With M-RoPE (qwen2-vl, `cfg.mrope_sections`) `_rope` broadcasts those
 positions to the three streams (temporal, height, width) of the text
 path, as the reference does, on every path alike.
+
+With `cfg.remat == "block"` a layer of `forward` that autograd records
+runs under `torch.utils.checkpoint` (`use_reentrant=False`), as
+`jax.checkpoint` wraps the JAX scan's body: its activations are
+recomputed in the backward pass. The hybrid's shared block is not
+rematerialized, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
@@ -208,6 +216,105 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.final_softcap is not None:
         logits = engine.nl.softcap(logits.float(), cfg.final_softcap)
     return logits
+
+
+def _records(tree) -> bool:
+    """Whether autograd records an op on any tensor of a nested structure."""
+    if isinstance(tree, dict):
+        return any(_records(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(fn, cfg: ModelConfig):
+    """fn(layer_params, *args) under `torch.utils.checkpoint` when
+    cfg.remat is "block" and autograd records the call, else fn itself."""
+    if cfg.remat != "block":
+        return fn
+
+    def run(*args, **kw):
+        if not (torch.is_grad_enabled() and _records(args)):
+            return fn(*args, **kw)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def decoder_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
+                  cos, sin) -> torch.Tensor:
+    """The dense / MoE block stack of the teacher-forced forward."""
+    block = remat(blk.apply_decoder_block, cfg)
+    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        x = block(bp, x, cfg, engine, cos=cos, sin=sin, window=cfg.window_for_layer(i))
+    return x
+
+
+def _mamba_layer(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 engine: SalPimEngine) -> torch.Tensor:
+    r = blk.apply_norm(bp["norm"], x, cfg, engine)
+    return x + m2.apply_mamba2(bp["mamba"], r, cfg, engine)
+
+
+def _hybrid_fullseq(params: dict, x: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
+                    cos, sin) -> torch.Tensor:
+    """The SSM family's Mamba2 stack; the hybrid's shared block before each
+    of its segments."""
+    layers = _layers(params["blocks"], cfg.n_layers)
+    mamba = remat(_mamba_layer, cfg)
+    for s, e in _hybrid_segments(cfg):
+        if cfg.family == "hybrid":
+            x = blk.apply_decoder_block(params["shared_attn"], x, cfg, engine, cos=cos,
+                                        sin=sin, window=None)
+        for i in range(s, e):
+            x = mamba(layers[i], x, cfg, engine)
+    return x
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            engine: SalPimEngine) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V), every position (teacher forcing)."""
+    _check_supported(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("forward of the encoder-decoder family is encdec.forward")
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    x = _embed(params, tokens, cfg, pos[None])
+    cos, sin = _rope(cfg, pos)
+    if cfg.family in _SSM_FAMILIES:
+        x = _hybrid_fullseq(params, x, cfg, engine, cos, sin)
+    else:
+        x = decoder_stack(params, x, cfg, engine, cos, sin)
+    return _logits(params, x, cfg, engine)
+
+
+def token_nll(logits: torch.Tensor, batch: dict):
+    """The masked mean next-token NLL of logits (B, S, V) against
+    batch["labels"] (B, S) and batch.get("mask") (B, S; all ones when
+    absent), in f32. Returns (loss, logits in f32, labels, mask, denom)."""
+    logits = logits.float()
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    mask = torch.ones_like(labels, dtype=torch.float32) if mask is None else mask.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return ((logz - gold) * mask).sum() / denom, logits, labels, mask, denom
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine):
+    """batch {tokens (B, S), labels (B, S), mask (B, S)} on the params'
+    device -> (loss, metrics): the reference's loss, ppl_proxy, tokens and
+    accuracy (detached)."""
+    loss, logits, labels, mask, denom = token_nll(
+        forward(params, batch["tokens"], cfg, engine), batch)
+    with torch.no_grad():
+        metrics = {
+            "loss": loss.detach(),
+            "ppl_proxy": torch.exp(torch.clamp(loss.detach(), max=20.0)),
+            "tokens": mask.sum(),
+            "accuracy": ((torch.argmax(logits, -1) == labels) * mask).sum() / denom,
+        }
+    return loss, metrics
 
 
 def _check_scales(k_pages: torch.Tensor, k_scales) -> None:

@@ -202,6 +202,29 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, setup):
     ServingEngine(params, cfg, engine, eng_cfg, device="cpu")
 
 
+def test_training_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """`run_training` and `launch.train` run on `cuda` unless the CPU is
+    asked for, and refuse the reference's mesh and FSDP options."""
+    from repro_torch.data import tokens as tdata
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import optimizer as opt
+    from repro_torch.runtime.train_loop import TrainConfig, run_training
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt2_medium.smoke_config()
+    tc = TrainConfig(steps=1, ckpt_dir=str(tmp_path / "c"), log_every=1, async_ckpt=False)
+    dcfg = tdata.data_config_for_model(cfg, 8, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg, tc, opt.AdamWConfig(), dcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path / "d")])
+    out = run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu")
+    assert out["params"]["embed"].device.type == "cpu"
+    with pytest.raises(ValueError, match="one device"):
+        run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="one device"):
+        run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu", fsdp=True)
+
+
 @pytest.mark.parametrize("change", [
     {"mesh": object(), "telemetry": Telemetry(enabled=True)}, {"mesh": object()},
     {"mesh": object(), "hardware": "h100"},
