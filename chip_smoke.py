@@ -279,7 +279,30 @@ Run from the root of a checkout. Phases, each of which fails the run:
               exact and LUT, through the kernels against the plain path;
               `run_training` in LUT mode, 4 AdamW steps, and a resume from
               its step-2 checkpoint against the straight run;
- 19. the kernels line, a JSON object with each kernel's error, times,
+ 19. mesh   — tensor-parallel paged serving (`EngineConfig(mesh=...)`):
+              `paged_attention` at a rank's shapes (half the heads; GPT-2's
+              single walk at 128..160 keys and split at 960..1024, qwen2's
+              g 6 x 128 at one kv head) planned on the model's kv heads, bit
+              for bit the one-device call's heads, and on the rank's own
+              (reported), timed in CUDA graphs; then 2 ranks spawned on the
+              one card (one process each, gloo, `launch/mesh.World`), each
+              running on a ("model",) mesh: GPT-2 medium at full width and
+              depth on phase 4's requests exact, LUT and on int8/bf16 pools,
+              on phase 5's at max_len 1024 with kv_splits=4 and phase 12's
+              SLO drain u1, qwen2-1.5B exact on phase 8's, and olmoe-1B-7B
+              with `moe_impl="shardmap"` (4 requests, 16 new tokens) — every
+              step's launches checked on every rank (a rank launches the
+              one-device counts on its 8 of 16 heads). Gates: the ranks in
+              lockstep (tokens, first and first-decode logits bit for bit,
+              counters); each GPT-2 and qwen2 drain token for token the
+              one-device drain, its first and first-decode logits bit for
+              bit and its counters (preemptions, swap-ins, ...) equal, a
+              rank's pools half the one-device bytes; olmoe's first logits
+              within FIRST_LOGITS_LIMIT of a one-device drain (the psum adds
+              in another order; token share reported). Reported: a rank's
+              decode step on the host clock and the host time of its
+              gather_heads calls;
+ 20. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -344,6 +367,7 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -3009,7 +3033,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
           mode="exact", max_len=256, fmt="fp", kv_splits=None, quant="none",
           gemv="gemv_pim_float", sharing=False, spec=None, drafter=None, gaps=None,
           scheduler=None, num_pages=None, priority=0, late=(), telemetry=None,
-          on_step=None, plain=False):
+          on_step=None, plain=False, mesh=None):
     """Drain `prompts` through ServingEngine (4 slots, page 16, 64-token
     chunks) on SAL-PIM datapath `quant`, checking every step's launches of
     every kernel: every linear one launch of the GEMV kernel `gemv` on the
@@ -3043,7 +3067,12 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     An MoE model's routers are f32 GEMVs on the CUDA cores, one a layer
     (`gemv_pim_float` on every datapath but quant="int8"), and in LUT mode
     its experts' SiLU one lut_interp a layer. With `plain` (the drain run
-    under `plain_ops`) no kernel may launch at all."""
+    under `plain_ops`) no kernel may launch at all.
+
+    `mesh` (phase 19: a rank of a tensor-parallel mesh) goes to the engine;
+    a rank launches the one-device counts, on its slice of the heads.
+    `eng.first_decode` holds each request's logits after its first decode
+    step (its first generated token fed back)."""
     (api, SalPimConfig, SalPimEngine, EngineConfig, GenConfig, ServingEngine,
      paged_attention, kernels) = mods
     from repro_torch.serving import kvcache
@@ -3059,7 +3088,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         slots=4, max_len=max_len, paged=True, page_size=16, prefill_chunk_tokens=64,
         prefix_sharing=sharing, speculative=spec, kv_cache_dtype=kv, kv_scale_dtype=sd,
         kv_splits=kv_splits, scheduler=scheduler, num_pages=num_pages,
-        telemetry=telemetry, gen=GenConfig(stop_on_eos=False)), device="cuda")
+        telemetry=telemetry, gen=GenConfig(stop_on_eos=False), mesh=mesh), device="cuda")
     if drafter is not None:
         eng.drafter = drafter
     eng.preempt_log, eng.between = [], None
@@ -3072,6 +3101,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     eng._preempt = logged_preempt
     split = paged_attention.effective_kv_splits(kv_splits, eng.max_pages, 16) is not None
     first: dict[int, object] = {}
+    first_decode: dict[int, object] = {}
     tick = eng._prefill_tick
 
     def record_gaps():
@@ -3152,6 +3182,9 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
             if watch is not None:
                 watch.check()
             record_gaps()
+            for i, r in enumerate(eng.active):
+                if r is not None and len(r.generated) == 1 and r.uid not in first_decode:
+                    first_decode[r.uid] = eng.last_logits[i].clone()
             d = {n_: k.launches - before[n_] - draft[n_] for n_, k in kernels.items()}
             dec, chunk = eng.decode_steps - n_dec, eng.prefill_chunks - n_chunk
             ver = eng.verify_passes - n_ver
@@ -3239,6 +3272,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     if len(first) != len(uids):
         raise AssertionError(f"serve[{label}]: first logits of {len(first)} requests")
     eng.verify_reach = reach[0]
+    eng.first_decode = first_decode
     eng.cow_forks = watch.forks if watch is not None else 0
     eng.watch_sec = watch.sec if watch is not None else 0.0
     if plain:
@@ -3988,7 +4022,7 @@ def slo_phase(torch, F, np, mods, plain, counted, quant, quantize, params, cfg, 
     if not (between["pinned_pages"] > 0 and saved > 0):
         raise AssertionError(f"serve[pin fp slo]: {between['pinned_pages']} pinned, "
                              f"{saved} tokens saved on the second wave")
-    return counts, swap_ms
+    return counts, swap_ms, runs["u1 fp exact slo"]
 
 
 # ---------------------------------------------------------------------------
@@ -4056,7 +4090,11 @@ def traced_scopes(torch, prof) -> dict:
     for e in prof.profiler.kineto_results.events():
         name, t0 = e.name(), e.start_ns()
         if e.device_type() == DeviceType.CUDA:
-            if name not in TEL_SCOPES:             # not a scope's device span
+            # Not a scope's or a profiler step's device span: such a span
+            # carries the correlation id of a kernel it covers, and would
+            # take that kernel's place here.
+            if not (name in TEL_SCOPES or name.startswith("ProfilerStep#")
+                    or e.is_user_annotation()):
                 kernels[e.correlation_id()] = (name, e.duration_ns() / 1e3)
         elif name in TEL_SCOPES:
             scopes[name].append(Scope(name, t0, t0 + e.duration_ns(), []))
@@ -4094,9 +4132,11 @@ def check_scopes(torch, prof, window, label, ours_per_call, card):
     for c in calls:
         ours = c.ours()
         if len(ours) != ours_per_call[c.name]:
+            names = collections.Counter(re.split(r"[<(]", k.removeprefix("void "), maxsplit=1)[0]
+                                        for k, _ in c.kernels)
             raise AssertionError(
                 f"trace[{label}]: a {c.name} scope holds {len(ours)} of the port's kernels "
-                f"({len(c.kernels)} kernels in all); its call launches "
+                f"({len(c.kernels)} kernels in all: {dict(names)}); its call launches "
                 f"{ours_per_call[c.name]}")
     decode_only = []
     for st in steps:
@@ -4560,7 +4600,8 @@ def plain_ops(mode):
         "pim_paged_prefill_attention": (
             (lambda q, *a, **k: pf.paged_prefill_attention_online_plain(q, *a, **k).to(
                 q.dtype)) if lut else pf.paged_prefill_attention_plain),
-        "pim_paged_attention": lambda q, *a, kv_splits=None, **k: walk(q, *a, **k).to(q.dtype),
+        "pim_paged_attention": lambda q, *a, kv_splits=None, plan_kv_heads=None, **k: walk(
+            q, *a, **k).to(q.dtype),
         "pim_layernorm": lambda *a, **k: ln.layernorm_lut_plain(*a, wide_sums=True, **k),
         "pim_softmax": sm.softmax_lut_plain,
         "pim_decode_attention": (da.decode_attention_online_plain if lut
@@ -6273,6 +6314,364 @@ def train_phase(torch, np, mods, counted, card, seed, cfg=None, B=8, S=1024, dev
     return {"train": counts}, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor-parallel paged serving on two ranks of the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+# The stats() counts a rank's drain must share with the one-device drain.
+MESH_COUNTERS = ("tokens", "decode_steps", "prefill_chunks", "prefill_tokens",
+                 "prefill_tokens_saved", "peak_pages", "preemptions", "swap_outs", "swap_ins")
+# The GPT-2 drains a rank runs (`mesh_rank` gives each its requests and
+# serve()'s options), each held to its one-device drain.
+MESH_GPT2 = ["m1 fp exact", "m2 fp lut", "m3 int8/bf16 exact", "m4 fp exact K=4 max_len 1024",
+             "m5 fp exact slo"]
+
+
+def bit_digest(torch, tree) -> int:
+    """An exact checksum of a parameter tree's bits: each tensor's elements
+    read as integers of their width and summed in int64 on the device."""
+    if isinstance(tree, dict):
+        return sum(bit_digest(torch, v) for v in tree.values())
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[tree.element_size()]
+    return int(tree.contiguous().view(ints).sum(dtype=torch.int64))
+
+
+def drain_summary(eng, done, first) -> dict:
+    """What phase 19 compares of a drain, on the host: tokens, first and
+    first-decode logits (f32), the MESH_COUNTERS, the pools' bytes and heads."""
+    st, c = eng.stats(), eng.cache
+    return {"tokens": {u: list(r.generated) for u, r in done.items()},
+            "first": {u: t.float().cpu() for u, t in first.items()},
+            "first_decode": {u: t.float().cpu() for u, t in eng.first_decode.items()},
+            "counters": {k: st[k] for k in MESH_COUNTERS},
+            "pool_bytes": sum(t.nbytes for t in (c.k_pages, c.v_pages, c.k_scale, c.v_scale)
+                              if t is not None),
+            "pool_heads": c.k_pages.shape[2]}
+
+
+def time_mesh_step(torch, api, collectives, sal, params, cfg, prompts, mesh, card):
+    """A rank's decode step through the model API on the host clock (4
+    slots at 128..156 context, a device synchronise around each call, as
+    `time_model` times phase 4's), then again with a synchronise around each
+    `gather_heads` call, whose host time a step it returns beside."""
+    dev = params["embed"].device
+    B, page, max_pages, S = 4, 16, 16, 128
+    cache = api.init_paged_cache(cfg, B, 1 + B * max_pages, page, max_pages, device=dev,
+                                 mesh=mesh)
+    tables = torch.arange(1, 1 + B * max_pages, dtype=torch.int32,
+                          device=dev).reshape(B, max_pages)
+    for b in range(B):
+        toks = torch.as_tensor(prompts[b][:S], dtype=torch.int64, device=dev)
+        toks = torch.cat([toks, toks.new_full((S - len(toks),), 2)]) if len(toks) < S else toks
+        for a in range(0, S, 64):
+            api.prefill_chunk(params, toks[None, a:a + 64], tables[b:b + 1],
+                              torch.tensor([a], dtype=torch.int32, device=dev),
+                              cache.k_pages, cache.v_pages, cfg, sal, mesh=mesh)
+    cache.lengths[:] = S
+    cache.block_tables.copy_(tables)
+    tok = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    gather = [0.0, 0]
+    plain_gather = collectives.gather_heads
+
+    def timed_gather(x, group, axis):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain_gather(x, group, axis)
+        torch.cuda.synchronize()
+        gather[0] += time.perf_counter() - t0
+        gather[1] += 1
+        return y
+
+    def step():
+        nonlocal tok, cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, tok, cache, cfg, sal, mesh=mesh)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    dec = statistics.median([step() for _ in range(20)][2:])
+    collectives.gather_heads = timed_gather
+    try:
+        synced, gathered = [], []
+        for _ in range(8):
+            gather[:] = [0.0, 0]
+            synced.append(step())
+            gathered.append(1e3 * gather[0])
+        n_gathers = gather[1]
+    finally:
+        collectives.gather_heads = plain_gather
+    dec_synced, gathered = statistics.median(synced[2:]), statistics.median(gathered[2:])
+    log(f"  mesh decode step on a rank (host clock, {card}): {dec:.2f} ms at 4 slots x "
+        f"128..156 context; with a synchronise around each of its {n_gathers} gather_heads "
+        f"{dec_synced:.2f} ms, of which gather_heads {gathered:.2f} ms")
+    return dict(dec=dec, dec_synced=dec_synced, gather=gathered, gathers=n_gathers)
+
+
+def mesh_rank(rank: int, job: dict) -> dict:
+    """Phase 19 on one rank, a process of a gloo world of MESH_RANKS on the
+    one card (`repro_torch.launch.mesh.World`): GPT-2 medium's drains
+    (MESH_GPT2), its decode step timed, qwen2-1.5B exact, olmoe-1B-7B with
+    the expert-parallel MoE, each through `serve` (every step's launches
+    checked) on a ("model",) mesh of the world. olmoe also drains on one
+    device (no mesh: the grouped dispatch), its prompts' routing recorded
+    (`RoutingRecorder`), and again on the mesh with that routing replayed.
+    Rank 0 logs; each rank returns its drains' `drain_summary`, the launch
+    counts of its mesh drains and its parameters' `bit_digest`."""
+    import torch
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.scheduler import SloScheduler
+    kernels, mods, _ = serving_handles(torch)
+    api, SalPimConfig, SalPimEngine = mods[0], mods[1], mods[2]
+    launches = collections.Counter()
+
+    def on_mesh(label, p, model_cfg, ps, n, **kw):
+        """A mesh drain through `serve`, its launches added to `launches`."""
+        before = {name: k.launches for name, k in kernels.items()}
+        eng, done, first, wall = serve(torch, mods, p, model_cfg, ps, n, card,
+                                       label=f"mesh rank 0 {label}", mesh=mesh, **kw)
+        launches.update({name: k.launches - before[name] for name, k in kernels.items()})
+        return dict(drain_summary(eng, done, first), wall=wall)
+
+    t_start = time.perf_counter()
+    mesh = make_test_mesh((MESH_RANKS,), ("model",), device_type="cuda")
+    card, seed, prompts = job["card"], job["seed"], job["prompts"]
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device())), "digest": {}}
+    cfg = get_config("gpt2_medium")
+    params = api.init_params(cfg, seed=seed, device="cuda")
+    out["digest"]["gpt2"] = bit_digest(torch, params)
+    slo = dict(scheduler=SloScheduler(), num_pages=SLO_PAGES, priority=1, sharing=True,
+               late=[(SLO_ARRIVAL_STEP, job["urgent"], 32, 0)])
+    options = dict(zip(MESH_GPT2, [(prompts, 32, dict()), (prompts, 32, dict(mode="lut")),
+                                   (prompts, 32, dict(fmt="int8/bf16")),
+                                   (job["long_prompts"], 32, dict(max_len=1024, kv_splits=4)),
+                                   (prompts, 64, slo)]))
+    for label, (ps, n, kw) in options.items():
+        out[label] = on_mesh(label, params, cfg, ps, n, **kw)
+    out["step"] = time_mesh_step(torch, api, collectives, SalPimEngine.create(SalPimConfig()),
+                                 params, cfg, prompts, mesh, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qcfg = get_config("qwen2_1_5b")
+    qw = api.init_params(qcfg, seed=seed, device="cuda")
+    out["digest"]["qwen2"] = bit_digest(torch, qw)
+    out["qwen2 exact"] = on_mesh("qwen2 exact", qw, qcfg, job["q_prompts"], 32)
+    del qw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ocfg = dataclasses.replace(get_config("olmoe_1b_7b"), moe_impl="shardmap")
+    # One rank at a time: making the weights takes f32 temporaries beside them.
+    for r in range(MESH_RANKS):
+        if r == rank:
+            ow = api.init_params(ocfg, seed=seed, device="cuda")
+            torch.cuda.synchronize()
+        torch.distributed.barrier()
+    rec = RoutingRecorder(moe_lib, api)
+    with rec.recording():
+        eng, done, first, wall = serve(torch, mods, ow, ocfg, prompts[:4], 16, card,
+                                       label="olmoe on one device (no mesh: the grouped "
+                                       "dispatch)")
+    out["olmoe one device"] = dict(drain_summary(eng, done, first), wall=wall)
+    routing = rec.calls
+    del eng
+    out["olmoe shardmap"] = on_mesh("olmoe shardmap", ow, ocfg, prompts[:4], 16)
+    with rec.recording(replay=routing):
+        out["olmoe shardmap replayed"] = on_mesh(
+            "olmoe shardmap, the one-device drain's prompt routing replayed", ow, ocfg,
+            prompts[:4], 16)
+    out["olmoe own"] = rec.own
+    out["launches"] = {name: launches[name] for name in kernels}
+    out["sec"] = time.perf_counter() - t_start
+    return out
+
+
+def check_mesh_plans(torch, paged_attention, card, seed):
+    """The decode walk at a rank's shapes on 2 ranks (half the KV heads of
+    each pool and of q): planned on the model's KV heads (what a rank of
+    the mesh runs) it must equal the one-device call's heads bit for bit on
+    both halves; planned on the rank's own heads (another cluster, another
+    order of sums) its gap is reported. Times in CUDA graphs, one pool set
+    a layer, beside the one-device call: GPT-2's single walk at 128..160
+    keys (bf16, and f32, where a rounding of the regrouped sums survives
+    the output's cast) and its split (K=4) at 960..1024, qwen2's g 6 x 128
+    at one KV head."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    B, page = 4, 16
+    short, long = [128, 137, 151, 160], [960, 981, 1003, 1024]
+    cases = [("gpt2-medium, 128..160 keys", 24, 16, 16, 64, 16, short, None, torch.bfloat16),
+             ("gpt2-medium, 128..160 keys, f32", 24, 16, 16, 64, 16, short, None,
+              torch.float32),
+             ("gpt2-medium, 960..1024 keys, kv_splits=4", 24, 16, 16, 64, 64, long, 4,
+              torch.bfloat16),
+             ("qwen2-1.5b, 128..160 keys", 28, 12, 2, 128, 16, short, None, torch.bfloat16)]
+    out = {}
+    for label, L, H, Hkv, D, n_tbl, lens, K, dtype in cases:
+        P = 1 + B * n_tbl
+        tables = ((torch.randperm(P - 1, generator=gen, device=dev) + 1)
+                  .reshape(B, n_tbl).to(torch.int32).contiguous())
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+        pools = [tuple(torch.randn((P, Hkv, page, D), generator=gen, device=dev).to(dtype)
+                       for _ in "kv") for _ in range(L)]
+        h, hq, g = Hkv // MESH_RANKS, H // MESH_RANKS, H // Hkv
+        halves = [(q[:, r * hq:(r + 1) * hq].contiguous(),
+                   [tuple(t[:, r * h:(r + 1) * h].contiguous() for t in kv) for kv in pools])
+                  for r in range(MESH_RANKS)]
+
+        def call(qq, kv, plan=None):
+            return paged_attention.paged_attention(qq, *kv, tables, lengths, kv_splits=K,
+                                                   plan_kv_heads=plan)
+
+        whole = call(q, pools[0])
+        same, gap = True, 0.0
+        for r, (qr, kvr) in enumerate(halves):
+            want = whole[:, r * hq:(r + 1) * hq]
+            same &= torch.equal(call(qr, kvr[0], Hkv), want)
+            gap = max(gap, float((call(qr, kvr[0]).float() - want.float()).abs().max()))
+        row_bytes = D * dtype.itemsize
+        if K:
+            plans = [paged_attention.split_plan(B, n, K, n_tbl, g, D, page, row_bytes)
+                     for n in (Hkv, h)]
+        else:
+            plans = [paged_attention.decode_plan(B, n, n_tbl, g, D, page, row_bytes)
+                     for n in (Hkv, h)]
+        qr, kvr = halves[0]
+        t_whole = time_graph(torch, lambda i: call(q, pools[i]), L)
+        t_glob = time_graph(torch, lambda i: call(qr, kvr[i], Hkv), L)
+        t_loc = time_graph(torch, lambda i: call(qr, kvr[i]), L)
+        keys, size = sum(lens) * h, dtype.itemsize
+        bnd, by = bound_ms(2 * keys * D * size + 2 * size * B * hq * D
+                           + 4 * (tables.numel() + B), 4 * sum(lens) * hq * D,
+                           str(dtype).split(".")[-1])
+        log(f"  paged_attention at a rank's shapes, {label} (B {B}, {hq} of {H} heads, "
+            f"{h} of {Hkv} kv heads, D {D}; {card}): planned on the model's {Hkv} kv heads "
+            f"{plans[0]} {t_glob * 1e3:.2f} us, {'bit for bit' if same else 'NOT bit for bit'} "
+            f"the one-device call's heads on both ranks; planned on the rank's {h} "
+            f"{plans[1]} {t_loc * 1e3:.2f} us, max |diff| {gap:.3e} (reported); the "
+            f"one-device call {t_whole * 1e3:.2f} us; the rank's bound {bnd * 1e3:.2f} us "
+            f"by {by}")
+        if not same:
+            raise AssertionError(f"paged_attention at a rank's shapes ({label}): planned on "
+                                 "the model's heads, not the one-device bits")
+        out[label] = dict(ms=t_glob, local_plan_ms=t_loc, one_device_ms=t_whole, bound_ms=bnd,
+                          bound_by=by, plan=list(plans[0]), local_plan=list(plans[1]),
+                          local_plan_max_diff=gap)
+    return out
+
+
+def mesh_phase(torch, np, mods, card, seed, job, refs, one_rank_ms):
+    """Phase 19: `check_mesh_plans`, then MESH_RANKS ranks spawned on the
+    one card run `mesh_rank`. Every rank must return the same tokens, first
+    and first-decode logits (bit for bit) and counters; each GPT-2 and qwen2
+    drain must equal its one-device drain (`refs`, from phases 4, 5, 8 and
+    12 and an int8/bf16 drain here) in tokens, first and first-decode
+    logits bit for bit and counters, its pools holding half the one-device
+    bytes; olmoe's first logits, its prompts routed as the one-device drain
+    routed them, within FIRST_LOGITS_LIMIT of that drain's (free-running:
+    reported). Returns ({"mesh": launches summed over the ranks},
+    times)."""
+    from repro_torch.launch.mesh import World
+    from repro_torch.kernels import paged_attention
+    times = {"plans": check_mesh_plans(torch, paged_attention, card, seed)}
+    # The earlier phases' engines hold their weights in reference cycles (the
+    # drains' patched methods close over their engines): collect them, so
+    # that the ranks find the card's memory free.
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card "
+        f"({held / 2 ** 30:.2f} GiB before collecting the earlier phases' garbage)")
+    workdir = ROOT / "build" / "mesh"
+    workdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = World(mesh_rank, MESH_RANKS, (job,), workdir=workdir, backend="gloo",
+                  timeout_s=900).join()
+    log(f"  {MESH_RANKS} ranks (one process each, gloo, on {[r['device'] for r in ranks]}) "
+        f"ran their drains in {[round(r['sec'], 1) for r in ranks]} s ({time.perf_counter() - t0:.1f} "
+        "s with the spawn)")
+    if any(r["digest"] != ranks[0]["digest"] for r in ranks) or \
+            ranks[0]["digest"]["gpt2"] != refs["digest"]:
+        raise AssertionError(f"mesh: parameter digests {[r['digest'] for r in ranks]}, the "
+                             f"one-device GPT-2's {refs['digest']}")
+
+    def same_drain(a, b, bits=True):
+        return (a["tokens"] == b["tokens"] and a["counters"] == b["counters"]
+                and (not bits or all(torch.equal(a[k][u], b[k][u]) for k in
+                                     ("first", "first_decode") for u in b[k])))
+
+    for label in MESH_GPT2 + ["qwen2 exact", "olmoe shardmap", "olmoe shardmap replayed"]:
+        if not all(same_drain(r[label], ranks[0][label]) for r in ranks[1:]):
+            raise AssertionError(f"mesh[{label}]: the ranks are not in lockstep")
+    for label in MESH_GPT2 + ["qwen2 exact"]:
+        mine, ref = ranks[0][label], refs[label]
+        n = sum(len(t) for t in ref["tokens"].values())
+        same_tokens = sum(a == b for u in ref["tokens"]
+                          for a, b in zip(mine["tokens"].get(u, []), ref["tokens"][u]))
+        first_bits = sum(torch.equal(mine["first"][u], ref["first"][u]) for u in ref["first"])
+        dec_bits = sum(torch.equal(mine["first_decode"][u], ref["first_decode"][u])
+                       for u in ref["first_decode"])
+        log(f"  mesh[{label}] on {MESH_RANKS} ranks: {same_tokens}/{n} greedy tokens of the "
+            f"one-device drain; first logits bit for bit for {first_bits}/{len(ref['first'])} "
+            f"requests, first-decode logits for {dec_bits}/{len(ref['first_decode'])}; "
+            f"counters {mine['counters']} (one device {ref['counters']}); a rank's pools "
+            f"{mine['pool_bytes']} bytes over {mine['pool_heads']} kv heads against "
+            f"{ref['pool_bytes']} over {ref['pool_heads']}; {mine['wall']:.2f} s on rank 0 "
+            f"({card})")
+        if not same_drain(mine, ref) or MESH_RANKS * mine["pool_bytes"] != ref["pool_bytes"]:
+            raise AssertionError(f"mesh[{label}]: not the one-device drain")
+    ref = ranks[0]["olmoe one device"]
+    if any(not same_drain(r["olmoe one device"], ref) for r in ranks[1:]):
+        raise AssertionError("mesh[olmoe]: the ranks' one-device drains differ")
+    gaps = {}
+    for label in ("olmoe shardmap", "olmoe shardmap replayed"):
+        mine = ranks[0][label]
+        gaps[label] = max(float((mine["first"][u] - ref["first"][u]).abs().max()
+                                / ref["first"][u].abs().max()) for u in ref["first"])
+        n = sum(len(t) for t in ref["tokens"].values())
+        same_tokens = sum(a == b for u in ref["tokens"]
+                          for a, b in zip(mine["tokens"][u], ref["tokens"][u]))
+        log(f"  mesh[{label}] on {MESH_RANKS} ranks ({job['olmoe_experts']} experts a rank, "
+            f"one psum a layer): first logits vs the one-device drain max |diff| / max "
+            f"|logit| = {gaps[label]:.3e}; shares {same_tokens}/{n} greedy tokens with it; "
+            f"{mine['wall']:.2f} s against {ref['wall']:.2f} s on one device ({card})")
+    own, n_own, near = ranks[0]["olmoe own"]
+    log(f"  mesh[olmoe]: gated, with the one-device drain's prompt routing replayed: "
+        f"{gaps['olmoe shardmap replayed']:.3e} (limit {FIRST_LOGITS_LIMIT:.0e}); the "
+        f"replayed drain's own weights would have chosen {own}/{n_own} prompt top-k sets "
+        f"otherwise (largest top-k / top-(k+1) gap at one {near:.3e}); free-running "
+        f"{gaps['olmoe shardmap']:.3e} and the token shares reported, not gated: the psum "
+        f"adds in another order, and random-weight routing is chaotic (phase 14)")
+    if gaps["olmoe shardmap replayed"] > FIRST_LOGITS_LIMIT:
+        raise AssertionError(f"mesh[olmoe shardmap]: first logits differ by "
+                             f"{gaps['olmoe shardmap replayed']:.3e} with the routing replayed")
+    step = ranks[0]["step"]
+    log(f"  mesh decode step (GPT-2 medium, 4 slots): {step['dec']:.2f} ms a rank on the host "
+        f"clock against {one_rank_ms:.2f} ms on one device (phase 4), gather_heads "
+        f"{step['gather']:.2f} ms of it over {step['gathers']} calls ({card})")
+    counts = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+    log(f"  launches over the mesh drains, summed over the ranks: {counts}")
+    missing = [n for n in ("gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
+                           "paged_attention_split", "merge_partials", "layernorm_lut")
+               if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mesh path: {missing}")
+    times["step"] = step
+    return {"mesh": counts}, times
+
+
 def named_leaves(tree, pre=""):
     """Leaf paths of nested dicts in `optimizer.tree_leaves`' order."""
     out = []
@@ -6567,6 +6966,7 @@ def main() -> int:
                                 SalPimEngine.create(SalPimConfig(nonlinear_mode=mode)),
                                 q_prompts, card, label=f"qwen2 {mode}")
                for mode in ("exact", "lut")}
+    qwen_ref = drain_summary(*q_runs["qwen2 exact"][:3])
     del qw, qw_q1, q_runs
 
     log("== 9. gemma2-2B and h2o-danube3-4B at full width, 2 layers")
@@ -6636,8 +7036,8 @@ def main() -> int:
 
     log("== 12. slo/swap: the SLO scheduler with preempt-and-swap (GPT-2 medium)")
     t12 = time.perf_counter()
-    counts_slo, swap_ms = slo_phase(torch, F, np, mods, plain, counted, quant, quantize,
-                                    params, cfg, prompts, card, args.seed)
+    counts_slo, swap_ms, slo_u1 = slo_phase(torch, F, np, mods, plain, counted, quant,
+                                            quantize, params, cfg, prompts, card, args.seed)
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     torch.cuda.empty_cache()
 
@@ -6686,14 +7086,34 @@ def main() -> int:
     counts_train, train = train_phase(torch, np, mods, counted, card, args.seed)
     log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
 
-    log("== 19. result")
+    log("== 19. mesh: tensor-parallel paged serving on 2 ranks of the one card (gloo), "
+        "GPT-2 medium, qwen2-1.5B, olmoe-1B-7B")
+    t19 = time.perf_counter()
+    ref_int8 = serve(torch, mods, params, cfg, prompts, new_tokens, card,
+                     label="m3 int8/bf16 exact on one device", fmt="int8/bf16")
+    refs = {"digest": bit_digest(torch, params),
+            "m1 fp exact": drain_summary(*runs["exact"][:3]),
+            "m2 fp lut": drain_summary(*runs["lut"][:3]),
+            "m3 int8/bf16 exact": drain_summary(*ref_int8[:3]),
+            "m4 fp exact K=4 max_len 1024": drain_summary(*long_runs["2 fp exact K=4"][:3]),
+            "m5 fp exact slo": drain_summary(*slo_u1[:3]),
+            "qwen2 exact": qwen_ref}
+    del ref_int8, slo_u1
+    job = dict(card=card, seed=args.seed, prompts=prompts, long_prompts=long_prompts,
+               urgent=slo_arrivals(np, cfg, args.seed)[1], q_prompts=q_prompts,
+               olmoe_experts=get_config("olmoe_1b_7b").n_experts // MESH_RANKS)
+    counts_mesh, mesh_times = mesh_phase(torch, np, mods, card, args.seed, job, refs,
+                                         model_ms["exact"]["dec"])
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    log("== 20. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
                   *counts_moe.items(), *counts_ssm.items(), *counts_encdec.items(),
-                  *counts_vlm.items(), *counts_train.items()]
+                  *counts_vlm.items(), *counts_train.items(), *counts_mesh.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -6727,6 +7147,9 @@ def main() -> int:
             row["ssm_shapes"] = ssm_kernel_times[name]
         if name in encdec_kernel_times:
             row["encdec_shapes"] = encdec_kernel_times[name]
+        if name in ("paged_attention", "paged_attention_split"):
+            row["mesh_rank_shapes"] = {k: v for k, v in mesh_times["plans"].items()
+                                       if ("kv_splits" in k) == (name != "paged_attention")}
         if name in ("paged_attention", "paged_prefill_attention"):
             form = "decode" if name == "paged_attention" else "prefill"
             row["model_heads"] = {m: model_times[f"{m} heads"][form]
@@ -6775,6 +7198,10 @@ def main() -> int:
     log(f"  swap of one request's 9 pages, host clock ms (blob bytes): "
         + ", ".join(f"[{k}] out {o:.3f}, in {i:.3f} ({b})" for k, (b, o, i) in swap_ms.items())
         + f" ({card})")
+    step = mesh_times["step"]
+    log(f"  mesh decode step (GPT-2 medium, 4 slots, {MESH_RANKS} ranks on one card), host "
+        f"clock: {step['dec']:.2f} ms a rank, gather_heads {step['gather']:.2f} ms of it, "
+        f"against {model_ms['exact']['dec']:.2f} ms on one device ({card})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -105,8 +105,8 @@ def main() -> int:
         "pim_paged_prefill_attention": (
             (lambda q, *a, **k: pf_k.paged_prefill_attention_online_plain(q, *a, **k).to(
                 q.dtype)) if args.mode == "lut" else pf_k.paged_prefill_attention_plain),
-        "pim_paged_attention": lambda *a, kv_splits=None, **k: paged_k.paged_attention_plain(
-            *a, **k),
+        "pim_paged_attention": lambda *a, kv_splits=None, plan_kv_heads=None, **k: (
+            paged_k.paged_attention_plain(*a, **k)),
         "pim_layernorm": lambda *a, **k: ln_k.layernorm_lut_plain(*a, wide_sums=True, **k),
         "pim_softmax": sm_k.softmax_lut_plain,
         "pim_decode_attention": attn_k.decode_attention_plain,

@@ -171,13 +171,17 @@ class SalPimEngine:
                                k_scales=None, v_scales=None, *,
                                scale: Optional[float] = None,
                                softcap: Optional[float] = None,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               plan_kv_heads: Optional[int] = None) -> torch.Tensor:
         """Decode attention reading K/V through a block table; int8/int4
-        pools pass their scale rows. `config.kv_splits` rides along."""
+        pools pass their scale rows. `config.kv_splits` rides along;
+        `plan_kv_heads` plans the kernel's walk (a mesh rank's: the model's
+        KV heads)."""
         return ops.pim_paged_attention(
             q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
             scale=scale, exp_table=self._exp_table(), softcap=softcap,
-            window=window, kv_splits=self.config.kv_splits)
+            window=window, kv_splits=self.config.kv_splits,
+            plan_kv_heads=plan_kv_heads)
 
     def paged_prefill_attention(self, q, k_pages, v_pages, block_tables,
                                 length, start, k_scales=None, v_scales=None, *,

@@ -99,10 +99,11 @@ def pim_fixed_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = 
 def pim_paged_attention(q, k_pages, v_pages, block_tables, length,
                         k_scales=None, v_scales=None, *, scale=None,
                         exp_table: LutTable | None = None, softcap=None,
-                        window=None, kv_splits=None) -> torch.Tensor:
+                        window=None, kv_splits=None, plan_kv_heads=None) -> torch.Tensor:
     """Decode attention over a paged KV pool (see serving/kvcache.py).
     int8/int4 pools pass their (P, Hkv, page) scale rows; `kv_splits` > 1
-    engages the KV-split path when `effective_kv_splits` says so."""
+    engages the KV-split path when `effective_kv_splits` says so;
+    `plan_kv_heads` plans the kernel's walk (`paged_attention`)."""
     kw = dict(scale=scale, exp_table=exp_table, softcap=softcap, window=window)
     if q.device.type == "cpu":
         splits = paged_k.effective_kv_splits(kv_splits, block_tables.shape[1],
@@ -114,7 +115,8 @@ def pim_paged_attention(q, k_pages, v_pages, block_tables, length,
         return paged_k.paged_attention_plain(q, k_pages, v_pages, block_tables,
                                              length, k_scales, v_scales, **kw)
     return paged_k.paged_attention(q, k_pages, v_pages, block_tables, length,
-                                   k_scales, v_scales, kv_splits=kv_splits, **kw)
+                                   k_scales, v_scales, kv_splits=kv_splits,
+                                   plan_kv_heads=plan_kv_heads, **kw)
 
 
 def pim_paged_prefill_attention(q, k_pages, v_pages, block_tables, length,

@@ -466,26 +466,33 @@ def paged_attention(q, k_pages, v_pages, block_tables, length,
                     exp_table: LutTable | None = None,
                     softcap: float | None = None,
                     window: int | None = None,
-                    kv_splits: int | None = None) -> torch.Tensor:
+                    kv_splits: int | None = None,
+                    plan_kv_heads: int | None = None) -> torch.Tensor:
     """q (B, H, D) -> out (B, H, D) in q.dtype: the single-walk kernel, or
-    the split kernel and its combine when `effective_kv_splits` engages."""
+    the split kernel and its combine when `effective_kv_splits` engages.
+    The walk is planned (`decode_plan`, `split_plan`) for `plan_kv_heads`
+    KV heads (None: the pool's): a rank of a tensor-parallel mesh passes
+    the model's, so that each head's keys split over the same blocks, and
+    sum in the same order, as on one device."""
     fmt = check_paged_args("paged_attention", q, k_pages, v_pages, block_tables,
                            [("length", length)], k_scales, v_scales, exp_table,
                            window, softcap)
     B, H, D = q.shape
     P, Hkv, page, _ = k_pages.shape
-    splits = effective_kv_splits(kv_splits, block_tables.shape[1], page)
+    n_table = block_tables.shape[1]
+    Hp = plan_kv_heads or Hkv
+    row_bytes = k_pages.shape[-1] * k_pages.element_size()
+    splits = effective_kv_splits(kv_splits, n_table, page)
     if splits is not None:
         kw = dict(kv_splits=splits, scale=scale, exp_table=exp_table, softcap=softcap,
                   window=window)
+        plan = split_plan(B, Hp, splits, n_table, H // Hkv, D, page, row_bytes) if B else None
         m, l, acc = paged_attention_split(q, k_pages, v_pages, block_tables, length,
-                                          k_scales, v_scales, **kw)
+                                          k_scales, v_scales, plan=plan, **kw)
         return merge_partials(m, l, acc, q.dtype)
-    n_table = block_tables.shape[1]
     if B == 0 or n_table == 0:
         return torch.zeros_like(q)
-    row_bytes = k_pages.shape[-1] * k_pages.element_size()
-    cluster, win = decode_plan(B, Hkv, n_table, H // Hkv, D, page, row_bytes)
+    cluster, win = decode_plan(B, Hp, n_table, H // Hkv, D, page, row_bytes)
     return launch_decode(q, k_pages, v_pages, block_tables, length, k_scales, v_scales,
                          fmt, cluster, win, scale=scale, exp_table=exp_table,
                          softcap=softcap, window=window)

@@ -7,8 +7,8 @@
 It takes the reference's flags and prints its lines, plus `--device`
 (`cuda` unless the CPU is asked for; without a GPU it raises). The
 published widths train unless `--smoke` asks for the CPU-sized twin.
-`--mesh` other than `none` and `--fsdp` are refused: the port's
-distributed path is not written yet.
+`--mesh` other than `none` and `--fsdp` are refused: training under a
+mesh is the port's next slice (serving on a mesh is ported).
 """
 from __future__ import annotations
 

@@ -10,12 +10,18 @@ ValueError for them).
     prefill(params, {"tokens": tokens, "frames": frames}, ...)   # encdec
     init_cache(cfg, batch, max_len, device="cuda")
     prefill_chunk(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
-                  k_scales=None, v_scales=None)
+                  k_scales=None, v_scales=None, mesh=None)
     verify_tokens(params, tokens, block_tables, start, k_pages, v_pages, cfg, engine,
-                  k_scales=None, v_scales=None)
-    decode_step(params, token, cache, cfg, engine)
+                  k_scales=None, v_scales=None, mesh=None)
+    decode_step(params, token, cache, cfg, engine, mesh=None)
     init_paged_cache(cfg, batch, num_pages, page_size, max_pages, kv_dtype=None,
-                     kv_scale_dtype="float32", device="cuda")
+                     kv_scale_dtype="float32", device="cuda", mesh=None)
+
+`mesh` (a `DeviceMesh`, on every rank of it) runs the paged entry points
+tensor-parallel: the call runs under `distributed.api.use_mesh(mesh)`,
+where each attention layer attends this rank's heads against its slice
+of the pools and merges the heads by `collectives.gather_heads`, and an
+MoE config with `moe_impl="shardmap"` runs its experts expert-parallel.
 
 The VLM stub: when batch["patch_embeds"] (B, P, D) is given, it
 overwrites the embeddings of the first P positions (`_splice_patches`,
@@ -23,9 +29,12 @@ training only: the serving entry points ignore it, as the reference's do).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -77,11 +86,16 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine):
     return tf.loss_fn(params, batch, cfg, engine)
 
 
+def _under(mesh):
+    """`use_mesh(mesh)` when a mesh is given; the current one stays else."""
+    return dist_api.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
 def prefill_chunk(params: dict, tokens: torch.Tensor,
                   block_tables: torch.Tensor, start: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
                   cfg: ModelConfig, engine: SalPimEngine,
-                  k_scales=None, v_scales=None):
+                  k_scales=None, v_scales=None, *, mesh=None):
     """One chunk of paged prefill: tokens (B, S) at absolute positions
     start..start+S-1, K/V written into the pool pages in place, queries
     attending over all resident KV. Returns (last-position logits,
@@ -89,15 +103,16 @@ def prefill_chunk(params: dict, tokens: torch.Tensor,
     5-tuple with them."""
     if cfg.family == "encdec":
         raise ValueError("paged prefill unsupported for encdec")
-    return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
-                            v_pages, cfg, engine, k_scales, v_scales)
+    with _under(mesh):
+        return tf.prefill_chunk(params, tokens, block_tables, start, k_pages,
+                                v_pages, cfg, engine, k_scales, v_scales)
 
 
 def verify_tokens(params: dict, tokens: torch.Tensor,
                   block_tables: torch.Tensor, start: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
                   cfg: ModelConfig, engine: SalPimEngine,
-                  k_scales=None, v_scales=None):
+                  k_scales=None, v_scales=None, *, mesh=None):
     """Speculative verify pass: score each slot's k+1 candidate tokens
     [t0, d1..dk] at positions start..start+k in one paged-prefill-shaped
     forward, writing their K/V into the slot's pages in place. Returns
@@ -105,8 +120,9 @@ def verify_tokens(params: dict, tokens: torch.Tensor,
     serving engine rolls rejected tail positions back in-pool."""
     if cfg.family == "encdec":
         raise ValueError("speculative verify unsupported for encdec")
-    return tf.verify_tokens(params, tokens, block_tables, start, k_pages,
-                            v_pages, cfg, engine, k_scales, v_scales)
+    with _under(mesh):
+        return tf.verify_tokens(params, tokens, block_tables, start, k_pages,
+                                v_pages, cfg, engine, k_scales, v_scales)
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, engine: SalPimEngine,
@@ -132,25 +148,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
 
 
 def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
-                engine: SalPimEngine):
+                engine: SalPimEngine, *, mesh=None):
     """token (B,) -> (logits (B, V), the dense `Cache` or `PagedCache` with
     advanced lengths)."""
     if cfg.family == "encdec":
         return encdec.decode_step(params, token, cache, cfg, engine)
-    return tf.decode_step(params, token, cache, cfg, engine)
+    with _under(mesh):
+        return tf.decode_step(params, token, cache, cfg, engine)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      page_size: int, max_pages: int,
                      kv_dtype: str | None = None,
-                     kv_scale_dtype: str = "float32", *, device="cuda"):
+                     kv_scale_dtype: str = "float32", *, device="cuda", mesh=None):
     """Paged KV cache for the dense and MoE families (see
     serving/kvcache.py): kv_dtype None defers to cfg.kv_dtype ("model",
-    "int8" or "int4"). The SSM, hybrid and encoder-decoder families serve
-    on the dense cache alone and raise the reference's ValueError."""
+    "int8" or "int4"); on a `mesh` it holds this rank's KV heads. The
+    SSM, hybrid and encoder-decoder families serve on the dense cache
+    alone and raise the reference's ValueError."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"paged cache unsupported for family {cfg.family!r}")
     return kvcache.init_paged_cache(
         cfg, batch, num_pages, page_size, max_pages,
         kv_dtype=kv_dtype if kv_dtype is not None else cfg.kv_dtype,
-        kv_scale_dtype=kv_scale_dtype, device=device)
+        kv_scale_dtype=kv_scale_dtype, device=device, mesh=mesh)

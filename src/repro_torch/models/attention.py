@@ -1,6 +1,6 @@
 """Multi-head attention, full-sequence and decode forms over the dense
 per-slot arena, prefill-chunk and decode forms over the paged pools (the
-port of `repro.models.attention`, without the mesh branch). With RoPE
+port of `repro.models.attention`). With RoPE
 (cos/sin given) q and k are rotated after the projection and before K is
 returned or written to the arena or the pages.
 
@@ -18,7 +18,18 @@ with `update_cache=False` attends over a static arena (the cross K/V
 written at prefill) of `lengths` keys without writing it. There the new
 token's own K and V would be thrown away, as the reference throws them
 away, so only q is projected: a cross block's decode costs two GEMVs (q,
-o), not four."""
+o), not four.
+
+Under a mesh (`distributed.api.use_mesh`, which the paged entry points
+enter with `mesh=`) the paged forms run tensor-parallel, the twin of the
+reference's `_paged_tp_axis` / `_shard_map_paged`: q, k and v are projected
+replicated, as on one device; the rank takes its contiguous block of
+(Hkv/tp)*g query heads and Hkv/tp KV heads (q's head axis orders as (kv
+head, group)), appends into its slice of the pools and runs the same
+kernel on it; `collectives.gather_heads` concatenates the ranks' heads and
+`wo` runs replicated on them. No float add crosses ranks, so the output is
+bit for bit one device's. A mesh whose "model" extent is 1 or does not
+divide Hkv leaves the layer on the whole heads, as the reference's."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +37,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
+from repro_torch.distributed import collectives
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import apply_rope
 from repro_torch.serving import kvcache
@@ -199,6 +212,23 @@ def _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg: ModelConfi
             dst[b_idx, :, lengths.long()] = src.to(dst.dtype)
 
 
+def _shard_heads(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                axis: int):
+    """(q, k, v, plan_kv_heads, merge): under an active mesh that shards
+    the KV heads, this rank's block of query and KV heads along `axis`,
+    the model's KV-head count to plan the decode walk on, and the merge of
+    the ranks' outputs; else the whole heads, None and the identity."""
+    mesh = dist_api.current_mesh()
+    tp = dist_api.axis_size(mesh, "model")
+    if tp <= 1 or cfg.n_kv_heads % tp:
+        return q, k, v, None, lambda att: att
+    rank, _, group = dist_api.model_shard(mesh)
+    hq, hk = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    return (q.narrow(axis, rank * hq, hq).contiguous(), k.narrow(axis, rank * hk, hk),
+            v.narrow(axis, rank * hk, hk), cfg.n_kv_heads,
+            lambda att: collectives.gather_heads(att, group, axis))
+
+
 def attention_prefill_chunk_paged(
     p: dict,
     x: torch.Tensor,                 # (B, S, D) one prompt chunk per sequence
@@ -220,17 +250,19 @@ def attention_prefill_chunk_paged(
     its scale rows in an int8/int4 pool), then attend over all resident KV
     [0, start+S) read back through the block table, the chunk's own
     included. Returns (out, k_pages, v_pages), plus (k_scale, v_scale)
-    when the pool is quantized."""
+    when the pool is quantized. Under a mesh the pools are this rank's
+    slice (see the module's docstring)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, engine)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q, k, v, _, merge = _shard_heads(cfg, q, k, v, axis=2)
     pools = kvcache.append_chunk_kv_pages(k_pages, v_pages, block_tables, start,
                                           k, v, k_scale, v_scale)
-    att = engine.paged_prefill_attention(
+    att = merge(engine.paged_prefill_attention(
         q, k_pages, v_pages, block_tables, length, start, k_scale, v_scale,
-        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
+        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window))
     out = engine.linear(att.reshape(B, S, -1), p["wo"])
     return (out, *pools)
 
@@ -254,13 +286,16 @@ def attention_decode_paged(
     """One decode step against a paged cache: append each slot's K/V at its
     length (in place; quantized in an int8/int4 pool), attend over
     length + 1 keys. Returns (out, k_pages, v_pages), plus
-    (k_scale, v_scale) when the pool is quantized."""
+    (k_scale, v_scale) when the pool is quantized. Under a mesh the pools
+    are this rank's slice (see the module's docstring)."""
     B, _ = x.shape
     q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
+    q, k, v, plan_kv_heads, merge = _shard_heads(cfg, q, k, v, axis=1)
     pools = kvcache.append_kv_pages(k_pages, v_pages, block_tables, lengths,
                                     k, v, k_scale, v_scale)
-    att = engine.paged_decode_attention(
+    att = merge(engine.paged_decode_attention(
         q, k_pages, v_pages, block_tables, lengths + 1, k_scale, v_scale,
-        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
+        scale=_scale(cfg), softcap=cfg.attn_softcap, window=window,
+        plan_kv_heads=plan_kv_heads))
     out = engine.linear(att.reshape(B, -1), p["wo"])
     return (out, *pools)

@@ -56,8 +56,9 @@ class ModelConfig:
     # MoE (family "moe"): n_experts experts of width moe_d_ff (d_ff when 0),
     # top_k a token; each group's expert takes at most its capacity
     # (models/moe.py `_capacity`, router_cap_factor). moe_impl "shardmap"
-    # is the reference's expert-parallel dispatch under a mesh; without one
-    # (the port refuses `mesh=`) it runs the grouped dispatch, as "gspmd".
+    # is the reference's expert-parallel dispatch under a mesh with a
+    # "model" dimension (models/moe.py); without one it runs the grouped
+    # dispatch, as "gspmd".
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0

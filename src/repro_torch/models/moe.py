@@ -28,9 +28,18 @@ depends on every token of the call, as in the reference.
     compute dtype: bit for bit the reference's bf16 scatter-add on the CPU,
     and deterministic on the card (no atomic adds).
 
-`moe_impl="shardmap"` is the reference's expert-parallel dispatch under a
-mesh; with no mesh it falls to the grouped path, as here (the port refuses
-`mesh=`, `EngineConfig.validate`).
+`moe_impl="shardmap"` is the reference's expert-parallel dispatch
+(`_apply_moe_shardmap`) under a mesh (`distributed.api.current_mesh()`)
+with a "model" dimension of M ranks that divides the experts (and, as
+there, a group count that the data ranks divide): rank j routes every
+token, as the grouped path does, keeps the assignments to its experts
+[j*E/M, (j+1)*E/M) (capacity positions counted against all experts, so
+the kept set is the grouped path's), runs their FFN and combines them,
+and one `collectives.psum` over "model" adds the ranks' partial outputs.
+That is the grouped result in mathematics, not in bits (the sum runs in
+another order), as in the reference. Each rank computes every token group:
+the serving ranks hold the same tokens. Without such a mesh the config
+takes the grouped path, as the reference's does.
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
+from repro_torch.distributed import collectives
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.quantize import QTensor
 
@@ -118,6 +129,30 @@ def dispatch(topw: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig,
     return Dispatch(C, eid, pos, keep, w * keep)
 
 
+def _expert_slice(w, lo: int, hi: int):
+    """Experts lo..hi-1 of a stacked (E, ...) weight or int8 `QTensor`."""
+    if isinstance(w, QTensor):
+        return QTensor(w.w_i8[lo:hi], w.scale[lo:hi])
+    return w[lo:hi]
+
+
+def _ep_rank(cfg: ModelConfig, n_tokens: int):
+    """(rank along "model", its extent, the mesh) when the expert-parallel
+    dispatch runs (the reference's conditions), else None."""
+    mesh = dist_api.current_mesh()
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names:
+        return None
+    M = mesh.size(names.index("model"))
+    dp = 1
+    for a in ("pod", "data"):
+        if a in names:
+            dp *= mesh.size(names.index(a))
+    if cfg.n_experts % M or _num_groups(n_tokens) % dp:
+        return None
+    return mesh.get_local_rank("model"), M, mesh
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               engine: SalPimEngine) -> torch.Tensor:
     """x (..., D) -> (..., D), experts dropping past their capacity."""
@@ -125,38 +160,58 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    T, E, k = xt.shape[0], cfg.n_experts, cfg.top_k
+    ep = _ep_rank(cfg, xt.shape[0]) if cfg.moe_impl == "shardmap" else None
+    if ep is None:
+        return _experts(p, xt, cfg, engine, 0, cfg.n_experts).reshape(*lead, d)
+    j, M, mesh = ep
+    e_loc = cfg.n_experts // M
+    part = _experts(p, xt, cfg, engine, j * e_loc, (j + 1) * e_loc)
+    return collectives.psum(part, mesh.get_group("model")).reshape(*lead, d)
+
+
+def _experts(p: dict, xt: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
+             lo: int, hi: int) -> torch.Tensor:
+    """xt (T, d) -> the outputs (G, Tg, d) of experts lo..hi-1 (all of them
+    on the grouped path), every token routed against all experts."""
+    T, d = xt.shape
+    k = cfg.top_k
     G = _num_groups(T)
     Tg = T // G
     plan = dispatch(*route(p["router"], xt, cfg, engine), cfg, G)
     C = plan.capacity
-    dev = x.device
+    dev, dtype = xt.device, xt.dtype
+    n = hi - lo
+    local = (plan.expert >= lo) & (plan.expert < hi)
+    keep = plan.keep & local
 
     # Expert-major rows: assignment (g, j*Tg + t) kept at position pos of
-    # expert e is row e*G*C + g*C + pos; the dropped ones write row E*G*C.
-    base = plan.expert * (G * C) + torch.arange(G, device=dev)[:, None] * C
-    rows = torch.where(plan.keep, base + plan.pos, E * G * C)
+    # local expert e is row e*G*C + g*C + pos; the others write row n*G*C.
+    base = (plan.expert - lo).clamp(0, n - 1) * (G * C) + torch.arange(G, device=dev)[:, None] * C
+    rows = torch.where(keep, base + plan.pos, n * G * C)
     tok = torch.arange(Tg, device=dev).repeat(k)                      # (kTg,)
     xg = xt.reshape(G, Tg, d)
-    buf = xt.new_zeros((E * G * C + 1, d))
+    buf = xt.new_zeros((n * G * C + 1, d))
     buf[rows.reshape(-1)] = xg[:, tok].reshape(-1, d)
-    buf = buf[:E * G * C].view(E, G * C, d)
+    buf = buf[:n * G * C].view(n, G * C, d)
+
+    def weight(name):
+        return _as_weight(_expert_slice(p[name], lo, hi), dtype).transpose(1, 2)
 
     act = engine.nl.activation(cfg.activation)
-    up = torch.bmm(buf, _as_weight(p["w_up"], x.dtype).transpose(1, 2))
+    up = torch.bmm(buf, weight("w_up"))
     if cfg.gated_mlp:
-        gate = torch.bmm(buf, _as_weight(p["w_gate"], x.dtype).transpose(1, 2))
-        h = act(gate) * up
+        h = act(torch.bmm(buf, weight("w_gate"))) * up
     else:
         h = act(up)
-    out_buf = torch.bmm(h, _as_weight(p["w_down"], x.dtype).transpose(1, 2))
+    out_buf = torch.bmm(h, weight("w_down"))
 
-    # Combine in choice order; a dropped assignment reads its expert's last
-    # row (as the reference's safe position C - 1) at weight 0.
-    gathered = out_buf.reshape(E * G * C, d)[
-        (base + torch.where(plan.keep, plan.pos, C - 1)).reshape(-1)].view(G, k * Tg, d)
-    contrib = gathered * plan.weight[..., None].to(x.dtype)
+    # Combine in choice order; a dropped or another rank's assignment reads
+    # a local expert's last row (as the reference's safe position C - 1) at
+    # weight 0.
+    gathered = out_buf.reshape(n * G * C, d)[
+        (base + torch.where(keep, plan.pos, C - 1)).reshape(-1)].view(G, k * Tg, d)
+    contrib = gathered * torch.where(local, plan.weight, 0.0)[..., None].to(dtype)
     out = torch.zeros_like(xg)
     for j in range(k):
         out = out + contrib[:, j * Tg:(j + 1) * Tg]
-    return out.reshape(*lead, d)
+    return out

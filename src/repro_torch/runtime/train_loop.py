@@ -8,8 +8,9 @@ moved to the device here. After a SIGTERM the loop saves at the next
 step and returns with that checkpoint as the latest (the reference also
 writes its end-of-run save then, labelled `train_cfg.steps`, which a
 resume would take for steps never run). `mesh=` and `fsdp=True` (the reference's
-sharded training) are refused with a ValueError: the port's distributed
-path is not written yet.
+sharded training) are refused with a ValueError: the port serves on a
+mesh (serving/engine.py) but trains on one device until training under a
+mesh is ported.
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import checkpoint as ckpt_lib
 from repro_torch.runtime import optimizer as opt_lib
 
-MESH_REFUSAL = ("the port trains on one device: mesh= and fsdp= wait for the "
-                "distributed item of ROADMAP.md (tensor-parallel pools, sharding, "
-                "launch/mesh.py)")
+MESH_REFUSAL = ("the port trains on one device: mesh= and fsdp= wait for the next "
+                "slice of the port, training under a mesh (FSDP, compressed_psum, "
+                "hierarchical_psum, pipeline.py, param_pspecs; ROADMAP.md queue 1)")
 
 
 @dataclasses.dataclass

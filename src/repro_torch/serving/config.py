@@ -10,18 +10,19 @@ speculative decoding (`speculative=SpecConfig(...)` from
 (`FifoScheduler`, the default, or the preemptive `SloScheduler`, paged
 only), with or without telemetry (`telemetry=Telemetry(...)` from
 `serving/telemetry.py`), its roofline priced against `hardware` (a key of
-`serving/costmodel.HARDWARE_SPECS`; None: the engine's device decides).
-The one feature it lacks, mesh sharding, raises `NotImplementedError` in
-`validate` instead of being ignored, and the JAX package's rules for
-preemption, chunked prefill, the pool dtype, the scale dtype, the
-hardware name, `kv_splits` and speculation raise its `ValueError`s word
-for word.
+`serving/costmodel.HARDWARE_SPECS`; None: the engine's device decides),
+and with `mesh` (a `DeviceMesh` whose dimension behind the logical "model"
+axis shards the paged pools' KV heads: tensor-parallel serving, one
+process a rank). The JAX package's rules for preemption, chunked prefill,
+the pool dtype, the scale dtype, the hardware name, `kv_splits`,
+speculation and the mesh raise its `ValueError`s word for word.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
+from repro_torch.distributed import api as dist_api
 
 @dataclasses.dataclass(frozen=True)
 class GenConfig:
@@ -59,13 +60,12 @@ class EngineConfig:
                 else model_cfg.kv_dtype)
 
     def tensor_parallel(self) -> int:
-        """The pool shard count: 1, as `mesh=` is refused."""
-        return 1
+        """Extent of the mesh dimension behind the logical "model" axis (1
+        with no mesh or no such dimension): the pool shard count."""
+        return dist_api.axis_size(self.mesh, "model")
 
     def validate(self, model_cfg) -> None:
-        """Raise on what the port does not serve, then on bad values."""
-        if self.mesh is not None:
-            raise NotImplementedError("not ported yet: mesh sharding")
+        """Raise the reference's ValueError on a bad value or combination."""
         if self.scheduler is not None and self.scheduler.preemptive \
                 and not self.paged:
             raise ValueError(
@@ -134,3 +134,15 @@ class EngineConfig:
                     "speculative decoding is greedy-only: acceptance "
                     "compares drafts against argmax, which is exact "
                     "only at temperature 0")
+        if self.mesh is not None:
+            if not self.paged:
+                raise ValueError(
+                    "mesh sharding requires paged=True: only the paged "
+                    "KV pools are PartitionSpec-sharded; the dense "
+                    "backend's per-slot arenas are single-device")
+            tp = self.tensor_parallel()
+            if tp > 1 and model_cfg.n_kv_heads % tp:
+                raise ValueError(
+                    f"mesh 'model' axis size {tp} must divide "
+                    f"n_kv_heads ({model_cfg.n_kv_heads}) to shard the "
+                    "KV-head axis of the page pools")

@@ -52,8 +52,9 @@ Under a mesh `per_device()` divides the KV-head-sharded pool traffic by
 the tensor-parallel width, keeps the replicated weight stream whole, and
 adds `gather_heads` receive traffic — per attended token each device
 all-gathers the other shards' head outputs ((tp-1)/tp of H*Dh*itemsize
-per token per layer). The port refuses `mesh=`, so its engines run at
-`tensor_parallel` 1, where `per_device()` is the identity.
+per token per layer). The engine's `tensor_parallel` is its mesh's
+"model" extent (`EngineConfig.tensor_parallel`); at 1 `per_device()` is
+the identity.
 
 KV-split (`kv_splits`) deliberately does NOT appear here: splitting
 the page walk changes wall-time (parallelism), not bytes moved — the

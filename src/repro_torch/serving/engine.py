@@ -74,11 +74,21 @@ each step and each model call runs in a `torch.profiler.record_function`
 scope. The default records nothing, and the kernels launched and the
 outputs are the same with telemetry on or off.
 
+`mesh=` (a `DeviceMesh`; paged only) serves tensor-parallel, the
+reference's mesh-sharded pools with one process a rank: every rank builds
+the same engine on the same requests, on its own device (`cuda:{rank %
+device_count}`, or the CPU when asked). Parameters and sampling state are
+replicated; the pools hold the rank's Hkv/tp KV heads, each attention
+layer attends them and merges the ranks' heads by exact concatenation
+(`models/attention.py`), so every rank's logits are one device's bits.
+The scheduler, the allocator, prefix sharing, speculation, swapping and
+telemetry run on every rank and stay in lockstep because their inputs
+(tokens, logits, host counts) are the same bits everywhere; the engine
+adds no cross-rank check of its own.
+
 The decode step is shared by both modes. Construction:
 `ServingEngine(params, cfg, engine, EngineConfig(slots=4, max_len=256),
-device="cuda")`, with `paged=True` for the paged mode. Mesh sharding, the
-one feature the port lacks, raises `NotImplementedError`
-(`EngineConfig.validate`).
+device="cuda")`, with `paged=True` for the paged mode.
 """
 from __future__ import annotations
 
@@ -91,6 +101,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache as kv
@@ -242,7 +253,9 @@ class ServingEngine:
         if model_cfg.family == "encdec":
             raise ValueError(ENCDEC_REFUSAL)
         config.validate(model_cfg)
-        self.device = resolve_device(device)
+        self.mesh = config.mesh
+        self.device = (dist_api.rank_device(device) if self.mesh is not None
+                       else resolve_device(device))
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine runs on {self.device}")
@@ -341,7 +354,7 @@ class ServingEngine:
         self.cache = model_api.init_paged_cache(
             model_cfg, self.slots, num_pages, page_size, self.max_pages,
             kv_dtype=kv_dtype, kv_scale_dtype=config.kv_scale_dtype,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         # A verify pass pads every row to k+1 positions, up to max_len + k
         # - 1: trash columns past the table take the writes that fall off
         # it (the JAX engine drops them).
@@ -632,7 +645,7 @@ class ServingEngine:
             res = model_api.prefill_chunk(
                 self.params, toks, row, start_t, self.cache.k_pages,
                 self.cache.v_pages, self.cfg, self.engine, self.cache.k_scale,
-                self.cache.v_scale)
+                self.cache.v_scale, mesh=self.mesh)
         if self.cache.quantized:
             logits1, _, _, _, _ = res
         else:
@@ -784,7 +797,7 @@ class ServingEngine:
             self.peak_pages = max(self.peak_pages, self.allocator.used_pages)
         with tel.annotation("decode_step"):
             logits, self.cache = model_api.decode_step(
-                self.params, toks, self.cache, self.cfg, self.engine)
+                self.params, toks, self.cache, self.cfg, self.engine, mesh=self.mesh)
         self.last_logits = logits.float()
         self._host_len += mask
         self.decode_steps += 1
@@ -866,7 +879,7 @@ class ServingEngine:
                 self.params, torch.as_tensor(tokens, device=self.device),
                 tables, torch.as_tensor(starts, device=self.device),
                 c.k_pages, c.v_pages, self.cfg, self.engine, c.k_scale,
-                c.v_scale)[0]
+                c.v_scale, mesh=self.mesh)[0]
         self.verify_passes += 1
         self.spec_rounds += len(survivors)
         # Acceptance needs only the argmaxes.

@@ -32,6 +32,12 @@
     its length, in place. `HostSwapTier` keys the blobs by request uid.
     Plain tensor copies on the current stream, no pinned buffers: the slow
     tier, as in the JAX package.
+  * Under a mesh (`init_paged_cache(..., mesh=)`, `shard_cache`) a rank
+    holds a contiguous block of Hkv/tp KV heads of every pool and scale
+    row (`PagedCache.head_range`), the twin of the reference's pools
+    sharded by `distributed/sharding.paged_pool_pspecs`; lengths and block
+    tables are whole on every rank. Every function above acts on the
+    rank's slice, and a rank's swap blob holds its slice.
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ class PagedCache:
     v_pages:      (L, P, Hkv, page_size, Dh) shared V pool
     k_scale:      (L, P, Hkv, page_size) int8/int4 dequant scales (f32 or
     v_scale:      bf16); None for fp pools
+    head_range:   (first, stop) of the model's KV heads the pools hold on
+                  this rank of a mesh; None: all of them
     """
 
     lengths: torch.Tensor
@@ -69,6 +77,7 @@ class PagedCache:
     v_pages: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    head_range: Optional[tuple[int, int]] = None
 
     @property
     def page_size(self) -> int:
@@ -88,20 +97,36 @@ def page_kv_bytes(cfg, page_size: int, kv_dtype: str = "model",
         cfg.head_dim, kv_dtype, kv_scale_dtype, payload_dtype=cfg.cdtype)
 
 
+def _rank_heads(n_kv_heads: int, mesh) -> Optional[tuple[int, int]]:
+    """The block of KV heads this rank holds on `mesh` (None: all)."""
+    from repro_torch.distributed import api as dist_api
+    if dist_api.axis_size(mesh, "model") <= 1:
+        return None
+    rank, tp, _ = dist_api.model_shard(mesh)
+    if n_kv_heads % tp:
+        raise ValueError(f"mesh 'model' axis size {tp} must divide n_kv_heads "
+                         f"({n_kv_heads}) to shard the KV-head axis of the page pools")
+    h = n_kv_heads // tp
+    return rank * h, (rank + 1) * h
+
+
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
                      max_pages: int, dtype=None, kv_dtype: str = "model",
                      kv_scale_dtype: str = "float32", *,
-                     device="cuda") -> PagedCache:
+                     device="cuda", mesh=None) -> PagedCache:
     """Empty pool + all-trash block tables for `batch` decode slots.
 
     kv_dtype "model" stores pages in `dtype` (default cfg.cdtype); "int8"
     stores int8 payload pools plus scale-row pools in `kv_scale_dtype`;
     "int4" packs two values a byte (payload axis Dh/2, even Dh only) with
-    the same scale rows.
+    the same scale rows. On a `mesh` the pools hold only this rank's
+    Hkv/tp heads.
     """
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
-    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    heads = _rank_heads(cfg.n_kv_heads, mesh)
+    L, Dh = cfg.n_layers, cfg.head_dim
+    Hkv = cfg.n_kv_heads if heads is None else heads[1] - heads[0]
     shape = (L, num_pages, Hkv, page_size, Dh)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
     tables = torch.full((batch, max_pages), TRASH_PAGE, dtype=torch.int32,
@@ -120,6 +145,7 @@ def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
             v_pages=torch.zeros(shape, dtype=torch.int8, device=dev),
             k_scale=torch.zeros(shape[:-1], dtype=sdt, device=dev),
             v_scale=torch.zeros(shape[:-1], dtype=sdt, device=dev),
+            head_range=heads,
         )
     if kv_dtype != "model":
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
@@ -127,7 +153,24 @@ def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
         lengths=lengths, block_tables=tables,
         k_pages=torch.zeros(shape, dtype=dtype, device=dev),
         v_pages=torch.zeros(shape, dtype=dtype, device=dev),
+        head_range=heads,
     )
+
+
+def shard_cache(cache: PagedCache, mesh) -> PagedCache:
+    """A whole cache cut to this rank's KV heads on `mesh` (the twin of the
+    reference's `shard_cache`, which places the pools sharded): each pool
+    and scale row sliced to the rank's contiguous block of Hkv/tp heads and
+    copied, lengths and block tables kept whole. A cache already sliced,
+    or no mesh of more than one rank, is returned as it is."""
+    if cache.head_range is not None:
+        return cache
+    heads = _rank_heads(cache.k_pages.shape[2], mesh)
+    if heads is None:
+        return cache
+    a, b = heads
+    pools = [None if t is None else t[:, :, a:b].clone() for t in _pools(cache)]
+    return PagedCache(cache.lengths, cache.block_tables, *pools, head_range=heads)
 
 
 def _write(k_pages, v_pages, phys, off, k_new, v_new, k_scale, v_scale):
@@ -202,11 +245,15 @@ def write_prompt_pages(cache: PagedCache, slot: int, page_ids: list[int],
     `page_ids` are the physical pages the allocator handed this slot; they
     must cover ceil(length / page_size) logical pages. fp pools only, as in
     the JAX package: a quantized prompt goes through
-    `append_chunk_kv_pages`.
+    `append_chunk_kv_pages`. A rank's cache on a mesh takes the model's
+    whole KV and keeps its own heads.
     """
     if cache.quantized:
         raise ValueError("write_prompt_pages is fp-only: quantized pools "
                          "take their prompts through append_chunk_kv_pages")
+    if cache.head_range is not None:
+        a, b = cache.head_range
+        k_dense, v_dense = k_dense[:, a:b], v_dense[:, a:b]
     L, Hkv, S, Dh = k_dense.shape
     bs = cache.page_size
     n0 = len(page_ids)

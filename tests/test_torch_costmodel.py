@@ -246,7 +246,7 @@ def test_per_device_shards_kv_not_weights():
     assert dev.linear_flops == full.linear_flops
     n_tokens = full.act_bytes / cm2.logits_row_bytes
     assert dev.act_bytes == pytest.approx(full.act_bytes + cm2.gather_bytes_per_token * n_tokens)
-    # tp=1, the port's only width while mesh= is refused, is the identity.
+    # tp=1 (no mesh, or a "model" extent of 1) is the identity.
     same = cm1.per_device(cm1.step_costs(StepShape(decode_lens=[4], decode_ran=True)))
     assert same["decode"].kv_bytes == cm1.decode([4]).kv_bytes
 

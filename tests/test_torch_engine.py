@@ -6,8 +6,8 @@ linear datapaths (`quant="int8"` exact and LUT, `quant="fixed16"`, and
 `quantize_params_int8` weights with int8 pools), all pages returned; the
 default paged config (prefix sharing on) and speculative configs drained
 against the JAX engine; plus the port's guards (no JAX or `repro` imports
-in the package, no silent CPU fallback, unsupported features raise, bad
-pool, split and speculative settings raise the JAX package's
+in the package, no silent CPU fallback, bad
+pool, split, speculative and mesh settings raise the JAX package's
 `ValueError`s)."""
 from __future__ import annotations
 
@@ -174,11 +174,16 @@ def test_int8_weights_lut_drain_matches_jax_engine(setup):
 
 
 def test_import_guard():
-    """No module of the port, and not chip_smoke.py, imports JAX or `repro`."""
+    """No module of the port, not chip_smoke.py and not the mesh tests' rank
+    functions (tests/mesh_common.py) import JAX or `repro`."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "mesh_common.py"]
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"src/repro_torch/distributed/api.py", "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/launch/mesh.py"} <= names
     bad = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
            for f in files for m in pat.finditer(f.read_text())]
     assert not bad, bad
@@ -225,19 +230,42 @@ def test_training_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, tmp_p
         run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu", fsdp=True)
 
 
+class ModelAxis:
+    """What `EngineConfig.validate` reads of a mesh (`distributed.api.
+    axis_size`): one "model" dimension of `n` ranks, no process group."""
+
+    mesh_dim_names = ("model",)
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def size(self, dim: int = 0) -> int:
+        return self.n
+
+
 @pytest.mark.parametrize("change", [
-    {"mesh": object(), "telemetry": Telemetry(enabled=True)}, {"mesh": object()},
-    {"mesh": object(), "hardware": "h100"},
+    {"mesh": ModelAxis(2), "paged": False, "telemetry": Telemetry(enabled=True)},
+    {"mesh": ModelAxis(3)},
+    {"mesh": ModelAxis(2), "paged": False, "hardware": "h100"},
 ])
 def test_unsupported_engine_features_raise(setup, change):
-    """Mesh sharding is refused, also beside the telemetry and roofline
-    options the port serves."""
-    _, _, tparams, _, _ = setup
+    """`mesh=` raises where the reference's validation does, word for word
+    with its ValueErrors: on the dense engine (also beside the telemetry
+    and roofline options), and for a "model" extent (3) that does not
+    divide GPT-2's KV heads. (Mesh serving itself: tests/test_torch_mesh*.)"""
+    jcfg, _, tparams, _, _ = setup
     kw = dict(slots=1, max_len=16, paged=True, prefix_sharing=False)
     kw.update(change)
-    with pytest.raises(NotImplementedError):
+    n = change["mesh"].n
+    jkw = {k: v for k, v in kw.items() if k not in ("mesh", "telemetry", "hardware")}
+    with pytest.raises(ValueError) as jerr:
+        JaxEngineConfig(mesh=jax.sharding.Mesh(np.asarray(jax.devices()[:n]), ("model",)),
+                        **jkw).validate(jcfg)
+    with pytest.raises(ValueError) as terr:
         ServingEngine(tparams, gpt2_medium.smoke_config(), TSalPimEngine.create(),
                       EngineConfig(**kw), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert ("requires paged=True" if not kw["paged"] else "must divide") in str(terr.value)
 
 
 def test_preemptive_requires_paged(setup):

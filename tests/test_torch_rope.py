@@ -24,8 +24,8 @@
   * `_check_supported` serves every family of the JAX registry, refuses
     an unknown one, and refuses the paged entry points for the
     encoder-decoder family (tests/test_torch_encdec.py), and an MoE
-    config's expert-parallel `moe_impl="shardmap"` still finds `mesh=`
-    refused.
+    config's expert-parallel `moe_impl="shardmap"` meets the reference's
+    mesh validation word for word.
 """
 from __future__ import annotations
 
@@ -430,16 +430,33 @@ def test_check_supported_refuses_other_families(name):
 @pytest.mark.parametrize("paged", [True, False])
 def test_moe_shardmap_with_mesh_is_refused(paged):
     """An MoE config asking for the expert-parallel dispatch serves without
-    a mesh (the grouped dispatch, as the reference without one); `mesh=`
-    stays refused."""
+    a mesh (the grouped dispatch, as the reference without one); with a
+    mesh the reference's validation applies, word for word: the dense
+    engine refuses it, and so does the paged one when the "model" extent
+    (3) does not divide olmoe's KV heads. (The expert-parallel dispatch on
+    a mesh: tests/test_torch_mesh.py.)"""
     cfg = dataclasses.replace(get_config("olmoe_1b_7b", smoke=True), moe_impl="shardmap")
+    jcfg = dataclasses.replace(jax_get_config("olmoe_1b_7b", smoke=True), moe_impl="shardmap")
     params = api.init_params(cfg, device="cpu")
     sal = TSalPimEngine.create()
     tengine.ServingEngine(params, cfg, sal, EngineConfig(slots=2, max_len=32, paged=paged),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    n = 3 if paged else 2
+
+    class ModelAxis:
+        mesh_dim_names = ("model",)
+
+        def size(self, dim=0):
+            return n
+
+    with pytest.raises(ValueError) as jerr:
+        JaxEngineConfig(slots=2, max_len=32, paged=paged, mesh=jax.sharding.Mesh(
+            np.asarray(jax.devices()[:n]), ("model",))).validate(jcfg)
+    with pytest.raises(ValueError) as terr:
         tengine.ServingEngine(params, cfg, sal, EngineConfig(slots=2, max_len=32, paged=paged,
-                                                             mesh=object()), device="cpu")
+                                                             mesh=ModelAxis()), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert ("must divide" if paged else "requires paged=True") in str(terr.value)
 
 
 @pytest.mark.parametrize("mode", ["exact", "lut"])
