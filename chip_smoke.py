@@ -183,7 +183,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
  14. moe    — the MoE family on the paged engine and the dense arena:
               olmoe-1B-7B at full width and all 16 layers (64 experts top-8,
               expert d_ff 1024, cap factor 1.25; bf16 random weights) serves
-              phase 4's 8 requests (4 slots, page 16, 64-token chunks,
+              the first 6 of phase 4's requests (MODEL_PHASE_REQUESTS; 4
+              slots, two requests in a reused slot, page 16, 64-token chunks,
               max_len 256) exact, LUT, with `quantize_params_int8` weights on
               int8/bf16 pools (q1), on the dense arena and with `ngram` k=4
               and sharing; phi-3.5-MoE at its published widths (16 experts
@@ -210,7 +211,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
               Mamba2 layers, d 1024, state 128) and zamba2-1.2B (38 Mamba2
               layers, d 2048, state 64, one shared attention + GeGLU block
               before each of 7 segments) at full width and depth, bf16
-              random weights, each serving phase 4's 8 requests through
+              random weights, each serving the first 6 of phase 4's
+              requests (MODEL_PHASE_REQUESTS; two in a reused slot) through
               ServingEngine(paged=False) (4 slots, max_len 256) exact and
               LUT, mamba2 also with `quantize_params_int8` weights (q1),
               and `generate()` on 4 prompts of 128 tokens, exact. Gates:
@@ -302,7 +304,21 @@ Run from the root of a checkout. Phases, each of which fails the run:
               in another order; token share reported). Reported: a rank's
               decode step on the host clock and the host time of its
               gather_heads calls;
- 20. the kernels line, a JSON object with each kernel's error, times,
+ 20. mesh train: GPT-2 medium whole (bf16, remat, 8 x 1024 tokens) on a
+     (2, 2) ("data", "model") world of 4 ranks of the one card (gloo),
+     parameters and moments cut by param_pspecs(fsdp=True): one exact and
+     one LUT AdamW step each within MESH_TRAIN_GAP of the one-device step
+     on the same weights and batch (loss and global grad norm), every
+     rank's launches equal to the one-device step's at every step, each
+     rank's parameter and moment bytes its spec's slices; run_training
+     LUT, 3 steps saving at step 2, resumed from it bit for bit on every
+     rank, its step-3 checkpoint restored here on one device bit for bit
+     the gathered shards; compressed_psum (bit for bit its numpy algebra),
+     merge_partial_softmax and pipeline_forward on CUDA tensors; then
+     qwen2-1.5B whole on (1, 2), one exact step. Reported: a rank's step
+     on the host clock, its collectives' share (synchronised, by kind),
+     each rank's peak memory beside the one-device step's;
+ 21. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -378,6 +394,12 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+_T0 = time.perf_counter()
+# The requests a drain of phases 14-15 serves: the first 6 of phase 4's 8,
+# so that two of them enter a slot another request used (the dense state's
+# reset and the pages' recycling on reuse, each request's first logits
+# gated) while the script with phase 20 keeps inside its time limit.
+MODEL_PHASE_REQUESTS = 6
 # CUDA cores f32; int8 dense tensor cores. An int16 product is four 8-bit
 # ones (hi.hi, hi.lo, lo.hi, lo.lo byte planes), which the fixed16 kernel
 # runs on the int8 tensor cores: a quarter of their rate. The bf16 peak and
@@ -465,6 +487,9 @@ POOLS = {"fp": ("model", "float32"), "int8/f32": ("int8", "float32"),
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") with the seconds since start."""
+    if msg.startswith("== "):
+        msg = f"{msg} [at {time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -3102,6 +3127,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     split = paged_attention.effective_kv_splits(kv_splits, eng.max_pages, 16) is not None
     first: dict[int, object] = {}
     first_decode: dict[int, object] = {}
+    placed: list[int] = []                     # the slot of each request's first logits
     tick = eng._prefill_tick
 
     def record_gaps():
@@ -3120,6 +3146,7 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         for i, r in enumerate(eng.active):
             if r is not None and not r.prefilling and r.uid not in first:
                 first[r.uid] = eng.last_logits[i].clone()
+                placed.append(i)
         record_gaps()
 
     eng._prefill_tick = tick_and_capture
@@ -3254,7 +3281,8 @@ def serve(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
              f"{st['swap_bytes_peak']} bytes")
     log(f"  serve[{label}]: {fmt} pools ({a.num_pages} pages), {mode}, "
         f"quant={quant}, kv_splits={kv_splits}, sharing={sharing}: finished "
-        f"{len(done)}/{len(uids)}, {a.used_pages} pages in use after the drain "
+        f"{len(done)}/{len(uids)} ({len(placed) - len(set(placed))} in a reused slot), "
+        f"{a.used_pages} pages in use after the drain "
         f"({a.reserved_pages} reserved, {a.pinned_pages} pinned), peak {st['peak_pages']}, "
         f"{st['decode_steps']} decode steps, {st['prefill_chunks']} chunks, "
         f"{st['tokens']} tokens in {wall:.3f} s = {st['tokens'] / wall:.1f} tok/s{sched} "
@@ -4439,11 +4467,13 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
         slots=4, max_len=max_len, gen=GenConfig(stop_on_eos=False), telemetry=telemetry),
         device="cuda")
     first: dict[int, object] = {}
+    placed: list[int] = []                     # the slot of each admission
     place = eng._place_dense
 
     def place_and_capture(slot, req):          # record each request's first logits
         place(slot, req)
         first[req.uid] = eng.last_logits[slot].clone()
+        placed.append(slot)
 
     eng._place_dense = place_and_capture
     uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
@@ -4487,7 +4517,8 @@ def serve_dense(torch, mods, params, cfg, prompts, new_tokens, card, *, label,
     parked = c.lengths.tolist()
     log(f"  serve[{label}]: dense {'int8' if c.quantized else 'fp'} cache "
         f"({arena / 2 ** 20:.1f} MiB, {max_len} positions x 4 slots), {mode}: finished "
-        f"{len(done)}/{len(uids)}, slot lengths after the drain {parked}, "
+        f"{len(done)}/{len(uids)} ({len(placed) - len(set(placed))} in a reused slot), slot "
+        f"lengths after the drain {parked}, "
         f"{st['decode_steps']} decode steps, {st['tokens']} tokens in {wall:.3f} s = "
         f"{st['tokens'] / wall:.1f} tok/s ({card})")
     if len(done) != len(uids) or any(len(done[u].generated) != new_tokens for u in uids):
@@ -5330,8 +5361,9 @@ def check_f32_handoff(torch, api, params, cfg, sal, label, prompts):
 def ssm_phase(torch, np, mods, counted, quantize, prompts, new_tokens, card, seed):
     """Phase 15: mamba2-370m and zamba2-1.2B at full width and depth, bf16
     random weights, on the dense cache (the reference serves them on
-    nothing else): phase 4's 8 requests through ServingEngine(paged=False)
-    (4 slots, max_len 256) exact and LUT for both and with
+    nothing else): the first MODEL_PHASE_REQUESTS (6) of phase 4's requests
+    through ServingEngine(paged=False) (4 slots, so two requests enter a
+    slot another used; max_len 256) exact and LUT for both and with
     quantize_params_int8 weights (q1) for mamba2, and generate() on 4
     prompts of 128 tokens, exact, for both. Gates: every request finishes,
     every slot parks at 0, every step's launches (`dense_expect`), and
@@ -6201,7 +6233,7 @@ def train_phase(torch, np, mods, counted, card, seed, cfg=None, B=8, S=1024, dev
     def by_leaf(ga, gb):
         gaps = {key: float((a.float() - w.float()).abs().max()
                            / w.float().abs().max().clamp_min(1e-30))
-                for key, a, w in zip(named_leaves(ga), opt.tree_leaves(ga), opt.tree_leaves(gb))}
+                for (key, a), w in zip(opt.named_leaves(ga), opt.tree_leaves(gb))}
         return sorted(gaps.items(), key=lambda kv: -kv[1])
 
     for mode in ("exact", "lut"):
@@ -6672,15 +6704,565 @@ def mesh_phase(torch, np, mods, card, seed, job, refs, one_rank_ms):
     return {"mesh": counts}, times
 
 
-def named_leaves(tree, pre=""):
-    """Leaf paths of nested dicts in `optimizer.tree_leaves`' order."""
-    out = []
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            out += named_leaves(tree[k], f"{pre}{k}/")
-        else:
-            out.append(f"{pre}{k}")
+# ---------------------------------------------------------------------------
+# Phase 20: training under a mesh on ranks of the one card
+# ---------------------------------------------------------------------------
+
+# The kernels of the training path (phase 18's), checked at every step of a rank.
+TRAIN_KERNELS = ["gemv_pim_float", TC, "layernorm_lut", "softmax_lut", "lut_interp",
+                 "lut_interp_backward", "layernorm_lut_backward", "softmax_lut_backward"]
+MESH_TRAIN_GAP = 3e-2      # loss and global grad norm against one device (phase 18's gate)
+
+
+def _mesh_train_opt():
+    from repro_torch.runtime import optimizer as opt
+    return opt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """PyTorch's deterministic algorithms, as phase 20's ranks run: the
+    embedding's backward then sorts the token ids and sums each row's
+    contributions in f32 instead of adding them with bf16 atomics."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def mu_gaps(torch, opt, mu, ref) -> list:
+    """(path, max |mu - ref| / max |ref|) by leaf, the largest first."""
+    gaps = {p: float((a - ref[p]).abs().max() / ref[p].abs().max().clamp_min(1e-30))
+            for p, a in opt.named_leaves(mu)}
+    return sorted(gaps.items(), key=lambda kv: -kv[1])
+
+
+def train_refs(torch, np, mods, kernels, card, seed, cfg, B, S, modes, save_mu=None):
+    """The one-device AdamW step of `cfg` (phase 20's optimizer) on the
+    seeded parameters and the first batch of B x S tokens, under
+    deterministic algorithms as the ranks run: per mode its loss, global
+    gradient norm, the kernels' launches and the step's peak memory above
+    what was held (the moments made in the step, as a rank's). With
+    `save_mu` (a directory) each mode's first moment after the step,
+    (1 - b1) times the clipped gradient, is saved there for the ranks, and
+    the same step with PyTorch's default algorithms is held to it leaf by
+    leaf (reported: how far the one-device step moves with the embedding
+    backward's summation alone)."""
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.runtime import optimizer as opt
+    from repro_torch.runtime.train_loop import batch_to_device, make_train_step
+    api, SalPimConfig, SalPimEngine = mods[:3]
+    params = api.init_params(cfg, seed=seed, device="cuda")
+    batch = batch_to_device(data_lib.batch_at(data_lib.data_config_for_model(cfg, S, B, seed=seed),
+                                              0), "cuda")
+    out = {}
+    for mode in modes:
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        step = make_train_step(cfg, sal, _mesh_train_opt())
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with deterministic_algorithms(torch):
+            new, state, m = step(params, opt.init_opt_state(params), batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+        sec = time.perf_counter() - t0
+        out[mode] = dict(loss=loss, norm=norm, sec=sec,
+                         launches={n: kernels[n].launches for n in TRAIN_KERNELS},
+                         peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        del new, m
+        log(f"  one device, {cfg.name} {B} x {S} [{mode}]: loss {out[mode]['loss']:.6f}, "
+            f"global grad norm {norm:.6f}; the AdamW step {sec:.3f} s on the host clock, "
+            f"peak {out[mode]['peak_gib']:.2f} GiB above the "
+            f"{base / 2 ** 30:.2f} GiB held; launches {out[mode]['launches']} ({card})")
+        if save_mu is not None:
+            out[mode]["mu"] = str(save_mu / f"mu_{mode}.pt")
+            torch.save({p: x.cpu() for p, x in opt.named_leaves(state.mu)}, out[mode]["mu"])
+            _, dstate, dm = step(params, opt.init_opt_state(params), batch)
+            ref = dict(opt.named_leaves(state.mu))
+            gaps = mu_gaps(torch, opt, dstate.mu, ref)
+            out[mode]["default_mu_gaps"] = gaps
+            log(f"  one device [{mode}] with PyTorch's default algorithms: loss "
+                f"{float(dm['loss']):.6f}, global grad norm {float(dm['grad_norm']):.6f}; "
+                f"first moment by leaf against the deterministic step's, max |diff| / max "
+                f"|deterministic|: " + ", ".join(f"{p} {g:.3e}" for p, g in gaps[:6])
+                + f" ({card})")
+            del dstate, dm
+            if mode == "exact":
+                # The same step in f32 (weights, compute, gradients) from the
+                # same weights: how far bf16 alone moves each leaf's moment.
+                cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                            compute_dtype="float32")
+                p32 = opt.tree_map(lambda x: x.float(), params)
+                with deterministic_algorithms(torch):
+                    _, s32, m32 = make_train_step(cfg32, sal, _mesh_train_opt())(
+                        p32, opt.init_opt_state(p32), batch)
+                out["exact f32"] = dict(mu=str(save_mu / "mu_exact_f32.pt"))
+                torch.save({p: x.cpu() for p, x in opt.named_leaves(s32.mu)},
+                           out["exact f32"]["mu"])
+                ref32 = dict(opt.named_leaves(s32.mu))
+                gaps = dict(mu_gaps(torch, opt, state.mu, ref32))
+                log(f"  one device [exact] in f32: loss {float(m32['loss']):.6f}, global grad "
+                    f"norm {float(m32['grad_norm']):.6f}; the bf16 step's first moment by "
+                    f"leaf against it, max |diff| / max |f32|: " + ", ".join(
+                        f"{p} {g:.3e}" for p, g in sorted(gaps.items(), key=lambda kv: -kv[1]))
+                    + f" ({card})")
+                del p32, s32, m32, ref32
+            del ref
+        del state
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
+
+
+def mesh_train_rank(rank: int, job: dict) -> dict:
+    """Phase 20 on one rank of a gloo world of 4 on the one card: each case
+    of job["cases"] on its ("data", "model") mesh (a mesh of fewer ranks
+    than the world takes the first ones; the others sit the case out) by
+    `mesh_train_case`. Returns {arch: the case's result, None where the
+    rank sat out}. Rank 0 logs."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The embedding's backward adds with atomics unless deterministic
+    # algorithms are asked for: the resumed run is then the straight one's bits.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for case in job["cases"]:
+        shape = tuple(case["shape"])
+        n = shape[0] * shape[1]
+        # Every rank builds the mesh (its groups are made by all of them).
+        mesh = DeviceMesh("cuda", torch.arange(n).reshape(shape), mesh_dim_names=("data", "model"))
+        out[case["arch"]] = mesh_train_case(torch, rank, dict(job, **case), mesh, rank < n)
+    return out
+
+
+def mesh_train_case(torch, rank: int, job: dict, mesh, member: bool):
+    """One case of phase 20 on one rank: `job["arch"]` at full width and
+    depth on `mesh`, its seeded parameters cut by `param_pspecs(...,
+    fsdp=True)`. One sharded step per mode from those parameters (loss,
+    global grad norm, launches, host clock; the last mode's with a
+    synchronise around every collective: their share); with job["full"]
+    also `run_training` in LUT mode for 3 steps saving at step 2 and a run
+    resumed from that checkpoint (bit for bit, the launches checked at
+    every step), and compressed_psum, merge_partial_softmax and
+    pipeline_forward on CUDA tensors. A rank not in the mesh (`member`
+    False) joins the world's barriers alone and returns None."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as data_lib
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime import optimizer as opt
+    from repro_torch.runtime.train_loop import (TrainConfig, batch_to_device, make_train_step,
+                                                run_training, shard_train_step)
+    kernels, mods, _ = serving_handles(torch)
+    api, SalPimConfig, SalPimEngine = mods[:3]
+    t_start = time.perf_counter()
+    card, seed, B, S = job["card"], job["seed"], job["B"], job["S"]
+    cfg = get_config(job["arch"])
+    dcfg = data_lib.data_config_for_model(cfg, S, B, seed=seed)
+    shapes = api.init_params(cfg, device="meta")
+    specs = sh.param_pspecs(shapes, mesh, fsdp=True) if member else None
+    # One rank at a time: the whole tree is made, then cut.
+    for r in range(torch.distributed.get_world_size()):
+        if r == rank and member:
+            params = sh.shard_tree(api.init_params(cfg, seed=seed, device="cuda"), specs, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    if not member:
+        return None
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device())),
+           "coords": {n: mesh.get_local_rank(n) for n in mesh.mesh_dim_names}}
+    ocfg = _mesh_train_opt()
+    batch_np = data_lib.batch_at(dcfg, 0)
+    batch = batch_to_device(sh.shard_batch(batch_np, mesh), "cuda")
+
+    def launches():
+        return {n: kernels[n].launches for n in TRAIN_KERNELS}
+
+    def check_step(label, counts, want):
+        if counts != want:
+            raise AssertionError(f"mesh train [{label}] rank {rank}: launches {counts}, one "
+                                 f"device {want}")
+
+    total = collections.Counter()
+    out["steps"] = {}
+    # The collectives' share: the last mode's step runs with a synchronise
+    # around each collective, its time and bytes summed by kind.
+    spent = collections.defaultdict(lambda: [0.0, 0, 0])
+    plain = {n: getattr(collectives, n) for n in ("_all_reduce", "all_gather_dim")}
+
+    def timed(name, fn):
+        def call(x, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = fn(x, *a, **kw)
+            torch.cuda.synchronize()
+            rec = spent[f"{name} {str(x.dtype).split('.')[-1]}"]
+            rec[0] += time.perf_counter() - t
+            rec[1] += 1
+            rec[2] += y.nbytes
+            return y
+        return call
+
+    for mode in job["modes"]:
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode=mode))
+        step = shard_train_step(make_train_step(cfg, sal, ocfg), mesh, cfg, shapes, batch_np,
+                                fsdp=True)
+        synced = job["full"] and mode == job["modes"][-1]
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if synced:
+            for n, fn in plain.items():
+                setattr(collectives, n, timed(n, fn))
+        try:
+            t0 = time.perf_counter()
+            new, state, m = step(params, opt.init_opt_state(params), batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            sec = time.perf_counter() - t0
+        finally:
+            for n, fn in plain.items():
+                setattr(collectives, n, fn)
+        if synced:
+            out["collectives"] = dict(sec=sum(v[0] for v in spent.values()),
+                                      calls=sum(v[1] for v in spent.values()), step_sec=sec,
+                                      by_kind={k: tuple(v) for k, v in spent.items()})
+        counts = launches()
+        check_step(mode, counts, job["want_launches"][mode])
+        total.update(counts)
+        if mode == job["modes"][0]:
+            out["bytes"] = {"params": sum(x.nbytes for x in opt.tree_leaves(params)),
+                            "moments": 2 * sum(x.nbytes for x in opt.tree_leaves(state.mu)),
+                            "spec_params": sh.spec_bytes(shapes, specs, mesh),
+                            "spec_moments": 2 * sh.spec_bytes(
+                                opt.tree_map(lambda p: p.float(), shapes), specs, mesh),
+                            "whole_params": sum(x.nbytes for x in opt.tree_leaves(shapes))}
+        out["steps"][mode] = dict(loss=loss, norm=norm, sec=sec, launches=counts,
+                                  peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                                  plan={p: step.plan.tensor_parallel(p) is not None
+                                        for p in ("attn", "ffn", "experts", "head")})
+        if job.get("ref_mu"):
+            # Per leaf, the first moment (the clipped gradient times 1 - b1)
+            # against each one-device step of this mode on this rank's slice:
+            # the largest gap and the largest reference element; for the
+            # embedding also the token (row) of the largest gap and how often
+            # it occurs in the global batch.
+            spec = dict(opt.named_leaves(specs))
+            occurs = np.bincount(batch_np["tokens"].ravel(), minlength=cfg.vocab)
+            out["steps"][mode]["mu_gaps"] = {}
+            for label, path in job["ref_mu"].items():
+                if label.split()[0] != mode:
+                    continue
+                ref = torch.load(path, mmap=True, weights_only=True)
+                gaps = {}
+                for leaf, mu in opt.named_leaves(state.mu):
+                    want = sh.shard_of(ref[leaf], spec[leaf], mesh).to(mu.device)
+                    diff = (mu - want.float()).abs()
+                    gaps[leaf] = (float(diff.max()), float(want.abs().max()))
+                    if leaf == "embed":
+                        row = int(diff.amax(dim=1).argmax())
+                        gaps["embed row"] = (row, int(occurs[row]), int(occurs.max()),
+                                             float(diff[row].max()),
+                                             float(want[row].abs().max()))
+                out["steps"][mode]["mu_gaps"][label] = gaps
+                del ref
+        del new, state, m
+        if rank == 0:
+            log(f"  mesh rank 0 step[{mode}]: loss {loss:.6f}, global grad norm {norm:.6f}, "
+                f"{sec:.3f} s on the host clock{' (collectives synchronised)' if synced else ''}"
+                f"; launches {counts} (one device {job['want_launches'][mode]}: equal)")
+
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if job["full"]:
+        root = pathlib.Path(job["ckpt"])
+        root.mkdir(parents=True, exist_ok=True)
+        sal = SalPimEngine.create(SalPimConfig(nonlinear_mode="lut"))
+        per_step = []
+        prev = [launches()]
+
+        def on_log(rec):
+            now = launches()
+            per_step.append({n: now[n] - prev[0][n] for n in now})
+            prev[0] = now
+
+        def train(sub, steps, ckpt_every):
+            tc = TrainConfig(steps=steps, ckpt_dir=str(root / sub), ckpt_every=ckpt_every,
+                             keep=2, log_every=1, async_ckpt=False,
+                             metrics_path=str(root / "metrics.jsonl"))
+            return run_training(cfg, tc, ocfg, dcfg, engine=sal, mesh=mesh, fsdp=True,
+                                seed=seed, hooks={"on_log": on_log}, device="cuda")
+        t0 = time.perf_counter()
+        straight = train("straight", 3, 2)
+        if rank == 0:
+            shutil.copytree(root / "straight" / "step_00000002", root / "resumed" / "step_00000002")
+        torch.distributed.barrier()
+        resumed = train("resumed", 3, 100)
+        out["loop_sec"] = time.perf_counter() - t0
+        for i, c in enumerate(per_step):
+            check_step(f"run_training step {i}", c, job["want_launches"]["lut"])
+            total.update(c)
+        pa = {"p": straight["params"], "o": straight["opt_state"]}
+        pb = {"p": resumed["params"], "o": resumed["opt_state"]}
+        same = [bool(torch.equal(a, b)) for (_, a), (_, b) in
+                zip(opt.named_leaves(pa), opt.named_leaves(pb))]
+        whole = sh.gather_tree(straight["params"], specs, mesh)
+        out["loop"] = dict(losses=[r["loss"] for r in straight["history"]],
+                           resumed=[(r["step"], r["loss"]) for r in resumed["history"]],
+                           sec=[r["sec_per_step"] for r in straight["history"]],
+                           same=same, digest={p: bit_digest(torch, x) for p, x in
+                                              opt.named_leaves(whole)},
+                           n_steps=len(per_step))
+        del straight, resumed, pa, pb, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The reductions of distributed/ on CUDA tensors, the CPU tests' shapes.
+        flat = make_test_mesh((4,), ("data",), device_type="cuda")
+        group = flat.get_group("data")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        g1, g2 = (torch.from_numpy(a[rank]).to(dev) for a in job["grads"])
+        mean1, ef1 = collectives.compressed_psum(g1, group)
+        mean2, ef2 = collectives.compressed_psum(g2, group, ef1)
+        scores, v = (torch.from_numpy(a).to(dev) for a in job["softmax"])
+        n = scores.shape[0] // 4
+        sc, vv = scores[rank * n:(rank + 1) * n], v[rank * n:(rank + 1) * n]
+        mx = sc.max()[None, None]
+        e = torch.exp(sc - mx[0])
+        merged = collectives.merge_partial_softmax(mx, e.sum()[None, None], (e @ vv)[None],
+                                                   group)
+        from repro_torch.distributed.pipeline import make_pipelined_fn
+        pod = make_test_mesh((4,), ("pod",), device_type="cuda")
+        pipe = make_pipelined_fn(lambda w, x: torch.tanh(x @ w), pod, "pod", n_micro=4)(
+            torch.from_numpy(job["stage_params"]).to(dev), torch.from_numpy(job["x"]).to(dev))
+        out["reductions"] = dict(
+            ef=[t.cpu().numpy() for t in (mean1, ef1, mean2, ef2)],
+            merged=merged.cpu().numpy(), pipeline=pipe.cpu().numpy(),
+            devices=[str(t.device) for t in (mean1, merged, pipe)])
+    out["launches"] = dict(total)
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["sec"] = time.perf_counter() - t_start
+    return out
+
+
+def emulate_compressed_psum(np, grads, efs):
+    """The reference's compressed_psum algebra in numpy f32: (mean, the
+    ranks' new feedback)."""
+    g = [x.astype(np.float32) + (0 if e is None else e) for x, e in zip(grads, efs)]
+    scale = max(np.float32(max(np.max(np.abs(x)), np.float32(1e-12))) / np.float32(127.0)
+                for x in g)
+    q = [np.clip(np.round(x / scale), -127, 127).astype(np.int8) for x in g]
+    new_ef = [x - qq.astype(np.float32) * scale for x, qq in zip(g, q)]
+    total = np.sum([qq.astype(np.int32) for qq in q], axis=0)
+    return total.astype(np.float32) * scale / np.float32(len(g)), new_ef
+
+
+def mesh_train_phase(torch, np, mods, card, seed):
+    """Phase 20: GPT-2 medium whole (bf16, remat) on a (2, 2) ("data",
+    "model") world of 4 ranks of the one card with fsdp, one exact and one
+    LUT step held to the one-device step (loss and global grad norm within
+    MESH_TRAIN_GAP), every rank's launches equal to one device's at every
+    step, each rank's parameter and moment bytes its spec's, `run_training`
+    resumed bit for bit and its checkpoint restored here on one device bit
+    for bit the gathered shards, the reductions of distributed/ on CUDA
+    tensors; then qwen2-1.5B whole on a (1, 2) world, one exact step.
+    Returns ({"mesh train": launches summed over the ranks}, times)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import World
+    from repro_torch.runtime import checkpoint as ckpt_lib
+    from repro_torch.runtime import optimizer as opt
+    kernels = mods[7]
+    api = mods[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, qcfg = get_config("gpt2_medium"), get_config("qwen2_1_5b")
+    root = ROOT / "build" / "mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True, exist_ok=True)
+    refs = train_refs(torch, np, mods, kernels, card, seed, cfg, 8, 1024, ("exact", "lut"),
+                      save_mu=root)
+    qrefs = train_refs(torch, np, mods, kernels, card, seed, qcfg, 2, 1024, ("exact",))
+    rng = np.random.RandomState(seed + 20)
+    gpt2 = dict(arch="gpt2_medium", shape=(2, 2), B=8, modes=("exact", "lut"), full=True,
+                want_launches={m: refs[m]["launches"] for m in ("exact", "lut")},
+                ref_mu={m: r["mu"] for m, r in refs.items() if "mu" in r})
+    qwen2 = dict(arch="qwen2_1_5b", shape=(1, 2), B=2, modes=("exact",), full=False,
+                 want_launches={m: r["launches"] for m, r in qrefs.items()}, ref_mu=None)
+    job = dict(card=card, seed=seed, S=1024, ckpt=str(root / "ckpt"), cases=[gpt2, qwen2],
+               grads=[rng.randn(4, 64).astype(np.float32) for _ in range(2)],
+               softmax=((rng.randn(64) * 3).astype(np.float32),
+                        rng.randn(64, 8).astype(np.float32)),
+               stage_params=(rng.randn(4, 16, 16) * 0.3).astype(np.float32),
+               x=rng.randn(8, 16).astype(np.float32))
+    log(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card")
+    t0 = time.perf_counter()
+    world = World(mesh_train_rank, 4, (job,), workdir=root, backend="gloo",
+                  timeout_s=900).join()
+    ranks = [r["gpt2_medium"] for r in world]
+    qranks = [r["qwen2_1_5b"] for r in world[:2]]
+    log(f"  4 ranks (gloo, on {[r['device'] for r in ranks]}, mesh coordinates "
+        f"{[r['coords'] for r in ranks]}; qwen2 on the first 2) ran GPT-2 in "
+        f"{[round(r['sec'], 1) for r in ranks]} s, qwen2 in "
+        f"{[round(r['sec'], 1) for r in qranks]} s ({time.perf_counter() - t0:.1f} s with the "
+        f"spawn)")
+    if any(r["qwen2_1_5b"] is not None for r in world[2:]):
+        raise AssertionError("mesh train: a rank outside qwen2's (1, 2) mesh ran its step")
+    modes = gpt2["modes"]
+
+    def gaps(rank_steps, ref, label):
+        worst = 0.0
+        for mode, st in rank_steps.items():
+            dl = abs(st["loss"] - ref[mode]["loss"]) / abs(ref[mode]["loss"])
+            dn = abs(st["norm"] - ref[mode]["norm"]) / ref[mode]["norm"]
+            worst = max(worst, dl, dn)
+            if not (dl <= MESH_TRAIN_GAP and dn <= MESH_TRAIN_GAP):
+                raise AssertionError(f"mesh train [{label} {mode}]: loss gap {dl:.3e}, grad "
+                                     f"norm gap {dn:.3e} against one device")
+        return worst
+
+    r0 = ranks[0]
+    for mode in modes:
+        st = [r["steps"][mode] for r in ranks]
+        if any((s["loss"], s["norm"]) != (st[0]["loss"], st[0]["norm"]) for s in st):
+            raise AssertionError(f"mesh train [{mode}]: the ranks report different metrics")
+        ref = refs[mode]
+        log(f"  mesh[gpt2 (2, 2) fsdp {mode}]: loss {st[0]['loss']:.6f} against "
+            f"{ref['loss']:.6f} on one device (gap "
+            f"{abs(st[0]['loss'] - ref['loss']) / abs(ref['loss']):.3e}); global grad norm "
+            f"{st[0]['norm']:.6f} against {ref['norm']:.6f} (gap "
+            f"{abs(st[0]['norm'] - ref['norm']) / ref['norm']:.3e}); limit {MESH_TRAIN_GAP:.0e} "
+            f"each; tensor-parallel parts {[p for p, on in st[0]['plan'].items() if on]}; a "
+            f"rank's step {statistics.median(s['sec'] for s in st):.3f} s on the host clock "
+            f"(one device's {ref['sec']:.3f} s); peak memory a rank "
+            f"{[round(s['peak_gib'], 2) for s in st]} GiB against {ref['peak_gib']:.2f} GiB on "
+            f"one device ({card})")
+    worst = gaps({m: r0["steps"][m] for m in modes}, refs, "gpt2")
+    for mode in modes:
+        for label, g0 in r0["steps"][mode]["mu_gaps"].items():
+            by_leaf = {p: max(r["steps"][mode]["mu_gaps"][label][p][0] for r in ranks)
+                       / max(max(r["steps"][mode]["mu_gaps"][label][p][1] for r in ranks),
+                             1e-30)
+                       for p in g0 if p != "embed row"}
+            row, n, most, d, top = max((r["steps"][mode]["mu_gaps"][label]["embed row"]
+                                        for r in ranks), key=lambda t: t[3])
+            log(f"  mesh[gpt2 {mode}] largest relative gap by leaf of the first moment after "
+                f"the step against the one-device {label} step (the clipped gradient times "
+                f"1 - b1; max |mesh - one device| / max |one device| over the ranks' slices, "
+                f"both under deterministic algorithms; reported, not gated: LUT gradients are "
+                f"piecewise constant): " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in sorted(by_leaf.items(), key=lambda kv: -kv[1]))
+                + f"; the embedding's largest gap {d:.3e} at token {row} ({n} of the batch's "
+                f"tokens; the most frequent {most}), whose row's largest element is {top:.3e}")
+    for r in ranks:
+        b = r["bytes"]
+        if (b["params"], b["moments"]) != (b["spec_params"], b["spec_moments"]):
+            raise AssertionError(f"mesh train: a rank holds {b}, not its spec's slices")
+    log(f"  a rank's parameters and moments, bytes: "
+        + ", ".join(f"rank {i} {r['bytes']['params']} + {r['bytes']['moments']}"
+                    for i, r in enumerate(ranks))
+        + f", each its spec's slices; the whole model {r0['bytes']['whole_params']} + "
+        f"{4 * r0['bytes']['whole_params']} (bf16 parameters, two f32 moments)")
+    coll = r0["collectives"]
+    log(f"  mesh LUT step on rank 0 with a synchronise around each of its {coll['calls']} "
+        f"collectives: {coll['step_sec']:.3f} s, of which collectives {coll['sec']:.3f} s "
+        f"({100 * coll['sec'] / coll['step_sec']:.1f}%; gloo through host memory); by kind "
+        f"(s, calls, MB out): " + ", ".join(
+            f"{k} {v[0]:.3f} / {v[1]} / {v[2] / 1e6:.0f}" for k, v in sorted(
+                coll["by_kind"].items())) + f" ({card})")
+    loop = r0["loop"]
+    if any(r["loop"]["losses"] != loop["losses"] for r in ranks[1:]):
+        raise AssertionError("mesh run_training: the ranks' losses differ")
+    if not all(all(r["loop"]["same"]) for r in ranks):
+        raise AssertionError("mesh run_training: the resumed run is not the straight one's "
+                             f"bits: {[sum(r['loop']['same']) for r in ranks]} of "
+                             f"{len(loop['same'])} leaves")
+    if [s for s, _ in loop["resumed"]] != [2] or not all(np.isfinite(loop["losses"])):
+        raise AssertionError(f"mesh run_training: {loop}")
+    like = api.init_params(cfg, device="cuda")
+    tree, manifest = ckpt_lib.restore(str(root / "ckpt" / "straight"), {"params": like})
+    restored = {p: bit_digest(torch, x) for p, x in opt.named_leaves(tree["params"])}
+    if restored != loop["digest"] or manifest["step"] != 3:
+        bad = [p for p in restored if restored[p] != loop["digest"].get(p)]
+        raise AssertionError(f"mesh checkpoint restored on one device: {bad} differ")
+    del like, tree
+    log(f"  run_training[lut] on (2, 2) fsdp, 3 steps: losses "
+        f"{[round(v, 6) for v in loop['losses']]}, {statistics.median(loop['sec']):.3f} "
+        f"s/step a rank on the host clock; resumed from step 2: steps {loop['resumed']}, every "
+        f"rank's {len(loop['same'])} parameter and moment slices bit for bit the straight "
+        f"run's; launches checked at each of {loop['n_steps']} steps; its step-3 checkpoint "
+        f"restored here on one device: {len(restored)} leaves bit for bit the gathered "
+        f"shards (exact digests) ({card})")
+    red = [r["reductions"] for r in ranks]
+    g1, g2 = job["grads"]
+    mean1, ef1 = emulate_compressed_psum(np, list(g1), [None] * 4)
+    mean2, ef2 = emulate_compressed_psum(np, list(g2), ef1)
+    e = np.exp(job["softmax"][0].astype(np.float64) - job["softmax"][0].max())
+    want_sm = (e / e.sum()) @ job["softmax"][1]
+    seq = job["x"]
+    for w in job["stage_params"]:
+        seq = np.tanh(seq @ w)
+    merge_err = max(float(np.abs(r["merged"][0] - want_sm).max()) for r in red)
+    pipe_err = max(float(np.abs(r["pipeline"] - seq).max()) for r in red)
+    bits = all(np.array_equal(r["ef"][0], mean1) and np.array_equal(r["ef"][2], mean2)
+               and np.array_equal(r["ef"][1], ef1[i]) and np.array_equal(r["ef"][3], ef2[i])
+               for i, r in enumerate(red))
+    log(f"  on CUDA tensors ({red[0]['devices']}): compressed_psum over 2 steps of error "
+        f"feedback {'bit for bit' if bits else 'NOT bit for bit'} the reference's algebra in "
+        f"numpy; merge_partial_softmax within {merge_err:.3e} of softmax(scores) @ v (limit "
+        f"1e-4); pipeline_forward (4 stages, 4 microbatches) within {pipe_err:.3e} of the "
+        f"sequential stages (limit 1e-5)")
+    if not bits or merge_err > 1e-4 or pipe_err > 1e-5:
+        raise AssertionError("mesh train: a reduction of distributed/ is off")
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
+
+    qst = [r["steps"]["exact"] for r in qranks]
+    log(f"  mesh[qwen2 (1, 2)]: loss {qst[0]['loss']:.6f} against {qrefs['exact']['loss']:.6f} "
+        f"on one device; global grad norm {qst[0]['norm']:.6f} against "
+        f"{qrefs['exact']['norm']:.6f}; tensor-parallel parts "
+        f"{[p for p, on in qst[0]['plan'].items() if on]}; a rank's step "
+        f"{statistics.median(s['sec'] for s in qst):.3f} s on the host clock, peak "
+        f"{[round(s['peak_gib'], 2) for s in qst]} GiB against {qrefs['exact']['peak_gib']:.2f} "
+        f"on one device ({card})")
+    worst = max(worst, gaps({"exact": qranks[0]["steps"]["exact"]}, qrefs, "qwen2"))
+    if any((s["loss"], s["norm"]) != (qst[0]["loss"], qst[0]["norm"]) for s in qst):
+        raise AssertionError("mesh train [qwen2]: the ranks report different metrics")
+    shutil.rmtree(root, ignore_errors=True)
+    counts = collections.Counter()
+    for r in ranks + qranks:
+        counts.update(r["launches"])
+    counts = {name: counts.get(name, 0) for name in kernels}
+    log(f"  launches over the mesh-train steps, summed over the ranks: {counts}")
+    missing = [n for n in TRAIN_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mesh-train path: {missing}")
+    times = dict(
+        step_sec=statistics.median(loop["sec"]), first_step_sec={
+            m: statistics.median(r["steps"][m]["sec"] for r in ranks) for m in modes},
+        one_device_sec={m: refs[m]["sec"] for m in modes},
+        collectives=coll, worst_gap=worst,
+        max_memory_gib=[r["max_memory_gib"] for r in ranks],
+        one_device_peak_gib=refs["lut"]["peak_gib"], qwen2_sec=qst[0]["sec"])
+    return {"mesh train": counts}, times
 
 
 def main() -> int:
@@ -7052,16 +7634,18 @@ def main() -> int:
     log("== 14. moe: olmoe-1B-7B at full width and depth, phi-3.5-MoE at its published "
         "widths (2 layers)")
     t14 = time.perf_counter()
-    counts_moe, moe_times = moe_phase(torch, F, np, mods, counted, quantize, prompts,
-                                      new_tokens, card, args.seed)
+    counts_moe, moe_times = moe_phase(torch, F, np, mods, counted, quantize,
+                                      prompts[:MODEL_PHASE_REQUESTS], new_tokens, card,
+                                      args.seed)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
     torch.cuda.empty_cache()
 
     log("== 15. ssm/hybrid: mamba2-370m and zamba2-1.2B at full width and depth on the dense "
         "cache")
     t15 = time.perf_counter()
-    counts_ssm, ssm_times = ssm_phase(torch, np, mods, counted, quantize, prompts,
-                                      new_tokens, card, args.seed)
+    counts_ssm, ssm_times = ssm_phase(torch, np, mods, counted, quantize,
+                                      prompts[:MODEL_PHASE_REQUESTS], new_tokens, card,
+                                      args.seed)
     log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
     torch.cuda.empty_cache()
 
@@ -7106,14 +7690,21 @@ def main() -> int:
                                          model_ms["exact"]["dec"])
     log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
 
-    log("== 20. result")
+    log("== 20. mesh train: GPT-2 medium whole on a (2, 2) (data, model) world of 4 ranks of "
+        "the one card with fsdp; qwen2-1.5B whole on (1, 2)")
+    t20 = time.perf_counter()
+    counts_mesh_train, mesh_train = mesh_train_phase(torch, np, mods, card, args.seed)
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    log("== 21. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
                   ("nemotron-4-340b", counts_nem), ("share/spec", counts_ss),
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
                   *counts_moe.items(), *counts_ssm.items(), *counts_encdec.items(),
-                  *counts_vlm.items(), *counts_train.items(), *counts_mesh.items()]
+                  *counts_vlm.items(), *counts_train.items(), *counts_mesh.items(),
+                  *counts_mesh_train.items()]
     rows = []
     for name in SOURCE:
         t = times[name]
@@ -7202,6 +7793,12 @@ def main() -> int:
     log(f"  mesh decode step (GPT-2 medium, 4 slots, {MESH_RANKS} ranks on one card), host "
         f"clock: {step['dec']:.2f} ms a rank, gather_heads {step['gather']:.2f} ms of it, "
         f"against {model_ms['exact']['dec']:.2f} ms on one device ({card})")
+    log(f"  mesh training step (GPT-2 medium, 8 x 1024 tokens, (2, 2) fsdp, 4 ranks on one "
+        f"card), host clock: run_training[lut] {mesh_train['step_sec']:.3f} s a rank (one "
+        f"device's LUT step {mesh_train['one_device_sec']['lut']:.3f} s); "
+        f"collectives {mesh_train['collectives']['sec']:.3f} of "
+        f"{mesh_train['collectives']['step_sec']:.3f} s synchronised; max memory a rank "
+        f"{[round(v, 2) for v in mesh_train['max_memory_gib']]} GiB ({card})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

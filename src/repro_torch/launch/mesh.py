@@ -1,7 +1,8 @@
 """Mesh construction and rank processes (the port of `repro.launch.mesh`).
 
 `make_production_mesh` and `make_test_mesh` build a `DeviceMesh` over the
-ranks of an initialised process group (`init_device_mesh`); importing this
+ranks of an initialised process group (`init_device_mesh`; `init_from_env`
+joins the group a launcher such as `torchrun` describes); importing this
 module touches no device and no process group, as the reference's does not.
 A JAX program is one controller over every device; a PyTorch mesh program
 is one process a rank, each running the same code, so `World` spawns those
@@ -13,6 +14,7 @@ caller's main module guarded by `if __name__ == "__main__"`).
 from __future__ import annotations
 
 import datetime
+import os
 import pathlib
 import shutil
 import tempfile
@@ -24,10 +26,31 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
     return make_test_mesh(shape, axes, device_type=device_type)
+
+
+def init_from_env(world_size: int, *, backend: str = "gloo") -> None:
+    """Join the process group that a launcher such as `torchrun` describes
+    in the environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), unless
+    one is initialised already. Raises, naming `world_size`, when there is
+    no such group or it has another size."""
+    if not dist.is_initialized():
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+                   if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"this mesh needs a process group of {world_size} ranks, "
+                               f"one a device (e.g. torchrun --nnodes ... --nproc-per-node "
+                               f"...): {', '.join(missing)} not set")
+        dist.init_process_group(backend, init_method="env://")
+    if dist.get_world_size() != world_size:
+        raise RuntimeError(f"this mesh needs a process group of {world_size} ranks, "
+                           f"not {dist.get_world_size()}")
 
 
 def make_test_mesh(shape=(2, 4), axes=("data", "model"), *, device_type: str = "cuda"):

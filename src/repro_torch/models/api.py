@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.distributed import api as dist_api
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -58,6 +59,7 @@ def _splice_patches(batch: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _vlm_forward(params: dict, batch: dict, cfg: ModelConfig,
                  engine: SalPimEngine) -> torch.Tensor:
+    params = shard_lib.use_params(params)
     tokens = batch["tokens"]
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = _splice_patches(batch, tf._embed(params, tokens, cfg, pos[None]))

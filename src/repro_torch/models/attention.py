@@ -29,7 +29,14 @@ head, group)), appends into its slice of the pools and runs the same
 kernel on it; `collectives.gather_heads` concatenates the ranks' heads and
 `wo` runs replicated on them. No float add crosses ranks, so the output is
 bit for bit one device's. A mesh whose "model" extent is 1 or does not
-divide Hkv leaves the layer on the whole heads, as the reference's."""
+divide Hkv leaves the layer on the whole heads, as the reference's.
+
+Under a sharded train step (`distributed.sharding.TrainPlan`) the
+full-sequence form computes tensor-parallel where the plan splits the
+attention (the KV heads divide over "model"): the weights are the rank's
+slices, the rank attends its heads, and the ranks' `wo` products are
+summed (`collectives.tp_sum`, in mathematics the one-device output, not
+in bits)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -39,6 +46,7 @@ import torch
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.distributed import api as dist_api
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import apply_rope
 from repro_torch.serving import kvcache
@@ -74,9 +82,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q = engine.linear(x, p["wq"], p.get("bq"))
     k = engine.linear(kv_in, p["wk"], p.get("bk"))
     v = engine.linear(kv_in, p["wv"], p.get("bv"))
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim))
+    # The head counts are the weights' (a rank's under tensor parallelism).
+    return (q.reshape(B, S, -1, cfg.head_dim), k.reshape(B, Skv, -1, cfg.head_dim),
+            v.reshape(B, Skv, -1, cfg.head_dim))
 
 
 def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -128,8 +136,15 @@ def attention_fullseq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     projected from it, and K is not rotated (the reference rotates it only
     by positions of the source, which no caller has). Queries run in
     chunks of cfg.attn_chunk when S is longer than and a multiple of it,
-    as the JAX scan does."""
+    as the JAX scan does. Under a train plan that splits the attention
+    (`sharding.tensor_parallel("attn")`) the weights are the rank's column
+    block of wq/wk/wv (whole KV heads with their query groups) and row
+    block of wo: the rank attends its heads, and the ranks' wo products
+    are summed."""
     B, S, _ = x.shape
+    tp = shard_lib.tensor_parallel("attn")
+    if tp is not None:
+        x = collectives.tp_enter(x, tp[2])
     q, k, v = _project_qkv(p, x, cfg, engine, kv_x)
     if cos is not None:
         q = apply_rope(q, cos, sin)
@@ -145,6 +160,8 @@ def attention_fullseq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         out = _masked_softmax_attn(q, k, v, engine, cfg, q_offset=0, causal=causal,
                                    window=window)
     out = engine.linear(out.reshape(B, S, -1), p["wo"])
+    if tp is not None:
+        out = collectives.tp_sum(out, tp[2])
     if return_kv:
         return out, (k.transpose(1, 2), v.transpose(1, 2))
     return out

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
@@ -46,7 +47,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random weights with the reference's tree and stds, drawn from a
     torch.Generator seeded with `seed` (not JAX's numbers)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def normal(shape, std, dtype=None):
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -111,7 +112,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
            engine: SalPimEngine) -> torch.Tensor:
     """frames (B, enc_seq, D) stub embeddings -> encoder output (B, enc_seq, D)."""
     x = frames.to(cfg.cdtype) + params["enc_pos"][None].to(cfg.cdtype)
-    layer = remat(encode_layer, cfg)
+    layer = remat(shard_lib.use_layer(encode_layer, "enc_blocks"), cfg)
     for bp in _layers(params["enc_blocks"], cfg.n_enc_layers):
         x = layer(bp, x, cfg, engine)
     return blk.apply_norm(params["enc_norm"], x, cfg, engine)
@@ -149,11 +150,12 @@ def forward(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg: Model
             engine: SalPimEngine) -> torch.Tensor:
     """Teacher-forced decoder over the encoder output of frames (B,
     enc_seq, D): tokens (B, S) -> logits (B, S, V)."""
+    params = shard_lib.use_params(params)
     enc = encode(params, frames, cfg, engine)
     B, S = tokens.shape
     x = _dec_embed(params, tokens, torch.arange(S, device=tokens.device)[None].expand(B, S),
                    cfg)
-    layer = remat(_decode_layer, cfg)
+    layer = remat(shard_lib.use_layer(_decode_layer, "dec_blocks"), cfg)
     for bp in _layers(params["dec_blocks"], cfg.n_layers):
         x = layer(bp, x, enc, cfg, engine)
     return _logits(params, x, cfg, engine)

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models.config import ModelConfig
 
 
@@ -22,7 +24,16 @@ def init_ffn(normal, cfg: ModelConfig, n_layers: int) -> dict:
 
 def apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
               engine: SalPimEngine) -> torch.Tensor:
-    """x (..., D) -> (..., D)."""
+    """x (..., D) -> (..., D). Under a train plan that splits the FFN the
+    weights are the rank's columns of w_up/w_gate and rows of w_down, and
+    the ranks' w_down products are summed."""
+    tp = shard_lib.tensor_parallel("ffn")
+    if tp is not None:
+        return collectives.tp_sum(_ffn(p, collectives.tp_enter(x, tp[2]), cfg, engine), tp[2])
+    return _ffn(p, x, cfg, engine)
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine) -> torch.Tensor:
     if cfg.gated_mlp:
         h = (engine.linear(x, p["w_gate"], act=cfg.activation)
              * engine.linear(x, p["w_up"]))

@@ -40,6 +40,12 @@ That is the grouped result in mathematics, not in bits (the sum runs in
 another order), as in the reference. Each rank computes every token group:
 the serving ranks hold the same tokens. Without such a mesh the config
 takes the grouped path, as the reference's does.
+
+Under a sharded train step (`distributed.sharding.TrainPlan`) every
+`moe_impl` trains the same way: each rank dispatches its own tokens' groups,
+routing runs replicated over "model", and where the experts divide over
+"model" each rank holds and runs its own (`_apply_moe_train`), their
+partial outputs summed with the autograd-aware `collectives.tp_sum`.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ import torch
 from repro_torch.core.salpim import SalPimEngine
 from repro_torch.distributed import api as dist_api
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.quantize import QTensor
 
@@ -160,6 +167,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
+    if shard_lib.current_plan() is not None:
+        return _apply_moe_train(p, xt, cfg, engine).reshape(*lead, d)
     ep = _ep_rank(cfg, xt.shape[0]) if cfg.moe_impl == "shardmap" else None
     if ep is None:
         return _experts(p, xt, cfg, engine, 0, cfg.n_experts).reshape(*lead, d)
@@ -169,15 +178,48 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return collectives.psum(part, mesh.get_group("model")).reshape(*lead, d)
 
 
+def _apply_moe_train(p: dict, xt: torch.Tensor, cfg: ModelConfig,
+                     engine: SalPimEngine) -> torch.Tensor:
+    """The MoE under a sharded train step. The rank's tokens are 1/split of
+    the global batch's, so they form 1/split of its token groups (the
+    reference's grouped dispatch over the global batch, each group on the
+    rank that holds its tokens). Routing runs replicated over "model" (the
+    router gathered whole); where the experts split over "model", the rank
+    runs its own on every token of its groups, and the ranks' partial
+    outputs are summed."""
+    plan = shard_lib.current_plan()
+    split = plan.batch_split
+    G = _num_groups(xt.shape[0] * split)
+    if G % split:
+        raise ValueError(f"the global batch's {G} token groups do not divide over the "
+                         f"{split} ranks that split the batch")
+    G //= split
+    topw, topi = route(p["router"], xt, cfg, engine)
+    tp = shard_lib.tensor_parallel("experts")
+    if tp is None:
+        return _experts(p, xt, cfg, engine, 0, cfg.n_experts, routing=(topw, topi),
+                        n_groups=G)
+    j, M, group = tp
+    e_loc = cfg.n_experts // M
+    part = _experts(p, collectives.tp_enter(xt, group), cfg, engine, j * e_loc,
+                    (j + 1) * e_loc, routing=(collectives.tp_enter(topw, group), topi),
+                    n_groups=G, local_weights=True)
+    return collectives.tp_sum(part, group)
+
+
 def _experts(p: dict, xt: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
-             lo: int, hi: int) -> torch.Tensor:
+             lo: int, hi: int, *, routing=None, n_groups=None,
+             local_weights: bool = False) -> torch.Tensor:
     """xt (T, d) -> the outputs (G, Tg, d) of experts lo..hi-1 (all of them
-    on the grouped path), every token routed against all experts."""
+    on the grouped path), every token routed against all experts (or by
+    `routing`, (weights, experts) of `route`) in `n_groups` groups
+    (`_num_groups` by default). `local_weights`: the expert weights hold
+    experts lo..hi-1 alone (a rank's slice), not all of them."""
     T, d = xt.shape
     k = cfg.top_k
-    G = _num_groups(T)
+    G = n_groups or _num_groups(T)
     Tg = T // G
-    plan = dispatch(*route(p["router"], xt, cfg, engine), cfg, G)
+    plan = dispatch(*(routing or route(p["router"], xt, cfg, engine)), cfg, G)
     C = plan.capacity
     dev, dtype = xt.device, xt.dtype
     n = hi - lo
@@ -195,7 +237,8 @@ def _experts(p: dict, xt: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
     buf = buf[:n * G * C].view(n, G * C, d)
 
     def weight(name):
-        return _as_weight(_expert_slice(p[name], lo, hi), dtype).transpose(1, 2)
+        w = p[name] if local_weights else _expert_slice(p[name], lo, hi)
+        return _as_weight(w, dtype).transpose(1, 2)
 
     act = engine.nl.activation(cfg.activation)
     up = torch.bmm(buf, weight("w_up"))

@@ -32,6 +32,15 @@ runs under `torch.utils.checkpoint` (`use_reentrant=False`), as
 `jax.checkpoint` wraps the JAX scan's body: its activations are
 recomputed in the backward pass. The hybrid's shared block is not
 rematerialized, as in the reference.
+
+Under a sharded train step (`distributed.sharding.TrainPlan`, entered by
+`runtime/train_loop.shard_train_step`) each rank holds its slices of the
+parameters: `forward` gathers the leaves outside the layer stacks for use,
+each layer gathers its own inside the checkpointed function (so the
+backward gathers them again rather than keeping them), the attention, FFN
+and experts compute tensor-parallel where the plan says so, and the LM
+head vocab-parallel (its logits gathered over "model"). Without a plan
+every function computes what it computes on one device.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models import ffn as ffn_lib
@@ -120,10 +131,12 @@ def _unstack(tree: dict) -> dict:
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random weights with the JAX package's stds, drawn from a
-    torch.Generator seeded with `seed` (not JAX's numbers)."""
+    torch.Generator seeded with `seed` (not JAX's numbers); on the `meta`
+    device their shapes and dtypes."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # device="meta": the shapes alone (the sharding rules' input at full size).
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def normal(shape, std, dtype=None):
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
@@ -212,7 +225,14 @@ def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
 def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
             engine: SalPimEngine) -> torch.Tensor:
     x = blk.apply_norm(p["final_norm"], x, cfg, engine)
-    logits = engine.linear(x, p["lm_head"])
+    tp = shard_lib.tensor_parallel("head")
+    if tp is None:
+        logits = engine.linear(x, p["lm_head"])
+    else:   # vocab-parallel: this rank's rows of the head, the logits gathered
+        group = tp[2]
+        logits, = collectives.all_gather_grad(
+            [engine.linear(collectives.tp_enter(x, group), p["lm_head"])], group, [-1],
+            backward="slice")
     if cfg.final_softcap is not None:
         logits = engine.nl.softcap(logits.float(), cfg.final_softcap)
     return logits
@@ -243,7 +263,7 @@ def remat(fn, cfg: ModelConfig):
 def decoder_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, engine: SalPimEngine,
                   cos, sin) -> torch.Tensor:
     """The dense / MoE block stack of the teacher-forced forward."""
-    block = remat(blk.apply_decoder_block, cfg)
+    block = remat(shard_lib.use_layer(blk.apply_decoder_block, "blocks"), cfg)
     for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x = block(bp, x, cfg, engine, cos=cos, sin=sin, window=cfg.window_for_layer(i))
     return x
@@ -260,7 +280,7 @@ def _hybrid_fullseq(params: dict, x: torch.Tensor, cfg: ModelConfig, engine: Sal
     """The SSM family's Mamba2 stack; the hybrid's shared block before each
     of its segments."""
     layers = _layers(params["blocks"], cfg.n_layers)
-    mamba = remat(_mamba_layer, cfg)
+    mamba = remat(shard_lib.use_layer(_mamba_layer, "blocks"), cfg)
     for s, e in _hybrid_segments(cfg):
         if cfg.family == "hybrid":
             x = blk.apply_decoder_block(params["shared_attn"], x, cfg, engine, cos=cos,
@@ -276,6 +296,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     _check_supported(cfg)
     if cfg.family == "encdec":
         raise ValueError("forward of the encoder-decoder family is encdec.forward")
+    params = shard_lib.use_params(params)
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)
     x = _embed(params, tokens, cfg, pos[None])
@@ -290,14 +311,17 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 def token_nll(logits: torch.Tensor, batch: dict):
     """The masked mean next-token NLL of logits (B, S, V) against
     batch["labels"] (B, S) and batch.get("mask") (B, S; all ones when
-    absent), in f32. Returns (loss, logits in f32, labels, mask, denom)."""
+    absent), in f32. Returns (loss, logits in f32, labels, mask, denom).
+    Under a sharded train step (`distributed.sharding.TrainPlan`) the
+    denominator is the global batch's, so the loss is this rank's share of
+    the global mean."""
     logits = logits.float()
     labels = batch["labels"].long()
     mask = batch.get("mask")
     mask = torch.ones_like(labels, dtype=torch.float32) if mask is None else mask.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = shard_lib.global_mean_denominator(mask.sum())
     return ((logz - gold) * mask).sum() / denom, logits, labels, mask, denom
 
 

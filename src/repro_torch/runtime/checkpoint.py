@@ -1,6 +1,6 @@
-"""Atomic checkpoints with keep-K GC (the port of `repro.runtime.checkpoint`,
-one device; the same layout, so a checkpoint the JAX package wrote
-restores here bit for bit).
+"""Atomic, elastic checkpoints with keep-K GC (the port of
+`repro.runtime.checkpoint`; the same layout, so a checkpoint the JAX
+package wrote restores here bit for bit).
 
 Layout per step:
     <dir>/step_000042/
@@ -23,7 +23,14 @@ Fault-tolerance properties:
     snapshot) and hands it to a writer thread, so the train loop doesn't
     stall on disk;
   * restore places each leaf on the device and in the dtype of the tree
-    it is given.
+    it is given;
+  * sharded trees (`shardings=`, a tree of `distributed.sharding.
+    NamedSharding` like the tree; None for a replicated leaf): `save`
+    gathers every leaf whole to the host, one leaf at a time (a collective
+    of every rank), rank 0 writes, and a blocking save's other ranks wait
+    for its commit; `restore` reads the whole arrays and cuts each rank's
+    slice by its spec, so a checkpoint saved on one device, on any mesh or
+    by the JAX package restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -36,8 +43,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.runtime.optimizer import OptState
+from repro_torch.distributed import sharding
+from repro_torch.runtime.optimizer import named_leaves, tree_map, tree_map_with_path
 
 # Serializes every writer — async *and* blocking saves. Without it, two
 # concurrent saves of the same step race: one writer's _gc sweeps the
@@ -46,19 +55,6 @@ from repro_torch.runtime.optimizer import OptState
 # blocking save immediately follows for the same step). Re-entrant so
 # save_async's writer thread, which already holds it, can call save().
 _WRITER_LOCK = threading.RLock()
-
-
-def _leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """(path, leaf) in the JAX package's flatten order and path strings."""
-    join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
-    if isinstance(tree, OptState):
-        return [p for name in OptState._fields
-                for p in _leaf_paths(getattr(tree, name), join(f".{name}"))]
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], join(k))]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, join(i))]
-    return [(prefix, tree)]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -79,18 +75,33 @@ def _dtype_name(leaf, arr: np.ndarray) -> str:
 
 def _host_tree(tree: Any):
     """The tree with every tensor leaf copied to the host."""
-    if isinstance(tree, OptState):
-        return OptState(*(_host_tree(getattr(tree, n)) for n in OptState._fields))
-    if isinstance(tree, dict):
-        return {k: _host_tree(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    return tree
+    return tree_map(lambda x: x.detach().to("cpu", copy=True)
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _whole_on_host(tree: Any, shardings: Any, keep: bool):
+    """The tree with its sharded leaves gathered whole to the host of rank
+    0, the writer (`keep`; None elsewhere), its replicated ones copied."""
+    def one(x, sh):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if sh is None:
+            return x.detach().to("cpu", copy=True) if keep else None
+        return sharding.gather_to_root(x, sh.spec, sh.mesh)
+    return tree_map(one, tree, shardings)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
-    """Blocking save. Returns the committed directory path."""
+         keep: int = 3, shardings: Any = None) -> str:
+    """Blocking save. Returns the committed directory path. With
+    `shardings` every rank calls it and gets the path after rank 0's
+    commit."""
+    if shardings is not None:
+        writer = sharding.world_rank() == 0
+        host = _whole_on_host(tree, shardings, writer)
+        final = save(ckpt_dir, step, host, extra=extra, keep=keep) if writer else None
+        dist.barrier()
+        return final or os.path.join(ckpt_dir, f"step_{step:08d}")
     with _WRITER_LOCK:
         os.makedirs(ckpt_dir, exist_ok=True)
         final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -99,7 +110,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
 
         arrays = {}
         manifest = {"step": step, "leaves": [], "extra": extra or {}, "time": time.time()}
-        for i, (name, leaf) in enumerate(_leaf_paths(tree)):
+        for i, (name, leaf) in enumerate(named_leaves(tree)):
             arr = _to_numpy(leaf)
             key = f"a{i}"
             arrays[key] = arr
@@ -120,11 +131,19 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
         return final
 
 
-def save_async(ckpt_dir: str, step: int, tree: Any, *,
-               extra: Optional[dict] = None, keep: int = 3) -> threading.Thread:
+def save_async(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
+               keep: int = 3, shardings: Any = None) -> Optional[threading.Thread]:
     """Non-blocking save: the copy to the host happens here (a consistent
-    snapshot), the disk IO on the writer thread."""
-    snapshot = _host_tree(tree)
+    snapshot), the disk IO on the writer thread. With `shardings` every
+    rank calls it (the gather is a collective); rank 0 gets the writer
+    thread, the others None."""
+    if shardings is not None:
+        if sharding.world_rank() != 0:
+            _whole_on_host(tree, shardings, False)
+            return None
+        snapshot = _whole_on_host(tree, shardings, True)
+    else:
+        snapshot = _host_tree(tree)
 
     def run():
         with _WRITER_LOCK:
@@ -160,10 +179,11 @@ def _leaf_from(arr: np.ndarray, dtype_name: str, like) -> torch.Tensor:
     return t
 
 
-def restore(ckpt_dir: str, tree_like: Any, *,
-            step: Optional[int] = None) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of `tree_like` (nested dicts and
-    `OptState`s of tensors), each leaf on its like's device and dtype."""
+    `OptState`s of tensors), each leaf on its like's device and dtype; a
+    leaf with a sharding becomes this rank's slice by its spec."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
@@ -171,20 +191,18 @@ def restore(ckpt_dir: str, tree_like: Any, *,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(d, "arrays.npz"))
-    by_path = {leaf["path"]: (data[leaf["key"]], leaf["dtype"]) for leaf in manifest["leaves"]}
+    by_path = {leaf["path"]: (leaf["key"], leaf["dtype"]) for leaf in manifest["leaves"]}
 
-    def build(tree, prefix):
-        join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
-        if isinstance(tree, OptState):
-            return OptState(*(build(getattr(tree, n), join(f".{n}"))
-                              for n in OptState._fields))
-        if isinstance(tree, dict):
-            return {k: build(v, join(k)) for k, v in tree.items()}
-        if prefix not in by_path:
-            raise KeyError(f"checkpoint missing leaf {prefix}")
-        return _leaf_from(*by_path[prefix], tree)
+    def build(path, like, sh):
+        if path not in by_path:
+            raise KeyError(f"checkpoint missing leaf {path}")
+        key, dtype_name = by_path[path]
+        arr = data[key]            # read one leaf at a time
+        if sh is not None:
+            arr = sharding.shard_of(arr, sh.spec, sh.mesh)
+        return _leaf_from(arr, dtype_name, like)
 
-    return build(tree_like, ""), manifest
+    return tree_map_with_path(build, tree_like, shardings), manifest
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:

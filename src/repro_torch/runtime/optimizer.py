@@ -1,5 +1,6 @@
 """AdamW, its schedule, global-norm clipping and microbatch gradient
-accumulation (the port of `repro.runtime.optimizer`, one device).
+accumulation (the port of `repro.runtime.optimizer`; on a mesh each rank
+updates its own slices, and the clip's norm is summed over them).
 
 Parameters, gradients and moments are nested dicts of tensors with the
 parameter tree's keys. The update follows the JAX package's formula, not
@@ -38,18 +39,70 @@ class OptState(NamedTuple):
     nu: Any              # fp32 tree like params
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """fn over the leaves of nested dicts (rest: trees of the same keys)."""
+def _children(tree) -> Optional[list]:
+    """[(key, child)] of a tree node, None for a leaf. Nodes: dicts,
+    `OptState` (its fields as ".step", ".mu", ".nu", the JAX package's
+    checkpoint paths) and dataclasses (`QTensor`, `Cache`: their non-None
+    fields). Anything else is a leaf, a spec tuple too."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
+        return list(tree.items())
+    if isinstance(tree, OptState):
+        return [(f".{n}", getattr(tree, n)) for n in OptState._fields]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+                if getattr(tree, f.name) is not None]
+    return None
+
+
+def _child(tree, key: str):
+    if tree is None:
+        return None
+    return tree[key] if isinstance(tree, dict) else getattr(tree, key.lstrip("."))
+
+
+def _rebuild(tree, kids: dict):
+    if isinstance(tree, dict):
+        return kids
+    if isinstance(tree, OptState):
+        return OptState(*(kids[f".{n}"] for n in OptState._fields))
+    return dataclasses.replace(tree, **kids)
+
+
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
+def tree_map_with_path(fn: Callable, tree, *rest, path: str = ""):
+    """fn(path, leaf, *rest_leaves) over the leaves of `tree`, the port's
+    one walker of parameter, gradient, moment, spec and checkpoint trees.
+    Paths are the JAX package's ("blocks/attn/wq", "opt/.mu/embed"). A
+    `rest` tree has `tree`'s structure; None in it stands for a subtree
+    of Nones."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(path, tree, *rest)
+    return _rebuild(tree, {k: tree_map_with_path(fn, v, *(_child(r, k) for r in rest),
+                                                 path=_join(path, k)) for k, v in kids})
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """fn(leaf, *rest_leaves) over the leaves of `tree` (`tree_map_with_path`)."""
+    return tree_map_with_path(lambda _, *leaves: fn(*leaves), tree, *rest)
+
+
+def named_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) in the JAX package's flatten order (dict keys sorted)."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        kids = sorted(kids, key=lambda kv: kv[0])
+    return [p for k, v in kids for p in named_leaves(v, _join(prefix, k))]
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of nested dicts in the JAX package's order (sorted keys)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+    """The leaves in the JAX package's order (`named_leaves`)."""
+    return [leaf for _, leaf in named_leaves(tree)]
 
 
 def init_opt_state(params: Any) -> OptState:
@@ -71,25 +124,36 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * scale
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, *, plan=None) -> torch.Tensor:
+    """The L2 norm over every element of the tree. With a sharded step's
+    `plan` (`distributed.sharding.TrainPlan`) the leaves are this rank's
+    slices: each slice's squares are summed over the ranks that hold the
+    leaf's other slices, and a leaf replicated over a mesh dimension counts
+    once."""
+    if plan is not None:
+        return torch.sqrt(plan.sum_over_shards(
+            {path: torch.sum(torch.square(leaf.float())) for path, leaf in named_leaves(tree)}))
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float, *, plan=None) -> tuple[Any, torch.Tensor]:
+    norm = global_norm(grads, plan=plan)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: OptState) -> tuple[Any, OptState, dict]:
+                 state: OptState, *, plan=None) -> tuple[Any, OptState, dict]:
+    """One AdamW step. With a sharded step's `plan` the trees hold this
+    rank's slices: the update is elementwise, so only the clip's global
+    norm crosses ranks."""
     step = state.step + 1
     lr = lr_at(cfg, step)
     grad_norm = torch.zeros(())
     if cfg.clip_norm is not None:
-        grads, grad_norm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, grad_norm = clip_by_global_norm(grads, cfg.clip_norm, plan=plan)
     t = step.float()
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t

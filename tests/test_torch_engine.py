@@ -175,14 +175,17 @@ def test_int8_weights_lut_drain_matches_jax_engine(setup):
 
 def test_import_guard():
     """No module of the port, not chip_smoke.py and not the mesh tests' rank
-    functions (tests/mesh_common.py) import JAX or `repro`."""
+    functions (tests/mesh_common.py, tests/mesh_train_common.py) import JAX
+    or `repro`."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "mesh_common.py"]
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "mesh_common.py",
+              REPO / "tests" / "mesh_train_common.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/distributed/api.py", "src/repro_torch/distributed/sharding.py",
             "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/distributed/pipeline.py",
             "src/repro_torch/launch/mesh.py"} <= names
     bad = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
            for f in files for m in pat.finditer(f.read_text())]
@@ -224,10 +227,13 @@ def test_training_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, tmp_p
         launch_train.main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path / "d")])
     out = run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu")
     assert out["params"]["embed"].device.type == "cpu"
-    with pytest.raises(ValueError, match="one device"):
+    # mesh= takes a DeviceMesh; fsdp=True without a mesh trains on one device,
+    # as the reference does
+    with pytest.raises(ValueError, match="DeviceMesh"):
         run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu", mesh=object())
-    with pytest.raises(ValueError, match="one device"):
-        run_training(cfg, tc, opt.AdamWConfig(), dcfg, device="cpu", fsdp=True)
+    tc_fsdp = TrainConfig(steps=1, ckpt_dir=str(tmp_path / "f"), log_every=1, async_ckpt=False)
+    out = run_training(cfg, tc_fsdp, opt.AdamWConfig(), dcfg, device="cpu", fsdp=True)
+    assert out["params"]["embed"].device.type == "cpu"
 
 
 class ModelAxis:

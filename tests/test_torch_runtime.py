@@ -245,7 +245,7 @@ def _tree():
 
 
 def _equal(t, r):
-    want, got = ck._leaf_paths(t), ck._leaf_paths(r)
+    want, got = opt.named_leaves(t), opt.named_leaves(r)
     assert [k for k, _ in want] == [k for k, _ in got]
     for (k, a), (_, b) in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b), k
