@@ -181,7 +181,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
               `python -m repro_torch.launch.serve --full --requests 8
               --slots 4` must finish its 8 requests;
  14. moe    — the MoE family on the paged engine and the dense arena:
-              olmoe-1B-7B at full width and all 16 layers (64 experts top-8,
+              olmoe-1B-7B at full width, 8 of its 16 layers (64 experts top-8,
               expert d_ff 1024, cap factor 1.25; bf16 random weights) serves
               the first 6 of phase 4's requests (MODEL_PHASE_REQUESTS; 4
               slots, two requests in a reused slot, page 16, 64-token chunks,
@@ -207,22 +207,24 @@ Run from the root of a checkout. Phases, each of which fails the run:
               streaming every weight, and lut_interp and the f32 routers at
               the MoE shapes;
  15. ssm/hybrid — the SSM and hybrid families on the dense cache (the
-              reference serves them on nothing else): mamba2-370m (48
-              Mamba2 layers, d 1024, state 128) and zamba2-1.2B (38 Mamba2
-              layers, d 2048, state 64, one shared attention + GeGLU block
-              before each of 7 segments) at full width and depth, bf16
-              random weights, each serving the first 6 of phase 4's
-              requests (MODEL_PHASE_REQUESTS; two in a reused slot) through
+              reference serves them on nothing else): mamba2-370m (d
+              1024, state 128; 24 of its 48 Mamba2 layers) and
+              zamba2-1.2B (d 2048, state 64, one shared attention + GeGLU
+              block before each segment of 6; 19 of its 38 layers) at full
+              width, depths cut (CUT_LAYERS), bf16 random weights,
+              each serving the first 6 of phase 4's requests
+              (MODEL_PHASE_REQUESTS; two in a reused slot) through
               ServingEngine(paged=False) (4 slots, max_len 256) exact and
               LUT, mamba2 also with `quantize_params_int8` weights (q1),
               and `generate()` on 4 prompts of 128 tokens, exact. Gates:
               every request finishes and every slot parks at length 0;
-              every step's launches (mamba2: 97 GEMVs, all on the tensor
-              cores, and 97 layernorm_lut a decode step, in LUT mode 144
-              lut_interp, no attention kernel; zamba2: 126 GEMVs, 91
-              norms, 7 decode_attention, in LUT mode 114 lut_interp and 7
-              softmax_lut an admission; q1: 97 one-launch int8 linears a
-              step); within FIRST_LOGITS_LIMIT, every stage of each
+              every step's launches (at full depth mamba2: 97 GEMVs, all
+              on the tensor cores, and 97 layernorm_lut a decode step, in
+              LUT mode 144 lut_interp, no attention kernel; zamba2: 126
+              GEMVs, 91 norms, 7 decode_attention, in LUT mode 114
+              lut_interp and 7 softmax_lut an admission; q1: 97 one-launch
+              int8 linears a step; at the cut depths fewer, as
+              `dense_expect` counts them); within FIRST_LOGITS_LIMIT, every stage of each
               prompt's prefill (a Mamba2 layer, a shared-block
               application, the head) through the kernels against the
               plain versions on the same input, each request's first
@@ -318,7 +320,22 @@ Run from the root of a checkout. Phases, each of which fails the run:
      qwen2-1.5B whole on (1, 2), one exact step. Reported: a rank's step
      on the host clock, its collectives' share (synchronised, by kind),
      each rank's peak memory beside the one-device step's;
- 21. the kernels line, a JSON object with each kernel's error, times,
+ 21. mesh dense (run by phase 19's ranks, reported here): the dense decode
+     on a mesh, api.decode_step(..., mesh=) on a rank's shard of a dense
+     cache (shard_cache). GPT-2 medium whole, phase 4's 8 requests
+     prefilled densely at max_len 256, 32 greedy steps on a (1, 2)
+     ("data", "model") mesh (the KV heads on "model"): tokens and every
+     rank's cache slices bit for bit the one-device dense decode's;
+     h2o-danube3-4B at its published widths, 2 layers, B 1, a 4600-token
+     prompt past its window, max_len 8192, 32 steps on (2, 1) fed the
+     one-device greedy tokens: the sequence on ("data", "model"), each
+     rank's decode_attention_partials merged by merge_partial_softmax,
+     each step's logits within MESH_DENSE_GAP of one device's, layer 0's
+     cache slices bit for bit, layer 1's within bf16's tolerance; the
+     path's launches (every count set to 0 before the mesh decodes, the
+     one-device references run first). Reported: the tokens shared, a
+     rank's step on the host clock;
+ 22. the kernels line, a JSON object with each kernel's error, times,
      bound and launches, then the card line and the result line.
 
 Phases 8-10 count every kernel's launches at every step, as phases 4-6
@@ -340,7 +357,11 @@ For phase 11's paths phase 3 also holds the prefill kernel as a verify pass
 runs it (B 4 x Sq 5 at a different start a row, two rows on the same
 physical pages, a parked all-trash row; Sq 1 at a fully shared prompt's
 last token), bit for bit with the plain versions on every pool format, and
-the float and int8 GEMVs and the int8 linear layer at M = 20.
+the float and int8 GEMVs and the int8 linear layer at M = 20. It holds
+decode_attention_partials to its plain version at phase 21's rank shapes
+(every slice at its key offset, exact and LUT, the window on and off) and
+a whole-arena slice, normalised, bit for bit to decode_attention, and
+times it on danube's 4096-key slice beside SDPA on the slice's keys.
 
 Phase 3 also holds the int8 and fixed16 GEMVs bit for bit to their plain
 versions (int8 over M 1..512 x R 1000..50257 x C 1024/4096 on the s8
@@ -400,6 +421,15 @@ _T0 = time.perf_counter()
 # reset and the pages' recycling on reuse, each request's first logits
 # gated) while the script with phase 20 keeps inside its time limit.
 MODEL_PHASE_REQUESTS = 6
+# Depths cut to keep the whole script inside its time limit (full width
+# kept): olmoe-1B-7B in phases 14 and 19 (of 16 layers), mamba2-370m and
+# zamba2-1.2B in phase 15 (of 48 and 38).
+CUT_LAYERS = {"olmoe_1b_7b": 8, "mamba2_370m": 24, "zamba2_1_2b": 19}
+
+
+def cut_config(get_config, name: str):
+    """The model's published config, its depth cut to CUT_LAYERS[name]."""
+    return dataclasses.replace(get_config(name), n_layers=CUT_LAYERS[name])
 # CUDA cores f32; int8 dense tensor cores. An int16 product is four 8-bit
 # ones (hi.hi, hi.lo, lo.hi, lo.lo byte planes), which the fixed16 kernel
 # runs on the int8 tensor cores: a quarter of their rate. The bf16 peak and
@@ -437,6 +467,10 @@ SOURCE = {
                        "src/repro/kernels/gemv_pim.py:208"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:112"),
+    # The same walk over one rank's slice of a sequence-sharded arena,
+    # leaving the partials the mesh decode merges across the ranks.
+    "decode_attention_partials": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                  "src/repro/kernels/decode_attention.py:112"),
     "softmax_lut": ("src/repro_torch/kernels/csrc/softmax_lut.cu",
                     "src/repro/kernels/softmax_lut.py:61"),
     "layernorm_lut": ("src/repro_torch/kernels/csrc/layernorm_lut.cu",
@@ -1143,6 +1177,92 @@ def time_kernels(torch, F, params, cfg, gemv_pim, paged_attention, paged_prefill
             f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
     return out
+
+
+# Phase 21's rank shapes: h2o-danube3-4B at B 1 on 2 ranks, each holding
+# 4096 of an 8192-position arena (8 kv heads x g 4 x head_dim 120), a
+# 4600-token prompt past its 4096-token window; GPT-2 medium's 4 slots x 16
+# heads x 64 over two 128-key slices of a 256 arena.
+PARTIALS_CASES = [("h2o-danube3-4b", 1, 32, 8, 120, 8192, 2, [4633], {"window": 4096}),
+                  ("h2o-danube3-4b", 1, 32, 8, 120, 8192, 2, [4633], {}),
+                  ("gpt2-medium", 4, 16, 16, 64, 256, 2, [128, 137, 151, 160], {})]
+
+
+def check_partials_kernel(torch, F, tlut, attn, seed):
+    """`decode_attention_partials` against its plain version at phase 21's
+    rank shapes (every slice of the arena at its key offset, exact and LUT,
+    the window on and off; -inf where a slice holds no valid key), and a
+    whole-arena slice normalised bit for bit `decode_attention` (one walk,
+    two epilogues). Then its time on danube's first slice (the window's
+    3559 valid keys of its 4096), beside the plain version, SDPA on the
+    slice's valid keys (the yardstick) and the bound. Returns (max abs err,
+    the kernels row's times)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    bank = tlut.LutBank.create(64)
+    worst = 0.0
+    for model, B, H, Hkv, D, S, n, lens, opts in PARTIALS_CASES:
+        q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        w = S // n
+        err = 0.0
+        for lut in (False, True):
+            kw = dict(opts, exp_table=bank.exp if lut else None)
+            for r in range(n):
+                kk, vv = (t[:, :, r * w:(r + 1) * w].contiguous() for t in (k, v))
+                got = attn.decode_attention_partials(q, kk, vv, lengths, key_offset=r * w, **kw)
+                torch.cuda.synchronize()
+                want = attn.decode_attention_partials_plain(q, kk, vv, lengths,
+                                                            key_offset=r * w, **kw)
+                for name, g, x in zip("mla", got, want):
+                    if not torch.equal(torch.isneginf(g), torch.isneginf(x)):
+                        raise AssertionError(f"decode_attention_partials {model} slice {r} "
+                                             f"{name}: -inf where the plain version has none")
+                    g, x = (torch.where(torch.isneginf(t), 0.0, t) for t in (g, x))
+                    err = max(err, compare(torch, f"decode_attention_partials {model} slice {r} "
+                                           f"{name} lut={lut}", g, x, TOL["float32"]))
+            m, l, acc = attn.decode_attention_partials(q, k, v, lengths, key_offset=0, **kw)
+            whole = attn.decode_attention(q, k, v, lengths, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal((acc / torch.clamp(l, min=1e-9)).to(q.dtype), whole):
+                raise AssertionError(f"decode_attention_partials {model} lut={lut}: the "
+                                     "whole-arena slice, normalised, is not decode_attention's "
+                                     "bits")
+        worst = max(worst, err)
+        log(f"  decode_attention_partials {model} B={B} H={H} Hkv={Hkv} D={D}, {n} slices "
+            f"of {w} of a {S} arena, lengths {lens} {opts or ''}, bf16, exact/LUT: f32 "
+            f"partials max_abs_err {err:.3e} (tol {TOL['float32']}) against the plain "
+            "version; a whole-arena slice normalised: bit for bit decode_attention")
+
+    # Time danube's first slice (window on) over one input set a layer.
+    _, B, H, Hkv, D, S, n, lens, opts = PARTIALS_CASES[0]
+    w, L = S // n, 8
+    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slices = [tuple(torch.randn((B, Hkv, w, D), generator=gen, device=dev).bfloat16()
+                    for _ in range(2)) for _ in range(L)]
+    lo, hi = lens[0] - opts["window"], min(lens[0], w)
+    valid = [tuple(t[:, :, lo:hi].repeat_interleave(H // Hkv, dim=1).contiguous() for t in kv)
+             for kv in slices]
+    ms = time_graph(torch, lambda i: attn.decode_attention_partials(
+        q, *slices[i], lengths, key_offset=0, **opts), L)
+    plain = time_graph(torch, lambda i: attn.decode_attention_partials_plain(
+        q, *slices[i], lengths, key_offset=0, **opts), L)
+    lib = time_graph(torch, lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *valid[i])[:, :, 0], L)
+    keys = (hi - lo) * Hkv
+    bnd, by = bound_ms(2 * keys * D * 2 + 2 * B * H * D + 4 * B * H * (D + 2) + 4 * B,
+                       4 * (hi - lo) * H * D, "bfloat16")
+    log(f"  decode_attention_partials [danube's rank 0 slice: 1 x 32 heads x 4096 keys, "
+        f"{hi - lo} in the window]: {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, SDPA on "
+        f"the slice's valid keys {lib * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+    row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               shape=f"B=1 H=32 Hkv=8 D=120, a 4096-key slice of an 8192 arena at key "
+               f"offset 0, length {lens[0]}, window 4096 ({hi - lo} valid keys), bf16; "
+               "library: SDPA on the valid keys (normalised, not partials)")
+    return worst, row
 
 
 def time_model_kernels(torch, F, gemv_pim, paged_attention, paged_prefill, seed):
@@ -2955,6 +3075,7 @@ def serving_handles(torch):
                "gemv_pim_fixed": gemv_pim.gemv_pim_fixed,
                "gemv_pim_fixed_linear": gemv_pim.gemv_pim_fixed_linear,
                "decode_attention": attn.decode_attention,
+               "decode_attention_partials": attn.decode_attention_partials,
                "softmax_lut": softmax_lut.softmax_lut,
                "layernorm_lut": layernorm_lut.layernorm_lut,
                "lut_interp": lut_interp.lut_interp,
@@ -4635,8 +4756,8 @@ def plain_ops(mode):
             q, *a, **k).to(q.dtype),
         "pim_layernorm": lambda *a, **k: ln.layernorm_lut_plain(*a, wide_sums=True, **k),
         "pim_softmax": sm.softmax_lut_plain,
-        "pim_decode_attention": (da.decode_attention_online_plain if lut
-                                 else da.decode_attention_plain),
+        "pim_decode_attention": lambda *a, plan_kv_heads=None, **k: (
+            da.decode_attention_online_plain if lut else da.decode_attention_plain)(*a, **k),
     }
     saved = {name: getattr(ops, name) for name in table}
     for name, fn in table.items():
@@ -4904,7 +5025,7 @@ def time_moe_kernels(torch, F, tlut, gemv_pim, lut_interp, seed):
 
 
 def moe_phase(torch, F, np, mods, counted, quantize, prompts, new_tokens, card, seed):
-    """Phase 14: olmoe-1B-7B at full width and depth (exact, LUT, q1, the
+    """Phase 14: olmoe-1B-7B at full width, 8 of its 16 layers (exact, LUT, q1, the
     dense arena, ngram k=4 with sharing) and phi-3.5-MoE at its published
     widths, 2 layers (exact, LUT), each drain run again under `plain_ops`
     and held to it; the launches of each path counted apart. Returns
@@ -4920,13 +5041,14 @@ def moe_phase(torch, F, np, mods, counted, quantize, prompts, new_tokens, card, 
     path_kernels = ["gemv_pim_float", TC, "paged_attention", "paged_prefill_attention",
                     "layernorm_lut", "lut_interp"]
 
-    cfg = get_config("olmoe_1b_7b")
+    cfg = cut_config(get_config, "olmoe_1b_7b")
     params = api.init_params(cfg, seed=seed, device="cuda")
     n_params = check_param_count(params, cfg, "olmoe-1b-7b")
     t0 = time.perf_counter()
     q1 = quantize.quantize_params_int8(params)
     torch.cuda.synchronize()
-    log(f"  olmoe-1B-7B at full width and depth ({cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"  olmoe-1B-7B at full width, depth cut from 16 to {cfg.n_layers} layers (d "
+        f"{cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts top-{cfg.top_k}, "
         f"expert d_ff {cfg.moe_ff}, cap factor {cfg.router_cap_factor}, vocab {cfg.vocab}): "
         f"{n_params / 1e9:.2f} B parameters, {2 * n_params / 1e9:.1f} GB in bf16, "
@@ -5359,7 +5481,8 @@ def check_f32_handoff(torch, api, params, cfg, sal, label, prompts):
 
 
 def ssm_phase(torch, np, mods, counted, quantize, prompts, new_tokens, card, seed):
-    """Phase 15: mamba2-370m and zamba2-1.2B at full width and depth, bf16
+    """Phase 15: mamba2-370m and zamba2-1.2B at full width, 24 of 48 and 19 of
+    38 layers (CUT_LAYERS), bf16
     random weights, on the dense cache (the reference serves them on
     nothing else): the first MODEL_PHASE_REQUESTS (6) of phase 4's requests
     through ServingEngine(paged=False) (4 slots, so two requests enter a
@@ -5389,13 +5512,14 @@ def ssm_phase(torch, np, mods, counted, quantize, prompts, new_tokens, card, see
     path_kernels = ["gemv_pim_float", TC, "layernorm_lut", "lut_interp"]
     gen_prompts = np.random.RandomState(seed + 15).randint(2, 32000, size=(4, 128))
     for name in ("mamba2_370m", "zamba2_1_2b"):
-        cfg = get_config(name)
+        cfg = cut_config(get_config, name)
         t0 = time.perf_counter()
         params = api.init_params(cfg, seed=seed, device="cuda")
         n_params = check_param_count(params, cfg, cfg.name)
         segs = f", shared attention + GeGLU before each of {attention_layers(cfg)} segments" \
             if cfg.family == "hybrid" else ""
-        log(f"  {cfg.name} at full width and depth ({cfg.n_layers} Mamba2 layers, d "
+        log(f"  {cfg.name} at full width, depth cut from {get_config(name).n_layers} to "
+            f"{cfg.n_layers} ({cfg.n_layers} Mamba2 layers, d "
             f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
             f"{cfg.ssm_headdim}, state {cfg.ssm_state}, vocab {cfg.vocab}{segs}): "
             f"{n_params / 1e9:.3f} B parameters, {2 * n_params / 1e9:.2f} GB in bf16; random "
@@ -6503,7 +6627,7 @@ def mesh_rank(rank: int, job: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    ocfg = dataclasses.replace(get_config("olmoe_1b_7b"), moe_impl="shardmap")
+    ocfg = dataclasses.replace(cut_config(get_config, "olmoe_1b_7b"), moe_impl="shardmap")
     # One rank at a time: making the weights takes f32 temporaries beside them.
     for r in range(MESH_RANKS):
         if r == rank:
@@ -6526,6 +6650,132 @@ def mesh_rank(rank: int, job: dict) -> dict:
     out["olmoe own"] = rec.own
     out["launches"] = {name: launches[name] for name in kernels}
     out["sec"] = time.perf_counter() - t_start
+    del ow
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    out["dense"] = mesh_dense_rank(torch, mods, kernels, job)
+    out["dense"]["sec"] = time.perf_counter() - t21
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the dense decode on a mesh, in phase 19's world of ranks
+# ---------------------------------------------------------------------------
+
+MESH_DENSE_STEPS = 32
+MESH_DENSE_KERNELS = ["gemv_pim_float", TC, "decode_attention", "decode_attention_partials",
+                      "layernorm_lut"]
+
+
+def _dense_prefill(torch, api, params, cfg, sal, prompts, max_len):
+    """A dense cache of len(prompts) rows, each prompt prefilled alone on one
+    device (as the dense engine admits it), and the first greedy tokens."""
+    dev = params["embed"].device
+    cache = api.init_cache(cfg, len(prompts), max_len, device=dev)
+    first = []
+    for b, p in enumerate(prompts):
+        toks = torch.as_tensor(p[None], dtype=torch.int64, device=dev)
+        logits, one = api.prefill(params, {"tokens": toks}, cfg, sal, max_len=max_len)
+        cache.k[:, b], cache.v[:, b] = one.k[:, 0], one.v[:, 0]
+        cache.lengths[b] = len(p)
+        first.append(int(torch.argmax(logits[0])))
+    return cache, torch.tensor(first, dtype=torch.int32, device=dev)
+
+
+def _clone_cache(torch, cache):
+    return dataclasses.replace(cache, **{f.name: getattr(cache, f.name).clone()
+                                         for f in dataclasses.fields(cache)
+                                         if getattr(cache, f.name) is not None})
+
+
+def _decode(torch, api, params, cfg, sal, cache, tok, steps, mesh=None, feed=None):
+    """`steps` greedy decode steps (feed: the tokens to feed instead, one
+    (B,) tensor a step); (tokens (B, steps), logits (steps, B, V) f32,
+    cache, host ms a step)."""
+    toks, logits, ms = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = api.decode_step(params, tok, cache, cfg, sal, mesh=mesh)
+        nxt = torch.argmax(out, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        toks.append(nxt)
+        logits.append(out.float())
+        tok = nxt if feed is None else feed[i]
+    return torch.stack(toks, 1), torch.stack(logits), cache, ms
+
+
+def mesh_dense_rank(torch, mods, kernels, job) -> dict:
+    """Phase 21 on one rank of phase 19's world: `api.decode_step(...,
+    mesh=)` on the rank's shard of a dense cache (`shard_cache`).
+    (a) GPT-2 medium whole, bf16, exact, phase 4's 8 requests prefilled
+    densely at max_len 256, on a (1, 2) ("data", "model") mesh: the KV
+    heads on "model" (8 of 16 a rank), MESH_DENSE_STEPS greedy steps.
+    (b) h2o-danube3-4B at its published widths, 2 layers, B 1, a 4600-token
+    prompt past its 4096 window, max_len 8192, on a (2, 1) mesh:
+    `cache_pspecs(seq_shard=True)` puts the sequence on ("data", "model"),
+    so each rank walks 4096 positions with `decode_attention_partials` and
+    `merge_partial_softmax` merges them; the steps are fed the one-device
+    greedy tokens so that each step's logits compare. Each first runs on
+    one device (the references); then every launch count is set to 0, both
+    mesh decodes run, and the counts are read."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import shard_cache
+    api, SalPimConfig, SalPimEngine = mods[0], mods[1], mods[2]
+    sal = SalPimEngine.create(SalPimConfig())
+    seed, n = job["seed"], MESH_DENSE_STEPS
+    m12 = make_test_mesh((1, MESH_RANKS), ("data", "model"), device_type="cuda")
+    m21 = make_test_mesh((MESH_RANKS, 1), ("data", "model"), device_type="cuda")
+    out = {}
+
+    gcfg = get_config("gpt2_medium")
+    gp = api.init_params(gcfg, seed=seed, device="cuda")
+    gcache, gfirst = _dense_prefill(torch, api, gp, gcfg, sal, job["prompts"], 256)
+    gshard = shard_cache(_clone_cache(torch, gcache), m12)
+    g_toks, _, gcache, g_ms = _decode(torch, api, gp, gcfg, sal, gcache, gfirst, n)
+
+    dcfg = dataclasses.replace(get_config("h2o_danube3_4b"), n_layers=2)
+    dp = api.init_params(dcfg, seed=seed, device="cuda")
+    prompt = np.random.RandomState(seed + 21).randint(2, dcfg.vocab, size=4600)
+    dcache, dfirst = _dense_prefill(torch, api, dp, dcfg, sal, [prompt], 8192)
+    dshard = shard_cache(_clone_cache(torch, dcache), m21, seq_shard=True)
+    d_toks, d_logits, dcache, d_ms = _decode(torch, api, dp, dcfg, sal, dcache, dfirst, n)
+
+    for k in kernels.values():
+        k.launches = 0
+    mg_toks, _, gshard, mg_ms = _decode(torch, api, gp, gcfg, sal, gshard, gfirst, n, mesh=m12)
+    md_toks, md_logits, dshard, md_ms = _decode(torch, api, dp, dcfg, sal, dshard, dfirst, n,
+                                                mesh=m21, feed=d_toks.t())
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+
+    def slices(shard, whole, mesh):
+        """(every field's shard equal to its cut of the one-device cache,
+        per layer: max |diff| / (1 + |one device's|) over k and v, the
+        compare() measure)."""
+        same, diffs = True, []
+        for f in ("k", "v"):
+            mine = getattr(shard, f)
+            want = sh.shard_of(getattr(whole, f), getattr(shard.specs, f), mesh)
+            same &= torch.equal(mine, want)
+            diffs.append([float(((mine[i].float() - want[i].float()).abs()
+                                 / (1 + want[i].float().abs())).max())
+                          for i in range(mine.shape[0])])
+        return same, [max(a, b) for a, b in zip(*diffs)]
+
+    g_same, g_diffs = slices(gshard, gcache, m12)
+    out["gpt2"] = dict(tokens_same=bool(torch.equal(mg_toks, g_toks)), cache_same=g_same,
+                       layer_diffs=g_diffs, spec=gshard.specs.k, ms=mg_ms, one_ms=g_ms,
+                       shard=tuple(gshard.k.shape), n=g_toks.numel())
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(md_logits, d_logits)]
+    d_same, d_diffs = slices(dshard, dcache, m21)
+    out["danube"] = dict(gaps=gaps, shared=int((md_toks == d_toks).sum()), n=d_toks.numel(),
+                         cache_same=d_same, layer_diffs=d_diffs, spec=dshard.specs.k, ms=md_ms,
+                         one_ms=d_ms, shard=tuple(dshard.k.shape))
     return out
 
 
@@ -6701,7 +6951,57 @@ def mesh_phase(torch, np, mods, card, seed, job, refs, one_rank_ms):
     if missing:
         raise AssertionError(f"kernels never launched on the mesh path: {missing}")
     times["step"] = step
+    times["dense"] = [r["dense"] for r in ranks]
     return {"mesh": counts}, times
+
+
+MESH_DENSE_GAP = 3e-2      # danube's logits a step: max |diff| / max |logit| against one device
+
+
+def mesh_dense_report(torch, dense: list, card: str) -> dict:
+    """Phase 21's gates on the ranks' results (`mesh_dense_rank`): GPT-2's
+    tokens and every rank's cache slices bit for bit one device's; danube's
+    logits within MESH_DENSE_GAP of one device's at every step, its layer-0
+    slices bit for bit (the new token's K/V from its embedding alone) and
+    its layer-1 slices within bf16's tolerance (they take the merged layer
+    0's output, which adds in another order: atol = rtol = 3e-2, compare()'s
+    measure); the launches of the mesh path, summed over the ranks."""
+    r0 = dense[0]
+    g, d = r0["gpt2"], r0["danube"]
+    g_toks = all(r["gpt2"]["tokens_same"] for r in dense)
+    g_cache = all(r["gpt2"]["cache_same"] for r in dense)
+    log(f"  mesh dense[gpt2-medium] on a (1, {MESH_RANKS}) mesh, k spec {g['spec']}, a rank's "
+        f"k {g['shard']}: {MESH_DENSE_STEPS} greedy steps of 8 requests, tokens "
+        f"{'bit for bit' if g_toks else 'NOT'} the one-device dense decode's, cache slices "
+        f"{'bit for bit' if g_cache else 'NOT bit for bit'} on every rank; a step "
+        f"{statistics.median(g['ms'][2:]):.2f} ms a rank on the host "
+        f"clock against {statistics.median(g['one_ms'][2:]):.2f} ms on one device ({card})")
+    worst = max(max(r["danube"]["gaps"]) for r in dense)
+    l0 = all(r["danube"]["layer_diffs"][0] == 0.0 for r in dense)
+    l1 = max(r["danube"]["layer_diffs"][1] for r in dense)
+    log(f"  mesh dense[h2o-danube3-4b, 2 layers] on a ({MESH_RANKS}, 1) mesh, k spec "
+        f"{d['spec']}, a rank's k {d['shard']} (the partials and the merge): "
+        f"{MESH_DENSE_STEPS} steps fed the one-device greedy tokens, logits max |diff| / "
+        f"max |logit| {worst:.3e} (limit {MESH_DENSE_GAP:.0e}; by step "
+        f"{[float(f'{x:.2e}') for x in d['gaps'][:4]]} ...); {d['shared']}/{d['n']} greedy "
+        f"tokens shared (reported); layer 0's cache slices "
+        f"{'bit for bit' if l0 else 'NOT bit for bit'}, layer 1's max |diff| / (1 + |one "
+        f"device's|) {l1:.3e} (limit {TOL['bfloat16']}); a step "
+        f"{statistics.median(d['ms'][2:]):.2f} ms a rank on the host clock against "
+        f"{statistics.median(d['one_ms'][2:]):.2f} ms on one device "
+        f"({card})")
+    counts = {name: sum(r["launches"][name] for r in dense) for name in r0["launches"]}
+    log(f"  launches over the mesh dense decodes, summed over the ranks: {counts}")
+    log(f"  phase 21 took {[round(r['sec'], 1) for r in dense]} s on the ranks")
+    if not (g_toks and g_cache):
+        raise AssertionError("mesh dense[gpt2]: not the one-device dense decode's bits")
+    if worst > MESH_DENSE_GAP or not l0 or l1 > TOL["bfloat16"]:
+        raise AssertionError(f"mesh dense[danube]: logits {worst:.3e}, layer 0 bit for bit "
+                             f"{l0}, layer 1 {l1:.3e}")
+    missing = [n for n in MESH_DENSE_KERNELS if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mesh dense path: {missing}")
+    return {"mesh dense": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -7351,6 +7651,8 @@ def main() -> int:
     times.update(quant_times)
     times.update(time_dense_kernels(torch, F, cfg, tlut, attn, softmax_lut, layernorm_lut,
                                     lut_interp, args.seed))
+    errs["decode_attention_partials"], times["decode_attention_partials"] = \
+        check_partials_kernel(torch, F, tlut, attn, args.seed)
     model_times = time_model_kernels(torch, F, gemv_pim, paged_attention, paged_prefill,
                                      args.seed)
     ssm_errs, ssm_kernel_times = time_ssm_kernels(torch, F, tlut, gemv_pim, layernorm_lut,
@@ -7631,7 +7933,7 @@ def main() -> int:
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
     torch.cuda.empty_cache()
 
-    log("== 14. moe: olmoe-1B-7B at full width and depth, phi-3.5-MoE at its published "
+    log("== 14. moe: olmoe-1B-7B at full width, 8 of 16 layers, phi-3.5-MoE at its published "
         "widths (2 layers)")
     t14 = time.perf_counter()
     counts_moe, moe_times = moe_phase(torch, F, np, mods, counted, quantize,
@@ -7640,8 +7942,8 @@ def main() -> int:
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
     torch.cuda.empty_cache()
 
-    log("== 15. ssm/hybrid: mamba2-370m and zamba2-1.2B at full width and depth on the dense "
-        "cache")
+    log("== 15. ssm/hybrid: mamba2-370m and zamba2-1.2B at full width, 24 and 19 layers, on "
+        "the dense cache")
     t15 = time.perf_counter()
     counts_ssm, ssm_times = ssm_phase(torch, np, mods, counted, quantize,
                                       prompts[:MODEL_PHASE_REQUESTS], new_tokens, card,
@@ -7696,7 +7998,11 @@ def main() -> int:
     counts_mesh_train, mesh_train = mesh_train_phase(torch, np, mods, card, args.seed)
     log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
-    log("== 21. result")
+    log("== 21. mesh dense: the dense decode on a mesh (phase 19's ranks): GPT-2 medium "
+        "whole, KV heads on (1, 2); h2o-danube3-4B (2 layers) B 1, the sequence on (2, 1)")
+    counts_mesh_dense = mesh_dense_report(torch, mesh_times["dense"], card)
+
+    log("== 22. result")
     all_counts = [("max_len 256", counts_256), ("max_len 1024", counts_1024),
                   ("quantized max_len 256", counts_q), ("dense", counts_dense),
                   ("qwen2-1.5b", counts_qwen), ("gemma2-2b / h2o-danube3-4b", counts_gd),
@@ -7704,7 +8010,7 @@ def main() -> int:
                   ("slo/swap", counts_slo), ("telemetry", counts_tel),
                   *counts_moe.items(), *counts_ssm.items(), *counts_encdec.items(),
                   *counts_vlm.items(), *counts_train.items(), *counts_mesh.items(),
-                  *counts_mesh_train.items()]
+                  *counts_mesh_train.items(), *counts_mesh_dense.items()]
     rows = []
     for name in SOURCE:
         t = times[name]

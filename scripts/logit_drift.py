@@ -109,7 +109,8 @@ def main() -> int:
             paged_k.paged_attention_plain(*a, **k)),
         "pim_layernorm": lambda *a, **k: ln_k.layernorm_lut_plain(*a, wide_sums=True, **k),
         "pim_softmax": sm_k.softmax_lut_plain,
-        "pim_decode_attention": attn_k.decode_attention_plain,
+        "pim_decode_attention": lambda *a, plan_kv_heads=None, **k: (
+            attn_k.decode_attention_plain(*a, **k)),
     }
     kernel_ops = {name: getattr(ops, name) for name in plain_ops}
     held = [n for n in args.plain.split(",") if n]

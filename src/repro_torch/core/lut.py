@@ -42,12 +42,15 @@ class LutTable:
         return self.sections / (self.hi - self.lo)
 
     def wb_on(self, device) -> torch.Tensor:
-        """The (S+2, 2) float32 table as a tensor on `device` (copied once)."""
+        """The (S+2, 2) float32 table as a tensor on `device` (copied once;
+        on `meta` its shape alone)."""
         dev = torch.device(device)
         key = str(dev)
         if key not in self._on_device:
-            self._on_device[key] = torch.from_numpy(
-                np.ascontiguousarray(self.wb, np.float32)).to(dev)
+            self._on_device[key] = (
+                torch.empty(self.wb.shape, dtype=torch.float32, device=dev)
+                if dev.type == "meta" else
+                torch.from_numpy(np.ascontiguousarray(self.wb, np.float32)).to(dev))
         return self._on_device[key]
 
 

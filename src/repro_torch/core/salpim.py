@@ -160,12 +160,27 @@ class SalPimEngine:
     def decode_attention(self, q, k, v, length, k_scale=None, v_scale=None, *,
                          scale: Optional[float] = None,
                          softcap: Optional[float] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         plan_kv_heads: Optional[int] = None) -> torch.Tensor:
         """Decode attention over a dense per-slot arena k/v (B, Hkv, S, D);
-        the int8 arena passes its scale rows."""
+        the int8 arena passes its scale rows; `plan_kv_heads` plans the
+        kernel's walk (a mesh rank's: the model's KV heads)."""
         return ops.pim_decode_attention(q, k, v, length, k_scale, v_scale, scale=scale,
                                         exp_table=self._exp_table(),
-                                        softcap=softcap, window=window)
+                                        softcap=softcap, window=window,
+                                        plan_kv_heads=plan_kv_heads)
+
+    def decode_attention_partials(self, q, k, v, length, k_scale=None, v_scale=None, *,
+                                  key_offset: int, scale: Optional[float] = None,
+                                  softcap: Optional[float] = None,
+                                  window: Optional[int] = None):
+        """The (m, l, acc) partials of one rank's slice of a sequence-sharded
+        arena, its local key 0 at position key_offset, for the merge across
+        the ranks."""
+        return ops.pim_decode_attention_partials(q, k, v, length, k_scale, v_scale,
+                                                 key_offset=key_offset, scale=scale,
+                                                 exp_table=self._exp_table(),
+                                                 softcap=softcap, window=window)
 
     def paged_decode_attention(self, q, k_pages, v_pages, block_tables, length,
                                k_scales=None, v_scales=None, *,

@@ -16,6 +16,12 @@ run over the ranks of a mesh dimension. A gloo group moves CUDA tensors
 through host buffers (gloo gathers host memory); that is the transport,
 and the arithmetic around it stays on the card.
 
+`recording()` notes each collective's kind ("all-gather", "all-reduce")
+and operand bytes while it is active (the dry run's collective term,
+`launch/roofline.collective_bytes`); off, it costs one test a call. A
+collective on `meta` tensors (the dry run's) moves nothing: it returns a
+`meta` result of the right shape.
+
 The sharded train step differentiates through its collectives, so each
 has a `torch.autograd.Function` with the backward its math asks for:
 `all_gather_grad` (all-gather forward; a reduce-scatter backward where
@@ -29,8 +35,32 @@ gradients' sums of floating tensors narrower than f32 (the reduce-scatter,
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+_RECORDS: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Note every collective the code it wraps runs, as (kind, operand
+    bytes) in the list it yields."""
+    global _RECORDS
+    prev, _RECORDS = _RECORDS, []
+    try:
+        yield _RECORDS
+    finally:
+        _RECORDS = prev
+
+
+def _note(kind: str, x: torch.Tensor) -> bool:
+    """Record one collective of operand x; True when x is a `meta` tensor
+    (no values to move: the caller returns a meta result)."""
+    if _RECORDS is not None:
+        _RECORDS.append((kind, x.numel() * x.element_size()))
+    return x.device.type == "meta"
 
 
 def merge_partial_softmax_stacked(m: torch.Tensor, l: torch.Tensor,
@@ -73,11 +103,7 @@ def gather_heads(x: torch.Tensor, mesh_or_group, axis: int) -> torch.Tensor:
     `DeviceMesh` (its dimension behind the logical "model" axis) or a
     process group. The gather fills a list (`dist.all_gather`) and
     concatenates it: `all_gather_into_tensor` gathers along dim 0 only."""
-    group = _group(mesh_or_group)
-    src = _staged(x, group).contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=axis).to(x.device)
+    return all_gather_dim(x, _group(mesh_or_group), axis)
 
 
 def psum(x: torch.Tensor, mesh_or_group, *, widen: bool = False) -> torch.Tensor:
@@ -94,15 +120,23 @@ def pmax(x: torch.Tensor, mesh_or_group) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, group, op, *, widen: bool = True) -> torch.Tensor:
     wide = widen and x.is_floating_point() and x.element_size() < 4
-    out = _staged(x.float() if wide else x, group).clone()
+    src = x.float() if wide else x
+    if _note("all-reduce", src):
+        return torch.empty_like(x)
+    out = _staged(src, group).clone()
     dist.all_reduce(out, op=op, group=group)
     return out.to(device=x.device, dtype=x.dtype)
 
 
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' `x` concatenated along `dim` in rank order (no autograd)."""
+    n = dist.get_world_size(group)
+    if _note("all-gather", x):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
     src = _staged(x, group).contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
 
@@ -225,13 +259,23 @@ def merge_partial_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
                           group) -> torch.Tensor:
     """Merge the ranks' online-softmax partials: m (..., 1) running max, l
     (..., 1) exp-sum, acc (..., D) weighted V. Returns the exact
-    softmax(scores) @ V over every rank's keys."""
-    group = _group(group)
-    m_glob = pmax(m, group)
+    softmax(scores) @ V over every rank's keys. `group` may be a list of
+    groups (a sequence split over several mesh dimensions): the max and
+    the sums then run over each in turn, outer to inner as given. A rank
+    whose keys were all masked passes m = -inf (or -1e30), l = 0, acc = 0
+    and weighs nothing; where every rank's were, the result is 0, not
+    NaN."""
+    groups = [_group(g) for g in (group if isinstance(group, (list, tuple)) else [group])]
+    m_glob = m
+    for g in groups:
+        m_glob = pmax(m_glob, g)
+    m_glob = torch.where(torch.isfinite(m_glob), m_glob, 0.0)
     corr = torch.exp(m - m_glob)
-    l_glob = psum(l * corr, group)
-    acc_glob = psum(acc * corr, group)
-    return acc_glob / torch.clamp(l_glob, min=1e-9)
+    # l and acc travel in one buffer: one sum a group.
+    both = torch.cat([l * corr, acc * corr], dim=-1)
+    for g in groups:
+        both = psum(both, g)
+    return both[..., 1:] / torch.clamp(both[..., :1], min=1e-9)
 
 
 def hierarchical_psum(x: torch.Tensor, inner, outer) -> torch.Tensor:

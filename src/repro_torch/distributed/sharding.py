@@ -355,6 +355,61 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
     return tree_map(lambda x, s: gather_whole(x, s, mesh), tree, specs)
 
 
+# ---------------------------------------------------------------------------
+# Where a rank's shard of the dense decode cache sits
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """Where a rank's shard of one leaf of a dense cache sits in the whole
+    leaf, by the mesh dimensions (of extent > 1, outer first) that split
+    its batch rows (dimension 1 of every leaf), its heads (dimension 2: the
+    KV heads of an arena) and its dimension 3 (an arena's sequence), each
+    () where the rank holds the whole dimension."""
+
+    mesh: Any
+    batch: tuple = ()
+    heads: tuple = ()
+    seq: tuple = ()
+
+    def index(self, axes: tuple) -> tuple[int, int]:
+        """(this rank's row-major index over `axes`, their extent)."""
+        return _coord(self.mesh, axes) if axes else (0, 1)
+
+    def groups(self, axes: tuple) -> list:
+        return [self.mesh.get_group(n) for n in axes]
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor (dimension 0)."""
+        idx, ext = self.index(self.batch)
+        n = x.shape[0] // ext
+        return x.narrow(0, idx * n, n) if ext > 1 else x
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch of every rank's rows (dimension 0), in rank order."""
+        return gather_whole(x, (self.batch,), self.mesh)
+
+
+def cache_split(cache: Any, mesh, name: Optional[str] = None) -> Optional[CacheSplit]:
+    """How a rank's shard of a dense cache (a cache whose `specs` field
+    holds the spec tree it was cut by) splits its leaf `name` (by default
+    the first of "k", "ssm", "shared_k" it holds; every leaf splits the
+    batch alike): None for a whole cache; a shard without its mesh raises."""
+    if getattr(cache, "specs", None) is None:
+        return None
+    if mesh is None:
+        raise ValueError("a rank's shard of a cache decodes on the mesh it was cut on: "
+                         "pass mesh=")
+    if name is None:
+        name = next(n for n in ("k", "ssm", "shared_k") if getattr(cache, n) is not None)
+    spec = getattr(cache.specs, name)
+    sizes = mesh_shape(mesh)
+
+    def live(d: int) -> tuple:
+        return tuple(n for n in names_of(spec[d]) if sizes[n] > 1) if d < len(spec) else ()
+    return CacheSplit(mesh, live(1), live(2), live(3))
+
+
 def spec_bytes(tree: Any, specs: Any, mesh) -> int:
     """The bytes of this rank's slices of a whole-shaped tree by `specs`."""
     sizes = mesh_shape(mesh)
@@ -527,13 +582,15 @@ class TrainPlan:
             held = tuple(sorted({n for e in _spec_at(self.specs, path) for n in names_of(e)
                                  if self.size(n) > 1}))
             by_axes[held] = by_axes.get(held, 0.0) + v
-        total = torch.zeros((), dtype=torch.float32)
+        total = None
         for axes, v in sorted(by_axes.items()):
             v = torch.as_tensor(v, dtype=torch.float32)
             for a in axes:
                 v = collectives.psum(v, self.group(a))
-            total = total + v.cpu()
-        return total
+            # On the host, but a meta partial (the dry run's) stays meta.
+            v = v if v.device.type == "meta" else v.cpu()
+            total = v if total is None else total + v
+        return torch.zeros((), dtype=torch.float32) if total is None else total
 
 
 # Leaves that stay split over "model" where their part computes tensor-parallel.

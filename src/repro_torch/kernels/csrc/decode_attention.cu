@@ -33,7 +33,63 @@
 // type, V arriving
 // while the scores are computed; the runs merged by prefix-max and
 // suffix-product scans and Horner's rule in block 0.
+//
+// decode_attention_partials is the same walk (mode kArenaPart) over one
+// rank's slice of an arena sharded along the sequence, the distributed
+// flash-decode of the mesh decode: local key j is position key_offset + j
+// of the whole arena (lengths and the window are the whole arena's), and
+// block 0 writes the raw online-softmax partials m (B, H), l (B, H) and
+// acc (B, H, D) in f32, m = -inf where the slice holds no valid key. The
+// ranks' partials are merged by log-sum-exp algebra across the mesh
+// (distributed/collectives.merge_partial_softmax), the analogue of the
+// paper's C-ALU merging the banks' partial results. Its bound is the
+// slice's valid K and V bytes, as above.
 #include "decode_walk.cuh"
+
+namespace {
+
+// The walk over the arena (kArena: out in q's dtype) or over a slice of it
+// at key_offset (kArenaPart: m, l, acc partials); the checks of both entries.
+int run(bool part, const void* q, const void* k, const void* v, const void* k_scale,
+        const void* v_scale, const int* lengths, const float* exp_wb, void* out, float* m,
+        float* l, float* acc, int B, int H, int Hkv, int S, int D, int key_offset, float scale,
+        float softcap, int window, int use_lut, float lo, float inv_step, int sections,
+        int dtype, int fmt, int cluster, int win_pages, void* stream) {
+  constexpr int kBlockS = 256;          // keys a softmax block: the TPU kernel's block_s
+  if (B <= 0) return 0;
+  if (S <= 0 || fmt < 0 || fmt > 1 || key_offset < 0) return (int)cudaErrorInvalidValue;
+  const int n_blocks = (S + kBlockS - 1) / kBlockS;
+  if (D <= 0 || !walk::valid(H, Hkv, n_blocks, cluster, win_pages, use_lut, exp_wb, sections) ||
+      (fmt == 1) != (k_scale != nullptr && v_scale != nullptr) ||
+      (part && (m == nullptr || l == nullptr || acc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  walk::Args a{q, out, (const uint8_t*)k, (const uint8_t*)v, k_scale, v_scale, nullptr,
+               lengths, exp_wb, m, l, acc,
+               H, Hkv, H / Hkv, D, kBlockS, 0, n_blocks, S, 1, n_blocks,
+               scale, softcap, window, use_lut, lo, inv_step, sections, 0, win_pages, 0,
+               key_offset};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int run_pages = (n_blocks + cluster - 1) / cluster;
+  auto go = [&](auto tq, auto pool) {
+    using TQ = decltype(tq);
+    using Pool = decltype(pool);
+    return part ? walk::launch<TQ, Pool, walk::kArenaPart>(a, B * Hkv, run_pages, cluster, s)
+                : walk::launch<TQ, Pool, walk::kArena>(a, B * Hkv, run_pages, cluster, s);
+  };
+  int rc;
+  if (dtype == 0) {
+    rc = fmt == 0 ? go(float{}, paged::FpPool<float>{}) : go(float{}, paged::Int8Arena<float>{});
+  } else if (dtype == 1) {
+    rc = fmt == 0 ? go(__nv_bfloat16{}, paged::FpPool<__nv_bfloat16>{})
+                  : go(__nv_bfloat16{}, paged::Int8Arena<__nv_bfloat16>{});
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -48,34 +104,23 @@ int decode_attention(const void* q, const void* k, const void* v, const void* k_
                      int B, int H, int Hkv, int S, int D, float scale, float softcap,
                      int window, int use_lut, float lo, float inv_step, int sections,
                      int dtype, int fmt, int cluster, int win_pages, void* stream) {
-  constexpr int kBlockS = 256;          // keys a softmax block: the TPU kernel's block_s
-  if (B <= 0) return 0;
-  if (S <= 0 || fmt < 0 || fmt > 1) return (int)cudaErrorInvalidValue;
-  const int n_blocks = (S + kBlockS - 1) / kBlockS;
-  if (D <= 0 || !walk::valid(H, Hkv, n_blocks, cluster, win_pages, use_lut, exp_wb, sections) ||
-      (fmt == 1) != (k_scale != nullptr && v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
-  walk::Args a{q, out, (const uint8_t*)k, (const uint8_t*)v, k_scale, v_scale, nullptr,
-               lengths, exp_wb, nullptr, nullptr, nullptr,
-               H, Hkv, H / Hkv, D, kBlockS, 0, n_blocks, S, 1, n_blocks,
-               scale, softcap, window, use_lut, lo, inv_step, sections, 0, win_pages, 0};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int run_pages = (n_blocks + cluster - 1) / cluster;
-  auto go = [&](auto tq, auto pool) {
-    return walk::launch<decltype(tq), decltype(pool), walk::kArena>(a, B * Hkv, run_pages,
-                                                                     cluster, s);
-  };
-  int rc;
-  if (dtype == 0) {
-    rc = fmt == 0 ? go(float{}, paged::FpPool<float>{}) : go(float{}, paged::Int8Arena<float>{});
-  } else if (dtype == 1) {
-    rc = fmt == 0 ? go(__nv_bfloat16{}, paged::FpPool<__nv_bfloat16>{})
-                  : go(__nv_bfloat16{}, paged::Int8Arena<__nv_bfloat16>{});
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return run(false, q, k, v, k_scale, v_scale, lengths, exp_wb, out, nullptr, nullptr, nullptr,
+             B, H, Hkv, S, D, 0, scale, softcap, window, use_lut, lo, inv_step, sections, dtype,
+             fmt, cluster, win_pages, stream);
+}
+
+// The slice of S keys at positions key_offset .. key_offset + S - 1 of an
+// arena whose lengths (and window) are the whole arena's: m and l (B, H)
+// and acc (B, H, D) f32 out; the other arguments as decode_attention's.
+int decode_attention_partials(const void* q, const void* k, const void* v, const void* k_scale,
+                              const void* v_scale, const int* lengths, const float* exp_wb,
+                              float* m, float* l, float* acc, int B, int H, int Hkv, int S,
+                              int D, int key_offset, float scale, float softcap, int window,
+                              int use_lut, float lo, float inv_step, int sections, int dtype,
+                              int fmt, int cluster, int win_pages, void* stream) {
+  return run(true, q, k, v, k_scale, v_scale, lengths, exp_wb, nullptr, m, l, acc, B, H, Hkv,
+             S, D, key_offset, scale, softcap, window, use_lut, lo, inv_step, sections, dtype,
+             fmt, cluster, win_pages, stream);
 }
 
 const char* decode_attention_error_string(int err) {

@@ -11,7 +11,12 @@
 //   kArena  the dense per-slot arena (decode_attention.cu): the (S, D) keys
 //           of a (slot, kv head) are one contiguous run, read as "pages" of
 //           256 keys, the TPU kernel's online-softmax block, the last one
-//           cut at S.
+//           cut at S;
+//   kArenaPart  the arena walk over one rank's slice of a sequence-sharded
+//           arena, whose local key j sits at position key_offset + j: the
+//           validity masks read that position, and block 0 leaves kSplit's
+//           raw (m, l, acc) partials (m = -inf where the slice holds no
+//           valid key) for the merge across ranks.
 //
 // The function is the TPU kernels' page-ordered (block-ordered) online
 // softmax. With m_j the running max through page j (m_-1 = -1e30) and,
@@ -157,15 +162,19 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
 
-enum Mode { kPaged = 0, kSplit = 1, kArena = 2 };
+enum Mode { kPaged = 0, kSplit = 1, kArena = 2, kArenaPart = 3 };
+
+// The arena modes read a contiguous run; the partial modes leave (m, l, acc).
+__host__ __device__ constexpr bool is_arena(int m) { return m == kArena || m == kArenaPart; }
+__host__ __device__ constexpr bool partials(int m) { return m == kSplit || m == kArenaPart; }
 
 // The ring: pools stage whole pages in 4 stages of up to 16 KB; the
 // arena's contiguous runs stage up to a 256-key block (32 KB of bf16 at
 // D = 64) in 2, the same 64 KB, so that a block's K and V each arrive in
 // one piece.
-template <int kMode> __host__ __device__ constexpr int stages() { return kMode == kArena ? 2 : 4; }
+template <int kMode> __host__ __device__ constexpr int stages() { return is_arena(kMode) ? 2 : 4; }
 template <int kMode> __host__ __device__ constexpr int stage_target() {
-  return kMode == kArena ? 32768 : 16384;
+  return is_arena(kMode) ? 32768 : 16384;
 }
 
 struct Args {
@@ -178,9 +187,9 @@ struct Args {
   const int* block_tables;  // (B, n_table); null for the arena
   const int* lengths;       // (B,)
   const float* exp_wb;      // (sections + 2, 2) or null
-  float* m_part;            // split: (B, Hkv, splits, g) f32
+  float* m_part;            // split: (B, Hkv, splits, g) f32; arena partials (B, H)
   float* l_part;
-  float* acc_part;          // split: (B, Hkv, splits, g, D) f32
+  float* acc_part;          // split: (B, Hkv, splits, g, D) f32; arena partials (B, H, D)
   int H, hkv, g, d, page, n_pool, n_table;
   int S;                    // arena: positions a (slot, kv head)
   int splits, pps;          // split: runs, pages a run (1 and n_table otherwise)
@@ -193,6 +202,7 @@ struct Args {
   int chunk_keys;           // keys a ring stage: whole pages, or a divisor of a page
   int win_pages;            // pages a window: a whole run, or whole ring stages
   int vec;                  // 1: rows are whole 16-byte vectors of aligned pools
+  int key_offset;           // kArenaPart: the position of local key 0 (0 otherwise)
 };
 
 // Shared-memory carve-up, in bytes, 16-byte aligned pieces.
@@ -310,7 +320,7 @@ struct Src {
 template <int kMode>
 __device__ __forceinline__ size_t row_offset(const Args& a, const Src& src, int k,
                                              int row_bytes) {
-  if constexpr (kMode == kArena) {
+  if constexpr (is_arena(kMode)) {
     return (src.row0 + k) * (size_t)row_bytes;
   } else {
     const int j = k / a.page;
@@ -337,7 +347,7 @@ __device__ void issue(const Args& a, const Layout& L, const Sched& S, uint32_t b
   const uint32_t dst = base + L.ring + s * a.chunk_keys * row_bytes;
   const uint8_t* pool = it.is_v ? a.v_pages : a.k_pages;
   const int n16 = it.nk * row_bytes / 16;
-  if (kMode == kArena || a.chunk_keys <= a.page) {
+  if (is_arena(kMode) || a.chunk_keys <= a.page) {
     const uint8_t* from = pool + row_offset<kMode>(a, src, it.first, row_bytes);
     for (int v = threadIdx.x; v < n16; v += kThreads) hopper::cp_async16(dst + 16 * v, from + 16 * v);
   } else {
@@ -445,13 +455,15 @@ decode_walk_kernel(const Args a) {
   const int keys_max = W * page;               // a window's keys: the score rows' stride
 
   // The logical pages [r_lo, r_hi) this cluster walks, those that hold a
-  // valid key; keys at or past key_end are never read.
+  // valid key; keys at or past key_end are never read. An arena slice's
+  // valid keys end at local key length - key_offset.
   const int length = a.lengths[b];
   int r_lo = 0, r_hi, key_end;
-  if constexpr (kMode == kArena) {
-    key_end = max(0, min(length, a.S));
+  if constexpr (is_arena(kMode)) {
+    const int rel = length - a.key_offset;
+    key_end = max(0, min(rel, a.S));
     r_hi = (key_end + page - 1) / page;
-    if (a.window > 0) r_lo = min(r_hi, max(0, length - a.window) / page);
+    if (a.window > 0) r_lo = min(r_hi, max(0, rel - a.window) / page);
   } else {
     const int n_pages = length > 0 ? min((length + page - 1) / page, a.n_table) : 0;
     r_hi = n_pages;
@@ -476,14 +488,14 @@ decode_walk_kernel(const Args a) {
   Src src;
   src.h = h;
   src.row0 = ((size_t)bh * a.S + (size_t)p_lo * page);
-  src.tbl = kMode == kArena ? nullptr
+  src.tbl = is_arena(kMode) ? nullptr
             : one           ? s_tbl
                             : a.block_tables + (size_t)b * a.n_table + p_lo;
 
   // Arrive now and wait before the first store to another block's shared
   // memory: every block of the cluster has started by then.
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  if (kMode != kArena && one) {
+  if (!is_arena(kMode) && one) {
     for (int i = tid; i < S.np; i += kThreads)
       s_tbl[i] = clamp_page(a, a.block_tables[(size_t)b * a.n_table + p_lo + i]);
   }
@@ -560,8 +572,8 @@ decode_walk_kernel(const Args a) {
           if (kl < nk && sub == 0) {
             float s = (R::kInline || !Pool::kScaled ? dot : dot * ksc) * a.scale;
             if (a.softcap > 0.0f) s = a.softcap * tanhf(s / a.softcap);
-            const bool ok = paged::key_valid(p_lo * page + c * a.chunk_keys + kl, qpos,
-                                             length, a.window);
+            const bool ok = paged::key_valid(a.key_offset + p_lo * page + c * a.chunk_keys + kl,
+                                             qpos, length, a.window);
             s_sc[r * keys_max + first_key + kl] = ok ? s : kNegInf;
           }
         }
@@ -618,12 +630,12 @@ decode_walk_kernel(const Args a) {
     }
   }
 
-  // The run's maximum, pushed to the later runs (in split mode to every
-  // run, this one included: block 0 writes the split's m).
+  // The run's maximum, pushed to the later runs (in the partial modes to
+  // every run, this one included: block 0 writes the partial's m).
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int r = warp; r < g; r += kWarps) {
     const float bm = one ? page_maxima(r, S.np, S.run_keys) : s_rmax[r];
-    for (int rk = (kMode == kSplit ? 0 : rank + 1) + lane; rk < cs; rk += 32)
+    for (int rk = (partials(kMode) ? 0 : rank + 1) + lane; rk < cs; rk += 32)
       cluster.map_shared_rank(s_bm_in, rk)[rank * g + r] = bm;
   }
   cluster.sync();
@@ -702,7 +714,7 @@ decode_walk_kernel(const Args a) {
       const int j = k / page;
       float* sp_ = s_sc + r * keys_max + k;
       float p = 0.0f;
-      if (paged::key_valid((p_lo + wp0) * page + k, qpos, length, a.window))
+      if (paged::key_valid(a.key_offset + (p_lo + wp0) * page + k, qpos, length, a.window))
         p = softmax_exp(a, s_wb, *sp_ - s_m[r * W + j]);
       *sp_ = p * s_w[r * W + j];
     }
@@ -808,7 +820,7 @@ decode_walk_kernel(const Args a) {
   const float* recv = reinterpret_cast<const float*>(smem + L.recv);
   const int sf = slot_floats(g, D);
   T* out = reinterpret_cast<T*>(a.out);
-  const size_t row0 = ((size_t)bh * a.splits + sp) * g;   // split: this split's partial rows
+  const size_t row0 = ((size_t)bh * a.splits + sp) * g;   // this split's (or slice's) partial rows
   for (int pr = tid; pr < pairs; pr += kThreads) {
     const int r = pr / D;
     float l = recv[g + r], x = recv[2 * g + pr];
@@ -817,10 +829,12 @@ decode_walk_kernel(const Args a) {
       l = l * sl[r] + sl[g + r];
       x = x * sl[r] + sl[2 * g + pr];
     }
-    if constexpr (kMode == kSplit) {
+    if constexpr (partials(kMode)) {
       if (pr - r * D == 0) {
         float m = kNegInf;
         for (int rk = 0; rk < cs; ++rk) m = fmaxf(m, s_bm_in[rk * g + r]);
+        // A slice with no valid key weighs nothing in the ranks' merge.
+        if (kMode == kArenaPart && m <= kNegInf) m = -__int_as_float(0x7f800000);
         a.m_part[row0 + r] = m;
         a.l_part[row0 + r] = l;
       }

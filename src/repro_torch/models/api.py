@@ -22,6 +22,14 @@ tensor-parallel: the call runs under `distributed.api.use_mesh(mesh)`,
 where each attention layer attends this rank's heads against its slice
 of the pools and merges the heads by `collectives.gather_heads`, and an
 MoE config with `moe_impl="shardmap"` runs its experts expert-parallel.
+`decode_step(..., mesh=)` on a rank's shard of a dense cache
+(`transformer.shard_cache`, by `cache_pspecs`) runs the mesh
+decode of every family: the rank's rows, heads and sequence slice, the
+sequence slices merged by `collectives.merge_partial_softmax`:
+
+    shard = shard_cache(cache, mesh, seq_shard=B == 1)
+    logits, shard = api.decode_step(params, token, shard, cfg, engine, mesh=mesh)
+    whole = gather_cache(shard, mesh)
 
 The VLM stub: when batch["patch_embeds"] (B, P, D) is given, it
 overwrites the embeddings of the first P positions (`_splice_patches`,
@@ -152,10 +160,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
 def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
                 engine: SalPimEngine, *, mesh=None):
     """token (B,) -> (logits (B, V), the dense `Cache` or `PagedCache` with
-    advanced lengths)."""
-    if cfg.family == "encdec":
-        return encdec.decode_step(params, token, cache, cfg, engine)
+    advanced lengths). On a `mesh`, a dense cache that is this rank's shard
+    (`transformer.shard_cache`) runs the mesh decode
+    (`transformer.decode_step`): token whole, the logits gathered whole, the
+    rank's shard returned; a whole dense cache runs whole on every rank."""
     with _under(mesh):
+        if cfg.family == "encdec":
+            return encdec.decode_step(params, token, cache, cfg, engine)
         return tf.decode_step(params, token, cache, cfg, engine)
 
 

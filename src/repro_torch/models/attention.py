@@ -31,6 +31,20 @@ kernel on it; `collectives.gather_heads` concatenates the ranks' heads and
 bit for bit one device's. A mesh whose "model" extent is 1 or does not
 divide Hkv leaves the layer on the whole heads, as the reference's.
 
+On a rank's shard of a dense cache (`transformer.shard_cache`,
+the mesh decode: `attention_decode(split=...)`) the decode form follows
+the arena's split (`sharding.CacheSplit`). The rows are the rank's already.
+KV heads split over "model" are attended as in the paged form: the rank's
+block of heads, the walk planned on the model's KV heads, the heads
+gathered, bit for bit one device's. A sequence split over one or more
+mesh dimensions is the distributed flash-decode: the new K/V is written
+only by the rank whose slice holds its position, each rank takes the
+online-softmax partials of its slice (`decode_attention_partials` at its
+key offset), and `collectives.merge_partial_softmax` merges them over the
+ranks of those dimensions, the C-ALU's merge of the banks' partials; the
+merge adds in rank order, so the output is one device's within rounding,
+not in bits. It is cast to the compute dtype before `wo`.
+
 Under a sharded train step (`distributed.sharding.TrainPlan`) the
 full-sequence form computes tensor-parallel where the plan splits the
 attention (the KV heads divide over "model"): the weights are the rank's
@@ -181,6 +195,7 @@ def attention_decode(
     window: Optional[int] = None,
     update_cache: bool = True,
     kv_scales: Optional[tuple] = None,   # (k_scale, v_scale) (B, Hkv, Smax) bf16
+    split: Optional[shard_lib.CacheSplit] = None,
 ):
     """One decode step against the dense arena: write each slot's K/V at
     its length (all at lengths[0] with cfg.decode_uniform), in place and,
@@ -188,9 +203,13 @@ def attention_decode(
     length + 1 keys. Returns (out, cache_k, cache_v[, k_scale, v_scale]).
     With update_cache=False the arena is static (cross-attention): only q
     is projected, nothing is written, and each slot attends over its
-    `lengths` keys."""
+    `lengths` keys. `split`: the arena is a rank's shard that splits its
+    KV heads or its sequence (see the module's docstring)."""
     B, _ = x.shape
     int8_kv = kv_scales is not None
+    if split is not None and (split.heads or split.seq):
+        return _attention_decode_split(p, x, cache_k, cache_v, lengths, cfg, engine, cos,
+                                       sin, window, update_cache, kv_scales, split)
     if update_cache:
         q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
         _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg)
@@ -207,10 +226,56 @@ def attention_decode(
     return (out, cache_k, cache_v, *(kv_scales if int8_kv else ()))
 
 
-def _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg: ModelConfig) -> None:
+def _attention_decode_split(p, x, cache_k, cache_v, lengths, cfg: ModelConfig,
+                            engine: SalPimEngine, cos, sin, window, update_cache: bool,
+                            kv_scales, split: shard_lib.CacheSplit):
+    """`attention_decode` on a rank's shard of an arena whose KV heads or
+    sequence a mesh splits (the module's docstring)."""
+    B, _ = x.shape
+    if update_cache:
+        q, k, v = _decode_qkv(p, x, cfg, engine, cos, sin)
+        valid = lengths + 1
+    else:
+        q = engine.linear(x, p["wq"], p.get("bq")).reshape(B, cfg.n_heads, cfg.head_dim)
+        if cos is not None:
+            q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = v = None
+        valid = lengths
+    plan_kv_heads = None
+    if split.heads:
+        r, tp = split.index(split.heads)
+        hq, hk = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        q = q.narrow(1, r * hq, hq).contiguous()
+        if update_cache:
+            k, v = k.narrow(1, r * hk, hk), v.narrow(1, r * hk, hk)
+        plan_kv_heads = cfg.n_kv_heads
+    scales = kv_scales if kv_scales is not None else ()
+    kw = dict(scale=_scale(cfg), softcap=cfg.attn_softcap, window=window)
+    if split.seq:
+        offset = split.index(split.seq)[0] * cache_k.shape[2]
+        if update_cache:
+            _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg, offset=offset)
+        m, l, acc = engine.decode_attention_partials(q, cache_k, cache_v, valid, *scales,
+                                                     key_offset=offset, **kw)
+        att = collectives.merge_partial_softmax(m, l, acc, split.groups(split.seq)).to(q.dtype)
+    else:
+        if update_cache:
+            _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg)
+        att = engine.decode_attention(q, cache_k, cache_v, valid, *scales,
+                                      plan_kv_heads=plan_kv_heads, **kw)
+    for group in reversed(split.groups(split.heads)):
+        att = collectives.gather_heads(att, group, 1)
+    out = engine.linear(att.reshape(B, -1), p["wo"])
+    return (out, cache_k, cache_v, *scales)
+
+
+def _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg: ModelConfig,
+                     offset: Optional[int] = None) -> None:
     """Write each slot's new K/V (B, Hkv, Dh) at its length (all at
     lengths[0] with cfg.decode_uniform), in place; quantized with its bf16
-    scale into the int8 arena when kv_scales are given."""
+    scale into the int8 arena when kv_scales are given. With `offset` the
+    arena is a rank's slice of the sequence from that position: a row
+    whose position falls outside it writes nothing here."""
     if kv_scales is not None:
         ksc, vsc = kv_scales
         (k_store, k_new_sc), (v_store, v_new_sc) = (quantize_vec(k, torch.bfloat16),
@@ -219,6 +284,17 @@ def _write_decode_kv(cache_k, cache_v, kv_scales, k, v, lengths, cfg: ModelConfi
                   (vsc, v_new_sc)]
     else:
         writes = [(cache_k, k), (cache_v, v)]
+    if offset is not None:
+        S = cache_k.shape[2]
+        pos = (lengths[:1].expand(k.shape[0]) if cfg.decode_uniform else lengths).long()
+        pos = pos - offset
+        mine = (pos >= 0) & (pos < S)
+        at = pos.clamp(0, S - 1)
+        b_idx = torch.arange(k.shape[0], device=k.device)
+        for dst, src in writes:
+            keep = mine.reshape(-1, *([1] * (src.dim() - 1)))
+            dst[b_idx, :, at] = torch.where(keep, src.to(dst.dtype), dst[b_idx, :, at])
+        return
     if cfg.decode_uniform:
         pos = lengths[:1].long()
         for dst, src in writes:

@@ -34,9 +34,10 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return engine.rmsnorm(x, p["g"], cfg.norm_eps)
 
 
-def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
+def _decode_block_skeleton(p, x, cfg, engine, attn_fn, rows=None):
     """Shared block: norm/attn/residual/ffn around `attn_fn`, which maps the
-    normed hidden to (attn_out, *cache_outputs)."""
+    normed hidden to (attn_out, *cache_outputs). `rows`: x is a mesh decode
+    rank's rows (`moe.apply_moe`)."""
     h = apply_norm(p["ln1"], x, cfg, engine)
     res = attn_fn(h)
     h, cache_out = res[0], res[1:]
@@ -44,7 +45,7 @@ def _decode_block_skeleton(p, x, cfg, engine, attn_fn):
         h = apply_norm(p["post_ln1"], h, cfg, engine)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg, engine)
-    h = (moe_lib.apply_moe(p["moe"], h, cfg, engine) if cfg.family == "moe"
+    h = (moe_lib.apply_moe(p["moe"], h, cfg, engine, rows=rows) if cfg.family == "moe"
          else ffn_lib.apply_ffn(p["ffn"], h, cfg, engine))
     if cfg.post_norms:
         h = apply_norm(p["post_ln2"], h, cfg, engine)
@@ -107,11 +108,13 @@ def apply_decoder_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def apply_decoder_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                cache_v: torch.Tensor, lengths: torch.Tensor,
                                cfg: ModelConfig, engine: SalPimEngine, *, cos=None,
-                               sin=None, window, kv_scales=None):
+                               sin=None, window, kv_scales=None, split=None):
     """Single-token step against the dense arena. Returns (x', k', v'[,
-    k_scale', v_scale']); the arena is written in place."""
+    k_scale', v_scale']); the arena is written in place. `split`: the arena
+    is a rank's shard (`attention.attention_decode`)."""
     return _decode_block_skeleton(
         p, x, cfg, engine,
         lambda h: attn_lib.attention_decode(p["attn"], h, cache_k, cache_v, lengths,
                                             cfg, engine, cos=cos, sin=sin, window=window,
-                                            kv_scales=kv_scales))
+                                            kv_scales=kv_scales, split=split),
+        rows=split)

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
@@ -198,17 +199,21 @@ def prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg: Model
 
 
 def decode_layer_step(bp: dict, h: torch.Tensor, cache: Cache, i: int, enc_len: torch.Tensor,
-                      cfg: ModelConfig, engine: SalPimEngine) -> torch.Tensor:
+                      cfg: ModelConfig, engine: SalPimEngine, lengths=None,
+                      splits=(None, None)) -> torch.Tensor:
     """One decoder layer for one token a sequence: self-attention appending
     to layer i's arena in place, cross-attention over its static arena of
-    enc_len keys, the MLP."""
+    enc_len keys, the MLP. On a rank's shard of the cache `lengths` are its
+    rows' and `splits` the self and cross arenas' (`attention_decode`)."""
+    lengths = cache.lengths if lengths is None else lengths
     r = blk.apply_norm(bp["ln1"], h, cfg, engine)
-    r, *_ = attn_lib.attention_decode(bp["attn"], r, cache.k[i], cache.v[i], cache.lengths,
-                                      cfg, engine)
+    r, *_ = attn_lib.attention_decode(bp["attn"], r, cache.k[i], cache.v[i], lengths,
+                                      cfg, engine, split=splits[0])
     h = h + r
     r = blk.apply_norm(bp["ln_x"], h, cfg, engine)
     r, *_ = attn_lib.attention_decode(bp["xattn"], r, cache.cross_k[i], cache.cross_v[i],
-                                      enc_len, cfg, engine, update_cache=False)
+                                      enc_len, cfg, engine, update_cache=False,
+                                      split=splits[1])
     h = h + r
     r = blk.apply_norm(bp["ln2"], h, cfg, engine)
     return h + ffn_lib.apply_ffn(bp["ffn"], r, cfg, engine)
@@ -217,13 +222,25 @@ def decode_layer_step(bp: dict, h: torch.Tensor, cache: Cache, i: int, enc_len: 
 def decode_step(params: dict, token: torch.Tensor, cache: Cache, cfg: ModelConfig,
                 engine: SalPimEngine):
     """token (B,) -> (logits (B, V), the cache with lengths + 1); the self
-    arenas are written in place, the cross arenas only read."""
+    arenas are written in place, the cross arenas only read. A rank's shard
+    of the cache on the current mesh runs the mesh decode as
+    `transformer.decode_step` does: its rows, each arena (self and cross)
+    split by its own spec, the logits gathered whole."""
     if isinstance(cache, PagedCache):
         raise ValueError("paged cache unsupported for family 'encdec'")
+    mesh = dist_api.current_mesh()
+    split = shard_lib.cache_split(cache, mesh)
+    lengths, splits = cache.lengths, (None, None)
+    if split is not None:
+        token, lengths = split.own_rows(token), split.own_rows(lengths)
+        splits = (split, shard_lib.cache_split(cache, mesh, "cross_k"))
     B = token.shape[0]
-    x = _dec_embed(params, token[:, None], cache.lengths[:, None], cfg)[:, 0]
+    x = _dec_embed(params, token[:, None], lengths[:, None], cfg)[:, 0]
     enc_len = torch.full((B,), cfg.enc_seq, dtype=torch.int32, device=token.device)
     for i, bp in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
-        x = decode_layer_step(bp, x, cache, i, enc_len, cfg, engine)
+        x = decode_layer_step(bp, x, cache, i, enc_len, cfg, engine, lengths, splits)
+    logits = _logits(params, x, cfg, engine)
+    if split is not None:
+        logits = split.gather_rows(logits)
     new_cache = dataclasses.replace(cache, lengths=cache.lengths + 1)
-    return _logits(params, x, cfg, engine), new_cache
+    return logits, new_cache

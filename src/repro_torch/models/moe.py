@@ -36,6 +36,10 @@ token, as the grouped path does, keeps the assignments to its experts
 [j*E/M, (j+1)*E/M) (capacity positions counted against all experts, so
 the kept set is the grouped path's), runs their FFN and combines them,
 and one `collectives.psum` over "model" adds the ranks' partial outputs.
+In a mesh decode whose ranks hold some of the batch's rows (`rows`, the
+rank's `sharding.CacheSplit`) the rows are gathered first and each
+rank keeps its own of the output, so that the capacity drops are one
+device's.
 That is the grouped result in mathematics, not in bits (the sum runs in
 another order), as in the reference. Each rank computes every token group:
 the serving ranks hold the same tokens. Without such a mesh the config
@@ -161,14 +165,22 @@ def _ep_rank(cfg: ModelConfig, n_tokens: int):
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              engine: SalPimEngine) -> torch.Tensor:
-    """x (..., D) -> (..., D), experts dropping past their capacity."""
+              engine: SalPimEngine, rows=None) -> torch.Tensor:
+    """x (..., D) -> (..., D), experts dropping past their capacity.
+    `rows`: in a mesh decode, the `sharding.CacheSplit` of the rank's
+    cache, whose `batch` says whether x is some of the batch's rows."""
     if cfg.moe_impl not in ("gspmd", "shardmap"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
     if shard_lib.current_plan() is not None:
         return _apply_moe_train(p, xt, cfg, engine).reshape(*lead, d)
+    if rows is not None and rows.batch:
+        # A mesh decode rank holds some of the batch's rows: every row is
+        # routed and dispatched, as on one device (capacity counts every
+        # token of the call), and the rank keeps its own.
+        whole = apply_moe(p, rows.gather_rows(xt), cfg, engine)
+        return rows.own_rows(whole).reshape(*lead, d)
     ep = _ep_rank(cfg, xt.shape[0]) if cfg.moe_impl == "shardmap" else None
     if ep is None:
         return _experts(p, xt, cfg, engine, 0, cfg.n_experts).reshape(*lead, d)

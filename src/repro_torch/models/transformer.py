@@ -52,6 +52,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.salpim import SalPimEngine
+from repro_torch.distributed import api as dist_api
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import attention as attn_lib
@@ -98,6 +99,38 @@ class Cache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+
+@dataclasses.dataclass
+class ShardedCache(Cache):
+    """A rank's shard of a dense `Cache` on a mesh (`shard_cache`): each
+    field is the rank's slice,
+    and `specs`, the spec tree of the whole cache it was cut by, tells the
+    decode step which dimensions are split. `specs` is not a leaf: the tree
+    walkers leave it as it is."""
+
+    specs: Optional[Cache] = dataclasses.field(default=None, repr=False, compare=False,
+                                               metadata={"static": True})
+
+
+def shard_cache(cache: Cache, mesh, *, seq_shard: bool = False) -> ShardedCache:
+    """This rank's slice of a whole dense `Cache` by
+    `sharding.cache_pspecs` (the counterpart of placing it with the
+    reference's cache shardings), with the spec tree it was cut by in
+    `specs`: the decode step reads there which dimensions are split
+    (`sharding.cache_split`). Leaves that no mesh dimension splits are the
+    whole cache's own tensors."""
+    specs = shard_lib.cache_pspecs(cache, mesh, seq_shard=seq_shard)
+    shard = shard_lib.shard_tree(cache, specs, mesh)
+    return ShardedCache(**{f.name: getattr(shard, f.name) for f in dataclasses.fields(Cache)},
+                        specs=specs)
+
+
+def gather_cache(shard: ShardedCache, mesh) -> Cache:
+    """The whole `Cache` of the ranks' shards, on every rank (a collective
+    of every rank of the mesh): `shard_cache`'s inverse."""
+    whole = shard_lib.gather_tree(shard, shard.specs, mesh)
+    return Cache(**{f.name: getattr(whole, f.name) for f in dataclasses.fields(Cache)})
 
 
 _SSM_FAMILIES = ("ssm", "hybrid")
@@ -485,23 +518,63 @@ def _advance_lengths(lengths: torch.Tensor) -> torch.Tensor:
 def decode_step(params: dict, token: torch.Tensor, cache, cfg: ModelConfig,
                 engine: SalPimEngine):
     """token (B,) -> (logits (B, V), cache with advanced lengths). `cache`
-    is a dense `Cache` or a `PagedCache`; either is written in place."""
+    is a dense `Cache` or a `PagedCache`; either is written in place.
+
+    A rank's shard of a dense cache on the current mesh (`shard_cache`)
+    runs the mesh decode: token (B,)
+    whole, the rank runs its rows of the batch where the cache splits it
+    over "data" (every row otherwise), each arena's attention on the
+    rank's heads or slice of the sequence (`attention.attention_decode`),
+    the SSM state and conv window gathered whole but for the rows and cut
+    back after the step; the logits (B, V) are gathered whole on every
+    rank, and the cache returned is the rank's shard."""
     if isinstance(cache, PagedCache):
         return _decode_step_paged(params, token, cache, cfg, engine)
     _check_supported(cfg)
-    x = _embed(params, token[:, None], cfg, cache.lengths[:, None])[:, 0]
-    cos, sin = _rope(cfg, cache.lengths)
+    split = shard_lib.cache_split(cache, dist_api.current_mesh())
+    lengths = cache.lengths
+    if split is not None:
+        token, lengths = split.own_rows(token), split.own_rows(lengths)
+    x = _embed(params, token[:, None], cfg, lengths[:, None])[:, 0]
+    cos, sin = _rope(cfg, lengths)
     if cfg.family in _SSM_FAMILIES:
-        x = _ssm_stack(params, x, cache, cfg, engine, cos, sin, prefill=False)
-        new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
-        return _logits(params, x, cfg, engine), new_cache
-    for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
-        x, *_ = blk.apply_decoder_block_decode(
-            bp, x, cache.k[i], cache.v[i], cache.lengths, cfg, engine, cos=cos, sin=sin,
-            window=cfg.window_for_layer(i), kv_scales=scales)
+        x = _ssm_decode(params, x, cache, lengths, split, cfg, engine, cos, sin)
+    else:
+        arena = None if split is None else shard_lib.cache_split(cache, split.mesh, "k")
+        for i, bp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
+            x, *_ = blk.apply_decoder_block_decode(
+                bp, x, cache.k[i], cache.v[i], lengths, cfg, engine, cos=cos, sin=sin,
+                window=cfg.window_for_layer(i), kv_scales=scales, split=arena)
+    logits = _logits(params, x, cfg, engine)
+    if split is not None:
+        logits = split.gather_rows(logits)
     new_cache = dataclasses.replace(cache, lengths=_advance_lengths(cache.lengths))
-    return _logits(params, x, cfg, engine), new_cache
+    return logits, new_cache
+
+
+def _ssm_decode(params: dict, x: torch.Tensor, cache: Cache, lengths: torch.Tensor,
+                split, cfg: ModelConfig, engine: SalPimEngine, cos, sin) -> torch.Tensor:
+    """The SSM or hybrid stack's decode step on x (the rank's rows). On a
+    rank's shard the SSM state and conv window are gathered whole but for
+    the rows (the layer computes on whole heads and channels), stepped, and
+    the rank's slices written back in place."""
+    if split is None:
+        return _ssm_stack(params, x, cache, cfg, engine, cos, sin, prefill=False)
+    mesh = split.mesh
+    # Each leaf's spec less its batch rows (dimension 1), which stay the rank's.
+    rest = {name: (spec[0], None, *spec[2:]) for name, spec in
+            (("ssm", cache.specs.ssm), ("conv", cache.specs.conv))}
+    work = dataclasses.replace(
+        cache, lengths=lengths,
+        **{name: shard_lib.gather_whole(getattr(cache, name), spec, mesh)
+           for name, spec in rest.items()})
+    x = _ssm_stack(params, x, work, cfg, engine, cos, sin, prefill=False,
+                   split=shard_lib.cache_split(cache, mesh, "shared_k")
+                   if cache.shared_k is not None else None)
+    for name, spec in rest.items():
+        getattr(cache, name).copy_(shard_lib.shard_of(getattr(work, name), spec, mesh))
+    return x
 
 
 def _decode_step_paged(params: dict, token: torch.Tensor, cache,
@@ -523,12 +596,13 @@ def _decode_step_paged(params: dict, token: torch.Tensor, cache,
 
 
 def _ssm_stack(params: dict, x: torch.Tensor, cache: Cache, cfg: ModelConfig,
-               engine: SalPimEngine, cos, sin, *, prefill: bool) -> torch.Tensor:
+               engine: SalPimEngine, cos, sin, *, prefill: bool, split=None) -> torch.Tensor:
     """The SSM or hybrid block stack over the prompt (`prefill`: x (B, S,
     D), the cache's rows filled from empty) or one decode step (x (B, D),
     the cache written in place): each Mamba2 layer's state and conv
     window, and the hybrid's shared block before each segment, its KV in
-    `shared_k/v[a]` for application a. Returns the hidden states."""
+    `shared_k/v[a]` for application a (`split`: a rank's shard of those
+    arenas). Returns the hidden states."""
     layers = _layers(params["blocks"], cfg.n_layers)
     S = x.shape[1] if prefill else None
     for a, (s, e) in enumerate(_hybrid_segments(cfg)):
@@ -542,7 +616,7 @@ def _ssm_stack(params: dict, x: torch.Tensor, cache: Cache, cfg: ModelConfig,
             else:
                 x, *_ = blk.apply_decoder_block_decode(
                     shared, x, cache.shared_k[a], cache.shared_v[a], cache.lengths, cfg,
-                    engine, cos=cos, sin=sin, window=None)
+                    engine, cos=cos, sin=sin, window=None, split=split)
         for i in range(s, e):
             bp = layers[i]
             r = blk.apply_norm(bp["norm"], x, cfg, engine)

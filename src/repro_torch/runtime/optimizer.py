@@ -43,14 +43,15 @@ def _children(tree) -> Optional[list]:
     """[(key, child)] of a tree node, None for a leaf. Nodes: dicts,
     `OptState` (its fields as ".step", ".mu", ".nu", the JAX package's
     checkpoint paths) and dataclasses (`QTensor`, `Cache`: their non-None
-    fields). Anything else is a leaf, a spec tuple too."""
+    fields, less those marked `metadata={"static": True}`, which ride
+    along unchanged). Anything else is a leaf, a spec tuple too."""
     if isinstance(tree, dict):
         return list(tree.items())
     if isinstance(tree, OptState):
         return [(f".{n}", getattr(tree, n)) for n in OptState._fields]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)
-                if getattr(tree, f.name) is not None]
+                if getattr(tree, f.name) is not None and not f.metadata.get("static")]
     return None
 
 
@@ -151,15 +152,16 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
     norm crosses ranks."""
     step = state.step + 1
     lr = lr_at(cfg, step)
-    grad_norm = torch.zeros(())
+    grad_norm = step.new_zeros((), dtype=torch.float32)
     if cfg.clip_norm is not None:
         grads, grad_norm = clip_by_global_norm(grads, cfg.clip_norm, plan=plan)
     t = step.float()
-    bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t
-    bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t
+    bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=step.device) ** t
+    bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32, device=step.device) ** t
 
-    # bc1, bc2 and lr are 0-d host tensors, which PyTorch passes to a
-    # device kernel as scalars.
+    # bc1, bc2 and lr are 0-d tensors on the step counter's device, the
+    # host (`meta` in the dry run), which PyTorch passes to a device
+    # kernel as scalars.
     def upd(p, g, m, v):
         g32 = g.float()
         m = cfg.b1 * m + (1 - cfg.b1) * g32

@@ -119,6 +119,10 @@ HARDWARE_SPECS: dict[str, HardwareSpec] = {
     "cpu": HardwareSpec("cpu", 1e12, 100e9),
 }
 
+# NVLink 4 between the cards of an H100 SXM host (data sheet): 900 GB/s a
+# card, 450 GB/s each way; the dry run's collective term (launch/roofline.py).
+H100_LINK_BYTES_PER_SEC = 450e9
+
 
 def detect_hardware(device) -> HardwareSpec:
     """The roofline of the engine's `device`: `cpu` for the CPU, `h100`

@@ -175,12 +175,12 @@ def test_int8_weights_lut_drain_matches_jax_engine(setup):
 
 def test_import_guard():
     """No module of the port, not chip_smoke.py and not the mesh tests' rank
-    functions (tests/mesh_common.py, tests/mesh_train_common.py) import JAX
-    or `repro`."""
+    functions (tests/mesh_common.py, tests/mesh_train_common.py,
+    tests/mesh_decode_common.py) import JAX or `repro`."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "mesh_common.py",
-              REPO / "tests" / "mesh_train_common.py"]
+              REPO / "tests" / "mesh_train_common.py", REPO / "tests" / "mesh_decode_common.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/distributed/api.py", "src/repro_torch/distributed/sharding.py",
