@@ -1,0 +1,7 @@
+"""linear_roofline: the linear class's work at the card's peaks over its
+kernels' device time in the traced slice (`readers.roofline`); in percent."""
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "linear")
